@@ -32,6 +32,8 @@ def pytest_configure(config):
         "markers", "slow: long-running tests (subprocess CLI, big configs)")
     config.addinivalue_line(
         "markers", "timeout: per-test timeout (pytest-timeout compatible)")
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips without one")
 
 
 @pytest.fixture(scope="session", autouse=True)

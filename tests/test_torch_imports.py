@@ -1,0 +1,62 @@
+"""Import hygiene of the port: ``defer_tpu_torch`` and ``chip_smoke.py``
+import neither JAX nor anything of the JAX package ``defer_tpu``."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _is_forbidden(module: str) -> bool:
+    # ``defer_tpu_torch`` shares a prefix with ``defer_tpu``: compare by
+    # dotted component, never by string prefix
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "defer_tpu")
+
+
+@pytest.mark.parametrize("name,ok", [
+    ("jax", False), ("jax.numpy", False), ("jaxlib.xla_client", False),
+    ("defer_tpu", False), ("defer_tpu.ops.quant", False),
+    ("defer_tpu_torch", True), ("defer_tpu_torch.ops.quant", True),
+    ("jaxtyping", True), ("torch", True)])
+def test_forbidden_rule(name, ok):
+    assert _is_forbidden(name) is not ok
+
+
+def test_import_loads_no_jax_module():
+    code = ("import json, sys; import defer_tpu_torch; "
+            "import defer_tpu_torch.ops.quant_cuda; "
+            "print(json.dumps(sorted(sys.modules)))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "defer_tpu_torch" in mods
+    bad = [m for m in mods if _is_forbidden(m)]
+    assert bad == []
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_source_scan_finds_no_jax_import():
+    files = sorted((ROOT / "defer_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imports(f) if _is_forbidden(m)]
+    assert bad == []
