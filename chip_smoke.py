@@ -9,15 +9,26 @@ Phases, in order; any failure exits non-zero before the result line:
   2. build  — every CUDA kernel of the port, from ``defer_tpu_torch/csrc``,
               with nvcc for sm_90a (one nvcc per source, all at once);
   3. kernel — each kernel against its plain PyTorch version on the card at
-              the main path's shapes plus edge cases (bit-equal), then
-              timed with CUDA events beside the plain version and the
-              card's bound for the same work;
-  4. main   — ResNet50 at full width, cut at the reference's eight-stage
-              list, served through ``Defer.run`` with ``wire="int8"``:
-              the kernel launch counts are zeroed just before and read
-              just after, and must equal one quantizer launch per pipeline
-              step; the output is held against the whole-graph forward on
-              the card (TF32 off); then a timed window gives images/s;
+              the main paths' shapes plus edge cases (the quantizer
+              bit-equal; flash attention to 1e-5 in f32 and one bf16 ulp
+              in bf16, rows with no live key exactly 0), then timed with
+              CUDA events beside the plain version, the card's bound for
+              the same work and, where one exists, the PyTorch library
+              call that computes the same function;
+  4. main   — two paths, each driven through ``Defer.run`` with the kernel
+              launch counts zeroed just before every run and read just
+              after; outputs are held against the whole-graph forward on
+              the card (TF32 off), then alternating timed rounds give
+              throughput and a one-chunk profile gives device time by
+              kernel:
+                a. ResNet50 at full width, cut at the reference's
+                   eight-stage list, ``wire="int8"`` (one quantizer launch
+                   per pipeline step) and ``wire="buffer"``;
+                b. BERT-Base at full width and depth (seq 128), one encoder
+                   block per stage in 12 stages, ``wire="buffer"`` and
+                   ``wire="int8"`` (12 flash-attention launches per step;
+                   one quantizer launch per step under int8, none under
+                   buffer);
   5. report — the ``kernels`` JSON line, the card line, and the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -48,12 +59,34 @@ INT8_REL_BOUND = 0.05
 #: the buffer wire moves f32 values unchanged: pipeline == forward up to
 #: cuDNN choosing another algorithm for a stage's slice of the graph
 BUFFER_REL_BOUND = 1e-5
+#: BERT-Base sequence length (BASELINE.md config 5)
+SEQ_LEN = 128
+#: flash attention against its plain version, f32 on N(0,1) inputs: the
+#: two sum the same products in different orders
+FLASH_F32_TOL = 1e-5
+#: (name, B, H, Tq, Tk, D, causal, dtype): the BERT-Base shape at
+#: microbatch 8, the JAX package's flash-attention test cases, D = 128, and
+#: Tq=5 against Tk=3 causal, whose rows 0 and 1 see no key
+FLASH_CASES = [
+    ("bert_base", 8, 12, 128, 128, 64, False, "float32"),
+    ("blocks", 2, 3, 64, 64, 16, False, "float32"),
+    ("padding_causal", 1, 2, 100, 100, 24, True, "float32"),
+    ("tq_ne_tk", 2, 2, 37, 53, 8, False, "float32"),
+    ("two_q_tiles_causal", 1, 1, 130, 130, 64, True, "float32"),
+    ("decode_tq1", 1, 2, 1, 48, 16, True, "float32"),
+    ("decode_tq5", 1, 2, 5, 48, 16, True, "float32"),
+    ("bf16", 1, 2, 64, 64, 32, False, "bfloat16"),
+    ("d128", 2, 4, 128, 128, 128, False, "float32"),
+    ("zero_rows", 1, 2, 5, 3, 16, True, "float32"),
+]
 
 #: device memory rate of the cards the smoke knows (bytes/s, data sheets)
 MEM_RATE = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
             ("H100", 3.35e12)]
 #: float32 rate outside the tensor cores, H100 SXM data sheet (flop/s)
 F32_RATE = 67e12
+#: device sleep queued ahead of a timed window (~50 ms at 2 GHz)
+SLEEP_CYCLES = 100_000_000
 
 
 def fail(msg: str) -> None:
@@ -79,19 +112,28 @@ def card_line() -> str:
 
 
 def time_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
-    """Median device time of ``fn()`` in ms (CUDA events per call)."""
+    """Device time of one ``fn()`` in ms: ``iters`` calls back to back
+    between two CUDA events, queued behind a device-side sleep so that the
+    host's launch time stays out of the window (a microsecond kernel
+    launched from Python would otherwise be timed at the host's pace)."""
     for _ in range(warmup):
         fn()
-    pairs = []
-    for _ in range(iters):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        pairs.append((e0, e1))
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in pairs)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    if host_ms > ev[0].elapsed_time(ev[1]):
+        print(f"time_ms: the host took {host_ms:.3f} ms to queue {iters} "
+              "calls, longer than the device sleep before them: the time "
+              "below includes host gaps", flush=True)
+    return ev[1].elapsed_time(ev[2]) / iters
 
 
 # ---------------------------------------------------------------------------
@@ -164,9 +206,98 @@ def check_quant(torch, ring_shape, device):
                           "path launches)"}
 
 
+def bf16_ulp(torch, x):
+    """Spacing of bfloat16 values at |x| (8 significant bits)."""
+    a = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def check_flash(torch, device):
+    """Flash attention against its plain version on every case of
+    FLASH_CASES, then timed at the BERT-Base shape beside the plain
+    version and ``scaled_dot_product_attention``.  Returns the kernel row
+    of the report (without ``launches``)."""
+    import torch.nn.functional as F
+
+    from defer_tpu_torch.ops.flash_attention import flash_attention_plain
+    from defer_tpu_torch.ops.flash_attention_cuda import KERNEL
+
+    g = torch.Generator(device=device).manual_seed(SEED)
+    max_err = 0.0
+    tensors = {}
+    for name, b, h, tq, tk, d, causal, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        if name == "bert_base":
+            # the main path's layout: head-split views of the fused
+            # [b, t, 3 * h * d] projection, read by stride
+            qkv = torch.randn((b, tq, 3 * h * d), generator=g, device=device)
+            q, k, v = (x.reshape(b, tq, h, d).transpose(1, 2)
+                       for x in qkv.chunk(3, dim=-1))
+        else:
+            q, k, v = (torch.randn(shape, generator=g, device=device)
+                       .to(dtype) for shape in ((b, h, tq, d), (b, h, tk, d),
+                                                (b, h, tk, d)))
+        tensors[name] = (q, k, v)
+        out = KERNEL(q, k, v, causal)
+        ref = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err_t = (out.float() - ref.float()).abs()
+        err = err_t.max().item()
+        if dtype == torch.float32:
+            ok = err <= FLASH_F32_TOL
+        else:  # one bf16 ulp of the plain output, after the f32 difference
+            ok = bool((err_t <= bf16_ulp(torch, ref) + FLASH_F32_TOL).all())
+        if not ok:
+            fail(f"flash_attention != plain on {name} {(b, h, tq, tk, d)} "
+                 f"causal={causal} {dt}: max|err| {err:.3g}")
+        if name == "zero_rows" and bool(out[:, :, :2].any()):
+            fail("flash_attention: rows with no live key are not exactly 0")
+        if dtype == torch.float32:
+            max_err = max(max_err, err)
+        print(f"kernel flash_attention {name} {(b, h, tq, tk, d)} "
+              f"causal={causal} {dt}: max|err| {err:.3g} vs plain", flush=True)
+
+    q, k, v = tensors["bert_base"]
+    ms = time_ms(torch, lambda: KERNEL(q, k, v, False))
+    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v))
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v))
+    sdpa_err = (F.scaled_dot_product_attention(q, k, v)
+                - flash_attention_plain(q, k, v)).abs().max().item()
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    flops = 4 * b * h * tq * tk * d
+    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read; o written
+    bytes_ms = nbytes / mem_rate(torch.cuda.get_device_name(0)) * 1e3
+    ops_ms = flops / F32_RATE * 1e3
+    return {"name": KERNEL.name, "route": "cuda",
+            "source": "defer_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "defer_tpu/ops/flash_attention.py:41",
+            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+            "library_ms": library_ms,
+            "library": "torch.nn.functional.scaled_dot_product_attention",
+            "library_max_abs_err": sdpa_err,
+            "shape": [b, h, tq, tk, d], "dtype": "float32",
+            "bytes": nbytes, "flops": flops,
+            "checked_by": "phase 3 (f32 <= 1e-5, bf16 <= 1 ulp, zero rows "
+                          "vs plain on %d cases) + phase 4b (main path "
+                          "launches)" % len(FLASH_CASES)}
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4a: the ResNet50 main path
 # ---------------------------------------------------------------------------
+
+
+def zero_counts(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
 
 
 def main_path(torch, device, kernels):
@@ -188,11 +319,10 @@ def main_path(torch, device, kernels):
 
     defer = Defer(DeferConfig(wire="int8", microbatch=MICROBATCH,
                               chunk=CHUNK, device=device))
-    for k in kernels:
-        k.launches = 0
+    zero_counts(kernels)
     out = defer.run(g, params, inputs, cut_points=RESNET50_8STAGE_CUTS)
     torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = read_counts(kernels)
     print(f"main path: Defer.run(resnet50, {n} stages "
           f"{RESNET50_8STAGE_CUTS}, wire=int8, microbatch={MICROBATCH}, "
           f"chunk={CHUNK}) on {m} microbatches = {steps} steps; kernel "
@@ -222,41 +352,125 @@ def main_path(torch, device, kernels):
     if not (top_ref == top_out).all():
         fail("int8 wire changed a top-1 class")
 
+    zero_counts(kernels)
     buf = Defer(DeferConfig(wire="buffer", microbatch=MICROBATCH,
                             chunk=CHUNK, device=device)).run(
         g, params, inputs, cut_points=RESNET50_8STAGE_CUTS)
+    torch.cuda.synchronize()
+    buf_launches = read_counts(kernels)
     berr = float(np.abs(buf - ref).max())
     print(f"main path buffer wire vs forward: max|err| {berr:.6g} = "
-          f"{berr / scale:.6g} of max|logit| (bound {BUFFER_REL_BOUND})",
-          flush=True)
+          f"{berr / scale:.6g} of max|logit| (bound {BUFFER_REL_BOUND}); "
+          f"kernel launches {buf_launches}", flush=True)
     if berr > BUFFER_REL_BOUND * scale:
         fail("buffer-wire pipeline differs from the forward")
-    return {"steps": steps, "launches": launches, "rel_err": err / scale,
+    return {"steps": steps, "rel_err": err / scale,
+            "launches": {"int8": launches, "buffer": buf_launches},
             "top1_agree": f"{int((top_ref == top_out).sum())}/"
                           f"{top_ref.size}", "buffer_rel_err": berr / scale,
             "defer": defer, "graph": g, "params": params, "inputs": inputs,
-            "pdev": pdev}
+            "pdev": pdev, "cuts": RESNET50_8STAGE_CUTS}
 
 
-def throughput(torch, device, mp, card, rounds: int = 7):
-    """Steady-state images/s of the pipeline (both wires) and of the
+# ---------------------------------------------------------------------------
+# phase 4b: the BERT-Base main path
+# ---------------------------------------------------------------------------
+
+
+def bert_path(torch, device, kernels):
+    """BERT-Base (seq 128, full width and depth, seeded random weights) in
+    12 stages through ``Defer.run`` on both wires, each run's launch
+    counts zeroed just before and read just after, the pooler output held
+    against the whole-graph forward on the card (TF32 off)."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig
+    from defer_tpu_torch.models import BERT_BASE_12STAGE_CUTS, bert_base
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = bert_base(seq_len=SEQ_LEN)
+    params = g.init(torch.Generator().manual_seed(SEED))
+    cuts = BERT_BASE_12STAGE_CUTS
+    n = len(cuts) + 1
+    blocks = sum(name.startswith("block_") for name in g.topo_order)
+    m = 2 * CHUNK
+    vocab = g.nodes["embeddings"].op.vocab
+    # token ids ride the f32 ring exactly (ids < 2**24)
+    ids = np.random.default_rng(SEED).integers(
+        0, vocab, (m, MICROBATCH, SEQ_LEN)).astype(np.float32)
+    steps = CHUNK * -(-(m + n - 1) // CHUNK)
+
+    pdev = params_to_device(params, device)
+    with torch.inference_mode():
+        ref = np.stack([g.apply(pdev, torch.from_numpy(x).to(
+            device, torch.int32)).cpu().numpy() for x in ids])
+    if not np.isfinite(ref).all():
+        fail("BERT-Base forward is not finite")
+    scale = float(np.abs(ref).max())
+
+    res = {"steps": steps, "launches": {}, "rel_err": {}}
+    for wire, bound in (("buffer", BUFFER_REL_BOUND),
+                        ("int8", INT8_REL_BOUND)):
+        defer = Defer(DeferConfig(wire=wire, microbatch=MICROBATCH,
+                                  chunk=CHUNK, device=device))
+        zero_counts(kernels)
+        out = defer.run(g, params, ids, cut_points=cuts)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        print(f"bert path: Defer.run(bert_base seq {SEQ_LEN}, {n} stages "
+              f"block_0..block_10, wire={wire}, microbatch={MICROBATCH}, "
+              f"chunk={CHUNK}) on {m} microbatches = {steps} steps; kernel "
+              f"launches {launches}", flush=True)
+        want = {"flash_attention": blocks * steps,
+                "quant_int8": steps if wire == "int8" else 0}
+        if any(launches[k] != c for k, c in want.items()):
+            fail(f"bert path wire={wire}: launches {launches}, want {want} "
+                 f"({blocks} flash launches and "
+                 f"{'one' if wire == 'int8' else 'no'} quantizer launch "
+                 f"per step)")
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            fail(f"bert {wire} output shape {out.shape} (want {ref.shape}) "
+                 "or not finite")
+        err = float(np.abs(out - ref).max())
+        mse = float(np.square(out - ref).mean())
+        print(f"bert path {wire} wire vs whole-graph forward: max|err| "
+              f"{err:.6g} = {err / scale:.6g} of max|output| {scale:.6g} "
+              f"(bound {bound}); MSE {mse:.3g}", flush=True)
+        if err > bound * scale:
+            fail(f"bert {wire}-wire error above its bound")
+        res["launches"][wire] = launches
+        res["rel_err"][wire] = err / scale
+        if wire == "int8":
+            res["defer"] = defer
+    res.update(graph=g, params=params, inputs=ids, pdev=pdev, cuts=cuts)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4, both paths: throughput and profile
+# ---------------------------------------------------------------------------
+
+
+def throughput(torch, device, mp, card, unit: str, rounds: int = 7):
+    """Steady-state samples/s of the pipeline (both wires) and of the
     whole-graph forward at the same batch, all on the host clock around a
     chunk of work that ends in a synchronize (launch time included, as a
     user sees it).  The three alternate, round after round, so drift on
     the shared host hits all of them alike; the median round is kept."""
     from defer_tpu_torch import Defer, DeferConfig
-    from defer_tpu_torch.models import RESNET50_8STAGE_CUTS
 
     def pipeline(wire):
         pipe = Defer(DeferConfig(wire=wire, microbatch=MICROBATCH,
                                  chunk=CHUNK, device=device)).build(
-            mp["graph"], mp["params"], RESNET50_8STAGE_CUTS)
+            mp["graph"], mp["params"], mp["cuts"])
         xs = pipe.stage_inputs(mp["inputs"][:CHUNK])
         for _ in range(2):  # fill the ring
             pipe.push(xs)
         return lambda: pipe.push(xs)
 
-    xs = [torch.from_numpy(x).to(device) for x in mp["inputs"][:CHUNK]]
+    dtype = mp["graph"].input_spec.dtype
+    xs = [torch.from_numpy(x).to(device, dtype) for x in mp["inputs"][:CHUNK]]
 
     def forward():
         with torch.inference_mode():
@@ -277,23 +491,23 @@ def throughput(torch, device, mp, card, rounds: int = 7):
     for name, w in walls.items():
         rows[name] = CHUNK * MICROBATCH / statistics.median(w)
         rows[f"{name}_spread"] = (max(w) - min(w)) / statistics.median(w)
-    print(f"throughput on {card} (f32, TF32 off, microbatch {MICROBATCH}, "
-          f"median of {rounds} alternating rounds of {CHUNK} steps): "
-          + ", ".join(f"{k} {rows[k]:.1f} img/s (spread "
+    print(f"throughput {mp['graph'].name} on {card} (f32, TF32 off, "
+          f"microbatch {MICROBATCH}, median of {rounds} alternating rounds "
+          f"of {CHUNK} steps): "
+          + ", ".join(f"{k} {rows[k]:.1f} {unit}/s (spread "
                       f"{rows[k + '_spread'] * 100:.0f}%)" for k in runs),
           flush=True)
     return rows
 
 
-def profile_step(torch, mp):
+def profile_step(torch, mp, groups: dict):
     """Device time by kernel over one int8 chunk (torch.profiler), with
-    the quantizer's share and the convolutions' share."""
+    each group's share (a kernel joins the first group whose pattern its
+    name contains).  Returns the shares, or None without device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from defer_tpu_torch.models import RESNET50_8STAGE_CUTS
-
-    pipe = mp["defer"].build(mp["graph"], mp["params"], RESNET50_8STAGE_CUTS)
+    pipe = mp["defer"].build(mp["graph"], mp["params"], mp["cuts"])
     xs = pipe.stage_inputs(mp["inputs"][:CHUNK])
     pipe.push(xs)
     torch.cuda.synchronize()
@@ -310,23 +524,34 @@ def profile_step(torch, mp):
     total = sum(r[0] for r in rows)
     if not total:
         print("profile: no device time in the trace (not measured)")
-        return
+        return None
     rows.sort(reverse=True)
-    groups = {"quant_int8": ("quant_int8",),
-              "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
-                                             "Nchw", "Nhwc", "implicit")}
-    shares = {g: sum(us for us, key, _ in rows if any(m in key for m in ms))
-              for g, ms in groups.items()}
-    shares["everything else"] = total - sum(shares.values())
-    print(f"profile of one int8 chunk ({CHUNK} steps): device time "
-          f"{total / 1e3:.3f} ms = {total / 1e3 / CHUNK:.3f} ms/step in a "
-          f"{wall_us / 1e3:.3f} ms wall (device idle "
+    shares = dict.fromkeys(groups, 0.0)
+    shares["everything else"] = 0.0
+    for us, key, _ in rows:
+        group = next((g for g, ms in groups.items()
+                      if any(m in key for m in ms)), "everything else")
+        shares[group] += us
+    print(f"profile {mp['graph'].name}, one int8 chunk ({CHUNK} steps): "
+          f"device time {total / 1e3:.3f} ms = {total / 1e3 / CHUNK:.3f} "
+          f"ms/step in a {wall_us / 1e3:.3f} ms wall (device idle "
           f"{max(0.0, 1 - total / wall_us) * 100:.1f}%, profiler on); "
           + ", ".join(f"{g} {us / total * 100:.1f}%"
-                      for g, us in shares.items()))
+                      for g, us in shares.items()), flush=True)
     for us, key, count in rows[:12]:
         print(f"  {us / total * 100:6.2f}%  {us / 1e3:9.3f} ms  x{count:<5d}"
               f" {key[:100]}")
+    return {g: us / total for g, us in shares.items()} | {
+        "device_ms_per_step": total / 1e3 / CHUNK,
+        "idle_share": max(0.0, 1 - total / wall_us)}
+
+
+RESNET_GROUPS = {"quant_int8": ("quant_int8",),
+                 "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
+                                                "Nchw", "Nhwc", "implicit")}
+BERT_GROUPS = {"flash_attention": ("flash_attn",),
+               "quant_int8": ("quant_int8",),
+               "matmul (cuBLAS)": ("gemm", "Gemm", "cutlass")}
 
 
 def main() -> int:
@@ -337,11 +562,12 @@ def main() -> int:
     try:
         import defer_tpu_torch  # noqa: F401
         from defer_tpu_torch.ops import _build
+        from defer_tpu_torch.ops.flash_attention_cuda import KERNEL as FLASH
         from defer_tpu_torch.ops.quant_cuda import KERNEL as QUANT
     except ImportError as e:
         fail(f"the defer_tpu_torch package is not beside this script ({e})")
     device = "cuda"
-    kernels = [QUANT]
+    kernels = [QUANT, FLASH]
 
     # phase 1: the card
     card = card_line()
@@ -356,7 +582,7 @@ def main() -> int:
     for src, info in built.items():
         print(f"build {src}: {info['seconds']:.2f} s -> {info['path'].name}")
         for line in info["log"].splitlines():
-            if "ptxas" in line:
+            if "ptxas" in line and ("Used" in line or "spill" in line):
                 print(f"  {line.strip()}")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s "
           f"(nvcc, sm_90a)", flush=True)
@@ -375,15 +601,33 @@ def main() -> int:
           f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), "
           f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s, 1 launch per pipeline "
           f"step, on {card}", flush=True)
+    rows["flash_attention"] = r = check_flash(torch, device)
+    print(f"kernel flash_attention {tuple(r['shape'])} f32: {r['ms']:.4f} "
+          f"ms, plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+          f"{r['library_ms']:.4f} ms (max|diff| vs plain "
+          f"{r['library_max_abs_err']:.3g}), bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}: {r['flops'] / 1e6:.1f} MFLOP, "
+          f"{r['bytes'] / 1e6:.1f} MB), {r['flops'] / r['ms'] / 1e9:.2f} "
+          f"TFLOP/s, on {card}", flush=True)
 
-    # phase 4: the main path, the counts zeroed just before and read after
+    # phase 4a: ResNet50, the counts zeroed just before each run
     mp = main_path(torch, device, kernels)
+    thr = throughput(torch, device, mp, card, "img")
+    profile_step(torch, mp, RESNET_GROUPS)
+
+    # phase 4b: BERT-Base, the counts zeroed just before each run
+    bp = bert_path(torch, device, kernels)
+    bthr = throughput(torch, device, bp, card, "seq")
+    bprof = profile_step(torch, bp, BERT_GROUPS)
+
+    by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
+    by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
     for k in kernels:
-        rows[k.name]["launches"] = mp["launches"][k.name]
-        if rows[k.name]["launches"] == 0:
-            fail(f"kernel {k.name} was not launched on the main path")
-    thr = throughput(torch, device, mp, card)
-    profile_step(torch, mp)
+        row = rows[k.name]
+        row["launches_by_path"] = {p: c[k.name] for p, c in by_path.items()}
+        row["launches"] = sum(row["launches_by_path"].values())
+        if row["launches"] == 0:
+            fail(f"kernel {k.name} was not launched on the main paths")
 
     # phase 5: report
     print(json.dumps({"main_path": {
@@ -391,6 +635,11 @@ def main() -> int:
         "microbatch": MICROBATCH, "chunk": CHUNK, "steps": mp["steps"],
         "rel_err": mp["rel_err"], "top1_agree": mp["top1_agree"],
         "buffer_rel_err": mp["buffer_rel_err"], "images_per_s": thr}}))
+    print(json.dumps({"bert_path": {
+        "model": "bert_base", "seq_len": SEQ_LEN,
+        "stages": len(bp["cuts"]) + 1, "microbatch": MICROBATCH,
+        "chunk": CHUNK, "steps": bp["steps"], "rel_err": bp["rel_err"],
+        "sequences_per_s": bthr, "profile_int8": bprof}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,11 @@ pipeline engines all consume this IR.
   * Graph structure is static and explicit; forward evaluation is a
     memoized topological traversal.
   * Parameters live apart from structure, as a dict keyed by node name
-    (``{node: {leaf: tensor}}``) — the same layout as the JAX package's
-    parameter pytree, so weights cross between the two packages by name
-    (``utils/convert.py``).  Shapes are stored *batchless*; ``apply`` is
-    batched.
+    whose values are nested dicts of tensors (``{node: {leaf: tensor}}``,
+    or ``{node: {"qkv": {"w": tensor, ...}, ...}}`` for a transformer
+    block) — the same layout as the JAX package's parameter pytree, so
+    weights cross between the two packages by name (``utils/convert.py``).
+    Shapes are stored *batchless*; ``apply`` is batched.
   * Shape inference runs the op on ``meta``-device tensors where the
     JAX package uses ``jax.eval_shape``: no memory, no compute.
 """
@@ -22,7 +23,40 @@ from typing import Any, Sequence
 
 import torch
 
-Params = Any  # dict of tensors (or None for parameterless ops)
+Params = Any  # nested dict of tensors (or None for parameterless ops)
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a nested dict (a node's parameters
+    or their ``param_spec``), keeping the nesting."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def flatten_tree(tree: dict, prefix: str = "") -> dict[str, Any]:
+    """Nested dict -> ``{"a/b/c": leaf}`` (``/``-joined key paths)."""
+    flat = {}
+    for k, v in tree.items():
+        if "/" in k:
+            raise ValueError(f"parameter key {k!r} may not contain '/'")
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, f"{prefix}{k}/"))
+        else:
+            flat[prefix + k] = v
+    return flat
+
+
+def unflatten_tree(flat: dict[str, Any]) -> dict:
+    """Inverse of :func:`flatten_tree`."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        *parents, last = path.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return tree
 
 
 def as_dtype(dtype: Any) -> torch.dtype:
@@ -99,7 +133,7 @@ class LayerNode:
     op: Op
     inputs: tuple[str, ...]
     out_spec: ShapeSpec
-    param_spec: dict[str, ShapeSpec] | None
+    param_spec: dict[str, Any] | None  # nested dict of ShapeSpec
 
 
 class LayerGraph:
@@ -254,8 +288,8 @@ class GraphBuilder:
         out_spec = ShapeSpec(out.shape[1:], out.dtype)
         param_spec = None
         if meta_params:
-            param_spec = {k: ShapeSpec(v.shape, v.dtype)
-                          for k, v in meta_params.items()}
+            param_spec = tree_map(lambda v: ShapeSpec(v.shape, v.dtype),
+                                  meta_params)
         self._nodes[name] = LayerNode(name, op, inputs, out_spec, param_spec)
         self._last = name
         return name

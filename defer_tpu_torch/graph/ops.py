@@ -1,4 +1,4 @@
-"""Layer op library: the ResNet subset of ``defer_tpu.graph.ops``.
+"""Layer op library: the ResNet and BERT subset of ``defer_tpu.graph.ops``.
 
 Conventions:
 
@@ -13,6 +13,8 @@ Conventions:
     it).  Convolution, matmul and pooling are PyTorch's library calls
     (cuDNN / cuBLAS on the card), as the JAX package leaves them to XLA.
   * BatchNorm is inference-mode, in the JAX package's formula.
+  * Attention goes through ``ops.flash_attention``: the hand-written Hopper
+    kernel for a CUDA tensor, its plain PyTorch version on the CPU.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .ir import Op
+from .ir import Op, tree_map
 
 
 def _device(gen: torch.Generator | None) -> torch.device:
@@ -46,7 +48,7 @@ def _full(gen, shape, value: float) -> torch.Tensor:
 
 
 def _cast(p: dict, dtype: torch.dtype) -> dict:
-    return {k: v.to(dtype) for k, v in p.items()}
+    return tree_map(lambda v: v.to(dtype), p)
 
 
 def _pair(v) -> tuple[int, int]:
@@ -170,6 +172,27 @@ class BatchNorm(Op):
         return (x - p["mean"]) * (inv * p["scale"]) + p["bias"]
 
 
+def _layer_norm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The JAX package's formula, ``(x-mu) * rsqrt(var+eps) * scale +
+    bias`` over the last axis (biased variance)."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
+class LayerNorm(Op):
+    eps: float = 1e-6
+
+    def init(self, gen, in_specs):
+        (spec,) = in_specs
+        d = spec.shape[-1]
+        return {"scale": _full(gen, (d,), 1.0), "bias": _full(gen, (d,), 0.0)}
+
+    def apply(self, params, x):
+        return _layer_norm(_cast(params, x.dtype), x, self.eps)
+
+
 # ---------------------------------------------------------------------------
 # activations / pooling / structural
 # ---------------------------------------------------------------------------
@@ -183,6 +206,10 @@ class Activation(Op):
         del params
         if self.kind == "relu":
             return torch.relu(x)
+        if self.kind == "gelu":
+            # jax.nn.gelu defaults to the tanh approximation; F.gelu's
+            # default is the exact erf form
+            return F.gelu(x, approximate="tanh")
         raise NotImplementedError(
             f"activation {self.kind!r} is not ported yet (ROADMAP queue A8)")
 
@@ -219,3 +246,133 @@ class Add(Op):
         for x in xs[1:]:
             y = y + x
         return y
+
+
+# ---------------------------------------------------------------------------
+# embeddings / transformer block (one node per block => BERT cut points)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
+class Embedding(Op):
+    """Table lookup.  Ids must lie in ``[0, vocab)``: torch raises on an
+    out-of-range index, where JAX clamps it."""
+
+    vocab: int
+    features: int
+
+    def init(self, gen, in_specs):
+        del in_specs
+        return {"table": _normal(gen, (self.vocab, self.features)) * 0.02}
+
+    def apply(self, params, x):
+        return params["table"].to(torch.float32)[x.long()]
+
+
+@dataclasses.dataclass(frozen=True, repr=False)
+class TransformerBlock(Op):
+    """Transformer encoder block as a single graph node.
+
+    One node per block puts one block per pipeline stage in the BERT-Base
+    12-stage configuration; every block output is a single-tensor cut.
+    The large products (qkv, proj, fc1, fc2) are ``x @ w`` library calls,
+    as the JAX package leaves them to XLA; attention is the port's flash
+    kernel.
+    """
+
+    num_heads: int
+    mlp_ratio: int = 4
+    #: "auto" and "flash" = ``ops.flash_attention`` (the hand kernel on a
+    #: CUDA tensor, its plain version on the CPU); "xla" = the plain
+    #: einsum-softmax path that divides the scores by sqrt(head dim)
+    attn_impl: str = "auto"
+    #: "pre" (GPT-style: x + f(LN(x))) or "post" (original BERT:
+    #: LN(x + f(x)))
+    norm: str = "pre"
+    ln_eps: float = 1e-6
+
+    def __post_init__(self):
+        if self.norm not in ("pre", "post"):
+            raise ValueError(
+                f"norm must be 'pre' or 'post', got {self.norm!r}")
+
+    def init(self, gen, in_specs):
+        (spec,) = in_specs
+        d = spec.shape[-1]
+        h = self.mlp_ratio * d
+        s = 1.0 / math.sqrt(d)
+
+        def ln():
+            return {"scale": _full(gen, (d,), 1.0),
+                    "bias": _full(gen, (d,), 0.0)}
+
+        def dense(fan_in, fan_out, scale):
+            return {"w": _normal(gen, (fan_in, fan_out)) * scale,
+                    "b": _full(gen, (fan_out,), 0.0)}
+
+        return {"ln1": ln(), "qkv": dense(d, 3 * d, s),
+                "proj": dense(d, d, s), "ln2": ln(),
+                "fc1": dense(d, h, s), "fc2": dense(h, d, 1.0 / math.sqrt(h))}
+
+    def _attend(self, q, k, v):
+        """Scaled-dot-product attention on [b, nh, t, hd] (impl dispatch)."""
+        impl = self.attn_impl
+        if impl not in ("auto", "flash", "xla"):
+            raise ValueError(
+                f"attn_impl must be 'auto', 'flash' or 'xla', got {impl!r}")
+        if impl != "xla":
+            from ..ops.flash_attention import flash_attention
+            return flash_attention(q, k, v)
+        att = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(q.shape[-1])
+        return torch.einsum("bhqk,bhkd->bhqd", att.softmax(dim=-1), v)
+
+    def _split_qkv(self, qkv):
+        """q/k/v column split of the fused projection (subclass hook)."""
+        return qkv.chunk(3, dim=-1)
+
+    def _kv_head_count(self) -> int:
+        """KV head count (subclass hook; GQA blocks return fewer)."""
+        return self.num_heads
+
+    def apply(self, params, x):
+        return self.apply_with_kv(params, x)[0]
+
+    def apply_with_kv(self, params, x):
+        """Forward that also returns the raw K/V projections
+        ([b, t, kv*hd], before the head split) for decode-cache seeding."""
+        p = _cast(params, x.dtype)
+        b, t, d = x.shape
+        nh = self.num_heads
+        hd = d // nh
+        kvh = self._kv_head_count()
+        eps = self.ln_eps
+        post = self.norm == "post"
+
+        y = x if post else _layer_norm(p["ln1"], x, eps)
+        qkv = y @ p["qkv"]["w"] + p["qkv"]["b"]
+        q, k, v = self._split_qkv(qkv)
+        # head-split views (no copy): the kernel reads them by stride
+        qh = q.reshape(b, t, nh, hd).transpose(1, 2)
+        kh = k.reshape(b, t, kvh, hd).transpose(1, 2)
+        vh = v.reshape(b, t, kvh, hd).transpose(1, 2)
+        if kvh != nh:
+            # broadcast each KV head over its query group (exact GQA)
+            kh = kh.repeat_interleave(nh // kvh, dim=1)
+            vh = vh.repeat_interleave(nh // kvh, dim=1)
+        y = self._attend(qh, kh, vh)
+        y = y.transpose(1, 2).reshape(b, t, d)
+        y = y @ p["proj"]["w"] + p["proj"]["b"]
+        x = _layer_norm(p["ln1"], x + y, eps) if post else x + y
+
+        y = x if post else _layer_norm(p["ln2"], x, eps)
+        # post-LN (BERT) uses the exact erf GELU; pre-LN the tanh form
+        y = F.gelu(y @ p["fc1"]["w"] + p["fc1"]["b"],
+                   approximate="none" if post else "tanh")
+        y = y @ p["fc2"]["w"] + p["fc2"]["b"]
+        out = _layer_norm(p["ln2"], x + y, eps) if post else x + y
+        return out, k, v
+
+    def flops(self, in_specs, out_spec):
+        (spec,) = in_specs
+        t, d = spec.shape
+        return 2 * t * d * (4 * d + 2 * self.mlp_ratio * d) + 4 * t * t * d

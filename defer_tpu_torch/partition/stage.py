@@ -14,7 +14,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..graph.ir import LayerGraph, ShapeSpec
+from ..graph.ir import LayerGraph, ShapeSpec, flatten_tree, unflatten_tree
 from ..ops.quant import BLOCK
 from ..utils.convert import params_to_device
 
@@ -72,8 +72,11 @@ class StageModule(nn.Module):
     """One stage holding its own parameters on ``device``.
 
     Parameters are frozen ``nn.Parameter``s, one ``ParameterDict`` per
-    node; conv weights are stored channels_last (``params_to_device``) so
-    cuDNN reads them without a per-call relayout.
+    node keyed by each leaf's ``/``-joined path (``"qkv/w"``;
+    ``ParameterDict`` keys may not contain ``.``).  ``forward`` hands the
+    stage function the nested dict the ops expect.  Conv weights are
+    stored channels_last (``params_to_device``) so cuDNN reads them
+    without a per-call relayout.
     """
 
     def __init__(self, stage: StageSpec, params: dict[str, Any],
@@ -83,10 +86,11 @@ class StageModule(nn.Module):
         self.nodes = nn.ModuleDict({
             name: nn.ParameterDict({
                 k: nn.Parameter(v, requires_grad=False)
-                for k, v in leaves.items()})
+                for k, v in flatten_tree(leaves).items()})
             for name, leaves in params_to_device(
                 stage.select_params(params), device).items()})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        params = {name: dict(pd.items()) for name, pd in self.nodes.items()}
+        params = {name: unflatten_tree(dict(pd.items()))
+                  for name, pd in self.nodes.items()}
         return self.stage.fn(params, x)

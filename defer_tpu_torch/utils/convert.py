@@ -2,8 +2,10 @@
 
 :func:`params_from_jax` is the one place where a layout differs between
 the two packages: the JAX package's conv kernels are HWIO, the port's are
-OIHW.  Every other leaf (Dense ``w [d, f]``, biases, BatchNorm statistics)
-crosses unchanged.
+OIHW.  Every other leaf (Dense ``w [d, f]``, used as ``x @ w`` and never
+turned into ``nn.Linear``'s ``[f, d]``; biases; BatchNorm statistics;
+a transformer block's nested ``{"qkv": {"w", "b"}, ...}``) crosses
+unchanged.
 """
 
 from __future__ import annotations
@@ -13,15 +15,15 @@ from typing import Any
 import numpy as np
 import torch
 
-from ..graph.ir import LayerGraph
+from ..graph.ir import LayerGraph, flatten_tree, tree_map, unflatten_tree
 from ..graph.ops import Conv2D
 
 
 def params_from_jax(graph: LayerGraph, np_params: dict[str, Any]
-                    ) -> dict[str, dict[str, torch.Tensor]]:
-    """The JAX package's parameters (numpy arrays keyed by node name, as
-    ``defer_tpu``'s ``LayerGraph.init`` lays them out) -> the port's
-    parameters for ``graph``, as CPU tensors.
+                    ) -> dict[str, dict[str, Any]]:
+    """The JAX package's parameters (nested dicts of numpy arrays keyed by
+    node name, as ``defer_tpu``'s ``LayerGraph.init`` lays them out) -> the
+    port's parameters for ``graph``, as CPU tensors in the same nesting.
 
     Raises ``ValueError`` when a node or leaf is missing or extra, or a
     leaf's shape does not match the port's graph.
@@ -35,33 +37,30 @@ def params_from_jax(graph: LayerGraph, np_params: dict[str, Any]
     out = {}
     for name, leaves in np_params.items():
         node = graph.nodes[name]
-        if set(leaves) != set(node.param_spec):
-            raise ValueError(f"node {name!r}: leaves {sorted(leaves)} != "
-                             f"{sorted(node.param_spec)}")
+        if not isinstance(leaves, dict):
+            raise ValueError(f"node {name!r}: parameters must be a dict")
+        flat, spec = flatten_tree(leaves), flatten_tree(node.param_spec)
+        if set(flat) != set(spec):
+            raise ValueError(f"node {name!r}: leaves {sorted(flat)} != "
+                             f"{sorted(spec)}")
         conv = isinstance(node.op, Conv2D)
         p = {}
-        for k, v in leaves.items():
+        for path, v in flat.items():
             a = np.asarray(v)
-            if conv and k == "w":
+            if conv and path == "w":
                 a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            spec = node.param_spec[k]
-            if a.shape != spec.shape:
-                raise ValueError(f"node {name!r} leaf {k!r}: shape "
-                                 f"{a.shape} != {spec.shape}")
-            p[k] = torch.from_numpy(np.array(a)).to(spec.dtype)
-        out[name] = p
+            if a.shape != spec[path].shape:
+                raise ValueError(f"node {name!r} leaf {path!r}: shape "
+                                 f"{a.shape} != {spec[path].shape}")
+            p[path] = torch.from_numpy(np.array(a)).to(spec[path].dtype)
+        out[name] = unflatten_tree(p)
     return out
 
 
-def params_to_device(params: dict[str, dict[str, torch.Tensor]],
-                     device: torch.device | str
-                     ) -> dict[str, dict[str, torch.Tensor]]:
-    """Copy ``params`` to ``device``; 4-D (conv) weights become
-    channels_last, the layout the ops feed cuDNN activations in."""
-    out = {}
-    for name, leaves in params.items():
-        out[name] = {
-            k: v.to(device, memory_format=torch.channels_last)
-            if v.dim() == 4 else v.to(device)
-            for k, v in leaves.items()}
-    return out
+def params_to_device(params: dict[str, Any], device: torch.device | str
+                     ) -> dict[str, Any]:
+    """Copy ``params`` (any nesting) to ``device``; 4-D (conv) weights
+    become channels_last, the layout the ops feed cuDNN activations in."""
+    return tree_map(
+        lambda v: v.to(device, memory_format=torch.channels_last)
+        if v.dim() == 4 else v.to(device), params)

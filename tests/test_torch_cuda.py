@@ -5,8 +5,12 @@ installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Each kernel is held bit-equal to its plain PyTorch version on the same CUDA
-tensors (the CPU parity tests hold the plain version to the JAX package).
+Each kernel is held to its plain PyTorch version on the same CUDA tensors:
+the quantizer bit for bit; flash attention to 1e-5 in float32 (N(0,1)
+inputs; the two sum the products in different orders), and in bfloat16 to
+one bf16 ulp of the plain output plus that same 1e-5 (the f32 results may
+differ by it before each is rounded to bf16).  The CPU parity tests hold
+the plain versions to the JAX package.
 """
 
 import math
@@ -15,6 +19,10 @@ import pytest
 import torch
 
 from defer_tpu_torch.ops import quant
+from defer_tpu_torch.ops.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
+from defer_tpu_torch.ops.flash_attention_cuda import KERNEL as FLASH
+from defer_tpu_torch.ops.flash_attention_cuda import flash_attention_cuda
 from defer_tpu_torch.ops.quant_cuda import KERNEL, quantize_int8_blocks_cuda
 
 pytestmark = pytest.mark.gpu
@@ -105,3 +113,117 @@ def test_int8_pipeline_on_card_launches_once_per_step(cuda):
     cpu, gpu = outs["cpu"], outs[str(cuda)]
     assert np.abs(gpu - cpu).max() <= np.abs(cpu).max() / 127
     assert (gpu.argmax(-1) == cpu.argmax(-1)).all()
+
+
+def _qkv(device, b, h, tq, tk, d, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=device).to(dtype)
+            for s in ((b, h, tq, d), (b, h, tk, d), (b, h, tk, d))]
+
+
+def _bf16_ulp(x):
+    """Spacing of bfloat16 values at |x| (8 significant bits)."""
+    a = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _assert_flash_matches_plain(q, k, v, causal):
+    before = FLASH.launches
+    out = flash_attention_cuda(q, k, v, causal=causal)
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FLASH.launches == before + 1
+    assert out.shape == ref.shape and out.dtype == ref.dtype == q.dtype
+    if q.dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-5
+    else:  # one bf16 ulp of the plain output, after the f32 difference
+        assert ((out.float() - ref.float()).abs()
+                <= _bf16_ulp(ref) + 1e-5).all()
+    return out
+
+
+@pytest.mark.parametrize("shape,causal", [
+    ((2, 3, 64, 64, 16), False),
+    ((1, 2, 100, 100, 24), True),      # not a tile multiple
+    ((2, 2, 37, 53, 8), False),        # Tq != Tk
+    ((1, 1, 130, 130, 64), True),      # a third query tile
+    ((1, 2, 1, 48, 16), True),         # decode: the whole prefix
+    ((1, 2, 5, 48, 16), True),         # chunked decode
+    ((8, 12, 128, 64, 64), False),     # BERT-Base
+    ((2, 2, 70, 150, 128), True),      # D = 128, three key tiles
+    ((1, 3, 33, 200, 100), False),     # D padded to 128
+])
+def test_flash_kernel_matches_plain_f32(cuda, shape, causal):
+    b, h, tq, tk, d = shape
+    _assert_flash_matches_plain(*_qkv(cuda, b, h, tq, tk, d), causal)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_flash_kernel_matches_plain_bf16(cuda, d, causal):
+    _assert_flash_matches_plain(
+        *_qkv(cuda, 1, 2, 64, 96, d, torch.bfloat16, seed=d), causal)
+
+
+def test_flash_kernel_zero_rows_and_strided_views(cuda):
+    # Tq=5 against Tk=3, causal: rows 0 and 1 see no key and must be 0
+    out = _assert_flash_matches_plain(*_qkv(cuda, 1, 2, 5, 3, 16), True)
+    assert torch.equal(out[:, :, :2], torch.zeros_like(out[:, :, :2]))
+    # head-split views of a fused [b, t, 3*d] projection, read by stride
+    g = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn(2, 40, 3 * 64, generator=g, device=cuda)
+    q, k, v = (x.reshape(2, 40, 4, 16).transpose(1, 2)
+               for x in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    _assert_flash_matches_plain(q, k, v, False)
+
+
+def test_flash_kernel_dispatch_and_refusals(cuda):
+    q, k, v = _qkv(cuda, 1, 2, 16, 16, 32)
+    before = FLASH.launches
+    flash_attention(q, k, v)  # a CUDA tensor goes to the kernel
+    assert FLASH.launches == before + 1
+    with pytest.raises(TypeError, match="dtype"):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="differ"):
+        flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="limit"):
+        flash_attention_cuda(*_qkv(cuda, 1, 1, 4, 4, 160))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(2, 3).contiguous().transpose(2, 3),
+                             k, v)
+    with pytest.raises(ValueError, match="match"):
+        flash_attention_cuda(q, k[:, :1], v)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, k.cpu(), v)
+    assert FLASH.launches == before + 1
+
+
+def test_bert_pipeline_on_card_launches_flash_per_stage_step(cuda):
+    """bert_tiny in 4 stages on the card: one flash launch per block per
+    step, one quantizer launch per step under int8, and the same outputs
+    as the pipeline on the CPU (plain attention) — to 1e-5 of max |output|
+    on the buffer wire, to one quant step of the output block on int8."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, models
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = models.bert_tiny()
+    params = g.init(torch.Generator().manual_seed(0))
+    ids = np.random.default_rng(0).integers(
+        0, 100, (5, 2, 16)).astype(np.float32)
+    for wire in ("buffer", "int8"):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            d = Defer(DeferConfig(device=dev, microbatch=2, chunk=3,
+                                  wire=wire))
+            pipe = d.build(g, params, num_stages=4)
+            f0, q0 = FLASH.launches, KERNEL.launches
+            outs[dev] = pipe.run(ids)
+            steps = pipe.metrics.steps if dev == "cuda" else 0
+            assert FLASH.launches - f0 == 4 * steps
+            assert KERNEL.launches - q0 == (steps if wire == "int8" else 0)
+        scale = np.abs(outs["cpu"]).max()
+        tol = 1e-5 * scale if wire == "buffer" else scale / 127
+        assert np.abs(outs["cuda"] - outs["cpu"]).max() <= tol

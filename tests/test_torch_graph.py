@@ -146,7 +146,7 @@ def test_unported_variants_raise():
     with pytest.raises(NotImplementedError, match="A8"):
         _one_op_graph(ir, ops.Conv2D(4, 3), (8, 8, 3))     # default "SAME"
     with pytest.raises(NotImplementedError, match="A8"):
-        _one_op_graph(ir, ops.Activation("gelu"), (8, 8, 3))
+        _one_op_graph(ir, ops.Activation("swish"), (8, 8, 3))
 
 
 def test_tiny_forward_matches_jax(tiny):
