@@ -11,10 +11,12 @@ Phases, in order; any failure exits non-zero before the result line:
   3. kernel — each kernel against its plain PyTorch version on the card at
               the main paths' shapes plus edge cases (the quantizer
               bit-equal; flash attention to 1e-5 in f32 and one bf16 ulp
-              in bf16, rows with no live key exactly 0), then timed with
-              CUDA events beside the plain version, the card's bound for
-              the same work and, where one exists, the PyTorch library
-              call that computes the same function;
+              in bf16, rows with no live key exactly 0, long causal and
+              misaligned layouts included), then timed with CUDA events
+              beside the plain version, the card's bound for the same
+              work and, where one exists, the PyTorch library call that
+              computes the same function (flash attention also on the
+              long causal prefill beside SDPA's causal mode);
   4. main   — two paths, each driven through ``Defer.run`` with the kernel
               launch counts zeroed just before every run and read just
               after; outputs are held against the whole-graph forward on
@@ -62,11 +64,15 @@ BUFFER_REL_BOUND = 1e-5
 #: BERT-Base sequence length (BASELINE.md config 5)
 SEQ_LEN = 128
 #: flash attention against its plain version, f32 on N(0,1) inputs: the
-#: two sum the same products in different orders
+#: kernel forms each product from three TF32 terms (about 1e-6 off exact
+#: f32, tests/test_torch_flash_tf32.py) and sums in another order
 FLASH_F32_TOL = 1e-5
 #: (name, B, H, Tq, Tk, D, causal, dtype): the BERT-Base shape at
-#: microbatch 8, the JAX package's flash-attention test cases, D = 128, and
-#: Tq=5 against Tk=3 causal, whose rows 0 and 1 see no key
+#: microbatch 8 (f32 and bf16), the JAX package's flash-attention test
+#: cases, D = 128 (one and several key tiles), Tq=5 against Tk=3 causal,
+#: whose rows 0 and 1 see no key, a long causal prefill (16 key tiles
+#: through the ring), and two layouts that take the kernel's element-wise
+#: staging: 20-byte rows (D = 5) and views one element past an allocation
 FLASH_CASES = [
     ("bert_base", 8, 12, 128, 128, 64, False, "float32"),
     ("blocks", 2, 3, 64, 64, 16, False, "float32"),
@@ -78,6 +84,11 @@ FLASH_CASES = [
     ("bf16", 1, 2, 64, 64, 32, False, "bfloat16"),
     ("d128", 2, 4, 128, 128, 128, False, "float32"),
     ("zero_rows", 1, 2, 5, 3, 16, True, "float32"),
+    ("long_causal", 1, 12, 1024, 1024, 64, True, "float32"),
+    ("d128_key_tiles_causal", 2, 2, 70, 150, 128, True, "float32"),
+    ("d5_rows", 2, 3, 40, 50, 5, False, "float32"),
+    ("offset_view", 2, 3, 70, 90, 32, True, "float32"),
+    ("bf16_bert_base", 8, 12, 128, 128, 64, False, "bfloat16"),
 ]
 
 #: device memory rate of the cards the smoke knows (bytes/s, data sheets)
@@ -85,6 +96,10 @@ MEM_RATE = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
             ("H100", 3.35e12)]
 #: float32 rate outside the tensor cores, H100 SXM data sheet (flop/s)
 F32_RATE = 67e12
+#: TF32 tensor-core rate, H100 SXM data sheet (flop/s, dense)
+TF32_RATE = 495e12
+#: TF32 products per f32 product in the flash kernel (lo*hi + hi*lo + hi*hi)
+TF32_TERMS = 3
 #: device sleep queued ahead of a timed window (~50 ms at 2 GHz)
 SLEEP_CYCLES = 100_000_000
 
@@ -233,6 +248,12 @@ def check_flash(torch, device):
             qkv = torch.randn((b, tq, 3 * h * d), generator=g, device=device)
             q, k, v = (x.reshape(b, tq, h, d).transpose(1, 2)
                        for x in qkv.chunk(3, dim=-1))
+        elif name == "offset_view":
+            # bases 4 bytes past a 16-byte boundary
+            q, k, v = (torch.randn(math.prod(shape) + 1, generator=g,
+                                   device=device)[1:].view(shape)
+                       for shape in ((b, h, tq, d), (b, h, tk, d),
+                                     (b, h, tk, d)))
         else:
             q, k, v = (torch.randn(shape, generator=g, device=device)
                        .to(dtype) for shape in ((b, h, tq, d), (b, h, tk, d),
@@ -257,6 +278,16 @@ def check_flash(torch, device):
         print(f"kernel flash_attention {name} {(b, h, tq, tk, d)} "
               f"causal={causal} {dt}: max|err| {err:.3g} vs plain", flush=True)
 
+    # the long causal prefill beside SDPA's causal mode (the same alignment
+    # when Tq = Tk)
+    lq, lk, lv = tensors["long_causal"]
+    long_ms = time_ms(torch, lambda: KERNEL(lq, lk, lv, True))
+    long_sdpa_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        lq, lk, lv, is_causal=True))
+    print(f"kernel flash_attention long_causal {tuple(lq.shape)} f32: "
+          f"{long_ms:.4f} ms, scaled_dot_product_attention(is_causal=True) "
+          f"{long_sdpa_ms:.4f} ms", flush=True)
+
     q, k, v = tensors["bert_base"]
     ms = time_ms(torch, lambda: KERNEL(q, k, v, False))
     plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v))
@@ -269,7 +300,8 @@ def check_flash(torch, device):
     flops = 4 * b * h * tq * tk * d
     nbytes = 4 * q.numel() * q.element_size()  # q, k, v read; o written
     bytes_ms = nbytes / mem_rate(torch.cuda.get_device_name(0)) * 1e3
-    ops_ms = flops / F32_RATE * 1e3
+    # f32-accurate products on the tensor cores: three TF32 passes
+    ops_ms = TF32_TERMS * flops / TF32_RATE * 1e3
     return {"name": KERNEL.name, "route": "cuda",
             "source": "defer_tpu_torch/csrc/flash_attention.cu",
             "replaces": "defer_tpu/ops/flash_attention.py:41",
@@ -281,6 +313,10 @@ def check_flash(torch, device):
             "library_max_abs_err": sdpa_err,
             "shape": [b, h, tq, tk, d], "dtype": "float32",
             "bytes": nbytes, "flops": flops,
+            # the bound of an FMA design (no tensor cores), for comparison
+            "fma_bound_ms": flops / F32_RATE * 1e3,
+            "long_causal": {"shape": list(lq.shape), "ms": long_ms,
+                            "library_ms": long_sdpa_ms},
             "checked_by": "phase 3 (f32 <= 1e-5, bf16 <= 1 ulp, zero rows "
                           "vs plain on %d cases) + phase 4b (main path "
                           "launches)" % len(FLASH_CASES)}
@@ -582,7 +618,11 @@ def main() -> int:
     for src, info in built.items():
         print(f"build {src}: {info['seconds']:.2f} s -> {info['path'].name}")
         for line in info["log"].splitlines():
-            if "ptxas" in line and ("Used" in line or "spill" in line):
+            # per kernel: its entry name, registers, spills (a line of its
+            # own, without "ptxas") and any serialisation warning
+            if ("spill" in line or "Compiling entry" in line
+                    or ("ptxas" in line and ("Used" in line
+                                             or "Performance Loss" in line))):
                 print(f"  {line.strip()}")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s "
           f"(nvcc, sm_90a)", flush=True)
@@ -606,9 +646,10 @@ def main() -> int:
           f"ms, plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
           f"{r['library_ms']:.4f} ms (max|diff| vs plain "
           f"{r['library_max_abs_err']:.3g}), bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}: {r['flops'] / 1e6:.1f} MFLOP, "
-          f"{r['bytes'] / 1e6:.1f} MB), {r['flops'] / r['ms'] / 1e9:.2f} "
-          f"TFLOP/s, on {card}", flush=True)
+          f"({r['bound_by']}: {r['bytes'] / 1e6:.1f} MB; "
+          f"{TF32_TERMS} x {r['flops'] / 1e6:.1f} MFLOP of TF32), "
+          f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound, "
+          f"{r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s, on {card}", flush=True)
 
     # phase 4a: ResNet50, the counts zeroed just before each run
     mp = main_path(torch, device, kernels)

@@ -39,28 +39,32 @@ def nvcc() -> str:
     return str(path)
 
 
-def lib_path(source: str) -> Path:
+def lib_path(source: str, defines: tuple[str, ...] = ()) -> Path:
     """Where ``csrc/<source>`` builds to (content- and flag-hashed)."""
     src = CSRC / source
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    flags = " ".join(NVCC_FLAGS + [f"-D{d}" for d in defines])
+    h = hashlib.sha256(src.read_bytes() + flags.encode())
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(sources: list[str]) -> dict[str, dict]:
+def build(sources: list[str],
+          defines: tuple[str, ...] = ()) -> dict[str, dict]:
     """Compile every source not built yet, all ``nvcc`` processes started
-    together.  Returns ``{source: {"path", "seconds", "log"}}`` (seconds
-    0.0 and an empty log for a library that was already built).  Raises
-    ``RuntimeError`` with nvcc's output when a build fails."""
+    together, with each of ``defines`` as a ``-D`` macro.  Returns
+    ``{source: {"path", "seconds", "log"}}`` (seconds 0.0 and an empty log
+    for a library that was already built).  Raises ``RuntimeError`` with
+    nvcc's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out: dict[str, dict] = {}
     running = []
     for source in sources:
-        dst = lib_path(source)
+        dst = lib_path(source, defines)
         if dst.exists():
             out[source] = {"path": dst, "seconds": 0.0, "log": ""}
             continue
         tmp = dst.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+        cmd = [nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running.append((source, dst, tmp, proc, time.perf_counter()))
@@ -80,6 +84,7 @@ def build(sources: list[str]) -> dict[str, dict]:
     return out
 
 
-def load(source: str) -> ctypes.CDLL:
-    """Build ``csrc/<source>`` if needed and load its library."""
-    return ctypes.CDLL(str(build([source])[source]["path"]))
+def load(source: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build ``csrc/<source>`` (with ``defines``) if needed and load its
+    library."""
+    return ctypes.CDLL(str(build([source], defines)[source]["path"]))

@@ -32,9 +32,12 @@ class FlashAttentionKernel:
     name = "flash_attention"
     source = "flash_attention.cu"
 
-    def __init__(self):
+    def __init__(self, defines: tuple[str, ...] = ()):
         #: kernel launches made by this process (reset it to 0 to count a run)
         self.launches = 0
+        #: macros the source is built with (``flash_timeline.py`` adds one)
+        self.defines = defines
+        self.lib = None
         self._fn = None
         self._err = None
 
@@ -42,7 +45,7 @@ class FlashAttentionKernel:
         """Build (if needed) and bind the library; idempotent."""
         if self._fn is not None:
             return
-        lib = _build.load(self.source)
+        lib = _build.load(self.source, self.defines)
         fn = lib.defer_flash_attention
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 9
                        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
@@ -51,7 +54,7 @@ class FlashAttentionKernel:
         err = lib.defer_flash_attention_error
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
-        self._fn, self._err = fn, err
+        self.lib, self._fn, self._err = lib, fn, err
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = False) -> torch.Tensor:

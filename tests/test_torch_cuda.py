@@ -7,9 +7,11 @@ installed:
 
 Each kernel is held to its plain PyTorch version on the same CUDA tensors:
 the quantizer bit for bit; flash attention to 1e-5 in float32 (N(0,1)
-inputs; the two sum the products in different orders), and in bfloat16 to
-one bf16 ulp of the plain output plus that same 1e-5 (the f32 results may
-differ by it before each is rounded to bf16).  The CPU parity tests hold
+inputs; the kernel forms each product from three TF32 terms, whose error
+budget ``test_torch_flash_tf32.py`` pins on the CPU, and sums in another
+order), and in bfloat16 to one bf16 ulp of the plain output plus that
+same 1e-5 (the f32 results may differ by it before each is rounded to
+bf16).  The CPU parity tests hold
 the plain versions to the JAX package.
 """
 
@@ -150,8 +152,10 @@ def _assert_flash_matches_plain(q, k, v, causal):
     ((1, 2, 1, 48, 16), True),         # decode: the whole prefix
     ((1, 2, 5, 48, 16), True),         # chunked decode
     ((8, 12, 128, 64, 64), False),     # BERT-Base
-    ((2, 2, 70, 150, 128), True),      # D = 128, three key tiles
+    ((2, 2, 70, 150, 128), True),      # D = 128, several key tiles
     ((1, 3, 33, 200, 100), False),     # D padded to 128
+    ((1, 12, 1024, 1024, 64), True),   # long causal prefill: 16 key tiles
+    ((2, 3, 40, 50, 5), False),        # 20-byte rows: element-wise staging
 ])
 def test_flash_kernel_matches_plain_f32(cuda, shape, causal):
     b, h, tq, tk, d = shape
@@ -163,6 +167,40 @@ def test_flash_kernel_matches_plain_f32(cuda, shape, causal):
 def test_flash_kernel_matches_plain_bf16(cuda, d, causal):
     _assert_flash_matches_plain(
         *_qkv(cuda, 1, 2, 64, 96, d, torch.bfloat16, seed=d), causal)
+
+
+def test_flash_kernel_matches_plain_bf16_bert(cuda):
+    _assert_flash_matches_plain(
+        *_qkv(cuda, 8, 12, 128, 128, 64, torch.bfloat16), False)
+
+
+def _offset_view(x, elems):
+    """x's values in a view whose base is `elems` elements past an
+    allocation (not 16-byte aligned for elems = 1)."""
+    buf = torch.empty(x.numel() + elems, dtype=x.dtype, device=x.device)
+    view = buf[elems:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("case", ["offset_f32", "offset_bf16",
+                                  "odd_row_stride", "k_only"])
+def test_flash_kernel_matches_plain_misaligned(cuda, case):
+    """Views whose head base or row stride is not a multiple of 16 bytes
+    take the kernel's element-wise staging: no refusal, no copy."""
+    dtype = torch.bfloat16 if case == "offset_bf16" else torch.float32
+    q, k, v = _qkv(cuda, 2, 3, 70, 90, 32, dtype, seed=2)
+    if case == "odd_row_stride":  # rows 33 floats apart
+        q, k, v = (torch.cat([x, x[..., :1]], dim=-1)[..., :32]
+                   for x in (q, k, v))
+    elif case == "k_only":
+        k = _offset_view(k, 1)
+    else:
+        q, k, v = (_offset_view(x, 1) for x in (q, k, v))
+    assert any(x.data_ptr() % 16 or x.stride(2) * x.element_size() % 16
+               for x in (q, k, v))
+    _assert_flash_matches_plain(q, k, v, False)
+    _assert_flash_matches_plain(q, k, v, True)
 
 
 def test_flash_kernel_zero_rows_and_strided_views(cuda):

@@ -156,3 +156,29 @@ def test_cuda_wrapper_refuses_cpu_tensors_without_building(monkeypatch):
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, k, v)
     assert KERNEL.launches == before and KERNEL._fn is None
+
+
+def test_flash_timeline_marks_match_the_kernel(monkeypatch):
+    """The timeline tool reads the mark slots the kernel source declares,
+    and refuses to run without a card before building anything."""
+    import re
+
+    from defer_tpu_torch.ops import flash_timeline
+
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    marks = re.search(r"kMarks = (\d+), kMarkTiles = (\d+);", src)
+    assert marks and (int(marks[1]), int(marks[2])) == (
+        flash_timeline.MARKS, flash_timeline.MARK_TILES)
+    names = flash_timeline.phase_names()
+    assert max(names) < flash_timeline.MARKS
+    assert names[3 + 5 * (flash_timeline.MARK_TILES - 1) + 4] == "tile 10 P V"
+    assert max(i for i in names if names[i].startswith("tile")) < 60
+
+    def no_nvcc():
+        raise AssertionError("nothing may be built without a card")
+
+    monkeypatch.setattr(_build, "nvcc", no_nvcc)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exit_info:
+        flash_timeline.main([])
+    assert exit_info.value.code != 0

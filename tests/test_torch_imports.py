@@ -33,6 +33,7 @@ def test_import_loads_no_jax_module():
     code = ("import json, sys; import defer_tpu_torch; "
             "import defer_tpu_torch.ops.quant_cuda; "
             "import defer_tpu_torch.ops.flash_attention_cuda; "
+            "import defer_tpu_torch.ops.flash_timeline; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
