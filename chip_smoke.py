@@ -19,10 +19,10 @@ Phases, in order; any failure exits non-zero before the result line:
               long causal prefill beside SDPA's causal mode);
   4. main   — two paths, each driven through ``Defer.run`` with the kernel
               launch counts zeroed just before every run and read just
-              after; outputs are held against the whole-graph forward on
-              the card (TF32 off), then alternating timed rounds give
-              throughput and a one-chunk profile gives device time by
-              kernel:
+              after; on the card every chunk is one CUDA-graph replay;
+              outputs are held against the whole-graph forward on the card
+              (TF32 off), then alternating timed rounds give throughput and
+              a one-chunk profile gives device time by kernel:
                 a. ResNet50 at full width, cut at the reference's
                    eight-stage list, ``wire="int8"`` (one quantizer launch
                    per pipeline step) and ``wire="buffer"``;
@@ -31,6 +31,18 @@ Phases, in order; any failure exits non-zero before the result line:
                    ``wire="int8"`` (12 flash-attention launches per step;
                    one quantizer launch per step under int8, none under
                    buffer);
+                c. graph against eager: one chunk of each model through its
+                   graph and through the eager loop from the same ring;
+                   the graph pool's size and the capture count;
+                d. bf16 compute at full width and depth: ResNet50 on a bf16
+                   ring and BERT-Base on an f32 ring (token ids), both
+                   wires, held against the whole-graph forward with bf16
+                   weights and input; launch counts by dtype; bf16
+                   throughput rows beside the f32 ones;
+                e. ``reweight`` after capture: new weights into the live
+                   rows equal a fresh pipeline, with no new capture;
+                f. ``Defer.run_defer``: the bf16 int8 ResNet50 deployment
+                   as a queue service, equal to ``Defer.run``;
   5. report — the ``kernels`` JSON line, the card line, and the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -61,6 +73,16 @@ INT8_REL_BOUND = 0.05
 #: the buffer wire moves f32 values unchanged: pipeline == forward up to
 #: cuDNN choosing another algorithm for a stage's slice of the graph
 BUFFER_REL_BOUND = 1e-5
+#: bf16 compute against the whole-graph forward with the same bf16
+#: weights and input, buffer wire: the pipeline rounds where the forward
+#: does (stage outputs cross the ring in a dtype that holds bf16 exactly),
+#: so only cuDNN and cuBLAS picking other kernels for a stage's slice
+#: separates them
+BF16_BUFFER_REL_BOUND = 1e-2
+#: a chunk's CUDA graph against the same chunk run eagerly, and a
+#: reweighted pipeline against a fresh one: the same kernels on the same
+#: inputs, so only a library choosing another algorithm could separate them
+GRAPH_REL_BOUND = 1e-6
 #: BERT-Base sequence length (BASELINE.md config 5)
 SEQ_LEN = 128
 #: flash attention against its plain version, f32 on N(0,1) inputs: the
@@ -98,6 +120,8 @@ MEM_RATE = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
 F32_RATE = 67e12
 #: TF32 tensor-core rate, H100 SXM data sheet (flop/s, dense)
 TF32_RATE = 495e12
+#: bf16 tensor-core rate, H100 SXM data sheet (flop/s, dense)
+BF16_RATE = 989e12
 #: TF32 products per f32 product in the flash kernel (lo*hi + hi*lo + hi*hi)
 TF32_TERMS = 3
 #: device sleep queued ahead of a timed window (~50 ms at 2 GHz)
@@ -202,21 +226,28 @@ def check_quant(torch, ring_shape, device):
           f"{', '.join(f'{k}{tuple(v.shape)}' for k, v in cases.items())}",
           flush=True)
 
-    ms = time_ms(torch, lambda: KERNEL(ring))
-    plain_ms = time_ms(torch, lambda: quantize_int8_blocks_plain(ring))
-    values = ring.numel()
-    nbytes = values * ring.element_size() + values + 4 * (values // 256)
-    bytes_ms = nbytes / mem_rate(torch.cuda.get_device_name(0)) * 1e3
-    # flush test, |x|, max, divide, round, clamp: ~6 f32 ops per value
-    ops_ms = 6 * values / F32_RATE * 1e3
+    def timed(x):
+        ms = time_ms(torch, lambda: KERNEL(x))
+        plain_ms = time_ms(torch, lambda: quantize_int8_blocks_plain(x))
+        values = x.numel()
+        nbytes = values * x.element_size() + values + 4 * (values // 256)
+        bytes_ms = nbytes / mem_rate(torch.cuda.get_device_name(0)) * 1e3
+        # flush test, |x|, max, divide, round, clamp: ~6 f32 ops per value
+        ops_ms = 6 * values / F32_RATE * 1e3
+        return {"ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None, "shape": list(x.shape),
+                "dtype": str(x.dtype).removeprefix("torch."),
+                "bytes": nbytes}
+
+    # the f32 ring of the f32 deployments, and the bf16 ring of ResNet50
+    # under bf16 compute (phase 4d)
     return {"name": KERNEL.name, "route": "cuda",
             "source": "defer_tpu_torch/csrc/quant_int8.cu",
             "replaces": "defer_tpu/ops/quant_pallas.py:35",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "shape": list(ring_shape),
-            "dtype": "float32", "bytes": nbytes,
+            "max_abs_err": max_err, **timed(ring),
+            "bf16": timed(cases["ring_bf16"]),
             "checked_by": "phase 3 (bit-equal vs plain) + phase 4 (main "
                           "path launches)"}
 
@@ -248,6 +279,7 @@ def check_flash(torch, device):
             qkv = torch.randn((b, tq, 3 * h * d), generator=g, device=device)
             q, k, v = (x.reshape(b, tq, h, d).transpose(1, 2)
                        for x in qkv.chunk(3, dim=-1))
+            tensors["bert_base_qkv"] = qkv
         elif name == "offset_view":
             # bases 4 bytes past a 16-byte boundary
             q, k, v = (torch.randn(math.prod(shape) + 1, generator=g,
@@ -288,33 +320,47 @@ def check_flash(torch, device):
           f"{long_ms:.4f} ms, scaled_dot_product_attention(is_causal=True) "
           f"{long_sdpa_ms:.4f} ms", flush=True)
 
+    def timed(q, k, v):
+        ms = time_ms(torch, lambda: KERNEL(q, k, v, False))
+        plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v))
+        sdpa_err = (F.scaled_dot_product_attention(q, k, v).float()
+                    - flash_attention_plain(q, k, v).float()
+                    ).abs().max().item()
+        b, h, tq, d = q.shape
+        tk = k.shape[2]
+        flops = 4 * b * h * tq * tk * d
+        nbytes = 4 * q.numel() * q.element_size()  # q, k, v read; o written
+        bytes_ms = nbytes / mem_rate(torch.cuda.get_device_name(0)) * 1e3
+        # f32 inputs: f32-accurate products on the tensor cores, three TF32
+        # passes; bf16 inputs: the card's bf16 rate
+        ops_ms = (TF32_TERMS * flops / TF32_RATE if q.dtype == torch.float32
+                  else flops / BF16_RATE) * 1e3
+        return {"ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                "library_ms": library_ms,
+                "library": "torch.nn.functional.scaled_dot_product_attention",
+                "library_max_abs_err": sdpa_err,
+                "shape": [b, h, tq, tk, d],
+                "dtype": str(q.dtype).removeprefix("torch."),
+                "bytes": nbytes, "flops": flops}
+
+    # the main paths' layout (head-split views of the fused projection),
+    # in f32 and in bf16 (phase 4d's BERT-Base blocks)
     q, k, v = tensors["bert_base"]
-    ms = time_ms(torch, lambda: KERNEL(q, k, v, False))
-    plain_ms = time_ms(torch, lambda: flash_attention_plain(q, k, v))
-    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v))
-    sdpa_err = (F.scaled_dot_product_attention(q, k, v)
-                - flash_attention_plain(q, k, v)).abs().max().item()
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
-    flops = 4 * b * h * tq * tk * d
-    nbytes = 4 * q.numel() * q.element_size()  # q, k, v read; o written
-    bytes_ms = nbytes / mem_rate(torch.cuda.get_device_name(0)) * 1e3
-    # f32-accurate products on the tensor cores: three TF32 passes
-    ops_ms = TF32_TERMS * flops / TF32_RATE * 1e3
+    row = timed(q, k, v)
+    b, t, h, d = q.shape[0], q.shape[2], q.shape[1], q.shape[3]
+    qkv16 = tensors["bert_base_qkv"].to(torch.bfloat16)
+    row["bf16"] = timed(*(x.reshape(b, t, h, d).transpose(1, 2)
+                          for x in qkv16.chunk(3, dim=-1)))
     return {"name": KERNEL.name, "route": "cuda",
             "source": "defer_tpu_torch/csrc/flash_attention.cu",
             "replaces": "defer_tpu/ops/flash_attention.py:41",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
-            "library_ms": library_ms,
-            "library": "torch.nn.functional.scaled_dot_product_attention",
-            "library_max_abs_err": sdpa_err,
-            "shape": [b, h, tq, tk, d], "dtype": "float32",
-            "bytes": nbytes, "flops": flops,
+            "max_abs_err": max_err, **row,
             # the bound of an FMA design (no tensor cores), for comparison
-            "fma_bound_ms": flops / F32_RATE * 1e3,
+            "fma_bound_ms": row["flops"] / F32_RATE * 1e3,
             "long_causal": {"shape": list(lq.shape), "ms": long_ms,
                             "library_ms": long_sdpa_ms},
             "checked_by": "phase 3 (f32 <= 1e-5, bf16 <= 1 ulp, zero rows "
@@ -329,11 +375,15 @@ def check_flash(torch, device):
 
 def zero_counts(kernels) -> None:
     for k in kernels:
-        k.launches = 0
+        k.zero()
 
 
 def read_counts(kernels) -> dict:
     return {k.name: k.launches for k in kernels}
+
+
+def read_dtypes(kernels) -> dict:
+    return {k.name: dict(k.by_dtype) for k in kernels}
 
 
 def main_path(torch, device, kernels):
@@ -405,7 +455,9 @@ def main_path(torch, device, kernels):
             "top1_agree": f"{int((top_ref == top_out).sum())}/"
                           f"{top_ref.size}", "buffer_rel_err": berr / scale,
             "defer": defer, "graph": g, "params": params, "inputs": inputs,
-            "pdev": pdev, "cuts": RESNET50_8STAGE_CUTS}
+            "pdev": pdev, "cuts": RESNET50_8STAGE_CUTS, "ref": ref,
+            # phase 4d's bf16 deployment: bf16 weights and ring
+            "bf16": dict(compute_dtype="bfloat16", buffer_dtype="bfloat16")}
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +531,8 @@ def bert_path(torch, device, kernels):
         res["rel_err"][wire] = err / scale
         if wire == "int8":
             res["defer"] = defer
-    res.update(graph=g, params=params, inputs=ids, pdev=pdev, cuts=cuts)
+    res.update(graph=g, params=params, inputs=ids, pdev=pdev, cuts=cuts,
+               ref=ref, bf16=dict(compute_dtype="bfloat16"))
     return res
 
 
@@ -489,32 +542,43 @@ def bert_path(torch, device, kernels):
 
 
 def throughput(torch, device, mp, card, unit: str, rounds: int = 7):
-    """Steady-state samples/s of the pipeline (both wires) and of the
-    whole-graph forward at the same batch, all on the host clock around a
+    """Steady-state samples/s of the pipeline (both wires, f32 and the
+    path's bf16 deployment) and of the whole-graph forward at the same
+    batch (f32 and bf16 weights and input), all on the host clock around a
     chunk of work that ends in a synchronize (launch time included, as a
-    user sees it).  The three alternate, round after round, so drift on
-    the shared host hits all of them alike; the median round is kept."""
+    user sees it).  The six alternate, round after round, so drift on the
+    shared host hits all of them alike; the median round is kept."""
     from defer_tpu_torch import Defer, DeferConfig
+    from defer_tpu_torch.graph.ir import tree_map
 
-    def pipeline(wire):
+    def pipeline(wire, **kw):
         pipe = Defer(DeferConfig(wire=wire, microbatch=MICROBATCH,
-                                 chunk=CHUNK, device=device)).build(
+                                 chunk=CHUNK, device=device, **kw)).build(
             mp["graph"], mp["params"], mp["cuts"])
         xs = pipe.stage_inputs(mp["inputs"][:CHUNK])
-        for _ in range(2):  # fill the ring
+        for _ in range(2):  # capture the chunk's graph, fill the ring
             pipe.push(xs)
         return lambda: pipe.push(xs)
 
-    dtype = mp["graph"].input_spec.dtype
-    xs = [torch.from_numpy(x).to(device, dtype) for x in mp["inputs"][:CHUNK]]
+    def forward(dtype):
+        cast = dtype if mp["graph"].input_spec.dtype.is_floating_point \
+            else mp["graph"].input_spec.dtype
+        xs = [torch.from_numpy(x).to(device, cast)
+              for x in mp["inputs"][:CHUNK]]
+        pdev = tree_map(lambda v: v.to(dtype), mp["pdev"])
 
-    def forward():
-        with torch.inference_mode():
-            for x in xs:
-                mp["graph"].apply(mp["pdev"], x)
+        def run():
+            with torch.inference_mode():
+                for x in xs:
+                    mp["graph"].apply(pdev, x)
+        return run
 
     runs = {"pipeline_int8": pipeline("int8"),
-            "pipeline_buffer": pipeline("buffer"), "forward": forward}
+            "pipeline_buffer": pipeline("buffer"),
+            "forward": forward(torch.float32),
+            "pipeline_bf16_int8": pipeline("int8", **mp["bf16"]),
+            "pipeline_bf16_buffer": pipeline("buffer", **mp["bf16"]),
+            "forward_bf16": forward(torch.bfloat16)}
     walls = {k: [] for k in runs}
     for _ in range(rounds):
         for name, fn in runs.items():
@@ -527,26 +591,36 @@ def throughput(torch, device, mp, card, unit: str, rounds: int = 7):
     for name, w in walls.items():
         rows[name] = CHUNK * MICROBATCH / statistics.median(w)
         rows[f"{name}_spread"] = (max(w) - min(w)) / statistics.median(w)
-    print(f"throughput {mp['graph'].name} on {card} (f32, TF32 off, "
-          f"microbatch {MICROBATCH}, median of {rounds} alternating rounds "
-          f"of {CHUNK} steps): "
+    print(f"throughput {mp['graph'].name} on {card} (TF32 off; bf16 rows: "
+          f"{mp['bf16']}; microbatch {MICROBATCH}, median of {rounds} "
+          f"alternating rounds of {CHUNK} steps, one graph replay each): "
           + ", ".join(f"{k} {rows[k]:.1f} {unit}/s (spread "
                       f"{rows[k + '_spread'] * 100:.0f}%)" for k in runs),
           flush=True)
     return rows
 
 
-def profile_step(torch, mp, groups: dict):
-    """Device time by kernel over one int8 chunk (torch.profiler), with
-    each group's share (a kernel joins the first group whose pattern its
-    name contains).  Returns the shares, or None without device time."""
+def profile_step(torch, mp, groups: dict, defer=None, label="int8"):
+    """Device time by kernel over one chunk of ``defer``'s deployment (the
+    path's int8 f32 one by default) — one graph replay — with
+    torch.profiler, and each group's share (a kernel joins the first group
+    whose pattern its name contains).  Returns the shares, or None without
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    pipe = mp["defer"].build(mp["graph"], mp["params"], mp["cuts"])
+    pipe = (defer or mp["defer"]).build(mp["graph"], mp["params"],
+                                        mp["cuts"])
     xs = pipe.stage_inputs(mp["inputs"][:CHUNK])
-    pipe.push(xs)
-    torch.cuda.synchronize()
+    pipe.push(xs)  # captures the chunk's graph
+    walls = []
+    for _ in range(5):  # the chunk's wall with the profiler off
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.push(xs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    plain_wall_us = statistics.median(walls) * 1e6
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -568,10 +642,13 @@ def profile_step(torch, mp, groups: dict):
         group = next((g for g, ms in groups.items()
                       if any(m in key for m in ms)), "everything else")
         shares[group] += us
-    print(f"profile {mp['graph'].name}, one int8 chunk ({CHUNK} steps): "
+    print(f"profile {mp['graph'].name}, one {label} chunk ({CHUNK} steps, "
+          f"one graph replay): "
           f"device time {total / 1e3:.3f} ms = {total / 1e3 / CHUNK:.3f} "
           f"ms/step in a {wall_us / 1e3:.3f} ms wall (device idle "
-          f"{max(0.0, 1 - total / wall_us) * 100:.1f}%, profiler on); "
+          f"{max(0.0, 1 - total / wall_us) * 100:.1f}%, profiler on; "
+          f"{max(0.0, 1 - total / plain_wall_us) * 100:.1f}% of the "
+          f"{plain_wall_us / 1e3:.3f} ms median wall with it off); "
           + ", ".join(f"{g} {us / total * 100:.1f}%"
                       for g, us in shares.items()), flush=True)
     for us, key, count in rows[:12]:
@@ -579,15 +656,230 @@ def profile_step(torch, mp, groups: dict):
               f" {key[:100]}")
     return {g: us / total for g, us in shares.items()} | {
         "device_ms_per_step": total / 1e3 / CHUNK,
-        "idle_share": max(0.0, 1 - total / wall_us)}
+        "idle_share": max(0.0, 1 - total / wall_us),
+        "idle_share_profiler_off": max(0.0, 1 - total / plain_wall_us)}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: one graph replay per chunk against the eager loop
+# ---------------------------------------------------------------------------
+
+
+def graph_vs_eager(torch, mp):
+    """One chunk of the path's int8 deployment through its CUDA graph and
+    through the eager loop, from the same ring: outputs and ring within
+    GRAPH_REL_BOUND of their max |value|."""
+    pipe = mp["defer"].build(mp["graph"], mp["params"], mp["cuts"])
+    xs = pipe.stage_inputs(mp["inputs"][:CHUNK])
+    for _ in range(-(-pipe.num_stages // CHUNK)):  # capture, fill the ring
+        pipe.push(xs)
+    ring = pipe._a.clone()
+    graph_out = pipe._run_chunk(xs).clone()
+    graph_ring = pipe._a.clone()
+    pipe._a.copy_(ring)
+    eager_out = pipe._eager_chunk(xs)
+    torch.cuda.synchronize()
+    err = ((graph_out.float() - eager_out.float()).abs().max().item()
+           / eager_out.float().abs().max().item())
+    ring_err = ((graph_ring.float() - pipe._a.float()).abs().max().item()
+                / pipe._a.float().abs().max().item())
+    m = pipe.metrics
+    print(f"graph vs eager {mp['graph'].name} int8, one chunk of {CHUNK} "
+          f"steps: outputs {err:.3g}, ring {ring_err:.3g} of max |value| "
+          f"(bound {GRAPH_REL_BOUND}); graph pool "
+          f"{m.graph_pool_bytes / 2**20:.1f} MiB (ring "
+          f"{pipe._a.numel() * pipe._a.element_size() / 2**20:.1f} MiB), "
+          f"captures {m.captures}", flush=True)
+    if max(err, ring_err) > GRAPH_REL_BOUND:
+        fail(f"{mp['graph'].name}: graph replay differs from the eager loop")
+    if m.captures != 1:
+        fail(f"{mp['graph'].name}: {m.captures} captures for one chunk "
+             "length")
+    return {"rel_err": err, "ring_rel_err": ring_err,
+            "graph_pool_bytes": m.graph_pool_bytes, "captures": m.captures}
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: bf16 compute
+# ---------------------------------------------------------------------------
+
+
+def bf16_path(torch, device, kernels, mp, want_dtypes):
+    """The path's bf16 deployment (``mp["bf16"]``) through ``Defer.run`` on
+    both wires, counts zeroed just before each run and read just after,
+    held against the whole-graph forward with bf16 weights and input.
+    ``want_dtypes(wire, steps)`` is the launch count by kernel and dtype
+    the run must show.
+
+    Bounds: the buffer wire rounds where the forward does
+    (BF16_BUFFER_REL_BOUND).  The int8 wire gets INT8_REL_BOUND plus the
+    bf16 forward's own error against the f32 forward, measured here: its
+    perturbations move every later bf16 rounding off the forward's, so
+    the two can part by the int8 error plus the bf16 noise the forward
+    itself carries."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig
+    from defer_tpu_torch.graph.ir import tree_map
+
+    g, inputs = mp["graph"], mp["inputs"]
+    floating = g.input_spec.dtype.is_floating_point
+    pdev16 = tree_map(lambda v: v.to(torch.bfloat16), mp["pdev"])
+    with torch.inference_mode():
+        ref16 = np.stack([g.apply(pdev16, torch.from_numpy(x).to(
+            device, torch.bfloat16 if floating else g.input_spec.dtype))
+            .float().cpu().numpy() for x in inputs])
+    scale = float(np.abs(ref16).max())
+    ref32 = mp["ref"]
+    noise = float(np.abs(ref16 - ref32).max()) / float(np.abs(ref32).max())
+    print(f"bf16 path {g.name}: the bf16 forward is {noise:.6g} of max "
+          "|output| off the f32 forward", flush=True)
+    res = {"launches": {}, "by_dtype": {}, "rel_err": {},
+           "rel_err_vs_f32": {}, "config": mp["bf16"],
+           "forward_bf16_rel_err_vs_f32": noise}
+    for wire, bound in (("buffer", BF16_BUFFER_REL_BOUND),
+                        ("int8", INT8_REL_BOUND + noise)):
+        defer = Defer(DeferConfig(wire=wire, microbatch=MICROBATCH,
+                                  chunk=CHUNK, device=device, **mp["bf16"]))
+        zero_counts(kernels)
+        out = defer.run(g, mp["params"], inputs, cut_points=mp["cuts"])
+        torch.cuda.synchronize()
+        launches, by_dtype = read_counts(kernels), read_dtypes(kernels)
+        steps = mp["steps"]
+        want = want_dtypes(wire, steps)
+        print(f"bf16 path {g.name} {mp['bf16']}, wire={wire}: "
+              f"{len(inputs)} microbatches = {steps} steps; kernel launches "
+              f"by dtype {by_dtype}", flush=True)
+        if by_dtype != want:
+            fail(f"bf16 {g.name} wire={wire}: launches by dtype {by_dtype}, "
+                 f"want {want}")
+        if out.shape != ref16.shape or not np.isfinite(out).all():
+            fail(f"bf16 {g.name} {wire} output shape {out.shape} or not "
+                 "finite")
+        err = float(np.abs(out - ref16).max())
+        mse = float(np.square(out - ref16).mean())
+        err32 = float(np.abs(out - ref32).max()) / float(np.abs(ref32).max())
+        top = ""
+        if g.name.startswith("resnet"):
+            agree = (f"{int((out.argmax(-1) == ref32.argmax(-1)).sum())}"
+                     f"/{out.shape[0] * out.shape[1]}")
+            top = f"; top-1 agree with the f32 forward {agree}"
+            res.setdefault("top1_agree_vs_f32", {})[wire] = agree
+        print(f"bf16 path {g.name} {wire} vs bf16 forward: max|err| "
+              f"{err:.6g} = {err / scale:.6g} of max|output| {scale:.6g} "
+              f"(bound {bound:.6g}), MSE {mse:.3g}; vs the f32 forward "
+              f"{err32:.6g} (for information){top}", flush=True)
+        if err > bound * scale:
+            fail(f"bf16 {g.name} {wire}-wire error above its bound")
+        res["launches"][wire] = launches
+        res["by_dtype"][wire] = by_dtype
+        res["rel_err"][wire] = err / scale
+        res["rel_err_vs_f32"][wire] = err32
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: reweight after capture
+# ---------------------------------------------------------------------------
+
+
+def reweight_after_capture(torch, device, mp):
+    """Run the captured int8 deployment, ``reweight`` it with every param
+    scaled by 0.5, run again: equal to a fresh pipeline on the new params
+    (within GRAPH_REL_BOUND of max |output|), with no new capture."""
+    import numpy as np
+
+    from defer_tpu_torch.graph.ir import tree_map
+
+    pipe = mp["defer"].build(mp["graph"], mp["params"], mp["cuts"])
+    pipe.run(mp["inputs"])
+    captures = pipe.metrics.captures
+    half = tree_map(lambda v: v * 0.5, mp["params"])
+    t0 = time.perf_counter()
+    pipe.reweight(half)
+    torch.cuda.synchronize()
+    reweight_s = time.perf_counter() - t0
+    out = pipe.run(mp["inputs"])
+    fresh = mp["defer"].run(mp["graph"], half, mp["inputs"],
+                            cut_points=mp["cuts"])
+    err = float(np.abs(out - fresh).max()) / float(np.abs(fresh).max())
+    print(f"reweight after capture ({mp['graph'].name} int8, params x 0.5, "
+          f"{reweight_s * 1e3:.1f} ms): vs a fresh pipeline {err:.3g} of "
+          f"max|output| (bound {GRAPH_REL_BOUND}); captures {captures} -> "
+          f"{pipe.metrics.captures}", flush=True)
+    if err > GRAPH_REL_BOUND:
+        fail("reweight: outputs differ from a fresh pipeline")
+    if pipe.metrics.captures != captures:
+        fail("reweight: the engine captured again")
+    return {"rel_err": err, "captures": pipe.metrics.captures,
+            "reweight_s": reweight_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: run_defer
+# ---------------------------------------------------------------------------
+
+
+def run_defer_path(torch, device, kernels, mp):
+    """ResNet50's bf16 int8 deployment as a queue service: 2*CHUNK+3
+    microbatches, then END_OF_STREAM; outputs in order, equal to
+    ``Defer.run`` on the same inputs."""
+    import queue
+
+    import numpy as np
+
+    from defer_tpu_torch import END_OF_STREAM, Defer, DeferConfig
+    from defer_tpu_torch.obs import REGISTRY
+
+    m = 2 * CHUNK + 3
+    xs = np.random.default_rng(SEED + 1).standard_normal(
+        (m, MICROBATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(np.float32)
+    defer = Defer(DeferConfig(wire="int8", microbatch=MICROBATCH,
+                              chunk=CHUNK, device=device, **mp["bf16"]))
+    dispatches = REGISTRY.counter("dispatcher.dispatches")
+    d0 = dispatches.n
+    in_q, out_q = queue.Queue(), queue.Queue()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    h = defer.run_defer(mp["graph"], mp["params"], mp["cuts"], in_q, out_q)
+    for x in xs:
+        in_q.put(x)
+    in_q.put(END_OF_STREAM)
+    h.join(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by_dtype = read_counts(kernels), read_dtypes(kernels)
+    if h._thread.is_alive():
+        fail("run_defer: the serve thread did not finish")
+    outs = [out_q.get_nowait() for _ in range(out_q.qsize())]
+    if len(outs) != m or any(o is END_OF_STREAM for o in outs):
+        fail(f"run_defer: {len(outs)} outputs for {m} inputs")
+    got = np.stack(outs)
+    want = defer.run(mp["graph"], mp["params"], xs, cut_points=mp["cuts"])
+    diff = float(np.abs(got - want).max())
+    moved = dispatches.n - d0
+    print(f"run_defer {mp['graph'].name} int8 {mp['bf16']}: {m} "
+          f"microbatches in {wall:.2f} s (build and capture included), "
+          f"{h.metrics.chunk_calls} pushes of {CHUNK} steps; max|diff| vs "
+          f"Defer.run {diff:.3g}; healthy {h.healthy}; dispatcher."
+          f"dispatches +{moved}; kernel launches {launches}, by dtype "
+          f"{by_dtype}", flush=True)
+    if diff != 0.0:
+        fail("run_defer outputs differ from Defer.run")
+    if not h.healthy or moved == 0:
+        fail("run_defer: unhealthy, or no dispatch counted")
+    return {"microbatches": m, "max_abs_diff": diff, "dispatches": moved,
+            "launches": launches, "by_dtype": by_dtype, "wall_s": wall}
 
 
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
-                                                "Nchw", "Nhwc", "implicit")}
+                                                "Nchw", "Nhwc", "implicit"),
+                 "ring roll": ("roll_cuda",)}
 BERT_GROUPS = {"flash_attention": ("flash_attn",),
                "quant_int8": ("quant_int8",),
-               "matmul (cuBLAS)": ("gemm", "Gemm", "cutlass")}
+               "matmul (cuBLAS)": ("gemm", "Gemm", "cutlass", "nvjet"),
+               "ring roll": ("roll_cuda",)}
 
 
 def main() -> int:
@@ -650,22 +942,72 @@ def main() -> int:
           f"{TF32_TERMS} x {r['flops'] / 1e6:.1f} MFLOP of TF32), "
           f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound, "
           f"{r['flops'] / r['ms'] / 1e9:.2f} TFLOP/s, on {card}", flush=True)
+    for name, r in rows.items():
+        b = r["bf16"]
+        lib = ("" if b["library_ms"] is None else
+               f", scaled_dot_product_attention {b['library_ms']:.4f} ms")
+        print(f"kernel {name} {tuple(b['shape'])} bf16: {b['ms']:.4f} ms, "
+              f"plain {b['plain_ms']:.4f} ms{lib}, bound {b['bound_ms']:.4f} "
+              f"ms ({b['bound_by']}), {b['bound_ms'] / b['ms'] * 100:.1f}% "
+              f"of the bound, on {card}", flush=True)
 
     # phase 4a: ResNet50, the counts zeroed just before each run
     mp = main_path(torch, device, kernels)
     thr = throughput(torch, device, mp, card, "img")
-    profile_step(torch, mp, RESNET_GROUPS)
+    prof = profile_step(torch, mp, RESNET_GROUPS)
 
     # phase 4b: BERT-Base, the counts zeroed just before each run
     bp = bert_path(torch, device, kernels)
     bthr = throughput(torch, device, bp, card, "seq")
     bprof = profile_step(torch, bp, BERT_GROUPS)
 
+    # phase 4c: one graph replay per chunk against the eager loop
+    graphs = {"resnet50": graph_vs_eager(torch, mp),
+              "bert_base": graph_vs_eager(torch, bp)}
+
+    # phase 4d: bf16 compute, the counts zeroed just before each run.
+    # ResNet50's bf16 ring carries a bf16 quantizer launch per int8 step;
+    # BERT-Base's f32 ring an f32 one, and its 12 blocks all run in bf16
+    # (its embeddings read the bf16 table, as in the JAX engine)
+    blocks = sum(name.startswith("block_") for name in bp["graph"].topo_order)
+    mp16 = bf16_path(torch, device, kernels, mp, lambda wire, steps: {
+        "quant_int8": {"bfloat16": steps} if wire == "int8" else {},
+        "flash_attention": {}})
+    bp16 = bf16_path(torch, device, kernels, bp, lambda wire, steps: {
+        "quant_int8": {"float32": steps} if wire == "int8" else {},
+        "flash_attention": {"bfloat16": blocks * steps}})
+    from defer_tpu_torch import Defer, DeferConfig
+    prof16 = profile_step(torch, mp, RESNET_GROUPS, label="bf16 int8",
+                          defer=Defer(DeferConfig(
+                              wire="int8", microbatch=MICROBATCH,
+                              chunk=CHUNK, device=device, **mp["bf16"])))
+    bprof16 = profile_step(torch, bp, BERT_GROUPS, label="bf16 int8",
+                           defer=Defer(DeferConfig(
+                               wire="int8", microbatch=MICROBATCH,
+                               chunk=CHUNK, device=device, **bp["bf16"])))
+
+    # phase 4e: reweight after capture
+    rew = reweight_after_capture(torch, device, mp)
+
+    # phase 4f: the queue service, the counts zeroed just before it
+    rd = run_defer_path(torch, device, kernels, mp)
+
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
+    by_path.update({f"resnet50_bf16_{w}": c
+                    for w, c in mp16["launches"].items()})
+    by_path.update({f"bert_base_bf16_{w}": c
+                    for w, c in bp16["launches"].items()})
+    by_path["resnet50_bf16_int8_run_defer"] = rd["launches"]
+    dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
+    dtypes.update({f"bert_base_bf16_{w}": c
+                   for w, c in bp16["by_dtype"].items()})
+    dtypes["resnet50_bf16_int8_run_defer"] = rd["by_dtype"]
     for k in kernels:
         row = rows[k.name]
         row["launches_by_path"] = {p: c[k.name] for p, c in by_path.items()}
+        row["launches_by_dtype_bf16_paths"] = {
+            p: c[k.name] for p, c in dtypes.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         if row["launches"] == 0:
             fail(f"kernel {k.name} was not launched on the main paths")
@@ -675,12 +1017,18 @@ def main() -> int:
         "model": "resnet50", "stages": len(stages), "wire": "int8",
         "microbatch": MICROBATCH, "chunk": CHUNK, "steps": mp["steps"],
         "rel_err": mp["rel_err"], "top1_agree": mp["top1_agree"],
-        "buffer_rel_err": mp["buffer_rel_err"], "images_per_s": thr}}))
+        "buffer_rel_err": mp["buffer_rel_err"], "images_per_s": thr,
+        "profile_int8": prof, "graph_vs_eager": graphs["resnet50"],
+        "bf16": {k: v for k, v in mp16.items() if k != "launches"},
+        "profile_bf16_int8": prof16, "reweight": rew, "run_defer": rd}}))
     print(json.dumps({"bert_path": {
         "model": "bert_base", "seq_len": SEQ_LEN,
         "stages": len(bp["cuts"]) + 1, "microbatch": MICROBATCH,
         "chunk": CHUNK, "steps": bp["steps"], "rel_err": bp["rel_err"],
-        "sequences_per_s": bthr, "profile_int8": bprof}}))
+        "sequences_per_s": bthr, "profile_int8": bprof,
+        "graph_vs_eager": graphs["bert_base"],
+        "bf16": {k: v for k, v in bp16.items() if k != "launches"},
+        "profile_bf16_int8": bprof16}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -21,9 +21,11 @@ another device; with no device and no CUDA they raise.
 
 from . import models
 from .partition import partition
-from .runtime import Defer, MpmdPipeline, SpmdPipeline
+from .runtime import (END_OF_STREAM, Defer, DeferHandle, MpmdPipeline,
+                      SpmdPipeline)
 from .utils.config import DeferConfig
 from .utils.convert import params_from_jax
 
-__all__ = ["Defer", "DeferConfig", "SpmdPipeline", "MpmdPipeline",
-           "partition", "models", "params_from_jax"]
+__all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
+           "SpmdPipeline", "MpmdPipeline", "partition", "models",
+           "params_from_jax"]

@@ -1,0 +1,215 @@
+"""Flight recorder: a bounded, seq-stamped structured event ring.
+
+The port's copy of ``defer_tpu.obs.events``.  Traces say where a
+request's time went and histograms how fast a stage is; events say WHAT
+HAPPENED: the rare, structured control-plane facts (a watchdog that
+fired, a hung dispatch replayed).  Every process keeps one
+:class:`FlightRecorder` (:func:`recorder`); subsystems :func:`emit` events
+into it, and the ring is
+
+* **bounded** — past ``capacity`` the OLDEST event is evicted per append
+  and ``events.dropped`` counts the loss;
+* **seq-stamped** — a per-process monotone sequence number, so a consumer
+  can prove it saw every event (gap = drop);
+* **timeline-aligned** — ``t_us`` comes from the process tracer's
+  anchored clock (:meth:`Tracer.now_us`), so events and spans interleave
+  on one axis;
+* **wire-schematized** — an event is a flat JSON-safe dict
+  (``{"kind", "seq", "t_us", "proc", "data"}``), and
+  :func:`validate_event` is the schema check both ends of a transfer
+  share.
+
+Shifting buffered events when clocks are aligned across processes waits
+for the port of ``obs/cluster.py`` (ROADMAP A12).
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+
+from .registry import REGISTRY
+from .trace import tracer
+
+#: known event kinds -> one-line meaning (the JAX package's table).
+#: Emitting an unknown kind raises: the schema is the contract that makes
+#: a merged log queryable.
+EVENT_KINDS = {
+    "admit": "front door admitted one unit (tenant, rid)",
+    "shed": "admission shed one unit (tenant, reason, predicted_ms)",
+    "tier": "a hop negotiated its transport tier (hop, tier)",
+    "tier_fallback": "a colocated-tier offer degraded to tcp (hop)",
+    "straggler": "the detector flagged a stage (stage, reason, ratio)",
+    "replan": "a replan suggestion was produced (moved, corrections)",
+    "node_dead": "a watched node's push stream died (addr)",
+    "watchdog": "the dispatcher watchdog fired (action, gen)",
+    "stream_begin": "a data stream opened on a stage node (stage)",
+    "stream_end": "a data stream drained on a stage node (stage, n)",
+    "client_open": "a tenant connection said hello (tenant)",
+    "client_close": "a tenant connection finished or died (tenant)",
+    "decode_join": "a decode request claimed an engine slot (rid)",
+    "decode_cancel": "a decode request's slot was reclaimed (rid)",
+    "model_drift": "a stage's measured service drifted from the cost "
+                   "model's prediction (stage, rel_err)",
+    "redial": "a connect_retry attempt failed and backed off "
+              "(addr, attempt, delay_ms, error)",
+    "replica_lost": "a fan-in upstream connection died mid-stream "
+                    "(hop, error)",
+    "failover": "a replay fan-out healed a dead channel "
+                "(hop, chan, addr, replayed, recovery_ms)",
+    "quiesce": "a stage drained to a stable sequence point "
+               "(hop, processed)",
+    "cutover": "a live replan cut the chain over mid-stream "
+               "(stages, quiesced)",
+    "backend_lost": "the serve front door's chain backend died "
+                    "(error, shed)",
+    "replica_respawn": "the chain supervisor respawned a dead replica "
+                       "(stage, replica, addr, rc)",
+    "recompile": "XLA compiled a program after warmup — one event per "
+                 "episode (count, via, label, shapes)",
+    "mem_pressure": "live device-array bytes crossed the configured "
+                    "threshold (bytes, threshold, live_arrays)",
+    "journal": "the black-box journal spiller started or stopped "
+               "(action, dir)",
+    "postmortem": "a postmortem bundle was assembled "
+                  "(reason, out, procs, first_fault)",
+}
+
+#: the wire schema's required keys (and the only keys)
+_WIRE_KEYS = frozenset({"kind", "seq", "t_us", "proc", "data"})
+
+#: evictions across every recorder in this process
+_DROPPED = REGISTRY.counter("events.dropped")
+
+
+def validate_event(doc) -> dict:
+    """Loudly check one wire-form event; returns it."""
+    if not isinstance(doc, dict) or set(doc) != _WIRE_KEYS:
+        raise ValueError(f"event must have exactly keys "
+                         f"{sorted(_WIRE_KEYS)}, got {doc!r}")
+    if doc["kind"] not in EVENT_KINDS:
+        raise ValueError(f"unknown event kind {doc['kind']!r}; "
+                         f"known: {sorted(EVENT_KINDS)}")
+    if not isinstance(doc["seq"], int) or doc["seq"] < 0:
+        raise ValueError(f"event seq must be a non-negative int, "
+                         f"got {doc['seq']!r}")
+    if not isinstance(doc["t_us"], int):
+        raise ValueError(f"event t_us must be an int, got {doc['t_us']!r}")
+    if not isinstance(doc["proc"], str):
+        raise ValueError(f"event proc must be a str, got {doc['proc']!r}")
+    if not isinstance(doc["data"], dict):
+        raise ValueError(f"event data must be a dict, got {doc['data']!r}")
+    return doc
+
+
+class FlightRecorder:
+    """One process's bounded structured-event ring."""
+
+    #: default ring capacity (events, not bytes)
+    DEFAULT_CAPACITY = 4096
+
+    def __init__(self, process: str | None = None,
+                 capacity: int | None = None):
+        self.process = process or f"pid{os.getpid()}"
+        self.capacity = (self.DEFAULT_CAPACITY if capacity is None
+                         else max(1, int(capacity)))
+        self._ring: collections.deque[dict] = collections.deque()
+        self._lock = threading.Lock()
+        #: next seq to stamp (monotone, never reused)
+        self._seq = 0
+        #: events ever removed from the FRONT (drained or evicted): the
+        #: ``events_since`` cursor's anchor
+        self._base = 0
+        #: events evicted because the ring was full (lifetime)
+        self.dropped = 0
+
+    def emit(self, kind: str, **data) -> dict:
+        """Append one event (O(1) under a short lock); returns it.
+        ``data`` values must be JSON-safe."""
+        if kind not in EVENT_KINDS:
+            raise ValueError(f"unknown event kind {kind!r}; "
+                             f"known: {sorted(EVENT_KINDS)}")
+        ev = {"kind": kind, "proc": self.process, "data": data}
+        with self._lock:
+            # t_us stamped under the lock that assigns seq, so one
+            # process's seq order and timestamp order never invert
+            # (merge_events' tie-break relies on it)
+            ev["t_us"] = tracer().now_us()
+            ev["seq"] = self._seq
+            self._seq += 1
+            self._ring.append(ev)
+            over = len(self._ring) - self.capacity
+            for _ in range(over):
+                self._ring.popleft()
+                self.dropped += 1
+                self._base += 1
+                _DROPPED.n += 1
+        return ev
+
+    def events_since(self, cursor: int, limit: int | None = None
+                     ) -> tuple[int, list[dict]]:
+        """(new_cursor, events emitted after ``cursor``) without draining.
+        ``limit`` caps one batch at the OLDEST N and the returned cursor
+        stops after them, so a backlog pages through losslessly; only
+        eviction loses events, and ``dropped`` counts that."""
+        with self._lock:
+            base = self._base
+            snapshot = list(self._ring)
+        start = max(0, cursor - base)
+        out = snapshot[start:]
+        if limit is not None and len(out) > limit:
+            out = out[:limit]
+        return base + start + len(out), out
+
+    def cursor(self) -> int:
+        """Monotone count of events ever emitted — pass it back to
+        :meth:`events_since` for an incremental batch."""
+        with self._lock:
+            return self._base + len(self._ring)
+
+    def snapshot(self) -> list[dict]:
+        with self._lock:
+            return list(self._ring)
+
+    def drain(self) -> list[dict]:
+        with self._lock:
+            out = list(self._ring)
+            self._ring.clear()
+            self._base += len(out)
+        return out
+
+    def clear(self) -> None:
+        self.drain()
+        self.dropped = 0
+
+
+def merge_events(*batches) -> list[dict]:
+    """Merge event batches from several processes into one ordered log:
+    by ``t_us``, then process, then per-process ``seq`` (so one process's
+    events never reorder); duplicates of one ``(proc, seq)`` collapse."""
+    seen: set[tuple] = set()
+    out = []
+    for batch in batches:
+        for ev in batch:
+            key = (ev.get("proc"), ev.get("seq"))
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append(ev)
+    out.sort(key=lambda e: (e.get("t_us", 0), e.get("proc", ""),
+                            e.get("seq", 0)))
+    return out
+
+
+#: process singleton, stamped on the process tracer's timeline
+_RECORDER = FlightRecorder()
+
+
+def recorder() -> FlightRecorder:
+    return _RECORDER
+
+
+def emit(kind: str, **data) -> dict:
+    """Emit one event into the process recorder."""
+    return _RECORDER.emit(kind, **data)

@@ -1,11 +1,11 @@
-"""Process-wide metrics registry: named counters and histograms.
+"""Process-wide metrics registry: named counters, gauges and histograms.
 
 The port's copy of the part of ``defer_tpu.obs.registry`` that the
-pipeline engines use.  One registry per process (module-level
-:data:`REGISTRY`); instruments are created once by name and then held by
-the instrumented code as plain attributes, so the hot path never goes
-through the registry dict.  Snapshots are pull-based: ``snapshot()``
-returns a JSON-ready dict.
+pipeline engines and the dispatcher use.  One registry per process
+(module-level :data:`REGISTRY`); instruments are created once by name and
+then held by the instrumented code as plain attributes, so the hot path
+never goes through the registry dict.  Snapshots are pull-based:
+``snapshot()`` returns a JSON-ready dict.
 
 Callbacks let existing stat objects (``PipelineMetrics``'s plain-int
 counters) appear in snapshots without paying any registry cost when they
@@ -41,6 +41,51 @@ class Counter:
         return f"Counter({self.n})"
 
 
+class Gauge:
+    """Last-written value, with additive updates and a high watermark.
+
+    ``set`` is the single-writer spelling; ``inc``/``dec`` the
+    multi-writer one (several writers bound to one name compose instead
+    of overwriting each other).  A race under the GIL costs one update,
+    never a corrupt value.  ``hi`` is the largest value since the last
+    :meth:`take_watermark`.
+    """
+
+    __slots__ = ("v", "hi")
+
+    def __init__(self):
+        self.v = 0.0
+        self.hi = 0.0
+
+    def set(self, v: float) -> None:
+        self.v = v
+        if v > self.hi:
+            self.hi = v
+
+    def inc(self, k: float = 1.0) -> None:
+        v = self.v + k
+        self.v = v
+        if v > self.hi:
+            self.hi = v
+
+    def dec(self, k: float = 1.0) -> None:
+        self.v -= k
+
+    def take_watermark(self) -> float:
+        """Max value since the previous call; resets to the current value
+        (so each reporting interval sees its own peak)."""
+        h = self.hi if self.hi > self.v else self.v
+        self.hi = self.v
+        return h
+
+    @property
+    def value(self) -> float:
+        return self.v
+
+    def __repr__(self):
+        return f"Gauge({self.v})"
+
+
 class MetricsRegistry:
     """Named instruments with get-or-create semantics.
 
@@ -68,6 +113,12 @@ class MetricsRegistry:
     def counter(self, name: str) -> Counter:
         return self._get_or_create(name, Counter)
 
+    def gauge(self, name: str) -> Gauge:
+        return self._get_or_create(name, Gauge)
+
+    def histogram(self, name: str) -> LatencyHistogram:
+        return self._get_or_create(name, LatencyHistogram)
+
     def register(self, name: str, instrument, weak: bool = False) -> None:
         """Attach an externally-owned instrument under ``name``.
         ``weak=True`` holds it by weakref: once its owner is collected the
@@ -84,7 +135,8 @@ class MetricsRegistry:
             self._callbacks[name] = fn
 
     def snapshot(self) -> dict:
-        """JSON-ready view: counters as numbers, histograms as summaries.
+        """JSON-ready view: counters and gauges as numbers, histograms as
+        summaries.
 
         A callback returning ``None`` marks itself expired (its source was
         collected) and is pruned, as are dead weak-registered instruments.

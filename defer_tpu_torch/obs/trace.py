@@ -59,6 +59,13 @@ class Tracer:
             self._spans.popleft()
             _DROPPED.n += 1
 
+    def now_us(self) -> int:
+        """This process's current position on the span timeline (the
+        anchor ``record`` stamps ``ts_us`` with); events are stamped with
+        it, so they interleave with the spans."""
+        return self._wall0_us + int(
+            (time.perf_counter() - self._mono0) * 1e6)
+
     @property
     def spans(self) -> list[dict]:
         return list(self._spans)

@@ -6,9 +6,10 @@ bounds it and how the design responds), built for ``sm_90a`` by
 ``ops/_build.py`` at first use and called through ctypes.  The wrapper
 checks device, dtype, shape and layout, allocates the output, launches on
 PyTorch's current stream, raises on a launch error, and counts its
-launches in ``KERNEL.launches`` — so a run can show that its path went
-through the kernel.  Nothing here runs at import: the CPU tests import
-this module.
+launches in ``KERNEL.launches`` (and by dtype) — so a run can show that
+its path went through the kernel; under a CUDA graph the ring engine keeps
+the count (``ops/launches.py``).  Nothing here runs at import: the CPU
+tests import this module.
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ import torch
 
 from . import _build
 from .flash_attention import _check, softmax_scale
+from .launches import LaunchCounter
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: largest head dim the kernel takes (it pads D to 64 or 128)
 MAX_HEAD_DIM = 128
 
 
-class FlashAttentionKernel:
+class FlashAttentionKernel(LaunchCounter):
     """``csrc/flash_attention.cu``: its library, entry point and launch
     count."""
 
@@ -33,8 +35,7 @@ class FlashAttentionKernel:
     source = "flash_attention.cu"
 
     def __init__(self, defines: tuple[str, ...] = ()):
-        #: kernel launches made by this process (reset it to 0 to count a run)
-        self.launches = 0
+        super().__init__()
         #: macros the source is built with (``flash_timeline.py`` adds one)
         self.defines = defines
         self.lib = None
@@ -95,7 +96,7 @@ class FlashAttentionKernel:
         if code != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error "
                                f"{code} ({self._err(code).decode()})")
-        self.launches += 1
+        self.count(q.dtype)
         return o
 
 

@@ -6,8 +6,10 @@ design responds), built for ``sm_90a`` by ``ops/_build.py`` at first use
 and called through ctypes.  The wrapper checks device, dtype, shape,
 contiguity and alignment, allocates the outputs, launches on PyTorch's
 current stream, raises on a launch error, and counts its launches in
-``KERNEL.launches`` — so a run can show that its path went through the
-kernel.  Nothing here runs at import: the CPU tests import this module.
+``KERNEL.launches`` (and by dtype) — so a run can show that its path went
+through the kernel; under a CUDA graph the ring engine keeps the count
+(``ops/launches.py``).  Nothing here runs at import: the CPU tests import
+this module.
 """
 
 from __future__ import annotations
@@ -17,20 +19,20 @@ import ctypes
 import torch
 
 from . import _build
+from .launches import LaunchCounter
 from .quant import BLOCK
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class QuantInt8Kernel:
+class QuantInt8Kernel(LaunchCounter):
     """``csrc/quant_int8.cu``: its library, entry point and launch count."""
 
     name = "quant_int8"
     source = "quant_int8.cu"
 
     def __init__(self):
-        #: kernel launches made by this process (reset it to 0 to count a run)
-        self.launches = 0
+        super().__init__()
         self._fn = None
         self._err = None
 
@@ -77,7 +79,7 @@ class QuantInt8Kernel:
         if code != 0:
             raise RuntimeError(f"{self.name} launch failed: CUDA error "
                                f"{code} ({self._err(code).decode()})")
-        self.launches += 1
+        self.count(x.dtype)
         return q, s
 
 

@@ -3,7 +3,7 @@
 The port of ``defer_tpu.partition.stage`` (``StageSpec`` and
 ``buffer_footprint``).  A StageSpec is pure metadata + a plain tensor
 function; the engines wrap it in a :class:`StageModule` that holds the
-stage's own parameters on its device.
+stage's own parameters on its device, in one flat row.
 """
 
 from __future__ import annotations
@@ -14,9 +14,8 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..graph.ir import LayerGraph, ShapeSpec, flatten_tree, unflatten_tree
+from ..graph.ir import LayerGraph, ShapeSpec, as_dtype
 from ..ops.quant import BLOCK
-from ..utils.convert import params_to_device
 
 
 def buffer_footprint(stages, *, microbatch: int = 1, itemsize: int = 4,
@@ -69,28 +68,92 @@ class StageSpec:
 
 
 class StageModule(nn.Module):
-    """One stage holding its own parameters on ``device``.
+    """One stage holding its parameters on ``device`` in one flat row.
 
-    Parameters are frozen ``nn.Parameter``s, one ``ParameterDict`` per
-    node keyed by each leaf's ``/``-joined path (``"qkv/w"``;
-    ``ParameterDict`` keys may not contain ``.``).  ``forward`` hands the
-    stage function the nested dict the ops expect.  Conv weights are
-    stored channels_last (``params_to_device``) so cuDNN reads them
-    without a per-call relayout.
+    ``row`` is one contiguous tensor in ``weight_dtype`` — the compute
+    dtype when one is set, else float32, as in the JAX engine
+    (``runtime/flatbuf.py`` lays it out) — and each leaf the stage function
+    reads is a frozen view into it — conv kernels as OIHW with
+    channels_last strides, so cuDNN reads them without a per-call
+    relayout.  :meth:`load` packs and validates new parameters and
+    :meth:`install` copies them into the same row, so every view (and any
+    CUDA graph that captured them) sees the new weights.
+
+    Leaf dtypes follow the JAX engine: under ``compute_dtype`` a float
+    leaf is read in the compute dtype; otherwise every leaf comes back in
+    its original dtype.  A leaf whose dtype is the row's is a view; any
+    other (an integer leaf, say) is cast from its view at each call.
     """
 
     def __init__(self, stage: StageSpec, params: dict[str, Any],
-                 device: torch.device):
+                 device: torch.device, *, compute_dtype=None):
+        # imported here: ``runtime``'s package imports this module
+        from ..runtime import flatbuf
+
         super().__init__()
         self.stage = stage
-        self.nodes = nn.ModuleDict({
-            name: nn.ParameterDict({
-                k: nn.Parameter(v, requires_grad=False)
-                for k, v in flatten_tree(leaves).items()})
-            for name, leaves in params_to_device(
-                stage.select_params(params), device).items()})
+        self.compute_dtype = (None if compute_dtype is None
+                              else as_dtype(compute_dtype))
+        self.weight_dtype = self.compute_dtype or torch.float32
+        self.paths, leaves = flatbuf.flatten_leaves(
+            stage.select_params(params))
+        self.meta = flatbuf.leaf_meta(leaves)
+        self.row = self._pack(leaves).to(device)
+        #: each leaf as a view into ``row`` (in the row's dtype)
+        self.leaves = flatbuf.unpack_leaves(self.row, self.meta)
+        self._dtypes = [self._leaf_dtype(m[3]) for m in self.meta]
+        self._tree = None
+        if all(d == self.row.dtype for d in self._dtypes):
+            self._tree = flatbuf.unflatten_leaves(self.paths, self.leaves)
+
+    def _leaf_dtype(self, dtype: torch.dtype) -> torch.dtype:
+        if self.compute_dtype is not None and dtype.is_floating_point:
+            return self.compute_dtype
+        return dtype
+
+    def _to_wire(self, leaf: torch.Tensor) -> torch.Tensor:
+        """One leaf in the row's dtype.  Float leaves simply cast (lossy
+        to bf16 is the deployment's choice); integer and bool leaves only
+        when they round-trip exactly, since a silently corrupted integer
+        parameter would be far worse than a loud error."""
+        wdt = self.weight_dtype
+        cast = leaf.to(wdt)
+        if leaf.is_floating_point() or torch.equal(cast.to(leaf.dtype), leaf):
+            return cast
+        raise ValueError(
+            f"stage {self.stage.name!r} has a non-float param leaf (dtype "
+            f"{leaf.dtype}) whose values do not survive the {wdt} weight "
+            f"buffer; use compute_dtype=None (float32 buffer, exact for "
+            f"|int| < 2**24) or keep such leaves out of the flat buffer")
+
+    def _pack(self, leaves) -> torch.Tensor:
+        from ..runtime import flatbuf
+        return flatbuf.pack_leaves(leaves, self.meta, self.weight_dtype,
+                                   self._to_wire)
+
+    def load(self, params: dict[str, Any], what: str) -> torch.Tensor:
+        """``params``' leaves for this stage packed into a new row (on the
+        leaves' device), after checking them against the deployed
+        layout."""
+        from ..runtime import flatbuf
+        paths, leaves = flatbuf.flatten_leaves(
+            self.stage.select_params(params))
+        flatbuf.check_layout(leaves, paths, self.meta, self.paths, what)
+        return self._pack(leaves)
+
+    def install(self, row: torch.Tensor) -> None:
+        """Copy a row from :meth:`load` into the deployed one, in place."""
+        with torch.inference_mode():
+            self.row.copy_(row)
+
+    def params(self) -> dict[str, Any]:
+        """The nested parameters the stage function reads."""
+        if self._tree is not None:
+            return self._tree
+        from ..runtime import flatbuf
+        return flatbuf.unflatten_leaves(
+            self.paths, [v if v.dtype == d else v.to(d)
+                         for v, d in zip(self.leaves, self._dtypes)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        params = {name: unflatten_tree(dict(pd.items()))
-                  for name, pd in self.nodes.items()}
-        return self.stage.fn(params, x)
+        return self.stage.fn(self.params(), x)

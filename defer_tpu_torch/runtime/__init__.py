@@ -1,5 +1,6 @@
-from .dispatcher import Defer
+from .dispatcher import END_OF_STREAM, Defer, DeferHandle
 from .mpmd import MpmdPipeline
 from .spmd import SpmdPipeline
 
-__all__ = ["Defer", "MpmdPipeline", "SpmdPipeline"]
+__all__ = ["END_OF_STREAM", "Defer", "DeferHandle", "MpmdPipeline",
+           "SpmdPipeline"]

@@ -1,23 +1,108 @@
 """Dispatcher: the user-facing API — the port of ``defer_tpu.runtime.dispatcher``.
 
-``Defer(config).run(graph, params, inputs, cut_points=...)`` partitions
-the graph, builds the pipeline engine on the configured device and streams
-the inputs through it.  This slice ports ``build``, ``run``, ``stream``
-and ``health_check``; the queue service (``run_defer``), the network
-endpoint and the decoder APIs are queued in ROADMAP.md.
+The reference's single entry point is ``run_defer``: queue in, queue out,
+streaming until told to stop.  ``Defer(config).run_defer(graph, params,
+cut_points, in_q, out_q)`` partitions the graph, builds the pipeline
+engine on the configured device and serves from a daemon thread, with a
+preflight probe, opportunistic chunk gathering, a resubmit log and a
+watchdog that rebuilds a hung engine and replays what it had not emitted.
+``build``, ``run``, ``stream`` and ``health_check`` are the batch and
+generator forms.  The network endpoint and the decoder APIs are queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import collections
+import queue
+import threading
+import time
 from typing import Any, Iterable, Iterator
 
 import numpy as np
+import torch
 
 from ..graph.ir import LayerGraph
+from ..obs import REGISTRY, tracer
+from ..obs.events import emit as emit_event
 from ..partition.partitioner import partition
+from ..transport.replay import ReplayBuffer
 from ..utils.config import DeferConfig, resolve_device
 from .mpmd import MpmdPipeline
 from .spmd import SpmdPipeline
+
+#: sentinel a producer puts on the input queue to end the stream
+END_OF_STREAM = None
+
+
+def _host(outs: list[torch.Tensor]) -> list[np.ndarray]:
+    """Outputs as float32 host arrays (waits for the device)."""
+    return [o.float().cpu().numpy() for o in outs]
+
+
+class DeferHandle:
+    """Handle to a running streaming deployment (returned by ``run_defer``)."""
+
+    def __init__(self, thread: threading.Thread | None, pipeline,
+                 stop_event: threading.Event):
+        self._thread = thread
+        self.pipeline = pipeline
+        self._stop = stop_event
+        #: exception that killed the serve thread, if any
+        self.error: BaseException | None = None
+        #: monotonic time the serve thread entered its current device
+        #: dispatch, or None while idle (read by the watchdog)
+        self._busy_since: float | None = None
+        #: completed dispatches; the watchdog arms after the first one
+        self._dispatches: int = 0
+        #: slowest completed dispatch (seconds): scales the watchdog bound
+        self._max_dispatch_s: float = 0.0
+        #: serve-thread generation: bumped by the watchdog on recovery so a
+        #: stale (wedged, later-unwedged) thread can never emit outputs
+        self._gen: int = 0
+        #: completed watchdog recoveries (rebuild + replay)
+        self.recoveries: int = 0
+        #: fed-but-not-yet-emitted real microbatch inputs, seq-stamped
+        #: ("ack" = "output emitted"): a recovery generation replays
+        #: ``unacked()``.  Assigned by ``run_defer``.
+        self._resubmit: ReplayBuffer | None = None
+        #: next feed seq to stamp / cumulative outputs emitted
+        self._fed: int = 0
+        self._emitted: int = 0
+        #: True once END_OF_STREAM was consumed from the input queue — a
+        #: recovery generation must not wait for a second END
+        self._end_seen: bool = False
+
+    def stop(self):
+        self._stop.set()
+
+    @property
+    def healthy(self) -> bool:
+        """False once the serve thread died or was declared hung."""
+        return self.error is None
+
+    def join(self, timeout: float | None = None):
+        """Wait for the serve thread; re-raises any error it died with.
+
+        Raises as soon as ``error`` is set rather than waiting for the
+        thread to exit: a thread the watchdog declared hung may never
+        return."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while self.error is None and self._thread.is_alive():
+            step = 0.25
+            if deadline is not None:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    break
+                step = min(step, left)
+            self._thread.join(step)
+        if self.error is not None:
+            raise RuntimeError(
+                "defer dispatcher thread failed") from self.error
+
+    @property
+    def metrics(self):
+        return self.pipeline.metrics
 
 
 class Defer:
@@ -98,3 +183,272 @@ class Defer:
             pad = [np.zeros_like(batch[0])] * (pipe.chunk - len(batch))
             yield from pipe.push(np.stack(batch + pad), n_real=len(batch))
         yield from pipe.flush()
+
+    def run_defer(self, graph, params, cut_points,
+                  input_stream: queue.Queue, output_stream: queue.Queue,
+                  *, num_stages=None) -> DeferHandle:
+        """Queue-in/queue-out streaming service (the reference's entry
+        point).  Returns at once with a handle; a daemon thread drains
+        ``input_stream`` ([microbatch, *in_shape] arrays) and fills
+        ``output_stream`` with float32 numpy outputs in input order.  Put
+        ``END_OF_STREAM`` (None) on the input queue — or call
+        ``handle.stop()`` — to shut down after draining the pipe.  On a
+        failure the handle records the error and the output queue gets
+        ``END_OF_STREAM``."""
+        pipe = self.build(graph, params, cut_points, num_stages)
+        stop = threading.Event()
+        cfg = self.config
+        disp_count = REGISTRY.counter("dispatcher.dispatches")
+        disp_hist = REGISTRY.histogram("dispatcher.dispatch_s")
+        # the resubmit window's bound: everything a pipeline can hold
+        # fed-but-unemitted, with slack for the gather in progress (the
+        # MPMD path never logs — its capacity is a placeholder)
+        log_cap = 1 if isinstance(pipe, MpmdPipeline) \
+            else 2 * (pipe.chunk + pipe.num_stages + 1)
+
+        def _dispatch(gen, fn, *a, arm=True, **kw):
+            # bracket device work so the watchdog can tell "waiting for
+            # input" (fine) from "stuck in a dispatch" (dead pipeline).
+            # arm=False exempts dispatches that may legitimately take long
+            # (first use of a shape: library set-up, graph capture).  All
+            # handle bookkeeping is generation-guarded: a wedged thread
+            # that unwedges after a recovery must not clobber the live
+            # generation's markers.
+            t0 = time.monotonic()
+            tp0 = time.perf_counter()
+            if arm and handle._gen == gen:
+                handle._busy_since = t0
+            try:
+                out = fn(*a, **kw)
+            finally:
+                if handle._gen == gen:
+                    handle._busy_since = None
+            if handle._gen == gen:
+                handle._dispatches += 1
+                handle._max_dispatch_s = max(handle._max_dispatch_s,
+                                             time.monotonic() - t0)
+            dt = time.monotonic() - t0
+            disp_count.n += 1
+            disp_hist.record(dt)
+            tr = tracer()
+            if tr.enabled:
+                tr.record("dispatcher.dispatch", tp0, dt, {"gen": gen})
+            return out
+
+        def _serve_inner(pipe, replay, gen):
+            def live() -> bool:
+                return handle._gen == gen and handle.error is None
+
+            if isinstance(pipe, MpmdPipeline):
+                if cfg.preflight:
+                    _dispatch(gen, pipe.run, np.zeros(
+                        (1, pipe.microbatch) + pipe.in_spec.shape,
+                        np.float32))
+                    if not live():
+                        return
+                seen_shapes: set[tuple] = set()
+                pipe.reset()
+                while not stop.is_set() and live():
+                    try:
+                        x = input_stream.get(timeout=0.05)
+                    except queue.Empty:
+                        continue
+                    if x is END_OF_STREAM:
+                        break
+                    xa = np.asarray(x)
+                    # a new shape's first dispatch may take library set-up
+                    # time: don't let the watchdog mistake it for a hang
+                    fresh = xa.shape not in seen_shapes
+                    seen_shapes.add(xa.shape)
+                    # copy to the host INSIDE the bracket: push only queues
+                    # device work, and a wedged device would otherwise hang
+                    # the copy with the watchdog disarmed
+                    outs = _dispatch(gen, lambda: _host(pipe.push(xa[None])),
+                                     arm=not fresh)
+                    if not live():
+                        return  # watchdog fired mid-dispatch
+                    for o in outs:
+                        output_stream.put(o)
+                if not live():
+                    return
+                outs = _dispatch(gen, lambda: _host(pipe.flush()))
+                if not live():
+                    return
+                for o in outs:
+                    output_stream.put(o)
+                return
+
+            # ---- SPMD path: resubmit log + replay-aware input feed ----
+            log = handle._resubmit
+            pending: collections.deque = collections.deque(replay)
+
+            def next_input(timeout: float):
+                if pending:
+                    return pending.popleft()
+                if handle._end_seen:
+                    # the caller's END was consumed by a previous (wedged)
+                    # generation; never wait for a second one
+                    raise queue.Empty
+                return input_stream.get(timeout=timeout)
+
+            pipe.reset()
+            if cfg.preflight:
+                # serve the first real input from an already-validated
+                # full-chunk program (on the card: an already-captured
+                # graph).  arm=False: on a recovery generation _dispatches
+                # is already > 0 and this dispatch would otherwise re-trip
+                # the watchdog
+                _dispatch(gen, pipe.warmup, arm=False)
+                if not live():
+                    return
+            done = False
+            while not done and not stop.is_set() and live():
+                if handle._end_seen and not pending:
+                    break  # recovery after END: replay done, go flush
+                batch: list[np.ndarray] = []
+                try:
+                    batch.append(next_input(0.05))
+                except queue.Empty:
+                    if handle._end_seen:
+                        break
+                    continue
+                if batch[0] is END_OF_STREAM:
+                    handle._end_seen = True
+                    break
+                # opportunistically gather a fuller chunk (the reference's
+                # in-flight window); don't stall waiting for stragglers
+                while len(batch) < pipe.chunk:
+                    try:
+                        nxt = next_input(cfg.gather_timeout_s)
+                    except queue.Empty:
+                        break
+                    if nxt is END_OF_STREAM:
+                        handle._end_seen = True
+                        done = True
+                        break
+                    batch.append(nxt)
+                n_real = len(batch)
+                pad = [np.zeros_like(batch[0])] * (pipe.chunk - n_real)
+                block = np.stack(batch + pad)
+                # record the fed microbatches BEFORE dispatch: if the
+                # dispatch wedges, the recovery generation replays exactly
+                # these (plus everything older still in the pipe)
+                for x in batch:
+                    if log.depth() >= log.capacity:
+                        # acks track emits, so this is a bug: raise instead
+                        # of letting retain() block on it
+                        raise RuntimeError(
+                            f"resubmit log overflow ({log.depth()} >= "
+                            f"{log.capacity})")
+                    log.retain(handle._fed, x)
+                    handle._fed += 1
+                outs = _dispatch(
+                    gen, lambda: _host(pipe.push(block, n_real=n_real)))
+                if not live():
+                    return  # watchdog fired mid-dispatch; sentinel is out
+                for o in outs:
+                    # emitted: no longer replayable (cumulative ack)
+                    handle._emitted += 1
+                    log.ack(handle._emitted)
+                    output_stream.put(o)
+            if not live():
+                return
+            outs = _dispatch(gen, lambda: _host(pipe.flush()))
+            if not live():
+                # the watchdog fired during the drain: the sentinel is
+                # already on the queue, and outputs after it would break
+                # the stream protocol for readers
+                return
+            for o in outs:
+                handle._emitted += 1
+                log.ack(handle._emitted)
+                output_stream.put(o)
+
+        def start_generation(pipe, replay, gen):
+            def serve():
+                try:
+                    _serve_inner(pipe, replay, gen)
+                except BaseException as e:  # surface errors instead of a
+                    if handle._gen == gen:  # silent dead thread and a
+                        handle.error = e    # forever-blocked reader
+                        output_stream.put(END_OF_STREAM)
+
+            t = threading.Thread(target=serve, daemon=True,
+                                 name=f"defer-dispatcher-g{gen}")
+            handle._thread = t
+            handle.pipeline = pipe
+            t.start()
+
+        handle = DeferHandle(None, pipe, stop)
+        handle._resubmit = ReplayBuffer(log_cap,
+                                        gauge="dispatcher.replay_depth")
+        start_generation(pipe, [], 0)
+
+        if cfg.watchdog_s is not None:
+            def watch():
+                while not stop.is_set() and handle._thread.is_alive():
+                    busy = handle._busy_since
+                    # the bound scales with the slowest dispatch this
+                    # deployment has completed, so a legitimately slow
+                    # deployment raises its own threshold
+                    wd = max(cfg.watchdog_s,
+                             cfg.watchdog_scale * handle._max_dispatch_s)
+                    # unarmed until one dispatch completed
+                    if (handle._dispatches > 0 and busy is not None
+                            and time.monotonic() - busy > wd):
+                        if (handle.recoveries < cfg.max_recoveries
+                                and not isinstance(handle.pipeline,
+                                                   MpmdPipeline)):
+                            # RECOVER: abandon the wedged generation,
+                            # rebuild the pipeline and replay the
+                            # fed-but-unemitted microbatches
+                            handle.recoveries += 1
+                            handle._gen += 1
+                            handle._busy_since = None
+                            emit_event("watchdog", action="recover",
+                                       gen=handle._gen,
+                                       stalled_s=round(
+                                           time.monotonic() - busy, 3))
+                            t_rec = time.perf_counter()
+                            # the unacked window IS the replay set; the
+                            # new generation re-feeds (re-retains) it, in
+                            # a fresh window and seq space
+                            replay = [v for _, v
+                                      in handle._resubmit.unacked()]
+                            handle._resubmit = ReplayBuffer(
+                                log_cap, gauge="dispatcher.replay_depth")
+                            handle._fed = handle._emitted = 0
+                            try:
+                                new_pipe = self.build(graph, params,
+                                                      cut_points, num_stages)
+                            except BaseException as e:  # noqa: BLE001
+                                handle.error = e
+                                stop.set()
+                                output_stream.put(END_OF_STREAM)
+                                return
+                            start_generation(new_pipe, replay, handle._gen)
+                            emit_event(
+                                "failover", hop="dispatcher",
+                                chan=handle._gen, addr="in-process",
+                                replayed=len(replay),
+                                recovery_ms=round(
+                                    (time.perf_counter() - t_rec) * 1e3,
+                                    3))
+                            continue
+                        # out of recoveries (or MPMD): a dead device
+                        # surfaces instead of hanging forever
+                        emit_event("watchdog", action="dead",
+                                   gen=handle._gen,
+                                   stalled_s=round(
+                                       time.monotonic() - busy, 3))
+                        handle.error = TimeoutError(
+                            f"pipeline dispatch made no progress for "
+                            f"{wd:.1f}s; deployment declared dead")
+                        stop.set()  # serve loop exits; no outputs after
+                        output_stream.put(END_OF_STREAM)  # the sentinel
+                        return
+                    time.sleep(min(0.25, wd / 4))
+
+            threading.Thread(target=watch, daemon=True,
+                             name="defer-watchdog").start()
+        return handle

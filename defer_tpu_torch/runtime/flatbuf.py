@@ -1,0 +1,127 @@
+"""Flat per-stage weight rows: the port of ``defer_tpu.runtime.flatbuf``.
+
+Each stage's parameters live in ONE contiguous tensor on its device (the
+stage's row), and every leaf the stage function reads is a view into it
+(``narrow`` + ``view``), so installing new weights is one ``copy_`` into
+the row and anything that captured the views (a CUDA graph) sees them.
+On one card there is no ``[N, Pmax]`` stack: nothing shards the rows yet.
+
+Leaves are laid out in the JAX package's order — sorted key paths, the
+order ``jax.tree.flatten`` gives a dict — so a row holds the JAX row's
+leaves in the same sequence.  Two layout choices differ from it:
+
+* a 4-D leaf (a conv kernel, OIHW in the port) is stored in O-H-W-I order
+  and viewed as OIHW with channels_last strides, the layout cuDNN reads
+  without a per-call copy (the JAX row holds HWIO);
+* every leaf starts at a multiple of :data:`ALIGN` elements (the JAX row
+  packs them back to back), so each view is at least 16-byte aligned for
+  cuBLAS and cuDNN.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Sequence
+
+import torch
+
+#: per-leaf layout record: (offset, size, shape, dtype), offsets in elements
+LeafMeta = tuple[int, int, tuple[int, ...], torch.dtype]
+#: a leaf's key path: node name, then its nested keys
+Path = tuple[str, ...]
+
+#: leaf offsets are multiples of this many elements (>= 16 bytes for any
+#: dtype of 1 byte or more)
+ALIGN = 64
+
+
+def flatten_leaves(tree: dict) -> tuple[tuple[Path, ...], list[torch.Tensor]]:
+    """``(paths, leaves)`` of a nested dict, in sorted key-path order.
+
+    The paths play the part of the JAX treedef: two trees with the same
+    paths unflatten alike."""
+    flat: dict[Path, Any] = {}
+
+    def walk(node: dict, prefix: Path) -> None:
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat[prefix + (k,)] = v
+
+    walk(tree, ())
+    paths = tuple(sorted(flat))
+    return paths, [torch.as_tensor(flat[p]) for p in paths]
+
+
+def unflatten_leaves(paths: Sequence[Path], leaves: Sequence[Any]) -> dict:
+    """Inverse of :func:`flatten_leaves`."""
+    tree: dict = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def leaf_meta(leaves: Sequence[torch.Tensor]) -> list[LeafMeta]:
+    """Offsets/sizes/shapes/dtypes of ``leaves`` laid out in order, each
+    offset rounded up to :data:`ALIGN`."""
+    meta, off = [], 0
+    for leaf in leaves:
+        off = -(-off // ALIGN) * ALIGN
+        meta.append((off, leaf.numel(), tuple(leaf.shape), leaf.dtype))
+        off += leaf.numel()
+    return meta
+
+
+def check_layout(leaves: Sequence[torch.Tensor], paths: Sequence[Path],
+                 want_meta: Sequence[LeafMeta], want_paths: Sequence[Path],
+                 what: str) -> None:
+    """Validate PRE-cast leaves and their paths against a deployed row.
+
+    The deployed views were cut with the recorded paths, shapes and
+    dtypes: all three must match, or new values would land in the wrong
+    leaves or be cast blindly — so this raises before anything touches
+    the deployed row."""
+    if tuple(paths) != tuple(want_paths):
+        raise ValueError(
+            f"{what}: param tree structure differs from the deployed one")
+    want = [(m[2], m[3]) for m in want_meta]
+    got = [(tuple(l.shape), l.dtype) for l in leaves]
+    if want != got:
+        raise ValueError(f"{what}: leaves {got} != deployed {want}")
+
+
+def _storage_order(leaf: torch.Tensor) -> torch.Tensor:
+    """A 4-D OIHW leaf in O-H-W-I order; any other leaf as it is."""
+    return leaf.permute(0, 2, 3, 1) if leaf.dim() == 4 else leaf
+
+
+def pack_leaves(leaves: Sequence[torch.Tensor], meta: Sequence[LeafMeta],
+                wire_dtype: torch.dtype,
+                cast: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """One flat row on the leaves' device: each leaf, in storage order and
+    cast to ``wire_dtype`` by ``cast``, at its offset; the gaps between
+    leaves are zero."""
+    device = leaves[0].device if leaves else None
+    row = torch.zeros(max((off + n for off, n, _, _ in meta), default=0),
+                      dtype=wire_dtype, device=device)
+    for leaf, (off, n, _, _) in zip(leaves, meta):
+        row[off:off + n] = cast(_storage_order(leaf)).reshape(-1)
+    return row
+
+
+def unpack_leaves(row: torch.Tensor, meta: Sequence[LeafMeta]
+                  ) -> list[torch.Tensor]:
+    """Each leaf as a view into ``row``, in the row's dtype: 4-D leaves as
+    OIHW with channels_last strides, the others contiguous."""
+    leaves = []
+    for off, size, shape, _ in meta:
+        seg = row.narrow(0, off, size)
+        if len(shape) == 4:
+            o, i, h, w = shape
+            leaves.append(seg.view(o, h, w, i).permute(0, 3, 1, 2))
+        else:
+            leaves.append(seg.view(shape))
+    return leaves

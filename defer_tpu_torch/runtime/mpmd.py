@@ -17,6 +17,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from ..graph.ir import as_dtype
 from ..obs import tracer
 from ..partition.stage import StageModule, StageSpec
 from ..utils.config import resolve_device
@@ -26,7 +27,16 @@ from .spmd import check_single_card
 
 class MpmdPipeline:
     """Per-stage modules relaying each microbatch, on one device
-    (``device=None`` means the CUDA card)."""
+    (``device=None`` means the CUDA card).
+
+    Under ``compute_dtype`` the stages keep float32 weights and only a
+    floating model input is cast to the compute dtype, as in the JAX
+    package; each op then casts its weights to its input's dtype.  So a
+    model whose first op makes float32 from an integer input (BERT's
+    embeddings from token ids) runs in float32 here, and where the SPMD
+    engine reads weights from a compute-dtype row the two differ by that
+    rounding.
+    """
 
     def __init__(self, stages: Sequence[StageSpec], params: dict[str, Any],
                  *, device: str | torch.device | None = None,
@@ -36,10 +46,16 @@ class MpmdPipeline:
         self.stages = list(stages)
         self.num_stages = n = len(self.stages)
         self.microbatch = microbatch
+        self.compute_dtype = (None if compute_dtype is None
+                              else as_dtype(compute_dtype))
         self.modules = [StageModule(s, params, self.device)
                         for s in self.stages]
         self.in_spec = self.stages[0].in_spec
         self.out_spec = self.stages[-1].out_spec
+        self._x_dtype = (self.compute_dtype
+                         if self.compute_dtype is not None
+                         and self.in_spec.dtype.is_floating_point
+                         else self.in_spec.dtype)
         self.metrics = PipelineMetrics(num_stages=n, microbatch=microbatch)
         self.metrics.bind()
         self.reset()
@@ -59,6 +75,7 @@ class MpmdPipeline:
         the CPU, where the work is done on return)."""
         x = torch.as_tensor(np.asarray(x_np)).to(self.device,
                                                  self.in_spec.dtype)
+        x = x.to(self._x_dtype)
         for module in self.modules:
             x = module(x)
         done = None

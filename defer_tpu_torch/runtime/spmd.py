@@ -6,9 +6,9 @@ every device runs its stage on its slot of the activation ring and
 ``[N, microbatch, buf_elems]`` tensor in ``buffer_dtype``, and a step is:
 
   1. slot 0 takes the injected input (not quantized);
-  2. each stage k runs on slot k; its output is reshaped to
-     ``[b, out_sz]``, cast to ``buffer_dtype`` and zero-padded to
-     ``buf_elems``;
+  2. each stage k runs on slot k, its input cast to the compute dtype
+     (floating inputs only); its output is reshaped to ``[b, out_sz]``,
+     cast to ``buffer_dtype`` and zero-padded to ``buf_elems``;
   3. the ring rotates one slot (stage k's output to slot k+1, the last
      wraps to slot 0).  Under ``wire="int8"`` the whole ring is
      block-quantized in ONE kernel launch before the rotation and
@@ -18,12 +18,24 @@ every device runs its stage on its slot of the activation ring and
 
 Schedule (unchanged): at step t stage 0 starts microbatch t, stage k
 computes microbatch t-k, and the output at slot 0 after step t is
-microbatch t-N+1.  A chunk of steps is a plain Python loop.
+microbatch t-N+1.
+
+Weights: each stage holds one flat row (``runtime/flatbuf.py``) in
+``weight_dtype`` — ``compute_dtype`` when set, else float32, as in the JAX
+engine — and ``reweight`` copies new weights into the same rows.
+
+A chunk of steps: the JAX engine compiles it into one program (``lax.scan``
+inside ``jit``).  On the card its counterpart is one CUDA-graph replay per
+chunk.  The graph of a chunk length is captured at the first push of that
+length, on the pushing thread, after one eager warm-up pass on a scratch
+ring; the ring, the input block and the output slab are static tensors the
+graph reads and writes.  On the CPU a chunk is the same steps run eagerly.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import time
 from typing import Any, Sequence
 
@@ -32,19 +44,25 @@ import torch
 
 from ..graph.ir import ShapeSpec, as_dtype
 from ..obs import tracer
+from ..ops.launches import counted_kernels
 from ..ops.quant import quantized_ring_hop
 from ..partition.stage import StageModule, StageSpec, buffer_footprint
 from ..utils.config import resolve_device
 from ..utils.metrics import PipelineMetrics
+
+#: compute dtypes the port runs (its kernels take float32 and bfloat16)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_single_card(*, compute_dtype=None, data_parallel: int = 1,
                       tensor_parallel: int = 1,
                       master_weights: bool = False) -> None:
     """Raise for the reference options this port does not support yet."""
-    if compute_dtype is not None and as_dtype(compute_dtype) != torch.float32:
+    if compute_dtype is not None and as_dtype(compute_dtype) \
+            not in COMPUTE_DTYPES:
         raise NotImplementedError(
-            "compute_dtype other than float32 is not ported yet (ROADMAP)")
+            f"compute_dtype {compute_dtype!r} is not ported (float32 or "
+            "bfloat16)")
     if data_parallel != 1 or tensor_parallel != 1:
         raise NotImplementedError(
             "data_parallel / tensor_parallel need a multi-card ring "
@@ -53,6 +71,17 @@ def check_single_card(*, compute_dtype=None, data_parallel: int = 1,
         raise NotImplementedError(
             "master_weights belongs to the pipeline trainer (ROADMAP queue "
             "A16)")
+
+
+@dataclasses.dataclass
+class _ChunkGraph:
+    """One captured chunk: its graph, its static input block and output
+    slab, and the kernel launches one replay makes."""
+
+    graph: Any
+    xs: torch.Tensor
+    outs: torch.Tensor
+    launches: list
 
 
 class SpmdPipeline:
@@ -95,10 +124,18 @@ class SpmdPipeline:
         self.microbatch = microbatch
         self.chunk = chunk
         self.buffer_dtype = as_dtype(buffer_dtype)
+        self.compute_dtype = cd = (None if compute_dtype is None
+                                   else as_dtype(compute_dtype))
+        #: the flat rows' dtype: the compute dtype when set, else float32
+        self.weight_dtype = cd or torch.float32
         self.wire = wire
 
         self._in_sizes = [s.in_spec.size for s in self.stages]
         self._out_sizes = [s.out_spec.size for s in self.stages]
+        # stage k's input dtype: the compute dtype for floating inputs
+        self._x_dtypes = [cd if cd is not None
+                          and s.in_spec.dtype.is_floating_point
+                          else s.in_spec.dtype for s in self.stages]
         self._footprint = buffer_footprint(
             self.stages, microbatch=microbatch,
             itemsize=self.buffer_dtype.itemsize, wire=wire)
@@ -112,8 +149,8 @@ class SpmdPipeline:
                 "buffer_dtype=float32: ids above 256 are not exactly "
                 f"representable in {self.buffer_dtype}")
 
-        #: stage k's module, holding its own parameters on the device
-        self.modules = [StageModule(s, params, self.device)
+        #: stage k's module, holding its flat weight row on the device
+        self.modules = [StageModule(s, params, self.device, compute_dtype=cd)
                         for s in self.stages]
 
         self.metrics = PipelineMetrics(
@@ -121,52 +158,148 @@ class SpmdPipeline:
             buffer_bytes_per_hop=self._footprint["bytes_per_hop"])
         self.metrics.bind()
         self._flush_zeros = None  # lazy device-resident bubble block
+        #: the ring: allocated once, zeroed in place by ``reset``, read and
+        #: written in place by every chunk (a captured graph holds it)
+        self._a = torch.zeros((n, microbatch, self.buf_elems),
+                              dtype=self.buffer_dtype, device=self.device)
+        self._graphs: dict[int, _ChunkGraph] = {}
         self.reset()
 
     # ------------------------------------------------------------------
-    # one pipeline step / one chunk
+    # weights
     # ------------------------------------------------------------------
+
+    def reweight(self, params) -> None:
+        """Install fresh weights into the live pipeline, in place.
+
+        The new params (same graph, same leaf shapes and dtypes) are
+        packed and checked for every stage first; only then is each row
+        copied into the deployed one, so a layout error leaves the
+        deployment untouched.  Captured graphs keep serving, now with the
+        new weights.  Microbatches still inside the pipe run their
+        REMAINING stages under the new weights (mixed-generation
+        execution) — call ``flush()`` first when a clean cut matters.
+        """
+        rows = [m.load(params, f"reweight: stage {s.name!r}")
+                for m, s in zip(self.modules, self.stages)]
+        for m, row in zip(self.modules, rows):
+            m.install(row)
+
+    # ------------------------------------------------------------------
+    # one stage / one pipeline step / one chunk
+    # ------------------------------------------------------------------
+
+    def _branch(self, k: int, slot: torch.Tensor) -> torch.Tensor:
+        """Stage k on one ring slot ``[b, buf_elems]``: ``[b, out_sz]`` in
+        the stage's compute dtype."""
+        b = slot.shape[0]
+        spec = self.stages[k].in_spec
+        x = slot[:, :self._in_sizes[k]].reshape((b,) + spec.shape)
+        return self.modules[k](x.to(self._x_dtypes[k])).reshape(
+            b, self._out_sizes[k])
 
     def _step(self, a: torch.Tensor) -> torch.Tensor:
         """Run every stage on its slot of ring ``a`` and rotate: the ring
         of the next step (``a`` is not modified)."""
-        n, b, buf = a.shape
+        buf = a.shape[2]
         y = torch.empty_like(a)
-        for k, module in enumerate(self.modules):
-            spec = self.stages[k].in_spec
-            x = a[k, :, :self._in_sizes[k]].reshape((b,) + spec.shape)
+        for k in range(self.num_stages):
             out_sz = self._out_sizes[k]
-            y[k, :, :out_sz] = module(x.to(spec.dtype)).reshape(b, out_sz)
+            y[k, :, :out_sz] = self._branch(k, a[k])  # cast to the buffer
             if out_sz < buf:
                 y[k, :, out_sz:] = 0
         if self.wire == "int8":
             return quantized_ring_hop(y, self.buffer_dtype)
         return torch.roll(y, 1, 0)
 
-    @torch.inference_mode()
-    def _run_chunk(self, xs: torch.Tensor) -> torch.Tensor:
-        """Advance ``xs.shape[0]`` steps; returns ``[C, B, out_sz_last]``:
-        what the last stage delivered to slot 0 at each step."""
+    def _chunk(self, ring: torch.Tensor, xs: torch.Tensor,
+               outs: torch.Tensor) -> None:
+        """Advance ``ring`` by ``xs.shape[0]`` steps, in place, writing
+        what the last stage delivered to slot 0 at step t to ``outs[t]``."""
         out_sz = self._out_sizes[-1]
-        outs = torch.empty((xs.shape[0], self.microbatch, out_sz),
-                           dtype=self.buffer_dtype, device=self.device)
-        a = self._a
+        a = ring
         for t in range(xs.shape[0]):
             a[0] = xs[t]  # inject at stage 0 (the dispatcher feeding node 0)
             a = self._step(a)
             outs[t] = a[0, :, :out_sz]
-        self._a = a
+        if a is not ring:
+            ring.copy_(a)
+
+    def _slab(self, c: int) -> torch.Tensor:
+        return torch.empty((c, self.microbatch, self._out_sizes[-1]),
+                           dtype=self.buffer_dtype, device=self.device)
+
+    @torch.inference_mode()
+    def _eager_chunk(self, xs: torch.Tensor) -> torch.Tensor:
+        """One chunk run step by step (the CPU's path): ``[C, B, out_sz]``."""
+        outs = self._slab(xs.shape[0])
+        self._chunk(self._a, xs, outs)
         return outs
+
+    @torch.inference_mode()
+    def _capture(self, c: int) -> _ChunkGraph:
+        """Capture the chunk of length ``c`` as a CUDA graph over static
+        buffers.  An eager warm-up pass on a scratch ring comes first, on a
+        side stream, so that library set-up (kernel loading, cuBLAS and
+        cuDNN handles) happens outside the capture.  Neither pass counts as
+        kernel launches; the capture's launches become the graph's own
+        count, added at each replay (``ops/launches.py``)."""
+        xs = torch.zeros((c, self.microbatch, self.buf_elems),
+                         dtype=self.buffer_dtype, device=self.device)
+        outs = self._slab(c)
+        kernels = counted_kernels()
+        before = [k.snapshot() for k in kernels]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._chunk(self._a.clone(), xs, outs)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        warm = [k.snapshot() for k in kernels]
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._chunk(self._a, xs, outs)
+        self.metrics.graph_pool_bytes += \
+            torch.cuda.memory_reserved(self.device) - reserved
+        launches = [(k, k.since(w)) for k, w in zip(kernels, warm)]
+        for k, snap in zip(kernels, before):
+            k.restore(snap)
+        self.metrics.captures += 1
+        return _ChunkGraph(graph, xs, outs, launches)
+
+    def _graph_chunk(self, xs: torch.Tensor) -> torch.Tensor:
+        """One chunk as one replay of its captured graph (captured at the
+        first push of its length); returns the static output slab."""
+        c = xs.shape[0]
+        g = self._graphs.get(c)
+        if g is None:
+            g = self._graphs[c] = self._capture(c)
+        with torch.inference_mode():
+            g.xs.copy_(xs)
+        g.graph.replay()
+        for kernel, delta in g.launches:
+            kernel.add(delta)
+        return g.outs
+
+    def _run_chunk(self, xs: torch.Tensor) -> torch.Tensor:
+        """Advance ``xs.shape[0]`` steps; returns ``[C, B, out_sz_last]``:
+        what the last stage delivered to slot 0 at each step (on the card,
+        the graph's slab, which the next replay overwrites)."""
+        if self.device.type == "cuda":
+            return self._graph_chunk(xs)
+        return self._eager_chunk(xs)
 
     # ------------------------------------------------------------------
     # streaming interface
     # ------------------------------------------------------------------
 
     def reset(self):
-        """Empty the pipe (all stages hold bubbles)."""
-        self._a = torch.zeros((self.num_stages, self.microbatch,
-                               self.buf_elems), dtype=self.buffer_dtype,
-                              device=self.device)
+        """Empty the pipe (all stages hold bubbles): the ring is zeroed in
+        place, never reallocated, so captured graphs stay valid."""
+        with torch.inference_mode():
+            self._a.zero_()
         self._step_count = 0
         self._fed = 0
         self._real: collections.deque[bool] = collections.deque()
@@ -243,7 +376,9 @@ class SpmdPipeline:
         return ready
 
     def _collect(self, outs: torch.Tensor, c: int, raw: bool = False):
-        """Map step outputs back to microbatch indices and drop bubbles."""
+        """Map step outputs back to microbatch indices and drop bubbles.
+        The completed range is cloned once: on the card ``outs`` is the
+        graph's slab, which the next replay overwrites."""
         n = self.num_stages
         out_shape = (self.microbatch,) + self.out_spec.shape
         # steps j in this chunk completing a microbatch m = step+j-(n-1)
@@ -255,20 +390,21 @@ class SpmdPipeline:
             raise RuntimeError("pipeline outputs out of feed order: "
                                f"{(self._step_count, j0, n, self._emitted)}")
         self._step_count += c
+        done = outs[j0:j1].clone() if cnt else None
 
         if raw:
             mask = np.array([self._real.popleft() for _ in range(cnt)], bool)
             self._emitted += cnt
             self.metrics.inferences += int(mask.sum()) * self.microbatch
-            return (outs[j0:j1] if cnt else None), mask
+            return done, mask
 
         emitted = []
-        for j in range(j0, j1):
+        for j in range(cnt):
             is_real = self._real.popleft()
             self._emitted += 1
             if is_real:
                 self.metrics.inferences += self.microbatch
-                emitted.append(outs[j].reshape(out_shape))
+                emitted.append(done[j].reshape(out_shape))
         return emitted
 
     def _bubble_block(self) -> torch.Tensor:
@@ -281,14 +417,16 @@ class SpmdPipeline:
 
     def warmup(self):
         """Run one full bubble chunk, leaving the pipe empty (the probe
-        ``Defer.health_check`` uses)."""
+        ``Defer.health_check`` and the dispatcher's preflight use; on the
+        card it captures the chunk's graph)."""
         self.reset()
         self.push(self._bubble_block(), n_real=0)
         self.reset()
 
     def flush(self):
         """Drain the pipe: run bubble chunks until every fed microbatch has
-        emerged (the fill/drain of the classic pipeline schedule)."""
+        emerged (the fill/drain of the classic pipeline schedule).  Always
+        full chunks, so draining replays the graph that serves traffic."""
         emitted = []
         target = self._fed  # overshoot bubbles beyond this are ignored
         block = self._bubble_block()
@@ -336,3 +474,47 @@ class SpmdPipeline:
         stage->successor boundary actually carries (hop k = stage k's
         output; the last entry is the wrap link back to slot 0)."""
         return list(self._footprint["hop_utilization"])
+
+    @torch.inference_mode()
+    def stage_latencies(self, params: dict[str, Any] | None = None,
+                        iters: int = 10) -> list[float]:
+        """Per-stage latency (seconds) of the deployed stages on a bubble
+        slot: ``iters`` calls of each stage, timed with CUDA events on the
+        card and the host clock on the CPU.  The deployment's own rows,
+        compute dtype and buffer dtype are what run.  ``params`` is
+        accepted for the JAX signature and unused.  Fills
+        ``metrics.stage_latency_s``; kernel launches made here are not
+        pipeline steps and are not counted."""
+        del params  # weights come from the deployed rows
+        kernels = counted_kernels()
+        before = [k.snapshot() for k in kernels]
+        slot = torch.zeros((self.microbatch, self.buf_elems),
+                           dtype=self.buffer_dtype, device=self.device)
+        cuda = self.device.type == "cuda"
+        lats = []
+        for k in range(self.num_stages):
+            self._branch(k, slot)  # warm-up
+            t0 = time.perf_counter()
+            if cuda:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            for _ in range(iters):
+                self._branch(k, slot)
+            if cuda:
+                ev[1].record()
+                ev[1].synchronize()
+                lat = ev[0].elapsed_time(ev[1]) / 1e3 / iters
+            else:
+                lat = (time.perf_counter() - t0) / iters
+            lats.append(lat)
+            self.metrics.record_stage_latency(k, lat)
+            tr = tracer()
+            if tr.enabled:
+                tr.record(f"stage{k}:{self.stages[k].name}", t0,
+                          time.perf_counter() - t0,
+                          {"stage": k, "mean_latency_s": lat,
+                           "iters": iters})
+        for kernel, snap in zip(kernels, before):
+            kernel.restore(snap)
+        self.metrics.stage_latency_s = lats
+        return lats

@@ -40,8 +40,8 @@ class DeferConfig:
     chunk: int = 16
     # dtype of the homogeneous inter-stage transfer buffer
     buffer_dtype: str = "float32"
-    # dtype activations are cast to inside each stage (None = model dtype);
-    # only None is supported by this port so far
+    # dtype activations are cast to inside each stage (None = model dtype):
+    # float32 or bfloat16; the ring engine then stores weights in it too
     compute_dtype: str | None = None
     # keep weights in f32 and cast inside each stage (training recipe);
     # not supported by this port so far
@@ -58,3 +58,20 @@ class DeferConfig:
     mode: str = "spmd"
     # device the pipeline runs on; None = the CUDA card
     device: str | None = None
+    # seconds ``run_defer`` waits for more queue items before padding a
+    # partial chunk with bubbles
+    gather_timeout_s: float = 0.002
+    # failure detection in ``run_defer``: once past the first dispatch, a
+    # dispatch that makes no progress for max(watchdog_s, watchdog_scale *
+    # slowest completed dispatch) seconds declares the serve thread hung
+    # (None disables)
+    watchdog_s: float | None = 60.0
+    # multiplier on the slowest completed dispatch (the preflight included)
+    watchdog_scale: float = 8.0
+    # run a full-chunk bubble probe through the freshly built pipeline
+    # before serving, so build failures surface as handle.error at once
+    preflight: bool = True
+    # how many times the watchdog rebuilds a hung SPMD pipeline and replays
+    # the fed-but-unemitted microbatches before declaring it dead (0 =
+    # detection only)
+    max_recoveries: int = 1

@@ -32,10 +32,16 @@ class PipelineMetrics:
     #: per-chunk ``push`` wall time (host dispatch + collect), log-bucketed
     push_latency: LatencyHistogram = dataclasses.field(
         default_factory=LatencyHistogram)
-    #: per-stage latency distributions (no engine of the port fills them
-    #: yet: the reference's ``stage_latencies`` is not ported)
+    #: per-stage latency distributions (filled by ``record_stage_latency``
+    #: / ``SpmdPipeline.stage_latencies``)
     stage_hists: list[LatencyHistogram] = dataclasses.field(
         default_factory=list)
+    #: CUDA graphs captured (one per chunk length the engine was pushed);
+    #: ``reweight`` and ``reset`` never capture again
+    captures: int = 0
+    #: device memory the captured graphs hold in their private pools
+    #: (``torch.cuda.memory_reserved`` across each capture)
+    graph_pool_bytes: int = 0
     #: registry prefix once bound (``bind``), e.g. "pipeline3"
     prefix: str | None = None
 
@@ -53,7 +59,8 @@ class PipelineMetrics:
         p = self.prefix
         ref = weakref.ref(self)
         for field in ("num_stages", "microbatch", "inferences", "steps",
-                      "wall_s", "chunk_calls", "buffer_bytes_per_hop"):
+                      "wall_s", "chunk_calls", "buffer_bytes_per_hop",
+                      "captures"):
             registry.register_callback(
                 f"{p}.{field}",
                 lambda r=ref, f=field:
@@ -73,6 +80,21 @@ class PipelineMetrics:
         registry.register(f"{p}.push_latency_s", self.push_latency,
                           weak=True)
         return p
+
+    def record_stage_latency(self, stage: int, seconds: float) -> None:
+        """Feed one per-stage latency sample (grows the histogram list on
+        demand and keeps the ``stage_latency_s`` means in sync)."""
+        while len(self.stage_hists) <= stage:
+            self.stage_hists.append(LatencyHistogram())
+            if self.prefix is not None:
+                getattr(self, "_registry", REGISTRY).register(
+                    f"{self.prefix}.stage{len(self.stage_hists) - 1}"
+                    f".latency_s", self.stage_hists[-1], weak=True)
+        h = self.stage_hists[stage]
+        h.record(seconds)
+        while len(self.stage_latency_s) <= stage:
+            self.stage_latency_s.append(0.0)
+        self.stage_latency_s[stage] = h.mean
 
     @property
     def throughput(self) -> float:

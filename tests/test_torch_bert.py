@@ -123,13 +123,19 @@ def test_params_from_jax_nested(tiny):
     assert tuple(blk["qkv"]["w"].shape) == (32, 96)
     np.testing.assert_array_equal(params["embeddings"]["ln"]["scale"].numpy(),
                                   np_params["embeddings"]["ln"]["scale"])
-    # a stage module keeps one frozen parameter per leaf, by leaf path,
-    # and hands its stage the nested dict back
+    # a stage module keeps each leaf, by key path, as a frozen view into
+    # its one flat row, and hands its stage the nested dict back
     mod = StageModule(partition(tg, num_stages=4)[1], params, "cpu")
-    keys = {n: set(pd) for n, pd in mod.nodes.items()}
-    assert keys and all("qkv/w" in k and "ln1/scale" in k
-                        for k in keys.values())
-    assert not any(p.requires_grad for p in mod.parameters())
+    nodes = {path[0] for path in mod.paths}
+    assert nodes and all({(n, "qkv", "w"), (n, "ln1", "scale")}
+                         <= set(mod.paths) for n in nodes)
+    row = mod.row.untyped_storage().data_ptr()
+    assert all(v.untyped_storage().data_ptr() == row for v in mod.leaves)
+    assert not any(v.requires_grad for v in mod.leaves)
+    assert not any(True for _ in mod.parameters())
+    tree = mod.params()
+    np.testing.assert_array_equal(tree["block_1"]["qkv"]["w"].numpy(),
+                                  np_params["block_1"]["qkv"]["w"])
 
     bad = dict(np_params, block_0=dict(np_params["block_0"]))
     bad["block_0"]["qkv"] = {"w": np_params["block_0"]["qkv"]["w"]}

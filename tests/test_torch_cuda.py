@@ -13,6 +13,11 @@ order), and in bfloat16 to one bf16 ulp of the plain output plus that
 same 1e-5 (the f32 results may differ by it before each is rounded to
 bf16).  The CPU parity tests hold
 the plain versions to the JAX package.
+
+The ring engine's tests hold one CUDA-graph replay per chunk to the eager
+loop, and check that launch counts survive replays (the capture and its
+warm-up pass are not counted), that ``reweight`` and ``reset`` work in
+place without a new capture, and which dtypes the kernels run in.
 """
 
 import math
@@ -265,3 +270,132 @@ def test_bert_pipeline_on_card_launches_flash_per_stage_step(cuda):
         scale = np.abs(outs["cpu"]).max()
         tol = 1e-5 * scale if wire == "buffer" else scale / 127
         assert np.abs(outs["cuda"] - outs["cpu"]).max() <= tol
+
+
+# ---------------------------------------------------------------------------
+# the ring engine on the card: one CUDA-graph replay per chunk
+# ---------------------------------------------------------------------------
+
+
+def _pipe(model, device, **kw):
+    """A 4-stage pipeline of the tiny model on ``device``, its seeded
+    params, and a [5, 2, ...] input block."""
+    import numpy as np
+
+    from defer_tpu_torch import SpmdPipeline, models, partition
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = getattr(models, model)()
+    params = g.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    x = (rng.integers(0, 100, (5, 2, 16)).astype(np.float32)
+         if model == "bert_tiny"
+         else rng.standard_normal((5, 2, 32, 32, 3)).astype(np.float32))
+    kw = dict(dict(microbatch=2, chunk=3), **kw)
+    return (SpmdPipeline(partition(g, num_stages=4), params, device=device,
+                         **kw), params, x)
+
+
+@pytest.mark.parametrize("model,wire", [("resnet_tiny", "int8"),
+                                        ("bert_tiny", "buffer"),
+                                        ("bert_tiny", "int8")])
+def test_graph_replay_equals_eager(cuda, model, wire):
+    """One chunk through the graph and through the eager loop, from the
+    same ring: the same outputs and the same ring after (to 1e-6 of max
+    |output|)."""
+    pipe, _, x = _pipe(model, cuda, wire=wire)
+    xs = pipe.stage_inputs(x[:3])
+    pipe.push(xs)  # captures, then fills the ring
+    assert pipe.metrics.captures == 1
+    ring = pipe._a.clone()
+    graph_out = pipe._run_chunk(xs).clone()
+    graph_ring = pipe._a.clone()
+    pipe._a.copy_(ring)
+    eager_out = pipe._eager_chunk(xs)
+    torch.cuda.synchronize()
+    scale = eager_out.abs().max().item()
+    assert scale > 0
+    assert (graph_out - eager_out).abs().max().item() <= 1e-6 * scale
+    assert (graph_ring - pipe._a).abs().max().item() <= \
+        1e-6 * pipe._a.abs().max().item()
+    assert pipe.metrics.captures == 1
+
+
+def test_launch_counts_per_replay(cuda):
+    """Neither the capture nor its warm-up pass counts; every replay adds
+    the chunk's launches."""
+    pipe, _, x = _pipe("bert_tiny", cuda, wire="int8")
+    FLASH.zero()
+    KERNEL.zero()
+    pipe.warmup()  # capture + one replay of a bubble chunk
+    assert pipe.metrics.captures == 1
+    assert (FLASH.launches, KERNEL.launches) == (4 * 3, 3)
+    pipe.push(x[:3])
+    pipe.push(x[:3])
+    assert (FLASH.launches, KERNEL.launches) == (4 * 9, 9)
+    assert FLASH.by_dtype == {"float32": 36}
+    assert KERNEL.by_dtype == {"float32": 9}
+    assert pipe.metrics.captures == 1
+
+
+def test_reweight_after_capture(cuda):
+    """``reweight`` copies into the rows the graph reads: the next run
+    equals a pipeline built on the new weights, with no new capture."""
+    from defer_tpu_torch import SpmdPipeline
+    from defer_tpu_torch.graph.ir import tree_map
+
+    pipe, params, x = _pipe("resnet_tiny", cuda, wire="int8")
+    pipe.run(x)
+    assert pipe.metrics.captures == 1
+    params2 = tree_map(lambda v: v * 0.5, params)
+    pipe.reweight(params2)
+    out = pipe.run(x)
+    fresh = SpmdPipeline(pipe.stages, params2, device=cuda, microbatch=2,
+                         chunk=3, wire="int8").run(x)
+    assert abs(out - fresh).max() <= 1e-6 * abs(fresh).max()
+    assert pipe.metrics.captures == 1
+
+
+def test_reset_in_place(cuda):
+    """``reset`` zeroes the ring the graph holds, never a new one; runs
+    after it repeat exactly."""
+    pipe, _, x = _pipe("resnet_tiny", cuda)
+    ptr = pipe._a.data_ptr()
+    first = pipe.run(x)
+    pipe.reset()
+    pipe.push(x[:3])  # mid-stream: the ring holds activations
+    assert pipe._a.abs().max().item() > 0
+    pipe.reset()
+    assert pipe._a.data_ptr() == ptr and not pipe._a.any()
+    assert (pipe.run(x) == first).all()
+    assert pipe._a.data_ptr() == ptr and pipe.metrics.captures == 1
+    assert pipe.metrics.graph_pool_bytes > 0
+
+
+def test_bert_flash_launch_dtypes(cuda):
+    """The flash kernel runs in the compute dtype: float32 on the f32
+    deployment; bfloat16 in every block under ``compute_dtype=bfloat16``
+    (BERT's embeddings read the bf16 table, as in the JAX engine)."""
+    for cd, dt in ((None, "float32"), ("bfloat16", "bfloat16")):
+        pipe, _, x = _pipe("bert_tiny", cuda, compute_dtype=cd)
+        FLASH.zero()
+        pipe.run(x)
+        assert FLASH.by_dtype == {dt: 4 * pipe.metrics.steps}
+
+
+def test_bf16_quantizer_on_bf16_ring(cuda):
+    """bf16 compute on a bf16 ring under the int8 wire: one bf16 quantizer
+    launch per step, and the outputs within 5e-2 of max |output| of the
+    same pipeline on the CPU (cuDNN and the CPU round bf16 convolutions
+    differently, and the int8 wire can turn such a difference into a quant
+    step)."""
+    import numpy as np
+
+    kw = dict(wire="int8", compute_dtype="bfloat16", buffer_dtype="bfloat16")
+    pipe, _, x = _pipe("resnet_tiny", cuda, **kw)
+    KERNEL.zero()
+    out = pipe.run(x)
+    assert KERNEL.by_dtype == {"bfloat16": pipe.metrics.steps}
+    cpu = _pipe("resnet_tiny", "cpu", **kw)[0].run(x)
+    assert np.abs(out - cpu).max() <= 5e-2 * np.abs(cpu).max()

@@ -34,6 +34,10 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.ops.quant_cuda; "
             "import defer_tpu_torch.ops.flash_attention_cuda; "
             "import defer_tpu_torch.ops.flash_timeline; "
+            "import defer_tpu_torch.ops.launches; "
+            "import defer_tpu_torch.runtime.flatbuf; "
+            "import defer_tpu_torch.obs.events; "
+            "import defer_tpu_torch.transport.replay; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -41,6 +45,11 @@ def test_import_loads_no_jax_module():
                          check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "defer_tpu_torch" in mods
+    for new in ("defer_tpu_torch.runtime.flatbuf",
+                "defer_tpu_torch.obs.events",
+                "defer_tpu_torch.transport.replay",
+                "defer_tpu_torch.ops.launches"):
+        assert new in mods
     bad = [m for m in mods if _is_forbidden(m)]
     assert bad == []
 

@@ -232,7 +232,7 @@ def test_unported_options_raise(tiny):
     for kw, match in ((dict(data_parallel=2), "A15"),
                       (dict(tensor_parallel=2), "A15"),
                       (dict(master_weights=True), "A16"),
-                      (dict(compute_dtype="bfloat16"), "compute_dtype")):
+                      (dict(compute_dtype="float16"), "compute_dtype")):
         with pytest.raises(NotImplementedError, match=match):
             SpmdPipeline(stages, params, device="cpu", **kw)
     with pytest.raises(ValueError, match="wire"):
