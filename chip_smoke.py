@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero before the result line:
               beside the plain version, the card's bound for the same
               work and, where one exists, the PyTorch library call that
               computes the same function (flash attention also on the
-              long causal prefill beside SDPA's causal mode);
+              long causal prefill and GPT-2 small's causal shapes beside
+              SDPA's causal mode);
   4. main   — two paths, each driven through ``Defer.run`` with the kernel
               launch counts zeroed just before every run and read just
               after; on the card every chunk is one CUDA-graph replay;
@@ -43,6 +44,18 @@ Phases, in order; any failure exits non-zero before the result line:
                    rows equal a fresh pipeline, with no new capture;
                 f. ``Defer.run_defer``: the bf16 int8 ResNet50 deployment
                    as a queue service, equal to ``Defer.run``;
+                g. GPT-2 small (12 blocks, d 768, vocabulary 50257, max_len
+                   256) in 12 stages, 96 prompts of 32 tokens: the
+                   decoder's tokens equal to an eager incremental loop of
+                   the same decode ops (f32 buffer cache on every group;
+                   int8 cache, bf16 and W8A16 on two), no flash launch on
+                   decode-rate steps; the fused prefill's K/V rows and
+                   tokens against decode rate and its flash launch count;
+                   beam search; graph against eager; ``reweight``;
+                   ``Defer.score`` on both wires against the forward (12
+                   flash launches per step); speculative decoding
+                   token-exact; tokens/s, time to first token, scored
+                   sequences/s and one decode replay profiled;
   5. report — the ``kernels`` JSON line, the card line, and the last line
               ``{"ok": true, "device": {...}}``.
 
@@ -111,7 +124,16 @@ FLASH_CASES = [
     ("d5_rows", 2, 3, 40, 50, 5, False, "float32"),
     ("offset_view", 2, 3, 70, 90, 32, True, "float32"),
     ("bf16_bert_base", 8, 12, 128, 128, 64, False, "bfloat16"),
+    # GPT-2 small's causal attention on its served paths (phase 4g): the
+    # fused prefill of a 32-token prompt, and Defer.score at bucket 128
+    ("gpt2_prefill", 8, 12, 32, 32, 64, True, "float32"),
+    ("gpt2_prefill_bf16", 8, 12, 32, 32, 64, True, "bfloat16"),
+    ("gpt2_score", 8, 12, 128, 128, 64, True, "float32"),
+    ("gpt2_score_bf16", 8, 12, 128, 128, 64, True, "bfloat16"),
 ]
+#: the causal GPT-2 cases timed beside SDPA's causal mode
+GPT2_FLASH_CASES = ("gpt2_prefill", "gpt2_prefill_bf16", "gpt2_score",
+                    "gpt2_score_bf16")
 
 #: device memory rate of the cards the smoke knows (bytes/s, data sheets)
 MEM_RATE = [("H200", 4.8e12), ("H100 NVL", 3.9e12), ("H100 PCIe", 2.0e12),
@@ -124,8 +146,9 @@ TF32_RATE = 495e12
 BF16_RATE = 989e12
 #: TF32 products per f32 product in the flash kernel (lo*hi + hi*lo + hi*hi)
 TF32_TERMS = 3
-#: device sleep queued ahead of a timed window (~50 ms at 2 GHz)
-SLEEP_CYCLES = 100_000_000
+#: device sleep queued ahead of a timed window (~100 ms at 2 GHz): longer
+#: than the host takes to queue 50 calls of a plain version
+SLEEP_CYCLES = 200_000_000
 
 
 def fail(msg: str) -> None:
@@ -258,7 +281,7 @@ def bf16_ulp(torch, x):
     return torch.exp2(torch.floor(torch.log2(a)) - 7)
 
 
-def check_flash(torch, device):
+def check_flash(torch, device, card):
     """Flash attention against its plain version on every case of
     FLASH_CASES, then timed at the BERT-Base shape beside the plain
     version and ``scaled_dot_product_attention``.  Returns the kernel row
@@ -347,6 +370,43 @@ def check_flash(torch, device):
                 "dtype": str(q.dtype).removeprefix("torch."),
                 "bytes": nbytes, "flops": flops}
 
+    def timed_causal(q, k, v):
+        """A causal case beside the plain version and SDPA's causal mode
+        (the same alignment when Tq = Tk); the bound counts the live
+        (query, key) pairs only, T(T+1)/2 per head."""
+        ms = time_ms(torch, lambda: KERNEL(q, k, v, True))
+        plain_ms = time_ms(torch, lambda: flash_attention_plain(
+            q, k, v, causal=True))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True))
+        b, h, t, d = q.shape
+        flops = 4 * b * h * d * t * (t + 1) // 2
+        nbytes = 4 * q.numel() * q.element_size()
+        bytes_ms = nbytes / mem_rate(torch.cuda.get_device_name(0)) * 1e3
+        ops_ms = (TF32_TERMS * flops / TF32_RATE if q.dtype == torch.float32
+                  else flops / BF16_RATE) * 1e3
+        return {"ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                "library_ms": library_ms,
+                "library": "torch.nn.functional.scaled_dot_product_attention"
+                           "(is_causal=True)",
+                "shape": [b, h, t, t, d],
+                "dtype": str(q.dtype).removeprefix("torch."),
+                "bytes": nbytes, "flops": flops}
+
+    causal_rows = {}
+    for name in GPT2_FLASH_CASES:
+        r = causal_rows[name] = timed_causal(*tensors[name])
+        print(f"kernel flash_attention {name} {tuple(r['shape'])} causal "
+              f"{r['dtype']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"scaled_dot_product_attention(is_causal=True) "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['bytes'] / 1e6:.2f} MB, "
+              f"{r['flops'] / 1e6:.1f} MFLOP), "
+              f"{r['bound_ms'] / r['ms'] * 100:.1f}% of the bound, on "
+              f"{card}", flush=True)
+
     # the main paths' layout (head-split views of the fused projection),
     # in f32 and in bf16 (phase 4d's BERT-Base blocks)
     q, k, v = tensors["bert_base"]
@@ -363,6 +423,7 @@ def check_flash(torch, device):
             "fma_bound_ms": row["flops"] / F32_RATE * 1e3,
             "long_causal": {"shape": list(lq.shape), "ms": long_ms,
                             "library_ms": long_sdpa_ms},
+            "causal_gpt2": causal_rows,
             "checked_by": "phase 3 (f32 <= 1e-5, bf16 <= 1 ulp, zero rows "
                           "vs plain on %d cases) + phase 4b (main path "
                           "launches)" % len(FLASH_CASES)}
@@ -872,6 +933,506 @@ def run_defer_path(torch, device, kernels, mp):
             "launches": launches, "by_dtype": by_dtype, "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 4g: GPT-2 small — decoding, prefill, scoring, speculative decoding
+# ---------------------------------------------------------------------------
+
+#: one block per stage; 12 groups of MICROBATCH sequences fill the ring
+GPT_STAGES = 12
+GPT_MAX_LEN = 256
+#: [sequences, prompt length] from numpy seed SEED: one fill of the ring
+GPT_PROMPTS = (96, 32)
+GPT_NEW = 64
+#: shorter generations for the graph/eager, reweight and beam checks
+GPT_SHORT_NEW = 16
+#: prefill tokens may part from decode-rate ones only at or after a
+#: position whose reference top-2 logit gap is below this share of max
+#: |logit| (float reduction order can flip a near tie)
+TIE_REL = 1e-4
+#: prefill's K/V rows against decode-rate teacher forcing, f32
+PREFILL_CACHE_REL = 1e-5
+#: Defer.score, buffer wire, against the whole-graph forward
+SCORE_RTOL = 1e-4
+#: [sequences, length] Defer.score runs at (bucket 128)
+SCORE_IDS = (16, 100)
+GPT_ROUNDS = 5
+DECODE_GROUPS = {"matmul (cuBLAS)": ("gemm", "Gemm", "cutlass", "nvjet"),
+                 "softmax": ("softmax", "Softmax"),
+                 "index/copy": ("index", "copy", "Copy", "gather", "cat"),
+                 "reductions": ("reduce", "Reduce")}
+
+
+def incremental_greedy(torch, graph, params, prompt, t_tok, max_len, *,
+                       dtype, kv_int8=False):
+    """The port's counterpart of ``incremental_greedy`` in
+    tests/test_decode.py: one group of sequences at a time, eagerly on the
+    card, through the same ``embed_at``/``decode`` ops, with its own
+    head-major caches.  ``params`` are device tensors in ``dtype``.
+    Returns the tokens [b, t_tok] and, for every generated position, the
+    top-2 logit gap and max |logit| of the logits that chose it."""
+    import numpy as np
+
+    nodes = graph.nodes
+    blocks = [nm for nm in graph.topo_order if nm.startswith("block_")]
+    op0 = nodes[blocks[0]].op
+    d = nodes[blocks[0]].out_spec.shape[-1]
+    b, plen = prompt.shape
+    device = params["lm_head"]["w"].device
+    shape = (b, op0.kv_heads, max_len + 1, d // op0.num_heads)
+    cdt = torch.int8 if kv_int8 else dtype
+    caches = {nm: [torch.zeros(shape, dtype=cdt, device=device)
+                   for _ in range(2)] for nm in blocks}
+    if kv_int8:
+        for nm in blocks:
+            caches[nm] += [torch.zeros(shape[:-1], device=device)
+                           for _ in range(2)]
+    out = np.zeros((b, t_tok), np.int64)
+    out[:, :plen] = prompt
+    gap = np.full((b, t_tok), np.inf)
+    lmax = np.zeros((b, t_tok))
+    with torch.inference_mode():
+        for p in range(t_tok - 1):
+            tok = torch.from_numpy(out[:, p]).to(device)
+            x = nodes["embeddings"].op.embed_at(params["embeddings"], tok,
+                                                p).to(dtype)
+            for nm in blocks:
+                k, v, *scales = caches[nm]
+                x = nodes[nm].op.decode(params[nm], x, k, v, p, *scales)[0]
+            h = nodes["final_ln"].op.apply(params["final_ln"], x)
+            logits = nodes["lm_head"].op.apply(params["lm_head"],
+                                               h).to(torch.float32)
+            if p + 1 >= plen:
+                top2 = logits.topk(2, dim=-1).values
+                out[:, p + 1] = logits.argmax(dim=-1).cpu().numpy()
+                gap[:, p + 1] = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+                lmax[:, p + 1] = logits.abs().amax(dim=-1).cpu().numpy()
+    return out, gap, lmax
+
+
+def loop_groups(torch, graph, params, prompts, groups, new, **kw):
+    """``incremental_greedy`` over the named groups of MICROBATCH rows,
+    stacked in row order."""
+    import numpy as np
+
+    res = [incremental_greedy(torch, graph, params,
+                              prompts[g * MICROBATCH:(g + 1) * MICROBATCH],
+                              prompts.shape[1] + new, GPT_MAX_LEN, **kw)
+           for g in groups]
+    return tuple(np.concatenate(parts) for parts in zip(*res))
+
+
+def timed_rounds(torch, fn, rounds=GPT_ROUNDS):
+    """Host-clock seconds of ``fn()`` (ending in a synchronize), per
+    round."""
+    walls = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def gpt_decode(torch, device, kernels, card, gp):
+    """Checks 1-6 of phase 4g on the PipelinedDecoder: decode rate against
+    the eager loop, prefill, int8 cache, bf16, W8A16, beam search, graph
+    against eager and reweight; throughput and time to first token."""
+    import numpy as np
+
+    from defer_tpu_torch.graph.ir import tree_map
+    from defer_tpu_torch.runtime import flatbuf
+    from defer_tpu_torch.runtime.decode import PipelinedDecoder
+
+    g, params, pdev, prompts = gp["graph"], gp["params"], gp["pdev"], \
+        gp["prompts"]
+    n_seq, plen = prompts.shape
+    t_tok = plen + GPT_NEW
+    n_groups = n_seq // MICROBATCH
+
+    def make(p=params, **kw):
+        return PipelinedDecoder(g, p, num_stages=kw.pop("stages", GPT_STAGES),
+                                microbatch=MICROBATCH, max_len=GPT_MAX_LEN,
+                                device=device, **kw)
+
+    res = {"launches": {}, "by_dtype": {}}
+    # 1. decode rate, f32 buffer cache: the eager loop on every group
+    dec = make()
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    out = dec.generate(prompts, GPT_NEW)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    res["launches"]["decode_f32"] = launches = read_counts(kernels)
+    print(f"gpt2 decode: PipelinedDecoder(gpt2_small, {GPT_STAGES} stages, "
+          f"microbatch {MICROBATCH}, max_len {GPT_MAX_LEN}), prompts "
+          f"{GPT_PROMPTS}, {GPT_NEW} new tokens: first call {first_s:.3f} s "
+          f"including {dec.captures} capture(s) of {dec.capture_s:.3f} s; "
+          f"kernel launches {launches}, on {card}", flush=True)
+    if launches["flash_attention"] != 0 or launches["quant_int8"] != 0:
+        fail(f"gpt2 decode-rate steps launched {launches} (want no flash "
+             "and no quantizer launch: decode attention is two matmuls)")
+    ref, gap, lmax = loop_groups(torch, g, pdev, prompts, range(n_groups),
+                                 GPT_NEW, dtype=torch.float32)
+    if out.shape != (n_seq, t_tok) or not (out == ref).all():
+        fail(f"gpt2 decode: {int((out != ref).sum())} tokens differ from "
+             "the eager incremental loop")
+    print(f"gpt2 decode f32: {out.size} tokens equal to the eager "
+          f"incremental loop on all {n_groups} groups, on {card}", flush=True)
+
+    k_rate = [c[..., :plen, :].clone() for c in dec.caches["k"]]
+    v_rate = [c[..., :plen, :].clone() for c in dec.caches["v"]]
+
+    # 2. the fused prefill: caches, tokens, flash launches
+    zero_counts(kernels)
+    pre = dec.generate(prompts, GPT_NEW, prefill=True)
+    torch.cuda.synchronize()
+    res["launches"]["prefill_f32"] = launches = read_counts(kernels)
+    want_flash = len(dec.block_names) * n_groups
+    kmax = max(float(c.abs().max()) for c in k_rate + v_rate)
+    cache_err = max(float((a[..., :plen, :] - b_).abs().max())
+                    for a, b_ in zip(dec.caches["k"] + dec.caches["v"],
+                                     k_rate + v_rate)) / kmax
+    tie = gap < TIE_REL * lmax          # [rows, positions]
+    first_tie = np.where(tie.any(1), tie.argmax(1), t_tok)
+    diff = pre != out
+    first_diff = np.where(diff.any(1), diff.argmax(1), t_tok)
+    bad = int((first_diff < first_tie).sum())
+    print(f"gpt2 prefill: kernel launches {launches} (want "
+          f"{want_flash} flash: {len(dec.block_names)} blocks x {n_groups} "
+          f"groups; bubble stage-steps do not run); K/V rows 0..{plen - 1} "
+          f"vs decode-rate teacher forcing {cache_err:.3g} of max |K, V| "
+          f"(bound {PREFILL_CACHE_REL}); tokens equal to decode rate "
+          f"{float((pre == out).mean()) * 100:.2f}%, near-tie positions "
+          f"(gap < {TIE_REL} x max|logit|) {int(tie.sum())} in "
+          f"{int(tie.any(1).sum())} rows, rows parting before a near tie "
+          f"{bad}, on {card}", flush=True)
+    if launches["flash_attention"] != want_flash:
+        fail(f"gpt2 prefill: {launches['flash_attention']} flash launches, "
+             f"want {want_flash}")
+    if cache_err > PREFILL_CACHE_REL:
+        fail("gpt2 prefill: K/V rows differ from decode-rate teacher forcing")
+    if bad:
+        fail(f"gpt2 prefill: {bad} rows differ from decode rate before any "
+             "near tie")
+    res.update(prefill_cache_rel_err=cache_err, near_ties=int(tie.sum()),
+               prefill_token_agree=float((pre == out).mean()))
+
+    # time to first token and generated tokens/s (capture excluded: the
+    # graphs exist by now)
+    ttft = {}
+    for label, kw in (("decode_rate", {}), ("prefill", {"prefill": True})):
+        ttft[label] = statistics.median(timed_rounds(
+            torch, lambda: dec.generate(prompts, 1, **kw)))
+    walls = timed_rounds(torch, lambda: dec.generate(prompts, GPT_NEW))
+    walls_pre = timed_rounds(torch, lambda: dec.generate(prompts, GPT_NEW,
+                                                         prefill=True))
+    tok = n_seq * GPT_NEW
+    res.update(ttft_s=ttft, tokens_per_s=tok / statistics.median(walls),
+               tokens_per_s_prefill=tok / statistics.median(walls_pre),
+               spread=(max(walls) - min(walls)) / statistics.median(walls),
+               capture_s=dec.capture_s, captures=dec.captures,
+               graph_pool_bytes=dec.graph_pool_bytes,
+               cache_bytes=sum(c.numel() * c.element_size()
+                               for cs in dec.caches.values() for c in cs))
+    print(f"gpt2 generate f32: {res['tokens_per_s']:.1f} generated tokens/s "
+          f"(decode-rate prompts; {res['tokens_per_s_prefill']:.1f} with "
+          f"prefill), median of {GPT_ROUNDS} rounds of {n_seq} x {GPT_NEW} "
+          f"tokens, spread {res['spread'] * 100:.0f}%; time to first token "
+          f"{ttft['decode_rate'] * 1e3:.1f} ms at decode rate, "
+          f"{ttft['prefill'] * 1e3:.1f} ms with prefill; on {card}",
+          flush=True)
+    print(f"gpt2 capture: {dec.captures} graphs in {dec.capture_s:.3f} s "
+          f"(excluded above); graph pool {dec.graph_pool_bytes / 2**20:.1f} "
+          f"MiB, KV cache {res['cache_bytes'] / 2**20:.1f} MiB, on {card}",
+          flush=True)
+
+    # 3. int8 cache and bf16 compute against the loop with the same ops
+    pdev16 = tree_map(lambda v: v.to(torch.bfloat16), pdev)
+    outs = {}
+    for name, kw, lp, ldt, kv8 in (
+            ("int8_kv", {"kv_cache": "int8"}, pdev, torch.float32, True),
+            ("bf16", {"compute_dtype": "bfloat16"}, pdev16, torch.bfloat16,
+             False),
+            ("w8a16_bf16", {"compute_dtype": "bfloat16",
+                            "weight_dtype": "int8"}, None, torch.bfloat16,
+             False)):
+        d2 = make(**kw)
+        if name == "w8a16_bf16":
+            # 4. the int8 rows are the host's quantize_leaves
+            for s in range(GPT_STAGES):
+                _, leaves = flatbuf.flatten_leaves(
+                    {nm: params[nm] for nm in d2._stage_param_names[s]})
+                q, sc, _ = flatbuf.quantize_leaves(leaves, d2._wmeta[s])
+                if not (torch.equal(d2._rows[s][0].cpu(), q)
+                        and torch.equal(d2._rows[s][1].cpu(), sc)):
+                    fail(f"W8A16 stage {s}: rows differ from "
+                         "quantize_leaves")
+            lp = {}
+            for s in range(GPT_STAGES):  # the decoder's dequantized leaves
+                lp.update(d2._stage_params(s))
+        zero_counts(kernels)
+        outs[name] = o = d2.generate(prompts, GPT_NEW)
+        torch.cuda.synchronize()
+        res["launches"][f"decode_{name}"] = read_counts(kernels)
+        ref2 = loop_groups(torch, g, lp, prompts, (0, 1), GPT_NEW,
+                           dtype=ldt, kv_int8=kv8)[0]
+        if not (o[:2 * MICROBATCH] == ref2).all():
+            fail(f"gpt2 {name}: tokens differ from the eager loop with the "
+                 "same ops")
+        base = outs["bf16"] if name == "w8a16_bf16" else out
+        agree = float((o[:, plen:] == base[:, plen:]).mean())
+        walls = timed_rounds(torch, lambda: d2.generate(prompts, GPT_NEW))
+        res[f"{name}_token_agree"] = agree
+        res[f"{name}_tokens_per_s"] = n_seq * GPT_NEW / statistics.median(
+            walls)
+        print(f"gpt2 {name}: tokens equal to the eager loop (same ops) on "
+              f"groups 0-1; generated tokens equal to the "
+              f"{'bf16' if name == 'w8a16_bf16' else 'f32 buffer'} run "
+              f"{agree * 100:.2f}%; {res[f'{name}_tokens_per_s']:.1f} "
+              f"generated tokens/s (median of {GPT_ROUNDS}); kernel launches "
+              f"{res['launches'][f'decode_{name}']}, on {card}", flush=True)
+        del d2
+
+    # 5. beam search: width 4 at 4 stages (three blocks per stage)
+    bp = prompts[:2 * 4]  # 4 groups x (8 rows / 4 beams) sequences
+    db = make(stages=4, beam_width=4)
+    if db.l_max != 3:
+        fail(f"beam decoder: Lmax {db.l_max}, want 3")
+    beam_g = db.generate(bp, GPT_SHORT_NEW)
+    db.cuda_graphs = False
+    beam_e = db.generate(bp, GPT_SHORT_NEW)
+    w1 = make(stages=4, beam_width=1).generate(prompts[:4 * MICROBATCH],
+                                               GPT_SHORT_NEW)
+    print(f"gpt2 beam width 4 at 4 stages: graph equals eager "
+          f"{bool((beam_g == beam_e).all())}; width 1 at 4 stages equals "
+          f"the 12-stage greedy tokens "
+          f"{bool((w1 == out[:4 * MICROBATCH, :plen + GPT_SHORT_NEW]).all())}"
+          f", on {card}", flush=True)
+    if not (beam_g == beam_e).all():
+        fail("gpt2 beam: graph replay differs from the eager steps")
+    if not (w1 == out[:4 * MICROBATCH, :plen + GPT_SHORT_NEW]).all():
+        fail("gpt2 beam width 1 differs from greedy")
+    del db
+
+    # 6. graph replay against the eager steps, and reweight after capture
+    short = dec.generate(prompts, GPT_SHORT_NEW)
+    snap = {k: [c.clone() for c in cs] for k, cs in dec.caches.items()}
+    graphs, dec.cuda_graphs = dec.cuda_graphs, False
+    eager = dec.generate(prompts, GPT_SHORT_NEW)
+    dec.cuda_graphs = graphs
+    gerr = max(float((a - b_).abs().max()) / max(float(b_.abs().max()), 1e-30)
+               for k in snap for a, b_ in zip(snap[k], dec.caches[k]))
+    captures = dec.captures
+    half = tree_map(lambda v: v * 0.5, params)
+    t0 = time.perf_counter()
+    dec.reweight(half)
+    torch.cuda.synchronize()
+    reweight_s = time.perf_counter() - t0
+    rew = dec.generate(prompts, GPT_SHORT_NEW)
+    fresh = make(half).generate(prompts, GPT_SHORT_NEW)
+    print(f"gpt2 graph vs eager ({GPT_SHORT_NEW} tokens): tokens equal "
+          f"{bool((short == eager).all())}, caches {gerr:.3g} of max |value| "
+          f"(bound {GRAPH_REL_BOUND}); reweight after capture "
+          f"({reweight_s * 1e3:.1f} ms): equal to a fresh decoder "
+          f"{bool((rew == fresh).all())}, captures {captures} -> "
+          f"{dec.captures}, on {card}", flush=True)
+    if not (short == eager).all() or gerr > GRAPH_REL_BOUND:
+        fail("gpt2: graph replay differs from the eager steps")
+    if not (rew == fresh).all() or dec.captures != captures:
+        fail("gpt2 reweight: differs from a fresh decoder, or captured again")
+    dec.reweight(params)
+    res.update(graph_vs_eager_cache_rel_err=gerr, reweight_s=reweight_s)
+    return dec, res
+
+
+def gpt_score(torch, device, kernels, card, gp):
+    """Check 7: ``Defer.score`` on both wires against the whole-graph
+    forward; launch counts; scored sequences/s."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, models
+
+    g, params, pdev = gp["graph"], gp["params"], gp["pdev"]
+    vocab = g.nodes["lm_head"].out_spec.shape[-1]
+    ids = np.random.default_rng(SEED + 2).integers(0, vocab, SCORE_IDS)
+    b, t = SCORE_IDS
+    bucket = max(8, 1 << (t - 1).bit_length())
+    cuts = models.gpt_stage_cuts(GPT_STAGES, GPT_STAGES)
+    padded = np.zeros((b, bucket), np.int32)
+    padded[:, :t] = ids
+    ref = []
+    with torch.inference_mode():
+        for lo in range(0, b, MICROBATCH):
+            x = torch.from_numpy(padded[lo:lo + MICROBATCH]).to(device)
+            logp = g.apply(pdev, x)[:, :t].float().log_softmax(dim=-1)
+            tgt = torch.from_numpy(ids[lo:lo + MICROBATCH, 1:]).to(device)
+            ref.append(logp[:, :-1].gather(-1, tgt[..., None])[..., 0]
+                       .sum(-1).cpu().numpy())
+    ref = np.concatenate(ref)
+    m = b // MICROBATCH
+    steps = CHUNK * -(-(m + GPT_STAGES - 1) // CHUNK)
+    blocks = sum(nm.startswith("block_") for nm in g.topo_order)
+    res = {"launches": {}, "rel_err": {}, "sequences_per_s": {},
+           "bucket": bucket, "steps": steps}
+    for wire in ("buffer", "int8"):
+        defer = Defer(DeferConfig(wire=wire, microbatch=MICROBATCH,
+                                  chunk=CHUNK, device=device))
+        defer.score(g, params, ids, cut_points=cuts)  # build and capture
+        zero_counts(kernels)
+        lp, ppl = defer.score(g, params, ids, cut_points=cuts)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        want = {"flash_attention": blocks * steps,
+                "quant_int8": steps if wire == "int8" else 0}
+        err = float(np.abs(lp - ref).max() / np.abs(ref).max())
+        walls = timed_rounds(torch, lambda: defer.score(
+            g, params, ids, cut_points=cuts))
+        res["launches"][wire] = launches
+        res["rel_err"][wire] = err
+        res["sequences_per_s"][wire] = b / statistics.median(walls)
+        print(f"gpt2 score: Defer.score({SCORE_IDS} ids, bucket {bucket}, "
+              f"gpt_stage_cuts({GPT_STAGES}, {GPT_STAGES}), chunk {CHUNK}, "
+              f"wire={wire}) = {steps} steps; kernel launches {launches} "
+              f"(want {want}); log-probs vs whole-graph forward max rel err "
+              f"{err:.3g}{f' (bound {SCORE_RTOL})' if wire == 'buffer' else ''}"
+              f"; {res['sequences_per_s'][wire]:.1f} scored sequences/s "
+              f"(median of {GPT_ROUNDS}, spread "
+              f"{(max(walls) - min(walls)) / statistics.median(walls) * 100:.0f}"
+              f"%), on {card}", flush=True)
+        if launches != want:
+            fail(f"gpt2 score wire={wire}: launches {launches}, want {want}")
+        if not np.isfinite(lp).all() or lp.shape != (b,) or \
+                not np.isfinite(ppl).all():
+            fail(f"gpt2 score wire={wire}: log-probs not finite or misshapen")
+        if wire == "buffer" and not np.allclose(lp, ref, rtol=SCORE_RTOL,
+                                                atol=0):
+            fail("gpt2 score: buffer-wire log-probs differ from the forward")
+        del defer
+    return res
+
+
+def gpt_speculative(torch, device, kernels, card, gp):
+    """Check 8: greedy speculative decoding with a small seeded draft,
+    token-exact against the target's greedy output by full recompute
+    (each forward at the power-of-two bucket ``Defer.logits`` runs)."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, models, \
+        speculative_generate
+
+    g, params, pdev = gp["graph"], gp["params"], gp["pdev"]
+    vocab = g.nodes["lm_head"].out_spec.shape[-1]
+    draft = models.gpt(2, 256, 4, GPT_MAX_LEN, vocab=vocab, name="gpt_draft")
+    dparams = draft.init(torch.Generator().manual_seed(SEED + 1))
+    prompt = gp["prompts"][:MICROBATCH]
+    defer = Defer(DeferConfig(microbatch=MICROBATCH, chunk=CHUNK,
+                              device=device))
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    got, stats = speculative_generate(
+        defer, g, params, draft, dparams, prompt, GPT_SHORT_NEW, gamma=4,
+        cut_points=models.gpt_stage_cuts(GPT_STAGES, GPT_STAGES),
+        draft_num_stages=2, return_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    want = np.array(prompt, np.int64)
+    with torch.inference_mode():
+        for _ in range(GPT_SHORT_NEW):
+            t = want.shape[1]
+            bucket = min(max(8, 1 << (t - 1).bit_length()), GPT_MAX_LEN)
+            x = np.zeros((len(want), bucket), np.int32)
+            x[:, :t] = want
+            logits = g.apply(pdev, torch.from_numpy(x).to(device))[:, t - 1]
+            nxt = logits.argmax(dim=-1).cpu().numpy()
+            want = np.concatenate([want, nxt[:, None]], axis=1)
+    print(f"gpt2 speculative: gamma 4, a 2-block d=256 draft, {len(prompt)} "
+          f"prompts, {GPT_SHORT_NEW} new tokens in {wall:.2f} s (pipelines "
+          f"built and captured inside): token-exact vs the target's greedy "
+          f"{bool((got == want).all())}; stats {stats}; kernel launches "
+          f"{launches}, on {card}", flush=True)
+    if not (got == want).all():
+        fail("gpt2 speculative decoding differs from the target's greedy "
+             "output")
+    return {"stats": stats, "launches": launches, "wall_s": wall}
+
+
+def profile_decode(torch, dec, card):
+    """Device time by kernel over one replay of the decode unit (N steps,
+    one token per group), and the idle share of that replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = dec._graphs[("decode", False, None)]
+    n = dec.num_stages
+    walls = timed_rounds(torch, graph.replay)
+    plain_wall_us = statistics.median(walls) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        graph.replay()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.self_device_time_total, e.key, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    total = sum(r[0] for r in rows)
+    if not total:
+        print("profile gpt2 decode: no device time in the trace (not "
+              "measured)")
+        return None
+    rows.sort(reverse=True)
+    shares = dict.fromkeys(DECODE_GROUPS, 0.0)
+    shares["everything else"] = 0.0
+    for us, key, _ in rows:
+        grp = next((k for k, ms in DECODE_GROUPS.items()
+                    if any(m in key for m in ms)), "everything else")
+        shares[grp] += us
+    out = {"device_ms_per_step": total / 1e3 / n,
+           "idle_share": max(0.0, 1 - total / wall_us),
+           "idle_share_profiler_off": max(0.0, 1 - total / plain_wall_us),
+           "kernels_per_step": sum(r[2] for r in rows) / n,
+           "shares": {k: v / total for k, v in shares.items()}}
+    print(f"profile gpt2 decode, one replay ({n} steps, one token per "
+          f"group): device time {total / 1e3:.3f} ms = "
+          f"{out['device_ms_per_step']:.4f} ms/step, "
+          f"{out['kernels_per_step']:.0f} kernels/step, in a "
+          f"{wall_us / 1e3:.3f} ms wall (device idle "
+          f"{out['idle_share'] * 100:.1f}% profiler on; "
+          f"{out['idle_share_profiler_off'] * 100:.1f}% of the "
+          f"{plain_wall_us / 1e3:.3f} ms median wall with it off); "
+          + ", ".join(f"{k} {v * 100:.1f}%" for k, v in out["shares"].items())
+          + f"; on {card}", flush=True)
+    for us, key, count in rows[:10]:
+        print(f"  {us / total * 100:6.2f}%  {us / 1e3:9.3f} ms  x{count:<5d}"
+              f" {key[:100]}")
+    return out
+
+
+def gpt_path(torch, device, kernels, card):
+    """Phase 4g: GPT-2 small (seeded random weights) through the decoder,
+    ``Defer.score`` and speculative decoding."""
+    import numpy as np
+
+    from defer_tpu_torch import models
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = models.gpt2_small(seq_len=GPT_MAX_LEN)
+    params = g.init(torch.Generator().manual_seed(SEED))
+    vocab = g.nodes["lm_head"].out_spec.shape[-1]
+    gp = {"graph": g, "params": params,
+          "pdev": params_to_device(params, device),
+          "prompts": np.random.default_rng(SEED).integers(
+              0, vocab, GPT_PROMPTS)}
+    dec, res = gpt_decode(torch, device, kernels, card, gp)
+    res["score"] = gpt_score(torch, device, kernels, card, gp)
+    res["speculative"] = gpt_speculative(torch, device, kernels, card, gp)
+    return dec, res
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -933,7 +1494,7 @@ def main() -> int:
           f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB), "
           f"{r['bytes'] / r['ms'] / 1e6:.1f} GB/s, 1 launch per pipeline "
           f"step, on {card}", flush=True)
-    rows["flash_attention"] = r = check_flash(torch, device)
+    rows["flash_attention"] = r = check_flash(torch, device, card)
     print(f"kernel flash_attention {tuple(r['shape'])} f32: {r['ms']:.4f} "
           f"ms, plain {r['plain_ms']:.4f} ms, scaled_dot_product_attention "
           f"{r['library_ms']:.4f} ms (max|diff| vs plain "
@@ -992,6 +1553,11 @@ def main() -> int:
     # phase 4f: the queue service, the counts zeroed just before it
     rd = run_defer_path(torch, device, kernels, mp)
 
+    # phase 4g: GPT-2 small, the counts zeroed just before each run
+    gdec, gres = gpt_path(torch, device, kernels, card)
+    gres["profile_decode"] = profile_decode(torch, gdec, card)
+    del gdec
+
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
     by_path.update({f"resnet50_bf16_{w}": c
@@ -999,6 +1565,10 @@ def main() -> int:
     by_path.update({f"bert_base_bf16_{w}": c
                     for w, c in bp16["launches"].items()})
     by_path["resnet50_bf16_int8_run_defer"] = rd["launches"]
+    by_path.update({f"gpt2_{p}": c for p, c in gres["launches"].items()})
+    by_path.update({f"gpt2_score_{w}": c
+                    for w, c in gres["score"]["launches"].items()})
+    by_path["gpt2_speculative"] = gres["speculative"]["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -1029,6 +1599,11 @@ def main() -> int:
         "graph_vs_eager": graphs["bert_base"],
         "bf16": {k: v for k, v in bp16.items() if k != "launches"},
         "profile_bf16_int8": bprof16}}))
+    print(json.dumps({"gpt_path": {
+        "model": "gpt2_small", "stages": GPT_STAGES,
+        "microbatch": MICROBATCH, "max_len": GPT_MAX_LEN,
+        "prompts": list(GPT_PROMPTS), "new_tokens": GPT_NEW,
+        **{k: v for k, v in gres.items() if k != "launches"}}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

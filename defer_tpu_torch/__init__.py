@@ -7,8 +7,9 @@ compare the outputs.  This package imports ``torch`` and ``numpy`` and
 never ``jax`` or anything of ``defer_tpu``.
 
 Entry points (:class:`Defer`, :class:`SpmdPipeline`,
-:class:`MpmdPipeline`) run on the CUDA card unless the caller passes
-another device; with no device and no CUDA they raise.
+:class:`MpmdPipeline`, :class:`PipelinedDecoder`) run on the CUDA card
+unless the caller passes another device; with no device and no CUDA they
+raise.
 
     import torch, numpy as np
     from defer_tpu_torch import Defer, DeferConfig, models
@@ -22,10 +23,10 @@ another device; with no device and no CUDA they raise.
 from . import models
 from .partition import partition
 from .runtime import (END_OF_STREAM, Defer, DeferHandle, MpmdPipeline,
-                      SpmdPipeline)
+                      PipelinedDecoder, SpmdPipeline, speculative_generate)
 from .utils.config import DeferConfig
 from .utils.convert import params_from_jax
 
 __all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
-           "SpmdPipeline", "MpmdPipeline", "partition", "models",
-           "params_from_jax"]
+           "SpmdPipeline", "MpmdPipeline", "PipelinedDecoder", "partition",
+           "models", "params_from_jax", "speculative_generate"]

@@ -217,6 +217,38 @@ class LayerGraph:
                 break
         return cache[upto]
 
+    # -- derived graphs ----------------------------------------------------
+
+    def with_input_shape(self, shape: Sequence[int],
+                         dtype: Any = None) -> "LayerGraph":
+        """Same ops and parameters, specs re-inferred for a new input
+        shape (on ``meta`` tensors, as ``GraphBuilder.add`` infers them).
+
+        The ops must take any length in ``apply`` (the sequence ops do:
+        embeddings slice ``wpe[:t]``, attention masks follow the runtime
+        shape); parameter shapes come from the constructor, not the
+        input, so the original graph's parameters stay valid.
+        ``Defer.logits`` runs short sequences through a power-of-two
+        length bucket this way instead of padding to the graph's
+        length."""
+        spec = ShapeSpec(shape, dtype or self.input_spec.dtype)
+        nodes: dict[str, LayerNode] = {}
+
+        def spec_of(n: str) -> ShapeSpec:
+            return spec if n == self.input_name else nodes[n].out_spec
+
+        for name, node in self.nodes.items():
+            meta = None if node.param_spec is None else tree_map(
+                lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+                node.param_spec)
+            out = node.op.apply(meta, *(spec_of(i).batched(1)
+                                        for i in node.inputs))
+            nodes[name] = LayerNode(name, node.op, node.inputs,
+                                    ShapeSpec(out.shape[1:], out.dtype),
+                                    node.param_spec)
+        return LayerGraph(self.name, nodes, self.input_name,
+                          self.output_name, spec)
+
     def __repr__(self):
         return f"LayerGraph({self.name!r}, {len(self.nodes)} nodes)"
 

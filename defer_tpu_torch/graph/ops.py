@@ -1,4 +1,4 @@
-"""Layer op library: the ResNet and BERT subset of ``defer_tpu.graph.ops``.
+"""Layer op library: the ResNet, BERT and GPT subset of ``defer_tpu.graph.ops``.
 
 Conventions:
 
@@ -253,10 +253,23 @@ class Add(Op):
 # ---------------------------------------------------------------------------
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` under the JAX package's index rule: a negative id
+    wraps once (``-1`` is the last row), then every id clamps into
+    ``[0, rows)`` — for a 5-row table, ids ``[-1, 7, 2]`` give rows
+    ``[4, 4, 2]``.  Plain indexing would raise on an out-of-range id (on
+    the card, a device-side assert inside a captured graph); the decoder
+    reads ids back off its float ring, bubbles included, so every
+    embedding looks ids up here."""
+    n = table.shape[0]
+    idx = ids.long()
+    idx = torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+    return table[idx]
+
+
 @dataclasses.dataclass(frozen=True, repr=False)
 class Embedding(Op):
-    """Table lookup.  Ids must lie in ``[0, vocab)``: torch raises on an
-    out-of-range index, where JAX clamps it."""
+    """Table lookup; out-of-range ids follow :func:`take_rows`."""
 
     vocab: int
     features: int
@@ -266,7 +279,7 @@ class Embedding(Op):
         return {"table": _normal(gen, (self.vocab, self.features)) * 0.02}
 
     def apply(self, params, x):
-        return params["table"].to(torch.float32)[x.long()]
+        return take_rows(params["table"].to(torch.float32), x)
 
 
 @dataclasses.dataclass(frozen=True, repr=False)

@@ -9,8 +9,8 @@ and the 12-stage config is ``cut_points=[block_0 .. block_10]``.
 
 The graph input is ``int32 (seq_len,)`` token ids.  They ride the
 pipeline's float32 transfer buffer exactly (ids < 2**24), and each stage
-casts its input back to its spec dtype.  Ids must lie in ``[0, vocab)``:
-torch raises on an out-of-range index, where JAX clamps it.
+casts its input back to its spec dtype.  An out-of-range id wraps and
+clamps as in JAX (``graph.ops.take_rows``).
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ import math
 import torch
 
 from ..graph.ir import GraphBuilder, LayerGraph, Op
-from ..graph.ops import _full, _layer_norm, _normal, TransformerBlock
+from ..graph.ops import (_full, _layer_norm, _normal, TransformerBlock,
+                         take_rows)
 
 
 class BertEmbedding(Op):
@@ -48,7 +49,7 @@ class BertEmbedding(Op):
 
     def apply(self, params, ids):
         t = ids.shape[1]
-        x = params["tok"][ids.long()] + params["pos"][:t]
+        x = take_rows(params["tok"], ids) + params["pos"][:t]
         return _layer_norm(params["ln"], x, self.eps)
 
     def flops(self, in_specs, out_spec):

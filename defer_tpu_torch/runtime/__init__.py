@@ -1,6 +1,8 @@
+from .decode import PipelinedDecoder
 from .dispatcher import END_OF_STREAM, Defer, DeferHandle
 from .mpmd import MpmdPipeline
+from .speculative import speculative_generate
 from .spmd import SpmdPipeline
 
 __all__ = ["END_OF_STREAM", "Defer", "DeferHandle", "MpmdPipeline",
-           "SpmdPipeline"]
+           "PipelinedDecoder", "SpmdPipeline", "speculative_generate"]

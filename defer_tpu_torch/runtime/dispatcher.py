@@ -7,7 +7,10 @@ engine on the configured device and serves from a daemon thread, with a
 preflight probe, opportunistic chunk gathering, a resubmit log and a
 watchdog that rebuilds a hung engine and replays what it had not emitted.
 ``build``, ``run``, ``stream`` and ``health_check`` are the batch and
-generator forms.  The network endpoint and the decoder APIs are queued in
+generator forms.  ``generate``, ``logits`` and ``score`` serve causal
+language models (``models/gpt.py``): generation on the pipelined decoder
+(``runtime/decode.py``), scoring through the ring engine at a
+power-of-two length bucket.  The network endpoint is queued in
 ROADMAP.md.
 """
 
@@ -28,6 +31,7 @@ from ..obs.events import emit as emit_event
 from ..partition.partitioner import partition
 from ..transport.replay import ReplayBuffer
 from ..utils.config import DeferConfig, resolve_device
+from .decode import PipelinedDecoder
 from .mpmd import MpmdPipeline
 from .spmd import SpmdPipeline
 
@@ -116,6 +120,32 @@ class Defer:
     def __init__(self, config: DeferConfig | None = None):
         self.config = config or DeferConfig()
         self.device = resolve_device(self.config.device)
+        # engine caches (decoders, length-bucketed score pipelines): a
+        # rebuild repacks the weights and, on the card, captures graphs
+        # anew.  Values keep the (graph, params) refs alive so the id()
+        # keys cannot be recycled.  A weight update must come as a NEW
+        # params dict; leaves mutated in place are not detected.
+        self._decoder_cache: dict[tuple, tuple] = {}
+        self._score_cache: dict[tuple, tuple] = {}
+        self._CACHE_MAX = 4
+
+    def _cfg_cache_key(self) -> tuple:
+        """Config fields that shape an engine: part of every engine-cache
+        key, so a config changed between calls rebuilds."""
+        c = self.config
+        return (c.microbatch, c.chunk, str(c.compute_dtype),
+                str(c.buffer_dtype), c.wire, c.mode, c.master_weights,
+                c.data_parallel, c.tensor_parallel)
+
+    def _cached(self, cache: dict, key: tuple, graph, params, make):
+        hit = cache.get(key)
+        if hit is not None and hit[0] is graph and hit[1] is params:
+            return hit[2]
+        engine = make()
+        if len(cache) >= self._CACHE_MAX:
+            cache.pop(next(iter(cache)))
+        cache[key] = (graph, params, engine)
+        return engine
 
     def build(self, graph: LayerGraph, params: dict[str, Any],
               cut_points: list[str] | None = None,
@@ -140,6 +170,102 @@ class Defer:
             tensor_parallel=cfg.tensor_parallel,
             master_weights=cfg.master_weights,
         )
+
+    def generate(self, graph, params, prompt_ids, max_new_tokens: int,
+                 *, num_stages: int | None = None, max_len: int | None = None,
+                 kv_cache: str = "buffer", weight_dtype: str | None = None,
+                 **sample_kw) -> np.ndarray:
+        """Pipelined autoregressive generation (decoder graphs).
+
+        A :class:`~defer_tpu_torch.runtime.decode.PipelinedDecoder` on this
+        deployment's device and config (microbatch, compute dtype), its
+        blocks split over ``num_stages`` (default 1), cached across calls;
+        decodes ``max_new_tokens`` past each prompt.  ``sample_kw`` passes
+        through (temperature, top_k, seed, eos_id, token_chunk, prefill,
+        on_tokens).
+        """
+        if num_stages is None:
+            num_stages = 1  # as the JAX package's mesh-less Defer
+        key = (id(graph), id(params), num_stages, max_len, kv_cache,
+               weight_dtype, self._cfg_cache_key())
+        dec = self._cached(self._decoder_cache, key, graph, params,
+                           lambda: PipelinedDecoder(
+                               graph, params, num_stages=num_stages,
+                               max_len=max_len, device=self.device,
+                               microbatch=self.config.microbatch,
+                               compute_dtype=self.config.compute_dtype,
+                               kv_cache=kv_cache, weight_dtype=weight_dtype))
+        t0 = time.perf_counter()
+        out = dec.generate(np.asarray(prompt_ids), max_new_tokens,
+                           **sample_kw)
+        tr = tracer()
+        if tr.enabled:
+            tr.record("defer.generate", t0, time.perf_counter() - t0,
+                      {"new_tokens": max_new_tokens})
+        return out
+
+    def logits(self, graph, params, ids, *, cut_points=None,
+               num_stages: int | None = None) -> np.ndarray:
+        """Full-sequence causal-LM logits [B, T, V] through the pipeline.
+
+        ``ids``: [B, T] ints (B % microbatch == 0).  The graph is
+        re-specced (same ops, same params) at the next power-of-two length
+        >= T (at least 8, at most the graph's) and its pipeline cached per
+        bucket; causal attention keeps the right padding from touching
+        positions < T, so the ids are padded to the bucket and the real
+        prefix is read.  Ids ride the float32 ring, exact below 2**24.
+        The verification forward of speculative decoding and :meth:`score`
+        both ride this.
+        """
+        ids = np.asarray(ids)
+        if ids.ndim != 2:
+            raise ValueError("ids must be [B, T]")
+        b, t = ids.shape
+        mb = self.config.microbatch
+        if b % mb or b == 0:
+            raise ValueError(
+                f"B={b} must be a non-zero multiple of microbatch={mb}")
+        if cut_points is None and num_stages is None:
+            num_stages = 1  # as the JAX package's mesh-less Defer
+        t_model = graph.input_spec.shape[0]
+        if t > t_model:
+            raise ValueError(
+                f"sequence length {t} exceeds the model's {t_model}")
+        bucket = min(max(8, 1 << (max(t, 1) - 1).bit_length()), t_model)
+        key = (id(graph), id(params), bucket, num_stages,
+               tuple(cut_points) if cut_points else None,
+               self._cfg_cache_key())
+        pipe = self._cached(
+            self._score_cache, key, graph, params,
+            lambda: self.build(graph if bucket == t_model else
+                               graph.with_input_shape((bucket,)),
+                               params, cut_points, num_stages))
+        padded = np.zeros((b, bucket), np.float32)
+        padded[:, :t] = ids
+        out = pipe.run(padded.reshape(b // mb, mb, bucket))
+        return out.reshape(b, bucket, -1)[:, :t]
+
+    def score(self, graph, params, ids, *, cut_points=None,
+              num_stages: int | None = None):
+        """Per-sequence log-likelihood of token ids under a causal LM.
+
+        ``ids``: [B, T] ints (B % microbatch == 0).  Runs the causal graph
+        through :meth:`logits` and sums the next-token log-probabilities
+        (float32).  Returns ``(logprob [B], perplexity [B])``.
+        """
+        ids = np.asarray(ids)
+        if ids.ndim != 2:
+            raise ValueError("ids must be [B, T]")
+        b, t = ids.shape
+        logits = self.logits(graph, params, ids, cut_points=cut_points,
+                             num_stages=num_stages)
+        logp = torch.from_numpy(np.asarray(logits, np.float32)).log_softmax(
+            dim=-1)
+        tgt = torch.from_numpy(ids[:, 1:].astype(np.int64))
+        pick = logp[:, :-1].gather(-1, tgt[..., None])[..., 0]
+        total = pick.sum(dim=-1).numpy()
+        ppl = np.exp(-total / (t - 1)) if t > 1 else np.ones(b)
+        return total, ppl
 
     def health_check(self, graph, params, cut_points=None, num_stages=None):
         """Build-and-run probe of a deployment before serving traffic:

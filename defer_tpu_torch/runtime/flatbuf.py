@@ -16,12 +16,17 @@ leaves in the same sequence.  Two layout choices differ from it:
 * every leaf starts at a multiple of :data:`ALIGN` elements (the JAX row
   packs them back to back), so each view is at least 16-byte aligned for
   cuBLAS and cuDNN.
+
+The decoder's W8A16 rows (:func:`quantize_leaves`) keep the same leaf
+offsets in an int8 row, beside an f32 scale row laid out as the JAX
+package lays it.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 #: per-leaf layout record: (offset, size, shape, dtype), offsets in elements
@@ -110,6 +115,54 @@ def pack_leaves(leaves: Sequence[torch.Tensor], meta: Sequence[LeafMeta],
     for leaf, (off, n, _, _) in zip(leaves, meta):
         row[off:off + n] = cast(_storage_order(leaf)).reshape(-1)
     return row
+
+
+#: per-leaf scale slot within the scale row: (offset, size)
+ScaleMeta = tuple[int, int]
+
+
+def quantize_leaves(leaves: Sequence[torch.Tensor], meta: Sequence[LeafMeta]
+                    ) -> tuple[torch.Tensor, torch.Tensor, list[ScaleMeta]]:
+    """W8A16 rows: symmetric int8 with channel-wise (last-axis) scales.
+
+    Returns ``(q_row int8, scale_row f32, smeta)`` as CPU tensors: each
+    leaf's int8 values at its ``meta`` offset (the port's aligned layout,
+    zeros between leaves), and the f32 scales back to back, as the JAX
+    package lays them.  1-D leaves (LayerNorm scales, biases) get
+    per-element scales, exactly invertible.  The arithmetic is the JAX
+    package's host numpy, so values and scales are bit-equal to its rows.
+    Leaves keep their own shape and order (no 4-D relayout): the rows serve
+    the decoder, whose leaves are at most 2-D.
+    """
+    q_row = np.zeros(max((off + n for off, n, _, _ in meta), default=0),
+                     np.int8)
+    ss, smeta, soff = [], [], 0
+    for leaf, (off, n, _, _) in zip(leaves, meta):
+        a = leaf.detach().to("cpu", torch.float32).numpy()
+        red = tuple(range(max(a.ndim - 1, 0)))  # all axes but the last
+        scale = np.maximum(np.abs(a).max(axis=red) / 127.0, 1e-12) \
+            if a.ndim else np.maximum(np.abs(a) / 127.0, 1e-12)
+        q_row[off:off + n] = np.clip(np.rint(a / scale), -127,
+                                     127).astype(np.int8).ravel()
+        ss.append(np.asarray(scale, np.float32).ravel())
+        smeta.append((soff, ss[-1].size))
+        soff += ss[-1].size
+    s_row = np.concatenate(ss) if ss else np.zeros((0,), np.float32)
+    return torch.from_numpy(q_row), torch.from_numpy(s_row), smeta
+
+
+def unpack_quant_leaves(q_row: torch.Tensor, s_row: torch.Tensor,
+                        meta: Sequence[LeafMeta], smeta: Sequence[ScaleMeta],
+                        dtype: torch.dtype) -> list[torch.Tensor]:
+    """The leaves of a W8A16 row pair, dequantized to ``dtype``: ``q *
+    scale``, each factor cast to ``dtype`` first, as the JAX package
+    computes it inside its stage branch."""
+    leaves = []
+    for (off, size, shape, _), (soff, ssize) in zip(meta, smeta):
+        q = q_row.narrow(0, off, size).view(shape)
+        sc = s_row.narrow(0, soff, ssize).view(shape[-1:] if shape else ())
+        leaves.append(q.to(dtype) * sc.to(dtype))
+    return leaves
 
 
 def unpack_leaves(row: torch.Tensor, meta: Sequence[LeafMeta]

@@ -1,0 +1,132 @@
+"""Speculative decoding over the pipelined verification forward.
+
+The port of ``defer_tpu.runtime.speculative``.  A small DRAFT causal LM
+proposes ``gamma`` tokens per round; the TARGET model verifies the whole
+block in ONE pipelined full-sequence forward (``Defer.logits``,
+length-bucketed) and accepts the longest matching greedy prefix plus its
+own correction token.  Greedy speculative decoding is TOKEN-EXACT: the
+output equals target-only greedy decoding whatever the draft proposes —
+the draft only changes how many target forwards are spent.
+
+Draft proposals run through the same bucketed forward on the draft graph
+(a recompute per proposed token).  Per-sequence acceptance is ragged, so
+the bookkeeping is host numpy while every device forward stays batched and
+fixed-shape (sequences are right-padded to the round's bucket).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+
+def speculative_generate(
+    defer,
+    target_graph, target_params: dict[str, Any],
+    draft_graph, draft_params: dict[str, Any],
+    prompt_ids, max_new_tokens: int,
+    *,
+    gamma: int = 4,
+    eos_id: int | None = None,
+    num_stages: int | None = None,
+    draft_num_stages: int | None = None,
+    cut_points=None,
+    draft_cut_points=None,
+    return_stats: bool = False,
+):
+    """Greedy speculative decoding; token-exact vs target-only greedy.
+
+    ``prompt_ids``: [B, plen] ints (B a multiple of the deployment's
+    microbatch).  Returns [B, plen + max_new_tokens] (positions after an
+    ``eos_id`` hit are filled with ``eos_id``), plus a stats dict when
+    ``return_stats`` (acceptance rate, rounds, forward counts).
+    """
+    if gamma < 1:
+        raise ValueError(f"gamma must be >= 1, got {gamma}")
+    ids = np.asarray(prompt_ids)
+    if ids.ndim != 2:
+        raise ValueError("prompt_ids must be [B, plen]")
+    b, plen = ids.shape
+    t_total = plen + max_new_tokens
+    t_model = target_graph.input_spec.shape[0]
+    if t_total > t_model:
+        raise ValueError(
+            f"prompt {plen} + {max_new_tokens} new exceeds the target's "
+            f"sequence length {t_model}")
+    if draft_graph.input_spec.shape[0] < t_total:
+        raise ValueError(
+            f"draft sequence length {draft_graph.input_spec.shape[0]} "
+            f"< {t_total}")
+
+    # out[i, :lens[i]] is valid; done[i] freezes a sequence at EOS
+    out = np.zeros((b, t_total), np.int64)
+    out[:, :plen] = ids
+    lens = np.full(b, plen)
+    done = np.zeros(b, bool)
+    stats = {"rounds": 0, "target_forwards": 0, "draft_forwards": 0,
+             "proposed": 0, "accepted": 0}
+
+    def greedy_next(graph, params, length, n_stages, cp):
+        """argmax logits at every position < length (one batched
+        full-sequence forward at the longest live length)."""
+        logits = defer.logits(graph, params, out[:, :length],
+                              num_stages=n_stages, cut_points=cp)
+        return np.argmax(logits, axis=-1)
+
+    while not done.all() and (lens < t_total).any():
+        stats["rounds"] += 1
+        # --- the draft proposes up to gamma tokens past each live
+        # sequence (rows at the length cap stop proposing)
+        base = lens.copy()
+        for _ in range(gamma):
+            if (done | (lens >= t_total)).all():
+                break
+            cur = int(lens[~done].max())
+            am = greedy_next(draft_graph, draft_params, cur,
+                             draft_num_stages, draft_cut_points)
+            stats["draft_forwards"] += 1
+            for i in range(b):
+                if done[i] or lens[i] >= t_total:
+                    continue
+                out[i, lens[i]] = am[i, lens[i] - 1]
+                lens[i] += 1
+        # --- the target verifies the whole block in ONE pipelined forward
+        cur = int(lens[~done].max())
+        tm = greedy_next(target_graph, target_params, cur, num_stages,
+                         cut_points)
+        stats["target_forwards"] += 1
+        for i in range(b):
+            if done[i]:
+                continue
+            n_prop = int(lens[i] - base[i])
+            stats["proposed"] += n_prop
+            acc = 0
+            pos = int(base[i])
+            # accept drafted tokens while they equal the target's greedy
+            # choice given the (verified) prefix before them
+            while acc < n_prop and out[i, pos] == tm[i, pos - 1]:
+                acc += 1
+                pos += 1
+            stats["accepted"] += acc
+            # the first mismatch is REPLACED by the target's own token; a
+            # full acceptance earns the bonus token from the same forward
+            if pos < t_total:
+                out[i, pos] = tm[i, pos - 1]
+                pos += 1
+            lens[i] = pos
+            out[i, pos:] = 0  # drop the rejected draft tail
+            if eos_id is not None:
+                hits = np.where(out[i, plen:pos] == eos_id)[0]
+                if hits.size:
+                    stop = plen + int(hits[0]) + 1
+                    out[i, stop:] = eos_id
+                    lens[i] = t_total
+                    done[i] = True
+        lens = np.minimum(lens, t_total)
+
+    if return_stats:
+        stats["accept_rate"] = (stats["accepted"] / stats["proposed"]
+                                if stats["proposed"] else 0.0)
+        return out, stats
+    return out

@@ -49,6 +49,7 @@ from ..ops.quant import quantized_ring_hop
 from ..partition.stage import StageModule, StageSpec, buffer_footprint
 from ..utils.config import resolve_device
 from ..utils.metrics import PipelineMetrics
+from .cuda_graph import CapturedGraph, capture
 
 #: compute dtypes the port runs (its kernels take float32 and bfloat16)
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -75,13 +76,12 @@ def check_single_card(*, compute_dtype=None, data_parallel: int = 1,
 
 @dataclasses.dataclass
 class _ChunkGraph:
-    """One captured chunk: its graph, its static input block and output
-    slab, and the kernel launches one replay makes."""
+    """One captured chunk: its graph and its static input block and output
+    slab."""
 
-    graph: Any
+    graph: CapturedGraph
     xs: torch.Tensor
     outs: torch.Tensor
-    launches: list
 
 
 class SpmdPipeline:
@@ -236,38 +236,18 @@ class SpmdPipeline:
         self._chunk(self._a, xs, outs)
         return outs
 
-    @torch.inference_mode()
     def _capture(self, c: int) -> _ChunkGraph:
         """Capture the chunk of length ``c`` as a CUDA graph over static
-        buffers.  An eager warm-up pass on a scratch ring comes first, on a
-        side stream, so that library set-up (kernel loading, cuBLAS and
-        cuDNN handles) happens outside the capture.  Neither pass counts as
-        kernel launches; the capture's launches become the graph's own
-        count, added at each replay (``ops/launches.py``)."""
+        buffers (``runtime/cuda_graph.py``), its warm-up pass on a scratch
+        ring."""
         xs = torch.zeros((c, self.microbatch, self.buf_elems),
                          dtype=self.buffer_dtype, device=self.device)
         outs = self._slab(c)
-        kernels = counted_kernels()
-        before = [k.snapshot() for k in kernels]
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._chunk(self._a.clone(), xs, outs)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        warm = [k.snapshot() for k in kernels]
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._chunk(self._a, xs, outs)
-        self.metrics.graph_pool_bytes += \
-            torch.cuda.memory_reserved(self.device) - reserved
-        launches = [(k, k.since(w)) for k, w in zip(kernels, warm)]
-        for k, snap in zip(kernels, before):
-            k.restore(snap)
+        g = capture(lambda: self._chunk(self._a, xs, outs), self.device,
+                    warmup=lambda: self._chunk(self._a.clone(), xs, outs))
+        self.metrics.graph_pool_bytes += g.pool_bytes
         self.metrics.captures += 1
-        return _ChunkGraph(graph, xs, outs, launches)
+        return _ChunkGraph(g, xs, outs)
 
     def _graph_chunk(self, xs: torch.Tensor) -> torch.Tensor:
         """One chunk as one replay of its captured graph (captured at the
@@ -279,8 +259,6 @@ class SpmdPipeline:
         with torch.inference_mode():
             g.xs.copy_(xs)
         g.graph.replay()
-        for kernel, delta in g.launches:
-            kernel.add(delta)
         return g.outs
 
     def _run_chunk(self, xs: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,11 @@ the plain versions to the JAX package.
 The ring engine's tests hold one CUDA-graph replay per chunk to the eager
 loop, and check that launch counts survive replays (the capture and its
 warm-up pass are not counted), that ``reweight`` and ``reset`` work in
-place without a new capture, and which dtypes the kernels run in.
+place without a new capture, and which dtypes the kernels run in.  The
+decoder's tests hold its graph replays to the same steps run eagerly on
+the card, count the flash launches of decode-rate steps (none) and of the
+fused prefill, and check ``reweight`` without a new capture and that
+sampling on the card does not depend on chunking.
 """
 
 import math
@@ -399,3 +403,101 @@ def test_bf16_quantizer_on_bf16_ring(cuda):
     assert KERNEL.by_dtype == {"bfloat16": pipe.metrics.steps}
     cpu = _pipe("resnet_tiny", "cpu", **kw)[0].run(x)
     assert np.abs(out - cpu).max() <= 5e-2 * np.abs(cpu).max()
+
+
+# ---------------------------------------------------------------------------
+# GPT: the flash kernel's causal mode on its served shapes, and the decoder
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [32, 128], ids=["gpt2_prefill", "gpt2_score"])
+def test_flash_kernel_gpt2_causal(cuda, t, dtype):
+    """GPT-2 small's causal attention: the fused prefill of a 32-token
+    prompt and Defer.score at bucket 128, microbatch 8, 12 heads of 64."""
+    _assert_flash_matches_plain(*_qkv(cuda, 8, 12, t, t, 64, dtype), True)
+
+
+def _decoder(device, **kw):
+    """gpt_tiny (4 blocks) in 4 stages at microbatch 2, and 8 prompts."""
+    import numpy as np
+
+    from defer_tpu_torch import models
+    from defer_tpu_torch.runtime.decode import PipelinedDecoder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = models.gpt_tiny(seq_len=24, vocab=97)
+    params = g.init(torch.Generator().manual_seed(7))
+    prompt = np.random.default_rng(3).integers(0, 97, (8, 5))
+    dec = PipelinedDecoder(g, params, num_stages=kw.pop("num_stages", 4),
+                           microbatch=kw.pop("microbatch", 2), max_len=24,
+                           device=device, **kw)
+    return dec, params, prompt
+
+
+@pytest.mark.parametrize("kw", [{}, {"kv_cache": "int8"},
+                                {"compute_dtype": "bfloat16",
+                                 "weight_dtype": "int8"},
+                                {"microbatch": 4, "beam_width": 2}],
+                         ids=["f32", "int8_kv", "w8a16_bf16", "beam"])
+def test_decoder_graph_equals_eager(cuda, kw):
+    """One graph replay per unit against the same steps run eagerly on the
+    card: equal tokens, caches within 1e-6 of their max |value|; one
+    capture serves every call."""
+    dec, _, prompt = _decoder(cuda, **kw)
+    prompt = prompt[:4] if "beam_width" in kw else prompt
+    got = dec.generate(prompt, 9)
+    snap = {k: [c.clone() for c in cs] for k, cs in dec.caches.items()}
+    assert dec.captures == 1 and dec.graph_pool_bytes > 0
+    dec.cuda_graphs = False
+    want = dec.generate(prompt, 9)
+    assert (got == want).all()
+    for k in snap:
+        for a, b in zip(snap[k], dec.caches[k]):
+            scale = b.float().abs().max().item() or 1.0
+            assert (a.float() - b.float()).abs().max().item() <= 1e-6 * scale
+    dec.cuda_graphs = True
+    assert (dec.generate(prompt, 9, token_chunk=2) == got).all()
+    assert dec.captures == 1
+
+
+def test_decoder_launch_counts(cuda):
+    """Decode-rate steps launch no flash kernel (decode attention is two
+    matmuls); the fused prefill launches it once per block per group, in
+    its graph replay as in the eager pass."""
+    dec, _, prompt = _decoder(cuda)
+    FLASH.zero()
+    rate = dec.generate(prompt, 6)
+    assert FLASH.launches == 0
+    for graphs in (True, False):
+        dec.cuda_graphs = graphs
+        FLASH.zero()
+        pre = dec.generate(prompt, 6, prefill=True)
+        assert FLASH.launches == 4 * 4  # 4 blocks x 4 groups
+        assert FLASH.by_dtype == {"float32": 16}
+        assert (pre == rate).all()
+
+
+def test_decoder_reweight_and_sampling_on_card(cuda):
+    """``reweight`` after capture equals a fresh decoder with no new
+    capture; sampled tokens on the card are the same under any chunking
+    and equal to the CPU's (the noise is a hash of seed, step, row and
+    column)."""
+    from defer_tpu_torch.graph.ir import tree_map
+
+    dec, params, prompt = _decoder(cuda)
+    dec.generate(prompt, 6)
+    captures = dec.captures
+    params2 = tree_map(lambda v: v * 1.1, params)
+    dec.reweight(params2)
+    fresh, _, _ = _decoder(cuda)
+    fresh.reweight(params2)
+    assert (dec.generate(prompt, 6) == fresh.generate(prompt, 6)).all()
+    assert dec.captures == captures
+    kw = dict(temperature=0.8, top_k=5, seed=4)
+    a = dec.generate(prompt, 8, **kw)
+    assert (a == dec.generate(prompt, 8, token_chunk=3, **kw)).all()
+    cpu, _, _ = _decoder("cpu")
+    cpu.reweight(params2)
+    same = (a == cpu.generate(prompt, 8, **kw)).mean()
+    assert same > 0.9  # float rounding may move a near tie

@@ -38,6 +38,10 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.runtime.flatbuf; "
             "import defer_tpu_torch.obs.events; "
             "import defer_tpu_torch.transport.replay; "
+            "import defer_tpu_torch.models.gpt; "
+            "import defer_tpu_torch.runtime.decode; "
+            "import defer_tpu_torch.runtime.speculative; "
+            "import defer_tpu_torch.runtime.cuda_graph; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -48,7 +52,11 @@ def test_import_loads_no_jax_module():
     for new in ("defer_tpu_torch.runtime.flatbuf",
                 "defer_tpu_torch.obs.events",
                 "defer_tpu_torch.transport.replay",
-                "defer_tpu_torch.ops.launches"):
+                "defer_tpu_torch.ops.launches",
+                "defer_tpu_torch.models.gpt",
+                "defer_tpu_torch.runtime.decode",
+                "defer_tpu_torch.runtime.speculative",
+                "defer_tpu_torch.runtime.cuda_graph"):
         assert new in mods
     bad = [m for m in mods if _is_forbidden(m)]
     assert bad == []
