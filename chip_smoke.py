@@ -56,8 +56,21 @@ Phases, in order; any failure exits non-zero before the result line:
                    flash launches per step); speculative decoding
                    token-exact; tokens/s, time to first token, scored
                    sequences/s and one decode replay profiled;
-  5. report — the ``kernels`` JSON line, the card line, and the last line
-              ``{"ok": true, "device": {...}}``.
+                h. the rest of the BASELINE zoo at full width and depth:
+                   VGG19 in 4 stages and MobileNetV2 in 2 at 224x224,
+                   InceptionV3 (torchvision's graph) in 6 at 299x299, each
+                   f32 on both wires (one quantizer launch per int8 step;
+                   top-1 equal wherever the forward's margin exceeds twice
+                   the error), bf16 on a bf16 ring on both wires, graph
+                   against eager, images/s, a profiled bf16 int8 chunk and
+                   peak device memory; ``fold_batchnorm`` on ResNet50 and
+                   MobileNetV2 with randomized statistics (folded and
+                   unfolded bf16 int8 pipelines against the unfolded f32
+                   forward, images/s side by side, a profiled chunk each);
+                   ``moe_tiny`` and ``moe_branched_tiny`` in 2 stages on both
+                   wires (flash launches = blocks x steps);
+  5. report — the ``zoo_path`` and ``kernels`` JSON lines, the card line,
+              and the last line ``{"ok": true, "device": {...}}``.
 
 Weights are the port's own seeded random initialisation; inputs come from
 ``numpy`` with a fixed seed.  Needs one card; exits non-zero without CUDA
@@ -130,6 +143,8 @@ FLASH_CASES = [
     ("gpt2_prefill_bf16", 8, 12, 32, 32, 64, True, "bfloat16"),
     ("gpt2_score", 8, 12, 128, 128, 64, True, "float32"),
     ("gpt2_score_bf16", 8, 12, 128, 128, 64, True, "bfloat16"),
+    # moe_tiny's and moe_branched_tiny's blocks at microbatch 8 (phase 4h)
+    ("moe_tiny", 8, 2, 16, 16, 16, False, "float32"),
 ]
 #: the causal GPT-2 cases timed beside SDPA's causal mode
 GPT2_FLASH_CASES = ("gpt2_prefill", "gpt2_prefill_bf16", "gpt2_score",
@@ -224,9 +239,11 @@ def quant_inputs(torch, ring_shape, device):
     return ring, edge
 
 
-def check_quant(torch, ring_shape, device):
-    """Bit-equality with the plain version, and timings.  Returns the
-    kernel row of the report (without ``launches``)."""
+def check_quant(torch, ring_shape, device, zoo_rings):
+    """Bit-equality with the plain version, and timings, on ResNet50's
+    ring and on each ring of ``zoo_rings`` (``{path: ring shape}``, phase
+    4h's paths).  Returns the kernel row of the report (without
+    ``launches``)."""
     from defer_tpu_torch.ops.quant import quantize_int8_blocks_plain
     from defer_tpu_torch.ops.quant_cuda import KERNEL
 
@@ -264,13 +281,30 @@ def check_quant(torch, ring_shape, device):
                 "dtype": str(x.dtype).removeprefix("torch."),
                 "bytes": nbytes}
 
+    # phase 4h's rings, f32 and bf16, bit-equal and timed
+    zoo = {}
+    for path, shape in zoo_rings.items():
+        zring, _ = quant_inputs(torch, shape, device)
+        zoo[path] = {}
+        for dt in ("float32", "bfloat16"):
+            x = zring.to(getattr(torch, dt))
+            qk, sk = KERNEL(x)
+            qp, sp = quantize_int8_blocks_plain(x)
+            torch.cuda.synchronize()
+            if not (torch.equal(qk, qp) and torch.equal(
+                    sk.view(torch.int32), sp.view(torch.int32))):
+                fail(f"quant_int8 != plain on the {path} ring {shape} {dt}")
+            zoo[path][dt] = timed(x)
+        print(f"kernel quant_int8: bit-equal to plain on the {path} ring "
+              f"{tuple(shape)}, f32 and bf16", flush=True)
+
     # the f32 ring of the f32 deployments, and the bf16 ring of ResNet50
     # under bf16 compute (phase 4d)
     return {"name": KERNEL.name, "route": "cuda",
             "source": "defer_tpu_torch/csrc/quant_int8.cu",
             "replaces": "defer_tpu/ops/quant_pallas.py:35",
             "max_abs_err": max_err, **timed(ring),
-            "bf16": timed(cases["ring_bf16"]),
+            "bf16": timed(cases["ring_bf16"]), "zoo_rings": zoo,
             "checked_by": "phase 3 (bit-equal vs plain) + phase 4 (main "
                           "path launches)"}
 
@@ -1433,6 +1467,327 @@ def gpt_path(torch, device, kernels, card):
     return dec, res
 
 
+# ---------------------------------------------------------------------------
+# phase 4h: the rest of the BASELINE zoo, folded BatchNorm, the MoE family
+# ---------------------------------------------------------------------------
+
+#: (path, model factory, cut list, image size): BASELINE.md configs 2-4 at
+#: the JAX package's benchmark sizes (benchmarks/run.py)
+ZOO_PATHS = (("vgg19_4", "vgg19", "VGG19_4STAGE_CUTS", 224),
+             ("inceptionv3_6", "inception_v3", "INCEPTION_6STAGE_CUTS", 299),
+             ("mobilenetv2_2", "mobilenet_v2", "MOBILENETV2_2STAGE_CUTS",
+              224))
+#: alternating timed rounds of phase 4h's throughput rows
+ZOO_ROUNDS = 3
+ZOO_GROUPS = {"quant_int8": ("quant_int8",),
+              # cuDNN's depthwise kernel on H100 (one launch per
+              # DepthwiseConv2D node and step)
+              "depthwise conv": ("depthwise", "Depthwise",
+                                 "conv2d_c1_k1_nhwc"),
+              "conv (cuDNN, incl. layout)": ("fprop", "cudnn", "conv", "Conv",
+                                             "nchw", "nhwc", "Nchw", "Nhwc",
+                                             "implicit", "winograd"),
+              "matmul (cuBLAS)": ("gemm", "Gemm", "cutlass", "nvjet",
+                                  "xmma"),
+              "pooling": ("pool", "Pool"),
+              "concat": ("CatArray", "cat_"),
+              "ring roll": ("roll_cuda",)}
+BF16_RING = dict(compute_dtype="bfloat16", buffer_dtype="bfloat16")
+
+
+def free_card(torch) -> None:
+    """Drop what the last path left on the card and restart the peak."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def zoo_rings():
+    """``{path: (stages, MICROBATCH, int8 ring width)}`` of phase 4h's CNN
+    paths, from ``buffer_footprint`` of their full-size graphs."""
+    from defer_tpu_torch import models
+    from defer_tpu_torch.partition import buffer_footprint, partition
+
+    rings = {}
+    for key, factory, cuts_name, size in ZOO_PATHS:
+        stages = partition(getattr(models, factory)(image_size=size),
+                           getattr(models, cuts_name))
+        rings[key] = (len(stages), MICROBATCH, buffer_footprint(
+            stages, microbatch=MICROBATCH, wire="int8")["buf_elems"])
+    return rings
+
+
+def cnn_path(torch, device, kernels, card, key, factory, cuts_name, size):
+    """One CNN of phase 4h (seeded random weights, numpy inputs from SEED,
+    microbatch MICROBATCH, chunk CHUNK, TF32 off) through ``Defer.run``:
+    f32 on the int8 wire (one quantizer launch per step, no flash launch,
+    within INT8_REL_BOUND of the whole-graph forward; top-1 equal wherever
+    the forward's top-1 margin exceeds twice the measured error) and on
+    the buffer wire (within BUFFER_REL_BOUND, no launch); bf16 on a bf16
+    ring on both wires (``bf16_path``); graph replay against the eager
+    loop; images/s; one bf16 int8 chunk profiled; device memory."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, models
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    free_card(torch)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = getattr(models, factory)(image_size=size)
+    cuts = getattr(models, cuts_name)
+    params = g.init(torch.Generator().manual_seed(SEED))
+    n = len(cuts) + 1
+    m = 2 * CHUNK
+    inputs = np.random.default_rng(SEED).standard_normal(
+        (m, MICROBATCH, size, size, 3)).astype(np.float32)
+    steps = CHUNK * -(-(m + n - 1) // CHUNK)
+    pdev = params_to_device(params, device)
+    with torch.inference_mode():
+        ref = np.stack([g.apply(pdev, torch.from_numpy(x).to(device))
+                        .cpu().numpy() for x in inputs])
+    if not np.isfinite(ref).all():
+        fail(f"{key}: the forward is not finite")
+    scale = float(np.abs(ref).max())
+    res = {"model": g.name, "image_size": size, "stages": n, "cuts": cuts,
+           "steps": steps, "launches": {}, "rel_err": {}}
+    defer = None
+    for wire, bound in (("int8", INT8_REL_BOUND),
+                        ("buffer", BUFFER_REL_BOUND)):
+        d = Defer(DeferConfig(wire=wire, microbatch=MICROBATCH, chunk=CHUNK,
+                              device=device))
+        zero_counts(kernels)
+        out = d.run(g, params, inputs, cut_points=cuts)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        want = {"quant_int8": steps if wire == "int8" else 0,
+                "flash_attention": 0}
+        print(f"zoo {key}: Defer.run({g.name} {size}x{size}, {n} stages "
+              f"{cuts}, wire={wire}, microbatch={MICROBATCH}, chunk={CHUNK})"
+              f" on {m} microbatches = {steps} steps; kernel launches "
+              f"{launches}", flush=True)
+        if launches != want:
+            fail(f"{key} wire={wire}: launches {launches}, want {want}")
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            fail(f"{key} {wire} output shape {out.shape} (want {ref.shape}) "
+                 "or not finite")
+        err = float(np.abs(out - ref).max())
+        top = ""
+        if wire == "int8":
+            srt = np.sort(ref, -1)
+            margin = srt[..., -1] - srt[..., -2]
+            agree = ref.argmax(-1) == out.argmax(-1)
+            decisive = margin > 2 * err
+            res["top1_agree"] = f"{int(agree.sum())}/{agree.size}"
+            res["top1_agree_decisive"] = (f"{int(agree[decisive].sum())}/"
+                                          f"{int(decisive.sum())}")
+            top = (f"; top-1 agree {res['top1_agree']}, on the images whose "
+                   f"top-1 margin exceeds 2 x max|err| "
+                   f"{res['top1_agree_decisive']}; smallest margin "
+                   f"{float(margin.min()):.6g}")
+            defer = d
+        print(f"zoo {key} {wire} wire vs whole-graph forward: max|err| "
+              f"{err:.6g} = {err / scale:.6g} of max|logit| {scale:.6g} "
+              f"(bound {bound}){top}", flush=True)
+        if err > bound * scale:
+            fail(f"{key} {wire}-wire error above its bound")
+        if wire == "int8" and not agree[decisive].all():
+            fail(f"{key}: the int8 wire changed a top-1 class whose margin "
+                 "exceeds twice the error")
+        res["launches"][wire] = launches
+        res["rel_err"][wire] = err / scale
+    mp = {"steps": steps, "defer": defer, "graph": g, "params": params,
+          "inputs": inputs, "pdev": pdev, "cuts": cuts, "ref": ref,
+          "bf16": BF16_RING}
+    res["bf16"] = bf16_path(torch, device, kernels, mp, lambda wire, st: {
+        "quant_int8": {"bfloat16": st} if wire == "int8" else {},
+        "flash_attention": {}})
+    res["graph_vs_eager"] = graph_vs_eager(torch, mp)
+    res["images_per_s"] = throughput(torch, device, mp, card, "img",
+                                     rounds=ZOO_ROUNDS)
+    res["profile_bf16_int8"] = profile_step(
+        torch, mp, ZOO_GROUPS, label="bf16 int8", defer=Defer(DeferConfig(
+            wire="int8", microbatch=MICROBATCH, chunk=CHUNK, device=device,
+            **BF16_RING)))
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"zoo {key}: torch.cuda.max_memory_allocated "
+          f"{res['max_memory_allocated'] / 2**30:.2f} GiB since the path "
+          f"began; graph pool of one f32 int8 pipeline "
+          f"{res['graph_vs_eager']['graph_pool_bytes'] / 2**20:.1f} MiB, on "
+          f"{card}", flush=True)
+    return res
+
+
+def randomized_bn(torch, graph, params, seed):
+    """Non-trivial BatchNorm running statistics from numpy ``seed`` (as
+    tests/test_optimize.py draws them), so folding has work to do."""
+    import numpy as np
+
+    from defer_tpu_torch.graph.ops import BatchNorm
+
+    rng = np.random.default_rng(seed)
+    out = dict(params)
+    for name, node in graph.nodes.items():
+        if isinstance(node.op, BatchNorm):
+            c = node.out_spec.shape[-1]
+            out[name] = {k: torch.from_numpy(v.astype(np.float32)) for k, v in
+                         (("scale", rng.uniform(0.5, 1.5, c)),
+                          ("bias", rng.normal(0, 0.2, c)),
+                          ("mean", rng.normal(0, 0.5, c)),
+                          ("var", rng.uniform(0.5, 2.0, c)))}
+    return out
+
+
+def fold_path(torch, device, kernels, card, key, graph, cuts, inputs):
+    """``fold_batchnorm`` on a BatchNorm CNN with randomized statistics:
+    the folded and the unfolded graph through ``Defer.run`` in bf16 on a
+    bf16 ring, int8 wire, each held against the UNFOLDED f32 forward
+    within INT8_REL_BOUND plus the bf16 forward's own error; then images/s
+    of the two pipelines in alternating rounds, and one profiled chunk of
+    each.  Recorded, not claimed."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, fold_batchnorm
+    from defer_tpu_torch.graph.ir import tree_map
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    free_card(torch)
+    params = randomized_bn(torch, graph, graph.init(
+        torch.Generator().manual_seed(SEED)), SEED + 3)
+    fg, fp, folded = fold_batchnorm(graph, params)
+    n = len(cuts) + 1
+    steps = CHUNK * -(-(len(inputs) + n - 1) // CHUNK)
+    pdev = params_to_device(params, device)
+    pdev16 = tree_map(lambda v: v.to(torch.bfloat16), pdev)
+    with torch.inference_mode():
+        ref32 = np.stack([graph.apply(pdev, torch.from_numpy(x).to(device))
+                          .cpu().numpy() for x in inputs])
+        ref16 = np.stack([graph.apply(pdev16, torch.from_numpy(x).to(
+            device, torch.bfloat16)).float().cpu().numpy() for x in inputs])
+    scale = float(np.abs(ref32).max())
+    noise = float(np.abs(ref16 - ref32).max()) / scale
+    bound = INT8_REL_BOUND + noise
+    print(f"fold {key}: fold_batchnorm folded {folded} BatchNorm nodes "
+          f"({len(graph.nodes)} -> {len(fg.nodes)} nodes); the unfolded "
+          f"bf16 forward is {noise:.6g} of max|logit| off the f32 one",
+          flush=True)
+    res = {"folded": folded, "nodes": [len(graph.nodes), len(fg.nodes)],
+           "forward_bf16_rel_err_vs_f32": noise, "rel_err_vs_f32": {},
+           "by_dtype": {}}
+    variants = {"unfolded": (graph, params), "folded": (fg, fp)}
+    want = {"quant_int8": {"bfloat16": steps}, "flash_attention": {}}
+    for label, (gg, pp) in variants.items():
+        d = Defer(DeferConfig(wire="int8", microbatch=MICROBATCH,
+                              chunk=CHUNK, device=device, **BF16_RING))
+        zero_counts(kernels)
+        out = d.run(gg, pp, inputs, cut_points=cuts)
+        torch.cuda.synchronize()
+        by_dtype = read_dtypes(kernels)
+        err = float(np.abs(out - ref32).max()) / scale
+        agree = (f"{int((out.argmax(-1) == ref32.argmax(-1)).sum())}/"
+                 f"{out.shape[0] * out.shape[1]}")
+        print(f"fold {key} {label} bf16 int8: {steps} steps, launches by "
+              f"dtype {by_dtype}; vs the unfolded f32 forward {err:.6g} of "
+              f"max|logit| (bound {bound:.6g}); top-1 agree {agree}",
+              flush=True)
+        if by_dtype != want:
+            fail(f"fold {key} {label}: launches by dtype {by_dtype}, want "
+                 f"{want}")
+        if not np.isfinite(out).all() or err > bound:
+            fail(f"fold {key} {label}: error above its bound or not finite")
+        res["rel_err_vs_f32"][label] = err
+        res["by_dtype"][label] = by_dtype
+        res[f"top1_agree_{label}"] = agree
+    # images/s: the two pipelines in alternating rounds
+    pushes, walls = {}, {}
+    for label, (gg, pp) in variants.items():
+        pipe = Defer(DeferConfig(wire="int8", microbatch=MICROBATCH,
+                                 chunk=CHUNK, device=device,
+                                 **BF16_RING)).build(gg, pp, cuts)
+        xs = pipe.stage_inputs(inputs[:CHUNK])
+        for _ in range(2):  # capture the chunk's graph, fill the ring
+            pipe.push(xs)
+        pushes[label], walls[label] = (lambda p=pipe, x=xs: p.push(x)), []
+    for _ in range(2 * ZOO_ROUNDS):
+        for label, fn in pushes.items():
+            walls[label].extend(timed_rounds(torch, fn, rounds=1))
+    res["images_per_s"] = {k: CHUNK * MICROBATCH / statistics.median(w)
+                           for k, w in walls.items()}
+    print(f"fold {key} bf16 int8 images/s on {card} (median of "
+          f"{2 * ZOO_ROUNDS} alternating rounds of {CHUNK} steps): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in res["images_per_s"].items()),
+          flush=True)
+    del pushes
+    res["profile"] = {label: profile_step(
+        torch, {"graph": gg, "params": pp, "cuts": cuts, "inputs": inputs},
+        ZOO_GROUPS, label=f"bf16 int8 {label}", defer=Defer(DeferConfig(
+            wire="int8", microbatch=MICROBATCH, chunk=CHUNK, device=device,
+            **BF16_RING))) for label, (gg, pp) in variants.items()}
+    return res
+
+
+def moe_path(torch, device, kernels, card):
+    """``moe_tiny`` and ``moe_branched_tiny`` at ``moe_stage_cuts(2)``
+    through ``Defer.run`` on both wires: flash launches = blocks x steps,
+    one quantizer launch per int8 step, the output within the wire's bound
+    of the whole-graph forward."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, models
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    free_card(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for factory in ("moe_tiny", "moe_branched_tiny"):
+        g = getattr(models, factory)()
+        params = g.init(torch.Generator().manual_seed(SEED))
+        cuts = models.moe_stage_cuts(2)
+        n = len(cuts) + 1
+        blocks = sum(nm.startswith("block_") for nm in g.topo_order)
+        m = 2 * CHUNK
+        vocab = g.nodes["embeddings"].op.vocab
+        seq = g.input_spec.shape[0]
+        ids = np.random.default_rng(SEED).integers(
+            0, vocab, (m, MICROBATCH, seq)).astype(np.float32)
+        steps = CHUNK * -(-(m + n - 1) // CHUNK)
+        pdev = params_to_device(params, device)
+        with torch.inference_mode():
+            ref = np.stack([g.apply(pdev, torch.from_numpy(x).to(
+                device, torch.int32)).cpu().numpy() for x in ids])
+        scale = float(np.abs(ref).max())
+        res[factory] = {"launches": {}, "rel_err": {}, "steps": steps}
+        for wire, bound in (("buffer", BUFFER_REL_BOUND),
+                            ("int8", INT8_REL_BOUND)):
+            d = Defer(DeferConfig(wire=wire, microbatch=MICROBATCH,
+                                  chunk=CHUNK, device=device))
+            zero_counts(kernels)
+            out = d.run(g, params, ids, cut_points=cuts)
+            torch.cuda.synchronize()
+            launches = read_counts(kernels)
+            want = {"flash_attention": blocks * steps,
+                    "quant_int8": steps if wire == "int8" else 0}
+            err = float(np.abs(out - ref).max())
+            print(f"moe {factory}: Defer.run({n} stages {cuts}, wire={wire}, "
+                  f"microbatch={MICROBATCH}, chunk={CHUNK}) = {steps} steps; "
+                  f"kernel launches {launches} (want {want}); vs the forward "
+                  f"{err / scale:.6g} of max|output| (bound {bound}), on "
+                  f"{card}", flush=True)
+            if launches != want:
+                fail(f"moe {factory} wire={wire}: launches {launches}, want "
+                     f"{want}")
+            if out.shape != ref.shape or not np.isfinite(out).all() or \
+                    err > bound * scale:
+                fail(f"moe {factory} {wire}: output misshapen, not finite or "
+                     "above its bound")
+            res[factory]["launches"][wire] = launches
+            res[factory]["rel_err"][wire] = err / scale
+    return res
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -1487,7 +1842,8 @@ def main() -> int:
     buf = buffer_footprint(stages, microbatch=MICROBATCH,
                            wire="int8")["buf_elems"]
     ring_shape = (len(stages), MICROBATCH, buf)
-    rows = {"quant_int8": check_quant(torch, ring_shape, device)}
+    rows = {"quant_int8": check_quant(torch, ring_shape, device,
+                                      zoo_rings())}
     r = rows["quant_int8"]
     print(f"kernel quant_int8 {tuple(ring_shape)} f32: {r['ms']:.4f} ms, "
           f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -1558,6 +1914,27 @@ def main() -> int:
     gres["profile_decode"] = profile_decode(torch, gdec, card)
     del gdec
 
+    # phase 4h: VGG19/4, InceptionV3/6 and MobileNetV2/2, folded BatchNorm
+    # on ResNet50 and MobileNetV2, the MoE family; the counts zeroed just
+    # before each run, each path freed before the next
+    zoo = {}
+    for key, factory, cuts_name, size in ZOO_PATHS:
+        zoo[key] = cnn_path(torch, device, kernels, card, key, factory,
+                            cuts_name, size)
+    from defer_tpu_torch import models
+    import numpy as np
+    folds = {"resnet50_8": fold_path(torch, device, kernels, card,
+                                     "resnet50_8", mp["graph"], mp["cuts"],
+                                     mp["inputs"])}
+    folds["mobilenetv2_2"] = fold_path(
+        torch, device, kernels, card, "mobilenetv2_2",
+        models.mobilenet_v2(image_size=IMAGE_SIZE),
+        models.MOBILENETV2_2STAGE_CUTS,
+        np.random.default_rng(SEED).standard_normal(
+            (2 * CHUNK, MICROBATCH, IMAGE_SIZE, IMAGE_SIZE, 3)).astype(
+            np.float32))
+    moe = moe_path(torch, device, kernels, card)
+
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
     by_path.update({f"resnet50_bf16_{w}": c
@@ -1569,16 +1946,30 @@ def main() -> int:
     by_path.update({f"gpt2_score_{w}": c
                     for w, c in gres["score"]["launches"].items()})
     by_path["gpt2_speculative"] = gres["speculative"]["launches"]
+    for key, z in zoo.items():
+        by_path.update({f"{key}_{w}": c for w, c in z["launches"].items()})
+        by_path.update({f"{key}_bf16_{w}": c
+                        for w, c in z["bf16"]["launches"].items()})
+    for name, r in moe.items():
+        by_path.update({f"{name}_{w}": c for w, c in r["launches"].items()})
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
     dtypes["resnet50_bf16_int8_run_defer"] = rd["by_dtype"]
+    for key, z in zoo.items():
+        dtypes.update({f"{key}_bf16_{w}": c
+                       for w, c in z["bf16"]["by_dtype"].items()})
+    for key, f in folds.items():
+        dtypes.update({f"{key}_bf16_int8_{label}_bn": c
+                       for label, c in f["by_dtype"].items()})
     for k in kernels:
         row = rows[k.name]
         row["launches_by_path"] = {p: c[k.name] for p, c in by_path.items()}
         row["launches_by_dtype_bf16_paths"] = {
             p: c[k.name] for p, c in dtypes.items()}
-        row["launches"] = sum(row["launches_by_path"].values())
+        row["launches"] = sum(row["launches_by_path"].values()) + sum(
+            sum(c[k.name].values()) for p, c in dtypes.items()
+            if p.endswith("_bn"))
         if row["launches"] == 0:
             fail(f"kernel {k.name} was not launched on the main paths")
 
@@ -1604,6 +1995,11 @@ def main() -> int:
         "microbatch": MICROBATCH, "max_len": GPT_MAX_LEN,
         "prompts": list(GPT_PROMPTS), "new_tokens": GPT_NEW,
         **{k: v for k, v in gres.items() if k != "launches"}}}))
+    print(json.dumps({"zoo_path": {
+        "microbatch": MICROBATCH, "chunk": CHUNK, "card": card,
+        **{k: {f: v for f, v in z.items() if f != "launches"}
+           for k, z in zoo.items()},
+        "fold_batchnorm": folds, "moe": moe}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ raise.
 """
 
 from . import models
+from .graph import fold_batchnorm, summary, to_dot
 from .partition import partition
 from .runtime import (END_OF_STREAM, Defer, DeferHandle, MpmdPipeline,
                       PipelinedDecoder, SpmdPipeline, speculative_generate)
@@ -29,4 +30,5 @@ from .utils.convert import params_from_jax
 
 __all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
            "SpmdPipeline", "MpmdPipeline", "PipelinedDecoder", "partition",
-           "models", "params_from_jax", "speculative_generate"]
+           "models", "params_from_jax", "speculative_generate",
+           "fold_batchnorm", "summary", "to_dot"]

@@ -2,10 +2,11 @@
 
 :func:`params_from_jax` is the one place where a layout differs between
 the two packages: the JAX package's conv kernels are HWIO, the port's are
-OIHW.  Every other leaf (Dense ``w [d, f]``, used as ``x @ w`` and never
-turned into ``nn.Linear``'s ``[f, d]``; biases; BatchNorm statistics;
-a transformer block's nested ``{"qkv": {"w", "b"}, ...}``) crosses
-unchanged.
+OIHW (a depthwise kernel ``[k, k, 1, c]`` becomes ``[c, 1, k, k]`` by the
+same transpose).  Every other leaf (Dense ``w [d, f]``, used as ``x @ w``
+and never turned into ``nn.Linear``'s ``[f, d]``; biases; BatchNorm
+statistics; a transformer block's nested ``{"qkv": {"w", "b"}, ...}``;
+MoE's stacked ``[e, d, h]`` experts) crosses unchanged.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from ..graph.ir import LayerGraph, flatten_tree, tree_map, unflatten_tree
-from ..graph.ops import Conv2D
+from ..graph.ops import Conv2D, DepthwiseConv2D
 
 
 def params_from_jax(graph: LayerGraph, np_params: dict[str, Any]
@@ -43,7 +44,8 @@ def params_from_jax(graph: LayerGraph, np_params: dict[str, Any]
         if set(flat) != set(spec):
             raise ValueError(f"node {name!r}: leaves {sorted(flat)} != "
                              f"{sorted(spec)}")
-        conv = isinstance(node.op, Conv2D)
+        # DepthwiseConv2D is not a Conv2D subclass, in either package
+        conv = isinstance(node.op, (Conv2D, DepthwiseConv2D))
         p = {}
         for path, v in flat.items():
             a = np.asarray(v)

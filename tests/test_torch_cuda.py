@@ -21,7 +21,9 @@ place without a new capture, and which dtypes the kernels run in.  The
 decoder's tests hold its graph replays to the same steps run eagerly on
 the card, count the flash launches of decode-rate steps (none) and of the
 fused prefill, and check ``reweight`` without a new capture and that
-sampling on the card does not depend on chunking.
+sampling on the card does not depend on chunking.  The zoo's tests count
+the quantizer's launches on the VGG, Inception and MobileNetV2 pipelines
+(f32 and bf16 rings) and the flash launches of the MoE families.
 """
 
 import math
@@ -403,6 +405,71 @@ def test_bf16_quantizer_on_bf16_ring(cuda):
     assert KERNEL.by_dtype == {"bfloat16": pipe.metrics.steps}
     cpu = _pipe("resnet_tiny", "cpu", **kw)[0].run(x)
     assert np.abs(out - cpu).max() <= 5e-2 * np.abs(cpu).max()
+
+
+# ---------------------------------------------------------------------------
+# the rest of the zoo: VGG, Inception, MobileNetV2 (depthwise) and MoE
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model,stages,size", [
+    ("vgg_tiny", 4, 32), ("inception_tiny", 6, 75), ("mobilenet_tiny", 2, 32)])
+def test_zoo_int8_pipeline_launches_once_per_step(cuda, model, stages, size,
+                                                  dtype):
+    """VGG19's, InceptionV3's and MobileNetV2's families in their
+    BASELINE stage counts on the int8 wire: one quantizer launch per step
+    in the ring's dtype (f32, or bf16 compute on a bf16 ring), and the
+    output within 5e-2 of max |output| of the same pipeline on the CPU
+    (cuDNN and the CPU sum convolutions differently, and the int8 wire can
+    turn such a difference into a quant step)."""
+    import numpy as np
+
+    from defer_tpu_torch import SpmdPipeline, models, partition
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = getattr(models, model)()
+    params = g.init(torch.Generator().manual_seed(0))
+    x = np.random.default_rng(0).standard_normal(
+        (5, 2, size, size, 3)).astype(np.float32)
+    kw = dict(microbatch=2, chunk=3, wire="int8")
+    if dtype == "bfloat16":
+        kw.update(compute_dtype="bfloat16", buffer_dtype="bfloat16")
+    stage_list = partition(g, num_stages=stages)
+    pipe = SpmdPipeline(stage_list, params, device=cuda, **kw)
+    KERNEL.zero()
+    out = pipe.run(x)
+    assert KERNEL.by_dtype == {dtype: pipe.metrics.steps}
+    cpu = SpmdPipeline(stage_list, params, device="cpu", **kw).run(x)
+    assert np.isfinite(out).all()
+    assert np.abs(out - cpu).max() <= 5e-2 * np.abs(cpu).max()
+
+
+@pytest.mark.parametrize("model", ["moe_tiny", "moe_branched_tiny"])
+def test_moe_pipeline_launches_flash_per_block_step(cuda, model):
+    """The MoE families in two stages: one flash launch per block per
+    step, and the buffer wire equal to the whole-graph forward on the card
+    to 1e-5 of max |output|."""
+    import numpy as np
+
+    from defer_tpu_torch import SpmdPipeline, models, partition
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = getattr(models, model)()
+    params = g.init(torch.Generator().manual_seed(0))
+    x = np.random.default_rng(0).integers(0, 100, (5, 2, 16)).astype(
+        np.float32)
+    pipe = SpmdPipeline(partition(g, models.moe_stage_cuts(2)), params,
+                        device=cuda, microbatch=2, chunk=3)
+    FLASH.zero()
+    out = pipe.run(x)
+    assert FLASH.launches == 2 * pipe.metrics.steps
+    pdev = params_to_device(params, cuda)
+    with torch.inference_mode():
+        ref = np.stack([g.apply(pdev, torch.from_numpy(xi).to(
+            cuda, torch.int32)).cpu().numpy() for xi in x])
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
 
 
 # ---------------------------------------------------------------------------

@@ -102,30 +102,75 @@ def test_tiny_partition_equal(tiny, num_stages):
             == jax_analysis.max_activation_bytes(jg, cuts, batch=3))
 
 
-def _one_op_graph(ir_mod, op, shape):
+def _one_op_graph(ir_mod, op, shape, n_inputs=1):
     b = ir_mod.GraphBuilder("one")
-    b.add(op, b.input(shape))
+    x = b.input(shape)
+    b.add(op, [x] * n_inputs)
     return b.build()
 
 
-@pytest.mark.parametrize("name,shape,args", [
+#: (op name, per-sample input shape, constructor args[, inputs]).  SAME
+#: is XLA's rule: even sizes at stride 2, even kernels and (1, 7) kernels
+#: pad asymmetrically (one more row or column after the data)
+OP_CASES = [
     ("Conv2D", (9, 9, 4), (6, 3, 2, (1, 1))),        # odd size, stride 2
     ("Conv2D", (8, 8, 4), (5, 1, 1, "VALID", False)),
+    ("Conv2D", (9, 9, 4), (6, 3)),                   # SAME, stride 1
+    ("Conv2D", (9, 9, 4), (6, 3, 2)),                # SAME, odd, stride 2
+    ("Conv2D", (8, 8, 4), (6, 3, 2)),                # SAME (0, 1), stride 2
+    ("Conv2D", (8, 8, 4), (5, 2, 1)),                # SAME, even kernel
+    ("Conv2D", (9, 9, 4), (5, 4, 2)),                # SAME (1, 2)
+    ("Conv2D", (7, 9, 4), (6, (1, 7))),              # SAME (1, 7) kernel
+    ("Conv2D", (9, 9, 4), (6, (7, 1), 1, "same")),   # lowercase, as lax
+    ("Conv2D", (8, 8, 4), (6, 3, 2, "SAME", True, 2)),  # grouped
+    ("DepthwiseConv2D", (9, 9, 6), (3,)),            # SAME, stride 1
+    ("DepthwiseConv2D", (8, 8, 6), (3, 2)),          # SAME (0, 1)
+    ("DepthwiseConv2D", (9, 9, 6), (3, 2, (1, 1))),  # MobileNetV2's form
+    ("DepthwiseConv2D", (8, 8, 6), (3, 1, "VALID", True)),
     ("BatchNorm", (5, 5, 6), ()),
     ("MaxPool", (9, 9, 3), (3, 2, (1, 1))),           # -inf padding
     ("MaxPool", (8, 8, 3), (2,)),
+    ("MaxPool", (8, 8, 3), (3, 2, "SAME")),           # -inf pad (0, 1)
+    ("MaxPool", (9, 9, 3), (3, 1, "SAME")),
+    ("AvgPool", (8, 8, 3), (3, 2, "SAME", True)),     # / 9 everywhere
+    ("AvgPool", (8, 8, 3), (3, 2, "SAME", False)),    # / valid count
+    ("AvgPool", (9, 9, 3), (3, 1, "SAME", False)),
+    ("AvgPool", (9, 9, 3), (3, 1, "SAME", True)),     # InceptionV3's pool
+    ("AvgPool", (8, 8, 3), (2,)),
     ("GlobalAvgPool", (4, 4, 6), ()),
+    ("ZeroPad2D", (5, 6, 3), (2,)),
+    ("Concat", (4, 4, 3), (), 3),                     # channel axis
+    ("Concat", (4, 5, 3), (1,), 2),
+    ("Flatten", (4, 5, 3), ()),
+    ("Tile", (4, 3), (3,)),
+    ("Cast", (4, 3), ("bfloat16",)),
+    ("ReduceMean", (4, 5, 3), (1,)),
     ("Dense", (12,), (7,)),
     ("Activation", (4, 4, 3), ("relu",)),
-])
-def test_op_matches_jax(name, shape, args):
+    ("Activation", (4, 4, 3), ("relu6",)),
+    ("Activation", (4, 4, 3), ("gelu",)),
+    ("Activation", (4, 4, 3), ("swish",)),
+    ("Activation", (4, 7), ("softmax",)),
+    ("Activation", (4, 4, 3), ("tanh",)),
+    ("MoE", (12, 16), (4, 32)),
+    ("ExpertBranch", (12, 16), (4, 1, 32)),
+]
+
+
+@pytest.mark.parametrize("name,shape,args,n_inputs",
+                         [c if len(c) == 4 else c + (1,) for c in OP_CASES])
+def test_op_matches_jax(name, shape, args, n_inputs):
     """Each ported op on the same inputs and carried-over parameters.  The
     inputs are shifted negative so max-pool padding must be -inf (zero
-    padding would win at the border); BatchNorm gets random statistics."""
-    jg = _one_op_graph(jax_ir, getattr(jax_ops, name)(*args), shape)
-    tg = _one_op_graph(ir, getattr(ops, name)(*args), shape)
+    padding would win at the border); activations see inputs of scale 4
+    so ReLU6 clamps; BatchNorm gets random statistics."""
+    jg = _one_op_graph(jax_ir, getattr(jax_ops, name)(*args), shape,
+                       n_inputs)
+    tg = _one_op_graph(ir, getattr(ops, name)(*args), shape, n_inputs)
     assert (tg.topo_order, _spec(tg.output_spec)) == \
         (jg.topo_order, _spec(jg.output_spec))
+    (node,) = jg.topo_order
+    assert analysis.node_flops(tg, node) == jax_analysis.node_flops(jg, node)
     rng = np.random.default_rng(0)
     np_params = jax.tree.map(np.asarray, jg.init(jax.random.key(1)))
     if name == "BatchNorm":
@@ -135,18 +180,54 @@ def test_op_matches_jax(name, shape, args):
                          rng.standard_normal(c), "var":
                          rng.uniform(0.5, 2.0, c)} for n in np_params}
         np_params = jax.tree.map(lambda a: a.astype(np.float32), np_params)
-    x = (rng.standard_normal((2,) + shape) - 3.0).astype(np.float32)
-    ref = np.asarray(jax.jit(jg.apply)(np_params, x))
+    if name in ("MoE", "ExpertBranch"):
+        # a wider gate spreads the routes over the experts
+        for p in np_params.values():
+            p["gate"] = p["gate"] * 50.0
+    if name == "Activation":
+        x = 4.0 * rng.standard_normal((2,) + shape)
+    else:
+        x = rng.standard_normal((2,) + shape) - 3.0
+    x = x.astype(np.float32)
+    ref = np.asarray(jax.jit(jg.apply)(np_params, x)).astype(np.float32)
     out = tg.apply(params_from_jax(tg, np_params), torch.from_numpy(x))
     assert out.shape == ref.shape
-    assert np.abs(out.numpy() - ref).max() <= FWD_RTOL * np.abs(ref).max()
+    out = out.float().numpy()
+    assert np.abs(out - ref).max() <= FWD_RTOL * np.abs(ref).max()
+
+
+def test_moe_routes_match_jax():
+    """Top-1 routes are equal, not absorbed by the output tolerance; the
+    smallest top-2 gate-logit gap says how near a tie the inputs came."""
+    rng = np.random.default_rng(3)
+    jop, top = jax_ops.MoE(4, 32), ops.MoE(4, 32)
+    gate = (rng.standard_normal((16, 4)) * 0.5).astype(np.float32)
+    x = rng.standard_normal((3, 12, 16)).astype(np.float32)
+    jeid, jpe = jax.jit(jop.route)({"gate": gate}, x)
+    teid, tpe = top.route({"gate": torch.from_numpy(gate)},
+                          torch.from_numpy(x))
+    np.testing.assert_array_equal(teid.numpy(), np.asarray(jeid))
+    np.testing.assert_allclose(tpe.numpy(), np.asarray(jpe), rtol=1e-6)
+    top2 = np.sort(x @ gate, axis=-1)[..., -2:]
+    gap = float((top2[..., 1] - top2[..., 0]).min())
+    print(f"smallest top-2 gate logit gap {gap:.3g}")
+    assert len(np.unique(np.asarray(jeid))) > 1
+    # a tie goes to the first expert in both
+    tie = np.zeros((1, 2, 16), np.float32)
+    eq = np.zeros((16, 4), np.float32)
+    assert int(top.route({"gate": torch.from_numpy(eq)},
+                         torch.from_numpy(tie))[0][0, 0]) == 0 == \
+        int(jax.jit(jop.route)({"gate": eq}, tie)[0][0, 0])
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError, match="A8"):
-        _one_op_graph(ir, ops.Conv2D(4, 3), (8, 8, 3))     # default "SAME"
-    with pytest.raises(NotImplementedError, match="A8"):
-        _one_op_graph(ir, ops.Activation("swish"), (8, 8, 3))
+    """The port raises ValueError where the JAX package does: an unknown
+    activation kind (at shape inference) and an unknown padding mode."""
+    for ir_mod, ops_mod in ((jax_ir, jax_ops), (ir, ops)):
+        with pytest.raises(ValueError):
+            _one_op_graph(ir_mod, ops_mod.Activation("selu"), (8, 8, 3))
+    with pytest.raises(ValueError, match="padding"):
+        _one_op_graph(ir, ops.Conv2D(4, 3, 1, "FULL"), (8, 8, 3))
 
 
 def test_tiny_forward_matches_jax(tiny):

@@ -42,6 +42,12 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.runtime.decode; "
             "import defer_tpu_torch.runtime.speculative; "
             "import defer_tpu_torch.runtime.cuda_graph; "
+            "import defer_tpu_torch.graph.optimize; "
+            "import defer_tpu_torch.graph.viz; "
+            "import defer_tpu_torch.models.vgg; "
+            "import defer_tpu_torch.models.inception; "
+            "import defer_tpu_torch.models.mobilenet; "
+            "import defer_tpu_torch.models.moe; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -56,7 +62,13 @@ def test_import_loads_no_jax_module():
                 "defer_tpu_torch.models.gpt",
                 "defer_tpu_torch.runtime.decode",
                 "defer_tpu_torch.runtime.speculative",
-                "defer_tpu_torch.runtime.cuda_graph"):
+                "defer_tpu_torch.runtime.cuda_graph",
+                "defer_tpu_torch.graph.optimize",
+                "defer_tpu_torch.graph.viz",
+                "defer_tpu_torch.models.vgg",
+                "defer_tpu_torch.models.inception",
+                "defer_tpu_torch.models.mobilenet",
+                "defer_tpu_torch.models.moe"):
         assert new in mods
     bad = [m for m in mods if _is_forbidden(m)]
     assert bad == []
