@@ -69,11 +69,28 @@ Phases, in order; any failure exits non-zero before the result line:
                    forward, images/s side by side, a profiled chunk each);
                    ``moe_tiny`` and ``moe_branched_tiny`` in 2 stages on both
                    wires (flash launches = blocks x steps);
-  5. report — the ``zoo_path`` and ``kernels`` JSON lines, the card line,
-              and the last line ``{"ok": true, "device": {...}}``.
+                i. weights and the host edge: g++ builds the native codec
+                   and staging ring from ``defer_tpu_torch/csrc`` (both
+                   must load natively); ResNet50's seeded parameters
+                   written as a torchvision ``.pt`` and read back with
+                   ``load_pretrained``, and round-tripped through
+                   ``save_params``/``load_params`` (npz, JAX layout) and
+                   ``.pt``, each bit-equal with ``Defer.run`` equal; the
+                   bf16 int8 deployment on the loaded weights behind
+                   ``serve_endpoint(max_clients=2)``: two concurrent
+                   clients of 64 images each, raw replies equal to
+                   ``Defer.run`` and bf8 replies within blockfloat's
+                   bound, one quantizer launch per step the endpoint ran,
+                   ``endpoint.samples_in``/``samples_out`` 128, END echoed,
+                   ``reweight`` between clients; images/s beside the
+                   pipeline's run, wire bytes per image, device idle;
+  5. report — the ``zoo_path``, ``endpoint_path`` and ``kernels`` JSON
+              lines, the card line, and the last line
+              ``{"ok": true, "device": {...}}``.
 
-Weights are the port's own seeded random initialisation; inputs come from
-``numpy`` with a fixed seed.  Needs one card; exits non-zero without CUDA
+Weights are the port's own seeded random initialisation (phase 4i also
+reads them back from files it writes); inputs come from ``numpy`` with a
+fixed seed.  Needs one card; exits non-zero without CUDA
 or without the ``defer_tpu_torch`` package beside it.  Imports nothing of
 JAX or of the JAX package.
 """
@@ -1788,6 +1805,335 @@ def moe_path(torch, device, kernels, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4i: weights and the host edge — checkpoints, the wire codecs, the
+# native staging ring and Defer.serve_endpoint
+# ---------------------------------------------------------------------------
+
+#: images each endpoint client streams, as [MICROBATCH, 224, 224, 3] frames
+ENDPOINT_IMAGES = 64
+#: alternating timed rounds of the endpoint against the pipeline's run
+ENDPOINT_ROUNDS = 3
+#: the raw-reply endpoint against Defer.run: the same graph replays on the
+#: same inputs, so 0 is expected
+ENDPOINT_RAW_REL_BOUND = 1e-6
+
+
+def host_build():
+    """Build the host C++ (``csrc/codec.cpp``, ``csrc/staging.cpp``) with
+    g++ into ``_build/``; fail unless both load and are native."""
+    from defer_tpu_torch.codec import (BlockFloatCodec, LosslessCodec,
+                                       native_available)
+    from defer_tpu_torch.ops import _build
+    from defer_tpu_torch.transport.staging import HostStagingRing
+
+    res = {}
+    for src in ("codec.cpp", "staging.cpp"):
+        try:
+            info = _build.build_host(src)
+        except RuntimeError as e:
+            fail(f"host build of {src}: {e}")
+        res[src] = info["seconds"]
+        print(f"build {src} (g++): {info['seconds']:.2f} s -> "
+              f"{info['path'].name}", flush=True)
+    if not native_available():
+        fail("the native codec library did not load")
+    if BlockFloatCodec()._lib is None or LosslessCodec()._lib is None:
+        fail("a codec reports that it is not native")
+    if not HostStagingRing(8, 4).is_native:
+        fail("the staging ring reports that it is not native")
+    return res
+
+
+def torchvision_state_dict(torch, params):
+    """ResNet50's parameters in torchvision's layout: conv weights are
+    OIHW in the port already, BatchNorm leaves renamed, ``fc.weight`` the
+    transpose of the Dense ``[in, out]`` weight."""
+    from defer_tpu_torch.utils.pretrained import resnet50_torch_mapping
+
+    sd = {}
+    for (node, leaf), (src, tf) in resnet50_torch_mapping().items():
+        v = params[node][leaf].detach().cpu()
+        sd[src] = (v.t() if tf.__name__ == "_fc_t" else v).contiguous()
+    return sd
+
+
+def same_leaves(torch, got, want) -> bool:
+    from defer_tpu_torch.graph.ir import flatten_tree
+
+    if got.keys() != want.keys():
+        return False
+    for node in want:
+        a, b = flatten_tree(got[node]), flatten_tree(want[node])
+        if a.keys() != b.keys():
+            return False
+        for k in a:
+            x, y = a[k].contiguous(), b[k].contiguous()
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(
+                    x.view(torch.int32), y.view(torch.int32)):
+                return False
+    return True
+
+
+def stream_clients(address, frames: dict, timeout_s: float = 300):
+    """One ``TensorClient.infer_stream`` per entry of ``frames``, all at
+    once; returns ``({name: replies}, wall seconds)``."""
+    import threading
+
+    from defer_tpu_torch.transport.framed import TensorClient
+
+    outs, errs = {}, []
+
+    def go(name):
+        try:
+            c = TensorClient(*address, timeout_s=timeout_s)
+            outs[name] = c.infer_stream(frames[name])
+            c.close()
+        except Exception as e:  # noqa: BLE001 — failed below
+            errs.append(f"{name}: {e!r}")
+
+    ts = [threading.Thread(target=go, args=(k,), daemon=True) for k in frames]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in ts):
+        fail(f"endpoint clients failed: {errs or 'a client hung'}")
+    return outs, wall
+
+
+def endpoint_path(torch, device, kernels, card, mp, prof16):
+    """Phase 4i on ResNet50/8 (bf16 compute on a bf16 ring, int8 wire,
+    microbatch MICROBATCH, chunk CHUNK): weights written as a torchvision
+    ``.pt`` and loaded with ``load_pretrained``, round-tripped through
+    ``save_params``/``load_params`` (npz, JAX layout) and ``.pt``; then
+    ``serve_endpoint(max_clients=2)`` on the loaded weights against two
+    concurrent clients, raw and bf8 replies, held to ``Defer.run``; the
+    quantizer's launches, the endpoint counters, ``reweight`` between
+    clients; images/s beside the pipeline's run, wire bytes per image and
+    the device's idle share."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from defer_tpu_torch import (Defer, DeferConfig, load_params,
+                                 load_params_pt, load_pretrained,
+                                 save_params, save_params_pt)
+    from defer_tpu_torch.graph.ir import tree_map
+    from defer_tpu_torch.obs import REGISTRY
+
+    free_card(torch)
+    res = {"host_build_s": host_build(), "card": card}
+    g, seeded, cuts = mp["graph"], mp["params"], mp["cuts"]
+    defer = Defer(DeferConfig(wire="int8", microbatch=MICROBATCH,
+                              chunk=CHUNK, device=device, **mp["bf16"]))
+    inputs = mp["inputs"]
+    want = defer.run(g, seeded, inputs, cut_points=cuts)
+
+    # 1. weights: torchvision .pt, our npz, our .pt
+    loads = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tv = os.path.join(tmp, "resnet50_torchvision.pt")
+        torch.save(torchvision_state_dict(torch, seeded), tv)
+        for name, path, save, load in (
+                ("torchvision_pt", tv, None,
+                 lambda p: load_pretrained("resnet50", p, g)),
+                ("npz_jax_layout", os.path.join(tmp, "ckpt.npz"),
+                 lambda p: save_params(p, seeded, g),
+                 lambda p: load_params(p, g)),
+                ("pt", os.path.join(tmp, "ckpt.pt"),
+                 lambda p: save_params_pt(p, seeded),
+                 lambda p: load_params_pt(p, g))):
+            if save is not None:
+                save(path)
+            t0 = time.perf_counter()
+            loaded = load(path)
+            seconds = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            if not same_leaves(torch, loaded, seeded):
+                fail(f"weights from {name} are not bit-equal to the seeded "
+                     "parameters")
+            out = defer.run(g, loaded, inputs, cut_points=cuts)
+            if not np.array_equal(out, want):
+                fail(f"Defer.run on weights from {name} differs from the "
+                     "seeded parameters' run")
+            loads[name] = {"seconds": seconds, "bytes": size}
+            print(f"weights {name}: {size / 1e6:.1f} MB loaded in "
+                  f"{seconds:.3f} s, every leaf bit-equal to the seeded "
+                  f"parameters, Defer.run equal; on {card}", flush=True)
+            if save is None:
+                served = loaded  # the endpoint serves the torchvision load
+    res["load"] = loads
+
+    # 2. the endpoint: two concurrent clients, raw then bf8 replies
+    rng = np.random.default_rng(SEED)
+    per = ENDPOINT_IMAGES // MICROBATCH
+    frames = {c: [rng.standard_normal((MICROBATCH, IMAGE_SIZE, IMAGE_SIZE,
+                                       3)).astype(np.float32)
+                  for _ in range(per)] for c in ("a", "b")}
+    runs = {c: defer.run(g, seeded, np.stack(v), cut_points=cuts)
+            for c, v in frames.items()}
+    ep_in = REGISTRY.counter("endpoint.samples_in")
+    ep_out = REGISTRY.counter("endpoint.samples_out")
+    tx = REGISTRY.counter("transport.tx_bytes")
+    # the request frames' bytes (clients send raw f32), to part the
+    # replies' share of transport.tx_bytes
+    from defer_tpu_torch.transport.framed import _HDR
+    req_frame = _HDR.size + 3 + 3 + 8 * 4 + frames["a"][0].nbytes
+    images = 2 * ENDPOINT_IMAGES
+    res["clients"] = {}
+    for codec in ("raw", "bf8"):
+        address, thread = defer.serve_endpoint(
+            g, served, cut_points=cuts, codec=codec, max_clients=2)
+        pipe = thread.pipeline
+        steps0, n_in, n_out, tx0 = (pipe.metrics.steps, ep_in.n, ep_out.n,
+                                    tx.n)
+        zero_counts(kernels)
+        outs, wall = stream_clients(address, frames)
+        thread.join(timeout=300)
+        torch.cuda.synchronize()
+        launches, by_dtype = read_counts(kernels), read_dtypes(kernels)
+        steps = pipe.metrics.steps - steps0
+        if thread.is_alive() or thread.errors:
+            fail(f"endpoint ({codec}): thread alive {thread.is_alive()}, "
+                 f"errors {thread.errors}")
+        if launches["quant_int8"] != steps or launches["flash_attention"]:
+            fail(f"endpoint ({codec}): launches {launches} in {steps} steps "
+                 "(want one quantizer launch per step, no flash)")
+        if (ep_in.n - n_in, ep_out.n - n_out) != (images, images):
+            fail(f"endpoint ({codec}): samples_in {ep_in.n - n_in}, "
+                 f"samples_out {ep_out.n - n_out}, want {images} each")
+        errs = {}
+        for c in frames:
+            got = np.stack(outs[c])
+            if got.shape != runs[c].shape or not np.isfinite(got).all():
+                fail(f"endpoint ({codec}) client {c}: shape {got.shape} or "
+                     "not finite")
+            err = np.abs(got - runs[c]).max(axis=(1, 2))
+            scale = np.abs(runs[c]).max(axis=(1, 2))
+            if codec == "raw":
+                ok = err.max() <= ENDPOINT_RAW_REL_BOUND * scale.max()
+            else:  # blockfloat, 8 bits: one reply frame is one block
+                ok = (err <= scale / 127).all()
+            errs[c] = float((err / scale).max())
+            if not ok:
+                fail(f"endpoint ({codec}) client {c}: rows off Defer.run "
+                     f"by {errs[c]:.3g} of their max")
+        wire = tx.n - tx0
+        res["clients"][codec] = {
+            "steps": steps, "launches": launches, "by_dtype": by_dtype,
+            "rel_err_vs_run": errs, "wall_s": wall,
+            "tx_bytes_per_image": wire / images,
+            "reply_bytes_per_image": (wire - 2 * per * req_frame) / images}
+        print(f"endpoint ResNet50/8 bf16 int8, {codec} replies: 2 clients x "
+              f"{ENDPOINT_IMAGES} images in {wall:.3f} s, {steps} steps, "
+              f"kernel launches {launches} by dtype {by_dtype}; rows vs "
+              f"Defer.run {errs} of their max; samples_in/out "
+              f"{images}/{images}; END echoed to both; transport.tx_bytes "
+              f"{wire / images:.1f} per image (replies "
+              f"{(wire - 2 * per * req_frame) / images:.1f}); on {card}",
+              flush=True)
+        if codec == "raw":
+            res["launches"] = launches
+            res["by_dtype"] = by_dtype
+
+    # 3. reweight between two clients: new weights, then the seeded ones
+    address, thread = defer.serve_endpoint(g, served, cut_points=cuts,
+                                           max_clients=2)
+    half = tree_map(lambda v: v * 0.5, seeded)
+    few = {"a": frames["a"][:2]}
+    thread.reweight(half)
+    first, _ = stream_clients(address, few)
+    thread.reweight(seeded)
+    second, _ = stream_clients(address, few)
+    thread.join(timeout=300)
+    want_half = defer.run(g, half, np.stack(few["a"]), cut_points=cuts)
+    if not (np.array_equal(np.stack(first["a"]), want_half)
+            and np.array_equal(np.stack(second["a"]), runs["a"][:2])
+            and not thread.errors):
+        fail("endpoint reweight: outputs did not follow the new weights")
+    print("endpoint reweight: a client after reweight(params x 0.5) equals "
+          "Defer.run on them, and one after reweight(seeded) equals the "
+          "seeded run", flush=True)
+
+    # 4. images/s: the endpoint (two concurrent clients) against the same
+    # deployment's pipeline run on the same images (built once, as
+    # Defer.run runs it), in alternating rounds
+    address, thread = defer.serve_endpoint(
+        g, served, cut_points=cuts, max_clients=2 * ENDPOINT_ROUNDS + 2)
+    pipe = defer.build(g, served, cuts)
+    stacked = np.concatenate([np.stack(frames["a"]), np.stack(frames["b"])])
+    pipe.run(stacked)  # capture
+    walls = {"endpoint": [], "run": []}
+    chunks = []
+    for _ in range(ENDPOINT_ROUNDS):
+        steps0 = thread.pipeline.metrics.steps
+        _, wall = stream_clients(address, frames)
+        walls["endpoint"].append(wall)
+        chunks.append((thread.pipeline.metrics.steps - steps0) // CHUNK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe.run(stacked)
+        walls["run"].append(time.perf_counter() - t0)
+    # one more round, traced: the serve loop's pushes (``spmd.push`` spans,
+    # real rows or bubbles) against the round's wall
+    from defer_tpu_torch.obs import enable_tracing
+    tr = enable_tracing()
+    tr.clear()
+    _, wall = stream_clients(address, frames)
+    tr.enabled = False
+    pushes = [sp for sp in tr.spans if sp["name"] == "spmd.push"]
+    tr.clear()
+    thread.join(timeout=300)
+    real = [sp for sp in pushes if sp["args"]["n_real"] > 0]
+    last = max(sp["ts_us"] for sp in real)
+    trace = {"wall_s": wall, "pushes": len(pushes),
+             "bubble_pushes": len(pushes) - len(real),
+             "bubble_pushes_after_last_input": sum(
+                 sp["ts_us"] > last for sp in pushes),
+             "push_s": sum(sp["dur_us"] for sp in pushes) / 1e6,
+             "first_to_last_push_s": (max(sp["ts_us"] + sp["dur_us"]
+                                          for sp in pushes)
+                                      - min(sp["ts_us"] for sp in pushes))
+             / 1e6}
+    res["traced_round"] = trace
+    print(f"endpoint traced round: wall {wall:.3f} s; {trace['pushes']} "
+          f"pushes ({trace['bubble_pushes']} all-bubble, "
+          f"{trace['bubble_pushes_after_last_input']} after the last real "
+          f"input, each after a 0.25 s empty-ring wait), {trace['push_s']:.3f}"
+          f" s inside push, first push to last "
+          f"{trace['first_to_last_push_s']:.3f} s; on {card}", flush=True)
+    rates = {k: images / statistics.median(w) for k, w in walls.items()}
+    spread = {k: (max(w) - min(w)) / statistics.median(w)
+              for k, w in walls.items()}
+    res["images_per_s"] = rates
+    res["images_per_s_spread"] = spread
+    idle = None
+    if prof16 is not None:
+        # the profiled chunk's device time against the endpoint's wall per
+        # chunk, with the profiler off
+        busy = prof16["device_ms_per_step"] * CHUNK / 1e3
+        k = walls["endpoint"].index(statistics.median(walls["endpoint"]))
+        idle = max(0.0, 1 - busy * chunks[k] / walls["endpoint"][k])
+    res["idle_share_profiler_off"] = idle
+    print(f"endpoint throughput ResNet50/8 bf16 int8 (2 clients x "
+          f"{ENDPOINT_IMAGES} images, median of {ENDPOINT_ROUNDS} "
+          f"alternating rounds): endpoint {rates['endpoint']:.1f} img/s "
+          f"(spread {spread['endpoint'] * 100:.0f}%), the pipeline's run on "
+          f"the same images {rates['run']:.1f} img/s (spread "
+          f"{spread['run'] * 100:.0f}%); device idle "
+          + ("not measured" if idle is None else f"{idle * 100:.1f}%")
+          + f" of the endpoint's wall (profiler off; device time of the "
+          f"phase 4d bf16 int8 chunk x {chunks} chunks); wire bytes per "
+          f"image raw {res['clients']['raw']['tx_bytes_per_image']:.1f}, "
+          f"bf8 {res['clients']['bf8']['tx_bytes_per_image']:.1f}; on "
+          f"{card}", flush=True)
+    return res
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -1935,6 +2281,10 @@ def main() -> int:
             np.float32))
     moe = moe_path(torch, device, kernels, card)
 
+    # phase 4i: weights and the host edge; the counts zeroed just before
+    # each endpoint run
+    ep = endpoint_path(torch, device, kernels, card, mp, prof16)
+
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
     by_path.update({f"resnet50_bf16_{w}": c
@@ -1952,10 +2302,14 @@ def main() -> int:
                         for w, c in z["bf16"]["launches"].items()})
     for name, r in moe.items():
         by_path.update({f"{name}_{w}": c for w, c in r["launches"].items()})
+    for codec, r in ep["clients"].items():
+        by_path[f"resnet50_bf16_int8_endpoint_{codec}"] = r["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
     dtypes["resnet50_bf16_int8_run_defer"] = rd["by_dtype"]
+    for codec, r in ep["clients"].items():
+        dtypes[f"resnet50_bf16_int8_endpoint_{codec}"] = r["by_dtype"]
     for key, z in zoo.items():
         dtypes.update({f"{key}_bf16_{w}": c
                        for w, c in z["bf16"]["by_dtype"].items()})
@@ -2000,6 +2354,10 @@ def main() -> int:
         **{k: {f: v for f, v in z.items() if f != "launches"}
            for k, z in zoo.items()},
         "fold_batchnorm": folds, "moe": moe}}))
+    print(json.dumps({"endpoint_path": {
+        "model": "resnet50", "stages": len(stages), "wire": "int8",
+        "config": mp["bf16"], "microbatch": MICROBATCH, "chunk": CHUNK,
+        "clients": 2, "images_per_client": ENDPOINT_IMAGES, **ep}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,12 @@ card.  The JAX package stays the reference: the same graph, weights
 compare the outputs.  This package imports ``torch`` and ``numpy`` and
 never ``jax`` or anything of ``defer_tpu``.
 
+Weights come from the port's own checkpoints (:func:`save_params` /
+:func:`load_params`, ``.npz`` in the JAX package's layout; ``.pt``) or from
+standard torchvision / Hugging Face files (:func:`load_pretrained`).
+``Defer.serve_endpoint`` serves a pipeline to framed-TCP clients
+(``transport.TensorClient``), on the wire codecs of :mod:`.codec`.
+
 Entry points (:class:`Defer`, :class:`SpmdPipeline`,
 :class:`MpmdPipeline`, :class:`PipelinedDecoder`) run on the CUDA card
 unless the caller passes another device; with no device and no CUDA they
@@ -21,14 +27,23 @@ raise.
 """
 
 from . import models
+from .codec import (BlockFloatCodec, LosslessCodec, PipelineCodec, RawCodec,
+                    native_available)
 from .graph import fold_batchnorm, summary, to_dot
 from .partition import partition
 from .runtime import (END_OF_STREAM, Defer, DeferHandle, MpmdPipeline,
                       PipelinedDecoder, SpmdPipeline, speculative_generate)
 from .utils.config import DeferConfig
-from .utils.convert import params_from_jax
+from .utils.checkpoint import (load_params, load_params_pt, save_params,
+                               save_params_pt)
+from .utils.convert import params_from_jax, params_to_jax
+from .utils.pretrained import PRETRAINED_LOADERS, load_pretrained
 
 __all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
            "SpmdPipeline", "MpmdPipeline", "PipelinedDecoder", "partition",
-           "models", "params_from_jax", "speculative_generate",
-           "fold_batchnorm", "summary", "to_dot"]
+           "models", "params_from_jax", "params_to_jax",
+           "speculative_generate", "fold_batchnorm", "summary", "to_dot",
+           "BlockFloatCodec", "LosslessCodec", "PipelineCodec", "RawCodec",
+           "native_available", "save_params", "load_params",
+           "save_params_pt", "load_params_pt", "load_pretrained",
+           "PRETRAINED_LOADERS"]

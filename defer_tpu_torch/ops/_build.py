@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA kernels with ``nvcc``, and its host C++ with
+``g++``, and load them with ctypes.
 
 Each ``csrc/*.cu`` source compiles on its own into a shared library with a
 plain C interface, at first use, into ``defer_tpu_torch/_build/`` (listed
@@ -10,6 +11,10 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and NO ``--use_fast_math`` — the
 quantizer's bit-exactness rests on IEEE division.  ``-Xptxas -v`` reports
 each kernel's registers, shared memory and spills; :func:`build` returns
 that log.
+
+Host C++ (``csrc/codec.cpp``, ``csrc/staging.cpp``: the wire codecs and
+the staging ring) builds with ``g++`` through :func:`build_host` into the
+same directory, as ``libdefer<stem>-<hash>.so``, by the same rules.
 """
 
 from __future__ import annotations
@@ -39,12 +44,44 @@ def nvcc() -> str:
     return str(path)
 
 
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+
+
+def _hashed(source: str, flags: list[str], prefix: str) -> Path:
+    src = CSRC / source
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    return BUILD_DIR / f"{prefix}{src.stem}-{h.hexdigest()[:16]}.so"
+
+
 def lib_path(source: str, defines: tuple[str, ...] = ()) -> Path:
     """Where ``csrc/<source>`` builds to (content- and flag-hashed)."""
-    src = CSRC / source
-    flags = " ".join(NVCC_FLAGS + [f"-D{d}" for d in defines])
-    h = hashlib.sha256(src.read_bytes() + flags.encode())
-    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+    return _hashed(source, NVCC_FLAGS + [f"-D{d}" for d in defines], "lib")
+
+
+def build_host(source: str, timeout: float = 120.0) -> dict:
+    """Compile the host C++ ``csrc/<source>`` with ``g++`` unless built
+    already.  Returns ``{"path", "seconds"}`` (seconds 0.0 when it was
+    built already); raises ``RuntimeError`` when ``g++`` is missing or
+    fails."""
+    dst = _hashed(source, HOST_FLAGS, "libdefer")
+    if dst.exists():
+        return {"path": dst, "seconds": 0.0}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = dst.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(["g++", *HOST_FLAGS, "-o", str(tmp),
+                              str(CSRC / source)], capture_output=True,
+                             text=True, timeout=timeout)
+    except (OSError, subprocess.SubprocessError) as e:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ could not build {source}: {e}") from e
+    if out.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on {source} (exit "
+                           f"{out.returncode}):\n{out.stderr}")
+    os.replace(tmp, dst)  # atomic: a reader never sees half a library
+    return {"path": dst, "seconds": time.perf_counter() - t0}
 
 
 def build(sources: list[str],

@@ -10,14 +10,17 @@ watchdog that rebuilds a hung engine and replays what it had not emitted.
 generator forms.  ``generate``, ``logits`` and ``score`` serve causal
 language models (``models/gpt.py``): generation on the pipelined decoder
 (``runtime/decode.py``), scoring through the ring engine at a
-power-of-two length bucket.  The network endpoint is queued in
-ROADMAP.md.
+power-of-two length bucket.  ``serve_endpoint`` is the network front
+door: framed tensors in over TCP, through the native host staging ring
+into the pipeline, replies out in each client's own order.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue
+import socket
 import threading
 import time
 from typing import Any, Iterable, Iterator
@@ -309,6 +312,298 @@ class Defer:
             pad = [np.zeros_like(batch[0])] * (pipe.chunk - len(batch))
             yield from pipe.push(np.stack(batch + pad), n_real=len(batch))
         yield from pipe.flush()
+
+    def serve_endpoint(self, graph, params, cut_points=None, *,
+                       num_stages=None, host: str = "127.0.0.1",
+                       port: int = 0, codec: str = "raw",
+                       stall_timeout_s: float = 120.0,
+                       max_clients: int = 1):
+        """Network front door: accept framed tensors, stream them through
+        the pipeline via the native staging ring, reply in order.
+
+        This is the reference dispatcher's whole socket data plane
+        (src/dispatcher.py:85-105) as one endpoint, grown past its
+        ``listen(1)`` (reference src/node.py:84-85): up to ``max_clients``
+        clients — concurrent or successive (reconnects after a client
+        death) — share ONE pipeline (on the card, one captured graph).
+        Each client's reader thread stages samples into the bounded native
+        ring (``transport/staging.py``) under a per-client in-flight window
+        (so one greedy client cannot starve the rest); sample provenance
+        rides a FIFO owners queue that mirrors ring order, and the serve
+        loop routes each emitted row back to its owner's connection —
+        every client sees exactly its own results, in its own send order,
+        as float32 frames under ``codec``.  A client that dies mid-stream
+        is discarded (its in-flight rows are dropped on emergence) without
+        disturbing the others.
+
+        On the card the ring pops into two page-locked blocks in turn;
+        each is copied to the card asynchronously on the serve thread's
+        stream (the stream the chunk's graph replays on), converted to the
+        ring's dtype there, and refilled only after its copy's event has
+        completed.  Each chunk's real rows come back in one device-to-host
+        copy.
+
+        Returns ``(server_address, thread)``; the thread exits once
+        ``max_clients`` connections have finished (END-drained and echoed,
+        or died) — or when ``thread.stop()`` is called (an operator
+        shutdown: stops accepting, drains in-flight rows, cuts any
+        still-connected clients without an END so they fail loudly).
+        ``thread.errors`` lists every client abort and endpoint failure;
+        ``thread.reweight(params)`` swaps the serving weights in place;
+        ``thread.pipeline`` is the serving engine (its ``metrics``).
+        The registry counters ``endpoint.samples_in``/``samples_out`` count
+        samples: ``microbatch`` per frame (the JAX package counts frames;
+        the two agree at microbatch 1).
+        """
+        from ..transport.framed import (K_END, K_TENSOR, configure_socket,
+                                        recv_frame, send_end, send_frame)
+        from ..transport.staging import HostStagingRing
+
+        pipe = self.build(graph, params, cut_points, num_stages)
+        if isinstance(pipe, MpmdPipeline):
+            raise ValueError("serve_endpoint requires spmd mode")
+        pipe.warmup()  # on the card: captures the chunk's graph
+        mb, buf, chunk = pipe.microbatch, pipe.buf_elems, pipe.chunk
+        in_size = pipe.stages[0].in_spec.size
+        n_slots = max(4 * chunk, 16)
+        ring = HostStagingRing(mb * buf, n_slots=n_slots)
+        srv = socket.create_server((host, port))
+        address = srv.getsockname()
+        ep_in = REGISTRY.counter("endpoint.samples_in")
+        ep_out = REGISTRY.counter("endpoint.samples_out")
+        cuda = pipe.device.type == "cuda"
+
+        #: endpoint-fatal errors (pipeline death) PLUS per-client aborts;
+        #: a client whose stream errors is cut WITHOUT the END frame so it
+        #: fails loudly (never a silently short result stream)
+        errors: list[BaseException] = []
+
+        class _Client:
+            __slots__ = ("conn", "lock", "state", "alive", "draining",
+                         "outstanding", "window")
+
+            def __init__(self, conn):
+                self.conn = conn
+                self.lock = threading.Lock()    # serializes writes
+                self.state = threading.Lock()   # guards the fields below
+                self.alive = True
+                self.draining = False
+                self.outstanding = 0
+                # fair-share cap on ring slots one client may occupy
+                self.window = threading.Semaphore(
+                    max(chunk, n_slots // (2 * max_clients)))
+
+        owners: collections.deque[_Client] = collections.deque()
+        push_lock = threading.Lock()  # makes (ring.push, owners.append) atomic
+        finished = threading.Semaphore(0)  # one release per finished client
+        clients: list[_Client] = []  # every accepted client, for teardown
+        stop_ev = threading.Event()  # operator shutdown (thread.stop())
+
+        def _finish(client: _Client, *, send_eos: bool):
+            """Exactly-once client teardown; END echo only on clean drain."""
+            with client.state:
+                if not client.alive:
+                    return
+                client.alive = False
+            try:
+                if send_eos:
+                    with client.lock:
+                        send_end(client.conn)
+            except OSError:
+                pass
+            client.conn.close()
+            finished.release()
+
+        def _maybe_drained(client: _Client):
+            with client.state:
+                done = (client.draining and client.outstanding == 0
+                        and client.alive)
+            if done:
+                _finish(client, send_eos=True)
+
+        def reader(client: _Client):
+            conn = client.conn
+            try:
+                while True:
+                    kind, value = recv_frame(conn)
+                    if kind == K_END:
+                        with client.state:
+                            client.draining = True
+                        _maybe_drained(client)
+                        return
+                    if kind != K_TENSOR:
+                        raise ConnectionError(
+                            f"unexpected frame kind {kind!r} on the "
+                            f"endpoint's input stream")
+                    if isinstance(value, torch.Tensor):  # a bfloat16 frame
+                        value = value.float().numpy()
+                    x = np.asarray(value, np.float32).reshape(mb, -1)
+                    if x.shape[-1] != in_size:
+                        raise ValueError(
+                            f"sample size {x.shape[-1]} != stage-0 input "
+                            f"size {in_size}")
+                    if mb == 1:
+                        row = x  # native zero-pad to buf_elems
+                    else:
+                        row = np.zeros((mb, buf), np.float32)
+                        row[:, :in_size] = x
+                    if not client.window.acquire(timeout=stall_timeout_s):
+                        raise RuntimeError(
+                            f"client window full for {stall_timeout_s:.0f}s "
+                            f"— pipeline stalled; sample would be dropped")
+                    # a full ring is normal backpressure (clients ahead of
+                    # the pipeline); a ring still full after the stall
+                    # timeout means the pipeline stopped draining — fail
+                    # loudly, never silently drop the sample.  The owner
+                    # entry is registered BEFORE the push (a pushed sample
+                    # is instantly poppable — its owner must already be
+                    # queued) and retracted on failure; push_lock holds are
+                    # kept short (50 ms slices) so one backpressured client
+                    # never serializes the others for the whole stall
+                    # budget.
+                    deadline = time.monotonic() + stall_timeout_s
+                    while True:
+                        with push_lock:
+                            owners.append(client)
+                            with client.state:
+                                client.outstanding += 1
+                            ok = ring.push(row, timeout_s=0.05)
+                            if not ok:
+                                owners.pop()  # ours: appends are lock-held
+                                with client.state:
+                                    client.outstanding -= 1
+                        if ok:
+                            ep_in.n += mb  # samples, not frames
+                            break
+                        if time.monotonic() > deadline:
+                            raise RuntimeError(
+                                f"staging ring full for "
+                                f"{stall_timeout_s:.0f}s — pipeline "
+                                f"stalled; sample would be dropped")
+            except BaseException as e:  # noqa: BLE001 — client-fatal
+                errors.append(e)
+                _finish(client, send_eos=False)
+
+        def acceptor():
+            for _ in range(max_clients):
+                try:
+                    conn, _ = srv.accept()
+                except OSError:
+                    return  # endpoint shut down
+                configure_socket(conn)
+                client = _Client(conn)
+                clients.append(client)
+                threading.Thread(target=reader, args=(client,),
+                                 daemon=True,
+                                 name="defer-endpoint-reader").start()
+
+        def _deliver(row: np.ndarray, out_shape):
+            client = owners.popleft()
+            with client.state:
+                client.outstanding -= 1
+                alive = client.alive
+            client.window.release()
+            if alive:
+                try:
+                    with client.lock:
+                        send_frame(client.conn, row.reshape(out_shape),
+                                   codec=codec)
+                except OSError as e:
+                    errors.append(e)
+                    _finish(client, send_eos=False)
+                else:
+                    ep_out.n += mb
+                    _maybe_drained(client)
+
+        def serve_loop():
+            out_shape = (mb,) + pipe.out_spec.shape
+            # two staging blocks in turn; on the card page-locked, each
+            # refilled only once the event after its copy has completed
+            blocks = [torch.empty((chunk, mb * buf), dtype=torch.float32,
+                                  pin_memory=cuda) for _ in range(2)]
+            copied: list = [None, None]
+            turn = 0
+            done_clients = 0
+            pipe.reset()
+            while done_clients < max_clients or owners:
+                if stop_ev.is_set() and not owners:
+                    return  # operator stop: in-flight rows drained
+                while finished.acquire(blocking=False):
+                    done_clients += 1
+                if copied[turn] is not None:
+                    copied[turn].synchronize()
+                try:
+                    got, block = ring.pop_block(chunk, timeout_s=0.25,
+                                                out=blocks[turn])
+                except TimeoutError:
+                    if not owners:
+                        continue
+                    # undelivered rows are inside the pipe and no new
+                    # traffic is arriving: crank it with the cached
+                    # device-resident bubble block (flush()'s recipe)
+                    got, block = 0, None
+                    xs = pipe._bubble_block()
+                else:
+                    if block is None:
+                        continue  # ring closed (teardown)
+                    xs = block.view(chunk, mb, buf).to(
+                        pipe.device, non_blocking=True).to(pipe.buffer_dtype)
+                    if cuda:
+                        copied[turn] = torch.cuda.Event()
+                        copied[turn].record()
+                    turn ^= 1
+                slab, mask = pipe.push(xs, n_real=got, raw=True)
+                if slab is None:
+                    continue
+                real = np.flatnonzero(mask)
+                if real.size == 0:
+                    continue
+                if real.size < len(mask):
+                    # trickle traffic: gather real rows on the device so
+                    # the host transfer never carries bubble padding
+                    slab = slab[torch.as_tensor(real, device=slab.device)]
+                # ONE device->host drain per chunk, then frame out
+                for row in slab.float().cpu().numpy():
+                    _deliver(row, out_shape)
+
+        def serve():
+            threading.Thread(target=acceptor, daemon=True,
+                             name="defer-endpoint-accept").start()
+            try:
+                # the pipeline's device, and its current stream for the
+                # input copies and the replays alike
+                with (torch.cuda.device(pipe.device) if cuda
+                      else contextlib.nullcontext()):
+                    serve_loop()
+            except BaseException as e:  # noqa: BLE001 — endpoint-fatal
+                errors.append(e)
+                raise
+            finally:
+                ring.close()
+                srv.close()
+                # endpoint-fatal exit: cut every live client WITHOUT an END
+                # echo so remote peers fail loudly instead of blocking in
+                # recv forever (normal exits find no one alive here)
+                for c in clients:
+                    _finish(c, send_eos=False)
+
+        thread = threading.Thread(target=serve, daemon=True,
+                                  name="defer-endpoint")
+        thread.errors = errors  # inspectable post-join
+        # live redeploy: swap weights under the serving pipeline with no
+        # recapture and no client disruption (the chunk in flight finishes
+        # under the weights it started with)
+        thread.reweight = pipe.reweight
+        thread.pipeline = pipe
+
+        def _stop():
+            stop_ev.set()
+            srv.close()  # unblocks the acceptor; serve loop exits after
+            #              draining whatever rows are already in flight
+
+        thread.stop = _stop
+        thread.start()
+        return address, thread
 
     def run_defer(self, graph, params, cut_points,
                   input_stream: queue.Queue, output_stream: queue.Queue,

@@ -1,0 +1,183 @@
+"""Host input-staging ring — ctypes binding over the native implementation.
+
+The port of ``defer_tpu.transport.staging``.  The ingest half of the data
+plane: producers (socket readers, user threads) push samples into a
+bounded native ring (``csrc/staging.cpp``, a copy of the JAX package's,
+built with g++ at first use); the dispatcher drains whole pipeline chunks
+as one contiguous ``[chunk, slot_elems]`` float32 block whose layout
+matches the ring engine's transfer buffer, so feeding the card is one
+straight copy with no per-sample Python work.  ``pop_block`` can fill a
+caller's page-locked tensor, which the caller then copies to the card
+asynchronously.  This is the reference's bounded ingest queue (reference
+src/node.py:88-91,114) rebuilt native, with bounded waits instead of
+forever-blocking loops.
+
+Falls back to a pure-Python ring (same semantics, ``threading.Condition``)
+when the library cannot be built; ``is_native`` says which.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import numpy as np
+import torch
+
+_lock = threading.Lock()
+_lib = None
+_tried = False
+
+
+def _load():
+    global _lib, _tried
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        from ..ops._build import build_host
+        try:
+            lib = ctypes.CDLL(str(build_host("staging.cpp")["path"]))
+        except (OSError, RuntimeError):
+            return None
+        i64 = ctypes.c_int64
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.staging_create.restype = ctypes.c_void_p
+        lib.staging_create.argtypes = [i64, i64]
+        lib.staging_destroy.argtypes = [ctypes.c_void_p]
+        lib.staging_push.restype = ctypes.c_int
+        lib.staging_push.argtypes = [ctypes.c_void_p, u8p, i64, i64]
+        lib.staging_pop_block.restype = i64
+        lib.staging_pop_block.argtypes = [ctypes.c_void_p, u8p, i64, i64]
+        lib.staging_close.argtypes = [ctypes.c_void_p]
+        lib.staging_depth.restype = i64
+        lib.staging_depth.argtypes = [ctypes.c_void_p]
+        _lib = lib
+        return _lib
+
+
+def _u8(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+class HostStagingRing:
+    """Bounded MPSC staging ring of fixed-size f32 sample slots.
+
+    ``slot_elems`` is the flattened per-sample element count (the SPMD
+    engine's ``microbatch * buf_elems`` layout unit).  ``push`` accepts any
+    float32 array of <= slot_elems elements (short samples are zero-padded
+    — the homogeneous-buffer padding).  ``pop_block(chunk)`` returns a
+    ``[chunk, slot_elems]`` f32 block plus the number of real samples.
+    """
+
+    def __init__(self, slot_elems: int, n_slots: int = 64):
+        self.slot_elems = int(slot_elems)
+        self.n_slots = int(n_slots)
+        self._native = _load()
+        if self._native is not None:
+            self._h = self._native.staging_create(
+                self.slot_elems * 4, self.n_slots)
+            if not self._h:
+                raise ValueError("staging_create rejected sizes")
+        else:  # pure-Python fallback, same semantics
+            self._h = None
+            self._buf: list[np.ndarray] = []
+            self._closed = False
+            self._cv = threading.Condition()
+
+    # -- producer side ---------------------------------------------------
+
+    def push(self, sample: np.ndarray, timeout_s: float = 30.0) -> bool:
+        """Stage one sample; False on timeout; ValueError after close."""
+        flat = np.ascontiguousarray(sample, np.float32).reshape(-1)
+        if flat.size > self.slot_elems:
+            raise ValueError(f"sample of {flat.size} elems exceeds slot "
+                             f"({self.slot_elems})")
+        if self._h is not None:
+            rc = self._native.staging_push(
+                self._h, _u8(flat.view(np.uint8)), flat.size * 4,
+                int(timeout_s * 1000))
+            if rc < 0:
+                raise ValueError("ring is closed")
+            return rc == 1
+        with self._cv:
+            ok = self._cv.wait_for(
+                lambda: len(self._buf) < self.n_slots or self._closed,
+                timeout=timeout_s)
+            if not ok:
+                return False
+            if self._closed:
+                raise ValueError("ring is closed")
+            pad = np.zeros(self.slot_elems, np.float32)
+            pad[: flat.size] = flat
+            self._buf.append(pad)
+            self._cv.notify_all()
+            return True
+
+    def close(self):
+        """End of stream: consumers drain the backlog, then see (0, None)."""
+        if self._h is not None:
+            self._native.staging_close(self._h)
+        else:
+            with self._cv:
+                self._closed = True
+                self._cv.notify_all()
+
+    # -- consumer side ---------------------------------------------------
+
+    def pop_block(self, chunk: int, timeout_s: float = 30.0, out=None):
+        """-> (n_real, [chunk, slot_elems] f32 block) — the tail is already
+        zero-filled bubble padding.  (0, None) on end-of-stream; raises
+        TimeoutError if nothing arrives in time (bounded wait: a stalled
+        producer can't wedge the serve loop).
+
+        ``out``: a C-contiguous float32 ``[chunk, slot_elems]`` numpy array
+        or CPU tensor (page-locked, for an asynchronous copy to the card)
+        to fill and return instead of a new array."""
+        if out is None:
+            out = np.empty((chunk, self.slot_elems), np.float32)
+        arr = out.numpy() if isinstance(out, torch.Tensor) else out
+        if (arr.shape != (chunk, self.slot_elems) or arr.dtype != np.float32
+                or not arr.flags.c_contiguous):
+            raise ValueError(
+                f"out must be a contiguous float32 [{chunk}, "
+                f"{self.slot_elems}] block, got {arr.dtype} {arr.shape}")
+        if self._h is not None:
+            got = self._native.staging_pop_block(
+                self._h, _u8(arr.view(np.uint8).reshape(-1)), chunk,
+                int(timeout_s * 1000))
+            if got == 0:
+                raise TimeoutError("staging ring: no input within timeout")
+            if got < 0:
+                return 0, None
+            return int(got), out
+        with self._cv:
+            ok = self._cv.wait_for(
+                lambda: self._buf or self._closed, timeout=timeout_s)
+            if not ok:
+                raise TimeoutError("staging ring: no input within timeout")
+            if not self._buf:
+                return 0, None
+            got = min(len(self._buf), chunk)
+            for i in range(got):
+                arr[i] = self._buf[i]
+            del self._buf[:got]
+            arr[got:] = 0.0
+            self._cv.notify_all()
+            return got, out
+
+    @property
+    def depth(self) -> int:
+        if self._h is not None:
+            return int(self._native.staging_depth(self._h))
+        with self._cv:
+            return len(self._buf)
+
+    def __del__(self):
+        if getattr(self, "_h", None) and self._native is not None:
+            self._native.staging_destroy(self._h)
+            self._h = None
+
+    @property
+    def is_native(self) -> bool:
+        return self._h is not None

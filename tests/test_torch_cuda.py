@@ -568,3 +568,70 @@ def test_decoder_reweight_and_sampling_on_card(cuda):
     cpu.reweight(params2)
     same = (a == cpu.generate(prompt, 8, **kw)).mean()
     assert same > 0.9  # float rounding may move a near tie
+
+
+# ---------------------------------------------------------------------------
+# the host edge: Defer.serve_endpoint on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.timeout(300)
+def test_serve_endpoint_on_card(cuda):
+    """resnet_tiny in 4 stages, bf16 compute on a bf16 ring under the int8
+    wire, behind ``serve_endpoint(max_clients=2)``: two concurrent clients
+    (raw and bf8 replies) each get rows equal to ``Defer.run`` of the same
+    deployment (raw exactly; bf8 within the row max / 127), the quantizer
+    launches once per step the endpoint ran, the native ring staged the
+    inputs, and the endpoint counters read every sample."""
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, models
+    from defer_tpu_torch.obs import REGISTRY
+    from defer_tpu_torch.transport.framed import TensorClient
+
+    g = models.resnet_tiny()
+    params = g.init(torch.Generator().manual_seed(0))
+    kw = dict(microbatch=2, chunk=3, wire="int8", compute_dtype="bfloat16",
+              buffer_dtype="bfloat16")
+    rng = np.random.default_rng(0)
+    xs = {c: [rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+              for _ in range(7)] for c in ("raw", "bf8")}
+    want = {c: Defer(DeferConfig(device=cuda, **kw)).run(
+        g, params, np.stack(v), num_stages=4) for c, v in xs.items()}
+    outs = {}
+    ep_in = REGISTRY.counter("endpoint.samples_in")
+    n_in = ep_in.n
+    for codec in ("raw", "bf8"):
+        address, thread = Defer(DeferConfig(device=cuda, **kw)) \
+            .serve_endpoint(g, params, num_stages=4, max_clients=2,
+                            codec=codec)
+        pipe = thread.pipeline
+        steps0 = pipe.metrics.steps
+        KERNEL.zero()
+
+        def go(k):
+            c = TensorClient(*address, timeout_s=120)
+            outs[(codec, k)] = c.infer_stream(xs[codec])
+            c.close()
+
+        ts = [threading.Thread(target=go, args=(k,), daemon=True)
+              for k in range(2)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        thread.join(timeout=120)
+        assert not thread.is_alive() and thread.errors == []
+        assert KERNEL.by_dtype == {"bfloat16": pipe.metrics.steps - steps0}
+        for k in range(2):
+            got = np.stack(outs[(codec, k)])
+            if codec == "raw":
+                assert np.array_equal(got, want[codec])
+            else:
+                bound = np.abs(want[codec]).max(axis=(1, 2)) / 127
+                assert (np.abs(got - want[codec]).max(axis=(1, 2))
+                        <= bound).all()
+    assert ep_in.n - n_in == 2 * 2 * 7 * 2  # samples: microbatch 2 a frame

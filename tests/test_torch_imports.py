@@ -48,6 +48,16 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.models.inception; "
             "import defer_tpu_torch.models.mobilenet; "
             "import defer_tpu_torch.models.moe; "
+            "import defer_tpu_torch.utils.checkpoint; "
+            "import defer_tpu_torch.utils.pretrained; "
+            "import defer_tpu_torch.codec.codecs; "
+            "import defer_tpu_torch.codec.native; "
+            "import defer_tpu_torch.transport.framed; "
+            "import defer_tpu_torch.transport.channel; "
+            "import defer_tpu_torch.transport.staging; "
+            "import defer_tpu_torch.codec.native as n; "
+            "import defer_tpu_torch.transport.staging as st; "
+            "assert n.load() is not None and st._load() is not None; "
             "print(json.dumps(sorted(sys.modules)))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -68,10 +78,28 @@ def test_import_loads_no_jax_module():
                 "defer_tpu_torch.models.vgg",
                 "defer_tpu_torch.models.inception",
                 "defer_tpu_torch.models.mobilenet",
-                "defer_tpu_torch.models.moe"):
+                "defer_tpu_torch.models.moe",
+                "defer_tpu_torch.utils.checkpoint",
+                "defer_tpu_torch.utils.pretrained",
+                "defer_tpu_torch.codec.codecs",
+                "defer_tpu_torch.codec.native",
+                "defer_tpu_torch.transport.framed",
+                "defer_tpu_torch.transport.channel",
+                "defer_tpu_torch.transport.staging"):
         assert new in mods
     bad = [m for m in mods if _is_forbidden(m)]
     assert bad == []
+
+
+def test_host_cpp_is_the_ports_own_copy():
+    """The native libraries build from ``defer_tpu_torch/csrc`` into
+    ``defer_tpu_torch/_build``; nothing of ``defer_tpu/_native`` is read
+    (a source scan of the loaders and the build)."""
+    for rel in ("codec/native.py", "transport/staging.py", "ops/_build.py"):
+        text = (ROOT / "defer_tpu_torch" / rel).read_text()
+        assert '"_native"' not in text and "_native/" not in text, rel
+    for src in ("codec.cpp", "staging.cpp"):
+        assert (ROOT / "defer_tpu_torch" / "csrc" / src).exists()
 
 
 def _imports(path: Path):
