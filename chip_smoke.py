@@ -84,8 +84,23 @@ Phases, in order; any failure exits non-zero before the result line:
                    ``endpoint.samples_in``/``samples_out`` 128, END echoed,
                    ``reweight`` between clients; images/s beside the
                    pipeline's run, wire bytes per image, device idle;
-  5. report — the ``zoo_path``, ``endpoint_path`` and ``kernels`` JSON
-              lines, the card line, and the last line
+                j. the serving front door: GPT-2 small (12 stages, f32) in a
+                   ``ContinuousBatchEngine`` of 32 KV slots (one CUDA-graph
+                   replay per step) behind ``ServeFrontDoor`` on localhost;
+                   four tenants (weights 1, 1 and 2, and one at priority 1
+                   that samples) stream 32 prompts of 8-64 tokens each in
+                   three closed-loop rounds, then one open-loop round of
+                   Poisson arrivals at half that rate with a 2x burst;
+                   checks: requests alone through a fresh engine give the
+                   same bytes, greedy tokens equal the eager loop up to the
+                   first near tie, an abort mid-decode frees its slot
+                   without touching a neighbour's tokens, a replayed step
+                   equals the eager step, the stats reply counts every
+                   request, and neither kernel launches; tokens/s,
+                   per-tenant p50/p99, steps, slot occupancy, the engine's
+                   phase times, the device's idle share of a step;
+  5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path`` and
+              ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``.
 
 Weights are the port's own seeded random initialisation (phase 4i also
@@ -1412,11 +1427,18 @@ def gpt_speculative(torch, device, kernels, card, gp):
 def profile_decode(torch, dec, card):
     """Device time by kernel over one replay of the decode unit (N steps,
     one token per group), and the idle share of that replay."""
+    return profile_replay(torch, dec._graphs[("decode", False, None)],
+                          dec.num_stages, card,
+                          f"gpt2 decode, one replay ({dec.num_stages} "
+                          "steps, one token per group)")
+
+
+def profile_replay(torch, graph, n, card, label):
+    """Device time by kernel over one replay of ``graph`` (``n`` steps),
+    and the idle share of that replay with the profiler on and off."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    graph = dec._graphs[("decode", False, None)]
-    n = dec.num_stages
     walls = timed_rounds(torch, graph.replay)
     plain_wall_us = statistics.median(walls) * 1e6
     with profile(activities=[ProfilerActivity.CPU,
@@ -1431,7 +1453,7 @@ def profile_decode(torch, dec, card):
             and e.self_device_time_total > 0]
     total = sum(r[0] for r in rows)
     if not total:
-        print("profile gpt2 decode: no device time in the trace (not "
+        print(f"profile {label}: no device time in the trace (not "
               "measured)")
         return None
     rows.sort(reverse=True)
@@ -1446,8 +1468,7 @@ def profile_decode(torch, dec, card):
            "idle_share_profiler_off": max(0.0, 1 - total / plain_wall_us),
            "kernels_per_step": sum(r[2] for r in rows) / n,
            "shares": {k: v / total for k, v in shares.items()}}
-    print(f"profile gpt2 decode, one replay ({n} steps, one token per "
-          f"group): device time {total / 1e3:.3f} ms = "
+    print(f"profile {label}: device time {total / 1e3:.3f} ms = "
           f"{out['device_ms_per_step']:.4f} ms/step, "
           f"{out['kernels_per_step']:.0f} kernels/step, in a "
           f"{wall_us / 1e3:.3f} ms wall (device idle "
@@ -2134,6 +2155,388 @@ def endpoint_path(torch, device, kernels, card, mp, prof16):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4j: the serving front door — GPT-2 small behind ServeFrontDoor
+# ---------------------------------------------------------------------------
+
+#: 12 stages (one block each), 32 KV slots, max_len 256, f32
+SERVE_WIDTH = 32
+#: (tenant, hello knobs): two at weight 1, one at weight 2, one at
+#: priority 1 that samples
+SERVE_TENANTS = (("alpha", {"weight": 1.0}), ("beta", {"weight": 1.0}),
+                 ("gamma", {"weight": 2.0}),
+                 ("delta", {"priority": 1, "temperature": 0.8, "seed": 11}))
+#: prompts per tenant, their length range (numpy seed SEED), new tokens
+SERVE_PROMPTS = 32
+SERVE_LENS = (8, 64)
+SERVE_NEW = {"alpha": 32, "beta": 32, "gamma": 32, "delta": 16}
+SERVE_ROUNDS = 3
+#: the open-loop round: seconds, and one 2x burst (t0, t1, multiplier)
+SERVE_OPEN_S = 10.0
+SERVE_BURST = (4.0, 6.0, 2.0)
+#: the open-loop tenants' completion deadline (ms): an interactive SLO
+SERVE_DEADLINE_MS = 2000.0
+
+
+def _closed_round(address, prompts, order):
+    """One closed-loop round: every tenant streams its prompts at once
+    (tenants started in ``order``); returns ({tenant: [outcome]},
+    {tenant: [latency s]}, wall s)."""
+    import threading
+
+    from defer_tpu_torch.serve import ServeClient
+
+    outs, lats, errs = {}, {}, []
+    knobs = dict(SERVE_TENANTS)
+
+    def go(t):
+        try:
+            c = ServeClient(*address, t, max_new_tokens=SERVE_NEW[t],
+                            timeout_s=300, **knobs[t])
+            seqs = [c.submit(p) for p in prompts[t]]
+            res = c.finish()
+            outs[t] = [res.get(q) for q in seqs]
+            lats[t] = [res[q][2] - c.sent_at[q] for q in seqs if q in res]
+        except Exception as e:  # noqa: BLE001 — failed below
+            errs.append(f"{t}: {e!r}")
+
+    ts = [threading.Thread(target=go, args=(t,), daemon=True) for t in order]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if errs or any(t.is_alive() for t in ts):
+        fail(f"phase 4j closed-loop clients failed: {errs or 'a client hung'}")
+    for t, o in outs.items():
+        if any(r is None or r[0] != "ok" for r in o):
+            fail(f"phase 4j: tenant {t} got a shed or no reply in a "
+                 "closed-loop round")
+    return outs, lats, wall
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs) * 1e3, q)) if xs else None
+
+
+def _engine_state(eng):
+    return ([(s.pos, list(s.out), s.last_id) if s is not None else None
+             for s in eng._slots],
+            [{k: c[k].clone() for k in ("k", "v")} for c in eng._caches])
+
+
+def _restore_engine(eng, state):
+    slots, caches = state
+    for s, saved in zip(eng._slots, slots):
+        if s is not None:
+            s.pos, s.out, s.last_id = saved[0], list(saved[1]), saved[2]
+    for c, saved in zip(eng._caches, caches):
+        for k in ("k", "v"):
+            c[k].copy_(saved[k])
+
+
+def serve_path(torch, device, kernels, card):
+    """Phase 4j: GPT-2 small (seeded random weights, 12 stages, width
+    SERVE_WIDTH, f32) in a ``ContinuousBatchEngine`` behind a
+    ``ServeFrontDoor`` on localhost; four tenants in closed-loop rounds
+    and one open-loop round, then the six checks."""
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch import models
+    from defer_tpu_torch.obs import REGISTRY
+    from defer_tpu_torch.obs.events import recorder
+    from defer_tpu_torch.serve import (ContinuousBatchEngine, DecodeRequest,
+                                       LoadGenerator, ServeClient,
+                                       ServeFrontDoor, poisson_trace)
+    from defer_tpu_torch.serve.client import fetch_stats
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = models.gpt2_small(seq_len=GPT_MAX_LEN)
+    pdev = params_to_device(g.init(torch.Generator().manual_seed(SEED)),
+                            device)
+    vocab = g.nodes["lm_head"].out_spec.shape[-1]
+    rng = np.random.default_rng(SEED)
+    prompts = {}
+    for t, _ in SERVE_TENANTS:
+        lens = rng.integers(SERVE_LENS[0], SERVE_LENS[1] + 1, SERVE_PROMPTS)
+        prompts[t] = [rng.integers(0, vocab, int(n)).astype(np.int32)
+                      for n in lens]
+    tenants = [t for t, _ in SERVE_TENANTS]
+    knobs = dict(SERVE_TENANTS)
+
+    def engine():
+        return ContinuousBatchEngine(g, pdev, num_stages=GPT_STAGES,
+                                     width=SERVE_WIDTH, device=device)
+
+    res = {"width": SERVE_WIDTH, "stages": GPT_STAGES,
+           "max_len": GPT_MAX_LEN, "prompts_per_tenant": SERVE_PROMPTS,
+           "prompt_lens": list(SERVE_LENS), "new_tokens": SERVE_NEW}
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    eng = engine()
+    res["build_s"] = time.perf_counter() - t0
+    res["captures"] = eng.captures
+    res["capture_s"] = eng.capture_s
+    res["graph_pool_bytes"] = eng.graph_pool_bytes
+    door = ServeFrontDoor(engine=eng,
+                          decode_defaults={"max_new_tokens": 32}).start()
+    address = door.address
+    for name in ("step", "gather", "dispatch", "device", "sync",
+                 "delivery"):
+        REGISTRY.histogram(f"serve.decode.{name}_s").clear()
+
+    # closed-loop rounds, the tenants' start order rotating round to round
+    rounds = []
+    gen_tokens = sum(SERVE_NEW[t] * SERVE_PROMPTS for t in tenants)
+    slot_steps = sum(p.size + SERVE_NEW[t] - 1
+                     for t in tenants for p in prompts[t])
+    for r in range(SERVE_ROUNDS):
+        order = tenants[r % 4:] + tenants[:r % 4]
+        steps0 = eng.steps
+        outs, lats, wall = _closed_round(address, prompts, order)
+        steps = eng.steps - steps0
+        rounds.append({"wall_s": wall, "steps": steps, "order": order,
+                       "tokens_per_s": gen_tokens / wall,
+                       "requests_per_s": len(tenants) * SERVE_PROMPTS / wall,
+                       "occupancy": slot_steps / (steps * SERVE_WIDTH),
+                       "p50_ms": {t: _pct(lats[t], 50) for t in tenants},
+                       "p99_ms": {t: _pct(lats[t], 99) for t in tenants}})
+        if r == 0:
+            first = outs
+        else:
+            for t in tenants:
+                for a, b in zip(outs[t], first[t]):
+                    if not np.array_equal(a[1], b[1]):
+                        fail(f"phase 4j: tenant {t}'s tokens changed between"
+                             " closed-loop rounds")
+    walls = [r["wall_s"] for r in rounds]
+    mid = rounds[walls.index(statistics.median(walls))]
+    res["closed"] = {"rounds": rounds, "median": mid,
+                     "spread": (max(walls) - min(walls))
+                     / statistics.median(walls)}
+    res["phases_p50_ms"] = {
+        name: REGISTRY.histogram(f"serve.decode.{name}_s").quantile(0.5)
+        * 1e3 for name in ("step", "gather", "dispatch", "device", "sync",
+                           "delivery")}
+    print(f"serve closed loop GPT-2 small, 12 stages, width {SERVE_WIDTH}, "
+          f"f32 (4 tenants x {SERVE_PROMPTS} prompts of {SERVE_LENS[0]}-"
+          f"{SERVE_LENS[1]} tokens, {gen_tokens} generated tokens a round; "
+          f"median of {SERVE_ROUNDS} rounds, start order rotating): "
+          f"{mid['tokens_per_s']:.1f} generated tokens/s, "
+          f"{mid['requests_per_s']:.2f} requests/s through the door, "
+          f"{mid['wall_s']:.3f} s wall (spread "
+          f"{res['closed']['spread'] * 100:.0f}%), {mid['steps']} engine "
+          f"steps, mean slot occupancy {mid['occupancy'] * 100:.1f}%; "
+          "latency p50/p99 ms "
+          + ", ".join(f"{t} {mid['p50_ms'][t]:.1f}/{mid['p99_ms'][t]:.1f}"
+                      for t in tenants)
+          + f"; on {card}", flush=True)
+    print("serve engine phases p50 ms (closed rounds): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res["phases_p50_ms"].items())
+          + f"; {eng.captures} captures in {eng.capture_s:.3f} s, graph pool "
+          f"{eng.graph_pool_bytes / 2**20:.1f} MiB; on {card}", flush=True)
+
+    # the open-loop round: one LoadGenerator per tenant (its own trace and
+    # a deadline of its own), half the closed-loop request rate in all
+    rate = mid["requests_per_s"] / 2 / len(tenants)
+    gens, reps, errs = {}, {}, []
+    for i, t in enumerate(tenants):
+        c = ServeClient(*address, f"{t}_open", max_new_tokens=SERVE_NEW[t],
+                        deadline_ms=SERVE_DEADLINE_MS, timeout_s=300,
+                        **knobs[t])
+        gens[t] = LoadGenerator(c, prompts[t], poisson_trace(
+            rate, SERVE_OPEN_S, seed=SEED + i, bursts=[SERVE_BURST]))
+
+    def go(t):
+        try:
+            reps[t] = gens[t].run()
+        except Exception as e:  # noqa: BLE001 — failed below
+            errs.append(f"{t}: {e!r}")
+
+    steps0 = eng.steps
+    ts = [threading.Thread(target=go, args=(t,), daemon=True)
+          for t in tenants]
+    t0 = time.perf_counter()
+    for th in ts:
+        th.start()
+    for th in ts:
+        th.join(timeout=300)
+    open_wall = time.perf_counter() - t0
+    if errs or any(th.is_alive() for th in ts):
+        fail(f"phase 4j open-loop clients failed: {errs or 'a client hung'}")
+    done_tok = sum(reps[t]["completed"] * SERVE_NEW[t] for t in tenants)
+    stats = fetch_stats(*address)
+    res["open"] = {
+        "rate_per_tenant_hz": rate, "seconds": SERVE_OPEN_S,
+        "burst": list(SERVE_BURST), "deadline_ms": SERVE_DEADLINE_MS,
+        "wall_s": open_wall, "steps": eng.steps - steps0,
+        "tokens_per_s": done_tok / open_wall,
+        "offered": {t: reps[t]["offered"] for t in tenants},
+        "shed": {t: reps[t]["shed"] for t in tenants},
+        "p50_ms": {t: reps[t]["latency_p50_ms"] for t in tenants},
+        "p99_ms": {t: reps[t]["latency_p99_ms"] for t in tenants},
+        "slo_attainment": {t: stats["tenants"][f"{t}_open"]["slo_attainment"]
+                           for t in tenants}}
+    o = res["open"]
+    print(f"serve open loop ({rate:.2f} requests/s per tenant, Poisson, "
+          f"{SERVE_OPEN_S:.0f} s with a {SERVE_BURST[2]:.0f}x burst over "
+          f"{SERVE_BURST[0]:.0f}-{SERVE_BURST[1]:.0f} s, deadline "
+          f"{SERVE_DEADLINE_MS:.0f} ms): {o['tokens_per_s']:.1f} generated "
+          f"tokens/s over {open_wall:.3f} s, {o['steps']} steps; offered "
+          f"{sum(o['offered'].values())}, shed {sum(o['shed'].values())}; "
+          "latency p50/p99 ms "
+          + ", ".join(f"{t} {o['p50_ms'][t]:.1f}/{o['p99_ms'][t]:.1f}"
+                      for t in tenants)
+          + f"; on {card}", flush=True)
+
+    # check 3: a client that aborts mid-decode frees its slot; a tenant
+    # streaming beside it gets the tokens it got in the closed rounds
+    cursor = recorder().cursor()
+    victim = ServeClient(*address, "victim", max_new_tokens=GPT_MAX_LEN - 8,
+                         timeout_s=300)
+    victim.submit(prompts["alpha"][0][:8])
+    deadline = time.monotonic() + 60
+    while eng.active() == 0:
+        if time.monotonic() > deadline:
+            fail("phase 4j: the aborting client's request never joined")
+        time.sleep(0.001)
+    victim.abort()
+    steady = ServeClient(*address, "steady", max_new_tokens=SERVE_NEW["beta"],
+                         timeout_s=300).stream(prompts["beta"][:4])
+    for a, b in zip(steady, first["beta"][:4]):
+        if a is None or a[0] != "ok" or not np.array_equal(a[1], b[1]):
+            fail("phase 4j: a tenant's tokens changed beside a client that "
+                 "aborted mid-decode")
+    deadline = time.monotonic() + 60
+    while eng.free_slots() != eng.width:
+        if time.monotonic() > deadline:
+            fail("phase 4j: the aborted client's slot was never reclaimed")
+        time.sleep(0.01)
+    _, evs = recorder().events_since(cursor)
+    cancels = [e for e in evs if e["kind"] == "decode_cancel"]
+    if not cancels:
+        fail("phase 4j: the abort was not caught mid-decode (no "
+             "decode_cancel event)")
+    res["abort"] = {"cancel_events": len(cancels), "steady_equal": True}
+
+    # check 5: the stats reply carries every tenant, completed = sent
+    stats = fetch_stats(*address)
+    for t in tenants:
+        row = stats["tenants"].get(t)
+        want = SERVE_ROUNDS * SERVE_PROMPTS
+        if row is None or row["completed"] != want:
+            fail(f"phase 4j: stats reply for {t}: {row} (completed should be "
+                 f"{want})")
+        row = stats["tenants"][f"{t}_open"]
+        if row["completed"] + row["shed"] != reps[t]["offered"]:
+            fail(f"phase 4j: stats reply for {t}_open: {row}")
+    res["stats_decode"] = stats["decode"]
+    door.stop()
+    door.healthcheck()
+
+    # check 1: two requests per tenant, alone through a fresh engine of
+    # the same width (its own captures), give the door's bytes
+    solo_eng = engine()
+    picks = [(t, i) for t in tenants for i in (0, 1)]
+    for t, i in picks:
+        req = DecodeRequest(prompt=prompts[t][i],
+                            max_new_tokens=SERVE_NEW[t], request_id=0,
+                            seed=knobs[t].get("seed", 0),
+                            temperature=knobs[t].get("temperature", 0.0))
+        got = solo_eng.run_all([req])[0]
+        if not np.array_equal(got, first[t][i][1]):
+            fail(f"phase 4j: request {t}/{i} alone through a fresh engine "
+                 "differs from its tokens in the shared batch")
+    res["solo_identical"] = len(picks)
+
+    # check 4: one replayed step against the same step run eagerly
+    for t, i in picks[:SERVE_WIDTH]:
+        solo_eng.join(DecodeRequest(
+            prompt=prompts[t][i], max_new_tokens=SERVE_NEW[t],
+            seed=knobs[t].get("seed", 0),
+            temperature=knobs[t].get("temperature", 0.0)))
+    for _ in range(4):
+        solo_eng.step()
+    state = _engine_state(solo_eng)
+    solo_eng.step()
+    torch.cuda.synchronize()
+    ids_r = solo_eng._out_np.copy()
+    caches_r = _engine_state(solo_eng)[1]
+    _restore_engine(solo_eng, state)
+    solo_eng.cuda_graphs = False
+    solo_eng.step()
+    solo_eng.cuda_graphs = True
+    torch.cuda.synchronize()
+    if not np.array_equal(ids_r, solo_eng._out_np):
+        fail("phase 4j: the replayed step's ids differ from the eager step's")
+    worst = 0.0
+    for a, b in zip(caches_r, solo_eng._caches):
+        for k in ("k", "v"):
+            scale = b[k].abs().max().item() or 1.0
+            worst = max(worst, (a[k] - b[k]).abs().max().item() / scale)
+    if worst > GRAPH_REL_BOUND:
+        fail(f"phase 4j: replayed caches {worst:.3g} of max |value| off the "
+             f"eager step's (bound {GRAPH_REL_BOUND})")
+    res["replay_vs_eager_cache_rel"] = worst
+
+    # the device time of one step (replays back to back, CUDA events, no
+    # profiler) against the step period of the median closed round
+    res["device_ms"] = {
+        mode: time_ms(torch, lambda s=s: solo_eng._graphs[s].replay(),
+                      iters=20)
+        for mode, s in (("greedy", False), ("sampled", True))}
+    period_ms = mid["wall_s"] / mid["steps"] * 1e3
+    res["step_period_ms"] = period_ms
+    res["idle_share_profiler_off"] = max(
+        0.0, 1 - res["device_ms"]["sampled"] / period_ms)
+    res["profile_sampled_step"] = profile_replay(
+        torch, solo_eng._graphs.get(True), 1, card,
+        f"gpt2 serve engine, one sampled step (width {SERVE_WIDTH})")
+    del solo_eng
+
+    # check 2: four greedy requests against phase 4g's eager loop, up to
+    # the first near tie
+    ties = 0
+    for t, i in (("alpha", 0), ("beta", 0), ("gamma", 0), ("alpha", 1)):
+        p = prompts[t][i]
+        t_tok = p.size + SERVE_NEW[t]
+        ref, gap, lmax = incremental_greedy(
+            torch, g, pdev, p[None].astype(np.int64), t_tok, GPT_MAX_LEN,
+            dtype=torch.float32)
+        got = first[t][i][1]
+        near = np.flatnonzero(gap[0] < TIE_REL * lmax[0])
+        upto = int(near[0]) if near.size else t_tok
+        ties += bool(near.size)
+        if not np.array_equal(got[:upto], ref[0, :upto]):
+            fail(f"phase 4j: request {t}/{i} differs from the eager "
+                 "incremental loop before any near tie")
+    res["eager_loop_agree"] = 4
+    res["eager_loop_near_ties"] = ties
+
+    # check 6: the engine bypasses both kernels
+    res["launches"] = read_counts(kernels)
+    if any(res["launches"].values()):
+        fail(f"phase 4j launched a kernel: {res['launches']}")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"serve checks: 8 solo requests byte-identical, 4 greedy equal to "
+          f"the eager loop ({ties} with a near tie), an abort mid-decode "
+          f"reclaimed its slot ({len(cancels)} decode_cancel) with the "
+          f"neighbour's tokens unchanged, replay = eager (caches "
+          f"{worst:.3g} of max), stats complete, launches "
+          f"{res['launches']}; device {res['device_ms']['greedy']:.4f} ms a "
+          f"greedy step, {res['device_ms']['sampled']:.4f} ms sampled, "
+          f"against a {period_ms:.4f} ms step period (device idle "
+          f"{res['idle_share_profiler_off'] * 100:.1f}%, profiler off); "
+          f"phase 4j {res['seconds']:.1f} s; on {card}", flush=True)
+    return res
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -2284,6 +2687,11 @@ def main() -> int:
     # phase 4i: weights and the host edge; the counts zeroed just before
     # each endpoint run
     ep = endpoint_path(torch, device, kernels, card, mp, prof16)
+    free_card(torch)
+
+    # phase 4j: the serving front door; the counts zeroed just before it
+    # and read just after (the engine bypasses both kernels)
+    sv = serve_path(torch, device, kernels, card)
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
@@ -2304,6 +2712,7 @@ def main() -> int:
         by_path.update({f"{name}_{w}": c for w, c in r["launches"].items()})
     for codec, r in ep["clients"].items():
         by_path[f"resnet50_bf16_int8_endpoint_{codec}"] = r["launches"]
+    by_path["gpt2_serve"] = sv["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -2358,6 +2767,9 @@ def main() -> int:
         "model": "resnet50", "stages": len(stages), "wire": "int8",
         "config": mp["bf16"], "microbatch": MICROBATCH, "chunk": CHUNK,
         "clients": 2, "images_per_client": ENDPOINT_IMAGES, **ep}}))
+    print(json.dumps({"serve_path": {
+        "model": "gpt2_small", "card": card,
+        **{k: v for k, v in sv.items() if k != "launches"}}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

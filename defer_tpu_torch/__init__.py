@@ -11,9 +11,15 @@ Weights come from the port's own checkpoints (:func:`save_params` /
 standard torchvision / Hugging Face files (:func:`load_pretrained`).
 ``Defer.serve_endpoint`` serves a pipeline to framed-TCP clients
 (``transport.TensorClient``), on the wire codecs of :mod:`.codec`.
+:class:`ServeFrontDoor` serves many tenants at once (:mod:`.serve`):
+weighted-fair admission with SLO shedding in front of a
+:class:`ContinuousBatchEngine`, in which GPT requests join and leave a
+fixed set of KV slots between decode steps; :class:`ServeClient` is its
+client.
 
 Entry points (:class:`Defer`, :class:`SpmdPipeline`,
-:class:`MpmdPipeline`, :class:`PipelinedDecoder`) run on the CUDA card
+:class:`MpmdPipeline`, :class:`PipelinedDecoder`,
+:class:`ContinuousBatchEngine`) run on the CUDA card
 unless the caller passes another device; with no device and no CUDA they
 raise.
 
@@ -33,6 +39,8 @@ from .graph import fold_batchnorm, summary, to_dot
 from .partition import partition
 from .runtime import (END_OF_STREAM, Defer, DeferHandle, MpmdPipeline,
                       PipelinedDecoder, SpmdPipeline, speculative_generate)
+from .serve import (ContinuousBatchEngine, DecodeRequest, ServeClient,
+                    ServeFrontDoor)
 from .utils.config import DeferConfig
 from .utils.checkpoint import (load_params, load_params_pt, save_params,
                                save_params_pt)
@@ -46,4 +54,5 @@ __all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
            "BlockFloatCodec", "LosslessCodec", "PipelineCodec", "RawCodec",
            "native_available", "save_params", "load_params",
            "save_params_pt", "load_params_pt", "load_pretrained",
-           "PRETRAINED_LOADERS"]
+           "PRETRAINED_LOADERS", "ServeFrontDoor", "ContinuousBatchEngine",
+           "DecodeRequest", "ServeClient"]

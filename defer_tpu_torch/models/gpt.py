@@ -126,15 +126,19 @@ class CausalTransformerBlock(TransformerBlock):
 
     def decode(self, params, x, k_cache, v_cache, pos,
                k_scale=None, v_scale=None):
-        """One-token step: ``x`` [b, d] at position ``pos`` (an int, or a
-        one-element int64 tensor on x's device, which keeps the step free
-        of host syncs inside a CUDA graph).
+        """One-token step: ``x`` [b, d] at position ``pos``: an int, a
+        one-element int64 tensor on x's device (which keeps the step free
+        of host syncs inside a CUDA graph), or a ``[b]`` int64 tensor
+        giving each row its own position (the continuous-batching engine,
+        ``serve/engine.py``: the port's form of the JAX engine's
+        ``vmap`` of single-row decodes).
 
         ``k_cache``/``v_cache`` are head-major ``[b, kv, L, hd]`` with L
         above every position; under GQA kv < num_heads and each cache head
         serves its query group without repeats.  The new key/value row is
         written at ``pos`` IN PLACE (callers pass a scratch index for
-        bubble steps) and attention covers positions <= ``pos``.  With
+        bubble steps) and attention covers positions <= ``pos``, each row
+        at its own position when ``pos`` has one per row.  With
         ``k_scale``/``v_scale`` (``[b, kv, L]`` f32) the caches hold int8
         rows from :meth:`quantize_row`; the per-row scales fold into the
         contractions exactly.  Returns ``(y, k_cache, v_cache)``, plus the
@@ -147,7 +151,10 @@ class CausalTransformerBlock(TransformerBlock):
         hd = d // nh
         cache_len = k_cache.shape[2]
         quant = k_scale is not None
-        pos = torch.as_tensor(pos, device=x.device).reshape(1)
+        pos = torch.as_tensor(pos, device=x.device).reshape(-1)
+        per_row = pos.numel() > 1
+        if per_row and pos.numel() != b:
+            raise ValueError(f"pos has {pos.numel()} positions for {b} rows")
 
         y = _layer_norm(p["ln1"], x, self.ln_eps)
         qkv = y @ p["qkv"]["w"] + p["qkv"]["b"]
@@ -157,16 +164,17 @@ class CausalTransformerBlock(TransformerBlock):
         if quant:
             k_row, ks_row = self.quantize_row(k_row)
             v_row, vs_row = self.quantize_row(v_row)
-            k_scale.index_copy_(2, pos, ks_row)
-            v_scale.index_copy_(2, pos, vs_row)
-        k_cache.index_copy_(2, pos, k_row.to(k_cache.dtype))
-        v_cache.index_copy_(2, pos, v_row.to(v_cache.dtype))
+            _write_rows(k_scale, pos, ks_row, per_row)
+            _write_rows(v_scale, pos, vs_row, per_row)
+        _write_rows(k_cache, pos, k_row.to(k_cache.dtype), per_row)
+        _write_rows(v_cache, pos, v_row.to(v_cache.dtype), per_row)
 
         qh = q.reshape(b, kv, grp, hd)
         att = (qh @ k_cache.to(x.dtype).transpose(-1, -2)) / math.sqrt(hd)
         if quant:
             att = att * k_scale[:, :, None, :].to(att.dtype)
-        live = torch.arange(cache_len, device=x.device) <= pos
+        live = torch.arange(cache_len, device=x.device) <= (
+            pos[:, None, None, None] if per_row else pos)
         att = att.masked_fill(~live, -math.inf).softmax(dim=-1)
         if quant:
             att = att * v_scale[:, :, None, :].to(att.dtype)
@@ -179,6 +187,19 @@ class CausalTransformerBlock(TransformerBlock):
         if quant:
             return out, k_cache, v_cache, k_scale, v_scale
         return out, k_cache, v_cache
+
+
+def _write_rows(cache, pos, rows, per_row: bool) -> None:
+    """Write ``rows`` ``[b, kv, 1(, hd)]`` into ``cache`` ``[b, kv, L(,
+    hd)]`` at position ``pos`` IN PLACE: one ``index_copy_`` for a shared
+    position, one ``index_put_`` at ``(row, pos[row])`` when each row has
+    its own (both capture into a CUDA graph)."""
+    if not per_row:
+        cache.index_copy_(2, pos, rows)
+        return
+    b = cache.shape[0]
+    cache.transpose(1, 2).index_put_(
+        (torch.arange(b, device=cache.device), pos), rows[:, :, 0])
 
 
 class GptEmbedding(Op):

@@ -94,9 +94,28 @@ def gumbel_noise(seed, t, shape: tuple[int, int], device) -> torch.Tensor:
     """Gumbel(0, 1) noise ``[rows, cols]``, a pure function of ``(seed, t,
     row, col)``: ``seed`` and ``t`` are ints or int64 tensors (device
     scalars inside a CUDA graph)."""
-    key = _fmix32(_fmix32(seed & _M32) ^ (t & _M32))
     rows, cols = shape
-    idx = torch.arange(rows * cols, device=device).view(rows, cols)
+    return _gumbel(_step_key(seed, t),
+                   torch.arange(rows * cols, device=device).view(rows, cols))
+
+
+def gumbel_noise_rows(seeds, ts, cols: int) -> torch.Tensor:
+    """Row-keyed Gumbel(0, 1) noise ``[rows, cols]``: ``seeds`` and ``ts``
+    are ``[rows]`` int64 tensors, and row r equals ``gumbel_noise(seeds[r],
+    ts[r], (1, cols))[0]`` — a row's draw depends only on its own (seed,
+    t), never on its index in the batch.  The continuous-batching engine
+    keys each row by its request's seed and position, as the JAX engine
+    keys it by ``fold_in(PRNGKey(seed), position)``."""
+    return _gumbel(_step_key(seeds, ts)[:, None],
+                   torch.arange(cols, device=seeds.device)[None, :])
+
+
+def _step_key(seed, t):
+    return _fmix32(_fmix32(seed & _M32) ^ (t & _M32))
+
+
+def _gumbel(key, idx) -> torch.Tensor:
+    """Gumbel(0, 1) noise from a hash of each ``idx`` under ``key``."""
     h = _fmix32((_fmix32(idx) + key) & _M32)
     u = ((h >> 8).to(torch.float32) + 0.5) * 2.0 ** -24  # in (0, 1)
     return -torch.log(-torch.log(u))
@@ -105,12 +124,19 @@ def gumbel_noise(seed, t, shape: tuple[int, int], device) -> torch.Tensor:
 def _sample_ids(logits, temp, top_k: int | None, seed, t) -> torch.Tensor:
     """Temperature softmax sampling with optional top-k truncation, as
     Gumbel-max.  The one definition the decode and prefill steps share:
-    both draw from the same distribution."""
+    both draw from the same distribution.  ``temp`` is a scalar tensor or
+    one per row (``[rows, 1]``); ``seed`` and ``t`` are ints or scalar
+    tensors (the noise hashes the row index), or ``[rows]`` tensors, which
+    key each row by its own pair (:func:`gumbel_noise_rows`)."""
     lg = logits / temp.clamp_min(1e-6)
     if top_k is not None:
         kth = lg.topk(top_k, dim=-1).values[:, -1:]
         lg = lg.masked_fill(lg < kth, -math.inf)
-    return (lg + gumbel_noise(seed, t, tuple(lg.shape), lg.device)).argmax(-1)
+    if torch.is_tensor(seed) and seed.dim() == 1:
+        noise = gumbel_noise_rows(seed, t, lg.shape[1])
+    else:
+        noise = gumbel_noise(seed, t, tuple(lg.shape), lg.device)
+    return (lg + noise).argmax(-1)
 
 
 def _split_blocks(num_blocks: int, num_stages: int) -> list[list[int]]:

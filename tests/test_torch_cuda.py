@@ -23,7 +23,11 @@ the card, count the flash launches of decode-rate steps (none) and of the
 fused prefill, and check ``reweight`` without a new capture and that
 sampling on the card does not depend on chunking.  The zoo's tests count
 the quantizer's launches on the VGG, Inception and MobileNetV2 pipelines
-(f32 and bf16 rings) and the flash launches of the MoE families.
+(f32 and bf16 rings) and the flash launches of the MoE families.  The
+continuous-batching engine's tests hold its step replays to the same steps
+run eagerly on the card, and every request's tokens, alone and in a
+shared batch, byte-identical on the card; the decode door serves
+concurrent clients from the engine's thread.
 """
 
 import math
@@ -635,3 +639,122 @@ def test_serve_endpoint_on_card(cuda):
                 assert (np.abs(got - want[codec]).max(axis=(1, 2))
                         <= bound).all()
     assert ep_in.n - n_in == 2 * 2 * 7 * 2  # samples: microbatch 2 a frame
+
+
+# ---------------------------------------------------------------------------
+# the serving front door: the continuous-batching decode engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _engine_setup(device):
+    import numpy as np
+
+    from defer_tpu_torch import models
+    from defer_tpu_torch.serve import ContinuousBatchEngine, DecodeRequest
+
+    g = models.gpt_tiny(seq_len=32)
+    params = g.init(torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 97, (int(n),)) for n in rng.integers(2, 9, 6)]
+
+    def engine(width=3):
+        return ContinuousBatchEngine(g, params, num_stages=2, width=width,
+                                     device=device)
+
+    def reqs():
+        return [DecodeRequest(prompt=q, max_new_tokens=6 + i % 3,
+                              request_id=i, seed=40 + i,
+                              temperature=0.9 if i % 2 else 0.0)
+                for i, q in enumerate(prompts)]
+
+    return engine, reqs
+
+
+def test_engine_replay_equals_eager(cuda):
+    """Every step one graph replay (two captures at construction, greedy
+    and sampled) against the same steps run eagerly on the card: equal
+    tokens, caches within 1e-6 of their max |value|, and no quantizer or
+    flash launch."""
+    engine, reqs = _engine_setup(cuda)
+    KERNEL.zero()
+    FLASH.zero()
+    graphs = engine()
+    assert graphs.captures == 2 and graphs.graph_pool_bytes > 0
+    got = graphs.run_all(reqs())
+    eager = engine()
+    eager.cuda_graphs = False
+    want = eager.run_all(reqs())
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        assert (got[rid] == want[rid]).all()
+    for a, b in zip(graphs._caches, eager._caches):
+        for name in ("k", "v"):
+            scale = b[name].abs().max().item() or 1.0
+            assert (a[name] - b[name]).abs().max().item() <= 1e-6 * scale
+    assert KERNEL.launches == 0 and FLASH.launches == 0
+
+
+def test_engine_solo_vs_continuous_on_card(cuda):
+    """Each request run alone through a fresh engine of the same width
+    (its own captures) gives the bytes it gets in a staggered shared
+    batch, greedy and sampled rows mixed."""
+    engine, reqs = _engine_setup(cuda)
+    solo = {}
+    for req in reqs():
+        solo[req.request_id] = engine().run_all([req])[req.request_id]
+
+    def stagger(e, queue):
+        while queue and e.free_slots() \
+                and e.steps >= 2 * queue[0].request_id:
+            e.join(queue.pop(0))
+
+    batched = engine().run_all(reqs(), joiner=stagger)
+    for rid, ids in solo.items():
+        assert (batched[rid] == ids).all()
+
+
+@pytest.mark.timeout(300)
+def test_decode_door_on_card(cuda):
+    """The decode door on the card: three concurrent tenants, each
+    tenant's tokens equal to a solo run through the same door; every
+    replay runs on the engine's thread."""
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch.serve import ServeClient, ServeFrontDoor
+    from defer_tpu_torch.serve.client import fetch_stats
+
+    engine, _ = _engine_setup(cuda)
+    door = ServeFrontDoor(engine=engine(4),
+                          decode_defaults={"max_new_tokens": 5}).start()
+    try:
+        rng = np.random.default_rng(7)
+        data = {t: [rng.integers(0, 97, (int(n),)).astype(np.int32)
+                    for n in rng.integers(2, 12, 4)]
+                for t in ("alpha", "beta", "gamma")}
+        kw = {"alpha": {}, "beta": {"temperature": 0.8, "seed": 5},
+              "gamma": {"weight": 2.0}}
+        solo = {t: ServeClient(*door.address, t + "_solo", **kw[t]).stream(
+            data[t]) for t in data}
+        outs = {}
+
+        def go(t):
+            outs[t] = ServeClient(*door.address, t, **kw[t]).stream(data[t])
+
+        ts = [threading.Thread(target=go, args=(t,), daemon=True)
+              for t in data]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+            assert not t.is_alive()
+        door.healthcheck()
+        for t in data:
+            for a, b in zip(outs[t], solo[t]):
+                assert a[0] == b[0] == "ok" and (a[1] == b[1]).all()
+        doc = fetch_stats(*door.address)
+        assert doc["decode"]["captures"] == 2
+        assert doc["tenants"]["gamma"]["completed"] == 4
+    finally:
+        door.stop()

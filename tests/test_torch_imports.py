@@ -55,6 +55,14 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.transport.framed; "
             "import defer_tpu_torch.transport.channel; "
             "import defer_tpu_torch.transport.staging; "
+            "import defer_tpu_torch.obs.attrib; "
+            "import defer_tpu_torch.serve; "
+            "import defer_tpu_torch.serve.arrivals; "
+            "import defer_tpu_torch.serve.admission; "
+            "import defer_tpu_torch.serve.batcher; "
+            "import defer_tpu_torch.serve.engine; "
+            "import defer_tpu_torch.serve.client; "
+            "import defer_tpu_torch.serve.frontdoor; "
             "import defer_tpu_torch.codec.native as n; "
             "import defer_tpu_torch.transport.staging as st; "
             "assert n.load() is not None and st._load() is not None; "
@@ -85,7 +93,15 @@ def test_import_loads_no_jax_module():
                 "defer_tpu_torch.codec.native",
                 "defer_tpu_torch.transport.framed",
                 "defer_tpu_torch.transport.channel",
-                "defer_tpu_torch.transport.staging"):
+                "defer_tpu_torch.transport.staging",
+                "defer_tpu_torch.obs.attrib",
+                "defer_tpu_torch.serve",
+                "defer_tpu_torch.serve.arrivals",
+                "defer_tpu_torch.serve.admission",
+                "defer_tpu_torch.serve.batcher",
+                "defer_tpu_torch.serve.engine",
+                "defer_tpu_torch.serve.client",
+                "defer_tpu_torch.serve.frontdoor"):
         assert new in mods
     bad = [m for m in mods if _is_forbidden(m)]
     assert bad == []
