@@ -99,9 +99,26 @@ Phases, in order; any failure exits non-zero before the result line:
                    request, and neither kernel launches; tokens/s,
                    per-tenant p50/p99, steps, slot occupancy, the engine's
                    phase times, the device's idle share of a step;
-  5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path`` and
-              ``kernels`` JSON lines, the card line, and the last line
-              ``{"ok": true, "device": {...}}``.
+                k. the stage-node chain: ResNet50/8 as eight ``python -m
+                   defer_tpu_torch node`` processes on the card through
+                   ``run_chain`` (in-band deploy of ``torch.export``
+                   artifacts), 64 images in frames of 8 on lzb hops, and
+                   through eight more on raw hops, spawned the same way
+                   (``spawn_nodes``; rows within 1e-5 of the forward,
+                   top-1 equal, raw and lzb byte-identical, every node on
+                   cuda with 8 frames processed); BERT-Base/12 as twelve
+                   in-process ``StageNode`` threads (12 flash launches
+                   per frame, by the smoke's counts and the nodes' own,
+                   rows within 1e-5 of phase 4b's forward, a ``reweight``
+                   equal to the forward on the new weights);
+                   ``ServeFrontDoor`` in tensor mode over the raw chain
+                   (two tenants' rows equal to the forward's); each chain
+                   timed on streams of 64 frames beside the ring pipeline
+                   on the same frames; boot, deploy, exit seconds and the
+                   short streams' time to their last result;
+  5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
+              ``chain_path`` and ``kernels`` JSON lines, the card line,
+              and the last line ``{"ok": true, "device": {...}}``.
 
 Weights are the port's own seeded random initialisation (phase 4i also
 reads them back from files it writes); inputs come from ``numpy`` with a
@@ -2537,6 +2554,384 @@ def serve_path(torch, device, kernels, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4k: the stage-node process chain
+# ---------------------------------------------------------------------------
+
+#: ResNet50/8 images through the process chain, in frames of MICROBATCH
+CHAIN_IMAGES = 64
+#: BERT-Base sequences through the in-process chain, in frames of MICROBATCH
+CHAIN_SEQS = 16
+#: images each of the two tenants sends through the tensor-mode door
+DOOR_IMAGES = 16
+#: alternating timed rounds of the chain's stream and the ring pipeline
+CHAIN_ROUNDS = 3
+#: frames of each timed stream: many times the stage count, so the chain's
+#: fill and drain are a small part of its wall
+CHAIN_TIMED_FRAMES = 64
+
+
+def _rel_err(out, ref, what: str, bound: float) -> float:
+    import numpy as np
+
+    if out.shape != ref.shape or not np.isfinite(out).all():
+        fail(f"phase 4k {what}: output shape {out.shape} (want {ref.shape}) "
+             "or not finite")
+    rel = float(np.abs(out - ref).max()) / float(np.abs(ref).max())
+    if rel > bound:
+        fail(f"phase 4k {what}: {rel:.3g} of max |output| off the forward "
+             f"(bound {bound})")
+    return rel
+
+
+def _sum_launches(stats) -> dict:
+    out: dict = {}
+    for s in stats:
+        for k, v in s["kernel_launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def chain_path(torch, device, kernels, card, mp, bp):
+    """Phase 4k.  a: ResNet50/8 as eight OS processes through
+    ``run_chain`` (in-band deploy of ``torch.export`` artifacts, f32,
+    frames of MICROBATCH) on lzb hops: rows within BUFFER_REL_BOUND of the
+    forward with top-1 equal, every node's stats on cuda with one frame
+    processed per frame sent.  b: BERT-Base/12 as twelve in-process
+    ``StageNode`` threads on the card: 12 flash launches per frame (the
+    parent's counts and the nodes'), rows within BUFFER_REL_BOUND of phase
+    4b's forward, a ``reweight`` between streams equal to the forward on
+    the new weights, then a timed stream of CHAIN_TIMED_FRAMES frames
+    beside the ring pipeline on the same frames.  c: eight fresh ``node``
+    processes on raw hops, spawned by ``spawn_nodes`` (the spawn path of
+    ``run_chain``) and deployed by a ``ChainDispatcher``: the same images
+    (rows byte-identical to a's lzb rows), timed streams of
+    CHAIN_TIMED_FRAMES frames beside the ring pipeline, then
+    ``ServeFrontDoor`` in tensor mode over the same chain (width
+    MICROBATCH): two tenants' rows equal to the forward's rows of their
+    images.  One ``run_chain`` and one chain driven by hand, not two
+    ``run_chain`` calls and a third chain: each spawn costs a minute.
+    Rates come only from the long streams: a stream of a few frames
+    through eight or twelve stages is mostly filling and draining, so the
+    short streams report their time to the last result."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig
+    from defer_tpu_torch.graph.ir import tree_map
+    from defer_tpu_torch.partition import partition
+    from defer_tpu_torch.runtime.node import (ChainDispatcher, StageNode,
+                                              run_chain, spawn_nodes)
+    from defer_tpu_torch.serve import ServeClient, ServeFrontDoor
+    from defer_tpu_torch.serve.frontdoor import ChainBackend
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    res = {"card": card, "timed_frames": CHAIN_TIMED_FRAMES}
+    t_phase = time.perf_counter()
+
+    def timed_rounds(chain, ring):
+        """Alternating rounds of the chain's stream and the ring's run of
+        the same frames; (chain walls, ring walls, last outputs)."""
+        chain_w, ring_w = [], []
+        for _ in range(CHAIN_ROUNDS):
+            t0 = time.perf_counter()
+            c_out = np.stack(chain())
+            chain_w.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r_out = ring()
+            torch.cuda.synchronize()
+            ring_w.append(time.perf_counter() - t0)
+        return chain_w, ring_w, c_out, r_out
+
+    # --- a: ResNet50/8, eight processes, lzb hops, through run_chain -----
+    g, params, cuts = mp["graph"], mp["params"], mp["cuts"]
+    stages = partition(g, cuts)
+    n_frames = CHAIN_IMAGES // MICROBATCH
+    frames = [mp["inputs"][i] for i in range(n_frames)]
+    ref = mp["ref"][:n_frames]
+
+    def check_nodes(stats, frames_each, what):
+        bad = [(s["stage"], s["processed"], s["device"]) for s in stats
+               if s["processed"] != frames_each
+               or not s["device"].startswith(device)]
+        if len(stats) != len(stages) or bad:
+            fail(f"phase 4k {what}: node (stage, processed, device) {bad} "
+                 f"of {len(stats)} (want {len(stages)} nodes on {device}, "
+                 f"{frames_each} frames each)")
+
+    def check_rows(out, what):
+        rel = _rel_err(out, ref, what, BUFFER_REL_BOUND)
+        if not (out.argmax(-1) == ref.argmax(-1)).all():
+            fail(f"phase 4k: the {what} changed a top-1 class")
+        return rel
+
+    stats = []
+    t0 = time.perf_counter()
+    lzb = np.stack(run_chain(stages, params, frames, batch=MICROBATCH,
+                             codec="lzb", in_band=True, device=device,
+                             stats_out=stats))
+    secs = time.perf_counter() - t0
+    rel = check_rows(lzb, "resnet50 lzb chain")
+    check_nodes(stats, n_frames, "run_chain")
+    res["resnet50_lzb"] = {
+        "rel_err": rel, "spawn_deploy_stream_s": secs,
+        "launches": _sum_launches(stats),
+        "node_infer_p50_ms": [s["infer_latency_s"]["p50"] * 1e3
+                              for s in stats],
+        # each node's first frame: its CUDA libraries load lazily
+        "node_first_frame_ms": [s["infer_latency_s"]["max"] * 1e3
+                                for s in stats],
+        "node_mem_bytes": [s["mem_bytes"] for s in stats]}
+    print(f"chain path: run_chain(resnet50, {len(stages)} processes, "
+          f"in_band, codec=lzb, device={device}) {CHAIN_IMAGES} images in "
+          f"frames of {MICROBATCH}: spawn+deploy+stream+exit {secs:.2f} s, "
+          f"{rel:.3g} of max |logit| off the forward, top-1 equal, node "
+          f"launches {res['resnet50_lzb']['launches']}; on {card}",
+          flush=True)
+
+    # --- b: BERT-Base/12, in-process nodes ------------------------------
+    bg, bparams = bp["graph"], bp["params"]
+    bstages = partition(bg, bp["cuts"])
+    blocks = sum(name.startswith("block_") for name in bg.topo_order)
+    b_frames = CHAIN_SEQS // MICROBATCH
+    all_ids = [x.astype(np.int32) for x in bp["inputs"]]
+    ids = all_ids[:b_frames]
+    timed_ids = [all_ids[i % len(all_ids)]
+                 for i in range(CHAIN_TIMED_FRAMES)]
+    bref = bp["ref"][:b_frames]
+    params2 = tree_map(lambda v: v * 0.5, bparams)
+    pdev2 = params_to_device(params2, device)
+    with torch.inference_mode():
+        bref2 = np.stack([bg.apply(pdev2, torch.from_numpy(x).to(device))
+                          .cpu().numpy() for x in all_ids])
+    del pdev2
+    bring = Defer(DeferConfig(wire="buffer", microbatch=MICROBATCH,
+                              chunk=CHUNK, device=device)).build(
+        bg, params2, bp["cuts"])
+    bbatch = np.stack(timed_ids)
+    bring.run(bbatch[:b_frames])  # captures the chunk graphs
+    nodes = [StageNode(None, "127.0.0.1:0", None, device=device)
+             for _ in bstages]
+    addrs = [f"127.0.0.1:{nd.address[1]}" for nd in nodes]
+    served = {}
+
+    def serve(i):
+        served[i] = nodes[i].serve()
+
+    ths = [threading.Thread(target=serve, args=(i,), daemon=True)
+           for i in range(len(nodes))]
+    for t in ths:
+        t.start()
+    disp = ChainDispatcher(addrs[0])
+    want = {"flash_attention": blocks * b_frames, "quant_int8": 0}
+    try:
+        t0 = time.perf_counter()
+        disp.deploy(bstages, bparams, addrs, batch=MICROBATCH)
+        deploy_s = time.perf_counter() - t0
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        outs = disp.stream(ids)
+        stream_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        st = disp.stats(addrs)
+        node_flash = {s["kernel_launches"]["flash_attention"] for s in st}
+        print(f"chain path: bert_base in {len(bstages)} in-process nodes on "
+              f"{device}: deploy {deploy_s:.2f} s, first stream of "
+              f"{b_frames} frames ({CHAIN_SEQS} sequences) to its last "
+              f"result in {stream_s:.3f} s; launches {launches}, nodes' "
+              f"count {sorted(node_flash)}", flush=True)
+        if launches != want or node_flash != {want["flash_attention"]}:
+            fail(f"phase 4k: bert chain launches {launches}, nodes "
+                 f"{node_flash}; want {want} ({blocks} per frame)")
+        brel = _rel_err(np.stack(outs), bref, "bert chain",
+                        BUFFER_REL_BOUND)
+        disp.reweight(bstages, params2, addrs)
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        outs2 = disp.stream(ids)
+        stream2_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches2 = read_counts(kernels)
+        if launches2 != want:
+            fail(f"phase 4k: bert chain after reweight launched {launches2}")
+        zero_counts(kernels)
+        b_chain_w, b_ring_w, outs3, ring3 = timed_rounds(
+            lambda: disp.stream(timed_ids), lambda: bring.run(bbatch))
+        launches3 = read_counts(kernels)
+        st2 = disp.stats(addrs)
+        b_total = 2 * b_frames + CHAIN_ROUNDS * CHAIN_TIMED_FRAMES
+        bad = [(s["stage"], s["processed"], s["reweights"], s["device"])
+               for s in st2 if s["processed"] != b_total
+               or s["reweights"] != 1 or not s["device"].startswith(device)]
+        if bad:
+            fail(f"phase 4k: bert chain (stage, processed, reweights, "
+                 f"device) after reweight: {bad}")
+    finally:
+        disp.close()
+    for t in ths:
+        t.join(timeout=60)
+    if any(t.is_alive() for t in ths) or served != {
+            i: b_total for i in range(len(nodes))}:
+        fail(f"phase 4k: bert chain nodes did not drain: {served}")
+    brel2 = _rel_err(np.stack(outs2), bref2[:b_frames],
+                     "bert chain reweight", BUFFER_REL_BOUND)
+    cyc2 = bref2[np.arange(CHAIN_TIMED_FRAMES) % len(all_ids)]
+    brel3 = _rel_err(outs3, cyc2, "bert chain timed stream",
+                     BUFFER_REL_BOUND)
+    _rel_err(np.asarray(ring3), cyc2, "bert ring timed run",
+             BUFFER_REL_BOUND)
+    # one flash launch per block per chain frame, and per ring step (the
+    # ring's fill and drain steps included)
+    ring_steps = CHUNK * -(-(CHAIN_TIMED_FRAMES + len(bstages) - 1) // CHUNK)
+    want3 = {"flash_attention": blocks * CHAIN_ROUNDS * (CHAIN_TIMED_FRAMES
+                                                         + ring_steps),
+             "quant_int8": 0}
+    if launches3 != want3:
+        fail(f"phase 4k: bert timed rounds launched {launches3}, want "
+             f"{want3} ({blocks} per chain frame and per ring step)")
+    b_seqs = CHAIN_TIMED_FRAMES * MICROBATCH
+    b_chain_sps = b_seqs / statistics.median(b_chain_w)
+    b_ring_sps = b_seqs / statistics.median(b_ring_w)
+    res["bert_base"] = {
+        "stages": len(bstages), "frames": b_frames, "deploy_s": deploy_s,
+        "first_stream_to_last_result_s": stream_s,
+        "stream_after_reweight_to_last_result_s": stream2_s,
+        "chain_sequences_per_s": b_chain_sps,
+        "ring_sequences_per_s": b_ring_sps,
+        "chain_walls_s": b_chain_w, "ring_walls_s": b_ring_w,
+        "rel_err": brel, "rel_err_after_reweight": brel2,
+        "rel_err_timed": brel3, "launches": launches,
+        "launches_after_reweight": launches2,
+        "launches_timed_rounds": launches3,
+        "node_infer_p50_ms": [s["infer_latency_s"]["p50"] * 1e3
+                              for s in st2]}
+    print(f"chain path: bert chain {brel:.3g} of max |output| off phase "
+          f"4b's forward; after reweight {brel2:.3g} off the forward on the "
+          f"new weights ({b_frames} frames to the last result in "
+          f"{stream2_s:.3f} s); {b_chain_sps:.1f} seq/s through the chain "
+          f"against {b_ring_sps:.1f} through the ring pipeline (buffer "
+          f"wire), median of {CHAIN_ROUNDS} alternating rounds of "
+          f"{CHAIN_TIMED_FRAMES} frames ({b_seqs} sequences), chain rows "
+          f"{brel3:.3g} off the forward; on {card}", flush=True)
+    del nodes, disp, bring
+    free_card(torch)
+
+    # --- c: timed streams and the tensor-mode door over eight processes --
+    pipe = Defer(DeferConfig(wire="buffer", microbatch=MICROBATCH,
+                             chunk=CHUNK, device=device)).build(g, params,
+                                                                cuts)
+    batch = np.stack(frames)
+    timed = [frames[i % n_frames] for i in range(CHAIN_TIMED_FRAMES)]
+    tbatch = np.stack(timed)
+    pipe.run(batch)  # captures the chunk graphs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as logdir:
+        t0 = time.perf_counter()
+        with spawn_nodes(len(stages), log_dir=logdir,
+                         device=device) as spawned:
+            boot_s = time.perf_counter() - t0
+            addrs = spawned.addrs
+            disp = ChainDispatcher(addrs[0])
+            door = None
+            try:
+                t0 = time.perf_counter()
+                disp.deploy(stages, params, addrs, batch=MICROBATCH)
+                deploy_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                # each node's first frame loads its CUDA libraries
+                raw = np.stack(disp.stream(frames))
+                first_s = time.perf_counter() - t0
+                raw_rel = check_rows(raw, "resnet50 raw chain")
+                if not np.array_equal(raw, lzb):
+                    fail("phase 4k: raw rows differ from lzb rows (lzb is "
+                         "lossless)")
+                check_nodes(disp.stats(addrs), n_frames, "raw chain")
+                chain_w, ring_w, outs, ring_out = timed_rounds(
+                    lambda: disp.stream(timed), lambda: pipe.run(tbatch))
+                cyc = np.arange(CHAIN_TIMED_FRAMES) % n_frames
+                if not np.array_equal(outs, raw[cyc]):
+                    fail("phase 4k: a timed stream's rows differ from the "
+                         "first stream's")
+                ring_rel = _rel_err(np.asarray(ring_out), ref[cyc],
+                                    "resnet50 ring timed run",
+                                    BUFFER_REL_BOUND)
+                door = ServeFrontDoor(backend=ChainBackend(
+                    disp, MICROBATCH, g.input_spec.shape)).start()
+                images = batch.reshape((-1,) + tuple(g.input_spec.shape))
+                flat_ref = ref.reshape(-1, ref.shape[-1])
+                tenants = {"tensor_a": range(0, DOOR_IMAGES),
+                           "tensor_b": range(DOOR_IMAGES, 2 * DOOR_IMAGES)}
+                got, errs = {}, []
+
+                def go(t):
+                    try:
+                        got[t] = ServeClient(*door.address, t,
+                                             timeout_s=300).stream(
+                            [images[i] for i in tenants[t]])
+                    except Exception as e:  # noqa: BLE001 — failed below
+                        errs.append(f"{t}: {e!r}")
+
+                cts = [threading.Thread(target=go, args=(t,), daemon=True)
+                       for t in tenants]
+                t0 = time.perf_counter()
+                for t in cts:
+                    t.start()
+                for t in cts:
+                    t.join(timeout=300)
+                door_s = time.perf_counter() - t0
+                if errs or any(t.is_alive() for t in cts):
+                    fail(f"phase 4k door clients failed: {errs or 'a hang'}")
+                door_rel = 0.0
+                for t, idx in tenants.items():
+                    for i, r in zip(idx, got[t]):
+                        if r[0] != "ok":
+                            fail(f"phase 4k door: tenant {t} image {i}: {r}")
+                        door_rel = max(door_rel, _rel_err(
+                            np.asarray(r[1]), flat_ref[i],
+                            f"door {t} image {i}", BUFFER_REL_BOUND))
+                door.healthcheck()
+                st = disp.stats(addrs)
+            finally:
+                t0 = time.perf_counter()
+                if door is not None:
+                    door.stop()  # closes the dispatcher: END cascades
+                else:
+                    disp.close()
+        # leaving spawn_nodes waited for every node to exit 0 after END
+        exit_s = time.perf_counter() - t0
+    t_images = CHAIN_TIMED_FRAMES * MICROBATCH
+    chain_ips = t_images / statistics.median(chain_w)
+    ring_ips = t_images / statistics.median(ring_w)
+    res["resnet50_raw"] = {
+        "rel_err": raw_rel, "ring_rel_err": ring_rel, "boot_s": boot_s,
+        "deploy_s": deploy_s, "first_stream_to_last_result_s": first_s,
+        "exit_s": exit_s, "chain_images_per_s": chain_ips,
+        "ring_images_per_s": ring_ips, "timed_images": t_images,
+        "chain_walls_s": chain_w, "ring_walls_s": ring_w,
+        "door_images": 2 * DOOR_IMAGES, "door_s": door_s,
+        "door_rel_err": door_rel, "launches": _sum_launches(st),
+        "node_infer_p50_ms": [s["infer_latency_s"]["p50"] * 1e3
+                              for s in st],
+        "node_host_sync_p50_ms": [s["host_sync_s"]["p50"] * 1e3
+                                  for s in st]}
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"chain path: resnet50 in {len(stages)} processes (raw hops, "
+          f"rows {raw_rel:.3g} of max |logit| off the forward and equal "
+          f"to lzb's): boot {boot_s:.2f} s, deploy {deploy_s:.2f} s, first "
+          f"stream of {n_frames} frames to its last result {first_s:.2f} s, "
+          f"exit after END {exit_s:.2f} s; {chain_ips:.1f} images/s through "
+          f"the chain against {ring_ips:.1f} through the ring pipeline "
+          f"(buffer wire), median of {CHAIN_ROUNDS} alternating rounds of "
+          f"{CHAIN_TIMED_FRAMES} frames ({t_images} images); the door "
+          f"served 2 tenants x {DOOR_IMAGES} images in {door_s:.2f} s, "
+          f"{door_rel:.3g} of max |logit| off the forward; phase 4k "
+          f"{res['seconds']:.1f} s; on {card}", flush=True)
+    return res
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -2692,6 +3087,12 @@ def main() -> int:
     # phase 4j: the serving front door; the counts zeroed just before it
     # and read just after (the engine bypasses both kernels)
     sv = serve_path(torch, device, kernels, card)
+    free_card(torch)
+
+    # phase 4k: the stage-node chain; the counts zeroed just before each
+    # stream of the in-process chain, the node processes' own counts read
+    # from their stats
+    ch = chain_path(torch, device, kernels, card, mp, bp)
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
@@ -2713,6 +3114,13 @@ def main() -> int:
     for codec, r in ep["clients"].items():
         by_path[f"resnet50_bf16_int8_endpoint_{codec}"] = r["launches"]
     by_path["gpt2_serve"] = sv["launches"]
+    by_path["resnet50_chain_lzb"] = ch["resnet50_lzb"]["launches"]
+    by_path["resnet50_chain_raw_and_door"] = ch["resnet50_raw"]["launches"]
+    by_path["bert_base_chain"] = ch["bert_base"]["launches"]
+    by_path["bert_base_chain_reweight"] = ch["bert_base"][
+        "launches_after_reweight"]
+    by_path["bert_base_chain_and_ring_timed"] = ch["bert_base"][
+        "launches_timed_rounds"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -2770,6 +3178,9 @@ def main() -> int:
     print(json.dumps({"serve_path": {
         "model": "gpt2_small", "card": card,
         **{k: v for k, v in sv.items() if k != "launches"}}}))
+    print(json.dumps({"chain_path": {
+        "model": "resnet50 + bert_base", "microbatch": MICROBATCH,
+        "images": CHAIN_IMAGES, "sequences": CHAIN_SEQS, **ch}}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -359,14 +359,19 @@ class AvgPool(Op):
     def _device_counts(self, x: torch.Tensor) -> torch.Tensor:
         """:func:`_window_counts` on ``x``'s device in ``x``'s dtype,
         copied there once (the eager pass before a CUDA-graph capture
-        makes the copy; the graph reads the cached tensor)."""
+        makes the copy; the graph reads the cached tensor).  A trace
+        (``torch.export``, ``utils/export.py``) takes the counts as a
+        constant of its program and caches nothing: its tensors are fake.
+        """
         s = self.stride or self.window
         key = (tuple(x.shape[1:3]), x.device, x.dtype)
-        if key not in self._counts:
-            counts = _window_counts(key[0], self.window, s, self.padding)
-            self._counts[key] = torch.from_numpy(counts).to(x.device,
-                                                            x.dtype)
-        return self._counts[key]
+        counts = self._counts.get(key)
+        if counts is None:
+            counts = torch.from_numpy(_window_counts(
+                key[0], self.window, s, self.padding)).to(x.device, x.dtype)
+            if not torch.compiler.is_compiling():
+                self._counts[key] = counts
+        return counts
 
 
 @dataclasses.dataclass(frozen=True, repr=False)

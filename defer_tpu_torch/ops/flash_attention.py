@@ -7,17 +7,25 @@ aligned: query row i sees key positions <= i + Tk - Tq, so a decode call
 returns 0 (the denominator is floored at 1e-20).  Forward only: the JAX
 package defines no gradient either.
 
-:func:`flash_attention` dispatches on the tensors' device:
+:func:`flash_attention` checks its arguments and calls the custom operator
+``torch.ops.defer_tpu_torch.flash_attention(q, k, v, causal)``, which
+dispatches on the tensors' device:
 
 * ``cpu`` — :func:`flash_attention_plain`, a plain PyTorch masked softmax
   in float32 (the version the tests hold to the JAX package, and the one
   the CUDA kernel is held to on the card);
-* ``meta`` — the plain version too: it computes no values, and graph
-  shape inference (``GraphBuilder.add``) runs ops on meta tensors, so it
-  must never reach the kernel loader;
+* ``meta`` and fake tensors — the operator's fake implementation, which
+  gives the output's shape and dtype: graph shape inference
+  (``GraphBuilder.add``) runs ops on meta tensors, and ``torch.export``
+  traces with fake ones, so neither reaches the kernel loader;
 * ``cuda`` — the hand-written Hopper kernel (``ops/flash_attention_cuda.py``,
   ``csrc/flash_attention.cu``), which raises on what it cannot take.
   There is no fallback from the card to the plain version.
+
+The operator is what makes an exported stage program
+(``utils/export.py``) carry the kernel: a trace records one
+``defer_tpu_torch.flash_attention`` node, not the plain version's ops, and
+the loaded program dispatches that node by the device of its inputs.
 """
 
 from __future__ import annotations
@@ -92,11 +100,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     _check_blocks(block_q, block_k)
     _check(q, k, v)
-    kind = q.device.type
-    if kind in ("cpu", "meta"):
-        return flash_attention_plain(q, k, v, causal=causal)
-    if kind == "cuda":
-        from .flash_attention_cuda import flash_attention_cuda
-        return flash_attention_cuda(q, k, v, causal=causal)
-    raise ValueError(f"flash_attention: no implementation for device "
-                     f"{q.device}")
+    if q.device.type not in ("cpu", "meta", "cuda"):
+        raise ValueError(f"flash_attention: no implementation for device "
+                         f"{q.device}")
+    return torch.ops.defer_tpu_torch.flash_attention(q, k, v, bool(causal))
+
+
+@torch.library.custom_op("defer_tpu_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool) -> torch.Tensor:
+    return flash_attention_plain(q, k, v, causal=causal)
+
+
+@_flash_attention_op.register_kernel("cuda")
+def _(q, k, v, causal):
+    from .flash_attention_cuda import flash_attention_cuda
+    return flash_attention_cuda(q, k, v, causal=causal)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal):
+    return q.new_empty(q.shape)

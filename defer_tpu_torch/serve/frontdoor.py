@@ -115,11 +115,12 @@ class _Unit:
 class ChainBackend:
     """Tensor-mode backend: formed microbatches ride one deployed chain.
 
-    ``dispatcher`` is duck-typed: a connected chain dispatcher (the JAX
-    package's ``ChainDispatcher`` until the port has its own stage
-    processes) with ``begin_trace``, ``send_request_frame``,
-    ``recv_result`` and ``close``, whose stage programs run at frame
-    batch ``width``.  Every formed
+    ``dispatcher`` is duck-typed: a deployed chain dispatcher with
+    ``begin_trace``, ``send_request_frame``, ``recv_result`` and
+    ``close``, whose stage programs run at frame batch ``width`` — the
+    port's :class:`~defer_tpu_torch.runtime.node.ChainDispatcher` (its
+    stage nodes on the card), or the JAX package's, whose frames are the
+    same bytes.  Every formed
     frame is exactly ``width`` rows (queued units + zero padding),
     preceded by its ``req_meta`` composition frame; the demux thread
     attributes result rows by the metadata that CASCADED THROUGH THE

@@ -166,6 +166,42 @@ _ENC_HIST = REGISTRY.histogram("codec.encode_s")
 _DEC_HIST = REGISTRY.histogram("codec.decode_s")
 
 
+class _SleepCodec(Codec):
+    """Test/bench-only wrapper: a real codec plus a fixed per-side delay.
+
+    ``sleep<ms>+<codec>`` models per-hop phases a CPU-bound localhost
+    chain cannot express (accelerator compute, NIC serialization): the
+    sleep occupies wall time without occupying the CPU, which is exactly
+    the resource profile the rx/compute/tx overlap is built for.  The
+    wire payload is byte-identical to the wrapped codec's, and so is the
+    frame's codec field: it carries the whole ``sleep...`` name, as the
+    JAX package's does.  Never pick it for deployments.
+
+    ``esleep<ms>+<codec>`` / ``dsleep<ms>+<codec>`` delay only the
+    encode / only the decode side, so a bench can place the modeled time
+    on one chosen process of a chain.
+    """
+
+    name = "sleep"
+
+    def __init__(self, delay_s: float, inner: Codec, *,
+                 enc: bool = True, dec: bool = True):
+        self._delay_s = delay_s
+        self.inner = inner
+        self._enc = enc
+        self._dec = dec
+
+    def encode(self, arr):
+        if self._enc:
+            time.sleep(self._delay_s)
+        return self.inner.encode(arr)
+
+    def decode(self, data, shape, dtype):
+        if self._dec:
+            time.sleep(self._delay_s)
+        return self.inner.decode(data, shape, dtype)
+
+
 def _make_codec(name: str) -> Codec:
     if name == "raw":
         return RawCodec()
@@ -173,7 +209,22 @@ def _make_codec(name: str) -> Codec:
         return LosslessCodec()
     if name.startswith("bf"):
         return PipelineCodec(bits=int(name[2:]))
+    if name.startswith("sleep"):
+        head, _, inner = name.partition("+")
+        return _SleepCodec(float(head[5:]) / 1e3, _make_codec(inner or "raw"))
+    if name.startswith("esleep") or name.startswith("dsleep"):
+        head, _, inner = name.partition("+")
+        return _SleepCodec(float(head[6:]) / 1e3, _make_codec(inner or "raw"),
+                           enc=name[0] == "e", dec=name[0] == "d")
     raise ValueError(f"unknown codec {name!r}")
+
+
+def _is_float_codec(codec: Codec) -> bool:
+    """Whether ``codec`` (or the codec a sleep wrapper holds) encodes float
+    values rather than bytes."""
+    while isinstance(codec, _SleepCodec):
+        codec = codec.inner
+    return isinstance(codec, (BlockFloatCodec, PipelineCodec))
 
 
 def _codec(name: str) -> Codec:
@@ -215,7 +266,7 @@ def _as_sendable(x, codec: Codec) -> tuple[np.ndarray, str]:
     if isinstance(x, torch.Tensor):
         t = x.detach().cpu()
         if t.dtype == torch.bfloat16:
-            if isinstance(codec, (BlockFloatCodec, PipelineCodec)):
+            if _is_float_codec(codec):
                 return t.float().numpy(), BF16
             return t.contiguous().view(torch.int16).numpy(), BF16
         x = t.numpy()
@@ -232,7 +283,7 @@ def _decode_value(codec: Codec | None, buf, dtype: str, shape):
         if codec is None:
             return np.frombuffer(buf, dtype=dt).reshape(shape)
         return codec.decode(memoryview(buf), shape, dt)
-    if isinstance(codec, (BlockFloatCodec, PipelineCodec)):
+    if _is_float_codec(codec):
         vals = codec.decode(memoryview(buf), shape, np.float32)
         return torch.from_numpy(vals).to(torch.bfloat16)  # round to nearest
     if codec is None:

@@ -28,6 +28,24 @@ def _is_conv(node) -> bool:
     return isinstance(node.op, (Conv2D, DepthwiseConv2D))
 
 
+def is_hwio_leaf(node, path: str) -> bool:
+    """Whether ``node``'s leaf at ``/``-joined ``path`` is a conv kernel:
+    the one leaf whose layout differs between the packages (JAX HWIO, the
+    port OIHW)."""
+    return _is_conv(node) and path == "w"
+
+
+def hwio_to_oihw(a: np.ndarray) -> np.ndarray:
+    """A JAX conv kernel in the port's layout (a transposed view)."""
+    return a.transpose(3, 2, 0, 1)
+
+
+def oihw_to_hwio(a: np.ndarray) -> np.ndarray:
+    """A port conv kernel in the JAX layout (inverse of
+    :func:`hwio_to_oihw`)."""
+    return a.transpose(2, 3, 1, 0)
+
+
 def jax_param_spec(graph: LayerGraph) -> dict[str, dict[str, Any]]:
     """``graph``'s parameter shapes as the JAX package lays them out:
     ``param_spec`` with conv kernels turned from OIHW back to HWIO (what
@@ -80,8 +98,8 @@ def params_from_jax(graph: LayerGraph, np_params: dict[str, Any]
         p = {}
         for path, v in flat.items():
             a = np.asarray(v)
-            if _is_conv(node) and path == "w":
-                a = a.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            if is_hwio_leaf(node, path):
+                a = hwio_to_oihw(a)
             if a.shape != spec[path].shape:
                 raise ValueError(f"node {node.name!r} leaf {path!r}: shape "
                                  f"{a.shape} != {spec[path].shape}")
@@ -107,8 +125,8 @@ def params_to_jax(graph: LayerGraph, params: dict[str, Any]
             if t.dtype == torch.bfloat16:
                 t = t.float()
             a = t.numpy()
-            if _is_conv(node) and path == "w":
-                a = a.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            if is_hwio_leaf(node, path):
+                a = oihw_to_hwio(a)
             p[path] = np.ascontiguousarray(a)
         out[node.name] = unflatten_tree(p)
     return out

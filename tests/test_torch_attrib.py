@@ -4,12 +4,16 @@ The same synthetic span lists go through the JAX package's
 ``attribute_request``/``attribute_sampled`` and the port's; the same
 timestamps go through both ``DoorAttribution``s.  Results must be equal:
 the fold is pure arithmetic on the same numbers.  The chain-traced
-scenarios of ``tests/test_request_obs.py`` need the port's own stage
-processes and are not repeated here.
+scenarios of ``tests/test_request_obs.py`` (a sampled request's waterfall,
+its buckets summing to the wall over a ``dsleep`` hop) run on the port's
+door and in-process stage-node chain, with the JAX test's bounds.
 """
+
+import threading
 
 import numpy as np
 import pytest
+import torch
 
 from defer_tpu.obs import attrib as jattrib
 from defer_tpu_torch.obs import attrib as tattrib
@@ -137,3 +141,110 @@ def test_door_attribution_equals_jax():
     assert sorted(got) == ["alpha", "beta", "gamma"]
     assert set(got["alpha"]) == set(tattrib.DOOR_BUCKETS) | {"e2e"}
     assert got["beta"]["e2e"]["count"] == 67
+
+
+# ---------------------------------------------------------------------------
+# the traced door over the port's chain (tests/test_request_obs.py)
+# ---------------------------------------------------------------------------
+
+IN_SHAPE = (32, 32, 3)
+
+
+@pytest.fixture(scope="module")
+def traced_door():
+    """A 2-stage delay-bound port chain (in-process nodes on the CPU, one
+    tracer, so every span lands on one clock) behind the port's door with
+    tracing on and every request sampled."""
+    from defer_tpu_torch import models, partition
+    from defer_tpu_torch.obs import tracer
+    from defer_tpu_torch.runtime.node import ChainDispatcher, StageNode
+    from defer_tpu_torch.serve import ServeFrontDoor, TenantConfig
+    from defer_tpu_torch.serve.frontdoor import ChainBackend
+
+    g = models.resnet_tiny()
+    params = g.init(torch.Generator().manual_seed(0))
+    stages = partition(g, num_stages=2)
+    tr = tracer()
+    tr.enabled = True
+    tr.process = "serve"
+    tr.start_trace()
+    nodes = [StageNode(None, "127.0.0.1:0", None, device="cpu")
+             for _ in stages]
+    addrs = [f"127.0.0.1:{n.address[1]}" for n in nodes]
+    threads = [threading.Thread(target=n.serve, daemon=True) for n in nodes]
+    for t in threads:
+        t.start()
+    disp = ChainDispatcher(addrs[0], codec="raw")
+    # a decode-side sleep on the stage0 -> stage1 hop: a transport cost
+    # the attribution must find
+    disp.deploy(stages, params, addrs, batch=2,
+                codecs=["dsleep5+raw", "raw"])
+    door = ServeFrontDoor(
+        backend=ChainBackend(disp, 2, IN_SHAPE, trace_sample_every=1),
+        tenants=[TenantConfig("obs_gold", deadline_ms=5000.0)]).start()
+    yield door
+    door.stop()
+    for t in threads:
+        t.join(timeout=30)
+    tr.enabled = False
+    tr.clear()
+
+
+def _stream(door, tenant, n):
+    from defer_tpu_torch.serve import ServeClient
+    rng = np.random.default_rng(7)
+    data = [rng.standard_normal(IN_SHAPE).astype(np.float32)
+            for _ in range(n)]
+    outs = ServeClient(*door.address, tenant, deadline_ms=5000.0).stream(
+        data)
+    assert all(o is not None and o[0] == "ok" for o in outs), outs
+
+
+@pytest.mark.timeout(120)
+def test_sampled_request_trace_is_complete_and_ordered(traced_door):
+    """A sampled request's trace holds admission, gather, every stage and
+    the delivery, with monotone completion points (a few µs of slack for
+    independently truncated timestamps)."""
+    from defer_tpu_torch.obs import tracer
+
+    _stream(traced_door, "obs_gold", 3)
+    spans = tracer().spans
+    rids = sorted({int(s["args"]["rid"]) for s in spans
+                   if s["name"] == "serve.request"
+                   and s["args"].get("tenant") == "obs_gold"})
+    assert len(rids) == 3
+    for rid in rids:
+        mine = {s["name"]: s for s in spans
+                if (s["args"] or {}).get("rid") == rid}
+        root = mine["serve.request"]
+        frame = {s["name"]: s for s in spans
+                 if (s["args"] or {}).get("seq") == root["args"]["seq"]}
+        chain = [mine["serve.admission_wait"], frame["serve.gather"],
+                 frame["stage0.infer"], frame["stage1.infer"],
+                 mine["serve.deliver"]]
+        ends = [s["ts_us"] + s["dur_us"] for s in chain]
+        for a, b in zip(ends, ends[1:]):
+            assert b >= a - 3, ends
+        assert root["ts_us"] <= chain[0]["ts_us"] + 3
+        assert ends[-1] <= root["ts_us"] + root["dur_us"] + 3
+
+
+@pytest.mark.timeout(120)
+def test_attribution_buckets_sum_to_measured_wall(traced_door):
+    """The buckets sum to within 10% of each request's wall, and the
+    delay-bound hop carries the injected 5 ms."""
+    from defer_tpu_torch.obs import tracer
+
+    _stream(traced_door, "obs_attr", 4)
+    spans = tracer().spans
+    reps = [r for r in tattrib.attribute_sampled(
+        spans, hop_tiers=["tcp", "tcp", "tcp"]) if r.tenant == "obs_attr"]
+    assert len(reps) == 4
+    for rep in reps:
+        assert rep.ok(0.10), rep.to_json()
+        for want in ("admission", "gather", "transport.hop0", "stage0",
+                     "transport.hop1", "stage1", "host_sync",
+                     "transport.result", "result_edge"):
+            assert want in rep.buckets, rep.buckets
+        assert rep.buckets["transport.hop1"] >= 4.0, rep.to_json()
+        assert rep.wall_ms >= 5.0

@@ -758,3 +758,100 @@ def test_decode_door_on_card(cuda):
         assert doc["tenants"]["gamma"]["completed"] == 4
     finally:
         door.stop()
+
+
+# ---------------------------------------------------------------------------
+# the stage-node chain on the card
+# ---------------------------------------------------------------------------
+
+def _bert_tiny_stages():
+    from defer_tpu_torch import models, partition
+    g = models.bert_tiny()
+    p = g.init(torch.Generator().manual_seed(0))
+    return g, p, partition(g, num_stages=2)
+
+
+def test_exported_stage_launches_flash_through_the_operator(cuda):
+    """An artifact exported on the CPU loads on the card; a BERT stage runs
+    the hand kernel once per block per call through the custom operator,
+    within 1e-5 of max |y| of the same program on the CPU (the plain
+    version)."""
+    import numpy as np
+
+    from defer_tpu_torch.utils.export import (export_stage_bytes,
+                                              load_stage_program)
+
+    g, p, stages = _bert_tiny_stages()
+    ids = np.random.default_rng(0).integers(0, 100, (2, 16)).astype(np.int32)
+    x = ids
+    for s in stages:
+        blob = export_stage_bytes(s, p, batch=2)
+        on_cpu = load_stage_program(blob, device="cpu")
+        on_card = load_stage_program(blob, device=cuda)
+        assert on_card.device.type == "cuda"
+        blocks = sum(n.startswith("block_") for n in s.node_names)
+        before = FLASH.launches
+        y = on_card(x)
+        torch.cuda.synchronize()
+        assert FLASH.launches == before + blocks
+        want = on_cpu(x)
+        assert y.device.type == "cuda"
+        err = float((y.cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+        x = want.numpy()
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("model", ["bert_tiny", "resnet_tiny"])
+def test_two_thread_chain_on_card_equals_forward(cuda, model, monkeypatch):
+    """Two stage nodes on threads, on the card, deployed in-band: rows
+    within 1e-5 of max |y| of the whole-graph forward on the card (TF32
+    off, as the ``node`` command runs), one flash launch per block per
+    frame, the nodes' stats on cuda."""
+    import threading
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+    import numpy as np
+
+    from defer_tpu_torch import models, partition
+    from defer_tpu_torch.runtime.node import ChainDispatcher, StageNode
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    g = getattr(models, model)()
+    p = g.init(torch.Generator().manual_seed(0))
+    stages = partition(g, num_stages=2)
+    rng = np.random.default_rng(1)
+    spec = stages[0].in_spec
+    xs = [rng.integers(0, 100, (2,) + spec.shape).astype(np.int32)
+          if not spec.dtype.is_floating_point else
+          rng.standard_normal((2,) + spec.shape).astype(np.float32)
+          for _ in range(3)]
+    nodes = [StageNode(None, "127.0.0.1:0", None) for _ in stages]
+    addrs = [f"127.0.0.1:{n.address[1]}" for n in nodes]
+    ts = [threading.Thread(target=n.serve, daemon=True) for n in nodes]
+    for t in ts:
+        t.start()
+    disp = ChainDispatcher(addrs[0], codec="lzb")
+    try:
+        disp.deploy(stages, p, addrs, batch=2)
+        before = FLASH.launches
+        outs = disp.stream(xs)
+        launches = FLASH.launches - before
+        st = disp.stats(addrs)
+    finally:
+        disp.close()
+    for t in ts:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    blocks = sum(n.startswith("block_") for n in g.topo_order)
+    assert launches == blocks * len(xs)
+    assert all(s["device"].startswith("cuda") and s["processed"] == 3
+               and s["mem_bytes"] > 0 for s in st)
+    pdev = params_to_device(p, cuda)
+    with torch.inference_mode():
+        for x, y in zip(xs, outs):
+            want = g.apply(pdev, torch.from_numpy(x).to(cuda)).cpu().numpy()
+            err = float(np.abs(y - want).max())
+            assert err <= 1e-5 * float(np.abs(want).max()), err

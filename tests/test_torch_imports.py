@@ -63,6 +63,10 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.serve.engine; "
             "import defer_tpu_torch.serve.client; "
             "import defer_tpu_torch.serve.frontdoor; "
+            "import defer_tpu_torch.utils.export; "
+            "import defer_tpu_torch.transport.local; "
+            "import defer_tpu_torch.runtime.node; "
+            "import defer_tpu_torch.cli; "
             "import defer_tpu_torch.codec.native as n; "
             "import defer_tpu_torch.transport.staging as st; "
             "assert n.load() is not None and st._load() is not None; "
@@ -101,7 +105,11 @@ def test_import_loads_no_jax_module():
                 "defer_tpu_torch.serve.batcher",
                 "defer_tpu_torch.serve.engine",
                 "defer_tpu_torch.serve.client",
-                "defer_tpu_torch.serve.frontdoor"):
+                "defer_tpu_torch.serve.frontdoor",
+                "defer_tpu_torch.utils.export",
+                "defer_tpu_torch.transport.local",
+                "defer_tpu_torch.runtime.node",
+                "defer_tpu_torch.cli"):
         assert new in mods
     bad = [m for m in mods if _is_forbidden(m)]
     assert bad == []

@@ -7,9 +7,10 @@ continuous-batching engine runs ``gpt_tiny`` on ``params_from_jax`` weights:
 its greedy tokens equal the JAX engine's, and every request's tokens are
 byte-identical whether it runs alone or shares the batch.  The decode door
 serves both packages' clients, and the port's client talks to the JAX
-door.  Tensor mode puts the port's door and ``ChainBackend`` over a JAX
-``ChainDispatcher`` and ``StageNode`` chain (the port has no stage
-processes of its own yet); its rows equal the JAX door's on the same chain.
+door.  Tensor mode puts the port's door and ``ChainBackend`` over the
+port's own ``ChainDispatcher`` and ``StageNode`` chain, beside a JAX door
+over a JAX chain on the same weights; one test keeps the port's door over
+the JAX chain, where its rows equal the JAX door's.
 
 Tolerances, with their reasons:
 
@@ -20,8 +21,11 @@ Tolerances, with their reasons:
   the same batch shape: bit-equal (no op reduces across rows);
 * per-row ``decode`` against the JAX package's vmapped single-row decodes:
   1e-5 of max |y| (f32 summation order);
-* tensor-mode rows: equal to the JAX door's (the same JAX chain computes
-  both).
+* tensor-mode rows: over the port's chain, byte-identical to the same
+  request run alone, and within rtol 2e-4 (atol 2e-4) of the JAX door's
+  rows over the JAX chain (the JAX chain tests' own bound: convolutions
+  sum in another order than XLA's); over the JAX chain, equal to the JAX
+  door's (the same JAX chain computes both).
 
 Every socket test binds ``127.0.0.1:0``, joins its threads with a bound
 and carries its own time limit.
@@ -42,7 +46,8 @@ import defer_tpu.serve as jserve
 from defer_tpu import partition as jax_partition
 from defer_tpu.models import resnet_tiny as jax_resnet_tiny
 from defer_tpu.models.gpt import gpt_tiny as jax_gpt_tiny
-from defer_tpu.runtime.node import ChainDispatcher, StageNode
+from defer_tpu.runtime.node import ChainDispatcher as JaxChainDispatcher
+from defer_tpu.runtime.node import StageNode as JaxStageNode
 from defer_tpu.serve.client import fetch_stats as jax_fetch_stats
 from defer_tpu.serve.frontdoor import ChainBackend as JaxChainBackend
 from defer_tpu.serve.frontdoor import ServeFrontDoor as JaxFrontDoor
@@ -50,6 +55,7 @@ import defer_tpu_torch as dt
 import defer_tpu_torch.serve as tserve
 from defer_tpu_torch import models, params_from_jax
 from defer_tpu_torch.obs import REGISTRY
+from defer_tpu_torch.runtime.node import ChainDispatcher, StageNode
 from defer_tpu_torch.runtime.decode import (_sample_ids, gumbel_noise,
                                             gumbel_noise_rows)
 from defer_tpu_torch.serve import (BatchFormer, ContinuousBatchEngine,
@@ -756,45 +762,57 @@ def test_decode_door_open_loop_load(decode_doors):
 
 
 # ---------------------------------------------------------------------------
-# tensor mode: the port's door over a JAX chain
+# tensor mode: the port's door over the port's chain, and over a JAX chain
 # ---------------------------------------------------------------------------
 
 IN_SHAPE = (32, 32, 3)
+CHAIN_TOL = 2e-4
 
 
-def _boot_chain(stages, params, batch):
-    nodes = [StageNode(None, "127.0.0.1:0", None) for _ in stages]
+def _boot_chain(node_cls, disp_cls, stages, params, batch, **node_kw):
+    nodes = [node_cls(None, "127.0.0.1:0", None, **node_kw) for _ in stages]
     addrs = [f"127.0.0.1:{n.address[1]}" for n in nodes]
     threads = [threading.Thread(target=n.serve, daemon=True) for n in nodes]
     for t in threads:
         t.start()
-    disp = ChainDispatcher(addrs[0], codec="raw")
+    disp = disp_cls(addrs[0], codec="raw")
     disp.deploy(stages, params, addrs, batch=batch)
     return disp, threads
 
 
 @pytest.fixture(scope="module")
 def tensor_doors():
-    g = jax_resnet_tiny()
-    params = g.init(jax.random.key(0))
-    stages = jax_partition(g, num_stages=2)
-    disp, threads = _boot_chain(stages, params, 4)
-    door = ServeFrontDoor(backend=ChainBackend(disp, 4, IN_SHAPE)).start()
-    jdisp, jthreads = _boot_chain(stages, params, 4)
+    """The port's door over the port's chain (``tdoor``), a JAX door over a
+    JAX chain (``jdoor``) and the port's door over another JAX chain
+    (``xdoor``), all on JAX's seeded weights."""
+    jg = jax_resnet_tiny()
+    jparams = jg.init(jax.random.key(0))
+    jstages = jax_partition(jg, num_stages=2)
+    g = models.resnet_tiny()
+    params = params_from_jax(g, jax.tree.map(np.asarray, jparams))
+    stages = dt.partition(g, [s.output_name for s in jstages[:-1]])
+    disp, threads = _boot_chain(StageNode, ChainDispatcher, stages, params,
+                                4, device="cpu")
+    tdoor = ServeFrontDoor(backend=ChainBackend(disp, 4, IN_SHAPE)).start()
+    jdisp, jthreads = _boot_chain(JaxStageNode, JaxChainDispatcher, jstages,
+                                  jparams, 4)
     jdoor = JaxFrontDoor(backend=JaxChainBackend(jdisp, 4, IN_SHAPE)).start()
-    yield door, jdoor
-    door.stop()
-    jdoor.stop()
-    for t in threads + jthreads:
+    xdisp, xthreads = _boot_chain(JaxStageNode, JaxChainDispatcher, jstages,
+                                  jparams, 4)
+    xdoor = ServeFrontDoor(backend=ChainBackend(xdisp, 4, IN_SHAPE)).start()
+    yield tdoor, jdoor, xdoor
+    for d in (tdoor, jdoor, xdoor):
+        d.stop()
+    for t in threads + jthreads + xthreads:
         t.join(timeout=30)
 
 
 @pytest.mark.timeout(240)
 def test_tensor_door_multitenant_byte_identity(tensor_doors):
-    """Three concurrent tenants over ONE deployed chain: every row
-    byte-identical to the request run alone, and to the JAX door's rows
-    on the same chain."""
-    door, jdoor = tensor_doors
+    """Three concurrent tenants over ONE deployed port chain: every row
+    byte-identical to the request run alone, and within the chain
+    tolerance of the JAX door's rows over the JAX chain."""
+    door, jdoor, _ = tensor_doors
     host, port = door.address
     rng = np.random.default_rng(11)
     # tenant names of this file's own: both packages' registries are
@@ -821,7 +839,8 @@ def test_tensor_door_multitenant_byte_identity(tensor_doors):
         for i in range(len(data[t])):
             assert outs[t][i][0] == "ok" and solo[t][i][0] == "ok"
             np.testing.assert_array_equal(outs[t][i][1], solo[t][i][1])
-            np.testing.assert_array_equal(outs[t][i][1], ref[t][i][1])
+            np.testing.assert_allclose(outs[t][i][1], ref[t][i][1],
+                                       rtol=CHAIN_TOL, atol=CHAIN_TOL)
     doc = fetch_stats(host, port)
     assert doc["mode"] == "tensor" and doc["width"] == 4
     assert doc["tenants"]["tx_alpha"]["completed"] == 3
@@ -830,7 +849,7 @@ def test_tensor_door_multitenant_byte_identity(tensor_doors):
 
 @pytest.mark.timeout(240)
 def test_tensor_door_shed_reply_and_retry(tensor_doors):
-    door, _ = tensor_doors
+    door, _, _ = tensor_doors
     host, port = door.address
     # pin the service estimate high so the SLO math sheds immediately
     door.admission._service_s = lambda: 0.5
@@ -853,6 +872,23 @@ def test_tensor_door_shed_reply_and_retry(tensor_doors):
         door.admission._service_s = None
     pressure = fetch_stats(host, port)["pressure"]
     assert pressure["width"] == 4 and pressure["backend_lost"] is False
+
+
+@pytest.mark.timeout(240)
+def test_tensor_door_over_the_jax_chain(tensor_doors):
+    """The port's door and ``ChainBackend`` over a JAX ``ChainDispatcher``
+    and ``StageNode`` chain: its rows equal the JAX door's on a JAX chain
+    of the same weights."""
+    _, jdoor, xdoor = tensor_doors
+    rng = np.random.default_rng(12)
+    data = [rng.standard_normal(IN_SHAPE).astype(np.float32)
+            for _ in range(5)]
+    got = ServeClient(*xdoor.address, "tx_cross").stream(data)
+    ref = jserve.ServeClient(*jdoor.address, "tx_cross").stream(data)
+    for g_, r in zip(got, ref):
+        assert g_[0] == r[0] == "ok"
+        np.testing.assert_array_equal(g_[1], r[1])
+    xdoor.healthcheck()
 
 
 @pytest.mark.timeout(60)
