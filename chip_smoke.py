@@ -103,8 +103,8 @@ Phases, in order; any failure exits non-zero before the result line:
                    defer_tpu_torch node`` processes on the card through
                    ``run_chain`` (in-band deploy of ``torch.export``
                    artifacts), 64 images in frames of 8 on lzb hops, and
-                   through eight more on raw hops, spawned the same way
-                   (``spawn_nodes``; rows within 1e-5 of the forward,
+                   through eight more on raw hops, held open by
+                   ``deploy_chain`` (rows within 1e-5 of the forward,
                    top-1 equal, raw and lzb byte-identical, every node on
                    cuda with 8 frames processed); BERT-Base/12 as twelve
                    in-process ``StageNode`` threads (12 flash launches
@@ -115,10 +115,29 @@ Phases, in order; any failure exits non-zero before the result line:
                    (two tenants' rows equal to the forward's); each chain
                    timed on streams of 64 frames beside the ring pipeline
                    on the same frames; boot, deploy, exit seconds and the
-                   short streams' time to their last result;
+                   short streams' time to their last result; every hop
+                   pinned to tcp (``tier="tcp"``, ``--tier tcp``);
+                l. the colocated transport tiers (``/dev/shm``'s size
+                   printed first): ResNet50/8 as eight node processes on
+                   ``tier="auto"`` (every hop must report shm with no
+                   fallback, rows byte-identical to k's tcp rows), then as
+                   one process with seven ici hops (``--co-stage``
+                   threads; no host sync on the seven nodes before the
+                   dispatcher's edge, rows within 1e-5, top-1 equal), each
+                   timed on 64-frame streams beside the ring; BERT-Base/12
+                   as twelve in-process nodes on ici hops (12 flash
+                   launches per frame, no host sync on any node, rows
+                   within 1e-5 of 4b's forward), then fused into two
+                   programs; ResNet50/8 fused into two processes with one
+                   shm hop (``hop_tiers`` device x3, shm, device x3,
+                   through ``run_chain``); a shm offer into a node started
+                   with ``--tier-accept 0`` (tcp, one labeled fallback, a
+                   ``tier`` event); per-node phase times;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
-              ``chain_path`` and ``kernels`` JSON lines, the card line,
-              and the last line ``{"ok": true, "device": {...}}``.
+              ``chain_path``, ``colocate_path``, ``phase_seconds`` and
+              ``kernels`` JSON lines, the card line, and the last line
+              ``{"ok": true, "device": {...}}``; each phase's seconds are
+              also printed as it ends.
 
 Weights are the port's own seeded random initialisation (phase 4i also
 reads them back from files it writes); inputs come from ``numpy`` with a
@@ -2597,24 +2616,23 @@ def chain_path(torch, device, kernels, card, mp, bp):
     ``run_chain`` (in-band deploy of ``torch.export`` artifacts, f32,
     frames of MICROBATCH) on lzb hops: rows within BUFFER_REL_BOUND of the
     forward with top-1 equal, every node's stats on cuda with one frame
-    processed per frame sent.  b: BERT-Base/12 as twelve in-process
+    processed per frame sent; every hop pinned to tcp (phase 4l runs the
+    colocated tiers).  b: BERT-Base/12 as twelve in-process
     ``StageNode`` threads on the card: 12 flash launches per frame (the
     parent's counts and the nodes'), rows within BUFFER_REL_BOUND of phase
     4b's forward, a ``reweight`` between streams equal to the forward on
     the new weights, then a timed stream of CHAIN_TIMED_FRAMES frames
     beside the ring pipeline on the same frames.  c: eight fresh ``node``
-    processes on raw hops, spawned by ``spawn_nodes`` (the spawn path of
-    ``run_chain``) and deployed by a ``ChainDispatcher``: the same images
-    (rows byte-identical to a's lzb rows), timed streams of
-    CHAIN_TIMED_FRAMES frames beside the ring pipeline, then
-    ``ServeFrontDoor`` in tensor mode over the same chain (width
-    MICROBATCH): two tenants' rows equal to the forward's rows of their
-    images.  One ``run_chain`` and one chain driven by hand, not two
+    processes on raw hops, held open by ``deploy_chain`` (``run_chain``'s
+    chain, pinned to tcp): the same images (rows byte-identical to a's
+    lzb rows), timed streams of CHAIN_TIMED_FRAMES frames beside the ring
+    pipeline, then ``ServeFrontDoor`` in tensor mode over the same chain
+    (width MICROBATCH): two tenants' rows equal to the forward's rows of
+    their images.  One ``run_chain`` and one held chain, not two
     ``run_chain`` calls and a third chain: each spawn costs a minute.
     Rates come only from the long streams: a stream of a few frames
     through eight or twelve stages is mostly filling and draining, so the
     short streams report their time to the last result."""
-    import tempfile
     import threading
 
     import numpy as np
@@ -2623,7 +2641,7 @@ def chain_path(torch, device, kernels, card, mp, bp):
     from defer_tpu_torch.graph.ir import tree_map
     from defer_tpu_torch.partition import partition
     from defer_tpu_torch.runtime.node import (ChainDispatcher, StageNode,
-                                              run_chain, spawn_nodes)
+                                              deploy_chain, run_chain)
     from defer_tpu_torch.serve import ServeClient, ServeFrontDoor
     from defer_tpu_torch.serve.frontdoor import ChainBackend
     from defer_tpu_torch.utils.convert import params_to_device
@@ -2654,13 +2672,13 @@ def chain_path(torch, device, kernels, card, mp, bp):
     ref = mp["ref"][:n_frames]
 
     def check_nodes(stats, frames_each, what):
-        bad = [(s["stage"], s["processed"], s["device"]) for s in stats
-               if s["processed"] != frames_each
-               or not s["device"].startswith(device)]
+        bad = [(s["stage"], s["processed"], s["device"], s["tier"])
+               for s in stats if s["processed"] != frames_each
+               or not s["device"].startswith(device) or s["tier"] != "tcp"]
         if len(stats) != len(stages) or bad:
-            fail(f"phase 4k {what}: node (stage, processed, device) {bad} "
-                 f"of {len(stats)} (want {len(stages)} nodes on {device}, "
-                 f"{frames_each} frames each)")
+            fail(f"phase 4k {what}: node (stage, processed, device, tier) "
+                 f"{bad} of {len(stats)} (want {len(stages)} nodes on "
+                 f"{device}, {frames_each} frames each, tcp hops)")
 
     def check_rows(out, what):
         rel = _rel_err(out, ref, what, BUFFER_REL_BOUND)
@@ -2670,9 +2688,11 @@ def chain_path(torch, device, kernels, card, mp, bp):
 
     stats = []
     t0 = time.perf_counter()
+    # pinned to tcp: this phase measures the wire chain (run_chain's own
+    # default, auto, takes shm between processes; phase 4l runs that)
     lzb = np.stack(run_chain(stages, params, frames, batch=MICROBATCH,
                              codec="lzb", in_band=True, device=device,
-                             stats_out=stats))
+                             stats_out=stats, tier="tcp"))
     secs = time.perf_counter() - t0
     rel = check_rows(lzb, "resnet50 lzb chain")
     check_nodes(stats, n_frames, "run_chain")
@@ -2828,80 +2848,73 @@ def chain_path(torch, device, kernels, card, mp, bp):
     timed = [frames[i % n_frames] for i in range(CHAIN_TIMED_FRAMES)]
     tbatch = np.stack(timed)
     pipe.run(batch)  # captures the chunk graphs
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_chain_") as logdir:
-        t0 = time.perf_counter()
-        with spawn_nodes(len(stages), log_dir=logdir,
-                         device=device) as spawned:
-            boot_s = time.perf_counter() - t0
-            addrs = spawned.addrs
-            disp = ChainDispatcher(addrs[0])
-            door = None
-            try:
-                t0 = time.perf_counter()
-                disp.deploy(stages, params, addrs, batch=MICROBATCH)
-                deploy_s = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                # each node's first frame loads its CUDA libraries
-                raw = np.stack(disp.stream(frames))
-                first_s = time.perf_counter() - t0
-                raw_rel = check_rows(raw, "resnet50 raw chain")
-                if not np.array_equal(raw, lzb):
-                    fail("phase 4k: raw rows differ from lzb rows (lzb is "
-                         "lossless)")
-                check_nodes(disp.stats(addrs), n_frames, "raw chain")
-                chain_w, ring_w, outs, ring_out = timed_rounds(
-                    lambda: disp.stream(timed), lambda: pipe.run(tbatch))
-                cyc = np.arange(CHAIN_TIMED_FRAMES) % n_frames
-                if not np.array_equal(outs, raw[cyc]):
-                    fail("phase 4k: a timed stream's rows differ from the "
-                         "first stream's")
-                ring_rel = _rel_err(np.asarray(ring_out), ref[cyc],
-                                    "resnet50 ring timed run",
-                                    BUFFER_REL_BOUND)
-                door = ServeFrontDoor(backend=ChainBackend(
-                    disp, MICROBATCH, g.input_spec.shape)).start()
-                images = batch.reshape((-1,) + tuple(g.input_spec.shape))
-                flat_ref = ref.reshape(-1, ref.shape[-1])
-                tenants = {"tensor_a": range(0, DOOR_IMAGES),
-                           "tensor_b": range(DOOR_IMAGES, 2 * DOOR_IMAGES)}
-                got, errs = {}, []
+    with deploy_chain(stages, params, batch=MICROBATCH, in_band=True,
+                      tier="tcp", device=device) as chain:
+        disp, addrs = chain.dispatcher, chain.addrs
+        boot_s, deploy_s = chain.boot_s, chain.deploy_s
+        door = None
+        try:
+            t0 = time.perf_counter()
+            # each node's first frame loads its CUDA libraries
+            raw = np.stack(disp.stream(frames))
+            first_s = time.perf_counter() - t0
+            raw_rel = check_rows(raw, "resnet50 raw chain")
+            if not np.array_equal(raw, lzb):
+                fail("phase 4k: raw rows differ from lzb rows (lzb is "
+                     "lossless)")
+            check_nodes(disp.stats(addrs), n_frames, "raw chain")
+            chain_w, ring_w, outs, ring_out = timed_rounds(
+                lambda: disp.stream(timed), lambda: pipe.run(tbatch))
+            cyc = np.arange(CHAIN_TIMED_FRAMES) % n_frames
+            if not np.array_equal(outs, raw[cyc]):
+                fail("phase 4k: a timed stream's rows differ from the "
+                     "first stream's")
+            ring_rel = _rel_err(np.asarray(ring_out), ref[cyc],
+                                "resnet50 ring timed run",
+                                BUFFER_REL_BOUND)
+            door = ServeFrontDoor(backend=ChainBackend(
+                disp, MICROBATCH, g.input_spec.shape)).start()
+            images = batch.reshape((-1,) + tuple(g.input_spec.shape))
+            flat_ref = ref.reshape(-1, ref.shape[-1])
+            tenants = {"tensor_a": range(0, DOOR_IMAGES),
+                       "tensor_b": range(DOOR_IMAGES, 2 * DOOR_IMAGES)}
+            got, errs = {}, []
 
-                def go(t):
-                    try:
-                        got[t] = ServeClient(*door.address, t,
-                                             timeout_s=300).stream(
-                            [images[i] for i in tenants[t]])
-                    except Exception as e:  # noqa: BLE001 — failed below
-                        errs.append(f"{t}: {e!r}")
+            def go(t):
+                try:
+                    got[t] = ServeClient(*door.address, t,
+                                         timeout_s=300).stream(
+                        [images[i] for i in tenants[t]])
+                except Exception as e:  # noqa: BLE001 — failed below
+                    errs.append(f"{t}: {e!r}")
 
-                cts = [threading.Thread(target=go, args=(t,), daemon=True)
-                       for t in tenants]
-                t0 = time.perf_counter()
-                for t in cts:
-                    t.start()
-                for t in cts:
-                    t.join(timeout=300)
-                door_s = time.perf_counter() - t0
-                if errs or any(t.is_alive() for t in cts):
-                    fail(f"phase 4k door clients failed: {errs or 'a hang'}")
-                door_rel = 0.0
-                for t, idx in tenants.items():
-                    for i, r in zip(idx, got[t]):
-                        if r[0] != "ok":
-                            fail(f"phase 4k door: tenant {t} image {i}: {r}")
-                        door_rel = max(door_rel, _rel_err(
-                            np.asarray(r[1]), flat_ref[i],
-                            f"door {t} image {i}", BUFFER_REL_BOUND))
-                door.healthcheck()
-                st = disp.stats(addrs)
-            finally:
-                t0 = time.perf_counter()
-                if door is not None:
-                    door.stop()  # closes the dispatcher: END cascades
-                else:
-                    disp.close()
-        # leaving spawn_nodes waited for every node to exit 0 after END
-        exit_s = time.perf_counter() - t0
+            cts = [threading.Thread(target=go, args=(t,), daemon=True)
+                   for t in tenants]
+            t0 = time.perf_counter()
+            for t in cts:
+                t.start()
+            for t in cts:
+                t.join(timeout=300)
+            door_s = time.perf_counter() - t0
+            if errs or any(t.is_alive() for t in cts):
+                fail(f"phase 4k door clients failed: {errs or 'a hang'}")
+            door_rel = 0.0
+            for t, idx in tenants.items():
+                for i, r in zip(idx, got[t]):
+                    if r[0] != "ok":
+                        fail(f"phase 4k door: tenant {t} image {i}: {r}")
+                    door_rel = max(door_rel, _rel_err(
+                        np.asarray(r[1]), flat_ref[i],
+                        f"door {t} image {i}", BUFFER_REL_BOUND))
+            door.healthcheck()
+            st = disp.stats(addrs)
+        finally:
+            t0 = time.perf_counter()
+            if door is not None:
+                door.stop()  # closes the dispatcher: END cascades
+    # leaving deploy_chain closed the dispatcher and waited for every node
+    # to exit 0 after END
+    exit_s = time.perf_counter() - t0
     t_images = CHAIN_TIMED_FRAMES * MICROBATCH
     chain_ips = t_images / statistics.median(chain_w)
     ring_ips = t_images / statistics.median(ring_w)
@@ -2929,6 +2942,403 @@ def chain_path(torch, device, kernels, card, mp, bp):
           f"served 2 tenants x {DOOR_IMAGES} images in {door_s:.2f} s, "
           f"{door_rel:.3g} of max |logit| off the forward; phase 4k "
           f"{res['seconds']:.1f} s; on {card}", flush=True)
+    return res, raw
+
+
+# ---------------------------------------------------------------------------
+# phase 4l: the colocated transport tiers
+# ---------------------------------------------------------------------------
+
+#: slots of each shm ring (the nodes' and the dispatcher's tx depth); lowered
+#: only when /dev/shm cannot hold the rings at this depth, and then printed
+SHM_DEPTH = 8
+#: frames through the refusal check's two-node chain
+REFUSAL_FRAMES = 4
+
+
+def dev_shm() -> dict:
+    """/dev/shm's size and free bytes."""
+    import os
+
+    try:
+        st = os.statvfs("/dev/shm")
+    except OSError as e:
+        fail(f"phase 4l: no /dev/shm on this host ({e})")
+    return {"bytes": st.f_blocks * st.f_frsize,
+            "free_bytes": st.f_bavail * st.f_frsize}
+
+
+def ring_bytes(frame_bytes, depth: int) -> int:
+    """What the shm rings of hops carrying ``frame_bytes`` take at
+    ``depth`` slots: a slot is 1 MiB or the frame rounded up to a power of
+    two (``ShmSender._grow``)."""
+    return depth * sum(max(1 << 20, 1 << max(6, (int(b) - 1).bit_length()))
+                       for b in frame_bytes)
+
+
+def shm_depth(frame_bytes, free: int) -> int:
+    """SHM_DEPTH, or the deepest ring from 2 up that 90% of /dev/shm's free
+    bytes hold; fails when not even 2 slots fit."""
+    for depth in range(SHM_DEPTH, 1, -1):
+        if ring_bytes(frame_bytes, depth) <= 0.9 * free:
+            if depth < SHM_DEPTH:
+                print(f"colocate path: /dev/shm has {free / 2**20:.0f} MiB "
+                      f"free; the shm rings take {depth} slots, not "
+                      f"{SHM_DEPTH} ({ring_bytes(frame_bytes, depth) / 2**20:.0f} "
+                      f"MiB)", flush=True)
+            return depth
+    fail(f"phase 4l: /dev/shm has {free} bytes free; the shm rings need "
+         f"{ring_bytes(frame_bytes, 2)} at 2 slots")
+
+
+def _node_phases(stats) -> dict:
+    """Per node: infer, host_sync, dispatch, queue and device p50 in ms,
+    and the host_sync sample count."""
+    out = {"host_sync_count": [s["host_sync_s"]["count"] for s in stats]}
+    for name, key in (("infer", "infer_latency_s"),
+                      ("host_sync", "host_sync_s"), ("dispatch", "dispatch_s"),
+                      ("queue", "queue_s"), ("device", "device_s")):
+        out[f"{name}_p50_ms"] = [s[key].get("p50", 0.0) * 1e3 for s in stats]
+    return out
+
+
+def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
+    """Phase 4l: the colocated transport tiers on the card, beside phase
+    4k's tcp chains.  a: ResNet50/8 (4a's cuts, f32, frames of MICROBATCH)
+    as eight node processes on ``tier="auto"``: every hop (the
+    dispatcher's edges too) must report shm with no fallback, rows
+    byte-identical to 4k's raw rows, top-1 equal; timed on
+    CHAIN_TIMED_FRAMES-frame streams in alternating rounds with the ring.
+    b: the same model with ``hop_tiers=["ici"] * 7``: one node process,
+    seven ``--co-stage`` threads, every inter-stage hop ici, no host sync
+    on the seven nodes whose outbound hop is ici (the last node's is the
+    shm edge to the dispatcher's process), rows within BUFFER_REL_BOUND,
+    top-1 equal; timed as a.  c: BERT-Base/12 as twelve in-process nodes
+    on ici hops (the dispatcher in the same process takes the result edge
+    on ici too): 12 flash launches per frame by the smoke's counts and
+    every node's, no host sync on any node, rows within BUFFER_REL_BOUND
+    of 4b's forward; timed beside 4k's in-process chain; then fused into
+    two programs (``device`` hops inside each half, ici between): 12
+    flash launches per frame.  d: ResNet50/8 with ``hop_tiers=["device"]
+    * 3 + ["shm"] + ["device"] * 3`` through ``run_chain``: two fused
+    processes, one shm hop, rows as a's.  e: ``resnet_tiny`` in two node
+    processes, stage 0 pinned to shm into a stage 1 started with
+    ``--tier-accept 0``: the hop runs over tcp with one labeled fallback
+    and a ``tier`` event in stage 0's flight recorder, rows equal to the
+    forward."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, models
+    from defer_tpu_torch.partition import fuse_stages, partition
+    from defer_tpu_torch.runtime.node import (ChainDispatcher, StageNode,
+                                              deploy_chain, run_chain,
+                                              spawn_nodes)
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    shm = dev_shm()
+    print(f"colocate path: /dev/shm {shm['bytes'] / 2**30:.2f} GiB, "
+          f"{shm['free_bytes'] / 2**30:.2f} GiB free", flush=True)
+    res = {"card": card, "dev_shm": shm, "timed_frames": CHAIN_TIMED_FRAMES,
+           "cross_device": "not run: 1 card"}
+    t_phase = time.perf_counter()
+    g, params, cuts = mp["graph"], mp["params"], mp["cuts"]
+    stages = partition(g, cuts)
+    n = len(stages)
+    n_frames = CHAIN_IMAGES // MICROBATCH
+    frames = [mp["inputs"][i] for i in range(n_frames)]
+    ref = mp["ref"][:n_frames]
+    timed = [frames[i % n_frames] for i in range(CHAIN_TIMED_FRAMES)]
+    cyc = np.arange(CHAIN_TIMED_FRAMES) % n_frames
+    t_images = CHAIN_TIMED_FRAMES * MICROBATCH
+    frame_bytes = ([MICROBATCH * math.prod(s.in_spec.shape) * 4
+                    for s in stages]
+                   + [MICROBATCH * math.prod(stages[-1].out_spec.shape) * 4])
+    depth = shm_depth(frame_bytes, shm["free_bytes"])
+    res["shm_depth"] = depth
+    res["shm_ring_bytes"] = ring_bytes(frame_bytes, depth)
+    pipe = Defer(DeferConfig(wire="buffer", microbatch=MICROBATCH,
+                             chunk=CHUNK, device=device)).build(g, params,
+                                                                cuts)
+    tbatch = np.stack(timed)
+    pipe.run(tbatch[:n_frames])  # captures the chunk graphs
+
+    def check_rows(out, what, exact=None):
+        rel = _rel_err(out, ref, f"4l {what}", BUFFER_REL_BOUND)
+        if not (out.argmax(-1) == ref.argmax(-1)).all():
+            fail(f"phase 4l: the {what} changed a top-1 class")
+        if exact is not None and not np.array_equal(out, exact):
+            fail(f"phase 4l: the {what} rows differ from phase 4k's raw "
+                 f"tcp rows")
+        return rel
+
+    def timed_chain(chain, what):
+        """Alternating rounds of the chain's stream and the ring's run of
+        the same frames; images/s of each (median round)."""
+        disp = chain.dispatcher
+        chain_w, ring_w = [], []
+        for _ in range(CHAIN_ROUNDS):
+            t0 = time.perf_counter()
+            outs = np.stack(disp.stream(timed))
+            chain_w.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.run(tbatch)
+            torch.cuda.synchronize()
+            ring_w.append(time.perf_counter() - t0)
+        if not np.array_equal(outs, first[what][cyc]):
+            fail(f"phase 4l {what}: a timed stream's rows differ from the "
+                 f"first stream's")
+        return {"chain_images_per_s": t_images / statistics.median(chain_w),
+                "ring_images_per_s": t_images / statistics.median(ring_w),
+                "chain_walls_s": chain_w, "ring_walls_s": ring_w}
+
+    first: dict = {}
+
+    # --- a: ResNet50/8, eight processes, the auto ladder -> shm ----------
+    with deploy_chain(stages, params, batch=MICROBATCH, in_band=True,
+                      tier="auto", tx_depth=depth, device=device) as chain:
+        disp = chain.dispatcher
+        t0 = time.perf_counter()
+        out = np.stack(disp.stream(frames))
+        first_s = time.perf_counter() - t0
+        first["shm"] = out
+        rel = check_rows(out, "shm chain", exact=raw)
+        st = disp.stats(chain.addrs)
+        hops = [s["tier"] for s in st]
+        if (hops != ["shm"] * n or [s["tier_in"] for s in st] != ["shm"] * n
+                or any(s["tier_fallbacks"] for s in st)
+                or (disp.tier_out, disp.tier_in) != ("shm", "shm")):
+            fail(f"phase 4l shm chain: hops {hops}, inbound "
+                 f"{[s['tier_in'] for s in st]}, fallbacks "
+                 f"{[s['tier_fallbacks'] for s in st]}, dispatcher "
+                 f"{disp.tier_out}/{disp.tier_in} (want shm everywhere, 0 "
+                 f"fallbacks)")
+        rates = timed_chain(chain, "shm")
+        st = disp.stats(chain.addrs)
+        res["shm"] = {"hops": ["shm"] + hops, "rel_err": rel,
+                      "byte_identical_to_tcp": True,
+                      "boot_s": chain.boot_s, "deploy_s": chain.deploy_s,
+                      "first_stream_to_last_result_s": first_s,
+                      "launches": _sum_launches(st), **rates,
+                      **_node_phases(st)}
+    r = res["shm"]
+    print(f"colocate path: resnet50 in {n} processes on shm hops (depth "
+          f"{depth}; rows byte-identical to 4k's tcp rows): boot "
+          f"{r['boot_s']:.2f} s, deploy {r['deploy_s']:.2f} s, first stream "
+          f"{first_s:.2f} s; {r['chain_images_per_s']:.1f} images/s through "
+          f"the chain against {r['ring_images_per_s']:.1f} through the ring "
+          f"and {ch['resnet50_raw']['chain_images_per_s']:.1f} through 4k's "
+          f"tcp chain; host_sync p50 ms "
+          f"{[round(v, 3) for v in r['host_sync_p50_ms']]}; on {card}",
+          flush=True)
+
+    # --- b: ResNet50/8, one process, seven ici hops ----------------------
+    with deploy_chain(stages, params, batch=MICROBATCH, in_band=True,
+                      hop_tiers=["ici"] * (n - 1), tier="auto",
+                      tx_depth=depth, device=device) as chain:
+        disp = chain.dispatcher
+        t0 = time.perf_counter()
+        out = np.stack(disp.stream(frames))
+        first_s = time.perf_counter() - t0
+        first["ici"] = out
+        rel = check_rows(out, "ici chain")
+        st = disp.stats(chain.addrs)
+        hops = [s["tier"] for s in st]
+        syncs = [s["host_sync_s"]["count"] for s in st]
+        if (len(chain.procs) != 1 or hops != ["ici"] * (n - 1) + ["shm"]
+                or [s["tier_in"] for s in st[1:]] != ["ici"] * (n - 1)
+                or syncs != [0] * (n - 1) + [n_frames]
+                or any(s["tier_fallbacks"] for s in st)):
+            fail(f"phase 4l ici chain: {len(chain.procs)} processes, hops "
+                 f"{hops}, host_sync counts {syncs} (want one process, ici "
+                 f"on every inter-stage hop and 0 host syncs before the "
+                 f"last node's shm edge)")
+        rates = timed_chain(chain, "ici")
+        st = disp.stats(chain.addrs)
+        res["ici"] = {"hops": [disp.tier_out] + hops, "rel_err": rel,
+                      "byte_identical_to_tcp": bool(np.array_equal(out, raw)),
+                      "processes": len(chain.procs), "boot_s": chain.boot_s,
+                      "deploy_s": chain.deploy_s,
+                      "first_stream_to_last_result_s": first_s,
+                      "launches": st[0]["kernel_launches"], **rates,
+                      **_node_phases(st)}
+    r = res["ici"]
+    print(f"colocate path: resnet50 in one process, {n - 1} ici hops "
+          f"(rows {rel:.3g} of max |logit| off the forward, byte-identical "
+          f"to tcp: {r['byte_identical_to_tcp']}): boot {r['boot_s']:.2f} s, "
+          f"deploy {r['deploy_s']:.2f} s; {r['chain_images_per_s']:.1f} "
+          f"images/s against {r['ring_images_per_s']:.1f} through the ring; "
+          f"host_sync counts {r['host_sync_count']}; dispatch p50 ms "
+          f"{[round(v, 3) for v in r['dispatch_p50_ms']]}, device p50 ms "
+          f"{[round(v, 3) for v in r['device_p50_ms']]}; on {card}",
+          flush=True)
+    del pipe
+    free_card(torch)
+
+    # --- c: BERT-Base/12 in-process on ici hops, then fused in two -------
+    bg, bparams = bp["graph"], bp["params"]
+    bstages = partition(bg, bp["cuts"])
+    blocks = sum(name.startswith("block_") for name in bg.topo_order)
+    b_frames = CHAIN_SEQS // MICROBATCH
+    all_ids = [x.astype(np.int32) for x in bp["inputs"]]
+    ids = all_ids[:b_frames]
+    timed_ids = [all_ids[i % len(all_ids)]
+                 for i in range(CHAIN_TIMED_FRAMES)]
+    bref = bp["ref"]
+
+    def bert_chain(stages_, label):
+        nodes = [StageNode(None, "127.0.0.1:0", None, device=device,
+                           tier="ici") for _ in stages_]
+        addrs = [f"127.0.0.1:{nd.address[1]}" for nd in nodes]
+        ths = [threading.Thread(target=nd.serve, daemon=True)
+               for nd in nodes]
+        for t in ths:
+            t.start()
+        disp = ChainDispatcher(addrs[0], tier="auto")
+        out = {}
+        try:
+            t0 = time.perf_counter()
+            disp.deploy(stages_, bparams, addrs, batch=MICROBATCH)
+            out["deploy_s"] = time.perf_counter() - t0
+            zero_counts(kernels)
+            outs = disp.stream(ids)
+            torch.cuda.synchronize()
+            launches = read_counts(kernels)
+            st = disp.stats(addrs)
+            node_flash = {s["kernel_launches"]["flash_attention"]
+                          for s in st}
+            want = {"flash_attention": blocks * b_frames, "quant_int8": 0}
+            hops = [s["tier"] for s in st]
+            syncs = [s["host_sync_s"]["count"] for s in st]
+            if (launches != want or node_flash != {want["flash_attention"]}
+                    or hops != ["ici"] * len(stages_)
+                    or syncs != [0] * len(stages_)
+                    or disp.tier_in != "ici"):
+                fail(f"phase 4l {label}: launches {launches} (nodes "
+                     f"{node_flash}), hops {hops}, result edge "
+                     f"{disp.tier_in}, host_sync counts {syncs}; want "
+                     f"{want}, ici everywhere, 0 host syncs")
+            out["rel_err"] = _rel_err(np.stack(outs), bref[:b_frames],
+                                      f"4l {label}", BUFFER_REL_BOUND)
+            out["launches"] = launches
+            out["hops"] = [disp.tier_out] + hops
+            walls = []
+            for _ in range(CHAIN_ROUNDS):
+                t0 = time.perf_counter()
+                touts = np.stack(disp.stream(timed_ids))
+                walls.append(time.perf_counter() - t0)
+            _rel_err(touts, bref[np.arange(CHAIN_TIMED_FRAMES)
+                                 % len(all_ids)],
+                     f"4l {label} timed stream", BUFFER_REL_BOUND)
+            st = disp.stats(addrs)
+            out["chain_sequences_per_s"] = (CHAIN_TIMED_FRAMES * MICROBATCH
+                                            / statistics.median(walls))
+            out["chain_walls_s"] = walls
+            out.update(_node_phases(st))
+        finally:
+            disp.close()
+        for t in ths:
+            t.join(timeout=60)
+        if any(t.is_alive() for t in ths):
+            fail(f"phase 4l {label}: nodes did not drain")
+        return out
+
+    res["bert_ici"] = r = bert_chain(bstages, "bert ici chain")
+    print(f"colocate path: bert_base in {len(bstages)} in-process nodes on "
+          f"ici hops: {r['rel_err']:.3g} of max |output| off 4b's forward, "
+          f"launches {r['launches']}, host_sync 0 on every node; "
+          f"{r['chain_sequences_per_s']:.1f} seq/s against 4k's tcp chain "
+          f"{ch['bert_base']['chain_sequences_per_s']:.1f} and ring "
+          f"{ch['bert_base']['ring_sequences_per_s']:.1f}; dispatch p50 ms "
+          f"{[round(v, 2) for v in r['dispatch_p50_ms']]}, device p50 ms "
+          f"{[round(v, 2) for v in r['device_p50_ms']]}; on {card}",
+          flush=True)
+    half = len(bstages) // 2
+    fused, _ = fuse_stages(bstages, ["device"] * (half - 1) + ["ici"]
+                           + ["device"] * (len(bstages) - half - 1))
+    res["bert_fused"] = r = bert_chain(fused, "bert fused chain")
+    print(f"colocate path: bert_base fused into {len(fused)} programs "
+          f"(device hops, ici between): {r['rel_err']:.3g} off the forward, "
+          f"launches {r['launches']}; {r['chain_sequences_per_s']:.1f} "
+          f"seq/s; on {card}", flush=True)
+    free_card(torch)
+
+    # --- d: ResNet50/8 fused into two processes, one shm hop ------------
+    stats = []
+    t0 = time.perf_counter()
+    half = n // 2
+    out = np.stack(run_chain(stages, params, frames, batch=MICROBATCH,
+                             in_band=True, tx_depth=depth, device=device,
+                             hop_tiers=["device"] * (half - 1) + ["shm"]
+                             + ["device"] * (n - half - 1),
+                             stats_out=stats))
+    secs = time.perf_counter() - t0
+    rel = check_rows(out, "fused chain", exact=raw)
+    if ([s["tier"] for s in stats] != ["shm", "shm"]
+            or stats[1]["tier_in"] != "shm"
+            or [s["processed"] for s in stats] != [n_frames] * 2):
+        fail(f"phase 4l fused chain: {len(stats)} nodes, hops "
+             f"{[s['tier'] for s in stats]} (want two fused processes and "
+             f"one shm hop between them)")
+    res["fused"] = {"processes": len(stats), "rel_err": rel,
+                    "byte_identical_to_tcp": True,
+                    "spawn_deploy_stream_s": secs,
+                    "hops": [s["tier"] for s in stats],
+                    "launches": _sum_launches(stats), **_node_phases(stats)}
+    print(f"colocate path: resnet50 fused into 2 processes, one shm hop: "
+          f"rows {rel:.3g} of max |logit| off the forward, byte-identical "
+          f"to 4k's tcp rows; run_chain {secs:.2f} s; on {card}", flush=True)
+
+    # --- e: a refused offer ---------------------------------------------
+    tg = models.resnet_tiny()
+    tparams = tg.init(torch.Generator().manual_seed(SEED))
+    tstages = partition(tg, num_stages=2)
+    txs = [np.random.default_rng(SEED + 1).standard_normal(
+        (MICROBATCH, 32, 32, 3)).astype(np.float32)
+        for _ in range(REFUSAL_FRAMES)]
+    argv = {0: ["--tier", "shm"], 1: ["--tier", "tcp", "--tier-accept", "0"]}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_refusal_") as logdir:
+        with spawn_nodes(2, log_dir=logdir, device=device,
+                         argv_for=lambda k, a, rr: argv[k]) as spawned:
+            disp = ChainDispatcher(spawned.addrs[0])
+            try:
+                disp.deploy(tstages, tparams, spawned.addrs,
+                            batch=MICROBATCH)
+                outs = disp.stream(txs)
+                st = disp.stats(spawned.addrs)
+            finally:
+                disp.close()
+    tpdev = params_to_device(tparams, device)
+    with torch.inference_mode():
+        tref = np.stack([tg.apply(tpdev, torch.from_numpy(x).to(device))
+                         .cpu().numpy() for x in txs])
+    rel = float(np.abs(np.stack(outs) - tref).max()
+                / np.abs(tref).max())
+    evs = st[0]["events"]["events"]
+    tier_evs = [e["data"] for e in evs if e["kind"] == "tier"]
+    fb_evs = [e["data"] for e in evs if e["kind"] == "tier_fallback"]
+    if (st[0]["tier"] != "tcp" or st[0]["tier_fallbacks"] != 1
+            or st[1]["tier_in"] != "tcp" or rel > BUFFER_REL_BOUND
+            or fb_evs != [{"hop": "stage0"}]
+            or tier_evs != [{"hop": "stage0", "tier": "tcp", "wanted": "shm",
+                             "fallback": True}]):
+        fail(f"phase 4l refusal: stage 0 tier {st[0]['tier']}, fallbacks "
+             f"{st[0]['tier_fallbacks']}, stage 1 inbound {st[1]['tier_in']}, "
+             f"events {tier_evs} {fb_evs}, rows {rel:.3g} off (want tcp, one "
+             f"labeled fallback and one tier event)")
+    res["refusal"] = {"hop": st[0]["tier"], "fallbacks": st[0]["tier_fallbacks"],
+                      "tier_event": tier_evs[0], "fallback_event": fb_evs[0],
+                      "rel_err": rel}
+    print(f"colocate path: a shm offer into a node started with --tier-accept "
+          f"0 ran over {st[0]['tier']} with {st[0]['tier_fallbacks']} labeled "
+          f"fallback (events {tier_evs[0]}, {fb_evs[0]}); rows {rel:.3g} off "
+          f"the forward", flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"colocate path: phase 4l {res['seconds']:.1f} s; on {card}",
+          flush=True)
     return res
 
 
@@ -2956,11 +3366,21 @@ def main() -> int:
         fail(f"the defer_tpu_torch package is not beside this script ({e})")
     device = "cuda"
     kernels = [QUANT, FLASH]
+    phase_s: dict = {}
+    t_last = [time.perf_counter()]
+
+    def phase_done(name: str) -> None:
+        now = time.perf_counter()
+        phase_s[name] = now - t_last[0]
+        t_last[0] = now
+        print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
 
     # phase 1: the card
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+
+    phase_done("1")
 
     # phase 2: build every kernel (one nvcc per source, started together)
     t0 = time.perf_counter()
@@ -2978,6 +3398,8 @@ def main() -> int:
                 print(f"  {line.strip()}")
     print(f"build: all kernels in {time.perf_counter() - t0:.2f} s "
           f"(nvcc, sm_90a)", flush=True)
+
+    phase_done("2")
 
     # phase 3: each kernel against its plain version, at main-path shapes
     from defer_tpu_torch.models import RESNET50_8STAGE_CUTS, resnet50
@@ -3012,19 +3434,27 @@ def main() -> int:
               f"ms ({b['bound_by']}), {b['bound_ms'] / b['ms'] * 100:.1f}% "
               f"of the bound, on {card}", flush=True)
 
+    phase_done("3")
+
     # phase 4a: ResNet50, the counts zeroed just before each run
     mp = main_path(torch, device, kernels)
     thr = throughput(torch, device, mp, card, "img")
     prof = profile_step(torch, mp, RESNET_GROUPS)
+
+    phase_done("4a")
 
     # phase 4b: BERT-Base, the counts zeroed just before each run
     bp = bert_path(torch, device, kernels)
     bthr = throughput(torch, device, bp, card, "seq")
     bprof = profile_step(torch, bp, BERT_GROUPS)
 
+    phase_done("4b")
+
     # phase 4c: one graph replay per chunk against the eager loop
     graphs = {"resnet50": graph_vs_eager(torch, mp),
               "bert_base": graph_vs_eager(torch, bp)}
+
+    phase_done("4c")
 
     # phase 4d: bf16 compute, the counts zeroed just before each run.
     # ResNet50's bf16 ring carries a bf16 quantizer launch per int8 step;
@@ -3047,16 +3477,24 @@ def main() -> int:
                                wire="int8", microbatch=MICROBATCH,
                                chunk=CHUNK, device=device, **bp["bf16"])))
 
+    phase_done("4d")
+
     # phase 4e: reweight after capture
     rew = reweight_after_capture(torch, device, mp)
 
+    phase_done("4e")
+
     # phase 4f: the queue service, the counts zeroed just before it
     rd = run_defer_path(torch, device, kernels, mp)
+
+    phase_done("4f")
 
     # phase 4g: GPT-2 small, the counts zeroed just before each run
     gdec, gres = gpt_path(torch, device, kernels, card)
     gres["profile_decode"] = profile_decode(torch, gdec, card)
     del gdec
+
+    phase_done("4g")
 
     # phase 4h: VGG19/4, InceptionV3/6 and MobileNetV2/2, folded BatchNorm
     # on ResNet50 and MobileNetV2, the MoE family; the counts zeroed just
@@ -3079,20 +3517,33 @@ def main() -> int:
             np.float32))
     moe = moe_path(torch, device, kernels, card)
 
+    phase_done("4h")
+
     # phase 4i: weights and the host edge; the counts zeroed just before
     # each endpoint run
     ep = endpoint_path(torch, device, kernels, card, mp, prof16)
     free_card(torch)
+
+    phase_done("4i")
 
     # phase 4j: the serving front door; the counts zeroed just before it
     # and read just after (the engine bypasses both kernels)
     sv = serve_path(torch, device, kernels, card)
     free_card(torch)
 
+    phase_done("4j")
+
     # phase 4k: the stage-node chain; the counts zeroed just before each
     # stream of the in-process chain, the node processes' own counts read
     # from their stats
-    ch = chain_path(torch, device, kernels, card, mp, bp)
+    ch, raw = chain_path(torch, device, kernels, card, mp, bp)
+    phase_done("4k")
+
+    # phase 4l: the colocated tiers; the counts zeroed just before each
+    # stream of the in-process BERT chains, the node processes' own counts
+    # read from their stats
+    co = colocate_path(torch, device, kernels, card, mp, bp, ch, raw)
+    phase_done("4l")
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
@@ -3121,6 +3572,10 @@ def main() -> int:
         "launches_after_reweight"]
     by_path["bert_base_chain_and_ring_timed"] = ch["bert_base"][
         "launches_timed_rounds"]
+    for key in ("shm", "ici", "fused"):
+        by_path[f"resnet50_chain_{key}"] = co[key]["launches"]
+    by_path["bert_base_chain_ici"] = co["bert_ici"]["launches"]
+    by_path["bert_base_chain_fused"] = co["bert_fused"]["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -3181,6 +3636,14 @@ def main() -> int:
     print(json.dumps({"chain_path": {
         "model": "resnet50 + bert_base", "microbatch": MICROBATCH,
         "images": CHAIN_IMAGES, "sequences": CHAIN_SEQS, **ch}}))
+    print(json.dumps({"colocate_path": {
+        "model": "resnet50 + bert_base", "microbatch": MICROBATCH,
+        "images": CHAIN_IMAGES, "sequences": CHAIN_SEQS,
+        "tcp_chain_images_per_s": ch["resnet50_raw"]["chain_images_per_s"],
+        "tcp_chain_sequences_per_s": ch["bert_base"]["chain_sequences_per_s"],
+        "ring_sequences_per_s": ch["bert_base"]["ring_sequences_per_s"],
+        **co}}))
+    print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-from .partitioner import partition
+from .partitioner import fuse_stages, partition
 from .stage import StageModule, StageSpec, buffer_footprint
 
-__all__ = ["partition", "StageModule", "StageSpec", "buffer_footprint"]
+__all__ = ["fuse_stages", "partition", "StageModule", "StageSpec",
+           "buffer_footprint"]

@@ -1,8 +1,9 @@
 """Model partitioner: layer graph + cut points -> ordered StageSpecs.
 
-The port of ``defer_tpu.partition.partitioner.partition``.  Cut validity
-is checked against articulation analysis, and partitioning is O(V+E)
-metadata slicing.
+The port of ``defer_tpu.partition.partitioner.partition`` and
+``fuse_stages``.  Cut validity is checked against articulation analysis,
+and partitioning is O(V+E) metadata slicing.  ``stage_specs_for_vertices``
+(branched stage graphs) comes with ROADMAP item A10c.
 """
 
 from __future__ import annotations
@@ -61,3 +62,35 @@ def partition(graph: LayerGraph, cut_points: list[str] | None = None,
             out_spec=graph.out_spec(end),
         ))
     return stages
+
+
+def fuse_stages(stages: "list[StageSpec]", hop_tiers: "list[str]"
+                ) -> "tuple[list[StageSpec], list[list[int]]]":
+    """Collapse every ``device``-tier hop: adjacent stages that share a
+    device run as one stage program instead of paying a frame, a dispatch
+    and a copy per boundary.
+
+    A stage is a contiguous graph slice, so fusing stages ``k`` and
+    ``k+1`` is re-partitioning without the cut between them: the merged
+    slice exports as one ``torch.export`` program, and the hop ceases to
+    exist rather than being made cheap.
+
+    ``hop_tiers`` has one entry per inter-stage hop (``len(stages) - 1``);
+    every ``"device"`` entry fuses its two sides.  Returns
+    ``(fused_stages, groups)``, where ``groups[j]`` lists the original
+    stage indices merged into fused stage ``j`` — callers remap per-stage
+    settings (hop codecs, delays) through it.
+    """
+    if len(hop_tiers) != len(stages) - 1:
+        raise ValueError(f"{len(stages)} stages need {len(stages) - 1} "
+                         f"hop tiers, got {len(hop_tiers)}")
+    groups: list[list[int]] = [[0]]
+    for k, tier in enumerate(hop_tiers):
+        if tier == "device":
+            groups[-1].append(k + 1)
+        else:
+            groups.append([k + 1])
+    if len(groups) == len(stages):
+        return list(stages), groups  # nothing to fuse
+    keep = [stages[g[-1]].output_name for g in groups[:-1]]
+    return partition(stages[0].graph, keep), groups

@@ -18,18 +18,29 @@ The port keeps the JAX package's design:
   together); the hop codec (raw / lzb / blockfloat) is symmetric.
 * Readiness is connect-with-retry, and shutdown is an in-band END frame
   that cascades down the chain.
+* Each hop negotiates its transport tier when it opens (``tier``): the
+  ladder ici (same process and platform: the output tensor is handed over
+  on the card, ``transport/ici.py``) over local (same process: the host
+  copy by reference, ``transport/local.py``) over shm (same host: a
+  shared-memory ring with the socket as doorbell, ``transport/shm.py``)
+  over tcp.  Nodes grant offers by default; a refused offer degrades to
+  tcp with one labeled ``transport.tier_fallback.<hop>`` count and a
+  ``tier`` event.  ``run_chain`` fuses ``device``-tier hops into one
+  program and runs ``local``/``ici`` runs of stages as ``--co-stage``
+  threads of one process.
 
 A node's program runs on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``); with no CUDA and no explicit CPU it raises.  The
 dispatch is asynchronous on the card: a CUDA event recorded after the
 program marks the frame, the overlapped loop keeps up to ``inflight``
 frames un-synced, and the DEVICE phase waits on the event before the
-HOST_SYNC phase copies the output to the host.
+HOST_SYNC phase copies the output to the host — or, on an ici hop, hands
+the tensor on without any host copy (its ``host_sync`` records nothing).
 
 What this module leaves out raises ``NotImplementedError`` naming the
 ROADMAP item that brings it: replicas, fan-in and failover (A10b),
-branches and joins (A10c), the colocated transport tiers (A10d), clock
-alignment, live telemetry pushes and profiling sessions (A12).
+branches and joins (A10c), clock alignment, live telemetry pushes and
+profiling sessions (A12).
 """
 
 from __future__ import annotations
@@ -58,17 +69,18 @@ from ..transport.framed import (K_ACK, K_BYTES, K_CTRL, K_END, K_TENSOR,
                                 K_TENSOR_SEQ, configure_socket,
                                 connect_retry, recv_expect, recv_frame,
                                 send_ack, send_ctrl, send_end, send_frame)
+from ..transport.ici import IciSender
 from ..transport.local import answer_probe
+from ..transport.shm import (ShmSender, answer_tier_probe,
+                             offer_tier_ladder, sweep_orphan_segments)
 from ..utils.config import resolve_device
 
 #: serve()-loop sentinel a ``shutdown`` control command enqueues: a
 #: persistent node returns its accumulated stream total NOW
 _SHUTDOWN = object()
 
-#: the transport tiers the JAX package negotiates, and the ones the port
-#: has; the rest raise (ROADMAP A10d)
+#: the transport tiers a node or a dispatcher offers on its outbound hop
 _TIERS = ("tcp", "auto", "local", "shm", "ici")
-_PORT_TIERS = ("tcp", "auto")
 
 
 def _not_ported(item: str, what: str) -> NotImplementedError:
@@ -81,9 +93,26 @@ def _check_tier(tier: str, who: str) -> str:
     if tier not in _TIERS:
         raise ValueError(f"{who}: tier must be tcp|auto|local|shm|ici, "
                          f"got {tier!r}")
-    if tier not in _PORT_TIERS:
-        raise _not_ported("A10d", f"the {tier!r} transport tier")
     return tier
+
+
+def _pin_device(device) -> torch.device:
+    """``device`` as a node's ``torch.device``: a bare integer ``J`` (the
+    JAX package's form) means ``cuda:J``; an index past the visible cards
+    raises ``ValueError`` naming their count."""
+    if isinstance(device, int) and not isinstance(device, bool):
+        if device < 0:
+            raise ValueError(f"device {device} must be >= 0")
+        device = f"cuda:{device}"
+    elif isinstance(device, str) and device.isdigit():
+        device = f"cuda:{device}"
+    dev = torch.device(device) if device is not None else None
+    if dev is not None and dev.type == "cuda" and dev.index is not None:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if dev.index >= have:
+            raise ValueError(f"device {dev} out of range: this process "
+                             f"sees {have} CUDA device(s)")
+    return resolve_device(dev)
 
 
 def _parse_hostport(s: str, default_host: str = "127.0.0.1"
@@ -116,11 +145,13 @@ class StageNode:
     (src/node.py:20-55).  ``artifact`` (a path) pre-loads one instead, with
     ``next_hop`` naming the successor.
 
-    ``device`` is where the stage program runs: the CUDA card by default;
-    ``"cpu"`` only when asked.  ``tier`` is the outbound transport-tier
-    policy: ``"tcp"``, or ``"auto"``, which walks the rungs the port has —
-    tcp alone, so it sends no probe.  ``tier_accept`` would grant inbound
-    colocated-tier offers; the port answers every offer with tcp.
+    ``device`` is where the stage program runs: the CUDA card by default,
+    ``"cuda:J"`` or a bare index ``J`` for card J, ``"cpu"`` only when
+    asked.  ``tier`` is the outbound transport-tier policy: ``"tcp"`` never
+    probes; ``"auto"`` walks the ladder ici > local > shm > tcp when the
+    downstream connection opens; ``"ici"``/``"local"``/``"shm"`` offer that
+    rung alone.  ``tier_accept`` (the default) grants inbound offers whose
+    proof holds; ``False`` answers every offer with tcp.
     """
 
     def __init__(self, artifact: str | None, listen: str,
@@ -128,12 +159,11 @@ class StageNode:
                  overlap: bool = True, rx_depth: int = 8,
                  tx_depth: int = 8, inflight: int = 2,
                  infer_delay_s: float = 0.0, tier: str = "tcp",
-                 tier_accept: bool = False, device=None,
+                 tier_accept: bool = True, device=None,
                  persist: bool = False):
         self.tier = _check_tier(tier, "StageNode")
-        if tier_accept:
-            raise _not_ported("A10d", "granting a colocated transport tier")
-        self.device = resolve_device(device)
+        self.tier_accept = bool(tier_accept)
+        self.device = _pin_device(device)
         if self.device.type == "cuda":
             # the CUDA context, made before the bind is announced: chain
             # processes boot theirs in parallel, not at their deploy turn
@@ -155,6 +185,8 @@ class StageNode:
         self.persist = bool(persist)
         self.tier_out: str | None = None
         self.tier_in: str | None = None
+        #: outbound offers that degraded to tcp (this hop's fallback twin)
+        self.tier_fallbacks = 0
         self.processed = 0    # tensors relayed, lifetime
         self.reweights = 0    # weights-only re-pushes accepted
         #: analytic stage FLOPs a deploy may carry (the JAX dispatcher
@@ -187,6 +219,18 @@ class StageNode:
     def manifest(self):
         return None if self.prog is None else self.prog.manifest
 
+    def set_device(self, device) -> None:
+        """Pin this node's stage program to ``device`` (``cuda:J``, a bare
+        index ``J``, ``cpu``): its outputs live there, and an upstream ici
+        hop moves each activation onto it before the program runs.
+        Applied to a loaded program at once; an in-band deploy applies it
+        at load."""
+        self.device = _pin_device(device)
+        if self.device.type == "cuda":
+            torch.empty(0, device=self.device)
+        if self.prog is not None:
+            self.prog.place(self.device)
+
     def _span_label(self) -> str:
         m = self.manifest
         return (f"stage{m['index']}" if m is not None
@@ -210,7 +254,12 @@ class StageNode:
         ``infer`` interval, ``t_end`` seeds the QUEUE phase, and the CUDA
         event (None on the CPU) marks the end of this frame's work."""
         t0 = time.perf_counter()
-        y = self.prog(x)
+        if self.device.type == "cuda":
+            # the hand kernels launch on the thread's current card
+            with torch.cuda.device(self.device):
+                y = self.prog(x)
+        else:
+            y = self.prog(x)
         ev = None
         if y.device.type == "cuda":
             ev = torch.cuda.Event()
@@ -240,17 +289,23 @@ class StageNode:
         self._phase(self.dev_hist, "device", t0, t_end, seq)
         return t_end
 
-    def _host_sync(self, y, seq=None, t0=None):
+    def _host_sync(self, y, seq=None, t0=None, out=None):
         """Sync the frame (:meth:`_device_wait`), then copy the output to
-        the host as the HOST_SYNC phase: a numpy array, or a bfloat16
-        tensor (numpy has no bfloat16; the framed transport sends it
-        as such).  Returns ``(out, t_end)``; the loops close the ``infer``
-        interval at ``t_end`` so the four phases tile it."""
+        the host as the HOST_SYNC phase: into ``out`` (a CPU tensor, a shm
+        slot) when given, else into a numpy array, or a bfloat16 tensor
+        (numpy has no bfloat16; the framed transport sends it as such).
+        Device-resident (ici) hops never call this, so their zero sample
+        count shows the host round trip is gone.  Returns ``(out,
+        t_end)``; the loops close the ``infer`` interval at ``t_end`` so
+        the four phases tile it."""
         y, ev = y
         t0 = self._device_wait(ev, seq=seq, t0=t0)
-        out = y.cpu()
-        if out.dtype != torch.bfloat16:
-            out = out.numpy()
+        if out is not None:
+            out.copy_(y)
+        else:
+            out = y.cpu()
+            if out.dtype != torch.bfloat16:
+                out = out.numpy()
         t_end = time.perf_counter()
         self._phase(self.host_sync_hist, "host_sync", t0, t_end, seq)
         return out, t_end
@@ -278,16 +333,33 @@ class StageNode:
                 f"got a frame of {value.shape[0]}")
 
     def _make_tx(self, connect_timeout_s: float):
-        """Open the downstream connection: ``(AsyncSender, socket)`` over
-        tcp (``tier="auto"`` finds no other rung in the port), with the
-        pending trace context cascaded ahead of the first tensor."""
+        """Open the downstream connection: ``(sender, socket)``.
+
+        With a ``tier`` other than tcp the hop walks the tier ladder
+        (``transport.shm.offer_tier_ladder``, shared with the dispatcher's
+        first edge) and takes the first rung granted: its sender replaces
+        the wire, and the socket stays open as the hop's lifetime anchor
+        (and, on shm, its doorbell).  Every rung refused, the hop rides
+        tcp with this hop's one fallback counted.  Either way a ``tier``
+        event names the outcome, and the pending trace context goes ahead
+        of the first tensor."""
         if self.next_hop is None:
             raise ValueError("no next hop configured")
         sock = connect_retry(*self.next_hop, timeout_s=connect_timeout_s)
-        self.tier_out = "tcp"
-        tx = AsyncSender(sock, depth=self.tx_depth, codec=self.codec,
-                         gauge="node.tx_queue_depth",
-                         span=self._span_label, hist="node.tx_s")
+        tx = None
+        if self.tier != "tcp":
+            self.tier_out, tx, fell_back = offer_tier_ladder(
+                sock, tier=self.tier, depth=self.tx_depth,
+                hop=self._span_label(), device=self.device)
+            if fell_back:
+                self.tier_fallbacks += 1
+            emit_event("tier", hop=self._span_label(), tier=self.tier_out,
+                       wanted=self.tier, fallback=bool(fell_back))
+        if tx is None:
+            self.tier_out = "tcp"
+            tx = AsyncSender(sock, depth=self.tx_depth, codec=self.codec,
+                             gauge="node.tx_queue_depth",
+                             span=self._span_label, hist="node.tx_s")
         tx.sample_every = self.trace_sample_every
         self._live_tx = tx
         if self._pending_trace is not None:
@@ -312,11 +384,9 @@ class StageNode:
         tier = msg.get("tier")
         if tier:
             _check_tier(tier, "deploy")
-        if msg.get("tier_accept"):
-            raise _not_ported("A10d", "granting a colocated transport tier")
         nxt = _parse_hop(msg["next"]) if msg.get("next") else None
         if msg.get("device") is not None:
-            self.device = resolve_device(msg["device"])
+            self.device = _pin_device(msg["device"])
         from ..utils.export import load_stage_program
         self.prog = load_stage_program(blob, device=self.device)
         if nxt is not None:
@@ -325,6 +395,8 @@ class StageNode:
             self.codec = msg["codec"]
         if tier:
             self.tier = tier
+        if msg.get("tier_accept") is not None:
+            self.tier_accept = bool(msg["tier_accept"])
         if msg.get("infer_delay_ms") is not None:
             self.infer_delay_s = max(0.0,
                                      float(msg["infer_delay_ms"]) / 1e3)
@@ -430,7 +502,7 @@ class StageNode:
 
     def _stats(self, msg: dict) -> dict:
         """The ``stats`` reply: every key of the JAX node's, the fan,
-        branch, ici and failover ones at their linear-chain values, plus
+        branch and failover ones at their linear-chain values, plus
         ``kernel_launches`` (each hand kernel's launches in this
         process — how a multi-process chain shows its stages ran them)."""
         m = self.manifest
@@ -451,12 +523,16 @@ class StageNode:
             "processed": self.processed,
             "reweights": self.reweights,
             "codec": self.codec,
-            "tier": self.tier_out or "tcp",
+            # the negotiated outbound tier (the policy until a data path
+            # opens) and this hop's degraded offers
+            "tier": self.tier_out or self.tier,
             "tier_in": self.tier_in,
-            "tier_fallbacks": 0,
+            "tier_fallbacks": self.tier_fallbacks,
             "device": str(self.device),
-            "ici_d2d": 0,
-            "ici_device_pairs": [],
+            # an ici outbound hop's cross-device moves and their pairs
+            "ici_d2d": tx.d2d if isinstance(tx, IciSender) else 0,
+            "ici_device_pairs": (sorted([list(p) for p in tx.device_pairs])
+                                 if isinstance(tx, IciSender) else []),
             "next": (None if self.next_hop is None
                      else f"{self.next_hop[0]}:{self.next_hop[1]}"),
             "tx_frames": reg.counter("transport.tx_frames").value,
@@ -623,12 +699,36 @@ class StageNode:
             nonlocal n, streamed
             t0, t_end, s, y, relay_seq = pending.popleft()
             inflight_g.dec()
+            slot = None
+            if isinstance(tx, ShmSender):
+                # a full ring parks here, inside the frame's QUEUE phase
+                slot = tx.claim(y[0].numel() * y[0].element_size())
             tq = self._queue_wait(t_end, seq=relay_seq)
-            y, t_done = self._host_sync(y, seq=relay_seq, t0=tq)
+            if isinstance(tx, IciSender):
+                # device-resident hop: the output is synced (bounding the
+                # window) but never copied to the host; the downstream
+                # program reads the tensor where it lies.  Node programs
+                # run eagerly, so the tensor is a fresh allocation no
+                # later frame overwrites — a node that replays its program
+                # from a CUDA-graph pool must copy its output here.
+                t_done = self._device_wait(y[1], seq=relay_seq, t0=tq)
+                out = y[0]
+            elif slot is not None:
+                # one device-to-host copy, straight into the ring's slot
+                view = tx.slot_tensor(slot, y[0])
+                _, t_done = self._host_sync(y, seq=relay_seq, t0=tq,
+                                            out=view)
+                del view
+                out = y[0]
+            else:
+                out, t_done = self._host_sync(y, seq=relay_seq, t0=tq)
             self._infer_done(t0, t_done, relay_seq, s)
             self.processed += 1  # before the send: a stats query can
             #   race the relay of the final tensor otherwise
-            tx.send(y, seq=relay_seq)
+            if slot is not None:
+                tx.commit(slot, out, seq=relay_seq)
+            else:
+                tx.send(out, seq=relay_seq)
             n += 1
             streamed = True
 
@@ -668,8 +768,19 @@ class StageNode:
                         stream_marked = True
                         continue
                     if cmd == "tier_probe":
-                        answer_probe(conn, value)
-                        self.tier_in = "tcp"
+                        # an ici/local grant swaps the data path to the
+                        # offered in-process pipe (ici frames stay tensors
+                        # on the card); a shm grant wraps this socket's
+                        # channel (descriptors keep riding the socket,
+                        # payloads come out of the ring); refused, the
+                        # stream goes on on this socket
+                        self.tier_in, chan = answer_tier_probe(
+                            conn, value, accept=self.tier_accept,
+                            inner=rx, depth=self.rx_depth,
+                            device=self.device)
+                        if chan is not None:
+                            rx = chan
+                            rx.sample_every = self.trace_sample_every
                         continue
                     if cmd == "req_meta":
                         # serve-front-door request metadata: cascade
@@ -740,6 +851,10 @@ class StageNode:
             rx.release_gauge()
             if pending:
                 inflight_g.dec(len(pending))
+            if tx is not None and hasattr(tx, "detach"):
+                # a colocated tier's sender: a stream abandoned without
+                # its END must fail the consumer as a cut socket would
+                tx.detach()
             if out_sock is not None:
                 out_sock.close()
 
@@ -781,7 +896,9 @@ class StageNode:
                         stream_marked = True
                         continue
                     if cmd == "tier_probe":
-                        answer_probe(conn, value)
+                        # the serial loop is the pure-wire baseline: it
+                        # refuses every tier (the offer degrades to tcp)
+                        answer_probe(conn, value, accept=False)
                         self.tier_in = "tcp"
                         continue
                     if cmd == "req_meta":
@@ -828,6 +945,15 @@ class StageNode:
                 out.close()
 
 
+def _to_host(y):
+    """A result frame on the host: numpy, or a ``torch.bfloat16`` tensor
+    (the form every other tier delivers)."""
+    if not isinstance(y, torch.Tensor):
+        return y
+    y = y.cpu()
+    return y if y.dtype == torch.bfloat16 else y.numpy()
+
+
 class ChainDispatcher:
     """Drives a linear chain of stage nodes from one controller.
 
@@ -835,6 +961,14 @@ class ChainDispatcher:
     role, src/dispatcher.py:95-105), streams inputs to node 0, and returns
     results in order, with a bounded in-flight window so the chain stays
     full without unbounded buffering.
+
+    ``tier`` is the transport-tier policy of the first edge (dispatcher ->
+    stage 0; ``"auto"`` walks the ladder, a rung name pins it, ``"tcp"``
+    never probes).  The result server grants the last node's offer
+    exactly when ``tier`` is not tcp, so a ``tcp`` dispatcher keeps a pure
+    wire chain end to end.  Its inputs
+    live on the host, so its ici offer names the CPU: a node on the card
+    refuses it and the edge takes local.
     """
 
     #: the one timeout default; also covers partially constructed
@@ -850,6 +984,7 @@ class ChainDispatcher:
         if timeout_s is not None:
             self.timeout_s = timeout_s
         self.tier = _check_tier(tier, "ChainDispatcher")
+        self.tier_accept = tier != "tcp"
         if result_fan_in != 1:
             raise _not_ported("A10b", "a replicated last stage (result fan-in)")
         self.first_hop = _parse_hop(first_hop)
@@ -865,14 +1000,16 @@ class ChainDispatcher:
         self.trace_sample_every = max(0, int(trace_sample_every))
         self.tier_out: str | None = None
         self.tier_in: str | None = None
+        #: first-edge offers that degraded to tcp
+        self.tier_fallbacks = 0
         #: wire sequence counter, continuous across stream() calls (a warm
         #: stream and a timed stream must not reuse seq numbers — sampled
         #: spans are keyed by them)
         self._stream_seq = 0
         self._send_sock: socket.socket | None = None
         self._res_conn: socket.socket | None = None
-        self._tx_chan: AsyncSender | None = None
-        self._rx_chan: AsyncReceiver | None = None
+        self._tx_chan = None
+        self._rx_chan = None
 
     def _ensure_connected(self) -> None:
         if self._send_sock is None:
@@ -880,15 +1017,27 @@ class ChainDispatcher:
             self._send_sock = connect_retry(*self.first_hop,
                                             timeout_s=self.timeout_s)
         if self._tx_chan is None:
-            # encode + send happen on the channel's tx thread, so the feed
-            # loop and the wire overlap (and the END in close() rides the
-            # same ordered queue)
-            self.tier_out = "tcp"
-            self._tx_chan = AsyncSender(self._send_sock,
-                                        depth=self.tx_depth,
-                                        codec=self.codec,
-                                        gauge="chain.tx_queue_depth",
-                                        span="chain", hist="chain.tx_s")
+            if self.tier != "tcp":
+                # the tier ladder on the stage-0 hop; a node on another
+                # host refuses every rung and the edge stays on tcp with
+                # one fallback counted
+                self.tier_out, self._tx_chan, fell_back = \
+                    offer_tier_ladder(self._send_sock, tier=self.tier,
+                                      depth=self.tx_depth, hop="chain")
+                if fell_back:
+                    self.tier_fallbacks += 1
+                emit_event("tier", hop="chain", tier=self.tier_out,
+                           wanted=self.tier, fallback=bool(fell_back))
+            if self._tx_chan is None:
+                # encode + send happen on the channel's tx thread, so the
+                # feed loop and the wire overlap (and the END in close()
+                # rides the same ordered queue)
+                self.tier_out = "tcp"
+                self._tx_chan = AsyncSender(self._send_sock,
+                                            depth=self.tx_depth,
+                                            codec=self.codec,
+                                            gauge="chain.tx_queue_depth",
+                                            span="chain", hist="chain.tx_s")
             self._tx_chan.sample_every = self.trace_sample_every
         # the result connection is accepted lazily in _recv_tensor: the
         # last node only dials back once its first tensor arrives, so
@@ -1014,7 +1163,8 @@ class ChainDispatcher:
     def deploy(self, stages, params, node_addrs: Sequence[str], *,
                batch: int = 1, result_hop: str | None = None,
                codecs: Sequence[str] | None = None,
-               tiers: Sequence[str] | None = None) -> None:
+               tiers: Sequence[str] | None = None,
+               devices: Sequence | None = None) -> None:
         """Ship each stage's artifact to its node over the control
         channel.
 
@@ -1026,10 +1176,14 @@ class ChainDispatcher:
         boot with no files at all.  ``result_hop`` overrides the address
         the last node relays results to (default: this dispatcher's result
         server).  ``codecs`` (per stage) sets each stage's OUTBOUND hop
-        codec; ``tiers`` (per stage, ``tcp``/``auto``) its outbound
-        transport-tier policy.
+        codec; ``tiers`` (per stage, ``tcp``/``auto``/``ici``/``local``/
+        ``shm``) its outbound transport-tier policy; ``devices`` (per
+        stage, a card index, a device string or None) pins its program.
+        Deploying first sweeps ``/dev/shm`` for segments a killed chain
+        left behind (``transport.shm.sweep_orphan_segments``).
         """
         from ..utils.export import export_stage_bytes
+        sweep_orphan_segments()
         addrs = self._linear(node_addrs, len(stages))
         result_hop = result_hop or \
             f"{self.result_address[0]}:{self.result_address[1]}"
@@ -1040,6 +1194,9 @@ class ChainDispatcher:
                    "codec": codecs[i] if codecs else self.codec}
             if tiers:
                 msg["tier"] = _check_tier(tiers[i], "deploy")
+            if devices and devices[i] is not None:
+                msg["device"] = devices[i] if isinstance(devices[i], int) \
+                    else str(devices[i])
             self._control(addr, msg,
                           export_stage_bytes(stage, params, batch=batch))
 
@@ -1076,9 +1233,9 @@ class ChainDispatcher:
     def _result_item(self, *, timeout_s: float | None = None
                      ) -> tuple[int, Any]:
         """One frame off the result hop with the handshakes handled: a
-        tier probe is answered (tcp), trace / stream_begin markers — which
-        the dispatcher itself originated — are skipped; everything else is
-        returned."""
+        tier probe is answered (and the channel swapped on a grant), trace
+        and stream_begin markers — which the dispatcher itself originated
+        — are skipped; everything else is returned."""
         self._ensure_result_chan()
         t = self.timeout_s if timeout_s is None else timeout_s
         while True:
@@ -1086,11 +1243,36 @@ class ChainDispatcher:
             if kind == K_CTRL and isinstance(y, dict):
                 cmd = y.get("cmd")
                 if cmd == "tier_probe":
-                    answer_probe(self._res_conn, y)
-                    self.tier_in = "tcp"
+                    # the last node offers its fast path on the dial-back:
+                    # an ici/local grant swaps results to the in-process
+                    # pipe (the socket stays as lifetime anchor), a shm
+                    # grant wraps the socket's channel (the doorbell)
+                    self.tier_in, chan = answer_tier_probe(
+                        self._res_conn, y, accept=self.tier_accept,
+                        inner=self._rx_chan, depth=self.rx_depth)
+                    if self.tier_in in ("local", "ici"):
+                        old = self._rx_chan
+                        self._rx_chan = chan
+                        self._rx_chan.bind_gauge("chain.rx_queue_depth")
+                        old.release_gauge()
+                    elif self.tier_in == "shm":
+                        # the inner channel stays live (the doorbell) and
+                        # keeps its gauge
+                        self._rx_chan = chan
+                    self._rx_chan.sample_every = self.trace_sample_every
                     continue
                 if cmd in ("trace", "stream_begin"):
                     continue
+            if kind in (K_TENSOR, K_TENSOR_SEQ) and self.tier_in == "ici":
+                # the chain's one host copy per frame: device-resident
+                # results come to the host here, at the result edge
+                t0 = time.perf_counter()
+                if kind == K_TENSOR_SEQ:
+                    y = (y[0], _to_host(y[1]))
+                else:
+                    y = _to_host(y)
+                REGISTRY.histogram("chain.host_sync_s").record(
+                    time.perf_counter() - t0)
             return kind, y
 
     # -- serve front door: request-scoped duplex stream ----------------------
@@ -1243,7 +1425,10 @@ class ChainDispatcher:
                             kind, v = recv_frame(self._res_conn)
                         if kind == K_CTRL and isinstance(v, dict) \
                                 and v.get("cmd") == "tier_probe":
-                            answer_probe(self._res_conn, v)
+                            # a zero-result stream: the last node's offer
+                            # arrives during teardown; refuse it so its
+                            # END cascades over plain tcp
+                            answer_probe(self._res_conn, v, accept=False)
                         if kind == K_END:
                             break
         except (OSError, ConnectionError, ValueError, TimeoutError):
@@ -1333,19 +1518,22 @@ def _kill_procs(procs, *, grace_s: float = 5.0) -> None:
             pass
 
 
-def _await_binds(procs, labels, logs, addrs, *,
+def _await_binds(procs, labels, logs, addrs, *, proc_of=None,
                  timeout_s: float = 90.0) -> None:
-    """Block until every child reports its bind (the ``listening on``
-    line ``cmd_node`` prints once ``StageNode`` has bound), or diagnose
-    the one that died trying: a bind-race death raises :class:`_BindRace`
-    (retryable), anything else a ``RuntimeError`` carrying that node's
-    log tail.  The log line, not a connect probe, is the signal: a stolen
-    port still accepts connections — from whoever stole it."""
+    """Block until every listener reports its bind (the ``listening on
+    <addr>,`` line ``cmd_node`` prints once a ``StageNode`` has bound), or
+    diagnose the process that died trying: a bind-race death raises
+    :class:`_BindRace` (retryable), anything else a ``RuntimeError``
+    carrying that process's log tail.  ``proc_of`` maps each address to
+    its process (default: one each); a process with co-stages prints a
+    line per listener.  The log line, not a connect probe, is the signal:
+    a stolen port still accepts connections — from whoever stole it."""
     deadline = time.monotonic() + timeout_s
     for i, addr in enumerate(addrs):
+        p = i if proc_of is None else proc_of[i]
         while True:
-            rc = procs[i].poll()
-            tail = _log_tail(logs[i], limit=8000)
+            rc = procs[p].poll()
+            tail = _log_tail(logs[p], limit=8000)
             if f"listening on {addr}," in tail:
                 break
             if rc is not None:
@@ -1368,39 +1556,47 @@ _EXIT_TIMEOUT_S = 60.0
 class NodeProcs(NamedTuple):
     """The children :func:`spawn_nodes` yields, once each has bound."""
 
-    procs: list       # subprocess.Popen, one per node
-    addrs: list       # each node's listen address, "host:port"
+    procs: list       # subprocess.Popen, one per process
+    addrs: list       # each stage's listen address, "host:port"
     result: str       # a free port for the dispatcher's result channel
-    logs: list        # each node's log file (its stdout and stderr)
+    logs: list        # each process's log file (its stdout and stderr)
 
 
 @contextlib.contextmanager
 def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
-                argv_for=None, env: dict[str, str] | None = None,
+                argv_for=None, co_stage_for=None, groups=None,
+                env: dict[str, str] | None = None,
                 on_spawn=None, spawn_retries: int = 3):
-    """Spawn ``n`` ``python -m defer_tpu_torch node`` processes on fresh
-    localhost ports and yield a :class:`NodeProcs` once every child has
-    bound — the one spawn path of the port's process chains
-    (:func:`run_chain` runs its nodes through it).
+    """Spawn ``python -m defer_tpu_torch node`` processes for ``n`` stages
+    on fresh localhost ports and yield a :class:`NodeProcs` once every
+    stage's node has bound — the one spawn path of the port's process
+    chains (:func:`run_chain` runs its nodes through it).
 
-    Every child runs on ``device`` (its argv carries ``--device``),
-    imports this package from where the parent did, takes ``env`` over
-    the parent's environment and logs to ``log_dir/node_<k>.log``.
-    ``argv_for(k, addrs, result)`` gives node k's further arguments (by
-    default none: the node boots empty and awaits an in-band deploy).  On
-    the card the parent first builds every hand kernel
-    (``ops/_build.py``), so the children load the built libraries instead
-    of each starting its own ``nvcc``.  ``on_spawn(procs)`` is called
-    with each spawn's ``subprocess.Popen`` list.
+    ``groups`` lists the stages of each process (default: one process per
+    stage).  A group's first stage is the process's own node; the others
+    board it as ``--co-stage`` serve threads, so the hops between them can
+    take the in-process tiers.  Every process runs on ``device`` (its argv
+    carries ``--device``), imports this package from where the parent
+    did, takes ``env`` over the parent's environment and logs to
+    ``log_dir/node_<stages>.log``.  ``argv_for(k, addrs, result)`` gives
+    the further arguments of a process whose own node is stage k (by
+    default none: the node boots empty and awaits an in-band deploy), and
+    ``co_stage_for(k, addrs, result)`` the ``key=value;...`` keys of
+    co-stage k after its ``listen`` (default ``accept=1``: the hop into a
+    co-stage is the in-process boundary that put it there).  On the card
+    the parent first builds every hand kernel (``ops/_build.py``), so the
+    children load the built libraries instead of each starting its own
+    ``nvcc``.  ``on_spawn(procs)`` is called with each spawn's
+    ``subprocess.Popen`` list.
 
-    Children that exit with an address-in-use bind failure at boot (the
-    ``_free_ports`` race) are killed and the spawn retries on fresh
-    ports, up to ``spawn_retries`` spawns; any other death at boot raises
-    with that node's log tail.  Leaving the block normally waits up to
+    Processes that exit with an address-in-use bind failure at boot (the
+    ``_free_ports`` race) are killed and the spawn retries on fresh ports,
+    up to ``spawn_retries`` spawns; any other death at boot raises with
+    that process's log tail.  Leaving the block normally waits up to
     ``_EXIT_TIMEOUT_S`` for every child to exit (the body cascaded END)
     and raises if one did not exit 0.  Leaving it on an error terminates
-    every child first and names the dead nodes' log tails; when every
-    dead node lost the bind race it raises :class:`_BindRace`, which
+    every child first and names the dead ones' log tails; when every dead
+    one lost the bind race it raises :class:`_BindRace`, which
     :func:`run_chain` retries.
     """
     dev = resolve_device(device)
@@ -1408,6 +1604,11 @@ def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
         from ..ops import _build
         from ..ops.launches import counted_kernels
         _build.build([k.source for k in counted_kernels()])
+    groups = [[k] for k in range(n)] if groups is None \
+        else [list(g) for g in groups]
+    if sorted(k for g in groups for k in g) != list(range(n)):
+        raise ValueError(f"groups {groups} must cover stages 0..{n - 1} "
+                         f"once each")
     child_env = dict(os.environ)
     # the children import this package from where the parent did
     root = str(Path(__file__).resolve().parents[2])
@@ -1415,30 +1616,37 @@ def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
         [root] + [p for p in child_env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
     child_env.update(env or {})
-    labels = [f"stage{k}" for k in range(n)]
+    labels = ["+".join(f"stage{k}" for k in g) for g in groups]
+    proc_of = {k: u for u, g in enumerate(groups) for k in g}
 
     last_exc: BaseException | None = None
     for attempt in range(max(1, spawn_retries)):
         procs, logs = [], []
-        ports = _free_ports(n + 1)  # one listen port per node + the result
+        ports = _free_ports(n + 1)  # one listen port per stage + the result
         addrs = [f"127.0.0.1:{p}" for p in ports[:n]]
         result = f"127.0.0.1:{ports[-1]}"
         try:
-            for k in range(n):
+            for g in groups:
                 # log to files, not PIPEs: an undrained pipe fills and
                 # deadlocks a chatty child mid-chain
-                lf = open(os.path.join(log_dir, f"node_{k}.log"), "w+")
+                name = "node_" + "+".join(str(k) for k in g)
+                lf = open(os.path.join(log_dir, f"{name}.log"), "w+")
                 logs.append(lf)
                 argv = [sys.executable, "-m", "defer_tpu_torch", "node",
-                        "--listen", addrs[k], "--device", str(dev)]
+                        "--listen", addrs[g[0]], "--device", str(dev)]
                 if argv_for is not None:
-                    argv += argv_for(k, addrs, result)
+                    argv += argv_for(g[0], addrs, result)
+                for k in g[1:]:
+                    spec = (co_stage_for(k, addrs, result)
+                            if co_stage_for is not None else "accept=1")
+                    argv += ["--co-stage", f"listen={addrs[k]};{spec}"]
                 procs.append(subprocess.Popen(
                     argv, env=child_env, stdout=lf,
                     stderr=subprocess.STDOUT))
             if on_spawn is not None:
                 on_spawn(procs)
-            _await_binds(procs, labels, logs, addrs)
+            _await_binds(procs, [f"stage{k}" for k in range(n)], logs,
+                         addrs, proc_of=[proc_of[k] for k in range(n)])
             break
         except BaseException as e:
             _kill_procs(procs)
@@ -1489,6 +1697,25 @@ def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
             lf.close()
 
 
+#: the tiers a hop of ``run_chain`` may name
+_HOP_TIERS = ("tcp", "auto", "local", "shm", "ici", "device")
+
+
+def _normalize_hop_tiers(hop_tiers, n: int, default: str) -> list[str]:
+    """One tier per inter-stage hop, validated: known names, one entry per
+    hop (``default`` on every hop when ``hop_tiers`` is None)."""
+    tiers = ([default] * max(0, n - 1) if hop_tiers is None
+             else [str(t) for t in hop_tiers])
+    if len(tiers) != max(0, n - 1):
+        raise ValueError(f"hop_tiers must have one entry per inter-stage "
+                         f"hop ({n - 1}), got {len(tiers)}")
+    for k, t in enumerate(tiers):
+        if t not in _HOP_TIERS:
+            raise ValueError(f"hop_tiers[{k}] = {t!r}; "
+                             f"use tcp|auto|local|shm|ici|device")
+    return tiers
+
+
 def run_chain(stages: Sequence, params: dict[str, Any], inputs,
               *, batch: int = 1, codec: str = "raw",
               artifact_dir: str | None = None,
@@ -1511,7 +1738,8 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
               failover: bool = False,
               journal_dir: str | None = None,
               device: str = "cuda") -> list:
-    """Export, spawn one OS process per stage, deploy, stream, tear down.
+    """Export, spawn the stages' node processes, deploy, stream, tear down:
+    :func:`deploy_chain` and one ``stream`` of ``inputs``.
 
     The one-call analogue of the reference's whole deployment procedure
     (start N ``node.py`` processes, run the dispatcher,
@@ -1528,10 +1756,41 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
     the dispatcher -> stage 0 hop always uses ``codec``).
     ``stage_delays`` (seconds per stage) adds bench-only simulated device
     time per frame.  ``stats_out`` (a list) receives every node's
-    ``stats`` reply, queried before teardown.  ``trace_sample_every=N``
-    switches per-frame spans to 1-in-N sampling when tracing is on; the
-    nodes' spans are collected into this process's tracer.  ``env``
-    overrides entries of the children's environment.
+    ``stats`` reply, queried before teardown (each row carries its hop's
+    negotiated ``tier``).  ``trace_sample_every=N`` switches per-frame
+    spans to 1-in-N sampling when tracing is on; the nodes' spans are
+    collected into this process's tracer.  ``env`` overrides entries of
+    the children's environment.
+
+    Transport tiers: ``hop_tiers`` (one per inter-stage hop) names each
+    boundary's tier:
+
+    * ``"device"`` — the two stages are fused into one exported program
+      before spawn (``partition.fuse_stages``): the hop ceases to exist.
+    * ``"ici"`` — the two stages share one OS process (the downstream one
+      boards the upstream's process as a ``--co-stage`` serve thread) and
+      the hop hands the output tensor over on the card: no copy to the
+      host (zero ``host_sync`` samples), and one device-to-device move
+      when ``device_map`` puts the stages on distinct cards.
+    * ``"local"`` — one OS process as for ici; the hop hands the host
+      copy by reference.
+    * ``"shm"`` — separate processes; the payload crosses a shared-memory
+      ring and the socket carries only doorbells.
+    * ``"auto"`` — separate processes; the hop walks the ladder ici >
+      local > shm > tcp when it opens, so a same-host chain negotiates
+      shm everywhere without being asked.
+    * ``"tcp"`` — the wire, no probe.
+
+    A hop whose offer is refused anyway degrades to tcp with one labeled
+    ``transport.tier_fallback.<hop>`` count.  ``tier`` is the policy of
+    the dispatcher's edges (dispatcher -> stage 0, last stage -> result
+    server) and the default of ``hop_tiers``: ``"auto"``, ``"shm"``, or
+    ``"tcp"`` for a pure wire chain end to end (``ici``/``local`` cannot
+    hold there: the dispatcher is a process of its own).  ``devices=N``
+    asks for N visible CUDA cards (``ValueError`` naming the count when
+    there are fewer), and ``device_map`` ({stage: card index}) pins each
+    stage's program to ``cuda:J``.  ``run_chain`` first sweeps
+    ``/dev/shm`` for segments a killed chain left behind.
 
     Children that exit with an address-in-use bind failure (the
     ``_free_ports`` race), at boot or later, and a dispatcher that loses
@@ -1542,31 +1801,126 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
     ``subprocess.Popen`` list.
 
     Not ported yet, and raising ``NotImplementedError``: ``replicas`` and
-    ``failover`` (A10b), ``tier`` and ``hop_tiers`` other than tcp/auto,
-    ``devices`` and ``device_map`` (A10d), ``plan`` and ``journal_dir``
-    (A12).
+    ``failover`` (A10b), ``plan`` and ``journal_dir`` (A12).
+    """
+    with deploy_chain(
+            stages, params, batch=batch, codec=codec,
+            artifact_dir=artifact_dir, env=env, in_band=in_band,
+            overlap=overlap, rx_depth=rx_depth, tx_depth=tx_depth,
+            inflight=inflight, replicas=replicas, hop_codecs=hop_codecs,
+            hop_tiers=hop_tiers, tier=tier, devices=devices,
+            device_map=device_map, stage_delays=stage_delays,
+            spawn_retries=spawn_retries, on_spawn=on_spawn,
+            trace_sample_every=trace_sample_every, plan=plan,
+            failover=failover, journal_dir=journal_dir,
+            device=device) as chain:
+        disp = chain.dispatcher
+        outs = disp.stream(inputs)
+        if stats_out is not None:
+            # queried while the nodes still serve (they exit once the
+            # dispatcher's close cascades END)
+            stats_out.extend(disp.stats(chain.addrs))
+        if tracer().enabled:
+            try:
+                disp.collect_trace(chain.addrs)
+            except (OSError, ConnectionError) as e:
+                print(f"run_chain: trace collection failed: {e!r}",
+                      file=sys.stderr)
+    return outs
+
+
+class ChainSession(NamedTuple):
+    """A spawned, deployed chain that :func:`deploy_chain` yields."""
+
+    dispatcher: "ChainDispatcher"   # connected on the first stream
+    addrs: list       # each stage's node address, "host:port"
+    procs: list       # the node processes (subprocess.Popen)
+    boot_s: float     # spawn to the last node's bind
+    deploy_s: float   # the in-band deploy (0 for artifacts on argv)
+
+
+@contextlib.contextmanager
+def deploy_chain(stages: Sequence, params: dict[str, Any], *,
+                 batch: int = 1, codec: str = "raw",
+                 artifact_dir: str | None = None,
+                 env: dict[str, str] | None = None,
+                 in_band: bool = False, overlap: bool = True,
+                 rx_depth: int | None = None, tx_depth: int | None = None,
+                 inflight: int | None = None,
+                 replicas: dict[int, int] | None = None,
+                 hop_codecs: Sequence[str] | None = None,
+                 hop_tiers: Sequence[str] | None = None,
+                 tier: str = "auto",
+                 devices: int | None = None,
+                 device_map: dict[int, int] | None = None,
+                 stage_delays: Sequence[float] | None = None,
+                 spawn_retries: int = 3,
+                 on_spawn=None,
+                 trace_sample_every: int = 0,
+                 plan=None,
+                 failover: bool = False,
+                 journal_dir: str | None = None,
+                 device: str = "cuda"):
+    """The chain :func:`run_chain` streams through, held open: validate,
+    export, spawn the node processes, deploy, and yield a
+    :class:`ChainSession` whose dispatcher streams as often as the caller
+    likes; leaving the block closes the dispatcher (END cascades) and
+    waits for every node to exit 0.  The arguments are
+    :func:`run_chain`'s.  A bind race before the yield retries on fresh
+    ports; a failure inside the block kills every node first.
     """
     if replicas and any(int(r) > 1 for r in replicas.values()):
         raise _not_ported("A10b", "stage replicas")
     if failover:
         raise _not_ported("A10b", "failover")
-    if devices is not None or device_map:
-        raise _not_ported("A10d", "devices/device_map (stages pinned to devices)")
     if plan is not None:
         raise _not_ported("A12", "the live plan observation (plan=)")
     if journal_dir is not None:
         raise _not_ported("A12", "the flight-recorder journal (journal_dir=)")
+    dev = resolve_device(device)
+    sweep_orphan_segments()
     n = len(stages)
-    _check_tier(tier, "run_chain")
-    if hop_tiers is not None:
-        if len(hop_tiers) != n - 1:
-            raise ValueError(f"hop_tiers must have one entry per "
-                             f"inter-stage hop ({n - 1}), got "
-                             f"{len(hop_tiers)}")
-        for t in hop_tiers:
-            if t == "device":
-                raise _not_ported("A10d", "the 'device' hop tier (stage fusion)")
-            _check_tier(t, "run_chain hop_tiers")
+    if tier not in ("tcp", "auto", "shm"):
+        if tier in ("ici", "local"):
+            raise ValueError(
+                f"tier={tier!r} cannot hold on the dispatcher edges of a "
+                f"spawned chain (the dispatcher is a separate process); "
+                f"pin the stage hops with hop_tiers=[{tier!r}, ...] and "
+                f"keep tier='auto'")
+        raise ValueError(f"tier must be tcp|auto|shm, got {tier!r}")
+    tiers = _normalize_hop_tiers(hop_tiers, n, tier)
+    claimed = [t for t in tiers if t in ("local", "shm", "ici")]
+    if not overlap and claimed:
+        # the serial loop is the pure-wire baseline and refuses every
+        # offer: an explicit claim would run over tcp under a tier claim
+        raise ValueError(f"hop_tiers {claimed[0]!r} requires the overlapped "
+                         f"node loop (drop overlap=False / --no-overlap)")
+    device_map = {int(k): int(v) for k, v in (device_map or {}).items()}
+    for k, v in device_map.items():
+        if not 0 <= k < n:
+            raise ValueError(f"device_map: stage {k} out of range "
+                             f"0..{n - 1}")
+        if v < 0:
+            raise ValueError(f"device_map: stage {k} device {v} must be "
+                             f">= 0")
+    if device_map and any(t == "device" for t in tiers):
+        # fusion renumbers the stages: a pin would land on the wrong one
+        raise ValueError(
+            "device_map does not compose with device-tier fusion (fusion "
+            "renumbers the stages); fuse first and pin the fused chain, or "
+            "drop the 'device' hops")
+    if device_map and devices is None:
+        devices = max(device_map.values()) + 1
+    if devices is not None:
+        bad = [v for v in device_map.values() if v >= devices]
+        if bad:
+            raise ValueError(f"device_map names cuda:{bad[0]} but devices="
+                             f"{devices}")
+        have = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if devices > have:
+            raise ValueError(f"devices={devices} needs {devices} visible "
+                             f"CUDA devices; this process sees {have} "
+                             f"(device={str(dev)!r})")
     if hop_codecs is not None and len(hop_codecs) != n:
         raise ValueError(f"hop_codecs must have one entry per stage ({n}), "
                          f"got {len(hop_codecs)}")
@@ -1579,7 +1933,27 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
     if in_band and any(delay_of):
         raise ValueError("stage_delays ride the node's argv: pass "
                          "in_band=False with them")
-    dev = resolve_device(device)
+    if any(t == "device" for t in tiers):
+        # adjacent stages on one device become one exported program
+        from ..partition.partitioner import fuse_stages
+        stages, groups = fuse_stages(list(stages), tiers)
+        codec_of = [codec_of[g[-1]] for g in groups]
+        delay_of = [sum(delay_of[i] for i in g) for g in groups]
+        tiers = [tiers[g[-1]] for g in groups[:-1]]
+        n = len(stages)
+    # maximal runs of stages joined by local or ici hops share one OS
+    # process: both tiers hand a live object within one address space
+    coloc = [[0]] if n else []
+    for k in range(n - 1):
+        if tiers[k] in ("local", "ici"):
+            coloc[-1].append(k + 1)
+        else:
+            coloc.append([k + 1])
+    if any(delay_of[k] for g in coloc for k in g[1:]):
+        raise ValueError("stage_delays ride a process's own node: a stage "
+                         "behind a local or ici hop (a co-stage) takes none")
+    #: each stage's OUTBOUND tier policy: a claimed rung is offered alone
+    tier_of = [t if t != "device" else "tcp" for t in tiers] + [tier]
     tuning = [] if overlap else ["--no-overlap"]
     for flag, v in (("--rx-depth", rx_depth), ("--tx-depth", tx_depth),
                     ("--inflight", inflight)):
@@ -1597,30 +1971,85 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
             paths = export_pipeline(stages, params, artifact_dir,
                                     batch=batch)
 
+        def pin(k: int) -> list[str]:
+            return ([] if device_map.get(k) is None
+                    else ["--device", str(device_map[k])])
+
         def argv_for(k: int, addrs, result) -> list[str]:
-            if in_band:
-                return tuning
-            argv = ["--artifact", paths[k],
-                    "--next", addrs[k + 1] if k + 1 < n else result,
-                    "--codec", codec_of[k]]
-            if delay_of[k]:
-                argv += ["--infer-delay-ms", str(delay_of[k] * 1e3)]
+            argv = pin(k) + ["--tier", tier_of[k]]
+            if (tier if k == 0 else tier_of[k - 1]) != "tcp":
+                # the inbound hop offers a tier whatever this stage's own
+                # outbound policy says: grant it
+                argv += ["--tier-accept", "1"]
+            if not in_band:
+                argv += ["--artifact", paths[k],
+                         "--next", addrs[k + 1] if k + 1 < n else result,
+                         "--codec", codec_of[k]]
+                if delay_of[k]:
+                    argv += ["--infer-delay-ms", str(delay_of[k] * 1e3)]
             return argv + tuning
 
+        def co_stage_for(k: int, addrs, result) -> str:
+            # accept=1: the hop into a co-stage is the in-process boundary
+            # that put it in this process
+            spec = f"accept=1;tier={tier_of[k]}"
+            if not in_band:
+                spec += (f";artifact={paths[k]};codec={codec_of[k]}"
+                         f";next={addrs[k + 1] if k + 1 < n else result}")
+            if device_map.get(k) is not None:
+                spec += f";device={device_map[k]}"
+            return spec
+
         last_exc: BaseException | None = None
+        yielded = False
         for attempt in range(max(1, spawn_retries)):
             try:
+                t0 = time.perf_counter()
                 with spawn_nodes(n, log_dir=artifact_dir, device=str(dev),
-                                 argv_for=argv_for, env=env,
-                                 on_spawn=on_spawn,
+                                 argv_for=argv_for,
+                                 co_stage_for=co_stage_for, groups=coloc,
+                                 env=env, on_spawn=on_spawn,
                                  spawn_retries=spawn_retries) as nodes:
-                    return _drive_chain(
-                        nodes, stages, params, inputs, batch=batch,
-                        codec=codec, codec_of=codec_of, in_band=in_band,
-                        rx_depth=rx_depth, tx_depth=tx_depth,
-                        stats_out=stats_out,
-                        trace_sample_every=trace_sample_every)
+                    boot_s = time.perf_counter() - t0
+                    try:
+                        disp = ChainDispatcher(
+                            nodes.addrs[0], listen=nodes.result,
+                            codec=codec, tx_depth=tx_depth or 8,
+                            rx_depth=rx_depth or 8,
+                            trace_sample_every=trace_sample_every,
+                            tier=tier)
+                    except OSError as e:
+                        if any(m in str(e) for m in _BIND_RACE_MARKS):
+                            raise _BindRace(f"dispatcher lost the "
+                                            f"result-port bind race "
+                                            f"({e})") from e
+                        raise
+                    failed = True
+                    try:
+                        t0 = time.perf_counter()
+                        if in_band:
+                            disp.deploy(stages, params, nodes.addrs,
+                                        batch=batch, codecs=codec_of,
+                                        tiers=tier_of,
+                                        devices=[device_map.get(k)
+                                                 for k in range(n)])
+                        deploy_s = time.perf_counter() - t0
+                        yielded = True
+                        yield ChainSession(disp, nodes.addrs, nodes.procs,
+                                           boot_s, deploy_s)
+                        failed = False
+                    finally:
+                        if failed:
+                            # kill the nodes first, so the dispatcher's
+                            # drain hits dead sockets instead of waiting
+                            # out its timeouts
+                            _kill_procs(nodes.procs)
+                        disp.close()
+                return
             except _BindRace as e:
+                if yielded:
+                    raise RuntimeError(f"a chain node lost a port after "
+                                       f"the chain started: {e}") from e
                 last_exc = e
                 print(f"run_chain: bind race on attempt {attempt + 1} "
                       f"({e}); retrying on fresh ports", file=sys.stderr,
@@ -1630,46 +2059,3 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
     finally:
         if tmp is not None:
             tmp.cleanup()
-
-
-def _drive_chain(nodes: NodeProcs, stages, params, inputs, *, batch, codec,
-                 codec_of, in_band, rx_depth, tx_depth, stats_out,
-                 trace_sample_every):
-    """Deploy (in-band), stream and close one spawned chain (see
-    :func:`run_chain`); raises :class:`_BindRace` when the dispatcher's
-    result-port bind lost the ``_free_ports`` race."""
-    try:
-        disp = ChainDispatcher(nodes.addrs[0], listen=nodes.result,
-                               codec=codec, tx_depth=tx_depth or 8,
-                               rx_depth=rx_depth or 8,
-                               trace_sample_every=trace_sample_every)
-    except OSError as e:
-        if any(m in str(e) for m in _BIND_RACE_MARKS):
-            # as retryable as a child's
-            raise _BindRace(f"dispatcher lost the result-port bind race "
-                            f"({e})") from e
-        raise
-    failed = True
-    try:
-        if in_band:
-            disp.deploy(stages, params, nodes.addrs, batch=batch,
-                        codecs=codec_of)
-        outs = disp.stream(inputs)
-        if stats_out is not None:
-            # queried while the nodes still serve (they exit once close()
-            # cascades END)
-            stats_out.extend(disp.stats(nodes.addrs))
-        if tracer().enabled:
-            try:
-                disp.collect_trace(nodes.addrs)
-            except (OSError, ConnectionError) as e:
-                print(f"run_chain: trace collection failed: {e!r}",
-                      file=sys.stderr)
-        failed = False
-    finally:
-        if failed:
-            # kill the children FIRST so the dispatcher's drain hits dead
-            # sockets (fast) instead of waiting out its timeouts
-            _kill_procs(nodes.procs)
-        disp.close()
-    return outs

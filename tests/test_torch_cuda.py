@@ -855,3 +855,64 @@ def test_two_thread_chain_on_card_equals_forward(cuda, model, monkeypatch):
             want = g.apply(pdev, torch.from_numpy(x).to(cuda)).cpu().numpy()
             err = float(np.abs(y - want).max())
             assert err <= 1e-5 * float(np.abs(want).max()), err
+
+
+@pytest.mark.timeout(300)
+@pytest.mark.parametrize("model", ["bert_tiny", "resnet_tiny"])
+def test_ici_hop_on_card(cuda, model, monkeypatch):
+    """Two stage nodes on threads, on the card, with an ici hop between
+    them and into the dispatcher: no node records a host sync (the output
+    tensor is handed over on the card), the dispatcher host-copies each
+    result once, and the rows equal the same chain's over tcp hops."""
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch import models, partition
+    from defer_tpu_torch.obs import REGISTRY
+    from defer_tpu_torch.runtime.node import ChainDispatcher, StageNode
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = getattr(models, model)()
+    p = g.init(torch.Generator().manual_seed(0))
+    stages = partition(g, num_stages=2)
+    rng = np.random.default_rng(2)
+    spec = stages[0].in_spec
+    xs = [rng.integers(0, 100, (2,) + spec.shape).astype(np.int32)
+          if not spec.dtype.is_floating_point else
+          rng.standard_normal((2,) + spec.shape).astype(np.float32)
+          for _ in range(4)]
+
+    def run(tier):
+        nodes = [StageNode(None, "127.0.0.1:0", None, tier=tier)
+                 for _ in stages]
+        addrs = [f"127.0.0.1:{n.address[1]}" for n in nodes]
+        ts = [threading.Thread(target=n.serve, daemon=True) for n in nodes]
+        for t in ts:
+            t.start()
+        disp = ChainDispatcher(addrs[0], tier="auto" if tier == "ici"
+                               else "tcp")
+        try:
+            disp.deploy(stages, p, addrs, batch=2)
+            outs = disp.stream(xs)
+            st = disp.stats(addrs)
+        finally:
+            disp.close()
+        for t in ts:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        return outs, st, disp
+
+    tcp, _, _ = run("tcp")
+    chs0 = int(REGISTRY.histogram("chain.host_sync_s").summary()
+               .get("count", 0))
+    outs, st, disp = run("ici")
+    assert [s["tier"] for s in st] == ["ici", "ici"]
+    assert st[1]["tier_in"] == "ici" and disp.tier_in == "ici"
+    assert [s["host_sync_s"]["count"] for s in st] == [0, 0]
+    assert all(s["device"].startswith("cuda") for s in st)
+    assert int(REGISTRY.histogram("chain.host_sync_s").summary()
+               .get("count", 0)) - chs0 == len(xs)
+    for a, b in zip(tcp, outs):
+        np.testing.assert_array_equal(a, b)

@@ -65,6 +65,8 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.serve.frontdoor; "
             "import defer_tpu_torch.utils.export; "
             "import defer_tpu_torch.transport.local; "
+            "import defer_tpu_torch.transport.shm; "
+            "import defer_tpu_torch.transport.ici; "
             "import defer_tpu_torch.runtime.node; "
             "import defer_tpu_torch.cli; "
             "import defer_tpu_torch.codec.native as n; "
@@ -108,6 +110,8 @@ def test_import_loads_no_jax_module():
                 "defer_tpu_torch.serve.frontdoor",
                 "defer_tpu_torch.utils.export",
                 "defer_tpu_torch.transport.local",
+                "defer_tpu_torch.transport.shm",
+                "defer_tpu_torch.transport.ici",
                 "defer_tpu_torch.runtime.node",
                 "defer_tpu_torch.cli"):
         assert new in mods

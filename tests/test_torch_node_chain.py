@@ -330,79 +330,121 @@ def test_waterfall_sampling_records_one_in_n_frames(tiny):
         assert seqs == [0, 2, 4], (k, seqs)
 
 
-@pytest.mark.timeout(240)
-def test_mixed_chain_jax_node_feeds_port_node(tiny, tmp_path):
-    """A JAX StageNode on its own artifact (offering its tier ladder, which
-    the port refuses over tcp) feeds a port node, under the port's
-    dispatcher."""
+def _mixed_jax_first(tiny, tmp_path, tier):
+    """JAX node 0 (on its own artifact) -> port node 1 under the port's
+    dispatcher, every hop's tier policy ``tier``; (rows, hop tiers, the
+    fallbacks counted on the three hops)."""
     jg, jp, g, p = tiny
     jstages, stages = _stages(tiny, 2)
-    jpath = str(tmp_path / "j0.zip")
-    tpath = str(tmp_path / "t1.zip")
+    jpath = str(tmp_path / f"j0{tier}.zip")
+    tpath = str(tmp_path / f"t1{tier}.zip")
     jexport.export_stage(jstages[0], jp, jpath, batch=1)
     texport.export_stage(stages[1], p, tpath, batch=1)
     res = f"127.0.0.1:{tnode._free_ports(1)[0]}"
-    tn = StageNode(tpath, "127.0.0.1:0", res, device="cpu")
+    tn = StageNode(tpath, "127.0.0.1:0", res, device="cpu", tier=tier)
     jn = jnode.StageNode(jpath, "127.0.0.1:0",
-                         f"127.0.0.1:{tn.address[1]}", tier="auto")
-    disp = ChainDispatcher(f"127.0.0.1:{jn.address[1]}", listen=res)
+                         f"127.0.0.1:{tn.address[1]}", tier=tier)
+    disp = ChainDispatcher(f"127.0.0.1:{jn.address[1]}", listen=res,
+                           tier=tier)
     threads = [threading.Thread(target=n.serve, daemon=True)
                for n in (jn, tn)]
     for t in threads:
         t.start()
-    xs = _inputs(7, 4)
     try:
-        outs = disp.stream(xs)
+        outs = disp.stream(_inputs(7, 4))
     finally:
         disp.close()
     _join(threads)
-    assert tn.tier_in == "tcp" and jn.tier_out == "tcp"
+    tiers = [disp.tier_out, jn.tier_in, jn.tier_out, tn.tier_in,
+             tn.tier_out, disp.tier_in]
+    return outs, tiers, (disp.tier_fallbacks, jn.tier_fallbacks,
+                         tn.tier_fallbacks)
+
+
+@pytest.mark.timeout(240)
+def test_mixed_chain_jax_node_feeds_port_node(tiny, tmp_path):
+    """A JAX StageNode on its own artifact feeds a port node, under the
+    port's dispatcher.  With every policy ``auto`` each hop between the
+    packages negotiates shm (their ici and local registries are separate,
+    so those rungs are refused and the shared-memory ring is granted) with
+    no fallback counted, the port node's result edge to the port's
+    dispatcher in the same process takes ici, and the rows are
+    byte-identical to the same chain over tcp."""
+    jg, jp, g, p = tiny
+    tcp, tcp_tiers, _ = _mixed_jax_first(tiny, tmp_path, "tcp")
+    outs, tiers, fallbacks = _mixed_jax_first(tiny, tmp_path, "auto")
+    assert tcp_tiers == ["tcp", None, "tcp", None, "tcp", None]
+    assert tiers == ["shm"] * 4 + ["ici"] * 2
+    assert fallbacks == (0, 0, 0)
+    for a, b in zip(tcp, outs):
+        np.testing.assert_array_equal(a, b)
     fwd = jax.jit(jg.apply)
-    for x, y in zip(xs, outs):
+    for x, y in zip(_inputs(7, 4), outs):
         np.testing.assert_allclose(y, np.asarray(fwd(jp, x)), rtol=TOL,
                                    atol=TOL)
 
 
-@pytest.mark.timeout(240)
-def test_mixed_chain_port_node_feeds_jax_node(tiny, tmp_path):
-    """The reverse: a port node on its own artifact feeds a JAX node, under
-    the JAX package's dispatcher (which offers its tier ladder to the port
-    node; the port answers tcp)."""
+def _mixed_port_first(tiny, tmp_path, tier):
+    """Port node 0 -> JAX node 1 under the JAX package's dispatcher, lzb
+    hops, every hop's tier policy ``tier``; (rows, hop tiers, stats of
+    the port node, fallbacks)."""
     jg, jp, g, p = tiny
     jstages, stages = _stages(tiny, 2)
-    tpath = str(tmp_path / "t0.zip")
-    jpath = str(tmp_path / "j1.zip")
+    tpath = str(tmp_path / f"t0{tier}.zip")
+    jpath = str(tmp_path / f"j1{tier}.zip")
     texport.export_stage(stages[0], p, tpath, batch=1)
     jexport.export_stage(jstages[1], jp, jpath, batch=1)
     res = f"127.0.0.1:{tnode._free_ports(1)[0]}"
-    jn = jnode.StageNode(jpath, "127.0.0.1:0", res)
+    jn = jnode.StageNode(jpath, "127.0.0.1:0", res, tier=tier)
     tn = StageNode(tpath, "127.0.0.1:0", f"127.0.0.1:{jn.address[1]}",
-                   device="cpu", codec="lzb")
+                   device="cpu", codec="lzb", tier=tier)
     disp = jnode.ChainDispatcher(f"127.0.0.1:{tn.address[1]}", listen=res,
-                                 codec="lzb", tier="auto")
+                                 codec="lzb", tier=tier)
     threads = [threading.Thread(target=n.serve, daemon=True)
                for n in (tn, jn)]
     for t in threads:
         t.start()
-    xs = _inputs(8, 4)
     try:
-        outs = disp.stream(xs)
+        outs = [np.asarray(y) for y in disp.stream(_inputs(8, 4))]
         st = disp.stats([f"127.0.0.1:{tn.address[1]}"])
     finally:
         disp.close()
     _join(threads)
-    assert disp.tier_out == "tcp" and st[0]["processed"] == 4
+    tiers = [disp.tier_out, tn.tier_in, tn.tier_out, jn.tier_in,
+             jn.tier_out, disp.tier_in]
+    return outs, tiers, st[0], (disp.tier_fallbacks, tn.tier_fallbacks,
+                                jn.tier_fallbacks)
+
+
+@pytest.mark.timeout(240)
+def test_mixed_chain_port_node_feeds_jax_node(tiny, tmp_path):
+    """The reverse: a port node on its own artifact feeds a JAX node,
+    under the JAX package's dispatcher.  Over ``auto`` both hops between
+    the packages negotiate shm (a JAX ring into the port node, the port's
+    ring into the JAX node) with no fallback, the JAX node's result edge
+    to its own dispatcher takes the JAX package's ici, and the rows are
+    byte-identical to the tcp chain's."""
+    jg, jp, g, p = tiny
+    tcp, tcp_tiers, _, _ = _mixed_port_first(tiny, tmp_path, "tcp")
+    outs, tiers, st, fallbacks = _mixed_port_first(tiny, tmp_path, "auto")
+    assert tcp_tiers == ["tcp", None, "tcp", None, "tcp", None]
+    assert tiers == ["shm"] * 4 + ["ici"] * 2
+    assert fallbacks == (0, 0, 0)
+    assert st["processed"] == 4 and st["tier"] == "shm"
+    for a, b in zip(tcp, outs):
+        np.testing.assert_array_equal(a, b)
     fwd = jax.jit(jg.apply)
-    for x, y in zip(xs, outs):
-        np.testing.assert_allclose(np.asarray(y), np.asarray(fwd(jp, x)),
+    for x, y in zip(_inputs(8, 4), outs):
+        np.testing.assert_allclose(y, np.asarray(fwd(jp, x)),
                                    rtol=TOL, atol=TOL)
 
 
 @pytest.mark.timeout(240)
 def test_run_chain_spawns_processes(tiny):
-    """Two OS processes on the CPU, deployed in-band: rows equal the port's
-    forward (the same ops) and agree with JAX's; every node's stats came
-    back before teardown."""
+    """Two OS processes on the CPU, deployed in-band under the default
+    tier (``auto``): rows equal the port's forward (the same ops) and
+    agree with JAX's; every node's stats came back before teardown, and
+    every hop — the dispatcher's edges included — negotiated shm."""
     jg, jp, g, p = tiny
     jstages, stages = _stages(tiny, 2)
     xs = _inputs(9, 4)
@@ -416,6 +458,8 @@ def test_run_chain_spawns_processes(tiny):
     assert all(s["processed"] == 4 and s["device"] == "cpu"
                and s["codec"] == "lzb" for s in stats)
     assert all(s["kernel_launches"]["flash_attention"] == 0 for s in stats)
+    assert [(s["tier"], s["tier_in"], s["tier_fallbacks"]) for s in stats] \
+        == [("shm", "shm", 0)] * 2
 
 
 @pytest.mark.timeout(120)
@@ -478,24 +522,43 @@ def test_node_without_cuda_raises_unless_asked_for_the_cpu():
 
 @pytest.mark.parametrize("kw,item", [
     ({"replicas": {1: 2}}, "A10b"), ({"failover": True}, "A10b"),
-    ({"hop_tiers": ["shm"]}, "A10d"), ({"hop_tiers": ["device"]}, "A10d"),
-    ({"tier": "shm"}, "A10d"), ({"devices": 2}, "A10d"),
-    ({"device_map": {0: 1}}, "A10d"), ({"plan": object()}, "A12"),
-    ({"journal_dir": "/nonexistent"}, "A12")])
+    ({"plan": object()}, "A12"), ({"journal_dir": "/nonexistent"}, "A12")])
 def test_run_chain_refuses_what_is_not_ported(tiny, kw, item):
     _, stages = _stages(tiny, 2)
     with pytest.raises(NotImplementedError, match=item):
         run_chain(stages, tiny[3], [], device="cpu", **kw)
 
 
+@pytest.mark.timeout(240)
+@pytest.mark.parametrize("kw,want", [
+    ({"hop_tiers": ["shm"]}, 2), ({"hop_tiers": ["device"]}, 1),
+    ({"tier": "shm"}, 2),
+    ({"devices": 2}, "devices=2 needs 2 visible CUDA devices"),
+    ({"device_map": {0: 1}}, "devices=2 needs 2 visible CUDA devices")])
+def test_run_chain_takes_the_colocated_tiers(tiny, kw, want):
+    """Calls of the colocated tiers: a shm hop and a chain-wide
+    shm pin run as node processes whose every hop (the dispatcher's
+    edges too) reports the shm rung, a ``device`` hop fuses the two
+    stages into one node, and asking for more cards than this host has
+    raises ``ValueError`` naming the count."""
+    _, stages = _stages(tiny, 2)
+    xs = _inputs(12, 2)
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            run_chain(stages, tiny[3], xs, device="cpu", **kw)
+        return
+    stats = []
+    outs = run_chain(stages, tiny[3], xs, device="cpu", in_band=True,
+                     stats_out=stats, **kw)
+    assert [(s["tier"], s["tier_in"], s["tier_fallbacks"]) for s in stats] \
+        == [("shm", "shm", 0)] * want
+    for y, ref in zip(outs, _forward(tiny, xs)):
+        np.testing.assert_array_equal(y, ref)
+
+
 @pytest.mark.parametrize("make,item", [
-    (lambda: StageNode(None, "127.0.0.1:0", None, device="cpu", tier="ici"),
-     "A10d"),
-    (lambda: StageNode(None, "127.0.0.1:0", None, device="cpu",
-                       tier_accept=True), "A10d"),
     (lambda: ChainDispatcher("127.0.0.1:1,127.0.0.1:2"), "A10b"),
-    (lambda: ChainDispatcher("127.0.0.1:1", result_fan_in=2), "A10b"),
-    (lambda: ChainDispatcher("127.0.0.1:1", tier="local"), "A10d")])
+    (lambda: ChainDispatcher("127.0.0.1:1", result_fan_in=2), "A10b")])
 def test_nodes_and_dispatcher_refuse_what_is_not_ported(make, item):
     with pytest.raises(NotImplementedError, match=item):
         make()
@@ -503,21 +566,63 @@ def test_nodes_and_dispatcher_refuse_what_is_not_ported(make, item):
         StageNode(None, "127.0.0.1:0", None, device="cpu", tier="udp")
 
 
+@pytest.mark.parametrize("make,check", [
+    (lambda: StageNode(None, "127.0.0.1:0", None, device="cpu", tier="ici"),
+     lambda nd: nd.tier == "ici" and nd.tier_accept),
+    (lambda: StageNode(None, "127.0.0.1:0", None, device="cpu",
+                       tier_accept=True),
+     lambda nd: nd.tier == "tcp" and nd.tier_accept),
+    (lambda: ChainDispatcher("127.0.0.1:1", tier="local"),
+     lambda d: d.tier == "local" and d.tier_accept)])
+def test_nodes_and_dispatcher_take_the_colocated_tiers(make, check):
+    """Tier constructions: a node pinned to the ici rung, a
+    node that grants offers (the default), a dispatcher whose first
+    edge offers the local rung (which grants result-edge offers too)."""
+    obj = make()
+    try:
+        assert check(obj)
+    finally:
+        (obj._srv if isinstance(obj, StageNode) else obj._res_srv).close()
+
+
 @pytest.mark.timeout(120)
 @pytest.mark.parametrize("msg", [
     {"cmd": "deploy", "fan_in": 2}, {"cmd": "deploy", "replica": 0},
     {"cmd": "deploy", "fan": "broadcast"}, {"cmd": "deploy", "branch": 1},
-    {"cmd": "deploy", "join": 2}, {"cmd": "deploy", "tier": "shm"},
+    {"cmd": "deploy", "join": 2},
     {"cmd": "clock_probe"}, {"cmd": "obs_subscribe"},
     {"cmd": "profile_start"}])
 def test_node_refuses_unported_commands(msg):
-    """A deploy that asks for a fan role or a colocated tier, and the
-    commands of the live observability plane, raise on the node: the
-    control connection is cut, never answered as if they had worked."""
+    """A deploy that asks for a fan role, and the commands of the live
+    observability plane, raise on the node: the control connection is
+    cut, never answered as if they had worked."""
     node = StageNode(None, "127.0.0.1:0", None, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         node._handle_ctrl(None, msg, recv=lambda: (tnode.K_BYTES, b""))
     node._srv.close()
+
+
+@pytest.mark.timeout(120)
+def test_node_deploy_takes_a_tier(tiny):
+    """A deploy carrying ``tier: shm`` loads the
+    artifact, sets the node's outbound policy and is ACKed."""
+    import socket
+
+    from defer_tpu_torch.transport.framed import K_ACK, recv_frame
+    _, stages = _stages(tiny, 2)
+    blob = texport.export_stage_bytes(stages[1], tiny[3], batch=1)
+    node = StageNode(None, "127.0.0.1:0", None, device="cpu")
+    a, b = socket.socketpair()
+    try:
+        assert node._handle_ctrl(
+            a, {"cmd": "deploy", "tier": "shm", "next": "127.0.0.1:1"},
+            recv=lambda: (tnode.K_BYTES, blob))
+        assert recv_frame(b)[0] == K_ACK
+        assert node.tier == "shm" and node.manifest["index"] == 1
+        assert node.next_hop == ("127.0.0.1", 1)
+    finally:
+        a.close(), b.close()
+        node._srv.close()
 
 
 @pytest.mark.timeout(120)
@@ -544,6 +649,7 @@ def test_cli_chain_command_runs_and_checks_the_forward(capsys):
     row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert row["metric"] == "resnet_tiny_2proc_chain"
     assert row["stages"] == 2 and row["device"] == "cpu"
-    assert row["hop_tiers"] == ["tcp"] and row["result_tier"] == "tcp"
+    # the chain command's default tier is auto: both hops take shm
+    assert row["hop_tiers"] == ["shm"] and row["result_tier"] == "shm"
     assert row["max_abs_err_vs_single_program"] == 0.0
     assert row["value"] > 0
