@@ -133,8 +133,24 @@ Phases, in order; any failure exits non-zero before the result line:
                    through ``run_chain``); a shm offer into a node started
                    with ``--tier-accept 0`` (tcp, one labeled fallback, a
                    ``tier`` event); per-node phase times;
+                m. the planner on the card: ``utils.hw.identify_chip``
+                   names the card ``"h100"`` and the cost model takes its
+                   data-sheet peaks; ``measured_node_costs`` for ResNet50
+                   (f32) and BERT-Base (f32, bf16), each node's calls one
+                   CUDA-graph replay (every cost positive, flash launches
+                   counted), beside the forward; ResNet50's solved,
+                   quantile and paper 8-stage cuts priced on that model,
+                   and the int8 ring run at the solved and the paper's
+                   cuts (phase 4a's bar, one quantizer launch per step,
+                   images/s beside the prediction); ``fit_from_stats`` on
+                   l's shm chain (a measured host-sync bandwidth), the
+                   artifact round-tripped and applied; a live cutover of
+                   BERT-Base over three persistent nodes by
+                   ``replan``/``LiveReplan``, the stream byte-identical to
+                   two undisturbed chains, 12 flash launches a frame;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
-              ``chain_path``, ``colocate_path``, ``phase_seconds`` and
+              ``chain_path``, ``colocate_path``, ``planner_path``,
+              ``phase_seconds`` and
               ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``; each phase's seconds are
               also printed as it ends.
@@ -3118,6 +3134,8 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
                  f"fallbacks)")
         rates = timed_chain(chain, "shm")
         st = disp.stats(chain.addrs)
+        # phase 4m fits the planner's constants from these
+        res["shm_stats"] = st
         res["shm"] = {"hops": ["shm"] + hops, "rel_err": rel,
                       "byte_identical_to_tcp": True,
                       "boot_s": chain.boot_s, "deploy_s": chain.deploy_s,
@@ -3342,6 +3360,361 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: the planner on the card
+# ---------------------------------------------------------------------------
+
+#: measured_node_costs: calls per graph replay (the reference's scan
+#: length) and timed replays per node
+PLAN_K = 32
+PLAN_REPS = 3
+#: alternating timed rounds of the ring at the solved and the paper's cuts,
+#: each a run of PLAN_RING_REPEAT x phase 4a's microbatches
+PLAN_ROUNDS = 5
+PLAN_RING_REPEAT = 4
+#: frames of BERT-Base before and after the live cutover
+CUTOVER_FRAMES = (4, 4)
+
+
+def planner_path(torch, device, kernels, card, mp, bp, shm_stats):
+    """Phase 4m.  1: ``utils.hw.identify_chip`` must name the card
+    ``"h100"`` and a ``StageCostModel`` with no ``gen`` must take its
+    data-sheet peaks.  2: ``measured_node_costs`` on the card for ResNet50
+    (f32) and BERT-Base (f32 and bf16) at batch MICROBATCH, each node's
+    PLAN_K calls one CUDA-graph replay: every cost > 0 and finite, the
+    flash counter moved by blocks x PLAN_K x (PLAN_REPS + 1) (one warm
+    and PLAN_REPS timed replays) on BERT and not at all on ResNet50; the
+    sum of node costs beside the forward of the same batch.  3: three
+    8-stage cut lists for ResNet50 priced by ``evaluate_cuts`` on the
+    h100 model with the measured costs (``solve``, quantile
+    ``auto_cut_points``, the paper's); ``Defer.run`` on the int8 wire at
+    the solved and the paper's cuts (phase 4a's bar, one quantizer launch
+    per step), then alternating timed rounds of both rings.  4:
+    ``fit_from_stats`` on phase 4l's shm chain: the host-sync bandwidth
+    must be ``measured``; save/load, ``apply``, and the per-stage service
+    prediction beside the nodes' p50s.  5: the live cutover on BERT-Base:
+    three persistent in-process nodes at ``solve(..., 3)``'s cuts, a
+    first segment, ``replan`` on the nodes' measured stage seconds (a
+    corrected hotspot forces the move when the real suggestion keeps the
+    cuts), ``ReplanResult.apply(LiveReplan(...))``, a second segment; the
+    stream byte-identical to two undisturbed chains (old cuts, then new),
+    ``quiesced`` equal to the first segment's length on every stage, 12
+    flash launches a frame."""
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig
+    from defer_tpu_torch.graph.analysis import auto_cut_points
+    from defer_tpu_torch.graph.ir import tree_map
+    from defer_tpu_torch.partition import partition
+    from defer_tpu_torch.plan import (CalibratedConstants, StageCostModel,
+                                      evaluate_cuts, fit_from_stats,
+                                      measured_stage_seconds,
+                                      predict_stage_service_s, replan,
+                                      solve)
+    from defer_tpu_torch.plan.replan import LiveReplan
+    from defer_tpu_torch.runtime.cuda_graph import capture
+    from defer_tpu_torch.runtime.node import ChainDispatcher, StageNode
+    from defer_tpu_torch.utils import hw
+    from defer_tpu_torch.utils.profiling import measured_node_costs
+
+    t_phase = time.perf_counter()
+    res = {"card": card, "k": PLAN_K, "reps": PLAN_REPS}
+    g, params = mp["graph"], mp["params"]
+    bg, bparams = bp["graph"], bp["params"]
+    blocks = sum(name.startswith("block_") for name in bg.topo_order)
+
+    # --- 1: the card and its row ------------------------------------------
+    gen = hw.identify_chip(torch.device(device))
+    auto = StageCostModel(g)
+    print(f"planner path: identify_chip -> {gen!r} for "
+          f"{torch.cuda.get_device_name(0)!r}; StageCostModel() gen "
+          f"{auto.gen!r}, peak {auto.peak_flops_s:.4g} FLOP/s, HBM "
+          f"{auto.hbm_bw_s:.4g} B/s, link {auto.link_bw_s:.4g} B/s; on "
+          f"{card}", flush=True)
+    if gen != "h100" or auto.gen != "h100" or \
+            (auto.peak_flops_s, auto.hbm_bw_s) != (989e12, 3.35e12):
+        fail(f"phase 4m: the card was identified as {gen!r} (cost model "
+             f"{auto.gen!r}, peaks {auto.peak_flops_s}, {auto.hbm_bw_s}); "
+             "want 'h100' with 989e12 FLOP/s and 3.35e12 B/s")
+    res["gen"] = gen
+
+    # --- 2: measured node costs -------------------------------------------
+    def forward_ms(graph, pdev, x, dtype=None):
+        """Device ms of one forward, replayed as a CUDA graph as the node
+        costs are (an eager forward is bound by its launches)."""
+        if dtype is not None:
+            pdev = tree_map(lambda v: v.to(dtype)
+                            if v.is_floating_point() else v, pdev)
+        snap = [k.snapshot() for k in kernels]
+        fwd = capture(lambda: graph.apply(pdev, x), torch.device(device))
+        ms = time_ms(torch, fwd.replay, iters=10, warmup=2)
+        for k, sn in zip(kernels, snap):
+            k.restore(sn)  # the forward is a reference, not the path
+        return ms
+
+    costs = {}
+    for key, graph, gparams, dtype, want_flash in (
+            ("resnet50_f32", g, params, None, 0),
+            ("bert_base_f32", bg, bparams, None,
+             blocks * PLAN_K * (PLAN_REPS + 1)),
+            ("bert_base_bf16", bg, bparams, "bfloat16",
+             blocks * PLAN_K * (PLAN_REPS + 1))):
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        c = measured_node_costs(graph, gparams, batch=MICROBATCH,
+                                compute_dtype=dtype, k=PLAN_K,
+                                reps=PLAN_REPS, device=device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        bad = [n for n, v in c.items() if not (math.isfinite(v) and v > 0)]
+        if list(c) != graph.topo_order or bad:
+            fail(f"phase 4m {key}: measured_node_costs gave {len(c)} nodes "
+                 f"of {len(graph.topo_order)}, not positive/finite: "
+                 f"{bad[:5]}")
+        want = {"flash_attention": want_flash, "quant_int8": 0}
+        if launches != want:
+            fail(f"phase 4m {key}: launches {launches}, want {want} "
+                 f"({blocks if want_flash else 0} blocks x {PLAN_K} calls x "
+                 f"{PLAN_REPS + 1} replays)")
+        src = mp if graph is g else bp
+        x = torch.from_numpy(src["inputs"][0]).to(
+            device, graph.input_spec.dtype)
+        fwd = forward_ms(graph, src["pdev"], x,
+                         None if dtype is None else torch.bfloat16)
+        total = sum(c.values()) * 1e3
+        top = sorted(c.items(), key=lambda kv: -kv[1])[:3]
+        costs[key] = c
+        res[key] = {"nodes": len(c), "sum_node_ms": total,
+                    "forward_ms": fwd, "seconds": secs,
+                    "launches": launches,
+                    "top_nodes_ms": {n: v * 1e3 for n, v in top}}
+        print(f"planner path: measured_node_costs({graph.name}, batch "
+              f"{MICROBATCH}, {dtype or 'float32'}): {len(c)} nodes in "
+              f"{secs:.1f} s, sum {total:.4f} ms against the forward's "
+              f"{fwd:.4f} ms (per-op timing ignores fusion); heaviest "
+              f"{[(n, round(v * 1e3, 4)) for n, v in top]}; launches "
+              f"{launches}; on {card}", flush=True)
+
+    # --- 3: the planner's cuts through the ring ---------------------------
+    cm = StageCostModel(g, batch=MICROBATCH, gen="h100",
+                        node_costs=costs["resnet50_f32"])
+    solved = solve(g, 8, cm)
+    lists = {"solved": list(solved.cuts),
+             "quantile": auto_cut_points(g, 8, costs=costs["resnet50_f32"]),
+             "paper": list(mp["cuts"])}
+    priced = {k: evaluate_cuts(g, v, cm, objective=k).to_json()
+              for k, v in lists.items()}
+    res["cuts"] = lists
+    res["priced"] = {k: {f: d[f] for f in (
+        "bottleneck_ms", "bottleneck_stage", "bound_by", "stage_compute_ms",
+        "hop_comm_ms", "hop_codecs")} for k, d in priced.items()}
+    for k, d in priced.items():
+        print(f"planner path: {k} cuts {lists[k]}: predicted bottleneck "
+              f"{d['bottleneck_ms']:.4f} ms at stage {d['bottleneck_stage']} "
+              f"({d['bound_by']}-bound; hops {d['hop_codecs']}) -> "
+              f"{MICROBATCH / d['bottleneck_ms'] * 1e3:.1f} images/s",
+              flush=True)
+    if priced["solved"]["bottleneck_ms"] > min(
+            priced["quantile"]["bottleneck_ms"],
+            priced["paper"]["bottleneck_ms"]) * (1 + 1e-9):
+        fail("phase 4m: the solver's plan prices above another cut list on "
+             "its own model")
+    inputs, ref = mp["inputs"], mp["ref"]
+    scale = float(np.abs(ref).max())
+    m = inputs.shape[0]
+    steps = CHUNK * -(-(m + 8 - 1) // CHUNK)
+    rings = {}
+    for key in ("solved", "paper"):
+        cuts = lists[key]
+        zero_counts(kernels)
+        out = Defer(DeferConfig(wire="int8", microbatch=MICROBATCH,
+                                chunk=CHUNK, device=device)).run(
+            g, params, inputs, cut_points=cuts)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        if out.shape != ref.shape or not np.isfinite(out).all():
+            fail(f"phase 4m {key} cuts: output {out.shape} or not finite")
+        err = float(np.abs(out - ref).max())
+        agree = int((out.argmax(-1) == ref.argmax(-1)).sum())
+        print(f"planner path: Defer.run(resnet50, {key} cuts, wire=int8) "
+              f"{m} microbatches = {steps} steps: max|err| {err / scale:.4g} "
+              f"of max|logit| (bound {INT8_REL_BOUND}), top-1 agree "
+              f"{agree}/{ref.argmax(-1).size}, launches {launches}",
+              flush=True)
+        if err > INT8_REL_BOUND * scale or agree != ref.argmax(-1).size:
+            fail(f"phase 4m {key} cuts: int8 rows off the forward by "
+                 f"{err / scale:.4g} of max|logit| or a top-1 changed")
+        if launches != {"quant_int8": steps, "flash_attention": 0}:
+            fail(f"phase 4m {key} cuts: launches {launches}, want one "
+                 f"quantizer launch per step ({steps})")
+        rings[key] = {"rel_err": err / scale, "launches": launches,
+                      "pipe": Defer(DeferConfig(
+                          wire="int8", microbatch=MICROBATCH, chunk=CHUNK,
+                          device=device)).build(g, params, cuts)}
+        rings[key]["pipe"].run(inputs)  # captures the chunk graphs
+    timed = np.concatenate([inputs] * PLAN_RING_REPEAT)
+    walls = {k: [] for k in rings}
+    for _ in range(PLAN_ROUNDS):
+        for k, r in rings.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r["pipe"].run(timed)
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    res["ring"] = {}
+    for k, r in rings.items():
+        ips = len(timed) * MICROBATCH / statistics.median(walls[k])
+        res["ring"][k] = {"images_per_s": ips, "walls_s": walls[k],
+                          "rel_err": r["rel_err"], "launches": r["launches"],
+                          "predicted_images_per_s":
+                          MICROBATCH / priced[k]["bottleneck_ms"] * 1e3}
+        print(f"planner path: int8 ring at the {k} cuts {ips:.1f} images/s "
+              f"(median of {PLAN_ROUNDS} alternating rounds of "
+              f"{len(timed)} microbatches) against a predicted "
+              f"{res['ring'][k]['predicted_images_per_s']:.1f} (the model "
+              f"prices hops as tcp between processes; the ring runs every "
+              f"stage on one card each step); on {card}", flush=True)
+    del rings
+    free_card(torch)
+
+    # --- 4: calibration from phase 4l's shm chain -------------------------
+    cuts = list(mp["cuts"])
+    cal = fit_from_stats(g, cuts, shm_stats, batch=MICROBATCH, gen="h100")
+    prov = cal.provenance.get("host_sync_bw_s", {})
+    tiers = [s["tier"] for s in shm_stats[:-1]]
+    if tiers != ["shm"] * len(cuts) or prov.get("method") != "measured":
+        fail(f"phase 4m calibration: hop tiers {tiers}, host_sync_bw_s "
+             f"provenance {prov} (want shm hops and a measured fit)")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cal_") as d:
+        path = f"{d}/cal.json"
+        cal.save(path)
+        back = CalibratedConstants.load(path)
+    if back.to_json() != cal.to_json():
+        fail("phase 4m calibration: the artifact did not round-trip")
+    ccm = back.apply(cm)
+    pred = predict_stage_service_s(g, cuts, ["shm"] * len(cuts), ccm)
+    meas = [s["infer_latency_s"].get("p50", 0.0) for s in shm_stats]
+    res["calibration"] = {"constants": cal.to_json(),
+                          "predicted_service_ms": [v * 1e3 for v in pred],
+                          "measured_infer_p50_ms": [v * 1e3 for v in meas]}
+    print(f"planner path: fit_from_stats on 4l's shm chain: host_sync_bw_s "
+          f"{cal.host_sync_bw_s:.4g} B/s ({prov}), local_bw_s "
+          f"{cal.local_bw_s:.4g} B/s ({cal.provenance.get('local_bw_s')}); "
+          f"per-stage service predicted ms "
+          f"{[round(v * 1e3, 4) for v in pred]} against the nodes' infer "
+          f"p50 ms {[round(v * 1e3, 4) for v in meas]}; on {card}",
+          flush=True)
+
+    # --- 5: the live cutover on BERT-Base ---------------------------------
+    bcm = StageCostModel(bg, batch=MICROBATCH, gen="h100",
+                         node_costs=costs["bert_base_f32"])
+    plan1 = solve(bg, 3, bcm)
+    ids = [x.astype(np.int32) for x in bp["inputs"]]
+    n1, n2 = CUTOVER_FRAMES
+    seg1, seg2 = ids[:n1], ids[n1:n1 + n2]
+    bref = bp["ref"][:n1 + n2]
+
+    def boot(persist):
+        nodes = [StageNode(None, "127.0.0.1:0", None, device=device,
+                           persist=persist) for _ in range(3)]
+        addrs = [f"127.0.0.1:{nd.address[1]}" for nd in nodes]
+        ths = [threading.Thread(target=nd.serve, daemon=True)
+               for nd in nodes]
+        for t in ths:
+            t.start()
+        return addrs, ths
+
+    def join(ths, what):
+        for t in ths:
+            t.join(timeout=60)
+        if any(t.is_alive() for t in ths):
+            fail(f"phase 4m {what}: nodes did not drain")
+
+    def plain(cuts_, frames):
+        addrs, ths = boot(False)
+        d = ChainDispatcher(addrs[0], codec="raw")
+        try:
+            d.deploy(partition(bg, list(cuts_)), bparams, addrs,
+                     batch=MICROBATCH)
+            return d.stream(frames)
+        finally:
+            d.close()
+            join(ths, "undisturbed chain")
+
+    addrs, ths = boot(True)
+    disp = ChainDispatcher(addrs[0], codec="raw")
+    live = LiveReplan(disp, bg, bparams, addrs, batch=MICROBATCH)
+    try:
+        disp.deploy(partition(bg, list(plan1.cuts)), bparams, addrs,
+                    batch=MICROBATCH)
+        zero_counts(kernels)
+        outs = disp.stream(seg1)
+        torch.cuda.synchronize()
+        l1 = read_counts(kernels)
+        measured = measured_stage_seconds(disp.stats(addrs))
+        result = replan(bg, plan1, measured, bcm)
+        forced = not result.moved
+        if forced:
+            # the real suggestion keeps the cuts: a corrected hotspot on
+            # stage 0 forces the move, as the reference's test does
+            hot = dict(measured)
+            hot[0] = 10 * sum(measured.values())
+            result = replan(bg, plan1, hot, bcm)
+        if not result.moved:
+            fail(f"phase 4m cutover: replan kept the cuts {plan1.cuts} even "
+                 f"with a stage-0 hotspot")
+        receipt = result.apply(live)
+        zero_counts(kernels)
+        outs += disp.stream(seg2)
+        torch.cuda.synchronize()
+        l2 = read_counts(kernels)
+    finally:
+        disp.close()
+        live.shutdown()
+        join(ths, "live chain")
+    ref = plain(plan1.cuts, seg1) + plain(result.new_plan.cuts, seg2)
+    same = len(outs) == len(ref) and all(
+        np.array_equal(a, b) for a, b in zip(outs, ref))
+    rel = _rel_err(np.stack(outs), bref, "4m cutover", BUFFER_REL_BOUND)
+    want1 = {"flash_attention": blocks * n1, "quant_int8": 0}
+    want2 = {"flash_attention": blocks * n2, "quant_int8": 0}
+    if (not same or receipt is None or receipt["quiesced"] != [n1] * 3
+            or l1 != want1 or l2 != want2 or live.cutovers != 1):
+        fail(f"phase 4m cutover: byte-identical {same}, receipt {receipt}, "
+             f"launches {l1} then {l2} (want {want1}, {want2}), cutovers "
+             f"{live.cutovers}")
+    res["cutover"] = {"old_cuts": list(plan1.cuts),
+                      "new_cuts": list(result.new_plan.cuts),
+                      "forced_hotspot": forced,
+                      "measured_stage_ms": {k: v * 1e3
+                                            for k, v in measured.items()},
+                      "predicted_improvement": result.predicted_improvement,
+                      "cutover_ms": receipt["cutover_ms"],
+                      "quiesced": receipt["quiesced"],
+                      "launches": {"first": l1, "second": l2},
+                      "byte_identical": True, "rel_err": rel}
+    why = "forced by a stage-0 hotspot" if forced \
+        else "the measured suggestion"
+    stage_ms = [round(v * 1e3, 3) for v in measured.values()]
+    print(f"planner path: live cutover of bert_base {plan1.cuts} -> "
+          f"{result.new_plan.cuts} ({why}; measured stage ms {stage_ms}) "
+          f"in {receipt['cutover_ms']:.1f} ms, quiesced "
+          f"{receipt['quiesced']}; "
+          f"the stream byte-identical to two undisturbed chains, "
+          f"{rel:.3g} of max |output| off the forward; flash launches "
+          f"{l1['flash_attention']} + {l2['flash_attention']} for "
+          f"{n1} + {n2} frames; on {card}", flush=True)
+    free_card(torch)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"planner path: phase 4m {res['seconds']:.1f} s; on {card}",
+          flush=True)
+    return res
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -3543,7 +3916,13 @@ def main() -> int:
     # stream of the in-process BERT chains, the node processes' own counts
     # read from their stats
     co = colocate_path(torch, device, kernels, card, mp, bp, ch, raw)
+    shm_stats = co.pop("shm_stats")
     phase_done("4l")
+
+    # phase 4m: the planner; the counts zeroed just before each measured
+    # cost map, each Defer.run and each stream of the live chain
+    pl = planner_path(torch, device, kernels, card, mp, bp, shm_stats)
+    phase_done("4m")
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
@@ -3576,6 +3955,12 @@ def main() -> int:
         by_path[f"resnet50_chain_{key}"] = co[key]["launches"]
     by_path["bert_base_chain_ici"] = co["bert_ici"]["launches"]
     by_path["bert_base_chain_fused"] = co["bert_fused"]["launches"]
+    for key in ("resnet50_f32", "bert_base_f32", "bert_base_bf16"):
+        by_path[f"{key}_measured_node_costs"] = pl[key]["launches"]
+    for key, r in pl["ring"].items():
+        by_path[f"resnet50_int8_{key}_cuts"] = r["launches"]
+    for seg, c in pl["cutover"]["launches"].items():
+        by_path[f"bert_base_live_cutover_{seg}_segment"] = c
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -3643,6 +4028,8 @@ def main() -> int:
         "tcp_chain_sequences_per_s": ch["bert_base"]["chain_sequences_per_s"],
         "ring_sequences_per_s": ch["bert_base"]["ring_sequences_per_s"],
         **co}}))
+    print(json.dumps({"planner_path": {
+        "models": "resnet50 + bert_base", "microbatch": MICROBATCH, **pl}}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")

@@ -33,6 +33,7 @@ raise.
 """
 
 from . import models
+from . import plan
 from .codec import (BlockFloatCodec, LosslessCodec, PipelineCodec, RawCodec,
                     native_available)
 from .graph import fold_batchnorm, summary, to_dot
@@ -49,7 +50,7 @@ from .utils.pretrained import PRETRAINED_LOADERS, load_pretrained
 
 __all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
            "SpmdPipeline", "MpmdPipeline", "PipelinedDecoder", "partition",
-           "models", "params_from_jax", "params_to_jax",
+           "models", "plan", "params_from_jax", "params_to_jax",
            "speculative_generate", "fold_batchnorm", "summary", "to_dot",
            "BlockFloatCodec", "LosslessCodec", "PipelineCodec", "RawCodec",
            "native_available", "save_params", "load_params",

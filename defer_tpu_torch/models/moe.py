@@ -56,8 +56,9 @@ def moe_branched(num_layers: int, hidden: int, heads: int,
     :class:`ExpertBranch` nodes (each one expert's gate-weighted FFN) plus
     a residual skip, joined by an ``Add`` — soft-mixture semantics, one
     expert of compute per branch.  Only the ``moe_k`` joins and the blocks
-    are valid linear cuts; the branch-parallel planner that places each
-    branch on its own stage waits for ROADMAP queue A11.
+    are valid linear cuts.  The branch-parallel planner
+    (``plan.solve_dag``) prices each expert branch on its own stage;
+    deploying such a stage graph waits for ROADMAP queue A10c.
     """
     b = GraphBuilder(name)
     x = b.input((seq_len,), torch.int32)

@@ -16,21 +16,24 @@ from .stage import StageSpec
 def partition(graph: LayerGraph, cut_points: list[str] | None = None,
               *, num_stages: int | None = None,
               costs: dict[str, float] | None = None,
-              objective: str = "quantile") -> list[StageSpec]:
+              objective: str = "quantile",
+              cost_model=None) -> list[StageSpec]:
     """Split ``graph`` into ``len(cut_points)+1`` sequential stages.
 
     Either pass explicit ``cut_points`` (node names, in topological order)
-    or ``num_stages`` for automatic cuts (``costs`` and ``objective`` go
-    to :func:`~defer_tpu_torch.graph.analysis.auto_cut_points`).
+    or ``num_stages`` for automatic cuts (``costs``, ``objective`` and
+    ``cost_model`` go to
+    :func:`~defer_tpu_torch.graph.analysis.auto_cut_points`).
     """
     if cut_points is None:
         if num_stages is None:
             raise ValueError("pass cut_points or num_stages")
         cut_points = auto_cut_points(graph, num_stages, costs=costs,
-                                     objective=objective)
-    elif costs is not None:
+                                     objective=objective,
+                                     cost_model=cost_model)
+    elif costs is not None or cost_model is not None:
         raise ValueError("explicit cut_points leave nothing to balance: "
-                         "drop costs or drop cut_points")
+                         "drop costs/cost_model or drop cut_points")
 
     order = graph.topo_order
     pos = {n: i for i, n in enumerate(order)}

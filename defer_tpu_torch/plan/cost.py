@@ -1,0 +1,552 @@
+"""Stage cost model: per-node compute seconds + per-cut comm seconds.
+
+The port of ``defer_tpu.plan.cost``: the planner's view of the hardware.
+Two halves:
+
+* **Compute** — an analytic roofline per node: ``max(flops / peak,
+  bytes_moved / hbm_bw)`` with the public per-generation peaks from
+  ``utils/hw.py`` (the CUDA card's data-sheet row).  Pass ``node_costs``
+  (measured seconds, e.g. from ``utils.profiling.measured_node_costs``)
+  to replace the analytic model with what the card actually does — the
+  FLOP model under-weights bandwidth-bound ops.
+
+* **Comm** — per valid cut, per codec: the boundary tensor's bytes
+  (``graph.out_spec(cut)``, dtype itemsize, batch) through
+  ``encode + wire + decode``::
+
+      comm = raw/enc_Bps  +  (raw/ratio)/link_bw  +  raw/dec_Bps
+
+  Codec ratio and encode/decode throughput come from a
+  :class:`CodecSpec` table — analytic defaults below, or calibrated on
+  THIS host by :func:`calibrate_codecs` (the port's ``codec/`` timed on
+  a synthetic post-ReLU-like payload).  Link bandwidth defaults to the
+  card's one-way interconnect figure (``hw.ici_bandwidth``) and is
+  overridable (``--link-bw``) for network hops, where the codec trade
+  flips in favor of compressing.
+
+The model is deliberately slack about absolute accuracy — the planner
+only needs the *relative* weights right, and ``plan/replan.py`` corrects
+the compute side with live telemetry.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+
+import numpy as np
+
+from ..graph.ir import LayerGraph
+from ..utils import hw
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecSpec:
+    """What the comm model needs to know about one hop codec."""
+
+    name: str
+    ratio: float              #: raw bytes / wire bytes (>= 1 compresses)
+    encode_bytes_per_s: float  #: host encode throughput on RAW bytes
+    decode_bytes_per_s: float  #: host decode throughput on RAW bytes
+    lossy: bool = False
+
+    def comm_parts(self, raw_bytes: int, link_bw: float
+                   ) -> tuple[float, float, float]:
+        """(encode, wire, decode) seconds for one boundary tensor —
+        split out because stage replication parallelizes the encode and
+        decode sides independently (``plan/solver.py``): the hop OUT of
+        an R-replica stage encodes on R processes at once, the hop INTO
+        one decodes on R, while the wire term serializes at whichever
+        single endpoint the fan terminates on."""
+        enc = raw_bytes / self.encode_bytes_per_s \
+            if self.encode_bytes_per_s > 0 else 0.0
+        dec = raw_bytes / self.decode_bytes_per_s \
+            if self.decode_bytes_per_s > 0 else 0.0
+        wire = (raw_bytes / max(self.ratio, 1e-9)) / link_bw \
+            if link_bw > 0 else 0.0
+        return enc, wire, dec
+
+    def comm_seconds(self, raw_bytes: int, link_bw: float) -> float:
+        """encode + wire + decode seconds for one boundary tensor."""
+        return sum(self.comm_parts(raw_bytes, link_bw))
+
+
+#: analytic defaults (order-of-magnitude host-edge numbers; calibrate on
+#: the deployment host for real planning).  ``raw`` pays only a memcpy.
+DEFAULT_CODECS: dict[str, CodecSpec] = {
+    "raw": CodecSpec("raw", ratio=1.0, encode_bytes_per_s=8e9,
+                     decode_bytes_per_s=8e9),
+    "lzb": CodecSpec("lzb", ratio=1.3, encode_bytes_per_s=2e8,
+                     decode_bytes_per_s=5e8),
+    "bf8": CodecSpec("bf8", ratio=3.9, encode_bytes_per_s=1.5e8,
+                     decode_bytes_per_s=2.5e8, lossy=True),
+    "bf16": CodecSpec("bf16", ratio=2.0, encode_bytes_per_s=1.5e8,
+                      decode_bytes_per_s=2.5e8, lossy=True),
+}
+
+#: transport-tier PSEUDO-codecs (the tiers of ``transport/``): the comm
+#: model of a colocated hop.  These never enter the per-hop codec argmin
+#: (every hop would trivially "choose" them) — they are selected by the
+#: hop-tier map (``StageCostModel(hop_tiers=...)``) and REPLACE the codec
+#: trade on hops the deployment declares colocated:
+#:
+#: * ``local`` — same process, in-memory channel: zero encode/decode
+#:   (the array passes by reference), wire term = one memory-bandwidth
+#:   pass over the boundary bytes (the queue handoff's cache/allocator
+#:   cost — ``DEFAULT_LOCAL_BW_S``, override with ``local_bw_s=``).
+#: * ``shm`` — same host, separate processes, shared-memory ring
+#:   (``transport/shm.py``): zero encode/decode, wire term = TWO
+#:   memory-bandwidth passes over the boundary bytes (the write-in +
+#:   read-out memcpy pair) — costlier than ``local``, decades cheaper
+#:   than any TCP hop, so the ladder's preference order (local over
+#:   shm over tcp) falls out of the model.
+#: * ``ici`` — same mesh, device-resident (``transport/ici.py``): the
+#:   activation never touches the host — zero encode/decode, zero
+#:   host-sync, wire term = the boundary bytes over the chip
+#:   interconnect (``hw.ici_bandwidth``, override with ``ici_bw_s=`` /
+#:   ``--ici-bw``).  At NVLink rates this sits between ``device`` (free)
+#:   and ``local``.
+#: * ``device`` — the stages fuse into one exported program
+#:   (``partition.fuse_stages``): the hop does not exist; ~0 seconds.
+#:
+#: Every OTHER tier additionally pays the ``host_sync`` term (below):
+#: the per-hop D2H materialization + H2D re-upload the runtime's
+#: compute loops perform around any non-device-resident hop — the cost
+#: the ``local`` pseudo-codec used to omit silently, and the one the
+#: ici tier removes.  With it the model's preference order is
+#: principled: device <= ici <= local <= shm <= tcp.
+TIER_CODECS: dict[str, CodecSpec] = {
+    "ici": CodecSpec("ici", ratio=1.0, encode_bytes_per_s=0.0,
+                     decode_bytes_per_s=0.0),
+    "local": CodecSpec("local", ratio=1.0, encode_bytes_per_s=0.0,
+                       decode_bytes_per_s=0.0),
+    "shm": CodecSpec("shm", ratio=1.0, encode_bytes_per_s=0.0,
+                     decode_bytes_per_s=0.0),
+    "device": CodecSpec("device", ratio=1.0, encode_bytes_per_s=0.0,
+                        decode_bytes_per_s=0.0),
+}
+
+#: host memory bandwidth for the ``local`` pseudo-codec's wire term —
+#: one DRAM-class pass over the boundary tensor (order-of-magnitude;
+#: the planner needs relative weights, and ~10 GB/s keeps a colocated
+#: hop 2-3 decades under any TCP hop without rounding it to free).
+DEFAULT_LOCAL_BW_S = 1e10
+
+#: host-sync bandwidth: the D2H + H2D transfer pair every
+#: non-device-resident hop pays around its transport (the producing
+#: loop's copy to the host, the consuming program's re-upload).  Same
+#: DRAM-class order of magnitude as :data:`DEFAULT_LOCAL_BW_S`;
+#: calibratable from the nodes' per-stage ``host_sync_s`` histograms
+#: (``plan/calibrate.py``).
+DEFAULT_HOST_SYNC_BW_S = 1e10
+
+
+def _check_hop_tiers(graph: LayerGraph,
+                     hop_tiers: dict[str, str] | None, *,
+                     valid=None) -> dict[str, str]:
+    """Validate a hop-tier map: known tier names AND real cut-point
+    keys — a misspelled cut silently scoring as tcp would make the
+    planner model a topology the caller never declared (same loud-miss
+    policy as the constructor's ``node_costs`` check).
+
+    ``valid`` overrides the cut namespace: the DAG planner passes
+    ``graph.analysis.dag_cut_points`` so branch-internal hops — real
+    deployable boundaries once branches run as their own sub-pipelines
+    — validate too, under the same loud-miss policy."""
+    if not hop_tiers:
+        return {}
+    bad = [t for t in hop_tiers.values() if t not in ("tcp", *TIER_CODECS)]
+    if bad:
+        raise ValueError(f"unknown hop tiers {bad}; "
+                         f"use tcp|{'|'.join(TIER_CODECS)}")
+    if valid is None:
+        from ..graph.analysis import valid_cut_points
+        valid = valid_cut_points(graph)
+    valid = set(valid)
+    missing = [c for c in hop_tiers if c not in valid]
+    if missing:
+        raise ValueError(
+            f"hop_tiers name cuts that are not valid cut points of "
+            f"{graph.name!r}: {missing[:5]}")
+    return dict(hop_tiers)
+
+
+def bench_codec_instance(codec, payload: np.ndarray, *,
+                         reps: int = 3) -> tuple[float, float, float]:
+    """(ratio, encode_bytes_per_s, decode_bytes_per_s) for one codec
+    object on ``payload``: min over ``reps`` timed rounds after a warm
+    round — the measurement core of :func:`calibrate_codecs`."""
+    nbytes = payload.nbytes
+    enc = codec.encode(payload)  # warm (native build / first-touch)
+    t_enc = t_dec = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        enc = codec.encode(payload)
+        t_enc = min(t_enc, time.perf_counter() - t0)
+    codec.decode(enc, payload.shape, payload.dtype)  # warm
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        codec.decode(enc, payload.shape, payload.dtype)
+        t_dec = min(t_dec, time.perf_counter() - t0)
+    enc_len = enc.nbytes if isinstance(enc, memoryview) else len(enc)
+    return (nbytes / max(enc_len, 1), nbytes / max(t_enc, 1e-9),
+            nbytes / max(t_dec, 1e-9))
+
+
+def bench_codec_spec(name: str, payload: np.ndarray, *,
+                     reps: int = 3) -> CodecSpec:
+    """Measure one wire codec (by its ``transport.framed`` name) on
+    ``payload``; see :func:`bench_codec_instance`."""
+    from ..transport.framed import _codec
+    ratio, enc_bps, dec_bps = bench_codec_instance(
+        _codec(name), payload, reps=reps)
+    return CodecSpec(name=name, ratio=ratio, encode_bytes_per_s=enc_bps,
+                     decode_bytes_per_s=dec_bps,
+                     lossy=name.startswith("bf"))
+
+
+def calibrate_codecs(names=("raw", "lzb", "bf8", "bf16"), *,
+                     nbytes: int = 1 << 20, zero_fraction: float = 0.5,
+                     reps: int = 3, seed: int = 0) -> dict[str, CodecSpec]:
+    """Micro-bench every codec in ``names`` (the port's ``codec/``, as
+    ``transport.framed`` names them) on THIS host.
+
+    The payload is a ReLU-like activation (``zero_fraction`` zeros,
+    otherwise half-normal) — the regime the hop codecs actually see, and
+    the one where lzb's ratio depends on sparsity.  ~1 MB keeps the whole
+    calibration under a second per codec even on the NumPy fallback.
+    """
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(max(nbytes // 4, 256)).astype(np.float32)
+    x[rng.random(x.size) < zero_fraction] = 0.0
+    x = np.abs(x)
+    return {n: bench_codec_spec(n, x, reps=reps) for n in names}
+
+
+class StageCostModel:
+    """Per-node compute seconds and per-cut comm seconds for a graph.
+
+    ``node_costs`` (name -> measured seconds) overrides the analytic
+    roofline; otherwise ``peak_flops_s`` / ``hbm_bw_s`` anchor it (both
+    default from the detected card's row, falling back to the v5e row
+    for an unknown card or the CPU so relative weights stay sane).
+    ``link_bw_s`` is the hop bandwidth in bytes/s; ``codecs`` the
+    candidate :class:`CodecSpec` table per hop.
+
+    ``hop_tiers`` (cut name -> ``"local"``/``"shm"``/``"device"``,
+    anything absent = ``"tcp"``) declares which boundaries the
+    deployment colocates: those hops cost their :data:`TIER_CODECS` pseudo-codec
+    instead of the cheapest wire codec, so cut placement EXPLOITS
+    colocation (a fat boundary is free to cross on a fused hop) instead
+    of modeling every boundary as a TCP hop.  ``local_bw_s`` sets the
+    ``local`` tier's memory-bandwidth wire term
+    (:data:`DEFAULT_LOCAL_BW_S`).
+    """
+
+    def __init__(self, graph: LayerGraph, *, batch: int = 1,
+                 gen: str | None = None,
+                 peak_flops_s: float | None = None,
+                 hbm_bw_s: float | None = None,
+                 link_bw_s: float | None = None,
+                 codecs: dict[str, CodecSpec] | None = None,
+                 node_costs: dict[str, float] | None = None,
+                 lossless_only: bool = False,
+                 hop_tiers: dict[str, str] | None = None,
+                 local_bw_s: float | None = None,
+                 ici_bw_s: float | None = None,
+                 host_sync_bw_s: float | None = None):
+        self.graph = graph
+        self.batch = max(int(batch), 1)
+        if gen is None:
+            gen = self._detect_gen()
+        self.gen = gen
+        # unknown generations fall back to v5e so the analytic model
+        # still ranks nodes instead of dividing by zero; absolute
+        # seconds are then only as good as the fallback (calibrate or
+        # pass node_costs for real numbers)
+        ref = gen if hw.peak_flops(gen) > 0 else "v5e"
+        self.peak_flops_s = peak_flops_s or hw.peak_flops(ref)
+        self.hbm_bw_s = hbm_bw_s or hw.hbm_bandwidth(ref)
+        self.link_bw_s = link_bw_s or hw.ici_bandwidth(ref)
+        self.codecs = dict(codecs) if codecs is not None \
+            else dict(DEFAULT_CODECS)
+        if lossless_only:
+            self.codecs = {n: c for n, c in self.codecs.items()
+                           if not c.lossy} or {"raw": DEFAULT_CODECS["raw"]}
+        if node_costs is not None:
+            missing = [n for n in graph.topo_order if n not in node_costs]
+            if missing:
+                raise ValueError(
+                    f"node_costs missing nodes: {missing[:5]}...")
+        self.node_costs = dict(node_costs) if node_costs else None
+        self.hop_tiers = _check_hop_tiers(graph, hop_tiers)
+        self.local_bw_s = local_bw_s or DEFAULT_LOCAL_BW_S
+        #: device-to-device interconnect bandwidth for the ``ici``
+        #: pseudo-codec's wire term (defaults to the card's one-way
+        #: interconnect figure, like ``link_bw_s``; override for slower
+        #: links the same way ``--link-bw`` overrides the wire; 0 =
+        #: model the d2d wire as free, same convention as host_sync)
+        self.ici_bw_s = hw.ici_bandwidth(ref) if ici_bw_s is None \
+            else float(ici_bw_s)
+        #: D2H/H2D bandwidth for the per-hop host_sync term every
+        #: non-device-resident tier pays (0 = model the sync as free —
+        #: the same convention as a zero link bandwidth)
+        self.host_sync_bw_s = DEFAULT_HOST_SYNC_BW_S \
+            if host_sync_bw_s is None else float(host_sync_bw_s)
+
+    @staticmethod
+    def _detect_gen() -> str:
+        """The row of the card the port would run on (the CUDA default
+        device); ``"unknown"`` only where CUDA is not available."""
+        import torch
+        if not torch.cuda.is_available():
+            return "unknown"
+        return hw.identify_chip(torch.device("cuda"))
+
+    # -- compute -----------------------------------------------------------
+
+    def node_seconds(self, name: str) -> float:
+        """Roofline (or measured) seconds for one node at ``batch``.
+
+        ``node_costs`` entries are taken AS-IS: measure them at the same
+        batch you plan for (``measured_node_costs(graph, params,
+        batch=...)`` does) — only the analytic roofline scales by
+        ``batch`` itself."""
+        if self.node_costs is not None:
+            return self.node_costs[name]
+        from ..graph.analysis import node_flops
+        g = self.graph
+        node = g.nodes[name]
+        flops = node_flops(g, name) * self.batch
+        moved = sum(g.out_spec(i).size * g.out_spec(i).dtype.itemsize
+                    for i in node.inputs)
+        moved += node.out_spec.size * node.out_spec.dtype.itemsize
+        moved *= self.batch
+        t_flops = flops / self.peak_flops_s if self.peak_flops_s > 0 else 0.0
+        t_mem = moved / self.hbm_bw_s if self.hbm_bw_s > 0 else 0.0
+        return max(t_flops, t_mem)
+
+    def compute_seconds(self, names) -> float:
+        return sum(self.node_seconds(n) for n in names)
+
+    # -- comm --------------------------------------------------------------
+
+    def cut_bytes(self, cut: str) -> int:
+        """Raw bytes of the boundary tensor crossing ``cut`` at ``batch``."""
+        spec = self.graph.out_spec(cut)
+        return spec.size * spec.dtype.itemsize * self.batch
+
+    def hop_tier(self, cut: str) -> str:
+        """Declared transport tier of the hop at ``cut`` (default tcp)."""
+        return self.hop_tiers.get(cut, "tcp")
+
+    def with_hop_tiers(self, hop_tiers: dict[str, str] | None, *,
+                       valid_cuts=None) -> "StageCostModel":
+        """A shallow copy scoring hops under ``hop_tiers`` — how
+        ``solve(..., hop_tiers=...)`` threads a deployment's tier map
+        through without mutating the caller's model.  ``valid_cuts``
+        widens the key namespace (the DAG planner passes the stage-graph
+        cut set, branch-internal hops included)."""
+        other = copy.copy(self)
+        other.hop_tiers = _check_hop_tiers(self.graph, hop_tiers,
+                                           valid=valid_cuts)
+        return other
+
+    def host_sync_seconds(self, cut: str) -> float:
+        """The per-hop host round-trip every non-device-resident
+        transport pays: the producing stage's D2H materialization
+        (the copy to the host in the node loop) plus the consuming
+        program's H2D re-upload — two passes over the boundary bytes at
+        ``host_sync_bw_s``.  The ``ici`` tier keeps the activation
+        device-resident and the ``device`` tier has no hop at all, so
+        only tcp/local/shm hops carry this term; it is what makes the
+        tier ordering device <= ici <= local <= shm <= tcp principled
+        instead of accidental."""
+        return 2 * self.cut_bytes(cut) / self.host_sync_bw_s \
+            if self.host_sync_bw_s > 0 else 0.0
+
+    def _tier_parts(self, cut: str, tier: str
+                    ) -> tuple[float, float, float]:
+        """(encode, wire, decode) seconds of a colocated hop: zero
+        codec work on both sides; ``ici`` pays one interconnect pass
+        (device-to-device, no host term), ``local`` one memory-
+        bandwidth pass over the boundary bytes plus the host_sync
+        round-trip, ``shm`` two passes (the ring's write-in + read-out
+        memcpy pair) plus host_sync, ``device`` (a fused program)
+        nothing."""
+        if tier == "device":
+            return 0.0, 0.0, 0.0
+        n = self.cut_bytes(cut)
+        if tier == "ici":
+            wire = n / self.ici_bw_s if self.ici_bw_s > 0 else 0.0
+            return 0.0, wire, 0.0
+        if tier == "shm":
+            n *= 2
+        enc, wire, dec = TIER_CODECS["local"].comm_parts(
+            n, self.local_bw_s)
+        return enc, wire + self.host_sync_seconds(cut), dec
+
+    def comm_seconds(self, cut: str, codec: str) -> float:
+        if codec in TIER_CODECS:
+            return sum(self._tier_parts(cut, codec))
+        return self.codecs[codec].comm_seconds(self.cut_bytes(cut),
+                                               self.link_bw_s) \
+            + self.host_sync_seconds(cut)
+
+    def best_codec(self, cut: str) -> tuple[str, float]:
+        """Cheapest (codec name, comm seconds) for the hop at ``cut``.
+
+        A cut whose declared tier is ``local``/``device`` skips the wire
+        codec argmin entirely — the tier's pseudo-codec IS the hop's
+        transport, and its name lands in the plan's ``hop_codecs`` so a
+        plan row shows which hops ride the fast path."""
+        tier = self.hop_tier(cut)
+        if tier in TIER_CODECS:
+            return tier, sum(self._tier_parts(cut, tier))
+        return min(((n, self.comm_seconds(cut, n)) for n in self.codecs),
+                   key=lambda kv: kv[1])
+
+    def comm_parts(self, cut: str, codec: str
+                   ) -> tuple[float, float, float]:
+        """(encode, wire, decode) seconds for ``codec`` at ``cut``.
+        Wire codecs carry the host_sync round-trip split across the
+        encode (D2H materialization) and decode (H2D re-upload) sides —
+        each half parallelizes with its side's replicas, exactly like
+        the codec work it sits next to in the compute loops."""
+        if codec in TIER_CODECS:
+            return self._tier_parts(cut, codec)
+        enc, wire, dec = self.codecs[codec].comm_parts(
+            self.cut_bytes(cut), self.link_bw_s)
+        h = self.host_sync_seconds(cut) / 2
+        return enc + h, wire, dec + h
+
+    def comm_parts_deployed(self, cut: str, codec: str
+                            ) -> tuple[float, float, float]:
+        """:meth:`comm_parts` for a DEPLOYED codec name: a wire codec
+        the table has no row for is priced as ``raw`` instead of
+        raising.  This is the audit/rescoring path (``evaluate_cuts``'s
+        ``hop_codecs`` pin): a deployment can run codecs the analytic
+        table never heard of, and scoring what actually runs must not
+        crash — the raw fallback IS the uncalibrated model's documented
+        failure mode, which calibration (fitted specs keyed by the
+        deployed name) removes."""
+        if codec in TIER_CODECS or codec in self.codecs:
+            return self.comm_parts(cut, codec)
+        spec = self.codecs.get("raw") or next(iter(self.codecs.values()))
+        enc, wire, dec = spec.comm_parts(self.cut_bytes(cut),
+                                         self.link_bw_s)
+        h = self.host_sync_seconds(cut) / 2
+        return enc + h, wire, dec + h
+
+    def best_codec_replicated(self, cut: str, r_up: int, r_down: int
+                              ) -> tuple[str, float]:
+        """Cheapest (codec, effective seconds) for the hop at ``cut``
+        when the upstream stage runs ``r_up`` replicas and the
+        downstream ``r_down``: the encode side is paid by r_up processes
+        in parallel, the decode side by r_down, and the wire serializes
+        at the fan's single endpoint — ``enc/r_up + wire + dec/r_down``.
+
+        Tier interaction: a colocated tier only applies when NEITHER
+        side is replicated (the runtime's fan paths always ride tcp — a
+        fan-out cannot hand one live array to R processes); replicated
+        hops fall back to the wire-codec argmin.
+        """
+        tier = self.hop_tier(cut)
+        if tier in TIER_CODECS and max(r_up, 1) == 1 \
+                and max(r_down, 1) == 1:
+            return tier, sum(self._tier_parts(cut, tier))
+        best_name, best = None, float("inf")
+        for n in self.codecs:
+            enc, wire, dec = self.comm_parts(cut, n)
+            s = enc / max(r_up, 1) + wire + dec / max(r_down, 1)
+            if s < best:
+                best_name, best = n, s
+        return best_name, best
+
+    def at_batch(self, batch: int) -> "StageCostModel":
+        """A shallow copy scoring the SAME graph at a different frame
+        batch — the serving front door's latency-budget query
+        (:func:`max_batch_within_budget`) sweeps this.  Analytic costs
+        scale themselves; measured ``node_costs`` (taken as-is at the
+        model's own batch) are scaled LINEARLY from it — an honest
+        first-order approximation (per-sample cost rarely shrinks with
+        batch on a saturated stage, so the query errs toward smaller,
+        latency-safer batches when the real curve is sublinear)."""
+        batch = max(1, int(batch))
+        other = copy.copy(self)
+        if self.node_costs is not None:
+            scale = batch / self.batch
+            other.node_costs = {k: v * scale
+                                for k, v in self.node_costs.items()}
+        other.batch = batch
+        return other
+
+    def describe(self) -> dict:
+        d = {
+            "gen": self.gen, "batch": self.batch,
+            "peak_flops_s": self.peak_flops_s, "hbm_bw_s": self.hbm_bw_s,
+            "link_bw_s": self.link_bw_s,
+            # every non-device-resident hop pays the host round-trip,
+            # so its bandwidth travels with every plan (a replan seeded
+            # from plan JSON must keep scoring it)
+            "host_sync_bw_s": self.host_sync_bw_s,
+            "node_costs": "measured" if self.node_costs else "roofline",
+            "codecs": {n: dataclasses.asdict(c)
+                       for n, c in self.codecs.items()},
+            # the tier bandwidths travel unconditionally (not only when
+            # hop_tiers is set): a CALIBRATED model's constants must
+            # survive the plan-JSON roundtrip even when the plan it
+            # seeds later declares tiers the original model never had
+            "local_bw_s": self.local_bw_s,
+            "ici_bw_s": self.ici_bw_s,
+        }
+        if self.hop_tiers:
+            d["hop_tiers"] = dict(sorted(self.hop_tiers.items()))
+        return d
+
+
+# -- latency-budget queries (serving front door) ----------------------------
+
+def stage_ms_at_batch(graph: LayerGraph, cuts: list[str],
+                      cost: StageCostModel, batch: int) -> list[float]:
+    """Per-stage effective milliseconds (max of compute and hop comm) of
+    the ``cuts`` partition at frame ``batch`` — the planner's
+    ``stage_effective_ms`` re-evaluated at a candidate microbatch width.
+    The continuous-batching scheduler reads its per-stage latency budget
+    off this curve (``serve/batcher.py``)."""
+    from .solver import evaluate_cuts
+    plan = evaluate_cuts(graph, list(cuts), cost.at_batch(batch))
+    return [s * 1e3 for s in plan.stage_cost_s]
+
+
+def max_batch_within_budget(graph: LayerGraph, cuts: list[str],
+                            cost: StageCostModel, budget_ms: float, *,
+                            cap: int = 256) -> int:
+    """Largest frame batch whose SLOWEST stage stays within
+    ``budget_ms`` — how a serving front door sizes its dynamic
+    microbatches from the planner's cost model instead of a guessed
+    constant.  Monotone search (stage time never shrinks with batch
+    under this model): geometric probe then bisection.  Always >= 1:
+    a budget no batch can meet degrades to latency-optimal singles
+    rather than refusing to serve.
+    """
+    if budget_ms <= 0:
+        return 1
+
+    def worst_ms(b: int) -> float:
+        return max(stage_ms_at_batch(graph, cuts, cost, b))
+
+    if worst_ms(1) > budget_ms:
+        return 1
+    lo, hi = 1, 2
+    while hi <= cap and worst_ms(hi) <= budget_ms:
+        lo, hi = hi, hi * 2
+    hi = min(hi, cap + 1)
+    while lo + 1 < hi:
+        mid = (lo + hi) // 2
+        if worst_ms(mid) <= budget_ms:
+            lo = mid
+        else:
+            hi = mid
+    return lo

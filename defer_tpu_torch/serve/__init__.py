@@ -25,7 +25,7 @@ package is the layer that turns that single stream into a *service*:
 from .admission import (AdmissionController, ShedDecision, TenantConfig,
                         WeightedFairQueue)
 from .arrivals import poisson_trace
-from .batcher import BatchFormer
+from .batcher import BatchFormer, max_batch_within_budget
 from .client import LoadGenerator, ServeClient
 from .engine import ContinuousBatchEngine, DecodeRequest
 from .frontdoor import ServeFrontDoor
@@ -33,5 +33,6 @@ from .frontdoor import ServeFrontDoor
 __all__ = [
     "AdmissionController", "BatchFormer", "ContinuousBatchEngine",
     "DecodeRequest", "LoadGenerator", "ServeClient", "ServeFrontDoor",
-    "ShedDecision", "TenantConfig", "WeightedFairQueue", "poisson_trace",
+    "ShedDecision", "TenantConfig", "WeightedFairQueue",
+    "max_batch_within_budget", "poisson_trace",
 ]

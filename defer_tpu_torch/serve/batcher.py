@@ -14,10 +14,10 @@ per-request outputs byte-identical to a solo run: every frame executes
 the SAME program, and stage programs are row-independent, so a row's
 bytes do not depend on who shares its frame.
 
-The JAX package also re-exports its planner's
-``max_batch_within_budget`` here (the widest ``W`` whose slowest stage
-fits a per-stage latency budget); it runs the planner's cost model and
-arrives with the port of ``plan/``.
+``W`` itself can come from the planner:
+:func:`~defer_tpu_torch.plan.cost.max_batch_within_budget` (re-exported
+here, as the JAX package does) picks the largest width whose slowest
+stage stays inside a per-stage latency budget.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from __future__ import annotations
 import time
 from typing import Any
 
+from ..plan.cost import max_batch_within_budget  # noqa: F401  (re-export)
 from .admission import WeightedFairQueue
 
 

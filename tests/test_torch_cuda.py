@@ -27,7 +27,9 @@ the quantizer's launches on the VGG, Inception and MobileNetV2 pipelines
 continuous-batching engine's tests hold its step replays to the same steps
 run eagerly on the card, and every request's tokens, alone and in a
 shared batch, byte-identical on the card; the decode door serves
-concurrent clients from the engine's thread.
+concurrent clients from the engine's thread.  The planner's tests check
+the card's row (``utils/hw.py``) and count the flash launches of
+``measured_node_costs``, whose ``k`` calls per node are one graph replay.
 """
 
 import math
@@ -916,3 +918,42 @@ def test_ici_hop_on_card(cuda, model, monkeypatch):
                .get("count", 0)) - chs0 == len(xs)
     for a, b in zip(tcp, outs):
         np.testing.assert_array_equal(a, b)
+
+
+def test_identify_chip_on_the_card(cuda):
+    """The card's row: the H100 SXM is ``"h100"`` with its data-sheet
+    peaks; any other card is ``"unknown"`` and borrows none."""
+    from defer_tpu_torch.models import resnet_tiny
+    from defer_tpu_torch.plan import StageCostModel
+    from defer_tpu_torch.utils import hw
+    name = torch.cuda.get_device_name(0)
+    gen = hw.card_generation(name)
+    assert hw.identify_chip(cuda) == hw.identify_chip(0) == gen
+    cm = StageCostModel(resnet_tiny())
+    assert cm.gen == gen
+    if gen == "h100":
+        assert (cm.peak_flops_s, cm.hbm_bw_s) == (989e12, 3.35e12)
+    else:
+        assert hw.peak_flops(gen) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [None, "bfloat16"])
+def test_measured_node_costs_counts_flash_launches(cuda, dtype):
+    """Each node runs ``k`` calls per CUDA-graph replay, one warm replay
+    and ``reps`` timed ones: every block adds ``k * (reps + 1)`` flash
+    launches (the capture and its warm-up are not counted)."""
+    import math
+
+    from defer_tpu_torch.models import bert_tiny
+    from defer_tpu_torch.utils.profiling import measured_node_costs
+    g = bert_tiny()
+    params = g.init(torch.Generator().manual_seed(0))
+    blocks = sum(n.startswith("block_") for n in g.topo_order)
+    k, reps = 8, 2
+    before = FLASH.launches
+    costs = measured_node_costs(g, params, batch=2, compute_dtype=dtype,
+                                k=k, reps=reps)
+    torch.cuda.synchronize()
+    assert FLASH.launches - before == blocks * k * (reps + 1)
+    assert set(costs) == set(g.topo_order)
+    assert all(math.isfinite(v) and v > 0 for v in costs.values())

@@ -69,6 +69,14 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.transport.ici; "
             "import defer_tpu_torch.runtime.node; "
             "import defer_tpu_torch.cli; "
+            "import defer_tpu_torch.utils.hw; "
+            "import defer_tpu_torch.utils.profiling; "
+            "import defer_tpu_torch.plan; "
+            "import defer_tpu_torch.plan.cost; "
+            "import defer_tpu_torch.plan.solver; "
+            "import defer_tpu_torch.plan.dag; "
+            "import defer_tpu_torch.plan.calibrate; "
+            "import defer_tpu_torch.plan.replan; "
             "import defer_tpu_torch.codec.native as n; "
             "import defer_tpu_torch.transport.staging as st; "
             "assert n.load() is not None and st._load() is not None; "
@@ -113,10 +121,55 @@ def test_import_loads_no_jax_module():
                 "defer_tpu_torch.transport.shm",
                 "defer_tpu_torch.transport.ici",
                 "defer_tpu_torch.runtime.node",
-                "defer_tpu_torch.cli"):
+                "defer_tpu_torch.cli",
+                *PLANNER_MODULES):
         assert new in mods
     bad = [m for m in mods if _is_forbidden(m)]
     assert bad == []
+
+
+#: the planner's modules (they are pure Python over graph metadata; the
+#: JAX package's ``plan/solver.py`` imports no JAX either, and the port
+#: keeps its own copy all the same)
+PLANNER_MODULES = ("defer_tpu_torch.utils.hw",
+                   "defer_tpu_torch.utils.profiling",
+                   "defer_tpu_torch.plan",
+                   "defer_tpu_torch.plan.cost",
+                   "defer_tpu_torch.plan.solver",
+                   "defer_tpu_torch.plan.dag",
+                   "defer_tpu_torch.plan.calibrate",
+                   "defer_tpu_torch.plan.replan")
+
+
+def test_planner_imports_with_jax_blocked():
+    """The planner's modules, the CLI and the re-exporting batcher import,
+    and a plan solves, with ``jax``, ``jaxlib`` and ``defer_tpu`` made
+    unimportable (a meta-path finder that refuses them)."""
+    mods = list(PLANNER_MODULES) + ["defer_tpu_torch.serve.batcher",
+                                    "defer_tpu_torch.graph.analysis",
+                                    "defer_tpu_torch.cli"]
+    code = (
+        "import importlib, json, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'defer_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from defer_tpu_torch import models, plan\n"
+        "g = models.resnet_tiny()\n"
+        "p = plan.solve(g, 3, plan.StageCostModel(g, gen='unknown'))\n"
+        "assert len(p.cuts) == 2\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(mods) <= set(loaded)
+    assert [m for m in loaded if _is_forbidden(m)] == []
 
 
 def test_host_cpp_is_the_ports_own_copy():

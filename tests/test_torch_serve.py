@@ -897,4 +897,8 @@ def test_top_level_exports():
                  "ServeClient"):
         assert getattr(dt, name) is getattr(tserve, name)
         assert name in dt.__all__
-    assert "max_batch_within_budget" not in tserve.__all__
+    # the planner's latency-budget query, re-exported as the JAX package
+    # does
+    from defer_tpu_torch.plan import cost as tcost
+    assert tserve.max_batch_within_budget is tcost.max_batch_within_budget
+    assert "max_batch_within_budget" in tserve.__all__
