@@ -148,9 +148,25 @@ Phases, in order; any failure exits non-zero before the result line:
                    BERT-Base over three persistent nodes by
                    ``replan``/``LiveReplan``, the stream byte-identical to
                    two undisturbed chains, 12 flash launches a frame;
+                n. replication and failover: ResNet50/8 with stage 1 as
+                   two replica processes, ``failover=True``, ``tier="auto"``
+                   (nine processes held open by ``deploy_chain``; the fan
+                   hops ride tcp, the rest shm): rows byte-identical to k's
+                   tcp rows, each replica half the frames, images/s beside
+                   k's and l's chains, per-node phase p50s; a ``SIGKILL``
+                   of replica 1 after 16 results: the rows unchanged, one
+                   ``replica_respawn``, ``failovers == 1`` on stage 0, the
+                   fan-in's duplicates, the recovery seconds and the
+                   respawn's seconds to bind and to its healed redial
+                   beside the 30 s grace; BERT-Base/12 in-process with
+                   stages 0, 5 and 11 as two replicas each (rows
+                   byte-identical to k's, 12 flash launches per frame,
+                   every frame once through each replicated stage);
+                   ``solve_replicated`` for nine processes on m's measured
+                   costs beside the measured rate;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
-              ``phase_seconds`` and
+              ``replication_path``, ``phase_seconds`` and
               ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``; each phase's seconds are
               also printed as it ends.
@@ -2853,6 +2869,7 @@ def chain_path(torch, device, kernels, card, mp, bp):
           f"wire), median of {CHAIN_ROUNDS} alternating rounds of "
           f"{CHAIN_TIMED_FRAMES} frames ({b_seqs} sequences), chain rows "
           f"{brel3:.3g} off the forward; on {card}", flush=True)
+    brows = np.stack(outs)
     del nodes, disp, bring
     free_card(torch)
 
@@ -2958,7 +2975,7 @@ def chain_path(torch, device, kernels, card, mp, bp):
           f"served 2 tenants x {DOOR_IMAGES} images in {door_s:.2f} s, "
           f"{door_rel:.3g} of max |logit| off the forward; phase 4k "
           f"{res['seconds']:.1f} s; on {card}", flush=True)
-    return res, raw
+    return res, raw, brows
 
 
 # ---------------------------------------------------------------------------
@@ -3499,6 +3516,9 @@ def planner_path(torch, device, kernels, card, mp, bp, shm_stats):
               f"{[(n, round(v * 1e3, 4)) for n, v in top]}; launches "
               f"{launches}; on {card}", flush=True)
 
+    # phase 4n prices its replicated plan on these
+    res["resnet50_node_costs"] = costs["resnet50_f32"]
+
     # --- 3: the planner's cuts through the ring ---------------------------
     cm = StageCostModel(g, batch=MICROBATCH, gen="h100",
                         node_costs=costs["resnet50_f32"])
@@ -3715,6 +3735,332 @@ def planner_path(torch, device, kernels, card, mp, bp, shm_stats):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4n: replication and failover
+# ---------------------------------------------------------------------------
+
+#: ResNet50/8's replicated stage (a): stage 1 as two node processes
+REPL_RESNET = {1: 2}
+#: BERT-Base/12's replicated stages (b): the dispatcher's own fan-out into
+#: stage 0, an interior fan-in below stage 5, the result merge of stage 11
+REPL_BERT = {0: 2, 5: 2, 11: 2}
+#: results that have arrived when stage 1's replica 1 is killed (a)
+KILL_AFTER = 16
+#: the node budget of the planner's replicated plan (c): (a)'s processes
+REPL_NODES = 9
+
+
+def replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
+                     brows, node_costs):
+    """Phase 4n.  a: ResNet50/8 (4a's cuts, f32, frames of MICROBATCH) with
+    stage 1 as two replica processes, ``failover=True`` and ``tier="auto"``,
+    nine node processes held open by ``deploy_chain``: hops 0->1 and 1->2
+    ride tcp (fan paths never negotiate), every other hop and both
+    dispatcher edges shm; rows byte-identical to 4k's raw tcp rows, each
+    replica processing half the frames; timed on CHAIN_TIMED_FRAMES-frame
+    streams (median of CHAIN_ROUNDS after the first stream) beside 4k's tcp
+    and 4l's shm chains.  Then one more stream, and a ``SIGKILL`` of stage
+    1's replica 1 once KILL_AFTER results have arrived: the rows equal the
+    undisturbed stream's, the supervisor respawns the process once (one
+    ``replica_respawn``), stage 0 heals its channel once (``failovers ==
+    1``), the fan-in's ``merge_duplicates`` are reported; the ``failover``
+    event's recovery seconds and the respawn's seconds from spawn to bind
+    and to the healed redial beside the fan-in's ``failover_grace_s``.
+    b: BERT-Base/12 as in-process nodes on tcp with stages 0, 5 and 11 as
+    two replicas each (the dispatcher fans out, stage 6 merges, the
+    dispatcher merges the results): rows byte-identical to 4k's in-process
+    chain rows, 12 flash launches per frame in all, each replicated
+    stage's two replicas processing every frame once between them, both
+    nonzero; timed as a.  c: ``solve_replicated`` on 4m's measured ResNet50
+    node costs for REPL_NODES processes: its cuts, replica counts and
+    predicted images/s beside a's measured rate (a print: on one card the
+    replicas share the device)."""
+    import os
+    import signal
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch.obs.events import recorder
+    from defer_tpu_torch.partition import partition
+    from defer_tpu_torch.plan import StageCostModel, solve_replicated
+    from defer_tpu_torch.runtime.node import (ChainDispatcher, StageNode,
+                                              deploy_chain)
+
+    res = {"card": card, "timed_frames": CHAIN_TIMED_FRAMES,
+           "kill_after": KILL_AFTER}
+    t_phase = time.perf_counter()
+    g, params, cuts = mp["graph"], mp["params"], mp["cuts"]
+    stages = partition(g, cuts)
+    n = len(stages)
+    n_frames = CHAIN_IMAGES // MICROBATCH
+    frames = [mp["inputs"][i] for i in range(n_frames)]
+    timed = [frames[i % n_frames] for i in range(CHAIN_TIMED_FRAMES)]
+    cyc = np.arange(CHAIN_TIMED_FRAMES) % n_frames
+    t_images = CHAIN_TIMED_FRAMES * MICROBATCH
+    (k_rep, r_rep), = REPL_RESNET.items()
+
+    # --- a: ResNet50/8, stage 1 twice, failover, nine processes ---------
+    # one row per node, stage by stage: each stage's OUTBOUND tier
+    want_tiers = ["tcp"] * (k_rep + r_rep) + ["shm"] * (n - k_rep - 1)
+    with deploy_chain(stages, params, batch=MICROBATCH, replicas=REPL_RESNET,
+                      failover=True, tier="auto", device=device) as chain:
+        disp = chain.dispatcher
+        t0 = time.perf_counter()
+        out = np.stack(disp.stream(frames))
+        first_s = time.perf_counter() - t0
+        if not np.array_equal(out, raw):
+            fail("phase 4n: the replicated chain's rows differ from phase "
+                 "4k's raw tcp rows")
+        st = disp.stats(chain.addrs)
+        hops = [s["tier"] for s in st]
+        shares = [s["processed"] for s in st if s["stage"] == k_rep]
+        if (len(chain.procs) != n + r_rep - 1 or hops != want_tiers
+                or (disp.tier_out, disp.tier_in) != ("shm", "shm")
+                or any(s["tier_fallbacks"] for s in st)
+                or sum(shares) != n_frames or min(shares) == 0):
+            fail(f"phase 4n replicated chain: {len(chain.procs)} processes, "
+                 f"hops {hops}, dispatcher {disp.tier_out}/{disp.tier_in}, "
+                 f"fallbacks {[s['tier_fallbacks'] for s in st]}, stage "
+                 f"{k_rep} shares {shares} (want {n + r_rep - 1} processes, "
+                 f"hops {want_tiers}, shm edges, every replica a share of "
+                 f"{n_frames} frames)")
+        walls = []
+        for _ in range(CHAIN_ROUNDS):
+            t0 = time.perf_counter()
+            outs = np.stack(disp.stream(timed))
+            walls.append(time.perf_counter() - t0)
+        if not np.array_equal(outs, raw[cyc]):
+            fail("phase 4n: a timed stream's rows differ from 4k's raw rows")
+        st = disp.stats(chain.addrs)
+        shares = [s["processed"] for s in st if s["stage"] == k_rep]
+        res["resnet50"] = {
+            "replicas": {f"stage{k}": r for k, r in REPL_RESNET.items()},
+            "processes": len(chain.procs), "hops": [disp.tier_out] + hops,
+            "byte_identical_to_tcp": True, "boot_s": chain.boot_s,
+            "first_stream_to_last_result_s": first_s,
+            "chain_images_per_s": t_images / statistics.median(walls),
+            "chain_walls_s": walls,
+            "tcp_chain_images_per_s":
+                ch["resnet50_raw"]["chain_images_per_s"],
+            "shm_chain_images_per_s": co["shm"]["chain_images_per_s"],
+            "replica_frame_share": [v / sum(shares) for v in shares],
+            "launches": _sum_launches(st),
+            "nodes": [f"stage{s['stage']}" + ("" if s["replica"] is None
+                                              else f".r{s['replica']}")
+                      for s in st],
+            **_node_phases(st)}
+        r = res["resnet50"]
+        print(f"replication path: resnet50 in {len(chain.procs)} processes, "
+              f"stage {k_rep} x {r_rep}, failover armed (hops "
+              f"{r['hops']}; rows byte-identical to 4k's tcp rows): boot "
+              f"{chain.boot_s:.2f} s, first stream {first_s:.2f} s; "
+              f"{r['chain_images_per_s']:.1f} images/s against 4k's tcp "
+              f"chain {r['tcp_chain_images_per_s']:.1f} and 4l's shm chain "
+              f"{r['shm_chain_images_per_s']:.1f}; replica frame shares "
+              f"{[round(v, 4) for v in r['replica_frame_share']]}; infer p50 "
+              f"ms {[round(v, 3) for v in r['infer_p50_ms']]}; dispatch "
+              f"{[round(v, 3) for v in r['dispatch_p50_ms']]}, queue "
+              f"{[round(v, 3) for v in r['queue_p50_ms']]}, device "
+              f"{[round(v, 3) for v in r['device_p50_ms']]}, host_sync "
+              f"{[round(v, 3) for v in r['host_sync_p50_ms']]} (nodes "
+              f"{r['nodes']}); on {card}", flush=True)
+
+        # the kill: item 2 * KILL_AFTER is drawn only once KILL_AFTER
+        # results have released the window
+        victim = chain.pid(k_rep, 1)
+        killed: dict = {}
+
+        def feed():
+            for i, x in enumerate(timed):
+                if i == 2 * KILL_AFTER:
+                    os.kill(victim, signal.SIGKILL)
+                    killed["at"] = time.time()
+                yield x
+
+        respawn_evs0 = sum(e["kind"] == "replica_respawn"
+                           for e in recorder().snapshot())
+        window, disp.window = disp.window, KILL_AFTER
+        t0 = time.perf_counter()
+        outs = np.stack(disp.stream(feed()))
+        kill_s = time.perf_counter() - t0
+        disp.window = window
+        if not killed:
+            fail("phase 4n: the kill stream never reached its kill")
+        if not np.array_equal(outs, raw[cyc]):
+            fail("phase 4n: the rows across the SIGKILL differ from the "
+                 "undisturbed stream's")
+        deadline = time.monotonic() + 30
+        while (not chain.respawns or chain.respawns[0]["ready_s"] is None) \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        st = disp.stats(chain.addrs)
+        respawn_evs = sum(e["kind"] == "replica_respawn"
+                          for e in recorder().snapshot()) - respawn_evs0
+        fo = [e for e in st[0]["events"]["events"] if e["kind"] == "failover"]
+        fan_in = st[k_rep + r_rep]
+        if (len(chain.respawns) != 1 or respawn_evs != 1
+                or st[0]["failovers"] != 1 or len(fo) != 1
+                or chain.respawns[0]["ready_s"] is None
+                or not 0 < chain.respawns[0]["bind_s"]
+                <= chain.respawns[0]["ready_s"]
+                or chain.pid(k_rep, 1) == victim):
+            fail(f"phase 4n kill: respawns {chain.respawns}, "
+                 f"replica_respawn events {respawn_evs}, stage 0 failovers "
+                 f"{st[0]['failovers']}, failover events {fo} (want one "
+                 f"respawn that booted, one event, one failover)")
+        rec = chain.respawns[0]
+        res["failover"] = {
+            "byte_identical": True, "respawns": len(chain.respawns),
+            "replica_respawn_events": respawn_evs,
+            "stage0_failovers": st[0]["failovers"],
+            "failover_event": fo[0]["data"],
+            "recovery_s": fo[0]["data"]["recovery_ms"] / 1e3,
+            "respawn_rc": rec["rc"],
+            "kill_to_spawn_s": rec["spawned_at"] - killed["at"],
+            # the node binds first (its listening line carries the bind's
+            # time), then makes its CUDA context and loads its artifact,
+            # and prints the line: the redial connects at the bind, the
+            # heal ends once the replay is written (a replay larger than
+            # the socket buffers waits for the boot)
+            "spawn_to_bind_s": rec["bind_s"],
+            "spawn_to_ready_s": rec["ready_s"],
+            "spawn_to_healed_redial_s":
+                fo[0]["t_us"] / 1e6 - rec["spawned_at"],
+            "failover_grace_s": 30.0,
+            "merge_duplicates": fan_in["merge_duplicates"],
+            "stream_s": kill_s, "stage0_replay_depth": st[0]["replay_depth"]}
+        r = res["failover"]
+        print(f"replication path: SIGKILL of stage{k_rep}.r1 (pid {victim}) "
+              f"after {KILL_AFTER} results: rows byte-identical to the "
+              f"undisturbed stream; {r['respawns']} respawn (rc {rec['rc']}, "
+              f"{r['replica_respawn_events']} replica_respawn event), stage 0 "
+              f"failovers {r['stage0_failovers']}, fan-in merge_duplicates "
+              f"{r['merge_duplicates']}; failover recovery "
+              f"{r['recovery_s']:.3f} s (replayed "
+              f"{r['failover_event'].get('replayed')}); kill to spawn "
+              f"{r['kill_to_spawn_s']:.2f} s, spawn to its bind "
+              f"{r['spawn_to_bind_s']:.2f} s and to its listening line "
+              f"{r['spawn_to_ready_s']:.2f} s, spawn to the healed redial "
+              f"{r['spawn_to_healed_redial_s']:.2f} s against the fan-in's "
+              f"grace of {r['failover_grace_s']:.0f} s; the stream took "
+              f"{kill_s:.2f} s; on {card}", flush=True)
+    free_card(torch)
+
+    # --- b: BERT-Base/12 in-process, stages 0, 5 and 11 replicated -------
+    bg, bparams = bp["graph"], bp["params"]
+    bstages = partition(bg, bp["cuts"])
+    nb = len(bstages)
+    blocks = sum(name.startswith("block_") for name in bg.topo_order)
+    b_frames = CHAIN_SEQS // MICROBATCH
+    all_ids = [x.astype(np.int32) for x in bp["inputs"]]
+    ids = all_ids[:b_frames]
+    timed_ids = [all_ids[i % len(all_ids)]
+                 for i in range(CHAIN_TIMED_FRAMES)]
+    r_of = [REPL_BERT.get(k, 1) for k in range(nb)]
+    groups = [[StageNode(None, "127.0.0.1:0", None, device=device)
+               for _ in range(r_of[k])] for k in range(nb)]
+    addrs = [[f"127.0.0.1:{nd.address[1]}" for nd in grp] for grp in groups]
+    flat = [a for grp in addrs for a in grp]
+    ths = [threading.Thread(target=nd.serve, daemon=True)
+           for grp in groups for nd in grp]
+    for t in ths:
+        t.start()
+    disp = ChainDispatcher(",".join(addrs[0]), result_fan_in=r_of[-1])
+    try:
+        t0 = time.perf_counter()
+        disp.deploy(bstages, bparams, [a[0] if len(a) == 1 else a
+                                       for a in addrs], batch=MICROBATCH)
+        deploy_s = time.perf_counter() - t0
+        zero_counts(kernels)
+        outs = np.stack(disp.stream(ids))
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        want = {"flash_attention": blocks * b_frames, "quant_int8": 0}
+        if launches != want:
+            fail(f"phase 4n: replicated bert chain launches {launches}, want "
+                 f"{want} ({blocks} per frame)")
+        if not np.array_equal(outs, brows):
+            fail("phase 4n: the replicated bert chain's rows differ from "
+                 "4k's in-process chain rows")
+        zero_counts(kernels)
+        walls = []
+        for _ in range(CHAIN_ROUNDS):
+            t0 = time.perf_counter()
+            touts = np.stack(disp.stream(timed_ids))
+            walls.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        launches_t = read_counts(kernels)
+        st = disp.stats(flat)
+    finally:
+        disp.close()
+    for t in ths:
+        t.join(timeout=60)
+    if any(t.is_alive() for t in ths):
+        fail("phase 4n: replicated bert chain nodes did not drain")
+    brel = _rel_err(touts, bp["ref"][np.arange(CHAIN_TIMED_FRAMES)
+                                     % len(all_ids)],
+                    "4n replicated bert timed stream", BUFFER_REL_BOUND)
+    total = b_frames + CHAIN_ROUNDS * CHAIN_TIMED_FRAMES
+    want_t = {"flash_attention": blocks * CHAIN_ROUNDS * CHAIN_TIMED_FRAMES,
+              "quant_int8": 0}
+    split = {k: [s["processed"] for s in st if s["stage"] == k]
+             for k in REPL_BERT}
+    bad = {k: v for k, v in split.items()
+           if len(v) != REPL_BERT[k] or sum(v) != total or min(v) == 0}
+    if launches_t != want_t or bad:
+        fail(f"phase 4n replicated bert chain: timed launches {launches_t} "
+             f"(want {want_t}), replica shares {split} (want {total} frames "
+             f"between each stage's replicas, none idle)")
+    fan_ins = [s["fan_in"] for s in st]
+    res["bert_base"] = {
+        "replicas": {f"stage{k}": r for k, r in REPL_BERT.items()},
+        "nodes": len(flat), "deploy_s": deploy_s,
+        "byte_identical_to_4k": True, "rel_err_timed": brel,
+        "chain_sequences_per_s": CHAIN_TIMED_FRAMES * MICROBATCH
+        / statistics.median(walls),
+        "chain_walls_s": walls,
+        "tcp_chain_sequences_per_s": ch["bert_base"]["chain_sequences_per_s"],
+        "launches": launches, "launches_timed_rounds": launches_t,
+        "replica_processed": {f"stage{k}": v for k, v in split.items()},
+        "fan_in": fan_ins, **_node_phases(st)}
+    r = res["bert_base"]
+    print(f"replication path: bert_base in {len(flat)} in-process nodes, "
+          f"stages {sorted(REPL_BERT)} x 2 on tcp (fan_in {fan_ins}): rows "
+          f"byte-identical to 4k's chain rows, launches {launches} for "
+          f"{b_frames} frames and {launches_t} for {CHAIN_ROUNDS} x "
+          f"{CHAIN_TIMED_FRAMES}; replicas processed "
+          f"{r['replica_processed']}; {r['chain_sequences_per_s']:.1f} seq/s "
+          f"against 4k's unreplicated chain "
+          f"{r['tcp_chain_sequences_per_s']:.1f}; deploy {deploy_s:.2f} s; "
+          f"on {card}", flush=True)
+    del groups, disp
+    free_card(torch)
+
+    # --- c: the planner's replicated plan for the same budget ------------
+    cm = StageCostModel(g, batch=MICROBATCH, gen="h100",
+                        node_costs=node_costs)
+    plan = solve_replicated(g, cm, num_nodes=REPL_NODES).to_json()
+    res["plan"] = {"num_nodes": REPL_NODES, "cuts": plan["cuts"],
+                   "replicas": plan["replicas"],
+                   "bottleneck_ms": plan["bottleneck_ms"],
+                   "predicted_images_per_s":
+                       MICROBATCH / plan["bottleneck_ms"] * 1e3,
+                   "measured_images_per_s":
+                       res["resnet50"]["chain_images_per_s"]}
+    r = res["plan"]
+    print(f"replication path: solve_replicated(resnet50, num_nodes="
+          f"{REPL_NODES}) on 4m's measured costs: cuts {r['cuts']}, replicas "
+          f"{r['replicas']}, predicted bottleneck {r['bottleneck_ms']:.4f} ms "
+          f"-> {r['predicted_images_per_s']:.1f} images/s, beside a's "
+          f"measured {r['measured_images_per_s']:.1f} at the paper's cuts "
+          f"with stage 1 x 2 (one card: the replicas share it)", flush=True)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"replication path: phase 4n {res['seconds']:.1f} s; on {card}",
+          flush=True)
+    return res
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -3909,7 +4255,7 @@ def main() -> int:
     # phase 4k: the stage-node chain; the counts zeroed just before each
     # stream of the in-process chain, the node processes' own counts read
     # from their stats
-    ch, raw = chain_path(torch, device, kernels, card, mp, bp)
+    ch, raw, brows = chain_path(torch, device, kernels, card, mp, bp)
     phase_done("4k")
 
     # phase 4l: the colocated tiers; the counts zeroed just before each
@@ -3922,7 +4268,15 @@ def main() -> int:
     # phase 4m: the planner; the counts zeroed just before each measured
     # cost map, each Defer.run and each stream of the live chain
     pl = planner_path(torch, device, kernels, card, mp, bp, shm_stats)
+    node_costs = pl.pop("resnet50_node_costs")
     phase_done("4m")
+
+    # phase 4n: replication and failover; the counts zeroed just before
+    # each stream of the in-process BERT chain, the node processes' own
+    # counts read from their stats
+    rp = replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
+                          brows, node_costs)
+    phase_done("4n")
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
@@ -3961,6 +4315,10 @@ def main() -> int:
         by_path[f"resnet50_int8_{key}_cuts"] = r["launches"]
     for seg, c in pl["cutover"]["launches"].items():
         by_path[f"bert_base_live_cutover_{seg}_segment"] = c
+    by_path["resnet50_chain_replicated_failover"] = rp["resnet50"]["launches"]
+    by_path["bert_base_chain_replicated"] = rp["bert_base"]["launches"]
+    by_path["bert_base_chain_replicated_timed"] = rp["bert_base"][
+        "launches_timed_rounds"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -4030,6 +4388,8 @@ def main() -> int:
         **co}}))
     print(json.dumps({"planner_path": {
         "models": "resnet50 + bert_base", "microbatch": MICROBATCH, **pl}}))
+    print(json.dumps({"replication_path": {
+        "models": "resnet50 + bert_base", "microbatch": MICROBATCH, **rp}}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")

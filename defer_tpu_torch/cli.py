@@ -109,20 +109,32 @@ def cmd_node(args) -> None:
 
     def boot(artifact, listen, nxt, codec, tier, accept, device,
              primary):
+        # --fan-in/--replica describe the primary node's place in a fan;
+        # housemates sit on in-process hops, which never touch a
+        # replicated stage, so they take neither
         node = StageNode(artifact, listen, nxt,
                          codec=codec, overlap=not args.no_overlap,
                          rx_depth=args.rx_depth, tx_depth=args.tx_depth,
                          inflight=args.inflight,
+                         fan_in=args.fan_in if primary else 1,
+                         replica=args.replica if primary else None,
                          infer_delay_s=args.infer_delay_ms / 1e3
                          if primary else 0.0,
                          tier=tier, tier_accept=accept, device=device,
-                         persist=args.persist)
-        what = (f"stage {node.manifest['index']} ({node.manifest['name']})"
-                if node.manifest else "EMPTY (awaiting in-band deploy)")
+                         failover=args.failover, persist=args.persist)
+        m = node.manifest
+        what = (f"stage {m['index']} ({m['name']})" if m
+                else "EMPTY (awaiting in-band deploy)")
+        if node.replica is not None:
+            what += f" replica {node.replica}"
+        if node.fan_in > 1:
+            what += f" fan-in {node.fan_in}"
+        # the bind's wall-clock time rides the line, so a spawner that
+        # times a respawn tells the bind from the boot that follows it
         print(f"node: {what} on {node.device} listening on "
               f"{node.address[0]}:{node.address[1]}, next {nxt}"
-              f"{' [serial]' if args.no_overlap else ''}",
-              file=sys.stderr, flush=True)
+              f"{' [serial]' if args.no_overlap else ''}, bound at "
+              f"{node.bound_at:.6f}", file=sys.stderr, flush=True)
         return node
 
     accept = (args.tier != "tcp") if args.tier_accept == "auto" \
@@ -187,6 +199,7 @@ def cmd_chain(args) -> None:
               .astype(np.int32) for _ in range(args.count)]
     hop_tiers = ([t.strip() for t in args.hop_tiers.split(",") if t.strip()]
                  if args.hop_tiers else None)
+    replicas = _parse_replicas(args.replicas)
     device_map = None
     if args.device_map:
         device_map = {}
@@ -203,10 +216,10 @@ def cmd_chain(args) -> None:
     outs = run_chain(stages, params, xs, batch=args.batch, codec=args.codec,
                      in_band=args.in_band, overlap=not args.no_overlap,
                      rx_depth=args.rx_depth, tx_depth=args.tx_depth,
-                     inflight=args.inflight, stats_out=stats,
-                     tier=args.tier, hop_tiers=hop_tiers,
+                     inflight=args.inflight, replicas=replicas or None,
+                     stats_out=stats, tier=args.tier, hop_tiers=hop_tiers,
                      devices=args.devices, device_map=device_map,
-                     device=args.device)
+                     failover=args.failover, device=args.device)
     dt = time.perf_counter() - t0
 
     dev = resolve_device(args.device)
@@ -216,17 +229,32 @@ def cmd_chain(args) -> None:
         worst = max(float(np.abs(
             graph.apply(pdev, torch.from_numpy(x).to(dev)).cpu().numpy()
             - y).max()) for x, y in zip(xs, outs))
+    # the negotiated tier per deployed stage (a replicated stage's fan is
+    # one tcp policy): device-tier fusion merges stages before the spawn,
+    # so the row describes what ran
+    tier_of: dict[int, str] = {}
+    for s in stats:
+        tier_of.setdefault(int(s["stage"]), s["tier"])
+    order = sorted(tier_of)
     row = {
         "metric": f"{args.model}_{len(stages)}proc_chain",
         "value": round(len(xs) * args.batch / dt, 3),
         "unit": "inferences/sec",
-        "stages": len(stats), "codec": args.codec, "tier": args.tier,
+        "stages": len(order), "codec": args.codec, "tier": args.tier,
         "overlap": not args.no_overlap, "device": str(dev),
-        "hop_tiers": [s["tier"] for s in stats[:-1]],
-        "result_tier": stats[-1]["tier"],
+        "hop_tiers": [tier_of[k] for k in order[:-1]],
+        "result_tier": tier_of[order[-1]],
         "max_abs_err_vs_single_program": worst,
         "kernel_launches": [s["kernel_launches"] for s in stats],
     }
+    if replicas:
+        row["replicas"] = {f"stage{k}": r
+                           for k, r in sorted(replicas.items())}
+        # how the round-robin split the frames, replica by replica
+        row["per_node_processed"] = [
+            {"stage": s["stage"], "replica": s["replica"],
+             "processed": s["processed"]} for s in stats]
+        row["failovers"] = sum(s["failovers"] for s in stats)
     if args.emit_calibration:
         from .plan.calibrate import CalibrationError, fit_from_stats
         from .utils import hw
@@ -240,6 +268,27 @@ def cmd_chain(args) -> None:
         cal.save(args.emit_calibration)
         row["calibration"] = args.emit_calibration
     print(json.dumps(row))
+
+
+def _parse_replicas(spec: str, flag: str = "--replicas") -> dict[int, int]:
+    """``stage1=2,stage3=3`` (or bare ``1=2,3=3``) -> {1: 2, 3: 3}; ``flag``
+    names the error."""
+    out: dict[int, int] = {}
+    for part in (spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        k, _, v = part.partition("=")
+        if not v:
+            raise SystemExit(f"{flag}: {part!r} is not stageK=N")
+        k = k.strip().lower()
+        if k.startswith("stage"):
+            k = k[len("stage"):]
+        try:
+            out[int(k)] = int(v)
+        except ValueError:
+            raise SystemExit(f"{flag}: {part!r} is not stageK=N")
+    return out
 
 
 def _add_cost_flags(p):
@@ -625,6 +674,21 @@ def main(argv=None) -> None:
                          "sleep<ms>+<codec> (bench-only delay wrapper; "
                          "esleep/dsleep delay one side only)")
     nd.add_argument("--connect-timeout", type=float, default=30.0)
+    nd.add_argument("--fan-in", type=int, default=1, metavar="R",
+                    help="merge R sequence-stamped upstream connections "
+                         "(this node sits below a replicated stage) "
+                         "through a bounded reorder buffer")
+    nd.add_argument("--replica", type=int, default=None, metavar="N",
+                    help="this process is replica N of its stage "
+                         "(labels stageK.rN spans and stats)")
+    nd.add_argument("--failover", action="store_true",
+                    help="arm the seq-replay plane on this node: a "
+                         "fan-out retains sent frames until the fan-in "
+                         "below acks them and heals dead replica "
+                         "channels; a replica relays acks upstream; a "
+                         "fan-in waits a grace period for a dead "
+                         "upstream's replacement and drops replayed "
+                         "duplicates")
     nd.add_argument("--infer-delay-ms", type=float, default=0.0,
                     help="bench-only: sleep this long per frame in the "
                          "compute loop (simulated device time)")
@@ -676,6 +740,17 @@ def main(argv=None) -> None:
     c.add_argument("--in-band", action="store_true",
                    help="boot nodes empty; ship artifacts over the "
                         "control handshake")
+    c.add_argument("--replicas", default="", metavar="stageK=R,...",
+                   help="run stage K as R data-parallel replica processes "
+                        "(ordered fan-out/fan-in; adjacent stages cannot "
+                        "both be replicated)")
+    c.add_argument("--failover", action="store_true",
+                   help="arm the seq-replay plane: fan-outs retain frames "
+                        "until acked and heal dead replica channels, a "
+                        "supervisor respawns killed replica processes, "
+                        "and the stream completes byte-identical; needs an "
+                        "interior replicated stage (--replicas) and "
+                        "artifacts on the command line (no --in-band)")
     c.add_argument("--device", default="cuda",
                    help="where every node runs: cuda (the default) or cpu")
     c.add_argument("--tier", choices=["auto", "shm", "tcp"], default="auto",

@@ -1,6 +1,6 @@
 """Log-bucketed latency histogram: constant-time recording.
 
-The port's copy of ``defer_tpu.obs.histogram`` (without ``merge``).
+The port's copy of ``defer_tpu.obs.histogram``.
 
 Buckets are geometric with 8 sub-buckets per power of two (~6% relative
 resolution), indexed straight off ``math.frexp`` — no log() call, no
@@ -67,6 +67,16 @@ class LatencyHistogram:
         idx = _bucket_index(v if v > _FLOOR else _FLOOR)
         c = self._counts
         c[idx] = c.get(idx, 0) + 1
+
+    def merge(self, other: "LatencyHistogram") -> "LatencyHistogram":
+        """Fold ``other`` into self (a fan-out's per-channel shards)."""
+        for idx, n in other._counts.items():
+            self._counts[idx] = self._counts.get(idx, 0) + n
+        self.count += other.count
+        self.sum += other.sum
+        self.min = min(self.min, other.min)
+        self.max = max(self.max, other.max)
+        return self
 
     def quantile(self, q: float) -> float:
         """Value at quantile ``q`` in [0, 1]; 0.0 on an empty histogram."""

@@ -37,10 +37,24 @@ frames un-synced, and the DEVICE phase waits on the event before the
 HOST_SYNC phase copies the output to the host — or, on an ici hop, hands
 the tensor on without any host copy (its ``host_sync`` records nothing).
 
+Replication (the JAX package's design, ``transport/replicate.py``): a
+``next`` hop may name R comma-separated replicas of the downstream stage,
+and frames then fan out round-robin with sequence numbers; a node with
+``fan_in=R`` merges R sequence-stamped upstream connections through a
+bounded reorder buffer that releases frames strictly in order; ``replica``
+labels a node's spans and stats ``stageK.rN``.  Fan paths ride tcp.  With
+``failover`` the fan-out retains each frame until the fan-in's cumulative
+``replay_ack`` (relayed upstream by the replicas on their inbound
+sockets), heals a dead replica channel by redialing and replaying
+(``transport/replay.py`` ``ReplayFanOut``), and the fan-in waits one
+``failover_grace_s`` for the respawned replica and drops the replayed
+duplicates; ``deploy_chain``'s supervisor respawns a dead replica
+process from its argv on the same port.
+
 What this module leaves out raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: replicas, fan-in and failover (A10b),
-branches and joins (A10c), clock alignment, live telemetry pushes and
-profiling sessions (A12).
+ROADMAP item that brings it: branches and joins (A10c), clock alignment,
+live telemetry pushes, profiling sessions and the flight-recorder journal
+(A12).
 """
 
 from __future__ import annotations
@@ -49,6 +63,7 @@ import collections
 import contextlib
 import os
 import queue
+import re
 import socket
 import subprocess
 import sys
@@ -71,6 +86,8 @@ from ..transport.framed import (K_ACK, K_BYTES, K_CTRL, K_END, K_TENSOR,
                                 send_ack, send_ctrl, send_end, send_frame)
 from ..transport.ici import IciSender
 from ..transport.local import answer_probe
+from ..transport.replay import ACK_EVERY, ReplayFanOut
+from ..transport.replicate import FanInMerge, FanOutSender
 from ..transport.shm import (ShmSender, answer_tier_probe,
                              offer_tier_ladder, sweep_orphan_segments)
 from ..utils.config import resolve_device
@@ -82,11 +99,18 @@ _SHUTDOWN = object()
 #: the transport tiers a node or a dispatcher offers on its outbound hop
 _TIERS = ("tcp", "auto", "local", "shm", "ici")
 
+#: fan-in dedup window under failover: how far behind the merge head a
+#: replayed duplicate may land and still be dropped silently.  It bounds
+#: the fan-out's retained window (ack lag plus reorder capacity) with an
+#: order of magnitude of slack; beyond it a duplicate raises as in strict
+#: mode
+_REPLAY_DEDUP_WINDOW = 4096
+
 
 def _not_ported(item: str, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP item {item}); the port runs "
-        f"the linear chain")
+        f"linear and replicated chains")
 
 
 def _check_tier(tier: str, who: str) -> str:
@@ -121,13 +145,11 @@ def _parse_hostport(s: str, default_host: str = "127.0.0.1"
     return (host or default_host), int(port)
 
 
-def _parse_hop(s: str) -> tuple[str, int]:
-    """``host:port`` -> (host, port).  A comma list names replicas of the
-    downstream stage, which the port does not run yet."""
-    hops = [p for p in s.split(",") if p]
-    if len(hops) != 1:
-        raise _not_ported("A10b", "a replicated downstream stage (fan-out)")
-    return _parse_hostport(hops[0])
+def _parse_hops(s: str) -> list[tuple[str, int]]:
+    """``host:port[,host:port...]`` -> list of (host, port).  More than one
+    entry names replicas of the downstream stage: the sender fans out
+    round-robin with sequence numbers."""
+    return [_parse_hostport(p) for p in s.split(",") if p]
 
 
 def _kernel_launches() -> dict[str, int]:
@@ -143,7 +165,9 @@ class StageNode:
     that receives its stage artifact in-band over the control handshake,
     as the reference node gets its model over the wire
     (src/node.py:20-55).  ``artifact`` (a path) pre-loads one instead, with
-    ``next_hop`` naming the successor.
+    ``next_hop`` naming the successor; it loads on a thread of its own
+    after the bind, while the node already serves (``prog`` and
+    ``manifest`` wait for it, and raise if it failed).
 
     ``device`` is where the stage program runs: the CUDA card by default,
     ``"cuda:J"`` or a bare index ``J`` for card J, ``"cpu"`` only when
@@ -152,37 +176,70 @@ class StageNode:
     downstream connection opens; ``"ici"``/``"local"``/``"shm"`` offer that
     rung alone.  ``tier_accept`` (the default) grants inbound offers whose
     proof holds; ``False`` answers every offer with tcp.
+
+    Replication: ``next_hop`` may name R comma-separated replicas of the
+    downstream stage (frames fan out round-robin with sequence numbers);
+    ``fan_in=R`` merges R sequence-stamped upstream connections in order;
+    ``replica=N`` labels this node replica N of its stage (``stageK.rN``).
+    ``failover`` arms the seq-replay plane: a fan-out retains and heals, a
+    replica relays acks upstream, a fan-in acks, drops replayed duplicates
+    and waits ``failover_grace_s`` for a dead upstream's replacement before
+    it fails the stream.  Fan paths never probe a tier,
+    so a shm/ici/local pin on a replica or a fan-out raises ``ValueError``.
     """
 
     def __init__(self, artifact: str | None, listen: str,
                  next_hop: str | None, *, codec: str = "raw",
                  overlap: bool = True, rx_depth: int = 8,
                  tx_depth: int = 8, inflight: int = 2,
+                 fan_in: int = 1, replica: int | None = None,
                  infer_delay_s: float = 0.0, tier: str = "tcp",
                  tier_accept: bool = True, device=None,
+                 failover: bool = False, failover_grace_s: float = 30.0,
                  persist: bool = False):
         self.tier = _check_tier(tier, "StageNode")
         self.tier_accept = bool(tier_accept)
         self.device = _pin_device(device)
+        self.next_hops = _parse_hops(next_hop) if next_hop else None
+        self.replica = None if replica is None else int(replica)
+        self.fan_in = max(1, int(fan_in))
+        self._check_tier_pin()
+        # bind before the slow part of the boot (the CUDA context and the
+        # artifact load), so upstream connect-retries land as soon as the
+        # process exists; ``bound_at`` (wall clock) marks the bind for a
+        # spawner that times a respawn's boot
+        host, port = _parse_hostport(listen, "0.0.0.0")
+        self._srv = socket.create_server((host, port))
+        self.address = self._srv.getsockname()
+        self.bound_at = time.time()
         if self.device.type == "cuda":
             # the CUDA context, made before the bind is announced: chain
             # processes boot theirs in parallel, not at their deploy turn
             torch.empty(0, device=self.device)
         from ..utils.export import load_stage_program
-        host, port = _parse_hostport(listen, "0.0.0.0")
-        self._srv = socket.create_server((host, port))
-        self.address = self._srv.getsockname()
         self.prog = None
         if artifact is not None:
             self.prog = load_stage_program(artifact, device=self.device)
-        self.next_hop = _parse_hop(next_hop) if next_hop else None
         self.codec = codec
         self.overlap = overlap
         self.rx_depth = rx_depth
         self.tx_depth = tx_depth
         self.inflight = max(1, inflight)
         self.infer_delay_s = max(0.0, float(infer_delay_s))
+        self.failover = bool(failover)
+        self.failover_grace_s = float(failover_grace_s)
         self.persist = bool(persist)
+        #: fan-in state: the reorder merge shared by the upstream reader
+        #: connections and the one compute loop (lazy, lock-guarded), the
+        #: live upstream connections the ack plane writes to, and the
+        #: registration epoch a respawned upstream's dial-in bumps (which
+        #: cancels the grace timer)
+        self._merge: FanInMerge | None = None
+        self._merge_lock = threading.Lock()
+        self._fanin_conns: list | None = None
+        self._fanin_epoch = 0
+        #: duplicates the last finished merge segment dropped
+        self._merge_dups = 0
         self.tier_out: str | None = None
         self.tier_in: str | None = None
         #: outbound offers that degraded to tcp (this hop's fallback twin)
@@ -219,6 +276,31 @@ class StageNode:
     def manifest(self):
         return None if self.prog is None else self.prog.manifest
 
+    @property
+    def next_hop(self) -> tuple[str, int] | None:
+        """The first downstream hop (``next_hops`` holds every replica)."""
+        return self.next_hops[0] if self.next_hops else None
+
+    @next_hop.setter
+    def next_hop(self, value: tuple[str, int] | None) -> None:
+        self.next_hops = None if value is None else [value]
+
+    def _check_tier_pin(self) -> None:
+        """Refuse an explicit colocated-tier pin (shm/ici/local) on a node
+        whose hop rides the ordered fan machinery (a replica into a fan-in,
+        a fan-out): those paths are wire-framed, so the offer would be
+        skipped and the hop would run over tcp under a tier claim.
+        ``auto`` stays allowed (riding tcp there is policy)."""
+        if self.tier not in ("shm", "ici", "local"):
+            return
+        role = ("replica" if self.replica is not None
+                else "fan-out" if self.next_hops
+                and len(self.next_hops) > 1 else None)
+        if role is not None:
+            raise ValueError(
+                f"tier {self.tier!r} pinned on a {role} node; fan paths "
+                f"ride tcp (drop the replicas/branching or the tier pin)")
+
     def set_device(self, device) -> None:
         """Pin this node's stage program to ``device`` (``cuda:J``, a bare
         index ``J``, ``cpu``): its outputs live there, and an upstream ici
@@ -232,9 +314,12 @@ class StageNode:
             self.prog.place(self.device)
 
     def _span_label(self) -> str:
+        """The prefix of this node's spans and events; a replica's is
+        ``stageK.rN``."""
         m = self.manifest
-        return (f"stage{m['index']}" if m is not None
+        base = (f"stage{m['index']}" if m is not None
                 else f"node{self.address[1]}")
+        return base if self.replica is None else f"{base}.r{self.replica}"
 
     # -- the four phases of a frame ------------------------------------------
 
@@ -333,23 +418,51 @@ class StageNode:
                 f"got a frame of {value.shape[0]}")
 
     def _make_tx(self, connect_timeout_s: float):
-        """Open the downstream connection: ``(sender, socket)``.
+        """Open the downstream connection(s): ``(sender, sockets)``.
 
-        With a ``tier`` other than tcp the hop walks the tier ladder
-        (``transport.shm.offer_tier_ladder``, shared with the dispatcher's
-        first edge) and takes the first rung granted: its sender replaces
-        the wire, and the socket stays open as the hop's lifetime anchor
-        (and, on shm, its doorbell).  Every rung refused, the hop rides
-        tcp with this hop's one fallback counted.  Either way a ``tier``
-        event names the outcome, and the pending trace context goes ahead
-        of the first tensor."""
-        if self.next_hop is None:
+        One next hop: with a ``tier`` other than tcp the hop walks the
+        tier ladder (``transport.shm.offer_tier_ladder``, shared with the
+        dispatcher's first edge) and takes the first rung granted: its
+        sender replaces the wire, and the socket stays open as the hop's
+        lifetime anchor (and, on shm, its doorbell).  Every rung refused,
+        the hop rides tcp with this hop's one fallback counted.  Either way
+        a ``tier`` event names the outcome.  A replica never probes: its
+        hop into the fan-in is wire-framed, and the reverse direction of
+        its socket carries the ack plane; it announces itself with a
+        ``stream_begin``, so the fan-in registers it at once.
+
+        R next hops (a replicated downstream stage): a
+        :class:`FanOutSender`, or a :class:`ReplayFanOut` under
+        ``failover``, on tcp, announced with a ``stream_begin`` so that a
+        replica that gets no frame still knows it is on the data path.
+
+        The pending trace context goes ahead of the first tensor."""
+        if not self.next_hops:
             raise ValueError("no next hop configured")
-        sock = connect_retry(*self.next_hop, timeout_s=connect_timeout_s)
+        socks = [connect_retry(*h, timeout_s=connect_timeout_s)
+                 for h in self.next_hops]
         tx = None
-        if self.tier != "tcp":
+        if len(socks) > 1:
+            self.tier_out = "tcp"
+            if self.failover:
+                # retain each frame until the fan-in's cumulative ack;
+                # heal a dead replica channel by redialing its address
+                # (the supervisor respawns it on the same port) and
+                # replaying the unacked window
+                tx = ReplayFanOut(socks, self.next_hops,
+                                  depth=self.tx_depth, codec=self.codec,
+                                  gauge="node.tx_queue_depth",
+                                  span=self._span_label, hist="node.tx_s",
+                                  redial_timeout_s=connect_timeout_s)
+            else:
+                tx = FanOutSender(socks, depth=self.tx_depth,
+                                  codec=self.codec,
+                                  gauge="node.tx_queue_depth",
+                                  span=self._span_label, hist="node.tx_s")
+            tx.send_ctrl({"cmd": "stream_begin"})
+        elif self.tier != "tcp" and self.replica is None:
             self.tier_out, tx, fell_back = offer_tier_ladder(
-                sock, tier=self.tier, depth=self.tx_depth,
+                socks[0], tier=self.tier, depth=self.tx_depth,
                 hop=self._span_label(), device=self.device)
             if fell_back:
                 self.tier_fallbacks += 1
@@ -357,24 +470,93 @@ class StageNode:
                        wanted=self.tier, fallback=bool(fell_back))
         if tx is None:
             self.tier_out = "tcp"
-            tx = AsyncSender(sock, depth=self.tx_depth, codec=self.codec,
-                             gauge="node.tx_queue_depth",
+            tx = AsyncSender(socks[0], depth=self.tx_depth,
+                             codec=self.codec, gauge="node.tx_queue_depth",
                              span=self._span_label, hist="node.tx_s")
+            if self.replica is not None:
+                tx.send_ctrl({"cmd": "stream_begin"})
         tx.sample_every = self.trace_sample_every
         self._live_tx = tx
         if self._pending_trace is not None:
             tx.send_ctrl(self._pending_trace)
-        return tx, sock
+        return tx, socks
+
+    # -- the ack plane of failover -------------------------------------------
+
+    def _start_ack_relay(self, up_conn, down_sock, lock) -> None:
+        """The replica's half of the ack plane: read the fan-in's
+        cumulative ``replay_ack`` frames off the reverse direction of the
+        outbound socket and forward each one hop upstream on this
+        replica's inbound connection.  ``lock`` serializes those writes
+        with the stream-end ``replay_done``; the thread ends with either
+        socket."""
+
+        def relay():
+            try:
+                while True:
+                    kind, value = recv_frame(down_sock)
+                    if kind == K_END:
+                        return
+                    if kind == K_CTRL and isinstance(value, dict) \
+                            and value.get("cmd") == "replay_ack":
+                        with lock:
+                            send_ctrl(up_conn, value)
+            except (OSError, ConnectionError, ValueError):
+                return
+
+        threading.Thread(target=relay, daemon=True,
+                         name="node-ack-relay").start()
+
+    def _fanin_ack(self, merge) -> None:
+        """The fan-in's half of the ack plane: one cumulative
+        ``replay_ack`` (every seq below it merged in order) on each live
+        upstream connection.  A connection whose write fails leaves the
+        ack set; its reader sees the death itself."""
+        with self._merge_lock:
+            conns = list(self._fanin_conns or ())
+        upto = merge.next_seq
+        for c in conns:
+            try:
+                send_ctrl(c, {"cmd": "replay_ack", "seq": upto})
+            except OSError:
+                self._fanin_forget(c)
+
+    def _fanin_forget(self, conn) -> None:
+        with self._merge_lock:
+            if self._fanin_conns and conn in self._fanin_conns:
+                self._fanin_conns.remove(conn)
+
+    def _fanin_grace(self, merge, exc: BaseException) -> None:
+        """Fail ``merge`` with ``exc`` after ``failover_grace_s`` unless a
+        fresh upstream registers meanwhile (the respawned replica's dial-in
+        bumps ``_fanin_epoch``) or the segment completes: failover with a
+        bounded hang."""
+        with self._merge_lock:
+            epoch = self._fanin_epoch
+
+        def watch():
+            deadline = time.monotonic() + self.failover_grace_s
+            while time.monotonic() < deadline:
+                with self._merge_lock:
+                    if self._fanin_epoch != epoch \
+                            or self._merge is not merge:
+                        return
+                time.sleep(0.1)
+            with self._merge_lock:
+                expired = (self._merge is merge
+                           and self._fanin_epoch == epoch)
+            if expired:
+                merge.fail(exc)
+
+        threading.Thread(target=watch, daemon=True,
+                         name="node-failover-grace").start()
 
     # -- control plane --------------------------------------------------------
 
     def _deploy(self, msg: dict, blob: bytes) -> None:
-        """Apply a ``deploy`` message: refuse the fan roles the port does
-        not run, then load the artifact onto this node's device."""
-        if int(msg.get("fan_in") or 1) > 1:
-            raise _not_ported("A10b", "a fan-in node (replicated upstream stage)")
-        if msg.get("replica") is not None:
-            raise _not_ported("A10b", "a stage replica")
+        """Apply a ``deploy`` message: refuse the branch roles the port
+        does not run, take the replica roles (``fan_in``, ``replica``),
+        then load the artifact onto this node's device."""
         if msg.get("fan") not in (None, "rr"):
             raise _not_ported("A10c", f"fan={msg['fan']!r} (a branch fork)")
         if msg.get("branch") is not None:
@@ -384,13 +566,17 @@ class StageNode:
         tier = msg.get("tier")
         if tier:
             _check_tier(tier, "deploy")
-        nxt = _parse_hop(msg["next"]) if msg.get("next") else None
+        nxt = _parse_hops(msg["next"]) if msg.get("next") else None
         if msg.get("device") is not None:
             self.device = _pin_device(msg["device"])
         from ..utils.export import load_stage_program
         self.prog = load_stage_program(blob, device=self.device)
         if nxt is not None:
-            self.next_hop = nxt
+            self.next_hops = nxt
+        if msg.get("fan_in"):
+            self.fan_in = max(1, int(msg["fan_in"]))
+        if msg.get("replica") is not None:
+            self.replica = int(msg["replica"])
         if msg.get("codec"):
             self.codec = msg["codec"]
         if tier:
@@ -402,6 +588,7 @@ class StageNode:
                                      float(msg["infer_delay_ms"]) / 1e3)
         if msg.get("flops") is not None:
             self.stage_flops = float(msg["flops"])
+        self._check_tier_pin()
 
     def _handle_ctrl(self, conn, msg: dict, recv=None) -> bool:
         """One control command; True if the connection should keep
@@ -501,10 +688,10 @@ class StageNode:
         raise ValueError(f"unknown control command {msg!r}")
 
     def _stats(self, msg: dict) -> dict:
-        """The ``stats`` reply: every key of the JAX node's, the fan,
-        branch and failover ones at their linear-chain values, plus
-        ``kernel_launches`` (each hand kernel's launches in this
-        process — how a multi-process chain shows its stages ran them)."""
+        """The ``stats`` reply: every key of the JAX node's (the branch
+        ones at their linear values), plus ``kernel_launches`` (each hand
+        kernel's launches in this process — how a multi-process chain
+        shows its stages ran them)."""
         m = self.manifest
         reg = REGISTRY
         rx, tx = self._live_rx, self._live_tx
@@ -516,10 +703,10 @@ class StageNode:
         return {
             "stage": None if m is None else m["index"],
             "name": None if m is None else m["name"],
-            "replica": None,
+            "replica": self.replica,
             "branch": None,
             "join": 0,
-            "fan_in": 1,
+            "fan_in": self.fan_in,
             "processed": self.processed,
             "reweights": self.reweights,
             "codec": self.codec,
@@ -533,8 +720,8 @@ class StageNode:
             "ici_d2d": tx.d2d if isinstance(tx, IciSender) else 0,
             "ici_device_pairs": (sorted([list(p) for p in tx.device_pairs])
                                  if isinstance(tx, IciSender) else []),
-            "next": (None if self.next_hop is None
-                     else f"{self.next_hop[0]}:{self.next_hop[1]}"),
+            "next": (None if not self.next_hops
+                     else ",".join(f"{h}:{p}" for h, p in self.next_hops)),
             "tx_frames": reg.counter("transport.tx_frames").value,
             "tx_bytes": reg.counter("transport.tx_bytes").value,
             "rx_frames": reg.counter("transport.rx_frames").value,
@@ -567,9 +754,13 @@ class StageNode:
             # MFU against the card's peak comes with obs/capacity.py (A12)
             "mfu": None,
             "achieved_flops_s": None,
-            "failovers": 0,
-            "replay_depth": 0,
-            "merge_duplicates": 0,
+            # the seq-replay plane: channels healed, frames retained for
+            # replay, duplicates the fan-in dropped in its window
+            "failovers": getattr(tx, "failovers", 0),
+            "replay_depth": (tx.replay_depth()
+                             if isinstance(tx, ReplayFanOut) else 0),
+            "merge_duplicates": (self._merge_dups if self._merge is None
+                                 else self._merge.duplicates),
             "events": {"dropped": rec.dropped, "events": evs},
             "kernel_launches": _kernel_launches(),
         }
@@ -584,7 +775,8 @@ class StageNode:
     def _quiesce(self, at_seq: int | None, timeout_s: float) -> int:
         """Block until this node's data plane is drained and stable:
         ``processed`` past ``at_seq`` (when given) and unchanged across
-        consecutive samples, no dispatch in flight, live queues empty.
+        consecutive samples, no dispatch in flight, live queues and the
+        reorder merge empty.
         Returns the stable processed count; TimeoutError if the node
         never settles."""
         deadline = time.monotonic() + timeout_s
@@ -592,11 +784,12 @@ class StageNode:
         last = -1
         while True:
             p = self.processed
-            rx, tx = self._live_rx, self._live_tx
+            rx, tx, merge = self._live_rx, self._live_tx, self._merge
             if ((at_seq is None or p >= at_seq) and p == last
                     and inflight_g.value == 0
                     and (rx is None or rx.qsize() == 0)
-                    and (tx is None or tx.qsize() == 0)):
+                    and (tx is None or tx.qsize() == 0)
+                    and (merge is None or merge.qsize() == 0)):
                 return p
             if time.monotonic() > deadline:
                 raise TimeoutError(
@@ -662,10 +855,51 @@ class StageNode:
     def _serve_conn(self, conn, connect_timeout_s: float) -> int | None:
         """One connection: None if it was control-only, else its tensor
         count.  ``overlap=True`` runs the three-phase overlapped loop,
-        ``overlap=False`` the strictly serial baseline."""
+        ``overlap=False`` the strictly serial baseline.  With ``fan_in >
+        1`` every connection instead feeds the shared reorder merge
+        (:meth:`_serve_conn_fanin`) and one compute loop consumes the
+        merged in-order stream."""
+        if self.fan_in > 1:
+            return self._serve_conn_fanin(conn, connect_timeout_s)
         if self.overlap:
             return self._serve_conn_overlapped(conn, connect_timeout_s)
         return self._serve_conn_serial(conn, connect_timeout_s)
+
+    def _relay(self, tx, t0, t_end, s, y, relay_seq) -> None:
+        """Finish the oldest un-synced frame and send it downstream: its
+        QUEUE phase, then on an ici hop the DEVICE wait alone (the tensor
+        stays on the card), on a shm hop one copy from the card straight
+        into the ring's slot, else the copy to the host; the frame's
+        ``infer`` interval; the send, stamped ``relay_seq``."""
+        slot = None
+        if isinstance(tx, ShmSender):
+            # a full ring parks here, inside the frame's QUEUE phase
+            slot = tx.claim(y[0].numel() * y[0].element_size())
+        tq = self._queue_wait(t_end, seq=relay_seq)
+        if isinstance(tx, IciSender):
+            # device-resident hop: the output is synced (bounding the
+            # window) but never copied to the host; the downstream program
+            # reads the tensor where it lies.  Node programs run eagerly,
+            # so the tensor is a fresh allocation no later frame
+            # overwrites — a node that replays its program from a
+            # CUDA-graph pool must copy its output here.
+            t_done = self._device_wait(y[1], seq=relay_seq, t0=tq)
+            out = y[0]
+        elif slot is not None:
+            # one device-to-host copy, straight into the ring's slot
+            view = tx.slot_tensor(slot, y[0])
+            _, t_done = self._host_sync(y, seq=relay_seq, t0=tq, out=view)
+            del view
+            out = y[0]
+        else:
+            out, t_done = self._host_sync(y, seq=relay_seq, t0=tq)
+        self._infer_done(t0, t_done, relay_seq, s)
+        self.processed += 1  # before the send: a stats query can race
+        #   the relay of the final tensor otherwise
+        if slot is not None:
+            tx.commit(slot, out, seq=relay_seq)
+        else:
+            tx.send(out, seq=relay_seq)
 
     def _serve_conn_overlapped(self, conn,
                                connect_timeout_s: float) -> int | None:
@@ -679,10 +913,13 @@ class StageNode:
         card: the copy to the host of output j-1 overlaps the device
         compute of j.  Bounded queues keep end-to-end backpressure.
 
-        Sequence-stamped frames (``K_TENSOR_SEQ``) relay their sequence
-        number onto the output frame unchanged.
+        Sequence-stamped frames (``K_TENSOR_SEQ``, this node a replica on
+        a fan-out path) relay their sequence number onto the output frame
+        unchanged, so the downstream fan-in can restore the stream's order.
+        Under ``failover`` a replica relays the fan-in's acks upstream on
+        this connection, and ends its stream with a ``replay_done``.
         """
-        tx = out_sock = None
+        tx = out_socks = None
         n = 0                   # tensors relayed downstream
         seq = 0                 # tensors received
         streamed = False
@@ -694,41 +931,23 @@ class StageNode:
         # trips; the gauge is bound once this connection is the stream
         rx = AsyncReceiver(conn, depth=self.rx_depth,
                            span=self._span_label)
+        # the replica's half of the ack plane: the lock serializes the
+        # relayed acks with the stream-end replay_done on this connection
+        ack_lock = threading.Lock()
+        relay_on = False
+
+        def open_tx():
+            nonlocal tx, out_socks, relay_on
+            tx, out_socks = self._make_tx(connect_timeout_s)
+            if self.failover and self.replica is not None:
+                relay_on = True
+                self._start_ack_relay(conn, out_socks[0], ack_lock)
 
         def drain_one():
             nonlocal n, streamed
-            t0, t_end, s, y, relay_seq = pending.popleft()
+            entry = pending.popleft()
             inflight_g.dec()
-            slot = None
-            if isinstance(tx, ShmSender):
-                # a full ring parks here, inside the frame's QUEUE phase
-                slot = tx.claim(y[0].numel() * y[0].element_size())
-            tq = self._queue_wait(t_end, seq=relay_seq)
-            if isinstance(tx, IciSender):
-                # device-resident hop: the output is synced (bounding the
-                # window) but never copied to the host; the downstream
-                # program reads the tensor where it lies.  Node programs
-                # run eagerly, so the tensor is a fresh allocation no
-                # later frame overwrites — a node that replays its program
-                # from a CUDA-graph pool must copy its output here.
-                t_done = self._device_wait(y[1], seq=relay_seq, t0=tq)
-                out = y[0]
-            elif slot is not None:
-                # one device-to-host copy, straight into the ring's slot
-                view = tx.slot_tensor(slot, y[0])
-                _, t_done = self._host_sync(y, seq=relay_seq, t0=tq,
-                                            out=view)
-                del view
-                out = y[0]
-            else:
-                out, t_done = self._host_sync(y, seq=relay_seq, t0=tq)
-            self._infer_done(t0, t_done, relay_seq, s)
-            self.processed += 1  # before the send: a stats query can
-            #   race the relay of the final tensor otherwise
-            if slot is not None:
-                tx.commit(slot, out, seq=relay_seq)
-            else:
-                tx.send(out, seq=relay_seq)
+            self._relay(tx, *entry)
             n += 1
             streamed = True
 
@@ -750,13 +969,29 @@ class StageNode:
                         drain_one()
                     if streamed or stream_marked:
                         if tx is None:
-                            # marked data path with zero frames: still
-                            # propagate the stream so the END cascades
-                            tx, out_sock = self._make_tx(connect_timeout_s)
-                            tx.send_ctrl({"cmd": "stream_begin"})
+                            # marked data path with zero frames (fewer
+                            # inputs than replicas, say): still propagate
+                            # the stream, so the END cascades and a
+                            # downstream fan-in counts this path's END
+                            # (fan-outs and replicas announced themselves
+                            # in _make_tx)
+                            open_tx()
+                            if not isinstance(tx, (FanOutSender,
+                                                   ReplayFanOut)) \
+                                    and self.replica is None:
+                                tx.send_ctrl({"cmd": "stream_begin"})
                         # END + join: every relayed frame is on the wire
                         # before the finally block closes the socket
                         tx.close(timeout=connect_timeout_s)
+                        if relay_on:
+                            # every frame of this replica's segment went
+                            # downstream: the upstream fan-out must read the
+                            # coming EOF as shutdown, not death
+                            try:
+                                with ack_lock:
+                                    send_ctrl(conn, {"cmd": "replay_done"})
+                            except OSError:
+                                pass
                         emit_event("stream_end", hop=self._span_label(),
                                    n=n)
                         return n
@@ -789,7 +1024,7 @@ class StageNode:
                         # the result hop joins meta to frame by seq
                         stream_marked = True
                         if tx is None:
-                            tx, out_sock = self._make_tx(connect_timeout_s)
+                            open_tx()
                         tx.send_ctrl(value)
                         continue
                     if cmd == "trace":
@@ -815,7 +1050,7 @@ class StageNode:
                         "data frame before any stage artifact (boot with "
                         "--artifact or deploy in-band first)")
                 if tx is None:
-                    tx, out_sock = self._make_tx(connect_timeout_s)
+                    open_tx()
                 if self._live_rx is not rx:
                     # first tensor on this channel: bind the live
                     # telemetry to the channel the stream rides
@@ -855,8 +1090,8 @@ class StageNode:
                 # a colocated tier's sender: a stream abandoned without
                 # its END must fail the consumer as a cut socket would
                 tx.detach()
-            if out_sock is not None:
-                out_sock.close()
+            for sock in out_socks or ():
+                sock.close()
 
     def _serve_conn_serial(self, conn,
                            connect_timeout_s: float) -> int | None:
@@ -871,6 +1106,10 @@ class StageNode:
         def open_out():
             if self.next_hop is None:
                 raise ValueError("no next hop configured")
+            if len(self.next_hops) > 1:
+                raise ValueError("a fan-out to replicas needs the overlapped "
+                                 "node loop (drop overlap=False / "
+                                 "--no-overlap)")
             sock = connect_retry(*self.next_hop,
                                  timeout_s=connect_timeout_s)
             self.tier_out = "tcp"
@@ -944,6 +1183,223 @@ class StageNode:
             if out is not None:
                 out.close()
 
+    # -- fan-in: this node merges R replicated upstreams ----------------------
+
+    def _serve_conn_fanin(self, conn, connect_timeout_s: float) -> None:
+        """One upstream connection of a fan-in node: a reader that decodes
+        frames on this thread (R connections, R decoders in parallel) and
+        feeds sequence-stamped tensors into the shared reorder merge.
+        Control connections (deploy, stats, reweight ...) are served
+        inline as on any node.  Always returns None: the merged compute
+        loop (:meth:`_merge_compute`) counts the stream's tensors."""
+        registered = False
+        merge = None
+        try:
+            while True:
+                kind, value = recv_frame(conn)
+                if kind == K_END:
+                    if registered:
+                        self._fanin_forget(conn)
+                        merge.end()
+                    return None
+                if kind == K_CTRL:
+                    cmd = value.get("cmd") if isinstance(value, dict) \
+                        else None
+                    if cmd == "stream_begin":
+                        # the upstream fan-out marks every replica path,
+                        # so even a zero-frame upstream counts in the
+                        # merge's END bookkeeping
+                        if not registered:
+                            registered = True
+                            merge = self._ensure_merge_loop(
+                                connect_timeout_s, conn=conn)
+                        continue
+                    if cmd == "tier_probe":
+                        # fan paths are wire-framed (the ordered seq
+                        # merge): refuse, the offer degrades to tcp
+                        answer_probe(conn, value, accept=False)
+                        continue
+                    self._handle_ctrl(conn, value)
+                    if registered and cmd == "trace":
+                        # a trace context arriving mid-stream must still
+                        # cascade past an open downstream connection: it
+                        # rides the merge so the compute loop resends it
+                        # (a copy per upstream path is harmless: adoption
+                        # is idempotent and the dispatcher skips it)
+                        merge.put_ctrl(dict(self._pending_trace))
+                    continue
+                if kind == K_TENSOR:
+                    raise ValueError(
+                        "fan-in node received an unsequenced tensor "
+                        "frame — the upstream must fan out with "
+                        "sequence numbers (K_TENSOR_SEQ)")
+                if kind != K_TENSOR_SEQ:
+                    raise ValueError(f"unexpected frame kind {kind}")
+                seq, arr = value
+                if not registered:
+                    registered = True
+                    merge = self._ensure_merge_loop(connect_timeout_s,
+                                                    conn=conn)
+                t0 = time.perf_counter()
+                merge.put(seq, arr)
+                tr = tracer()
+                if tr.enabled:
+                    tr.record(f"{self._span_label()}.merge_wait", t0,
+                              time.perf_counter() - t0, {"seq": seq})
+        except Exception as e:  # noqa: BLE001 — the single-upstream policy
+            if registered:
+                if self.failover and isinstance(e, (ConnectionError,
+                                                    OSError)):
+                    # a replica died mid-stream: wait one redial grace,
+                    # while the healed fan-out replays the dead path's
+                    # unacked frames through the respawned replica's new
+                    # connection; only an unfilled grace fails the merge
+                    emit_event("replica_lost", hop=self._span_label(),
+                               error=repr(e))
+                    self._fanin_forget(conn)
+                    self._fanin_grace(merge, e)
+                    return None
+                merge.fail(e)
+                raise
+            print(f"node: dropped connection before streaming: {e!r}",
+                  file=sys.stderr, flush=True)
+            return None
+
+    def _ensure_merge_loop(self, connect_timeout_s: float,
+                           conn=None) -> FanInMerge:
+        """Create the shared reorder merge and its one compute thread the
+        first time an upstream turns out to be a data path; under
+        failover ``conn`` joins the ack set and bumps the registration
+        epoch (a respawned replica's dial-in cancels the grace timer).
+        Returns the segment's merge: readers hold it, so a persistent
+        node's next segment cannot swap it under them."""
+        with self._merge_lock:
+            if self.failover and conn is not None:
+                if self._fanin_conns is None:
+                    self._fanin_conns = []
+                self._fanin_conns.append(conn)
+                self._fanin_epoch += 1
+            if self._merge is None:
+                # every upstream gets rx_depth frames of reorder slack
+                # before backpressure parks its reader; the dedup window
+                # absorbs a failover replay's overlap
+                self._merge = FanInMerge(
+                    self.fan_in,
+                    capacity=max(self.fan_in, self.fan_in * self.rx_depth),
+                    replay_window=(_REPLAY_DEDUP_WINDOW
+                                   if self.failover else 0))
+                threading.Thread(target=self._merge_loop,
+                                 args=(connect_timeout_s,), daemon=True,
+                                 name="node-merge-compute").start()
+            return self._merge
+
+    def _merge_loop(self, connect_timeout_s: float) -> None:
+        done = self._done_q
+        merge = self._merge
+        try:
+            n = self._merge_compute(merge, connect_timeout_s)
+            with self._merge_lock:
+                # segment complete: a persistent node's next stream builds
+                # a fresh merge and a fresh ack set
+                self._merge_dups = merge.duplicates
+                self._merge = None
+                self._fanin_conns = None
+            done.put(n)
+        except BaseException as e:  # noqa: BLE001 — raised by serve()
+            merge.fail(e)  # wake readers parked in put()
+            done.put(e)
+
+    def _merge_compute(self, merge, connect_timeout_s: float) -> int:
+        """The fan-in node's compute loop: :meth:`_serve_conn_overlapped`
+        with the reorder merge in place of the one rx channel.  It keeps up
+        to ``inflight`` programs un-synced on CUDA events (draining
+        whenever the merge has no in-order frame ready), times the four
+        phases, and relays the merged stream downstream unstamped; its
+        outbound hop may win shm or ici (only its inbound fan rides the
+        wire).  Under failover it acks every ACK_EVERY merged frames and
+        once more at the end."""
+        tx = out_socks = None
+        n = 0
+        seq = 0
+        inflight_g = REGISTRY.gauge("node.inflight")
+        merge_g = REGISTRY.gauge("node.merge_depth")
+        pending: collections.deque = collections.deque()
+
+        def drain_one():
+            nonlocal n
+            t0, t_end, s, y = pending.popleft()
+            inflight_g.dec()
+            self._relay(tx, t0, t_end, s, y, None)
+            n += 1
+
+        try:
+            while True:
+                if pending:
+                    try:
+                        kind, value = merge.get_nowait()
+                    except queue.Empty:
+                        drain_one()
+                        continue
+                else:
+                    kind, value = merge.get()
+                merge_g.set(merge.qsize())
+                if kind == K_END:
+                    while pending:
+                        drain_one()
+                    if self.failover:
+                        # the final cumulative ack releases the upstream
+                        # fan-out's whole window before the END cascades
+                        # (a replica that already exited misses one write)
+                        self._fanin_ack(merge)
+                    if tx is None:
+                        # every upstream was a zero-frame path: still
+                        # propagate the stream downstream
+                        tx, out_socks = self._make_tx(connect_timeout_s)
+                        if not isinstance(tx, (FanOutSender,
+                                               ReplayFanOut)) \
+                                and self.replica is None:
+                            tx.send_ctrl({"cmd": "stream_begin"})
+                    tx.close(timeout=connect_timeout_s)
+                    emit_event("stream_end", hop=self._span_label(), n=n)
+                    return n
+                if kind == K_CTRL:
+                    # the readers handled the command (trace adoption);
+                    # what rides the merge is the copy for downstream,
+                    # sent when tx is open (_make_tx sends the pending
+                    # trace itself at open)
+                    if tx is not None and value is not None:
+                        tx.send_ctrl(value)
+                    continue
+                if self.prog is None:
+                    raise ValueError(
+                        "data frame before any stage artifact (boot with "
+                        "--artifact or deploy in-band first)")
+                if tx is None:
+                    tx, out_socks = self._make_tx(connect_timeout_s)
+                    emit_event("stream_begin", hop=self._span_label())
+                self._check_frame(value)
+                if self.infer_delay_s:
+                    time.sleep(self.infer_delay_s)  # bench-only device
+                t0, t_end, y = self._dispatch(value)
+                pending.append((t0, t_end, seq, y))
+                seq += 1
+                inflight_g.inc()
+                if self.failover and seq % ACK_EVERY == 0:
+                    # every merged seq below merge.next_seq is in order
+                    # here: the upstream fan-out may release its frames
+                    self._fanin_ack(merge)
+                while len(pending) >= self.inflight:
+                    drain_one()
+        finally:
+            if pending:
+                # dispatches abandoned by a failed stream must not inflate
+                # the shared inflight gauge
+                inflight_g.dec(len(pending))
+            if tx is not None and hasattr(tx, "detach"):
+                tx.detach()
+            for sock in out_socks or ():
+                sock.close()
+
 
 def _to_host(y):
     """A result frame on the host: numpy, or a ``torch.bfloat16`` tensor
@@ -969,6 +1425,11 @@ class ChainDispatcher:
     wire chain end to end.  Its inputs
     live on the host, so its ici offer names the CPU: a node on the card
     refuses it and the edge takes local.
+
+    Replication: a comma-listed ``first_hop`` names replicas of stage 0,
+    and the dispatcher itself fans out round-robin with sequence numbers
+    (on tcp); ``result_fan_in=R`` merges the R dial-backs of a replicated
+    last stage in sequence order.
     """
 
     #: the one timeout default; also covers partially constructed
@@ -985,9 +1446,14 @@ class ChainDispatcher:
             self.timeout_s = timeout_s
         self.tier = _check_tier(tier, "ChainDispatcher")
         self.tier_accept = tier != "tcp"
-        if result_fan_in != 1:
-            raise _not_ported("A10b", "a replicated last stage (result fan-in)")
-        self.first_hop = _parse_hop(first_hop)
+        #: ``host:port[,host:port...]``: a list names stage 0's replicas
+        self.first_hop = first_hop
+        self._first_hops = _parse_hops(first_hop)
+        if not self._first_hops:
+            raise ValueError(f"first_hop {first_hop!r} names no address")
+        #: > 1: a replicated last stage, whose R replicas dial back and
+        #: are merged in sequence order
+        self.result_fan_in = max(1, int(result_fan_in))
         host, port = _parse_hostport(listen)
         self._res_srv = socket.create_server((host, port))
         # a dead chain fails, not hangs
@@ -1007,17 +1473,33 @@ class ChainDispatcher:
         #: spans are keyed by them)
         self._stream_seq = 0
         self._send_sock: socket.socket | None = None
+        self._send_socks: list | None = None
         self._res_conn: socket.socket | None = None
+        self._res_conns: list = []
+        self._res_merge: FanInMerge | None = None
         self._tx_chan = None
         self._rx_chan = None
 
     def _ensure_connected(self) -> None:
-        if self._send_sock is None:
+        if self._send_sock is None and self._send_socks is None:
             # generous: every node of a spawned chain imports torch first
-            self._send_sock = connect_retry(*self.first_hop,
-                                            timeout_s=self.timeout_s)
+            socks = [connect_retry(*h, timeout_s=self.timeout_s)
+                     for h in self._first_hops]
+            if len(socks) == 1:
+                self._send_sock = socks[0]
+            else:
+                self._send_socks = socks
         if self._tx_chan is None:
-            if self.tier != "tcp":
+            if self._send_socks is not None:
+                # a replicated first stage: fan out on the wire
+                self.tier_out = "tcp"
+                self._tx_chan = FanOutSender(self._send_socks,
+                                             depth=self.tx_depth,
+                                             codec=self.codec,
+                                             gauge="chain.tx_queue_depth",
+                                             span="chain", hist="chain.tx_s")
+                self._tx_chan.send_ctrl({"cmd": "stream_begin"})
+            elif self.tier != "tcp":
                 # the tier ladder on the stage-0 hop; a node on another
                 # host refuses every rung and the edge stays on tcp with
                 # one fallback counted
@@ -1071,7 +1553,9 @@ class ChainDispatcher:
                  "span_id": root_span,
                  "sample_every": self.trace_sample_every})
         # waterfall sampling needs a wire sequence number on every frame
-        stamp_seq = tr.enabled and self.trace_sample_every > 0
+        # (a fan-out stamps its own)
+        stamp_seq = (tr.enabled and self.trace_sample_every > 0
+                     and not isinstance(self._tx_chan, FanOutSender))
         outs: list = []
         window = threading.Semaphore(self.window)
         sent = [0]
@@ -1151,21 +1635,12 @@ class ChainDispatcher:
         finally:
             s.close()
 
-    @staticmethod
-    def _linear(node_addrs: Sequence, n: int) -> list[str]:
-        addrs = list(node_addrs)
-        if len(addrs) != n:
-            raise ValueError(f"{n} stages but {len(addrs)} nodes")
-        if any(not isinstance(a, str) for a in addrs):
-            raise _not_ported("A10b", "stage replicas (a list of addresses)")
-        return addrs
-
-    def deploy(self, stages, params, node_addrs: Sequence[str], *,
+    def deploy(self, stages, params, node_addrs: Sequence, *,
                batch: int = 1, result_hop: str | None = None,
                codecs: Sequence[str] | None = None,
                tiers: Sequence[str] | None = None,
                devices: Sequence | None = None) -> None:
-        """Ship each stage's artifact to its node over the control
+        """Ship each stage's artifact to its node(s) over the control
         channel.
 
         Serial, in chain order, each ACKed before the next — the in-band
@@ -1179,17 +1654,30 @@ class ChainDispatcher:
         codec; ``tiers`` (per stage, ``tcp``/``auto``/``ici``/``local``/
         ``shm``) its outbound transport-tier policy; ``devices`` (per
         stage, a card index, a device string or None) pins its program.
+
+        Replication: an entry of ``node_addrs`` may be a list of R
+        addresses.  One artifact is exported for the stage and sent to
+        each replica (``replica`` j), the stage above gets the comma-joined
+        list as its ``next`` (a fan-out), and the stage below gets
+        ``fan_in=R``.  Two adjacent replicated stages raise: a replica
+        cannot restore another fan-out's order.
+
         Deploying first sweeps ``/dev/shm`` for segments a killed chain
         left behind (``transport.shm.sweep_orphan_segments``).
         """
         from ..utils.export import export_stage_bytes
         sweep_orphan_segments()
-        addrs = self._linear(node_addrs, len(stages))
+        groups = self._groups(node_addrs, len(stages))
+        for i in range(len(groups) - 1):
+            if len(groups[i]) > 1 and len(groups[i + 1]) > 1:
+                raise ValueError(
+                    f"stages {i} and {i + 1} are both replicated; "
+                    f"adjacent replication is not supported")
         result_hop = result_hop or \
             f"{self.result_address[0]}:{self.result_address[1]}"
-        for i, (stage, addr) in enumerate(zip(stages, addrs)):
+        for i, (stage, addrs) in enumerate(zip(stages, groups)):
             msg = {"cmd": "deploy",
-                   "next": addrs[i + 1] if i + 1 < len(addrs)
+                   "next": ",".join(groups[i + 1]) if i + 1 < len(groups)
                    else result_hop,
                    "codec": codecs[i] if codecs else self.codec}
             if tiers:
@@ -1197,18 +1685,35 @@ class ChainDispatcher:
             if devices and devices[i] is not None:
                 msg["device"] = devices[i] if isinstance(devices[i], int) \
                     else str(devices[i])
-            self._control(addr, msg,
-                          export_stage_bytes(stage, params, batch=batch))
+            if i > 0 and len(groups[i - 1]) > 1:
+                msg["fan_in"] = len(groups[i - 1])
+            blob = export_stage_bytes(stage, params, batch=batch)
+            for j, addr in enumerate(addrs):
+                if len(addrs) > 1:
+                    msg["replica"] = j
+                self._control(addr, msg, blob)
 
-    def reweight(self, stages, params, node_addrs: Sequence[str]) -> None:
+    @staticmethod
+    def _groups(node_addrs: Sequence, n: int) -> list[list[str]]:
+        """Each stage's addresses: a string is one node, a list a
+        replicated stage's replicas."""
+        groups = [[a] if isinstance(a, str) else list(a)
+                  for a in node_addrs]
+        if len(groups) != n:
+            raise ValueError(f"{n} stages but {len(groups)} nodes")
+        return groups
+
+    def reweight(self, stages, params, node_addrs: Sequence) -> None:
         """Weights-only re-push: install fresh weights on every node's
-        loaded stage program — redeploy without restarting any process or
-        resending the program."""
+        loaded stage program (every replica of a replicated stage) —
+        redeploy without restarting any process or resending the
+        program."""
         from ..utils.export import stage_weight_leaves, weights_blob
-        addrs = self._linear(node_addrs, len(stages))
-        for stage, addr in zip(stages, addrs):
-            self._control(addr, {"cmd": "reweight"}, weights_blob(
-                stage_weight_leaves(stage, params)))
+        for stage, addrs in zip(stages, self._groups(node_addrs,
+                                                     len(stages))):
+            blob = weights_blob(stage_weight_leaves(stage, params))
+            for addr in addrs:
+                self._control(addr, {"cmd": "reweight"}, blob)
 
     def stats(self, node_addrs: Sequence[str]) -> list[dict]:
         """Every node's ``stats`` reply (works mid-stream: nodes serve a
@@ -1336,7 +1841,11 @@ class ChainDispatcher:
 
     def _recv_tensor(self):
         """One in-order result frame; a loud protocol check (an early END
-        from a node that died mid-stream must raise, not mis-drain)."""
+        from a node that died mid-stream must raise, not mis-drain).  With
+        ``result_fan_in > 1`` the results come off the sequence-ordered
+        :class:`FanInMerge` over the R replica dial-backs."""
+        if self.result_fan_in > 1:
+            return self._recv_tensor_fanin()
         kind, y = self._result_item()
         if kind == K_TENSOR_SEQ:
             # waterfall sampling stamps every frame end to end; strip it
@@ -1345,6 +1854,70 @@ class ChainDispatcher:
             raise ConnectionError(
                 f"chain returned frame kind {kind!r} while results were "
                 f"still in flight (a stage node died and cascaded END?)")
+        return y
+
+    def _ensure_result_merge(self) -> FanInMerge:
+        """Start the result side's fan-in: an acceptor takes the R replica
+        dial-backs as they come (a replica that sees its first frame late,
+        or only the END, dials late; waiting for all R up front would
+        deadlock short streams), and one reader thread per connection
+        feeds the sequence-ordered merge."""
+        if self._res_merge is not None:
+            return self._res_merge
+        merge = FanInMerge(self.result_fan_in,
+                           capacity=max(self.result_fan_in,
+                                        self.result_fan_in * self.rx_depth))
+        self._res_merge = merge
+
+        def reader(c):
+            try:
+                while True:
+                    kind, value = recv_frame(c)
+                    if kind == K_END:
+                        merge.end()
+                        return
+                    if kind == K_CTRL:
+                        if isinstance(value, dict) \
+                                and value.get("cmd") == "tier_probe":
+                            # a replica's dial-back never takes a fast path
+                            # (the seq merge is wire-framed): refuse, so
+                            # the prober degrades instead of hanging
+                            answer_probe(c, value, accept=False)
+                        continue  # trace, stream_begin: informational
+                    if kind != K_TENSOR_SEQ:
+                        raise ConnectionError(
+                            f"result fan-in got frame kind {kind!r}; "
+                            f"replicas must relay sequence-stamped frames")
+                    merge.put(*value)
+            except BaseException as e:  # noqa: BLE001 — raised in get()
+                merge.fail(e)
+
+        def acceptor():
+            try:
+                for _ in range(self.result_fan_in):
+                    c, _ = self._res_srv.accept()
+                    configure_socket(c)
+                    c.settimeout(None)
+                    self._res_conns.append(c)
+                    threading.Thread(target=reader, args=(c,), daemon=True,
+                                     name="chain-result-rx").start()
+            except BaseException as e:  # noqa: BLE001 — raised in get()
+                merge.fail(e)
+
+        threading.Thread(target=acceptor, daemon=True,
+                         name="chain-result-accept").start()
+        return merge
+
+    def _recv_tensor_fanin(self):
+        merge = self._ensure_result_merge()
+        kind, y = merge.get(timeout=self.timeout_s)
+        while kind == K_CTRL:
+            kind, y = merge.get(timeout=self.timeout_s)
+        if kind != K_TENSOR:
+            raise ConnectionError(
+                f"chain returned frame kind {kind!r} while results were "
+                f"still in flight (a stage replica died and cascaded "
+                f"END?)")
         return y
 
     def collect_trace(self, node_addrs: Sequence[str]) -> int:
@@ -1400,12 +1973,20 @@ class ChainDispatcher:
         mid-stream cannot mask the original failure with a secondary
         BrokenPipe/EOF from the teardown itself."""
         try:
-            if self._send_sock is not None:
+            if self._send_sock is not None or self._send_socks:
                 # the END rides the ordered tx queue behind any trailing
                 # frames; close() joins the tx thread so it is on the
-                # wire before we wait for the cascaded echo
+                # wire before we wait for the cascaded echo (a fan-out
+                # ENDs every replica channel)
                 self._tx_chan.close(timeout=min(10.0, self.timeout_s))
-                if self._res_conn is None:
+                if self.result_fan_in > 1:
+                    # drain the merge until all R replica dial-backs have
+                    # delivered their END (the acceptor keeps taking late
+                    # dial-backs: a replica whose only frame was the END)
+                    merge = self._ensure_result_merge()
+                    while merge.get(timeout=self.timeout_s)[0] != K_END:
+                        pass
+                elif self._res_conn is None:
                     # nothing was ever received: still accept the last
                     # node's dial-back so its cascaded END completes
                     try:
@@ -1437,16 +2018,19 @@ class ChainDispatcher:
             if self._rx_chan is not None:
                 # reconcile the additive chain.rx_queue_depth gauge
                 self._rx_chan.release_gauge()
-            if self._send_sock is not None:
-                self._send_sock.close()
-            if self._res_conn is not None:
-                self._res_conn.close()
+            for sock in ([self._send_sock] + (self._send_socks or [])
+                         + [self._res_conn] + self._res_conns):
+                if sock is not None:
+                    sock.close()
             # reset to pre-connect state: the next stream() segment
             # redials the (possibly re-deployed) chain from scratch
             self._send_sock = None
+            self._send_socks = None
             self._tx_chan = None
             self._rx_chan = None
             self._res_conn = None
+            self._res_conns = []
+            self._res_merge = None
             try:
                 self._res_srv.settimeout(self.timeout_s)
             except OSError:
@@ -1557,30 +2141,34 @@ class NodeProcs(NamedTuple):
     """The children :func:`spawn_nodes` yields, once each has bound."""
 
     procs: list       # subprocess.Popen, one per process
-    addrs: list       # each stage's listen address, "host:port"
+    addrs: list       # each node's listen address, "host:port"
     result: str       # a free port for the dispatcher's result channel
     logs: list        # each process's log file (its stdout and stderr)
+    env: dict         # the children's environment (a respawn's too)
 
 
 @contextlib.contextmanager
 def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
                 argv_for=None, co_stage_for=None, groups=None,
+                labels: Sequence[str] | None = None,
                 env: dict[str, str] | None = None,
                 on_spawn=None, spawn_retries: int = 3):
-    """Spawn ``python -m defer_tpu_torch node`` processes for ``n`` stages
+    """Spawn ``python -m defer_tpu_torch node`` processes for ``n`` nodes
     on fresh localhost ports and yield a :class:`NodeProcs` once every
-    stage's node has bound — the one spawn path of the port's process
-    chains (:func:`run_chain` runs its nodes through it).
+    node has bound — the one spawn path of the port's process chains
+    (:func:`run_chain` runs its nodes through it).  A node is a stage, or
+    one replica of a replicated stage; ``labels`` names each in errors
+    (default ``stageK`` for node K).
 
-    ``groups`` lists the stages of each process (default: one process per
-    stage).  A group's first stage is the process's own node; the others
-    board it as ``--co-stage`` serve threads, so the hops between them can
-    take the in-process tiers.  Every process runs on ``device`` (its argv
+    ``groups`` lists the nodes of each process (default: one process per
+    node).  A group's first node is the process's own; the others board
+    it as ``--co-stage`` serve threads, so the hops between them can take
+    the in-process tiers.  Every process runs on ``device`` (its argv
     carries ``--device``), imports this package from where the parent
     did, takes ``env`` over the parent's environment and logs to
-    ``log_dir/node_<stages>.log``.  ``argv_for(k, addrs, result)`` gives
-    the further arguments of a process whose own node is stage k (by
-    default none: the node boots empty and awaits an in-band deploy), and
+    ``log_dir/node_<nodes>.log``.  ``argv_for(k, addrs, result)`` gives
+    the further arguments of a process whose own node is k (by default
+    none: the node boots empty and awaits an in-band deploy), and
     ``co_stage_for(k, addrs, result)`` the ``key=value;...`` keys of
     co-stage k after its ``listen`` (default ``accept=1``: the hop into a
     co-stage is the in-process boundary that put it there).  On the card
@@ -1607,8 +2195,10 @@ def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
     groups = [[k] for k in range(n)] if groups is None \
         else [list(g) for g in groups]
     if sorted(k for g in groups for k in g) != list(range(n)):
-        raise ValueError(f"groups {groups} must cover stages 0..{n - 1} "
+        raise ValueError(f"groups {groups} must cover nodes 0..{n - 1} "
                          f"once each")
+    node_labels = (list(labels) if labels is not None
+                   else [f"stage{k}" for k in range(n)])
     child_env = dict(os.environ)
     # the children import this package from where the parent did
     root = str(Path(__file__).resolve().parents[2])
@@ -1616,13 +2206,13 @@ def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
         [root] + [p for p in child_env.get("PYTHONPATH", "").split(os.pathsep)
                   if p])
     child_env.update(env or {})
-    labels = ["+".join(f"stage{k}" for k in g) for g in groups]
+    labels = ["+".join(node_labels[k] for k in g) for g in groups]
     proc_of = {k: u for u, g in enumerate(groups) for k in g}
 
     last_exc: BaseException | None = None
     for attempt in range(max(1, spawn_retries)):
         procs, logs = [], []
-        ports = _free_ports(n + 1)  # one listen port per stage + the result
+        ports = _free_ports(n + 1)  # one listen port per node + the result
         addrs = [f"127.0.0.1:{p}" for p in ports[:n]]
         result = f"127.0.0.1:{ports[-1]}"
         try:
@@ -1645,8 +2235,8 @@ def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
                     stderr=subprocess.STDOUT))
             if on_spawn is not None:
                 on_spawn(procs)
-            _await_binds(procs, [f"stage{k}" for k in range(n)], logs,
-                         addrs, proc_of=[proc_of[k] for k in range(n)])
+            _await_binds(procs, node_labels, logs, addrs,
+                         proc_of=[proc_of[k] for k in range(n)])
             break
         except BaseException as e:
             _kill_procs(procs)
@@ -1662,7 +2252,7 @@ def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
                            f"times: {last_exc}") from last_exc
 
     try:
-        yield NodeProcs(procs, addrs, result, logs)
+        yield NodeProcs(procs, addrs, result, logs, child_env)
         for pr in procs:
             try:
                 pr.wait(timeout=_EXIT_TIMEOUT_S)
@@ -1701,18 +2291,49 @@ def spawn_nodes(n: int, *, log_dir: str, device: str = "cuda",
 _HOP_TIERS = ("tcp", "auto", "local", "shm", "ici", "device")
 
 
-def _normalize_hop_tiers(hop_tiers, n: int, default: str) -> list[str]:
+def _normalize_replicas(replicas, n: int) -> list[int]:
+    """``{stage: R}`` -> each stage's replica count, validated: in range,
+    >= 1, and never two adjacent replicated stages (a replica cannot
+    restore another fan-out's sequence order)."""
+    r_of = [1] * n
+    for k, r in (replicas or {}).items():
+        k, r = int(k), int(r)
+        if not 0 <= k < n:
+            raise ValueError(f"replicas: stage {k} out of range 0..{n - 1}")
+        if r < 1:
+            raise ValueError(f"replicas: stage {k} count {r} must be >= 1")
+        r_of[k] = r
+    for k in range(n - 1):
+        if r_of[k] > 1 and r_of[k + 1] > 1:
+            raise ValueError(
+                f"replicas: stages {k} and {k + 1} are both replicated; "
+                f"adjacent replication is not supported")
+    return r_of
+
+
+def _normalize_hop_tiers(hop_tiers, n: int, default: str,
+                         r_of: Sequence[int] | None = None) -> list[str]:
     """One tier per inter-stage hop, validated: known names, one entry per
-    hop (``default`` on every hop when ``hop_tiers`` is None)."""
+    hop (``default`` on every hop when ``hop_tiers`` is None, checked the
+    same way), and no colocated hop (local/shm/ici/device) touching a
+    replicated stage of ``r_of``: the fan paths ride tcp, and a silent
+    downgrade there would belie the caller's topology."""
     tiers = ([default] * max(0, n - 1) if hop_tiers is None
              else [str(t) for t in hop_tiers])
     if len(tiers) != max(0, n - 1):
         raise ValueError(f"hop_tiers must have one entry per inter-stage "
                          f"hop ({n - 1}), got {len(tiers)}")
+    r_of = list(r_of) if r_of is not None else [1] * n
     for k, t in enumerate(tiers):
         if t not in _HOP_TIERS:
             raise ValueError(f"hop_tiers[{k}] = {t!r}; "
                              f"use tcp|auto|local|shm|ici|device")
+        if t in ("local", "shm", "ici", "device") \
+                and (r_of[k] > 1 or r_of[k + 1] > 1):
+            raise ValueError(
+                f"hop_tiers[{k}] = {t!r} but stage {k} or {k + 1} is "
+                f"replicated; fan paths ride tcp (drop the replicas or "
+                f"the colocation)")
     return tiers
 
 
@@ -1800,8 +2421,22 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
     error propagates.  ``on_spawn(procs)`` is called with each spawn's
     ``subprocess.Popen`` list.
 
-    Not ported yet, and raising ``NotImplementedError``: ``replicas`` and
-    ``failover`` (A10b), ``plan`` and ``journal_dir`` (A12).
+    Replication: ``replicas`` ({stage: R}) runs stage k as R node
+    processes fed round-robin with sequence numbers and merged back in
+    order below them (one artifact deployed to each); two adjacent stages
+    cannot both be replicated, the hops touching a replicated stage ride
+    tcp, and replicas need the overlapped loop.  ``stats_out`` then holds
+    a row per replica.  ``failover=True`` arms the seq-replay plane: the
+    fan-out above a replicated stage retains frames until the fan-in
+    below acks them, the replicas relay the acks, and a supervisor
+    respawns a replica process that dies from its argv on its port, so a
+    ``kill -9`` of a replica mid-stream still gives a byte-identical
+    stream.  It needs ``in_band=False`` (the respawn boots from the
+    artifact path on its argv), at least one replicated stage, and every
+    replicated stage interior (a fan-out above it, a fan-in below it).
+
+    Not ported yet, and raising ``NotImplementedError``: ``plan`` and
+    ``journal_dir`` (A12).
     """
     with deploy_chain(
             stages, params, batch=batch, codec=codec,
@@ -1833,10 +2468,82 @@ class ChainSession(NamedTuple):
     """A spawned, deployed chain that :func:`deploy_chain` yields."""
 
     dispatcher: "ChainDispatcher"   # connected on the first stream
-    addrs: list       # each stage's node address, "host:port"
-    procs: list       # the node processes (subprocess.Popen)
+    addrs: list       # every node's address, stage by stage (replicas in
+    #                   order): what ``stats`` and ``collect_trace`` take
+    procs: list       # the node processes (subprocess.Popen); a respawn
+    #                   replaces its corpse in place
     boot_s: float     # spawn to the last node's bind
     deploy_s: float   # the in-band deploy (0 for artifacts on argv)
+    stage_addrs: list  # each stage's node addresses (R for a replicated one)
+    units: list       # each process's (stage, replica) nodes
+    respawns: list    # the supervisor's respawns: stage, replica, addr,
+    #                   rc, spawned_at (time.time()), and once the new
+    #                   process's listening line shows, bind_s and ready_s:
+    #                   the seconds to its bind and to the line (it binds
+    #                   first, then makes its CUDA context and loads its
+    #                   artifact, then prints the line)
+
+    def pid(self, stage: int, replica: int = 0) -> int:
+        """The pid of the process that runs replica ``replica`` of
+        ``stage`` now (after a respawn, the new process's)."""
+        for u, members in enumerate(self.units):
+            if (stage, replica) in members:
+                return self.procs[u].pid
+        raise KeyError(f"no node for stage {stage} replica {replica}")
+
+
+def _supervise(nodes: NodeProcs, units, r_of, stop: threading.Event,
+               respawns: list) -> None:
+    """The failover supervisor: poll the node processes, and respawn a
+    replica process that died, from its original argv on the same port
+    (the upstream fan-out's redial bridges the gap and replays its unacked
+    window once the new process binds).  A ``kill -9`` skips every unlink,
+    so orphan shm segments are swept first.  The corpse's entry of
+    ``nodes.procs`` is replaced, so the exit check judges the respawn.  A
+    death that is not a replica's ends the supervision and is left to the
+    teardown to report.  Each respawn emits ``replica_respawn`` and is
+    recorded in ``respawns``; once the new process's listening line shows
+    (printed after its boot), the record gets the seconds to the bind the
+    line carries and to the line itself."""
+    watching: list[tuple[dict, str, int]] = []
+    while not stop.wait(0.2):
+        for rec, path, before in list(watching):
+            lines = re.findall(
+                rf"listening on {re.escape(rec['addr'])},.*?bound at "
+                rf"([0-9.]+)", Path(path).read_text(errors="replace"))
+            if len(lines) > before:
+                rec["ready_s"] = time.time() - rec["spawned_at"]
+                rec["bind_s"] = float(lines[-1]) - rec["spawned_at"]
+                watching.remove((rec, path, before))
+        for idx, unit in enumerate(units):
+            rc = nodes.procs[idx].poll()
+            if rc is None or rc == 0:
+                continue
+            if len(unit) != 1 or r_of[unit[0][0]] <= 1:
+                return  # not respawnable: the teardown reports the death
+            k, j = unit[0]
+            addr = nodes.addrs[sum(r_of[:k]) + j]
+            sweep_orphan_segments()
+            path = nodes.logs[idx].name
+            before = len(re.findall(
+                rf"listening on {re.escape(addr)},.*?bound at ",
+                Path(path).read_text(errors="replace")))
+            # O_APPEND: the child's lines land after the corpse's whatever
+            # the parent's read offset on the shared log
+            log = open(path, "a")
+            rec = {"stage": k, "replica": j, "addr": addr, "rc": rc,
+                   "spawned_at": time.time(), "bind_s": None,
+                   "ready_s": None}
+            nodes.procs[idx] = subprocess.Popen(
+                nodes.procs[idx].args, env=nodes.env, stdout=log,
+                stderr=subprocess.STDOUT)
+            log.close()
+            respawns.append(rec)
+            watching.append((rec, path, before))
+            emit_event("replica_respawn", stage=k, replica=j, addr=addr,
+                       rc=rc)
+            print(f"deploy_chain: respawned stage{k}.r{j} (rc={rc})",
+                  file=sys.stderr, flush=True)
 
 
 @contextlib.contextmanager
@@ -1867,12 +2574,12 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
     likes; leaving the block closes the dispatcher (END cascades) and
     waits for every node to exit 0.  The arguments are
     :func:`run_chain`'s.  A bind race before the yield retries on fresh
-    ports; a failure inside the block kills every node first.
+    ports; a failure inside the block kills every node first.  Under
+    ``failover`` the supervisor (:func:`_supervise`) runs for the whole
+    session and stops before the teardown, so the END cascade's exits
+    never read as deaths; ``ChainSession.pid`` names a replica's process
+    for a caller that kills one.
     """
-    if replicas and any(int(r) > 1 for r in replicas.values()):
-        raise _not_ported("A10b", "stage replicas")
-    if failover:
-        raise _not_ported("A10b", "failover")
     if plan is not None:
         raise _not_ported("A12", "the live plan observation (plan=)")
     if journal_dir is not None:
@@ -1880,6 +2587,27 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
     dev = resolve_device(device)
     sweep_orphan_segments()
     n = len(stages)
+    r_of = _normalize_replicas(replicas, n)
+    if any(r > 1 for r in r_of) and not overlap:
+        raise ValueError("replicas require the overlapped node loop "
+                         "(drop overlap=False / --no-overlap)")
+    if failover:
+        if in_band:
+            raise ValueError(
+                "failover requires in_band=False: the supervisor respawns "
+                "a dead replica from its original argv, which must carry "
+                "the artifact path")
+        if not any(r > 1 for r in r_of):
+            raise ValueError(
+                "failover requires at least one replicated stage "
+                "(replicas={k: R}) — an unreplicated stage's death has no "
+                "surviving peer to absorb its slots")
+        for k in range(n):
+            if r_of[k] > 1 and not 0 < k < n - 1:
+                raise ValueError(
+                    f"failover: replicated stage {k} must be interior "
+                    f"(0 < k < {n - 1}) — the replay/ack plane needs a "
+                    f"fan-out stage above it and a fan-in stage below it")
     if tier not in ("tcp", "auto", "shm"):
         if tier in ("ici", "local"):
             raise ValueError(
@@ -1888,7 +2616,7 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                 f"pin the stage hops with hop_tiers=[{tier!r}, ...] and "
                 f"keep tier='auto'")
         raise ValueError(f"tier must be tcp|auto|shm, got {tier!r}")
-    tiers = _normalize_hop_tiers(hop_tiers, n, tier)
+    tiers = _normalize_hop_tiers(hop_tiers, n, tier, r_of)
     claimed = [t for t in tiers if t in ("local", "shm", "ici")]
     if not overlap and claimed:
         # the serial loop is the pure-wire baseline and refuses every
@@ -1934,15 +2662,21 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
         raise ValueError("stage_delays ride the node's argv: pass "
                          "in_band=False with them")
     if any(t == "device" for t in tiers):
-        # adjacent stages on one device become one exported program
+        # adjacent stages on one device become one exported program (never
+        # a replicated one: the adjacency check above refuses that)
         from ..partition.partitioner import fuse_stages
         stages, groups = fuse_stages(list(stages), tiers)
+        r_of = [r_of[g[0]] for g in groups]
         codec_of = [codec_of[g[-1]] for g in groups]
         delay_of = [sum(delay_of[i] for i in g) for g in groups]
         tiers = [tiers[g[-1]] for g in groups[:-1]]
         n = len(stages)
+    # the nodes: one per stage replica, stage by stage
+    nodes_of = [(k, j) for k in range(n) for j in range(r_of[k])]
+    first = [sum(r_of[:k]) for k in range(n)]   # stage k's first node
     # maximal runs of stages joined by local or ici hops share one OS
-    # process: both tiers hand a live object within one address space
+    # process: both tiers hand a live object within one address space (a
+    # replicated stage never joins a run, so each replica is a process)
     coloc = [[0]] if n else []
     for k in range(n - 1):
         if tiers[k] in ("local", "ici"):
@@ -1952,9 +2686,17 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
     if any(delay_of[k] for g in coloc for k in g[1:]):
         raise ValueError("stage_delays ride a process's own node: a stage "
                          "behind a local or ici hop (a co-stage) takes none")
+    units = []
+    for g in coloc:
+        if len(g) == 1:
+            units += [[(g[0], j)] for j in range(r_of[g[0]])]
+        else:
+            units.append([(k, 0) for k in g])
     #: each stage's OUTBOUND tier policy: a claimed rung is offered alone
     tier_of = [t if t != "device" else "tcp" for t in tiers] + [tier]
     tuning = [] if overlap else ["--no-overlap"]
+    if failover:
+        tuning += ["--failover"]
     for flag, v in (("--rx-depth", rx_depth), ("--tx-depth", tx_depth),
                     ("--inflight", inflight)):
         if v is not None:
@@ -1971,31 +2713,39 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
             paths = export_pipeline(stages, params, artifact_dir,
                                     batch=batch)
 
-        def pin(k: int) -> list[str]:
-            return ([] if device_map.get(k) is None
-                    else ["--device", str(device_map[k])])
+        def next_of(k: int, addrs, result) -> str:
+            return (",".join(addrs[first[k + 1]:first[k + 1] + r_of[k + 1]])
+                    if k + 1 < n else result)
 
-        def argv_for(k: int, addrs, result) -> list[str]:
-            argv = pin(k) + ["--tier", tier_of[k]]
+        def argv_for(i: int, addrs, result) -> list[str]:
+            k, j = nodes_of[i]
+            argv = ([] if device_map.get(k) is None
+                    else ["--device", str(device_map[k])])
+            argv += ["--tier", tier_of[k]]
             if (tier if k == 0 else tier_of[k - 1]) != "tcp":
                 # the inbound hop offers a tier whatever this stage's own
                 # outbound policy says: grant it
                 argv += ["--tier-accept", "1"]
             if not in_band:
                 argv += ["--artifact", paths[k],
-                         "--next", addrs[k + 1] if k + 1 < n else result,
+                         "--next", next_of(k, addrs, result),
                          "--codec", codec_of[k]]
+                if k > 0 and r_of[k - 1] > 1:
+                    argv += ["--fan-in", str(r_of[k - 1])]
+                if r_of[k] > 1:
+                    argv += ["--replica", str(j)]
                 if delay_of[k]:
                     argv += ["--infer-delay-ms", str(delay_of[k] * 1e3)]
             return argv + tuning
 
-        def co_stage_for(k: int, addrs, result) -> str:
+        def co_stage_for(i: int, addrs, result) -> str:
+            k, _ = nodes_of[i]
             # accept=1: the hop into a co-stage is the in-process boundary
             # that put it in this process
             spec = f"accept=1;tier={tier_of[k]}"
             if not in_band:
                 spec += (f";artifact={paths[k]};codec={codec_of[k]}"
-                         f";next={addrs[k + 1] if k + 1 < n else result}")
+                         f";next={next_of(k, addrs, result)}")
             if device_map.get(k) is not None:
                 spec += f";device={device_map[k]}"
             return spec
@@ -2005,17 +2755,25 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
         for attempt in range(max(1, spawn_retries)):
             try:
                 t0 = time.perf_counter()
-                with spawn_nodes(n, log_dir=artifact_dir, device=str(dev),
-                                 argv_for=argv_for,
-                                 co_stage_for=co_stage_for, groups=coloc,
-                                 env=env, on_spawn=on_spawn,
-                                 spawn_retries=spawn_retries) as nodes:
+                with spawn_nodes(
+                        len(nodes_of), log_dir=artifact_dir,
+                        device=str(dev), argv_for=argv_for,
+                        co_stage_for=co_stage_for,
+                        groups=[[first[k] + j for k, j in u]
+                                for u in units],
+                        labels=[f"stage{k}" if r_of[k] == 1
+                                else f"stage{k}.r{j}" for k, j in nodes_of],
+                        env=env, on_spawn=on_spawn,
+                        spawn_retries=spawn_retries) as nodes:
                     boot_s = time.perf_counter() - t0
+                    stage_addrs = [nodes.addrs[first[k]:first[k] + r_of[k]]
+                                   for k in range(n)]
                     try:
                         disp = ChainDispatcher(
-                            nodes.addrs[0], listen=nodes.result,
+                            ",".join(stage_addrs[0]), listen=nodes.result,
                             codec=codec, tx_depth=tx_depth or 8,
                             rx_depth=rx_depth or 8,
+                            result_fan_in=r_of[-1],
                             trace_sample_every=trace_sample_every,
                             tier=tier)
                     except OSError as e:
@@ -2024,21 +2782,38 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                                             f"result-port bind race "
                                             f"({e})") from e
                         raise
+                    stop = threading.Event()
+                    supervisor = None
                     failed = True
                     try:
                         t0 = time.perf_counter()
                         if in_band:
-                            disp.deploy(stages, params, nodes.addrs,
+                            disp.deploy(stages, params,
+                                        [a[0] if len(a) == 1 else a
+                                         for a in stage_addrs],
                                         batch=batch, codecs=codec_of,
                                         tiers=tier_of,
                                         devices=[device_map.get(k)
                                                  for k in range(n)])
                         deploy_s = time.perf_counter() - t0
+                        respawns: list = []
+                        if failover:
+                            supervisor = threading.Thread(
+                                target=_supervise,
+                                args=(nodes, units, r_of, stop, respawns),
+                                daemon=True, name="chain-supervisor")
+                            supervisor.start()
                         yielded = True
                         yield ChainSession(disp, nodes.addrs, nodes.procs,
-                                           boot_s, deploy_s)
+                                           boot_s, deploy_s, stage_addrs,
+                                           units, respawns)
                         failed = False
                     finally:
+                        # stop before the teardown: the END cascade exits
+                        # every node, and an exit must not read as a death
+                        stop.set()
+                        if supervisor is not None:
+                            supervisor.join(timeout=5.0)
                         if failed:
                             # kill the nodes first, so the dispatcher's
                             # drain hits dead sockets instead of waiting

@@ -33,6 +33,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import threading
 import zipfile
 from typing import Any
 
@@ -48,6 +49,10 @@ from ..runtime import flatbuf
 from .config import resolve_device
 from .convert import hwio_to_oihw, is_hwio_leaf, oihw_to_hwio
 
+#: ``torch.export.load`` keeps its deserializer in a module global, so two
+#: threads may not load at once (the nodes of one process load in-band
+#: deploys on their own serve threads)
+_LOAD_LOCK = threading.Lock()
 _MANIFEST = "manifest.json"
 _PROGRAM = "stage.pt2"
 _WEIGHTS = "weights.npz"
@@ -265,7 +270,8 @@ def load_stage_program(src, *, device=None) -> StageProgram:
         if fmt != FORMAT:
             raise ValueError(f"{src!r:.80}: not a defer_tpu_torch stage "
                              f"artifact")
-        program = torch.export.load(io.BytesIO(z.read(_PROGRAM)))
+        with _LOAD_LOCK:
+            program = torch.export.load(io.BytesIO(z.read(_PROGRAM)))
         leaves = _load_weights_blob(z.read(_WEIGHTS),
                                     manifest["num_weights"])
     prog = StageProgram(program, leaves, manifest)

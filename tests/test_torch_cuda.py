@@ -920,6 +920,67 @@ def test_ici_hop_on_card(cuda, model, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.timeout(300)
+def test_replicated_bert_chain_on_card(cuda, monkeypatch):
+    """A three-stage BERT-tiny chain of in-process nodes on the card, with
+    stage 1 as two replicas behind a fan-out and a fan-in: one flash
+    launch per block per frame in all, the two replicas process the frames
+    once between them, and the rows equal the unreplicated chain's."""
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch import models, partition
+    from defer_tpu_torch.runtime.node import ChainDispatcher, StageNode
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    g = models.bert_tiny()
+    p = g.init(torch.Generator().manual_seed(0))
+    stages = partition(g, num_stages=3)
+    rng = np.random.default_rng(3)
+    xs = [rng.integers(0, 100, (2,) + stages[0].in_spec.shape)
+          .astype(np.int32) for _ in range(5)]
+
+    def run(r1):
+        groups = [[StageNode(None, "127.0.0.1:0", None)],
+                  [StageNode(None, "127.0.0.1:0", None,
+                             replica=j if r1 > 1 else None)
+                   for j in range(r1)],
+                  [StageNode(None, "127.0.0.1:0", None, fan_in=r1)]]
+        addrs = [[f"127.0.0.1:{n.address[1]}" for n in grp]
+                 for grp in groups]
+        ts = [threading.Thread(target=n.serve, daemon=True)
+              for grp in groups for n in grp]
+        for t in ts:
+            t.start()
+        disp = ChainDispatcher(addrs[0][0])
+        try:
+            disp.deploy(stages, p, [a[0] if len(a) == 1 else a
+                                    for a in addrs], batch=2)
+            before = FLASH.launches
+            outs = disp.stream(xs)
+            launches = FLASH.launches - before
+            st = disp.stats([a for grp in addrs for a in grp])
+        finally:
+            disp.close()
+        for t in ts:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        return outs, launches, st
+
+    base, _, _ = run(1)
+    outs, launches, st = run(2)
+    blocks = sum(n.startswith("block_") for n in g.topo_order)
+    assert launches == blocks * len(xs)
+    shares = [s["processed"] for s in st if s["stage"] == 1]
+    assert [s["replica"] for s in st if s["stage"] == 1] == [0, 1]
+    assert sum(shares) == len(xs) and min(shares) > 0
+    assert st[-1]["fan_in"] == 2
+    for a, b in zip(base, outs):
+        np.testing.assert_array_equal(a, b)
+
+
 def test_identify_chip_on_the_card(cuda):
     """The card's row: the H100 SXM is ``"h100"`` with its data-sheet
     peaks; any other card is ``"unknown"`` and borrows none."""

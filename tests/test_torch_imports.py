@@ -38,6 +38,7 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.runtime.flatbuf; "
             "import defer_tpu_torch.obs.events; "
             "import defer_tpu_torch.transport.replay; "
+            "import defer_tpu_torch.transport.replicate; "
             "import defer_tpu_torch.models.gpt; "
             "import defer_tpu_torch.runtime.decode; "
             "import defer_tpu_torch.runtime.speculative; "
@@ -90,6 +91,7 @@ def test_import_loads_no_jax_module():
     for new in ("defer_tpu_torch.runtime.flatbuf",
                 "defer_tpu_torch.obs.events",
                 "defer_tpu_torch.transport.replay",
+                "defer_tpu_torch.transport.replicate",
                 "defer_tpu_torch.ops.launches",
                 "defer_tpu_torch.models.gpt",
                 "defer_tpu_torch.runtime.decode",
@@ -142,11 +144,15 @@ PLANNER_MODULES = ("defer_tpu_torch.utils.hw",
 
 
 def test_planner_imports_with_jax_blocked():
-    """The planner's modules, the CLI and the re-exporting batcher import,
-    and a plan solves, with ``jax``, ``jaxlib`` and ``defer_tpu`` made
-    unimportable (a meta-path finder that refuses them)."""
+    """The planner's modules, the CLI, the re-exporting batcher and the
+    replication transport (``transport.replicate`` and ``replay``, whose
+    JAX counterparts import no JAX either) import, and a plan solves, with
+    ``jax``, ``jaxlib`` and ``defer_tpu`` made unimportable (a meta-path
+    finder that refuses them)."""
     mods = list(PLANNER_MODULES) + ["defer_tpu_torch.serve.batcher",
                                     "defer_tpu_torch.graph.analysis",
+                                    "defer_tpu_torch.transport.replicate",
+                                    "defer_tpu_torch.transport.replay",
                                     "defer_tpu_torch.cli"]
     code = (
         "import importlib, json, sys\n"

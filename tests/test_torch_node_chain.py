@@ -520,12 +520,20 @@ def test_node_without_cuda_raises_unless_asked_for_the_cpu():
     node._srv.close()
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"replicas": {1: 2}}, "A10b"), ({"failover": True}, "A10b"),
-    ({"plan": object()}, "A12"), ({"journal_dir": "/nonexistent"}, "A12")])
-def test_run_chain_refuses_what_is_not_ported(tiny, kw, item):
+@pytest.mark.parametrize("kw,exc,match", [
+    ({"replicas": {0: 2, 1: 2}}, ValueError,
+     "stages 0 and 1 are both replicated"),
+    ({"failover": True}, ValueError,
+     "failover requires at least one replicated stage"),
+    ({"plan": object()}, NotImplementedError, "A12"),
+    ({"journal_dir": "/nonexistent"}, NotImplementedError, "A12")])
+def test_run_chain_refuses_what_is_not_ported(tiny, kw, exc, match):
+    """What the port does not run yet (the A12 options) raises naming its
+    ROADMAP item; replicas and failover run, and refuse what the JAX
+    package refuses (adjacent replicated stages, failover with nothing
+    replicated) with its messages, before any node is spawned."""
     _, stages = _stages(tiny, 2)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=match):
         run_chain(stages, tiny[3], [], device="cpu", **kw)
 
 
@@ -556,12 +564,22 @@ def test_run_chain_takes_the_colocated_tiers(tiny, kw, want):
         np.testing.assert_array_equal(y, ref)
 
 
-@pytest.mark.parametrize("make,item", [
-    (lambda: ChainDispatcher("127.0.0.1:1,127.0.0.1:2"), "A10b"),
-    (lambda: ChainDispatcher("127.0.0.1:1", result_fan_in=2), "A10b")])
-def test_nodes_and_dispatcher_refuse_what_is_not_ported(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+@pytest.mark.parametrize("make,check", [
+    (lambda: ChainDispatcher("127.0.0.1:1,127.0.0.1:2"),
+     lambda d: d._first_hops == [("127.0.0.1", 1), ("127.0.0.1", 2)]
+     and d.result_fan_in == 1),
+    (lambda: ChainDispatcher("127.0.0.1:1", result_fan_in=2),
+     lambda d: d._first_hops == [("127.0.0.1", 1)]
+     and d.result_fan_in == 2)])
+def test_nodes_and_dispatcher_refuse_what_is_not_ported(make, check):
+    """A dispatcher takes a replicated first stage (a comma list it fans
+    out to) and a replicated last stage (``result_fan_in``); a node still
+    refuses an unknown tier."""
+    d = make()
+    try:
+        assert check(d)
+    finally:
+        d._res_srv.close()
     with pytest.raises(ValueError, match="tier must be"):
         StageNode(None, "127.0.0.1:0", None, device="cpu", tier="udp")
 
@@ -592,14 +610,40 @@ def test_nodes_and_dispatcher_take_the_colocated_tiers(make, check):
     {"cmd": "deploy", "join": 2},
     {"cmd": "clock_probe"}, {"cmd": "obs_subscribe"},
     {"cmd": "profile_start"}])
-def test_node_refuses_unported_commands(msg):
-    """A deploy that asks for a fan role, and the commands of the live
+def test_node_refuses_unported_commands(tiny, msg):
+    """A deploy that asks for a branch role, and the commands of the live
     observability plane, raise on the node: the control connection is
-    cut, never answered as if they had worked."""
+    cut, never answered as if they had worked.  A deploy's replica roles
+    (``fan_in``, ``replica``) load the artifact, take the role and are
+    ACKed."""
+    import socket
+
+    from defer_tpu_torch.transport.framed import K_ACK, recv_frame
     node = StageNode(None, "127.0.0.1:0", None, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        node._handle_ctrl(None, msg, recv=lambda: (tnode.K_BYTES, b""))
-    node._srv.close()
+    try:
+        if "fan_in" not in msg and "replica" not in msg:
+            with pytest.raises(NotImplementedError, match="ROADMAP item"):
+                node._handle_ctrl(None, msg,
+                                  recv=lambda: (tnode.K_BYTES, b""))
+            return
+        _, stages = _stages(tiny, 2)
+        blob = texport.export_stage_bytes(stages[1], tiny[3], batch=1)
+        a, b = socket.socketpair()
+        try:
+            assert node._handle_ctrl(
+                a, dict(msg, next="127.0.0.1:1"),
+                recv=lambda: (tnode.K_BYTES, blob))
+            assert recv_frame(b)[0] == K_ACK
+        finally:
+            a.close()
+            b.close()
+        assert node.manifest["index"] == 1
+        assert (node.fan_in, node.replica) == \
+            ((2, None) if "fan_in" in msg else (1, 0))
+        assert node._span_label() == \
+            ("stage1" if "fan_in" in msg else "stage1.r0")
+    finally:
+        node._srv.close()
 
 
 @pytest.mark.timeout(120)
@@ -626,7 +670,8 @@ def test_node_deploy_takes_a_tier(tiny):
 
 
 @pytest.mark.timeout(120)
-def test_cli_node_and_chain_parsers():
+def test_cli_node_and_chain_parsers(monkeypatch):
+    from defer_tpu import cli as jcli
     from defer_tpu_torch import cli
     with pytest.raises(SystemExit):
         cli.main(["chain", "--codec", "sleep1"])
@@ -634,6 +679,22 @@ def test_cli_node_and_chain_parsers():
         cli.main(["node", "--device", "cpu"])  # --listen is required
     with pytest.raises(SystemExit, match="unknown model"):
         cli.main(["chain", "--model", "no_such_model", "--device", "cpu"])
+    # the replica flags parse as the JAX package's do
+    got = {}
+    monkeypatch.setattr(cli, "cmd_node", lambda a: got.setdefault("node", a))
+    monkeypatch.setattr(cli, "cmd_chain",
+                        lambda a: got.setdefault("chain", a))
+    cli.main(["node", "--listen", ":0", "--fan-in", "2", "--replica", "1",
+              "--failover"])
+    cli.main(["chain", "--replicas", "stage1=2, 3=3", "--failover"])
+    a, c = got["node"], got["chain"]
+    assert (a.fan_in, a.replica, a.failover) == (2, 1, True)
+    assert c.failover and c.replicas == "stage1=2, 3=3"
+    assert cli._parse_replicas(c.replicas) == \
+        jcli._parse_replicas(c.replicas) == {1: 2, 3: 3}
+    for bad in ("stage1", "stagex=2"):
+        with pytest.raises(SystemExit, match="--replicas: .* is not stageK=N"):
+            cli._parse_replicas(bad)
 
 
 @pytest.mark.timeout(240)
