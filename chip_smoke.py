@@ -100,20 +100,20 @@ Phases, in order; any failure exits non-zero before the result line:
                    per-tenant p50/p99, steps, slot occupancy, the engine's
                    phase times, the device's idle share of a step;
                 k. the stage-node chain: ResNet50/8 as eight ``python -m
-                   defer_tpu_torch node`` processes on the card through
-                   ``run_chain`` (in-band deploy of ``torch.export``
-                   artifacts), 64 images in frames of 8 on lzb hops, and
-                   through eight more on raw hops, held open by
-                   ``deploy_chain`` (rows within 1e-5 of the forward,
+                   defer_tpu_torch node`` processes on the card held open
+                   by ``deploy_chain(persist=True)`` (in-band deploy of
+                   ``torch.export`` artifacts), 64 images in frames of 8
+                   on lzb hops, then the same processes deployed again
+                   in-band on raw hops (rows within 1e-5 of the forward,
                    top-1 equal, raw and lzb byte-identical, every node on
-                   cuda with 8 frames processed); BERT-Base/12 as twelve
-                   in-process ``StageNode`` threads (12 flash launches
-                   per frame, by the smoke's counts and the nodes' own,
-                   rows within 1e-5 of phase 4b's forward, a ``reweight``
-                   equal to the forward on the new weights);
+                   cuda with 8 frames processed a segment); BERT-Base/12
+                   as twelve in-process ``StageNode`` threads (12 flash
+                   launches per frame, by the smoke's counts and the
+                   nodes' own, rows within 1e-5 of phase 4b's forward, a
+                   ``reweight`` equal to the forward on the new weights);
                    ``ServeFrontDoor`` in tensor mode over the raw chain
                    (two tenants' rows equal to the forward's); each chain
-                   timed on streams of 64 frames beside the ring pipeline
+                   timed on streams of 32 frames beside the ring pipeline
                    on the same frames; boot, deploy, exit seconds and the
                    short streams' time to their last result; every hop
                    pinned to tcp (``tier="tcp"``, ``--tier tcp``);
@@ -124,15 +124,15 @@ Phases, in order; any failure exits non-zero before the result line:
                    one process with seven ici hops (``--co-stage``
                    threads; no host sync on the seven nodes before the
                    dispatcher's edge, rows within 1e-5, top-1 equal), each
-                   timed on 64-frame streams beside the ring; BERT-Base/12
+                   timed on 32-frame streams beside the ring; BERT-Base/12
                    as twelve in-process nodes on ici hops (12 flash
                    launches per frame, no host sync on any node, rows
                    within 1e-5 of 4b's forward), then fused into two
                    programs; ResNet50/8 fused into two processes with one
                    shm hop (``hop_tiers`` device x3, shm, device x3,
-                   through ``run_chain``); a shm offer into a node started
-                   with ``--tier-accept 0`` (tcp, one labeled fallback, a
-                   ``tier`` event); per-node phase times;
+                   through ``run_chain``); a shm offer into a node that
+                   refuses offers (``tier_accept=False``; tcp, one labeled
+                   fallback, a ``tier`` event); per-node phase times;
                 m. the planner on the card: ``utils.hw.identify_chip``
                    names the card ``"h100"`` and the cost model takes its
                    data-sheet peaks; ``measured_node_costs`` for ResNet50
@@ -164,12 +164,37 @@ Phases, in order; any failure exits non-zero before the result line:
                    every frame once through each replicated stage);
                    ``solve_replicated`` for nine processes on m's measured
                    costs beside the measured rate;
+                o. branched (DAG) chains: InceptionV3 at 299² on the
+                   5-vertex topology ``solve_dag`` gives around the
+                   ``mixed_3`` region (a fork, three branch vertices, a
+                   join), deployed by ``deploy_topology`` on five
+                   in-process nodes (rows byte-identical to the serial
+                   composition of the nodes' own programs, within 1e-5 of
+                   the forward with top-1 equal, every branch every frame,
+                   the join's ``join`` = 3), timed on 32 frames beside
+                   ``best_linear_plan``'s chain, then as five node
+                   processes through ``run_dag_chain`` (rows
+                   byte-identical to the in-process rows; boot, export and
+                   first-result seconds); the branched MoE at BERT-Base
+                   widths (2 layers, 4 experts, 11 vertices) in-process
+                   (byte-identical, within 1e-5 of the forward, 2 flash
+                   launches per frame, no quantizer launch); every wait
+                   under its own deadline naming the vertex that did not
+                   answer;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
-              ``replication_path``, ``phase_seconds`` and
+              ``replication_path``, ``dag_path``, the ``budget:`` line,
+              ``phase_seconds`` and
               ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``; each phase's seconds are
               also printed as it ends.
+
+The phases run under a budget: ``phase_seconds`` should total at most
+BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s), paid for by
+running earlier paths smaller (PERF.md §4).  A watchdog armed at start
+fails the run at WATCHDOG_S (720 s): it names the phase still running,
+dumps every thread's stack, kills the node processes the smoke started
+and exits 1.
 
 Weights are the port's own seeded random initialisation (phase 4i also
 reads them back from files it writes); inputs come from ``numpy`` with a
@@ -266,9 +291,95 @@ TF32_TERMS = 3
 SLEEP_CYCLES = 200_000_000
 
 
+#: the smoke's time budget: every phase's seconds together, and phase 4o's
+BUDGET_S = 600.0
+DAG_BUDGET_S = 100.0
+#: the watchdog's limit: the budget plus 20%
+WATCHDOG_S = 720.0
+#: the phases in order (``phase_seconds`` keys)
+PHASES = ("1", "2", "3", "4a", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
+          "4i", "4j", "4k", "4l", "4m", "4n", "4o")
+
+
+def kill_children() -> list:
+    """SIGKILL every process this smoke started, and theirs (the node
+    processes of the chain phases), found by parent pid under /proc."""
+    import os
+    import signal
+
+    kids: dict = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, ValueError, IndexError):
+            continue
+        kids.setdefault(ppid, []).append(int(d))
+    todo, found = [os.getpid()], []
+    while todo:
+        for pid in kids.get(todo.pop(), ()):
+            found.append(pid)
+            todo.append(pid)
+    for pid in found:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    return found
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    kill_children()
     sys.exit(1)
+
+
+class Watchdog:
+    """A daemon timer armed when the smoke starts: past ``seconds`` it
+    prints which phase is still running, every thread's stack, kills the
+    node processes the smoke spawned and exits 1 — a hang fails with its
+    phase's name, not the caller's clock."""
+
+    def __init__(self, seconds: float):
+        import threading
+
+        self.seconds = seconds
+        self.t0 = time.perf_counter()
+        self.phase = PHASES[0]
+        self.phase_t0 = self.t0
+        self._timer = threading.Timer(seconds, self._fire)
+        self._timer.daemon = True
+
+    def start(self) -> "Watchdog":
+        self.t0 = self.phase_t0 = time.perf_counter()
+        self._timer.start()
+        return self
+
+    def enter(self, phase: str) -> None:
+        self.phase, self.phase_t0 = phase, time.perf_counter()
+
+    def cancel(self) -> None:
+        self._timer.cancel()
+
+    def _fire(self) -> None:
+        import faulthandler
+        import os
+
+        now = time.perf_counter()
+        msg = (f"chip_smoke: FAIL: phase {self.phase} still running after "
+               f"{now - self.phase_t0:.1f} s (the smoke at "
+               f"{now - self.t0:.1f} s, past its {self.seconds:.0f} s "
+               f"watchdog)")
+        for stream in (sys.stdout, sys.stderr):
+            print(msg, file=stream, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        sys.stderr.flush()
+        killed = kill_children()
+        print(f"chip_smoke: watchdog killed {len(killed)} child "
+              f"process(es): {killed}", file=sys.stderr, flush=True)
+        os._exit(1)
 
 
 def mem_rate(name: str) -> float:
@@ -1076,9 +1187,9 @@ GPT_STAGES = 12
 GPT_MAX_LEN = 256
 #: [sequences, prompt length] from numpy seed SEED: one fill of the ring
 GPT_PROMPTS = (96, 32)
-GPT_NEW = 64
+GPT_NEW = 32
 #: shorter generations for the graph/eager, reweight and beam checks
-GPT_SHORT_NEW = 16
+GPT_SHORT_NEW = 8
 #: prefill tokens may part from decode-rate ones only at or after a
 #: position whose reference top-2 logit gap is below this share of max
 #: |logit| (float reduction order can flip a near tie)
@@ -1089,7 +1200,7 @@ PREFILL_CACHE_REL = 1e-5
 SCORE_RTOL = 1e-4
 #: [sequences, length] Defer.score runs at (bucket 128)
 SCORE_IDS = (16, 100)
-GPT_ROUNDS = 5
+GPT_ROUNDS = 1
 DECODE_GROUPS = {"matmul (cuBLAS)": ("gemm", "Gemm", "cutlass", "nvjet"),
                  "softmax": ("softmax", "Softmax"),
                  "index/copy": ("index", "copy", "Copy", "gather", "cat"),
@@ -1584,7 +1695,7 @@ ZOO_PATHS = (("vgg19_4", "vgg19", "VGG19_4STAGE_CUTS", 224),
              ("mobilenetv2_2", "mobilenet_v2", "MOBILENETV2_2STAGE_CUTS",
               224))
 #: alternating timed rounds of phase 4h's throughput rows
-ZOO_ROUNDS = 3
+ZOO_ROUNDS = 1
 ZOO_GROUPS = {"quant_int8": ("quant_int8",),
               # cuDNN's depthwise kernel on H100 (one launch per
               # DepthwiseConv2D node and step)
@@ -1902,7 +2013,7 @@ def moe_path(torch, device, kernels, card):
 #: images each endpoint client streams, as [MICROBATCH, 224, 224, 3] frames
 ENDPOINT_IMAGES = 64
 #: alternating timed rounds of the endpoint against the pipeline's run
-ENDPOINT_ROUNDS = 3
+ENDPOINT_ROUNDS = 1
 #: the raw-reply endpoint against Defer.run: the same graph replays on the
 #: same inputs, so 0 is expected
 ENDPOINT_RAW_REL_BOUND = 1e-6
@@ -2238,10 +2349,10 @@ SERVE_TENANTS = (("alpha", {"weight": 1.0}), ("beta", {"weight": 1.0}),
 SERVE_PROMPTS = 32
 SERVE_LENS = (8, 64)
 SERVE_NEW = {"alpha": 32, "beta": 32, "gamma": 32, "delta": 16}
-SERVE_ROUNDS = 3
+SERVE_ROUNDS = 1
 #: the open-loop round: seconds, and one 2x burst (t0, t1, multiplier)
-SERVE_OPEN_S = 10.0
-SERVE_BURST = (4.0, 6.0, 2.0)
+SERVE_OPEN_S = 5.0
+SERVE_BURST = (2.0, 3.0, 2.0)
 #: the open-loop tenants' completion deadline (ms): an interactive SLO
 SERVE_DEADLINE_MS = 2000.0
 
@@ -2616,22 +2727,23 @@ CHAIN_SEQS = 16
 #: images each of the two tenants sends through the tensor-mode door
 DOOR_IMAGES = 16
 #: alternating timed rounds of the chain's stream and the ring pipeline
-CHAIN_ROUNDS = 3
-#: frames of each timed stream: many times the stage count, so the chain's
+CHAIN_ROUNDS = 1
+#: frames of each timed stream: four times the stage count, so the chain's
 #: fill and drain are a small part of its wall
-CHAIN_TIMED_FRAMES = 64
+CHAIN_TIMED_FRAMES = 32
 
 
-def _rel_err(out, ref, what: str, bound: float) -> float:
+def _rel_err(out, ref, what: str, bound: float, phase: str = "4k"
+             ) -> float:
     import numpy as np
 
     if out.shape != ref.shape or not np.isfinite(out).all():
-        fail(f"phase 4k {what}: output shape {out.shape} (want {ref.shape}) "
-             "or not finite")
+        fail(f"phase {phase} {what}: output shape {out.shape} (want "
+             f"{ref.shape}) or not finite")
     rel = float(np.abs(out - ref).max()) / float(np.abs(ref).max())
     if rel > bound:
-        fail(f"phase 4k {what}: {rel:.3g} of max |output| off the forward "
-             f"(bound {bound})")
+        fail(f"phase {phase} {what}: {rel:.3g} of max |output| off the "
+             f"forward (bound {bound})")
     return rel
 
 
@@ -2643,28 +2755,52 @@ def _sum_launches(stats) -> dict:
     return out
 
 
+def trace_ahead(*work):
+    """Trace stage programs on a thread while node processes boot (the
+    smoke waits idle for their binds then): each of ``work`` is (stages,
+    params), traced at MICROBATCH, and a later deploy of the same stages
+    finds the programs kept (``defer_tpu_torch.utils.export``).  Returns
+    the thread; a trace that fails is traced again, and raises, in the
+    deploy that needs it."""
+    import threading
+
+    from defer_tpu_torch.utils.export import trace_stage
+
+    def run():
+        try:
+            for stages, params in work:
+                for s in stages:
+                    trace_stage(s, params, batch=MICROBATCH)
+        except Exception as e:  # noqa: BLE001 — the deploy raises it
+            print(f"trace ahead: {e!r}", file=sys.stderr, flush=True)
+
+    t = threading.Thread(target=run, daemon=True, name="chip-trace-ahead")
+    t.start()
+    return t
+
+
 def chain_path(torch, device, kernels, card, mp, bp):
-    """Phase 4k.  a: ResNet50/8 as eight OS processes through
-    ``run_chain`` (in-band deploy of ``torch.export`` artifacts, f32,
-    frames of MICROBATCH) on lzb hops: rows within BUFFER_REL_BOUND of the
-    forward with top-1 equal, every node's stats on cuda with one frame
-    processed per frame sent; every hop pinned to tcp (phase 4l runs the
-    colocated tiers).  b: BERT-Base/12 as twelve in-process
+    """Phase 4k.  a: ResNet50/8 as eight OS processes held open by
+    ``deploy_chain`` with ``persist`` (in-band deploy of ``torch.export``
+    artifacts, f32, frames of MICROBATCH) on lzb hops: rows within
+    BUFFER_REL_BOUND of the forward with top-1 equal, every node's stats on
+    cuda with one frame processed per frame sent; every hop pinned to tcp
+    (phase 4l runs the colocated tiers).  c: the segment ends and the same
+    eight processes are deployed again in-band on raw hops: the same
+    images (rows byte-identical to a's lzb rows, every node's codec raw),
+    timed streams of CHAIN_TIMED_FRAMES frames beside the ring pipeline,
+    then ``ServeFrontDoor`` in tensor mode over the same chain (width
+    MICROBATCH): two tenants' rows equal to the forward's rows of their
+    images.  One spawn serves both codecs: a spawn costs a minute, a
+    redeploy a third of it.  b: BERT-Base/12 as twelve in-process
     ``StageNode`` threads on the card: 12 flash launches per frame (the
     parent's counts and the nodes'), rows within BUFFER_REL_BOUND of phase
     4b's forward, a ``reweight`` between streams equal to the forward on
     the new weights, then a timed stream of CHAIN_TIMED_FRAMES frames
-    beside the ring pipeline on the same frames.  c: eight fresh ``node``
-    processes on raw hops, held open by ``deploy_chain`` (``run_chain``'s
-    chain, pinned to tcp): the same images (rows byte-identical to a's
-    lzb rows), timed streams of CHAIN_TIMED_FRAMES frames beside the ring
-    pipeline, then ``ServeFrontDoor`` in tensor mode over the same chain
-    (width MICROBATCH): two tenants' rows equal to the forward's rows of
-    their images.  One ``run_chain`` and one held chain, not two
-    ``run_chain`` calls and a third chain: each spawn costs a minute.
-    Rates come only from the long streams: a stream of a few frames
-    through eight or twelve stages is mostly filling and draining, so the
-    short streams report their time to the last result."""
+    beside the ring pipeline on the same frames.  Rates come only from the
+    long streams: a stream of a few frames through eight or twelve stages
+    is mostly filling and draining, so the short streams report their time
+    to the last result."""
     import threading
 
     import numpy as np
@@ -2673,7 +2809,7 @@ def chain_path(torch, device, kernels, card, mp, bp):
     from defer_tpu_torch.graph.ir import tree_map
     from defer_tpu_torch.partition import partition
     from defer_tpu_torch.runtime.node import (ChainDispatcher, StageNode,
-                                              deploy_chain, run_chain)
+                                              deploy_chain)
     from defer_tpu_torch.serve import ServeClient, ServeFrontDoor
     from defer_tpu_torch.serve.frontdoor import ChainBackend
     from defer_tpu_torch.utils.convert import params_to_device
@@ -2696,7 +2832,7 @@ def chain_path(torch, device, kernels, card, mp, bp):
             ring_w.append(time.perf_counter() - t0)
         return chain_w, ring_w, c_out, r_out
 
-    # --- a: ResNet50/8, eight processes, lzb hops, through run_chain -----
+    # --- a and c: ResNet50/8, eight processes held open, lzb then raw ----
     g, params, cuts = mp["graph"], mp["params"], mp["cuts"]
     stages = partition(g, cuts)
     n_frames = CHAIN_IMAGES // MICROBATCH
@@ -2718,35 +2854,163 @@ def chain_path(torch, device, kernels, card, mp, bp):
             fail(f"phase 4k: the {what} changed a top-1 class")
         return rel
 
-    stats = []
-    t0 = time.perf_counter()
-    # pinned to tcp: this phase measures the wire chain (run_chain's own
-    # default, auto, takes shm between processes; phase 4l runs that)
-    lzb = np.stack(run_chain(stages, params, frames, batch=MICROBATCH,
-                             codec="lzb", in_band=True, device=device,
-                             stats_out=stats, tier="tcp"))
-    secs = time.perf_counter() - t0
-    rel = check_rows(lzb, "resnet50 lzb chain")
-    check_nodes(stats, n_frames, "run_chain")
-    res["resnet50_lzb"] = {
-        "rel_err": rel, "spawn_deploy_stream_s": secs,
-        "launches": _sum_launches(stats),
+    pipe = Defer(DeferConfig(wire="buffer", microbatch=MICROBATCH,
+                             chunk=CHUNK, device=device)).build(g, params,
+                                                                cuts)
+    batch = np.stack(frames)
+    timed = [frames[i % n_frames] for i in range(CHAIN_TIMED_FRAMES)]
+    tbatch = np.stack(timed)
+    pipe.run(batch)  # captures the chunk graphs
+    # b's stage programs trace while a's processes boot
+    bstages = partition(bp["graph"], bp["cuts"])
+    ahead = trace_ahead((bstages, bp["params"]))
+    # one spawn for both codecs: the nodes persist across stream segments,
+    # so the raw chain is the same eight processes deployed again in-band
+    # (each hop pinned to tcp: this phase measures the wire chain; phase
+    # 4l runs the colocated tiers)
+    t_spawn = time.perf_counter()
+    with deploy_chain(stages, params, batch=MICROBATCH, codec="lzb",
+                      in_band=True, tier="tcp", device=device,
+                      persist=True) as chain:
+        disp, addrs = chain.dispatcher, chain.addrs
+        boot_s, deploy_s = chain.boot_s, chain.deploy_s
+        door = None
+        try:
+            # the traces are done before anything is timed
+            ahead.join()
+            # a: lzb hops; each node's first frame is its first
+            t0 = time.perf_counter()
+            lzb = np.stack(disp.stream(frames))
+            lzb_first_s = time.perf_counter() - t0
+            secs = time.perf_counter() - t_spawn
+            rel = check_rows(lzb, "resnet50 lzb chain")
+            stats = disp.stats(addrs)
+            check_nodes(stats, n_frames, "lzb chain")
+            res["resnet50_lzb"] = {
+                "rel_err": rel, "spawn_deploy_stream_s": secs,
+                "boot_s": boot_s, "deploy_s": deploy_s,
+                "first_stream_to_last_result_s": lzb_first_s,
+                "launches": _sum_launches(stats),
+                "node_infer_p50_ms": [s["infer_latency_s"]["p50"] * 1e3
+                                      for s in stats],
+                # each node's first frame: its program's first run
+                "node_first_frame_ms": [s["infer_latency_s"]["max"] * 1e3
+                                        for s in stats],
+                "node_mem_bytes": [s["mem_bytes"] for s in stats]}
+            print(f"chain path: deploy_chain(resnet50, {len(stages)} "
+                  f"processes, in_band, codec=lzb, tier=tcp, device="
+                  f"{device}) {CHAIN_IMAGES} images in frames of "
+                  f"{MICROBATCH}: boot {boot_s:.2f} s, deploy "
+                  f"{deploy_s:.2f} s, first stream to its last result "
+                  f"{lzb_first_s:.2f} s (spawn to the last result "
+                  f"{secs:.2f} s), {rel:.3g} of max |logit| off the "
+                  f"forward, top-1 equal, node launches "
+                  f"{res['resnet50_lzb']['launches']}; on {card}",
+                  flush=True)
+            # c: the segment ends, the same nodes take raw hops
+            disp.end_stream()
+            t0 = time.perf_counter()
+            disp.codec = "raw"
+            disp.deploy(stages, params, addrs, batch=MICROBATCH,
+                        codecs=["raw"] * len(stages),
+                        tiers=["tcp"] * len(stages))
+            redeploy_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            raw = np.stack(disp.stream(frames))
+            first_s = time.perf_counter() - t0
+            raw_rel = check_rows(raw, "resnet50 raw chain")
+            if not np.array_equal(raw, lzb):
+                fail("phase 4k: raw rows differ from lzb rows (lzb is "
+                     "lossless)")
+            st = disp.stats(addrs)
+            check_nodes(st, 2 * n_frames, "raw chain")
+            if [s["codec"] for s in st] != ["raw"] * len(stages):
+                fail(f"phase 4k: the redeploy left hop codecs "
+                     f"{[s['codec'] for s in st]}")
+            chain_w, ring_w, outs, ring_out = timed_rounds(
+                lambda: disp.stream(timed), lambda: pipe.run(tbatch))
+            cyc = np.arange(CHAIN_TIMED_FRAMES) % n_frames
+            if not np.array_equal(outs, raw[cyc]):
+                fail("phase 4k: a timed stream's rows differ from the "
+                     "first stream's")
+            ring_rel = _rel_err(np.asarray(ring_out), ref[cyc],
+                                "resnet50 ring timed run",
+                                BUFFER_REL_BOUND)
+            door = ServeFrontDoor(backend=ChainBackend(
+                disp, MICROBATCH, g.input_spec.shape)).start()
+            images = batch.reshape((-1,) + tuple(g.input_spec.shape))
+            flat_ref = ref.reshape(-1, ref.shape[-1])
+            tenants = {"tensor_a": range(0, DOOR_IMAGES),
+                       "tensor_b": range(DOOR_IMAGES, 2 * DOOR_IMAGES)}
+            got, errs = {}, []
+
+            def go(t):
+                try:
+                    got[t] = ServeClient(*door.address, t,
+                                         timeout_s=300).stream(
+                        [images[i] for i in tenants[t]])
+                except Exception as e:  # noqa: BLE001 — failed below
+                    errs.append(f"{t}: {e!r}")
+
+            cts = [threading.Thread(target=go, args=(t,), daemon=True)
+                   for t in tenants]
+            t0 = time.perf_counter()
+            for t in cts:
+                t.start()
+            for t in cts:
+                t.join(timeout=300)
+            door_s = time.perf_counter() - t0
+            if errs or any(t.is_alive() for t in cts):
+                fail(f"phase 4k door clients failed: {errs or 'a hang'}")
+            door_rel = 0.0
+            for t, idx in tenants.items():
+                for i, r in zip(idx, got[t]):
+                    if r[0] != "ok":
+                        fail(f"phase 4k door: tenant {t} image {i}: {r}")
+                    door_rel = max(door_rel, _rel_err(
+                        np.asarray(r[1]), flat_ref[i],
+                        f"door {t} image {i}", BUFFER_REL_BOUND))
+            door.healthcheck()
+            st = disp.stats(addrs)
+        finally:
+            t0 = time.perf_counter()
+            if door is not None:
+                door.stop()  # closes the dispatcher: END cascades
+    # leaving deploy_chain closed the dispatcher and waited for every node
+    # to exit 0 after END
+    exit_s = time.perf_counter() - t0
+    t_images = CHAIN_TIMED_FRAMES * MICROBATCH
+    chain_ips = t_images / statistics.median(chain_w)
+    ring_ips = t_images / statistics.median(ring_w)
+    res["resnet50_raw"] = {
+        "rel_err": raw_rel, "ring_rel_err": ring_rel, "boot_s": boot_s,
+        "deploy_s": deploy_s, "redeploy_s": redeploy_s,
+        "first_stream_to_last_result_s": first_s,
+        "exit_s": exit_s, "chain_images_per_s": chain_ips,
+        "ring_images_per_s": ring_ips, "timed_images": t_images,
+        "chain_walls_s": chain_w, "ring_walls_s": ring_w,
+        "door_images": 2 * DOOR_IMAGES, "door_s": door_s,
+        "door_rel_err": door_rel, "launches": _sum_launches(st),
         "node_infer_p50_ms": [s["infer_latency_s"]["p50"] * 1e3
-                              for s in stats],
-        # each node's first frame: its CUDA libraries load lazily
-        "node_first_frame_ms": [s["infer_latency_s"]["max"] * 1e3
-                                for s in stats],
-        "node_mem_bytes": [s["mem_bytes"] for s in stats]}
-    print(f"chain path: run_chain(resnet50, {len(stages)} processes, "
-          f"in_band, codec=lzb, device={device}) {CHAIN_IMAGES} images in "
-          f"frames of {MICROBATCH}: spawn+deploy+stream+exit {secs:.2f} s, "
-          f"{rel:.3g} of max |logit| off the forward, top-1 equal, node "
-          f"launches {res['resnet50_lzb']['launches']}; on {card}",
+                              for s in st],
+        "node_host_sync_p50_ms": [s["host_sync_s"]["p50"] * 1e3
+                                  for s in st]}
+    print(f"chain path: resnet50 in {len(stages)} processes (raw hops, "
+          f"rows {raw_rel:.3g} of max |logit| off the forward and equal "
+          f"to lzb's): redeployed in-band in {redeploy_s:.2f} s, first "
+          f"stream of {n_frames} frames to its last result {first_s:.2f} s, "
+          f"exit after END {exit_s:.2f} s; {chain_ips:.1f} images/s through "
+          f"the chain against {ring_ips:.1f} through the ring pipeline "
+          f"(buffer wire), median of {CHAIN_ROUNDS} alternating rounds of "
+          f"{CHAIN_TIMED_FRAMES} frames ({t_images} images); the door "
+          f"served 2 tenants x {DOOR_IMAGES} images in {door_s:.2f} s, "
+          f"{door_rel:.3g} of max |logit| off the forward; on {card}",
           flush=True)
+    del pipe
+    free_card(torch)
 
     # --- b: BERT-Base/12, in-process nodes ------------------------------
     bg, bparams = bp["graph"], bp["params"]
-    bstages = partition(bg, bp["cuts"])
     blocks = sum(name.startswith("block_") for name in bg.topo_order)
     b_frames = CHAIN_SEQS // MICROBATCH
     all_ids = [x.astype(np.int32) for x in bp["inputs"]]
@@ -2872,109 +3136,9 @@ def chain_path(torch, device, kernels, card, mp, bp):
     brows = np.stack(outs)
     del nodes, disp, bring
     free_card(torch)
-
-    # --- c: timed streams and the tensor-mode door over eight processes --
-    pipe = Defer(DeferConfig(wire="buffer", microbatch=MICROBATCH,
-                             chunk=CHUNK, device=device)).build(g, params,
-                                                                cuts)
-    batch = np.stack(frames)
-    timed = [frames[i % n_frames] for i in range(CHAIN_TIMED_FRAMES)]
-    tbatch = np.stack(timed)
-    pipe.run(batch)  # captures the chunk graphs
-    with deploy_chain(stages, params, batch=MICROBATCH, in_band=True,
-                      tier="tcp", device=device) as chain:
-        disp, addrs = chain.dispatcher, chain.addrs
-        boot_s, deploy_s = chain.boot_s, chain.deploy_s
-        door = None
-        try:
-            t0 = time.perf_counter()
-            # each node's first frame loads its CUDA libraries
-            raw = np.stack(disp.stream(frames))
-            first_s = time.perf_counter() - t0
-            raw_rel = check_rows(raw, "resnet50 raw chain")
-            if not np.array_equal(raw, lzb):
-                fail("phase 4k: raw rows differ from lzb rows (lzb is "
-                     "lossless)")
-            check_nodes(disp.stats(addrs), n_frames, "raw chain")
-            chain_w, ring_w, outs, ring_out = timed_rounds(
-                lambda: disp.stream(timed), lambda: pipe.run(tbatch))
-            cyc = np.arange(CHAIN_TIMED_FRAMES) % n_frames
-            if not np.array_equal(outs, raw[cyc]):
-                fail("phase 4k: a timed stream's rows differ from the "
-                     "first stream's")
-            ring_rel = _rel_err(np.asarray(ring_out), ref[cyc],
-                                "resnet50 ring timed run",
-                                BUFFER_REL_BOUND)
-            door = ServeFrontDoor(backend=ChainBackend(
-                disp, MICROBATCH, g.input_spec.shape)).start()
-            images = batch.reshape((-1,) + tuple(g.input_spec.shape))
-            flat_ref = ref.reshape(-1, ref.shape[-1])
-            tenants = {"tensor_a": range(0, DOOR_IMAGES),
-                       "tensor_b": range(DOOR_IMAGES, 2 * DOOR_IMAGES)}
-            got, errs = {}, []
-
-            def go(t):
-                try:
-                    got[t] = ServeClient(*door.address, t,
-                                         timeout_s=300).stream(
-                        [images[i] for i in tenants[t]])
-                except Exception as e:  # noqa: BLE001 — failed below
-                    errs.append(f"{t}: {e!r}")
-
-            cts = [threading.Thread(target=go, args=(t,), daemon=True)
-                   for t in tenants]
-            t0 = time.perf_counter()
-            for t in cts:
-                t.start()
-            for t in cts:
-                t.join(timeout=300)
-            door_s = time.perf_counter() - t0
-            if errs or any(t.is_alive() for t in cts):
-                fail(f"phase 4k door clients failed: {errs or 'a hang'}")
-            door_rel = 0.0
-            for t, idx in tenants.items():
-                for i, r in zip(idx, got[t]):
-                    if r[0] != "ok":
-                        fail(f"phase 4k door: tenant {t} image {i}: {r}")
-                    door_rel = max(door_rel, _rel_err(
-                        np.asarray(r[1]), flat_ref[i],
-                        f"door {t} image {i}", BUFFER_REL_BOUND))
-            door.healthcheck()
-            st = disp.stats(addrs)
-        finally:
-            t0 = time.perf_counter()
-            if door is not None:
-                door.stop()  # closes the dispatcher: END cascades
-    # leaving deploy_chain closed the dispatcher and waited for every node
-    # to exit 0 after END
-    exit_s = time.perf_counter() - t0
-    t_images = CHAIN_TIMED_FRAMES * MICROBATCH
-    chain_ips = t_images / statistics.median(chain_w)
-    ring_ips = t_images / statistics.median(ring_w)
-    res["resnet50_raw"] = {
-        "rel_err": raw_rel, "ring_rel_err": ring_rel, "boot_s": boot_s,
-        "deploy_s": deploy_s, "first_stream_to_last_result_s": first_s,
-        "exit_s": exit_s, "chain_images_per_s": chain_ips,
-        "ring_images_per_s": ring_ips, "timed_images": t_images,
-        "chain_walls_s": chain_w, "ring_walls_s": ring_w,
-        "door_images": 2 * DOOR_IMAGES, "door_s": door_s,
-        "door_rel_err": door_rel, "launches": _sum_launches(st),
-        "node_infer_p50_ms": [s["infer_latency_s"]["p50"] * 1e3
-                              for s in st],
-        "node_host_sync_p50_ms": [s["host_sync_s"]["p50"] * 1e3
-                                  for s in st]}
     res["seconds"] = time.perf_counter() - t_phase
-    print(f"chain path: resnet50 in {len(stages)} processes (raw hops, "
-          f"rows {raw_rel:.3g} of max |logit| off the forward and equal "
-          f"to lzb's): boot {boot_s:.2f} s, deploy {deploy_s:.2f} s, first "
-          f"stream of {n_frames} frames to its last result {first_s:.2f} s, "
-          f"exit after END {exit_s:.2f} s; {chain_ips:.1f} images/s through "
-          f"the chain against {ring_ips:.1f} through the ring pipeline "
-          f"(buffer wire), median of {CHAIN_ROUNDS} alternating rounds of "
-          f"{CHAIN_TIMED_FRAMES} frames ({t_images} images); the door "
-          f"served 2 tenants x {DOOR_IMAGES} images in {door_s:.2f} s, "
-          f"{door_rel:.3g} of max |logit| off the forward; phase 4k "
-          f"{res['seconds']:.1f} s; on {card}", flush=True)
+    print(f"chain path: phase 4k {res['seconds']:.1f} s; on {card}",
+          flush=True)
     return res, raw, brows
 
 
@@ -3035,7 +3199,8 @@ def _node_phases(stats) -> dict:
     return out
 
 
-def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
+def colocate_path(torch, device, kernels, card, mp, bp, ch, raw,
+                  ahead_of=()):
     """Phase 4l: the colocated transport tiers on the card, beside phase
     4k's tcp chains.  a: ResNet50/8 (4a's cuts, f32, frames of MICROBATCH)
     as eight node processes on ``tier="auto"``: every hop (the
@@ -3054,21 +3219,20 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
     two programs (``device`` hops inside each half, ici between): 12
     flash launches per frame.  d: ResNet50/8 with ``hop_tiers=["device"]
     * 3 + ["shm"] + ["device"] * 3`` through ``run_chain``: two fused
-    processes, one shm hop, rows as a's.  e: ``resnet_tiny`` in two node
-    processes, stage 0 pinned to shm into a stage 1 started with
-    ``--tier-accept 0``: the hop runs over tcp with one labeled fallback
-    and a ``tier`` event in stage 0's flight recorder, rows equal to the
-    forward."""
-    import tempfile
+    processes, one shm hop, rows as a's.  e: ``resnet_tiny`` in two in-process
+    nodes, stage 0 pinned to shm into a stage 1 that refuses every offer
+    (``tier_accept=False``, what ``--tier-accept 0`` sets): the hop runs
+    over tcp with one labeled fallback and a ``tier`` event in stage 0's
+    flight recorder, rows equal to the forward."""
     import threading
 
     import numpy as np
 
     from defer_tpu_torch import Defer, DeferConfig, models
+    from defer_tpu_torch.obs.events import recorder
     from defer_tpu_torch.partition import fuse_stages, partition
     from defer_tpu_torch.runtime.node import (ChainDispatcher, StageNode,
-                                              deploy_chain, run_chain,
-                                              spawn_nodes)
+                                              deploy_chain, run_chain)
     from defer_tpu_torch.utils.convert import params_to_device
 
     shm = dev_shm()
@@ -3129,10 +3293,21 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
                 "chain_walls_s": chain_w, "ring_walls_s": ring_w}
 
     first: dict = {}
+    # c's and d's fused programs trace while a's processes boot
+    bg, bparams = bp["graph"], bp["params"]
+    bstages = partition(bg, bp["cuts"])
+    bhalf, half = len(bstages) // 2, n // 2
+    bfused, _ = fuse_stages(bstages, ["device"] * (bhalf - 1) + ["ici"]
+                            + ["device"] * (len(bstages) - bhalf - 1))
+    rtiers = ["device"] * (half - 1) + ["shm"] + ["device"] * (n - half - 1)
+    ahead = trace_ahead((bfused, bparams),
+                        (fuse_stages(stages, rtiers)[0], params))
 
     # --- a: ResNet50/8, eight processes, the auto ladder -> shm ----------
     with deploy_chain(stages, params, batch=MICROBATCH, in_band=True,
                       tier="auto", tx_depth=depth, device=device) as chain:
+        # the traces are done before anything is timed
+        ahead.join()
         disp = chain.dispatcher
         t0 = time.perf_counter()
         out = np.stack(disp.stream(frames))
@@ -3171,9 +3346,14 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
           flush=True)
 
     # --- b: ResNet50/8, one process, seven ici hops ----------------------
+    # one process boots here, beside seven idle cores: ``ahead_of`` (phase
+    # 4o's stage programs) traces meanwhile
+    ahead = trace_ahead(*ahead_of)
     with deploy_chain(stages, params, batch=MICROBATCH, in_band=True,
                       hop_tiers=["ici"] * (n - 1), tier="auto",
                       tx_depth=depth, device=device) as chain:
+        # the traces are done before anything is timed
+        ahead.join()
         disp = chain.dispatcher
         t0 = time.perf_counter()
         out = np.stack(disp.stream(frames))
@@ -3214,8 +3394,6 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
     free_card(torch)
 
     # --- c: BERT-Base/12 in-process on ici hops, then fused in two -------
-    bg, bparams = bp["graph"], bp["params"]
-    bstages = partition(bg, bp["cuts"])
     blocks = sum(name.startswith("block_") for name in bg.topo_order)
     b_frames = CHAIN_SEQS // MICROBATCH
     all_ids = [x.astype(np.int32) for x in bp["inputs"]]
@@ -3291,11 +3469,8 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
           f"{[round(v, 2) for v in r['dispatch_p50_ms']]}, device p50 ms "
           f"{[round(v, 2) for v in r['device_p50_ms']]}; on {card}",
           flush=True)
-    half = len(bstages) // 2
-    fused, _ = fuse_stages(bstages, ["device"] * (half - 1) + ["ici"]
-                           + ["device"] * (len(bstages) - half - 1))
-    res["bert_fused"] = r = bert_chain(fused, "bert fused chain")
-    print(f"colocate path: bert_base fused into {len(fused)} programs "
+    res["bert_fused"] = r = bert_chain(bfused, "bert fused chain")
+    print(f"colocate path: bert_base fused into {len(bfused)} programs "
           f"(device hops, ici between): {r['rel_err']:.3g} off the forward, "
           f"launches {r['launches']}; {r['chain_sequences_per_s']:.1f} "
           f"seq/s; on {card}", flush=True)
@@ -3304,12 +3479,9 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
     # --- d: ResNet50/8 fused into two processes, one shm hop ------------
     stats = []
     t0 = time.perf_counter()
-    half = n // 2
     out = np.stack(run_chain(stages, params, frames, batch=MICROBATCH,
                              in_band=True, tx_depth=depth, device=device,
-                             hop_tiers=["device"] * (half - 1) + ["shm"]
-                             + ["device"] * (n - half - 1),
-                             stats_out=stats))
+                             hop_tiers=rtiers, stats_out=stats))
     secs = time.perf_counter() - t0
     rel = check_rows(out, "fused chain", exact=raw)
     if ([s["tier"] for s in stats] != ["shm", "shm"]
@@ -3334,25 +3506,37 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
     txs = [np.random.default_rng(SEED + 1).standard_normal(
         (MICROBATCH, 32, 32, 3)).astype(np.float32)
         for _ in range(REFUSAL_FRAMES)]
-    argv = {0: ["--tier", "shm"], 1: ["--tier", "tcp", "--tier-accept", "0"]}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_refusal_") as logdir:
-        with spawn_nodes(2, log_dir=logdir, device=device,
-                         argv_for=lambda k, a, rr: argv[k]) as spawned:
-            disp = ChainDispatcher(spawned.addrs[0])
-            try:
-                disp.deploy(tstages, tparams, spawned.addrs,
-                            batch=MICROBATCH)
-                outs = disp.stream(txs)
-                st = disp.stats(spawned.addrs)
-            finally:
-                disp.close()
+    # stage 0 offers shm alone; stage 1 refuses every offer, as a node
+    # started with --tier-accept 0 does (in-process nodes: the same code
+    # path, without two process boots; they share this process's flight
+    # recorder, so the events are read from the cursor on)
+    cursor = recorder().cursor()
+    tnodes = [StageNode(None, "127.0.0.1:0", None, device=device,
+                        tier="shm"),
+              StageNode(None, "127.0.0.1:0", None, device=device,
+                        tier="tcp", tier_accept=False)]
+    taddrs = [f"127.0.0.1:{nd.address[1]}" for nd in tnodes]
+    tths = [threading.Thread(target=nd.serve, daemon=True) for nd in tnodes]
+    for t in tths:
+        t.start()
+    disp = ChainDispatcher(taddrs[0])
+    try:
+        disp.deploy(tstages, tparams, taddrs, batch=MICROBATCH)
+        outs = disp.stream(txs)
+        st = disp.stats(taddrs)
+    finally:
+        disp.close()
+    for t in tths:
+        t.join(timeout=60)
+    if any(t.is_alive() for t in tths):
+        fail("phase 4l refusal: the nodes did not drain")
     tpdev = params_to_device(tparams, device)
     with torch.inference_mode():
         tref = np.stack([tg.apply(tpdev, torch.from_numpy(x).to(device))
                          .cpu().numpy() for x in txs])
     rel = float(np.abs(np.stack(outs) - tref).max()
                 / np.abs(tref).max())
-    evs = st[0]["events"]["events"]
+    evs = recorder().events_since(cursor)[1]
     tier_evs = [e["data"] for e in evs if e["kind"] == "tier"]
     fb_evs = [e["data"] for e in evs if e["kind"] == "tier_fallback"]
     if (st[0]["tier"] != "tcp" or st[0]["tier_fallbacks"] != 1
@@ -3367,10 +3551,11 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw):
     res["refusal"] = {"hop": st[0]["tier"], "fallbacks": st[0]["tier_fallbacks"],
                       "tier_event": tier_evs[0], "fallback_event": fb_evs[0],
                       "rel_err": rel}
-    print(f"colocate path: a shm offer into a node started with --tier-accept "
-          f"0 ran over {st[0]['tier']} with {st[0]['tier_fallbacks']} labeled "
-          f"fallback (events {tier_evs[0]}, {fb_evs[0]}); rows {rel:.3g} off "
-          f"the forward", flush=True)
+    print(f"colocate path: a shm offer into a node that refuses offers "
+          f"(tier_accept=False) ran over {st[0]['tier']} with "
+          f"{st[0]['tier_fallbacks']} labeled fallback (events "
+          f"{tier_evs[0]}, {fb_evs[0]}); rows {rel:.3g} off the forward",
+          flush=True)
     res["seconds"] = time.perf_counter() - t_phase
     print(f"colocate path: phase 4l {res['seconds']:.1f} s; on {card}",
           flush=True)
@@ -3387,7 +3572,7 @@ PLAN_K = 32
 PLAN_REPS = 3
 #: alternating timed rounds of the ring at the solved and the paper's cuts,
 #: each a run of PLAN_RING_REPEAT x phase 4a's microbatches
-PLAN_ROUNDS = 5
+PLAN_ROUNDS = 1
 PLAN_RING_REPEAT = 4
 #: frames of BERT-Base before and after the live cutover
 CUTOVER_FRAMES = (4, 4)
@@ -3744,8 +3929,10 @@ REPL_RESNET = {1: 2}
 #: BERT-Base/12's replicated stages (b): the dispatcher's own fan-out into
 #: stage 0, an interior fan-in below stage 5, the result merge of stage 11
 REPL_BERT = {0: 2, 5: 2, 11: 2}
-#: results that have arrived when stage 1's replica 1 is killed (a)
+#: results that have arrived when stage 1's replica 1 is killed (a), and
+#: the frames of the stream it is killed in
 KILL_AFTER = 16
+KILL_FRAMES = 64
 #: the node budget of the planner's replicated plan (c): (a)'s processes
 REPL_NODES = 9
 
@@ -3871,12 +4058,14 @@ def replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
         victim = chain.pid(k_rep, 1)
         killed: dict = {}
 
+        kcyc = np.arange(KILL_FRAMES) % n_frames
+
         def feed():
-            for i, x in enumerate(timed):
+            for i, k in enumerate(kcyc):
                 if i == 2 * KILL_AFTER:
                     os.kill(victim, signal.SIGKILL)
                     killed["at"] = time.time()
-                yield x
+                yield frames[k]
 
         respawn_evs0 = sum(e["kind"] == "replica_respawn"
                            for e in recorder().snapshot())
@@ -3887,7 +4076,7 @@ def replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
         disp.window = window
         if not killed:
             fail("phase 4n: the kill stream never reached its kill")
-        if not np.array_equal(outs, raw[cyc]):
+        if not np.array_equal(outs, raw[kcyc]):
             fail("phase 4n: the rows across the SIGKILL differ from the "
                  "undisturbed stream's")
         deadline = time.monotonic() + 30
@@ -4061,6 +4250,517 @@ def replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4o: branched (DAG) chains
+# ---------------------------------------------------------------------------
+
+#: InceptionV3 DAG (a): frames of MICROBATCH images through the in-process
+#: deployment's checked stream, its timed stream, and the process run
+DAG_FRAMES = 16
+DAG_TIMED_FRAMES = 32
+DAG_PROC_FRAMES = 8
+#: InceptionV3's image size (torchvision's) and the node budget of its DAG
+#: and of its linear comparison
+DAG_IMAGE = 299
+DAG_NODES = 5
+#: the branched MoE (b) at BERT-Base widths and the family's tiny depth:
+#: (layers, hidden, heads, experts, expert hidden, sequence)
+DAG_MOE = (2, 768, 12, 4, 3072, 128)
+DAG_MOE_NODES = 12
+#: token-id frames of MICROBATCH sequences through the branched MoE
+DAG_MOE_FRAMES = 8
+#: seconds each wait of phase 4o may take before it fails naming the
+#: vertex that did not answer: one deploy, one stream, and the process
+#: run from its spawn to its last result
+DAG_DEPLOY_S = 120.0
+DAG_STREAM_S = 60.0
+DAG_PROC_S = 150.0
+
+
+def _vertex_label(v) -> str:
+    role = (" (fork)" if v.fan == "broadcast" else
+            f" (join of {v.join})" if v.join >= 2 else "")
+    return f"{v.label}{role}"
+
+
+def _lagging(topo, processed, want: int) -> str:
+    """The vertices that did not answer: every vertex below ``want``
+    frames, the first of them (in topological order) named as the one the
+    stream waits on."""
+    late = [(v, p) for v, p in zip(topo.vertices, processed)
+            if p is None or p < want]
+    if not late:
+        return f"every vertex processed {want} frames (the result hop?)"
+    v, p = late[0]
+    seen = "no answer" if p is None else f"{p} of {want} frames"
+    rest = ", ".join(f"{u.label}: {'no answer' if q is None else q}"
+                     for u, q in late[1:])
+    return (f"waiting on vertex {_vertex_label(v)} ({seen})"
+            + (f"; also behind: {rest}" if rest else ""))
+
+
+def _cut_node(node) -> None:
+    """Stop an in-process node as its peers see a dead one: its listener
+    and its data connections shut both ways."""
+    import socket
+
+    for sock in [node._srv] + [getattr(ch, "_sock", None)
+                               for ch in (node._live_rx, node._live_tx)]:
+        if sock is not None:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+
+
+def _node_stats(addr: str, timeout_s: float = 1.0) -> dict:
+    """One node's ``stats`` reply over its control plane, within
+    ``timeout_s``."""
+    from defer_tpu_torch.transport.framed import (K_CTRL, connect_retry,
+                                                  recv_expect, send_ctrl,
+                                                  send_end)
+
+    host, _, port = addr.rpartition(":")
+    s = connect_retry(host, int(port), timeout_s=timeout_s)
+    try:
+        s.settimeout(timeout_s)
+        send_ctrl(s, {"cmd": "stats"})
+        out = recv_expect(s, K_CTRL)
+        send_end(s)
+        return out
+    finally:
+        s.close()
+
+
+def bounded(seconds: float, what: str, fn, diagnose, abort=None):
+    """``fn()`` on a thread, waited for at most ``seconds``: its result, or
+    its exception re-raised; past the deadline a ``TimeoutError`` naming
+    ``what`` and ``diagnose()`` (the vertices that did not answer), after
+    ``abort()`` cut the wait's sockets or processes."""
+    import threading
+
+    box: dict = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True, name="chip-smoke-wait")
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        try:
+            who = diagnose()
+        except Exception as e:  # noqa: BLE001 — reported in the message
+            who = f"the diagnosis failed ({e!r})"
+        if abort is not None:
+            abort()
+        raise TimeoutError(f"phase 4o: {what} did not finish within "
+                           f"{seconds:.0f} s; {who}")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def _dag_topology(g, heavy: dict, nodes: int):
+    """``solve_dag`` on pinned prices: the ``heavy`` nodes at 1 ms, the
+    rest at 1 µs, hops at 1 TB/s (``tests/test_dag_chain.py``'s pricing),
+    as a deployable topology beside its cost model."""
+    from defer_tpu_torch.plan import StageCostModel, solve_dag
+    from defer_tpu_torch.runtime.topology import ChainTopology
+
+    cm = StageCostModel(g, gen="h100", link_bw_s=1e12, batch=MICROBATCH,
+                        node_costs={n: heavy.get(n, 1e-6)
+                                    for n in g.topo_order})
+    plan = solve_dag(g, cm, num_nodes=nodes)
+    return ChainTopology.from_json(plan.topology_json()), cm, plan
+
+
+def _inproc_dag(torch, device, topo, stages, params, streams, what: str):
+    """Deploy ``topo`` on in-process nodes (one ``StageNode`` thread per
+    vertex) with ``deploy_topology``, run each stream of ``streams`` (a
+    list of (label, frames)) under its deadline, and return (outputs per
+    stream, per-stream walls, stats, the nodes' own programs, deploy
+    seconds).  Every wait names the vertex that did not answer."""
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch.runtime.node import ChainDispatcher, StageNode
+
+    nodes = [StageNode(None, "127.0.0.1:0", None, device=device)
+             for _ in topo.vertices]
+    addrs = [f"127.0.0.1:{n.address[1]}" for n in nodes]
+    served: dict = {}
+
+    def serve(i):
+        try:
+            served[i] = nodes[i].serve()
+        except BaseException as e:  # noqa: BLE001 — reported below
+            served[i] = e
+
+    ths = [threading.Thread(target=serve, args=(i,), daemon=True)
+           for i in range(len(nodes))]
+    for t in ths:
+        t.start()
+    disp = ChainDispatcher(addrs[0], timeout_s=DAG_STREAM_S)
+
+    def abort():
+        for n in nodes:
+            _cut_node(n)
+
+    outs, walls = {}, {}
+    total = 0
+    try:
+        t0 = time.perf_counter()
+        bounded(DAG_DEPLOY_S, f"{what}: deploy_topology",
+                lambda: disp.deploy_topology(topo, stages, params, addrs,
+                                             batch=MICROBATCH),
+                lambda: "no ACK from vertex " + next(
+                    (_vertex_label(v) for v, n in zip(topo.vertices, nodes)
+                     if n.prog is None), "(every vertex loaded)"), abort)
+        deploy_s = time.perf_counter() - t0
+        for label, xs in streams:
+            total += len(xs)
+            t0 = time.perf_counter()
+            outs[label] = np.stack(bounded(
+                DAG_STREAM_S, f"{what}: the {label} stream of {len(xs)} "
+                f"frames", lambda: disp.stream(xs),
+                lambda: _lagging(topo, [n.processed for n in nodes], total),
+                abort))
+            torch.cuda.synchronize()
+            walls[label] = time.perf_counter() - t0
+        stats = disp.stats(addrs)
+    finally:
+        disp.close()
+    for t in ths:
+        t.join(timeout=DAG_STREAM_S)
+    bad = {i: r for i, r in served.items() if r != total}
+    if any(t.is_alive() for t in ths) or bad or len(served) != len(nodes):
+        fail(f"phase 4o {what}: vertices did not drain {total} frames: "
+             f"{ {topo.vertices[i].label: r for i, r in bad.items()} }")
+    return outs, walls, stats, [n.prog for n in nodes], deploy_s
+
+
+def _compose(torch, topo, progs, xs) -> list:
+    """Serial composition of the deployment's own stage programs: each
+    frame through every vertex's program in topological order, each join
+    fed its inputs in path order — the byte-identity reference."""
+    import numpy as np
+
+    entry = topo.entry.inputs[0]
+    out = []
+    with torch.inference_mode():
+        for x in xs:
+            vals = {}
+            for v, p in zip(topo.vertices, progs):
+                vals[v.output] = p(*[x if name == entry else vals[name]
+                                     for name in v.inputs])
+            out.append(vals[topo.exit.output].cpu().numpy())
+    return np.stack(out)
+
+
+def _check_dag_stats(topo, stats, frames: int, what: str) -> dict:
+    """Every vertex processed every frame (a branch vertex too: broadcast,
+    not round-robin), each stats row carries its vertex's role, the
+    join's ``join`` equals its path count, and every hop rode tcp."""
+    rows = [(s["stage"], s["branch"], s["join"], s["processed"], s["tier"])
+            for s in stats]
+    want = [(v.vid, v.branch, v.join, frames, "tcp") for v in topo.vertices]
+    if rows != want:
+        fail(f"phase 4o {what}: vertex (stage, branch, join, processed, "
+             f"tier) rows {rows}, want {want}")
+    return {"per_vertex_processed": [s["processed"] for s in stats],
+            "joins": [s["join"] for s in stats if s["join"]],
+            "branch_vertices": sum(s["branch"] is not None for s in stats),
+            "node_infer_p50_ms": [s["infer_latency_s"]["p50"] * 1e3
+                                  for s in stats]}
+
+
+def dag_setup(torch) -> dict:
+    """Phase 4o's InceptionV3 (a): the graph at DAG_IMAGE, its seeded
+    weights, the DAG topology with its stages, and ``best_linear_plan``'s
+    stages for the same node budget — built ahead of the phase, so that
+    these programs trace while other phases' node processes boot
+    (``trace_ahead``: the DAG's in phase 4l, the linear chain's while
+    ``run_dag_chain``'s processes boot)."""
+    from defer_tpu_torch import models
+    from defer_tpu_torch.graph.analysis import branch_regions
+    from defer_tpu_torch.partition import partition
+    from defer_tpu_torch.plan.dag import best_linear_plan
+
+    g = models.inception_v3(image_size=DAG_IMAGE)
+    params = g.init(torch.Generator().manual_seed(SEED))
+    region = next(r for r in branch_regions(g) if r.join == "mixed_3")
+    topo, cm, plan = _dag_topology(
+        g, {n: 1e-3 for b in region.branches[:2] for n in b.nodes},
+        DAG_NODES)
+    lin = best_linear_plan(g, cm, num_nodes=DAG_NODES)
+    return {"graph": g, "params": params, "topo": topo, "plan": plan,
+            "stages": topo.stage_specs(g), "lin": lin,
+            "lstages": partition(g, list(lin.cuts))}
+
+
+def dag_path(torch, device, kernels, card, setup=None):
+    """Phase 4o: branched (DAG) chains, A10c.  a: InceptionV3 at 299²
+    (seed SEED, f32, frames of MICROBATCH) on the 5-vertex topology
+    ``solve_dag`` gives when the first two branches of the ``mixed_3``
+    reduction region are priced heavy (a fork after ``mixed_2``, three
+    branch vertices, the join and the rest of the network): five
+    in-process ``StageNode`` threads deployed by ``deploy_topology`` on
+    DAG_FRAMES frames — rows byte-identical to the serial composition of
+    the nodes' own programs, within BUFFER_REL_BOUND of max |logit| of the
+    whole-graph forward with top-1 equal, every branch vertex every frame,
+    the join's ``join`` = 3, 0 launches of either kernel — then one timed
+    stream of DAG_TIMED_FRAMES frames beside ``best_linear_plan``'s chain
+    for the same node budget on the same frames; then ``run_dag_chain``
+    on the card (five ``python -m defer_tpu_torch node`` processes, the
+    ``chain --dag`` shape) on DAG_PROC_FRAMES frames, rows byte-identical
+    to the in-process rows, with its boot, export and first-result
+    seconds.  b: ``moe_branched(*DAG_MOE)`` (BERT-Base widths, 2 layers;
+    11 vertices, two 5-path regions) as in-process nodes on DAG_MOE_FRAMES
+    frames of token ids: byte-identical to the serial composition, within
+    BUFFER_REL_BOUND of the forward (the same kernels on the same inputs:
+    the programs only sum some decomposed ops in another order), 2 flash
+    launches per frame by the smoke's counts and the nodes'
+    ``kernel_launches``, 0 quantizer launches.  Every wait has its own
+    deadline (DAG_DEPLOY_S, DAG_STREAM_S, DAG_PROC_S) that names the
+    vertex that did not answer."""
+    import os
+
+    import numpy as np
+
+    from defer_tpu_torch import models
+    from defer_tpu_torch.runtime.node import run_dag_chain
+    from defer_tpu_torch.runtime.topology import ChainTopology
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"card": card}
+    t_phase = time.perf_counter()
+    none = {"quant_int8": 0, "flash_attention": 0}
+
+    # --- a: InceptionV3, the mixed_3 region fanned out -------------------
+    setup = setup or dag_setup(torch)
+    g, params, topo, plan = (setup["graph"], setup["params"], setup["topo"],
+                             setup["plan"])
+    if len(topo) != DAG_NODES or sum(v.join >= 2 for v in topo) != 1:
+        fail(f"phase 4o: solve_dag gave {topo!r}, want {DAG_NODES} "
+             f"vertices around the mixed_3 region")
+    stages = setup["stages"]
+    rng = np.random.default_rng(SEED)
+    xs = rng.standard_normal((DAG_TIMED_FRAMES, MICROBATCH, DAG_IMAGE,
+                              DAG_IMAGE, 3)).astype(np.float32)
+    frames = list(xs[:DAG_FRAMES])
+    timed = list(xs)
+    pdev = params_to_device(params, device)
+    with torch.inference_mode():
+        ref = np.stack([g.apply(pdev, torch.from_numpy(x).to(device))
+                        .cpu().numpy() for x in xs])
+    del pdev
+    zero_counts(kernels)
+    outs, walls, stats, progs, deploy_s = _inproc_dag(
+        torch, device, topo, stages, params,
+        [("checked", frames), ("timed", timed)], "inception_v3 DAG")
+    launches = read_counts(kernels)
+    if launches != none:
+        fail(f"phase 4o inception_v3 DAG: kernel launches {launches}, "
+             f"want {none}")
+    serial = _compose(torch, topo, progs, frames)
+    if not np.array_equal(outs["checked"], serial):
+        fail("phase 4o inception_v3 DAG: rows differ from the serial "
+             "composition of the deployment's own stage programs")
+    if not np.array_equal(outs["timed"][:DAG_FRAMES], serial):
+        fail("phase 4o inception_v3 DAG: the timed stream's rows differ "
+             "from the checked stream's")
+    rel = _rel_err(outs["timed"], ref, "inception_v3 DAG",
+                   BUFFER_REL_BOUND, phase="4o")
+    if not (outs["timed"].argmax(-1) == ref.argmax(-1)).all():
+        fail("phase 4o inception_v3 DAG: a top-1 class differs from the "
+             "forward")
+    vstats = _check_dag_stats(topo, stats, DAG_FRAMES + DAG_TIMED_FRAMES,
+                              "inception_v3 DAG")
+    dag_ips = DAG_TIMED_FRAMES * MICROBATCH / walls["timed"]
+    del progs
+
+    # the same topology as five node processes: run_dag_chain
+    pframes = frames[:DAG_PROC_FRAMES]
+    spawned: list = []
+    pstats: list = []
+    timings: dict = {}
+
+    def proc_state():
+        """Each vertex's processed count over its control plane (None:
+        no answer within a second)."""
+        out = []
+        for p in spawned:
+            try:
+                out.append(_node_stats(
+                    p.args[p.args.index("--listen") + 1])["processed"])
+            except Exception:  # noqa: BLE001 — a vertex that did not answer
+                out.append(None)
+        return out
+
+    def proc_diagnose():
+        if not spawned:
+            return "no vertex process spawned yet"
+        state = proc_state()
+        first = "" if state[-1] else "no first result; "
+        return first + _lagging(topo, state, DAG_PROC_FRAMES)
+
+    def kill_spawned():
+        for p in spawned:
+            try:
+                p.kill()
+            except OSError:
+                pass
+
+    # the linear chain's stages trace while the five processes boot (from
+    # the spawn on: run_dag_chain's own export must not wait for them)
+    lin, lstages = setup["lin"], setup["lstages"]
+    ahead: list = []
+
+    def on_spawn(procs):
+        spawned.extend(procs)
+        if not ahead:
+            ahead.append(trace_ahead((lstages, params)))
+
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    pouts = np.stack(bounded(
+        DAG_PROC_S, f"run_dag_chain (spawn, boot, first and last of "
+        f"{DAG_PROC_FRAMES} results)",
+        lambda: run_dag_chain(g, params, pframes, topology=topo,
+                              batch=MICROBATCH, device=device,
+                              stats_out=pstats, timings_out=timings,
+                              on_spawn=on_spawn,
+                              timeout_s=DAG_STREAM_S),
+        proc_diagnose, kill_spawned))
+    proc_s = time.perf_counter() - t0
+    if not np.array_equal(pouts, outs["checked"][:DAG_PROC_FRAMES]):
+        fail("phase 4o run_dag_chain: rows differ from the in-process "
+             "deployment's rows")
+    pv = _check_dag_stats(topo, pstats, DAG_PROC_FRAMES,
+                          "run_dag_chain")
+    devs = {s["device"] for s in pstats}
+    plaunch = _sum_launches(pstats)
+    if not all(d.startswith(device) for d in devs) or plaunch != none:
+        fail(f"phase 4o run_dag_chain: vertex devices {devs}, launches "
+             f"{plaunch}")
+    print(f"dag path: run_dag_chain(inception_v3, {len(topo)} node "
+          f"processes on {device}) {DAG_PROC_FRAMES} frames: rows "
+          f"byte-identical to the in-process rows; boot (spawn to the last "
+          f"bind) {timings['boot_s']:.2f} s, export {timings['export_s']:.2f} "
+          f"s, first result {timings['first_result_s']:.2f} s after the "
+          f"stream began, stream {timings['stream_s']:.2f} s, the whole run "
+          f"{proc_s:.2f} s; per-vertex frames {pv['per_vertex_processed']}, "
+          f"node launches {plaunch}; on {card}", flush=True)
+    proc_res = {"frames": DAG_PROC_FRAMES, "seconds": proc_s, **timings,
+                "launches": plaunch, **pv}
+    for t in ahead:
+        t.join()
+
+    # the best linear plan for the same node budget, on the same frames
+    ltopo = ChainTopology.linear(lstages)
+    zero_counts(kernels)
+    louts, lwalls, lstats, _, ldeploy_s = _inproc_dag(
+        torch, device, ltopo, lstages, params,
+        [("timed", timed)], "inception_v3 linear chain")
+    if read_counts(kernels) != none:
+        fail(f"phase 4o linear chain: kernel launches {read_counts(kernels)}")
+    lrel = _rel_err(louts["timed"], ref, "inception_v3 linear chain",
+                    BUFFER_REL_BOUND, phase="4o")
+    lin_ips = DAG_TIMED_FRAMES * MICROBATCH / lwalls["timed"]
+    print(f"dag path: inception_v3 {DAG_IMAGE}x{DAG_IMAGE} on {len(topo)} "
+          f"in-process "
+          f"vertices {[v.label for v in topo]} (fork after "
+          f"{topo.entry.output}, join {topo.exit.inputs}): deploy "
+          f"{deploy_s:.2f} s, rows byte-identical to the serial composition "
+          f"of the nodes' programs, {rel:.3g} of max |logit| off the "
+          f"forward, top-1 equal, per-vertex frames "
+          f"{vstats['per_vertex_processed']}, join {vstats['joins']}, "
+          f"launches {launches}; {dag_ips:.1f} images/s on one "
+          f"{DAG_TIMED_FRAMES}-frame stream against {lin_ips:.1f} through "
+          f"best_linear_plan's {len(lstages)}-stage chain (cuts "
+          f"{list(lin.cuts)}, {lrel:.3g} off the forward) on the same "
+          f"frames; predicted bottleneck {plan.bottleneck_s * 1e3:.4f} ms "
+          f"(DAG) vs {lin.bottleneck_s * 1e3:.4f} ms (linear) on the pinned "
+          f"prices; on {card}", flush=True)
+    res["inception_v3"] = {
+        "vertices": [v.label for v in topo], "frames": DAG_FRAMES,
+        "timed_frames": DAG_TIMED_FRAMES, "rel_err": rel,
+        "deploy_s": deploy_s, "stream_walls_s": walls,
+        "images_per_s": dag_ips, "launches": launches, **vstats,
+        "linear": {"cuts": list(lin.cuts), "stages": len(lstages),
+                   "deploy_s": ldeploy_s, "rel_err": lrel,
+                   "images_per_s": lin_ips, "stream_wall_s": lwalls["timed"],
+                   "per_vertex_processed": [s["processed"]
+                                            for s in lstats]},
+        "process_run": proc_res}
+
+    del g, params, stages, outs, serial, ref, setup
+    free_card(torch)
+
+    # --- b: the branched MoE at BERT-Base widths ------------------------
+    mg = models.moe_branched(*DAG_MOE)
+    mparams = mg.init(torch.Generator().manual_seed(SEED))
+    heavy = {n: 1e-3 for n in mg.topo_order
+             if n.startswith("block_") or "_e" in n}
+    mtopo, _, _ = _dag_topology(mg, heavy, DAG_MOE_NODES)
+    joins = [v.join for v in mtopo if v.join >= 2]
+    if len(mtopo) != 11 or joins != [5, 5]:
+        fail(f"phase 4o: solve_dag gave {mtopo!r} for the branched MoE "
+             f"(joins {joins}), want 11 vertices and two 5-path joins")
+    vocab = mg.nodes["embeddings"].op.vocab
+    ids = list(np.random.default_rng(SEED).integers(
+        0, vocab, (DAG_MOE_FRAMES, MICROBATCH, DAG_MOE[-1])).astype(np.int32))
+    blocks = sum(n.startswith("block_") for n in mg.topo_order)
+    mpdev = params_to_device(mparams, device)
+    with torch.inference_mode():
+        mref = np.stack([mg.apply(mpdev, torch.from_numpy(x).to(device))
+                         .cpu().numpy() for x in ids])
+    del mpdev
+    zero_counts(kernels)
+    mouts, mwalls, mstats, mprogs, mdeploy_s = _inproc_dag(
+        torch, device, mtopo, mtopo.stage_specs(mg), mparams,
+        [("checked", ids)], "moe_branched DAG")
+    mlaunch = read_counts(kernels)
+    node_flash = {s["kernel_launches"]["flash_attention"] for s in mstats}
+    mwant = {"quant_int8": 0, "flash_attention": blocks * DAG_MOE_FRAMES}
+    if mlaunch != mwant or node_flash != {mwant["flash_attention"]}:
+        fail(f"phase 4o moe_branched DAG: launches {mlaunch}, nodes' "
+             f"{node_flash}; want {mwant} ({blocks} flash per frame)")
+    if not np.array_equal(mouts["checked"],
+                          _compose(torch, mtopo, mprogs, ids)):
+        fail("phase 4o moe_branched DAG: rows differ from the serial "
+             "composition of the deployment's own stage programs")
+    mrel = _rel_err(mouts["checked"], mref, "moe_branched DAG",
+                    BUFFER_REL_BOUND, phase="4o")
+    mv = _check_dag_stats(mtopo, mstats, DAG_MOE_FRAMES, "moe_branched DAG")
+    print(f"dag path: moe_branched{DAG_MOE} on {len(mtopo)} in-process "
+          f"vertices (joins {mv['joins']}, {mv['branch_vertices']} branch "
+          f"vertices): deploy {mdeploy_s:.2f} s, {DAG_MOE_FRAMES} frames of "
+          f"{MICROBATCH} x {DAG_MOE[-1]} ids to the last result in "
+          f"{mwalls['checked']:.2f} s, rows byte-identical to the serial "
+          f"composition, {mrel:.3g} of max |output| off the forward; "
+          f"launches {mlaunch} ({blocks} flash per frame), nodes' flash "
+          f"count {sorted(node_flash)}; on {card}", flush=True)
+    res["moe_branched"] = {
+        "config": list(DAG_MOE), "vertices": [v.label for v in mtopo],
+        "frames": DAG_MOE_FRAMES, "deploy_s": mdeploy_s,
+        "stream_wall_s": mwalls["checked"], "rel_err": mrel,
+        "launches": mlaunch, **mv}
+    del mprogs
+    free_card(torch)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"dag path: phase 4o {res['seconds']:.1f} s (budget "
+          f"{DAG_BUDGET_S:.0f} s); on {card}", flush=True)
+    return res
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -4093,6 +4793,9 @@ def main() -> int:
         phase_s[name] = now - t_last[0]
         t_last[0] = now
         print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
+        i = PHASES.index(name)
+        if i + 1 < len(PHASES):
+            WATCH.enter(PHASES[i + 1])
 
     # phase 1: the card
     card = card_line()
@@ -4261,7 +4964,9 @@ def main() -> int:
     # phase 4l: the colocated tiers; the counts zeroed just before each
     # stream of the in-process BERT chains, the node processes' own counts
     # read from their stats
-    co = colocate_path(torch, device, kernels, card, mp, bp, ch, raw)
+    dsetup = dag_setup(torch)
+    co = colocate_path(torch, device, kernels, card, mp, bp, ch, raw,
+                       ahead_of=[(dsetup["stages"], dsetup["params"])])
     shm_stats = co.pop("shm_stats")
     phase_done("4l")
 
@@ -4277,6 +4982,18 @@ def main() -> int:
     rp = replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
                           brows, node_costs)
     phase_done("4n")
+
+    # phase 4o: branched chains; the counts zeroed just before each stream
+    # of the in-process deployments, the node processes' counts read from
+    # their stats
+    dg = dag_path(torch, device, kernels, card, dsetup)
+    del dsetup
+    phase_done("4o")
+    WATCH.cancel()
+    total_s = sum(phase_s.values())
+    print(f"budget: phases {total_s:.1f} s of {BUDGET_S:.0f} s, phase 4o "
+          f"{phase_s['4o']:.1f} s of {DAG_BUDGET_S:.0f} s; watchdog "
+          f"{WATCHDOG_S:.0f} s; on {card}", flush=True)
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
     by_path.update({f"bert_base_{w}": c for w, c in bp["launches"].items()})
@@ -4319,6 +5036,10 @@ def main() -> int:
     by_path["bert_base_chain_replicated"] = rp["bert_base"]["launches"]
     by_path["bert_base_chain_replicated_timed"] = rp["bert_base"][
         "launches_timed_rounds"]
+    by_path["dag_inception_v3_inprocess"] = dg["inception_v3"]["launches"]
+    by_path["dag_inception_v3_processes"] = dg["inception_v3"][
+        "process_run"]["launches"]
+    by_path["dag_moe_branched"] = dg["moe_branched"]["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -4390,7 +5111,11 @@ def main() -> int:
         "models": "resnet50 + bert_base", "microbatch": MICROBATCH, **pl}}))
     print(json.dumps({"replication_path": {
         "models": "resnet50 + bert_base", "microbatch": MICROBATCH, **rp}}))
-    print(json.dumps({"phase_seconds": phase_s}))
+    print(json.dumps({"dag_path": {
+        "microbatch": MICROBATCH, "budget_s": DAG_BUDGET_S, **dg}}))
+    print(json.dumps({"phase_seconds": phase_s,
+                      "total_s": sum(phase_s.values()),
+                      "budget_s": BUDGET_S, "watchdog_s": WATCHDOG_S}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -4399,5 +5124,15 @@ def main() -> int:
     return 0
 
 
+#: the smoke's watchdog, armed before anything else runs
+WATCH = Watchdog(WATCHDOG_S)
+
 if __name__ == "__main__":
-    sys.exit(main())
+    WATCH.start()
+    try:
+        rc = main()
+    except BaseException:
+        # a phase that raised leaves no node process behind it
+        kill_children()
+        raise
+    sys.exit(rc)

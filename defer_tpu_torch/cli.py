@@ -109,15 +109,18 @@ def cmd_node(args) -> None:
 
     def boot(artifact, listen, nxt, codec, tier, accept, device,
              primary):
-        # --fan-in/--replica describe the primary node's place in a fan;
-        # housemates sit on in-process hops, which never touch a
-        # replicated stage, so they take neither
+        # --fan-in/--replica (and the branch roles --fan/--branch/--join)
+        # describe the primary node's place in a fan; housemates sit on
+        # in-process hops, which never touch a fan, so they take none
         node = StageNode(artifact, listen, nxt,
                          codec=codec, overlap=not args.no_overlap,
                          rx_depth=args.rx_depth, tx_depth=args.tx_depth,
                          inflight=args.inflight,
                          fan_in=args.fan_in if primary else 1,
                          replica=args.replica if primary else None,
+                         fan_mode=args.fan if primary else "rr",
+                         branch=args.branch if primary else None,
+                         join_in=args.join if primary else 0,
                          infer_delay_s=args.infer_delay_ms / 1e3
                          if primary else 0.0,
                          tier=tier, tier_accept=accept, device=device,
@@ -127,6 +130,10 @@ def cmd_node(args) -> None:
                 else "EMPTY (awaiting in-band deploy)")
         if node.replica is not None:
             what += f" replica {node.replica}"
+        if node.branch is not None:
+            what += f" branch {node.branch}"
+        if node.join_in >= 2:
+            what += f" join {node.join_in}"
         if node.fan_in > 1:
             what += f" fan-in {node.fan_in}"
         # the bind's wall-clock time rides the line, so a spawner that
@@ -185,18 +192,12 @@ def cmd_chain(args) -> None:
 
     graph = _get_model(args.model)
     params = graph.init(torch.Generator().manual_seed(0))
+    if args.dag or args.topology:
+        _cmd_chain_dag(args, graph, params)
+        return
     cuts = args.cuts.split(",") if args.cuts else None
     stages = partition(graph, cuts, num_stages=None if cuts else args.stages)
-    spec = stages[0].in_spec
-    rng = np.random.default_rng(0)
-    if spec.dtype.is_floating_point:
-        xs = [rng.standard_normal((args.batch,) + spec.shape)
-              .astype(np.float32) for _ in range(args.count)]
-    else:
-        vocab = next(n.op.vocab for n in graph.nodes.values()
-                     if hasattr(n.op, "vocab"))
-        xs = [rng.integers(0, vocab, (args.batch,) + spec.shape)
-              .astype(np.int32) for _ in range(args.count)]
+    xs = _chain_inputs(graph, stages[0].in_spec, args.batch, args.count)
     hop_tiers = ([t.strip() for t in args.hop_tiers.split(",") if t.strip()]
                  if args.hop_tiers else None)
     replicas = _parse_replicas(args.replicas)
@@ -267,6 +268,98 @@ def cmd_chain(args) -> None:
             raise SystemExit(f"--emit-calibration: {e}") from e
         cal.save(args.emit_calibration)
         row["calibration"] = args.emit_calibration
+    print(json.dumps(row))
+
+
+def _chain_inputs(graph, spec, batch: int, count: int) -> list:
+    """Deterministic input frames for the entry boundary's spec (seed 0):
+    normal floats, or token ids below the graph's vocabulary."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    if spec.dtype.is_floating_point:
+        return [rng.standard_normal((batch,) + spec.shape)
+                .astype(np.float32) for _ in range(count)]
+    vocab = next(n.op.vocab for n in graph.nodes.values()
+                 if hasattr(n.op, "vocab"))
+    return [rng.integers(0, vocab, (batch,) + spec.shape).astype(np.int32)
+            for _ in range(count)]
+
+
+def _cmd_chain_dag(args, graph, params) -> None:
+    """``chain --dag`` / ``chain --topology FILE``: deploy the
+    branch-parallel stage graph — one OS process per topology vertex,
+    parallel branches concurrent between a broadcast fork and an
+    all-paths join — and check it against the forward."""
+    import numpy as np
+    import torch
+
+    from .runtime.node import run_dag_chain
+    from .runtime.topology import ChainTopology
+    from .utils.config import resolve_device
+    from .utils.convert import params_to_device
+
+    if args.replicas:
+        raise SystemExit(
+            "chain --dag: replicas do not compose with a branched "
+            "topology (a branch hop touching a replicated stage is "
+            "rejected like any fan hop); drop --replicas")
+    if args.hop_tiers:
+        raise SystemExit(
+            "chain --dag: hop tiers do not compose with a branched "
+            "topology — every branch fan-out/join hop is wire-framed "
+            "by design")
+    if args.cuts:
+        raise SystemExit(
+            "chain --dag: --cuts is the linear planner's input; the "
+            "DAG topology comes from the solver (or --topology FILE)")
+    dag_doc = None
+    if args.topology:
+        with open(args.topology) as f:
+            topo = ChainTopology.from_json(json.load(f))
+    else:
+        from .plan import StageCostModel
+        from .plan.dag import solve_dag
+        dag = solve_dag(graph, StageCostModel(graph, batch=args.batch),
+                        num_nodes=args.nodes or args.stages)
+        dag_doc = dag.to_json()
+        topo = ChainTopology.from_json(dag.topology_json())
+    xs = _chain_inputs(graph, graph.out_spec(topo.entry.inputs[0]),
+                       args.batch, args.count)
+    stats: list = []
+    t0 = time.perf_counter()
+    outs = run_dag_chain(graph, params, xs, topology=topo,
+                         batch=args.batch, codec=args.codec,
+                         rx_depth=args.rx_depth, tx_depth=args.tx_depth,
+                         inflight=args.inflight, stats_out=stats,
+                         device=args.device)
+    dt = time.perf_counter() - t0
+    dev = resolve_device(args.device)
+    _no_tf32()
+    pdev = params_to_device(params, dev)
+    with torch.inference_mode():
+        worst = max(float(np.abs(
+            graph.apply(pdev, torch.from_numpy(x).to(dev)).cpu().numpy()
+            - y).max()) for x, y in zip(xs, outs))
+    row = {
+        "metric": f"{args.model}_{len(topo)}proc_dag_chain",
+        "value": round(len(xs) * args.batch / dt, 3),
+        "unit": "inferences/sec",
+        "stages": len(topo),
+        "labels": [v.label for v in topo.vertices],
+        "forks": sum(1 for v in topo.vertices if v.fan == "broadcast"),
+        "joins": sum(1 for v in topo.vertices if v.join >= 2),
+        "codec": args.codec, "device": str(dev),
+        "overlap": not args.no_overlap,
+        "max_abs_err_vs_single_program": worst,
+        "per_vertex_processed": [
+            {"stage": s["stage"], "branch": s["branch"], "join": s["join"],
+             "processed": s["processed"]} for s in stats],
+        "kernel_launches": [s["kernel_launches"] for s in stats],
+    }
+    if dag_doc is not None:
+        row["predicted_bottleneck_ms"] = dag_doc["bottleneck_ms"]
+        row["predicted_critical_path_ms"] = dag_doc["critical_path_ms"]
+        row["parallel_regions"] = dag_doc["parallel_regions"]
     print(json.dumps(row))
 
 
@@ -681,6 +774,19 @@ def main(argv=None) -> None:
     nd.add_argument("--replica", type=int, default=None, metavar="N",
                     help="this process is replica N of its stage "
                          "(labels stageK.rN spans and stats)")
+    nd.add_argument("--fan", choices=["rr", "broadcast"], default="rr",
+                    help="multi-hop --next distribution: rr round-robins "
+                         "across stage replicas; broadcast sends every "
+                         "frame to every hop (the fork of a branched "
+                         "stage graph, one shared seq stamp per frame)")
+    nd.add_argument("--branch", type=int, default=None, metavar="J",
+                    help="this node rides branch path J of a fork/join "
+                         "region (labels stageK.bJ spans and stats; the "
+                         "outbound stream announces path J to the join)")
+    nd.add_argument("--join", type=int, default=0, metavar="P",
+                    help="this node is the region's join: merge P labeled "
+                         "branch paths per sequence through a (path, seq) "
+                         "reorder buffer and run the multi-input program")
     nd.add_argument("--failover", action="store_true",
                     help="arm the seq-replay plane on this node: a "
                          "fan-out retains sent frames until the fan-in "
@@ -774,6 +880,19 @@ def main(argv=None) -> None:
                    help="pin stage K's program to cuda:J; an ici hop "
                         "between cards moves each activation device to "
                         "device")
+    c.add_argument("--dag", action="store_true",
+                   help="deploy the DAG planner's branch-parallel stage "
+                        "graph instead of a linear chain: parallel "
+                        "branches run as concurrent processes between a "
+                        "broadcast fork and an all-paths join (--nodes "
+                        "sets the process budget; replicas, hop tiers and "
+                        "--cuts do not compose with it)")
+    c.add_argument("--nodes", type=int, default=0, metavar="N",
+                   help="--dag process budget (default: --stages)")
+    c.add_argument("--topology", default=None, metavar="FILE",
+                   help="deploy an explicit topology JSON (a `plan --dag "
+                        "--json` document of either package) instead of "
+                        "solving")
     c.add_argument("--emit-calibration", default="", metavar="FILE",
                    help="after the run, fit CalibratedConstants "
                         "(host_sync/ici/wire bandwidths, per-deployed-"

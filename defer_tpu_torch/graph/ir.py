@@ -191,21 +191,29 @@ class LayerGraph:
     def apply(
         self,
         params: dict[str, Params],
-        x: torch.Tensor,
+        x: torch.Tensor | None = None,
         *,
         upto: str | None = None,
         start: str | None = None,
         node_names: Sequence[str] | None = None,
+        seeds: dict[str, torch.Tensor] | None = None,
     ) -> torch.Tensor:
         """Memoized forward pass over (a sub-range of) the graph.
 
         With ``start=c`` the cache is seeded with ``{c: x}`` and only
         ``node_names`` are evaluated — how one pipeline stage runs its
-        slice of the graph.
+        slice of the graph.  ``seeds`` (name -> tensor) seeds the cache
+        with several boundary tensors instead — how the join stage of a
+        branched pipeline resumes from all of its merge op's inputs at
+        once (``partition.stage.JoinStageSpec``).
         """
+        if x is None and seeds is None:
+            raise TypeError("apply() needs an input tensor x (or seeds= "
+                            "boundary tensors)")
         start = start or self.input_name
         upto = upto or self.output_name
-        cache: dict[str, torch.Tensor] = {start: x}
+        cache: dict[str, torch.Tensor] = (
+            dict(seeds) if seeds is not None else {start: x})
         names = node_names if node_names is not None else self.topo_order
         for name in names:
             if name in cache:  # the seeded start node

@@ -57,8 +57,8 @@ def moe_branched(num_layers: int, hidden: int, heads: int,
     a residual skip, joined by an ``Add`` — soft-mixture semantics, one
     expert of compute per branch.  Only the ``moe_k`` joins and the blocks
     are valid linear cuts.  The branch-parallel planner
-    (``plan.solve_dag``) prices each expert branch on its own stage;
-    deploying such a stage graph waits for ROADMAP queue A10c.
+    (``plan.solve_dag``) prices each expert branch on its own stage, and
+    ``runtime.node.run_dag_chain`` deploys the solved stage graph.
     """
     b = GraphBuilder(name)
     x = b.input((seq_len,), torch.int32)

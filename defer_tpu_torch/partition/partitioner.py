@@ -1,16 +1,16 @@
 """Model partitioner: layer graph + cut points -> ordered StageSpecs.
 
-The port of ``defer_tpu.partition.partitioner.partition`` and
+The port of ``defer_tpu.partition.partitioner``: ``partition``,
+``stage_specs_for_vertices`` (the stages of a branched topology) and
 ``fuse_stages``.  Cut validity is checked against articulation analysis,
-and partitioning is O(V+E) metadata slicing.  ``stage_specs_for_vertices``
-(branched stage graphs) comes with ROADMAP item A10c.
+and partitioning is O(V+E) metadata slicing.
 """
 
 from __future__ import annotations
 
 from ..graph.analysis import auto_cut_points, valid_cut_points
 from ..graph.ir import LayerGraph
-from .stage import StageSpec
+from .stage import JoinStageSpec, StageSpec
 
 
 def partition(graph: LayerGraph, cut_points: list[str] | None = None,
@@ -65,6 +65,51 @@ def partition(graph: LayerGraph, cut_points: list[str] | None = None,
             out_spec=graph.out_spec(end),
         ))
     return stages
+
+
+def stage_specs_for_vertices(graph: LayerGraph, vertices) -> list:
+    """One stage spec per :class:`~defer_tpu_torch.runtime.topology.TopoVertex`
+    — the DAG partitioner.
+
+    Where :func:`partition` slices the graph at a linear cut list, a
+    topology names each vertex's node slice (branch bodies are not
+    contiguous in the full graph's topological order), so this is a
+    checked projection, not a search: every vertex becomes a
+    :class:`StageSpec` (or a :class:`JoinStageSpec` when it merges P
+    paths), and each must evaluate a closed slice — every node's inputs
+    come from the vertex's own nodes or its seed tensors.
+    """
+    order = {n: i for i, n in enumerate(graph.topo_order)}
+    specs = []
+    for v in vertices:
+        have = set(v.inputs) | set(v.nodes)
+        for n in v.nodes:
+            if n not in graph.nodes:
+                raise ValueError(f"vertex {v.vid}: unknown node {n!r}")
+            missing = [i for i in graph.nodes[n].inputs if i not in have]
+            if missing:
+                raise ValueError(
+                    f"vertex {v.vid}: node {n!r} needs {missing} which "
+                    f"neither the vertex slice nor its seed inputs "
+                    f"{list(v.inputs)} provide")
+        nodes = tuple(sorted(v.nodes, key=order.__getitem__))
+        if not nodes or nodes[-1] != v.output:
+            raise ValueError(f"vertex {v.vid}: output {v.output!r} must "
+                             f"be the slice's final node")
+        name = f"{graph.name}/{v.label}"
+        if v.join >= 2:
+            specs.append(JoinStageSpec(
+                index=v.vid, name=name, graph=graph, node_names=nodes,
+                input_names=tuple(v.inputs), output_name=v.output,
+                in_specs=tuple(graph.out_spec(i) for i in v.inputs),
+                out_spec=graph.out_spec(v.output)))
+        else:
+            specs.append(StageSpec(
+                index=v.vid, name=name, graph=graph, node_names=nodes,
+                input_name=v.inputs[0], output_name=v.output,
+                in_spec=graph.out_spec(v.inputs[0]),
+                out_spec=graph.out_spec(v.output)))
+    return specs
 
 
 def fuse_stages(stages: "list[StageSpec]", hop_tiers: "list[str]"

@@ -1,7 +1,7 @@
 """StageSpec: one pipeline stage = a contiguous slice of the layer graph.
 
-The port of ``defer_tpu.partition.stage`` (``StageSpec`` and
-``buffer_footprint``).  A StageSpec is pure metadata + a plain tensor
+The port of ``defer_tpu.partition.stage`` (``StageSpec``,
+``JoinStageSpec`` and ``buffer_footprint``).  A StageSpec is pure metadata + a plain tensor
 function; the engines wrap it in a :class:`StageModule` that holds the
 stage's own parameters on its device, in one flat row.
 """
@@ -65,6 +65,57 @@ class StageSpec:
         return (f"StageSpec({self.index}: {self.input_name} -> "
                 f"{self.output_name}, {len(self.node_names)} nodes, "
                 f"in={self.in_spec.shape}, out={self.out_spec.shape})")
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinStageSpec:
+    """A multi-input pipeline stage: the join of a branched stage graph.
+
+    Where :class:`StageSpec` resumes the graph from one boundary tensor, a
+    join stage resumes from ``P`` of them: its first node is the graph's
+    merge op (Concat/Add), whose inputs arrive as separate frames from the
+    parallel branch paths, in the merge op's input order, which is the
+    transport's path order (``transport/branch.py``).  Everything after
+    the merge up to the stage's output rides in the same program, so the
+    join costs one dispatch like any other stage.
+    """
+
+    index: int
+    name: str
+    graph: LayerGraph
+    node_names: tuple[str, ...]
+    input_names: tuple[str, ...]  # P seed tensors, in merge-input order
+    output_name: str
+    in_specs: tuple[ShapeSpec, ...]
+    out_spec: ShapeSpec
+
+    @property
+    def in_spec(self) -> ShapeSpec:
+        """The first input's spec (the single-input surface; callers that
+        need every boundary read :attr:`in_specs`)."""
+        return self.in_specs[0]
+
+    @property
+    def num_inputs(self) -> int:
+        return len(self.input_names)
+
+    def fn(self, stage_params: dict[str, Any],
+           *xs: torch.Tensor) -> torch.Tensor:
+        if len(xs) != len(self.input_names):
+            raise ValueError(f"join stage {self.index} takes "
+                             f"{len(self.input_names)} inputs, got "
+                             f"{len(xs)}")
+        return self.graph.apply(stage_params, upto=self.output_name,
+                                node_names=self.node_names,
+                                seeds=dict(zip(self.input_names, xs)))
+
+    def select_params(self, params: dict[str, Any]) -> dict[str, Any]:
+        return {n: params[n] for n in self.node_names if n in params}
+
+    def __repr__(self):
+        return (f"JoinStageSpec({self.index}: "
+                f"[{','.join(self.input_names)}] -> {self.output_name}, "
+                f"{len(self.node_names)} nodes)")
 
 
 class StageModule(nn.Module):
@@ -155,5 +206,7 @@ class StageModule(nn.Module):
             self.paths, [v if v.dtype == d else v.to(d)
                          for v, d in zip(self.leaves, self._dtypes)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.stage.fn(self.params(), x)
+    def forward(self, *xs: torch.Tensor) -> torch.Tensor:
+        """The stage on its input (a join stage: its P inputs, in path
+        order)."""
+        return self.stage.fn(self.params(), *xs)

@@ -1,8 +1,8 @@
 """Critical-path-aware planner for DAG-shaped (branch-parallel) pipelines.
 
-The port of ``defer_tpu.plan.dag``.  Deploying a solved stage graph
-(a branched chain runtime) comes with ROADMAP item A10c; the planner
-itself, its JSON and its topology document are here.
+The port of ``defer_tpu.plan.dag``: the planner, its JSON and its
+topology document, which ``runtime/topology.py`` reads and
+``runtime.node.run_dag_chain`` deploys.
 
 The chain solver (``plan/solver.py``) can only cut a branching model at
 its articulation points, so everything between two articulations — an
@@ -14,7 +14,7 @@ shape mirrors the graph — parallel branches become concurrent stages —
 and the right accounting follows the stage GRAPH, not a flattened chain.
 
 The solved :class:`DagPlan` is a stage graph (``topology`` in its JSON,
-the schema the JAX package's ``runtime/topology.py`` deploys):
+the schema ``runtime/topology.py`` deploys, as the JAX package's does):
 
 * each trunk run of nodes is a chain of stages, cut by the same
   bottleneck DP as the linear solver;

@@ -1,6 +1,6 @@
-"""Standalone stage-node processes: the linear process chain.
+"""Standalone stage-node processes: linear, replicated and branched chains.
 
-The port of the linear part of ``defer_tpu.runtime.node``.  Reference
+The port of ``defer_tpu.runtime.node``.  Reference
 parity: the reference's compute node is a separate process on another
 machine that receives its partition, then serves the chain forever —
 recv activation, predict, relay to its successor (reference
@@ -51,10 +51,20 @@ sockets), heals a dead replica channel by redialing and replaying
 duplicates; ``deploy_chain``'s supervisor respawns a dead replica
 process from its argv on the same port.
 
+Branched stage graphs (the JAX package's design, ``transport/branch.py``,
+``runtime/topology.py``): a fork node (``fan_mode="broadcast"``) sends
+every frame to all of its ``next`` hops under one sequence stamp, each
+channel announced with its path label; a branch node (``branch=J``)
+announces its path on its outbound hop; a join node (``join_in=P``)
+merges P labeled paths per sequence in a ``BranchJoin`` and runs its
+P-input program on each complete set.  ``ChainDispatcher.deploy_topology``
+and :func:`run_dag_chain` deploy a ``defer_tpu.topology.v1`` document.
+Branch hops are wire-framed, so they never probe a tier, and they refuse
+replicas and colocation.
+
 What this module leaves out raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: branches and joins (A10c), clock alignment,
-live telemetry pushes, profiling sessions and the flight-recorder journal
-(A12).
+ROADMAP item that brings it: clock alignment, live telemetry pushes,
+profiling sessions and the flight-recorder journal (A12).
 """
 
 from __future__ import annotations
@@ -79,6 +89,7 @@ import torch
 from ..obs import REGISTRY, LatencyHistogram, new_span_id, tracer
 from ..obs.events import emit as emit_event
 from ..obs.events import recorder
+from ..transport.branch import BranchJoin, BroadcastSender
 from ..transport.channel import AsyncReceiver, AsyncSender, _sampled
 from ..transport.framed import (K_ACK, K_BYTES, K_CTRL, K_END, K_TENSOR,
                                 K_TENSOR_SEQ, configure_socket,
@@ -99,6 +110,9 @@ _SHUTDOWN = object()
 #: the transport tiers a node or a dispatcher offers on its outbound hop
 _TIERS = ("tcp", "auto", "local", "shm", "ici")
 
+#: the senders that announce every channel themselves when they open
+_FAN_SENDERS = (FanOutSender, ReplayFanOut, BroadcastSender)
+
 #: fan-in dedup window under failover: how far behind the merge head a
 #: replayed duplicate may land and still be dropped silently.  It bounds
 #: the fan-out's retained window (ack lag plus reorder capacity) with an
@@ -110,7 +124,7 @@ _REPLAY_DEDUP_WINDOW = 4096
 def _not_ported(item: str, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP item {item}); the port runs "
-        f"linear and replicated chains")
+        f"linear, replicated and branched chains")
 
 
 def _check_tier(tier: str, who: str) -> str:
@@ -137,6 +151,20 @@ def _pin_device(device) -> torch.device:
             raise ValueError(f"device {dev} out of range: this process "
                              f"sees {have} CUDA device(s)")
     return resolve_device(dev)
+
+
+def _warm_cuda(device: torch.device) -> None:
+    """Make ``device``'s CUDA context and load cuDNN and cuBLAS with one
+    tiny convolution and one tiny matmul.  A node process otherwise loads
+    both libraries on its first frame, and the nodes of a fresh chain do
+    it one after another as that frame travels down the chain; done at
+    boot, the chain's processes load them side by side.  Launches no hand
+    kernel."""
+    with torch.inference_mode():
+        x = torch.ones((1, 1, 2, 2), device=device)
+        torch.nn.functional.conv2d(x, x)
+        torch.mm(x[0, 0], x[0, 0])
+    torch.cuda.synchronize(device)
 
 
 def _parse_hostport(s: str, default_host: str = "127.0.0.1"
@@ -181,11 +209,17 @@ class StageNode:
     downstream stage (frames fan out round-robin with sequence numbers);
     ``fan_in=R`` merges R sequence-stamped upstream connections in order;
     ``replica=N`` labels this node replica N of its stage (``stageK.rN``).
+    Branched graphs: ``fan_mode="broadcast"`` sends every frame to every
+    next hop (a fork); ``branch=J`` labels this node's path through a
+    fork/join region (``stageK.bJ``; its outbound ``stream_begin`` carries
+    the path); ``join_in=P`` makes it the region's join, merging P labeled
+    paths per sequence before its P-input program runs.
     ``failover`` arms the seq-replay plane: a fan-out retains and heals, a
     replica relays acks upstream, a fan-in acks, drops replayed duplicates
     and waits ``failover_grace_s`` for a dead upstream's replacement before
     it fails the stream.  Fan paths never probe a tier,
-    so a shm/ici/local pin on a replica or a fan-out raises ``ValueError``.
+    so a shm/ici/local pin on a replica, a branch or a fan-out raises
+    ``ValueError``.
     """
 
     def __init__(self, artifact: str | None, listen: str,
@@ -193,6 +227,8 @@ class StageNode:
                  overlap: bool = True, rx_depth: int = 8,
                  tx_depth: int = 8, inflight: int = 2,
                  fan_in: int = 1, replica: int | None = None,
+                 fan_mode: str = "rr", branch: int | None = None,
+                 join_in: int = 0,
                  infer_delay_s: float = 0.0, tier: str = "tcp",
                  tier_accept: bool = True, device=None,
                  failover: bool = False, failover_grace_s: float = 30.0,
@@ -203,6 +239,19 @@ class StageNode:
         self.next_hops = _parse_hops(next_hop) if next_hop else None
         self.replica = None if replica is None else int(replica)
         self.fan_in = max(1, int(fan_in))
+        if fan_mode not in ("rr", "broadcast"):
+            raise ValueError(f"fan_mode must be rr|broadcast, "
+                             f"got {fan_mode!r}")
+        self.fan_mode = fan_mode
+        self.branch = None if branch is None else int(branch)
+        self.join_in = max(0, int(join_in))
+        if self.join_in == 1:
+            raise ValueError("join_in must be 0 or >= 2 (a single-path "
+                             "join is a plain unicast hop)")
+        if self.join_in >= 2 and self.fan_in > 1:
+            raise ValueError("a node cannot be both a branch join and a "
+                             "replica fan-in (the two merges own "
+                             "different sequence namespaces)")
         self._check_tier_pin()
         # bind before the slow part of the boot (the CUDA context and the
         # artifact load), so upstream connect-retries land as soon as the
@@ -213,9 +262,10 @@ class StageNode:
         self.address = self._srv.getsockname()
         self.bound_at = time.time()
         if self.device.type == "cuda":
-            # the CUDA context, made before the bind is announced: chain
-            # processes boot theirs in parallel, not at their deploy turn
-            torch.empty(0, device=self.device)
+            # the CUDA context and libraries, made before the bind is
+            # announced: chain processes boot theirs in parallel, not at
+            # their deploy turn or their first frame
+            _warm_cuda(self.device)
         from ..utils.export import load_stage_program
         self.prog = None
         if artifact is not None:
@@ -236,6 +286,9 @@ class StageNode:
         #: cancels the grace timer)
         self._merge: FanInMerge | None = None
         self._merge_lock = threading.Lock()
+        #: join state: the (path, seq) reorder buffer shared by the P path
+        #: readers and the one join compute loop (lazy, under _merge_lock)
+        self._join: BranchJoin | None = None
         self._fanin_conns: list | None = None
         self._fanin_epoch = 0
         #: duplicates the last finished merge segment dropped
@@ -288,12 +341,14 @@ class StageNode:
     def _check_tier_pin(self) -> None:
         """Refuse an explicit colocated-tier pin (shm/ici/local) on a node
         whose hop rides the ordered fan machinery (a replica into a fan-in,
-        a fan-out): those paths are wire-framed, so the offer would be
-        skipped and the hop would run over tcp under a tier claim.
-        ``auto`` stays allowed (riding tcp there is policy)."""
+        a labeled branch into a join, a fan-out or a fork): those paths are
+        wire-framed, so the offer would be skipped and the hop would run
+        over tcp under a tier claim.  ``auto`` stays allowed (riding tcp
+        there is policy)."""
         if self.tier not in ("shm", "ici", "local"):
             return
         role = ("replica" if self.replica is not None
+                else "branch" if self.branch is not None
                 else "fan-out" if self.next_hops
                 and len(self.next_hops) > 1 else None)
         if role is not None:
@@ -309,17 +364,21 @@ class StageNode:
         at load."""
         self.device = _pin_device(device)
         if self.device.type == "cuda":
-            torch.empty(0, device=self.device)
+            _warm_cuda(self.device)
         if self.prog is not None:
             self.prog.place(self.device)
 
     def _span_label(self) -> str:
         """The prefix of this node's spans and events; a replica's is
-        ``stageK.rN``."""
+        ``stageK.rN``, a branch-path node's ``stageK.bJ``."""
         m = self.manifest
         base = (f"stage{m['index']}" if m is not None
                 else f"node{self.address[1]}")
-        return base if self.replica is None else f"{base}.r{self.replica}"
+        if self.replica is not None:
+            return f"{base}.r{self.replica}"
+        if self.branch is not None:
+            return f"{base}.b{self.branch}"
+        return base
 
     # -- the four phases of a frame ------------------------------------------
 
@@ -332,9 +391,10 @@ class StageNode:
             tr.record(f"{self._span_label()}.{name}", t0, dt,
                       {} if seq is None else {"seq": seq})
 
-    def _dispatch(self, x, seq=None):
-        """Run the stage program and time the DISPATCH phase: the call
-        returning (on the card the kernels are queued, not done).
+    def _dispatch(self, *xs, seq=None):
+        """Run the stage program on its input (a join: its P inputs) and
+        time the DISPATCH phase: the call returning (on the card the
+        kernels are queued, not done).
         Returns ``(t0, t_end, (y, event))``: ``t0`` anchors the frame's
         ``infer`` interval, ``t_end`` seeds the QUEUE phase, and the CUDA
         event (None on the CPU) marks the end of this frame's work."""
@@ -342,9 +402,9 @@ class StageNode:
         if self.device.type == "cuda":
             # the hand kernels launch on the thread's current card
             with torch.cuda.device(self.device):
-                y = self.prog(x)
+                y = self.prog(*xs)
         else:
-            y = self.prog(x)
+            y = self.prog(*xs)
         ev = None
         if y.device.type == "cuda":
             ev = torch.cuda.Event()
@@ -435,6 +495,11 @@ class StageNode:
         :class:`FanOutSender`, or a :class:`ReplayFanOut` under
         ``failover``, on tcp, announced with a ``stream_begin`` so that a
         replica that gets no frame still knows it is on the data path.
+        With ``fan_mode="broadcast"`` (a fork) the P next hops are the
+        paths of a branch region instead: a :class:`BroadcastSender` sends
+        every frame to all of them, each channel announced with its path.
+        A branch-path node never probes either (the join end is the
+        wire-framed (path, seq) merge), and announces its path first.
 
         The pending trace context goes ahead of the first tensor."""
         if not self.next_hops:
@@ -442,7 +507,15 @@ class StageNode:
         socks = [connect_retry(*h, timeout_s=connect_timeout_s)
                  for h in self.next_hops]
         tx = None
-        if len(socks) > 1:
+        if len(socks) > 1 and self.fan_mode == "broadcast":
+            # every parallel branch receives every frame, stamped with one
+            # shared sequence number; channel i is path i of the region
+            self.tier_out = "tcp"
+            tx = BroadcastSender(socks, depth=self.tx_depth,
+                                 codec=self.codec,
+                                 gauge="node.tx_queue_depth",
+                                 span=self._span_label, hist="node.tx_s")
+        elif len(socks) > 1:
             self.tier_out = "tcp"
             if self.failover:
                 # retain each frame until the fan-in's cumulative ack;
@@ -460,7 +533,8 @@ class StageNode:
                                   gauge="node.tx_queue_depth",
                                   span=self._span_label, hist="node.tx_s")
             tx.send_ctrl({"cmd": "stream_begin"})
-        elif self.tier != "tcp" and self.replica is None:
+        elif self.tier != "tcp" and self.replica is None \
+                and self.branch is None:
             self.tier_out, tx, fell_back = offer_tier_ladder(
                 socks[0], tier=self.tier, depth=self.tx_depth,
                 hop=self._span_label(), device=self.device)
@@ -475,6 +549,11 @@ class StageNode:
                              span=self._span_label, hist="node.tx_s")
             if self.replica is not None:
                 tx.send_ctrl({"cmd": "stream_begin"})
+            elif self.branch is not None:
+                # this connection's join path, before any frame, so the
+                # downstream join can slot it (a non-join downstream
+                # ignores the label)
+                tx.send_ctrl({"cmd": "stream_begin", "path": self.branch})
         tx.sample_every = self.trace_sample_every
         self._live_tx = tx
         if self._pending_trace is not None:
@@ -554,15 +633,20 @@ class StageNode:
     # -- control plane --------------------------------------------------------
 
     def _deploy(self, msg: dict, blob: bytes) -> None:
-        """Apply a ``deploy`` message: refuse the branch roles the port
-        does not run, take the replica roles (``fan_in``, ``replica``),
-        then load the artifact onto this node's device."""
-        if msg.get("fan") not in (None, "rr"):
-            raise _not_ported("A10c", f"fan={msg['fan']!r} (a branch fork)")
-        if msg.get("branch") is not None:
-            raise _not_ported("A10c", "a branch-path node")
-        if msg.get("join"):
-            raise _not_ported("A10c", "a branch join")
+        """Apply a ``deploy`` message: check the roles it names (the
+        replica roles ``fan_in``/``replica``, the branch roles ``fan``,
+        ``branch``, ``join``), load the artifact onto this node's device,
+        then take the roles."""
+        if msg.get("fan") and msg["fan"] not in ("rr", "broadcast"):
+            raise ValueError(f"deploy: fan must be rr|broadcast, "
+                             f"got {msg['fan']!r}")
+        join = int(msg["join"]) if msg.get("join") else None
+        if join is not None:
+            if join < 2:
+                raise ValueError(f"deploy: join must be >= 2, got {join}")
+            if max(self.fan_in, int(msg.get("fan_in") or 1)) > 1:
+                raise ValueError("deploy: a node cannot be both a branch "
+                                 "join and a replica fan-in")
         tier = msg.get("tier")
         if tier:
             _check_tier(tier, "deploy")
@@ -577,6 +661,12 @@ class StageNode:
             self.fan_in = max(1, int(msg["fan_in"]))
         if msg.get("replica") is not None:
             self.replica = int(msg["replica"])
+        if msg.get("fan"):
+            self.fan_mode = msg["fan"]
+        if msg.get("branch") is not None:
+            self.branch = int(msg["branch"])
+        if join is not None:
+            self.join_in = join
         if msg.get("codec"):
             self.codec = msg["codec"]
         if tier:
@@ -688,10 +778,9 @@ class StageNode:
         raise ValueError(f"unknown control command {msg!r}")
 
     def _stats(self, msg: dict) -> dict:
-        """The ``stats`` reply: every key of the JAX node's (the branch
-        ones at their linear values), plus ``kernel_launches`` (each hand
-        kernel's launches in this process — how a multi-process chain
-        shows its stages ran them)."""
+        """The ``stats`` reply: every key of the JAX node's, plus
+        ``kernel_launches`` (each hand kernel's launches in this process —
+        how a multi-process chain shows its stages ran them)."""
         m = self.manifest
         reg = REGISTRY
         rx, tx = self._live_rx, self._live_tx
@@ -704,8 +793,8 @@ class StageNode:
             "stage": None if m is None else m["index"],
             "name": None if m is None else m["name"],
             "replica": self.replica,
-            "branch": None,
-            "join": 0,
+            "branch": self.branch,
+            "join": self.join_in,
             "fan_in": self.fan_in,
             "processed": self.processed,
             "reweights": self.reweights,
@@ -784,12 +873,13 @@ class StageNode:
         last = -1
         while True:
             p = self.processed
-            rx, tx, merge = self._live_rx, self._live_tx, self._merge
+            rx, tx = self._live_rx, self._live_tx
+            merges = (self._merge, self._join)
             if ((at_seq is None or p >= at_seq) and p == last
                     and inflight_g.value == 0
                     and (rx is None or rx.qsize() == 0)
                     and (tx is None or tx.qsize() == 0)
-                    and (merge is None or merge.qsize() == 0)):
+                    and all(m is None or m.qsize() == 0 for m in merges)):
                 return p
             if time.monotonic() > deadline:
                 raise TimeoutError(
@@ -858,7 +948,11 @@ class StageNode:
         ``overlap=False`` the strictly serial baseline.  With ``fan_in >
         1`` every connection instead feeds the shared reorder merge
         (:meth:`_serve_conn_fanin`) and one compute loop consumes the
-        merged in-order stream."""
+        merged in-order stream; with ``join_in >= 2`` the connections feed
+        the (path, seq) join (:meth:`_serve_conn_join`) and the join's
+        compute loop runs the P-input program."""
+        if self.join_in >= 2:
+            return self._serve_conn_join(conn, connect_timeout_s)
         if self.fan_in > 1:
             return self._serve_conn_fanin(conn, connect_timeout_s)
         if self.overlap:
@@ -973,12 +1067,12 @@ class StageNode:
                             # inputs than replicas, say): still propagate
                             # the stream, so the END cascades and a
                             # downstream fan-in counts this path's END
-                            # (fan-outs and replicas announced themselves
-                            # in _make_tx)
+                            # (fan-outs, forks, replicas and branch paths
+                            # announced themselves in _make_tx)
                             open_tx()
-                            if not isinstance(tx, (FanOutSender,
-                                                   ReplayFanOut)) \
-                                    and self.replica is None:
+                            if not isinstance(tx, _FAN_SENDERS) \
+                                    and self.replica is None \
+                                    and self.branch is None:
                                 tx.send_ctrl({"cmd": "stream_begin"})
                         # END + join: every relayed frame is on the wire
                         # before the finally block closes the socket
@@ -1107,12 +1201,15 @@ class StageNode:
             if self.next_hop is None:
                 raise ValueError("no next hop configured")
             if len(self.next_hops) > 1:
-                raise ValueError("a fan-out to replicas needs the overlapped "
-                                 "node loop (drop overlap=False / "
-                                 "--no-overlap)")
+                raise ValueError("a fan-out to replicas or branches needs "
+                                 "the overlapped node loop (drop "
+                                 "overlap=False / --no-overlap)")
             sock = connect_retry(*self.next_hop,
                                  timeout_s=connect_timeout_s)
             self.tier_out = "tcp"
+            if self.branch is not None:
+                send_ctrl(sock, {"cmd": "stream_begin",
+                                 "path": self.branch})
             if self._pending_trace is not None:
                 send_ctrl(sock, self._pending_trace)
             return sock
@@ -1124,7 +1221,8 @@ class StageNode:
                     if streamed or stream_marked:
                         if out is None:
                             out = open_out()
-                            send_ctrl(out, {"cmd": "stream_begin"})
+                            if self.branch is None:
+                                send_ctrl(out, {"cmd": "stream_begin"})
                         send_end(out)
                         return n
                     return None  # control connection closing
@@ -1355,9 +1453,9 @@ class StageNode:
                         # every upstream was a zero-frame path: still
                         # propagate the stream downstream
                         tx, out_socks = self._make_tx(connect_timeout_s)
-                        if not isinstance(tx, (FanOutSender,
-                                               ReplayFanOut)) \
-                                and self.replica is None:
+                        if not isinstance(tx, _FAN_SENDERS) \
+                                and self.replica is None \
+                                and self.branch is None:
                             tx.send_ctrl({"cmd": "stream_begin"})
                     tx.close(timeout=connect_timeout_s)
                     emit_event("stream_end", hop=self._span_label(), n=n)
@@ -1394,6 +1492,206 @@ class StageNode:
             if pending:
                 # dispatches abandoned by a failed stream must not inflate
                 # the shared inflight gauge
+                inflight_g.dec(len(pending))
+            if tx is not None and hasattr(tx, "detach"):
+                tx.detach()
+            for sock in out_socks or ():
+                sock.close()
+
+
+    # -- branch join: this node merges P labeled branch paths ----------------
+
+    def _serve_conn_join(self, conn, connect_timeout_s: float) -> None:
+        """One upstream connection of a join node: a reader that decodes
+        frames on this thread (P connections, P decoders in parallel) and
+        deposits sequence-stamped tensors into the shared (path, seq) join
+        under the path its ``stream_begin`` announced.  Control connections
+        are served inline as on any node.  Always returns None: the join's
+        compute loop (:meth:`_join_compute`) counts the stream."""
+        path: int | None = None
+        join = None
+        try:
+            while True:
+                kind, value = recv_frame(conn)
+                if kind == K_END:
+                    if path is not None:
+                        join.end(path)
+                    return None
+                if kind == K_CTRL:
+                    cmd = value.get("cmd") if isinstance(value, dict) \
+                        else None
+                    if cmd == "stream_begin":
+                        if path is not None:
+                            continue  # a repeated marker keeps its slot
+                        if value.get("path") is None:
+                            raise ValueError(
+                                "join upstream announced a stream with no "
+                                "path label — every hop into a join must "
+                                "ride a labeled branch path")
+                        path = int(value["path"])
+                        join = self._ensure_join_loop(connect_timeout_s)
+                        # a second claim of one path fails the join loudly
+                        join.attach(path)
+                        continue
+                    if cmd == "tier_probe":
+                        # join paths are wire-framed (the ordered (path,
+                        # seq) merge): refuse, the offer degrades to tcp
+                        answer_probe(conn, value, accept=False)
+                        continue
+                    if cmd == "req_meta":
+                        raise ValueError(
+                            "request-scoped metadata cannot cross a branch "
+                            "join (P paths would reorder it); serve over a "
+                            "linear chain")
+                    self._handle_ctrl(conn, value)
+                    if path is not None and cmd == "trace":
+                        # a mid-stream trace context must still cascade
+                        # past an open downstream connection; a copy per
+                        # path is harmless (adoption is idempotent)
+                        join.put_ctrl(dict(self._pending_trace))
+                    continue
+                if kind == K_TENSOR:
+                    raise ValueError(
+                        "join node received an unsequenced tensor frame — "
+                        "branch hops carry the fork's shared sequence "
+                        "stamp (K_TENSOR_SEQ)")
+                if kind != K_TENSOR_SEQ:
+                    raise ValueError(f"unexpected frame kind {kind}")
+                if path is None:
+                    raise ValueError(
+                        "tensor before stream_begin on a join path — the "
+                        "upstream must announce its path first")
+                seq, arr = value
+                t0 = time.perf_counter()
+                join.put(path, seq, arr)
+                tr = tracer()
+                if tr.enabled:
+                    tr.record(f"{self._span_label()}.join_wait", t0,
+                              time.perf_counter() - t0,
+                              {"seq": seq, "path": path})
+        except Exception as e:  # noqa: BLE001 — the fan-in loop's policy
+            if path is not None:
+                # a registered path that dies fails the whole join: the
+                # compute loop and the other readers see it, and the
+                # stream never completes short
+                join.fail(e)
+                raise
+            print(f"node: dropped connection before streaming: {e!r}",
+                  file=sys.stderr, flush=True)
+            return None
+
+    def _ensure_join_loop(self, connect_timeout_s: float) -> BranchJoin:
+        """Create the shared (path, seq) join and its one compute thread
+        the first time a branch path announces itself; returns the
+        segment's join (readers hold it, so a persistent node's next
+        segment cannot swap it under them)."""
+        with self._merge_lock:
+            if self._join is None:
+                # every path gets rx_depth frames of reorder slack before
+                # backpressure parks its reader
+                self._join = BranchJoin(self.join_in,
+                                        capacity=max(2, self.rx_depth))
+                threading.Thread(target=self._join_loop,
+                                 args=(self._join, connect_timeout_s),
+                                 daemon=True,
+                                 name="node-join-compute").start()
+            return self._join
+
+    def _join_loop(self, join: BranchJoin, connect_timeout_s: float) -> None:
+        done = self._done_q
+        try:
+            n = self._join_compute(join, connect_timeout_s)
+            with self._merge_lock:
+                # segment complete: a persistent node's next stream builds
+                # a fresh join
+                self._join = None
+            done.put(n)
+        except BaseException as e:  # noqa: BLE001 — raised by serve()
+            join.fail(e)  # wake readers parked in put()
+            done.put(e)
+
+    def _join_compute(self, join: BranchJoin, connect_timeout_s: float
+                      ) -> int:
+        """The join node's compute loop: :meth:`_merge_compute` with the
+        (path, seq) join in place of the round-robin merge and the P-input
+        program ``prog(*parts)`` in place of ``prog(x)``.  Complete
+        sequences come strictly in order; each output is relayed with the
+        region's sequence stamp.  The outbound hop may win shm or ici:
+        only the P inbound paths are wire-framed."""
+        tx = out_socks = None
+        n = 0
+        inflight_g = REGISTRY.gauge("node.inflight")
+        join_g = REGISTRY.gauge("node.merge_depth")
+        pending: collections.deque = collections.deque()
+
+        def drain_one():
+            nonlocal n
+            t0, t_end, s, y = pending.popleft()
+            inflight_g.dec()
+            self._relay(tx, t0, t_end, s, y, s)
+            n += 1
+
+        def want_shapes() -> list[tuple]:
+            m = self.manifest
+            if m.get("in_shapes"):
+                return [tuple(w) for w in m["in_shapes"]]
+            return [tuple(m["in_shape"])] * self.join_in
+
+        try:
+            while True:
+                if pending:
+                    try:
+                        kind, value = join.get_nowait()
+                    except queue.Empty:
+                        drain_one()
+                        continue
+                else:
+                    kind, value = join.get()
+                join_g.set(join.qsize())
+                if kind == K_END:
+                    while pending:
+                        drain_one()
+                    if tx is None:
+                        # every path ended with zero frames: still
+                        # propagate the stream downstream
+                        tx, out_socks = self._make_tx(connect_timeout_s)
+                        if not isinstance(tx, _FAN_SENDERS) \
+                                and self.branch is None:
+                            tx.send_ctrl({"cmd": "stream_begin"})
+                    tx.close(timeout=connect_timeout_s)
+                    emit_event("stream_end", hop=self._span_label(), n=n)
+                    return n
+                if kind == K_CTRL:
+                    # the readers handled the command (trace adoption);
+                    # what rides the join is the copy for downstream
+                    if tx is not None and value is not None:
+                        tx.send_ctrl(value)
+                    continue
+                seq, parts = value
+                if self.prog is None:
+                    raise ValueError(
+                        "data frame before any stage artifact (boot with "
+                        "--artifact or deploy in-band first)")
+                if tx is None:
+                    tx, out_socks = self._make_tx(connect_timeout_s)
+                    emit_event("stream_begin", hop=self._span_label())
+                batch = self.manifest["batch"]
+                for p, (part, want) in enumerate(zip(parts, want_shapes())):
+                    if tuple(part.shape[1:]) != want \
+                            or part.shape[0] != batch:
+                        raise ValueError(
+                            f"join stage {self.manifest['index']} path {p} "
+                            f"expects frames of {batch} x {want}, got "
+                            f"{tuple(part.shape)}")
+                if self.infer_delay_s:
+                    time.sleep(self.infer_delay_s)  # bench-only device
+                t0, t_end, y = self._dispatch(*parts, seq=seq)
+                pending.append((t0, t_end, seq, y))
+                inflight_g.inc()
+                while len(pending) >= self.inflight:
+                    drain_one()
+        finally:
+            if pending:
                 inflight_g.dec(len(pending))
             if tx is not None and hasattr(tx, "detach"):
                 tx.detach()
@@ -1468,6 +1766,8 @@ class ChainDispatcher:
         self.tier_in: str | None = None
         #: first-edge offers that degraded to tcp
         self.tier_fallbacks = 0
+        #: seconds from the start of the last stream() to its first result
+        self.first_result_s: float | None = None
         #: wire sequence counter, continuous across stream() calls (a warm
         #: stream and a timed stream must not reuse seq numbers — sampled
         #: spans are keyed by them)
@@ -1544,6 +1844,7 @@ class ChainDispatcher:
         tr = tracer()
         root_span = None
         t_start = time.perf_counter()
+        self.first_result_s = None
         if tr.enabled:
             # pre-allocate the root span id so remote stages can parent
             # under a span recorded only when the stream completes
@@ -1597,6 +1898,8 @@ class ChainDispatcher:
                     # channel's timeout).  Never recv otherwise — nothing
                     # would arrive and the wait would run its full timeout
                     outs.append(self._recv_tensor())
+                    if len(outs) == 1:
+                        self.first_result_s = time.perf_counter() - t_start
                     window.release()
                     continue
                 if tx_done.is_set():
@@ -1692,6 +1995,55 @@ class ChainDispatcher:
                 if len(addrs) > 1:
                     msg["replica"] = j
                 self._control(addr, msg, blob)
+
+    def deploy_topology(self, topology, stages, params,
+                        node_addrs: Sequence[str], *, batch: int = 1,
+                        result_hop: str | None = None,
+                        stage_delays: dict | None = None) -> None:
+        """Ship a branched stage graph: one node per topology vertex.
+
+        ``topology`` is a
+        :class:`~defer_tpu_torch.runtime.topology.ChainTopology` whose
+        vertices align with ``stages`` (``topology.stage_specs(graph)``)
+        and ``node_addrs``.  Each deploy message carries the vertex's
+        transport role — ``fan`` (a broadcast fork), ``branch`` (a labeled
+        path), ``join`` (a P-path merge) — beside the usual next/codec
+        pair; replicas never appear here (the branch and replica fans own
+        different sequence namespaces, and a node refuses both at once).
+        ``stage_delays`` (vertex id -> seconds) installs the bench-only
+        simulated device time per vertex.  Serial, in vertex order, each
+        ACKed before the next; a vertex that fails its deploy raises
+        naming its label and address."""
+        from ..utils.export import export_stage_bytes
+        sweep_orphan_segments()
+        addrs = list(node_addrs)
+        if len(addrs) != len(topology.vertices) or \
+                len(stages) != len(topology.vertices):
+            raise ValueError(
+                f"{len(topology.vertices)} topology vertices need as many "
+                f"stages ({len(stages)}) and addresses ({len(addrs)})")
+        result_hop = result_hop or \
+            f"{self.result_address[0]}:{self.result_address[1]}"
+        for v, stage, addr in zip(topology.vertices, stages, addrs):
+            msg = {"cmd": "deploy",
+                   "next": (",".join(addrs[n] for n in v.next) if v.next
+                            else result_hop),
+                   "codec": v.codec or self.codec}
+            if v.fan == "broadcast":
+                msg["fan"] = "broadcast"
+            if v.join >= 2:
+                msg["join"] = v.join
+            if v.branch is not None:
+                msg["branch"] = v.branch
+            if stage_delays and stage_delays.get(v.vid):
+                msg["infer_delay_ms"] = stage_delays[v.vid] * 1e3
+            blob = export_stage_bytes(stage, params, batch=batch)
+            try:
+                self._control(addr, msg, blob)
+            except (OSError, ConnectionError, ValueError) as e:
+                raise ConnectionError(
+                    f"deploy of vertex {v.label} at {addr} failed: "
+                    f"{e!r}") from e
 
     @staticmethod
     def _groups(node_addrs: Sequence, n: int) -> list[list[str]]:
@@ -2567,14 +2919,20 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                  plan=None,
                  failover: bool = False,
                  journal_dir: str | None = None,
-                 device: str = "cuda"):
+                 device: str = "cuda",
+                 persist: bool = False):
     """The chain :func:`run_chain` streams through, held open: validate,
     export, spawn the node processes, deploy, and yield a
     :class:`ChainSession` whose dispatcher streams as often as the caller
     likes; leaving the block closes the dispatcher (END cascades) and
     waits for every node to exit 0.  The arguments are
-    :func:`run_chain`'s.  A bind race before the yield retries on fresh
-    ports; a failure inside the block kills every node first.  Under
+    :func:`run_chain`'s, and ``persist``: every node survives the END of a
+    stream segment (``node --persist``), so the caller may end a segment
+    (``dispatcher.end_stream()``), deploy the same nodes again in-band
+    (``dispatcher.deploy``, another codec, say) and stream a new segment;
+    leaving the block then also sends every node ``shutdown``.  A bind
+    race before the yield retries on fresh ports; a failure inside the
+    block kills every node first.  Under
     ``failover`` the supervisor (:func:`_supervise`) runs for the whole
     session and stops before the teardown, so the END cascade's exits
     never read as deaths; ``ChainSession.pid`` names a replica's process
@@ -2697,6 +3055,8 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
     tuning = [] if overlap else ["--no-overlap"]
     if failover:
         tuning += ["--failover"]
+    if persist:
+        tuning += ["--persist"]
     for flag, v in (("--rx-depth", rx_depth), ("--tx-depth", tx_depth),
                     ("--inflight", inflight)):
         if v is not None:
@@ -2750,6 +3110,23 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                 spec += f";device={device_map[k]}"
             return spec
 
+        ahead = None
+        if in_band:
+            # the in-band deploy traces each stage's program here: trace
+            # them while the nodes boot, so the deploy finds them ready
+            from ..utils.export import trace_stage
+
+            def trace_ahead():
+                try:
+                    for s in stages:
+                        trace_stage(s, params, batch=batch)
+                except Exception:  # noqa: BLE001 — the deploy raises it
+                    pass
+
+            ahead = threading.Thread(target=trace_ahead, daemon=True,
+                                     name="chain-trace-ahead")
+            ahead.start()
+
         last_exc: BaseException | None = None
         yielded = False
         for attempt in range(max(1, spawn_retries)):
@@ -2787,6 +3164,8 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                     failed = True
                     try:
                         t0 = time.perf_counter()
+                        if ahead is not None:
+                            ahead.join()  # its rest counts as deploy time
                         if in_band:
                             disp.deploy(stages, params,
                                         [a[0] if len(a) == 1 else a
@@ -2820,6 +3199,8 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                             # out its timeouts
                             _kill_procs(nodes.procs)
                         disp.close()
+                        if persist and not failed:
+                            disp.shutdown_nodes(nodes.addrs)
                 return
             except _BindRace as e:
                 if yielded:
@@ -2834,3 +3215,193 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
     finally:
         if tmp is not None:
             tmp.cleanup()
+
+
+# ---------------------------------------------------------------------------
+# run_dag_chain: one OS process per topology vertex of a branched graph
+# ---------------------------------------------------------------------------
+
+def _dag_flags(v, artifact: str, *, addrs, result_addr: str,
+               codec: str = "raw",
+               stage_delays: dict | None = None) -> list[str]:
+    """The ``node`` flags of one topology vertex after its ``--listen``
+    and ``--device``: its artifact, next hops, codec, tcp, and its role."""
+    nxt = ",".join(addrs[n] for n in v.next) if v.next else result_addr
+    argv = ["--artifact", artifact, "--next", nxt,
+            "--codec", v.codec or codec, "--tier", "tcp"]
+    if v.fan == "broadcast":
+        argv += ["--fan", "broadcast"]
+    if v.branch is not None:
+        argv += ["--branch", str(v.branch)]
+    if v.join >= 2:
+        argv += ["--join", str(v.join)]
+    if stage_delays and stage_delays.get(v.vid):
+        argv += ["--infer-delay-ms", str(stage_delays[v.vid] * 1e3)]
+    return argv
+
+
+def dag_vertex_argv(v, artifact: str, *, addrs, result_addr: str,
+                    codec: str = "raw", stage_delays: dict | None = None,
+                    device: str = "cuda") -> list[str]:
+    """argv for one topology vertex's ``python -m defer_tpu_torch node``
+    process: the single source of truth for the branched deployment's
+    shape (:func:`run_dag_chain` spawns its vertices with these flags, so
+    a script that spawns through it measures what ``chain --dag``
+    ships).  ``addrs[v.vid]`` is the vertex's own listen address."""
+    return ([sys.executable, "-m", "defer_tpu_torch", "node",
+             "--listen", addrs[v.vid], "--device", str(device)]
+            + _dag_flags(v, artifact, addrs=addrs, result_addr=result_addr,
+                         codec=codec, stage_delays=stage_delays))
+
+
+def run_dag_chain(graph, params, inputs, *, topology, batch: int = 1,
+                  codec: str = "raw", artifact_dir: str | None = None,
+                  env: dict[str, str] | None = None,
+                  rx_depth: int | None = None, tx_depth: int | None = None,
+                  inflight: int | None = None,
+                  stage_delays: dict | None = None,
+                  replicas=None, hop_tiers=None,
+                  stats_out: list | None = None,
+                  spawn_retries: int = 3, on_spawn=None,
+                  trace_sample_every: int = 0,
+                  device: str = "cuda",
+                  timings_out: dict | None = None,
+                  timeout_s: float | None = None) -> list:
+    """Spawn a branched process pipeline — one OS process per topology
+    vertex — stream ``inputs``, tear down: the DAG analogue of
+    :func:`run_chain`.
+
+    ``topology`` is a :class:`~defer_tpu_torch.runtime.topology.ChainTopology`
+    (``ChainTopology.from_json`` of a ``plan --dag --json`` document, of
+    either package): trunk vertices relay as usual, a fork vertex
+    broadcasts every frame to all of its region's paths under one sequence
+    stamp, branch vertices ride labeled paths, and the join vertex merges
+    all P paths per sequence before its P-input program runs.  Outputs
+    return in order.  Every vertex runs on ``device`` (the CUDA card by
+    default); the processes are spawned by :func:`spawn_nodes`, which
+    builds the hand kernels first on the card.
+
+    ``stage_delays`` (vertex id -> seconds) adds bench-only simulated
+    device time per vertex.  ``stats_out`` receives every vertex's
+    ``stats`` reply, queried before teardown.  ``timings_out`` receives
+    ``export_s`` (the artifacts, before any spawn), ``boot_s`` (spawn to
+    the last bind), ``first_result_s`` (from the stream's start) and
+    ``stream_s``; ``timeout_s`` bounds the dispatcher's waits (default
+    :attr:`ChainDispatcher.timeout_s`).
+
+    Replication and colocation tiers do not compose with a branched
+    topology (the two fan machineries own different sequence namespaces;
+    every branch hop is wire-framed): ``replicas`` and ``hop_tiers`` raise
+    ``ValueError`` before any process spawns.
+    """
+    if replicas:
+        raise ValueError(
+            "replicas do not compose with a branched topology (a branch "
+            "hop touching a replicated stage is rejected like any fan "
+            "hop); drop the replicas or run a linear chain")
+    if hop_tiers:
+        raise ValueError(
+            "hop_tiers do not compose with a branched topology yet — "
+            "every branch fan-out/join hop is wire-framed by design")
+    dev = resolve_device(device)
+    stages = topology.stage_specs(graph)
+    tmp = None
+    if artifact_dir is None:
+        tmp = tempfile.TemporaryDirectory(prefix="defer_dag_")
+        artifact_dir = tmp.name
+    try:
+        from ..utils.export import export_stage
+        t0 = time.perf_counter()
+        paths = []
+        for v, stage in zip(topology.vertices, stages):
+            p = os.path.join(artifact_dir, f"vertex_{v.vid}.zip")
+            export_stage(stage, params, p, batch=batch)
+            paths.append(p)
+        if timings_out is not None:
+            timings_out["export_s"] = time.perf_counter() - t0
+        tuning = []
+        for flag, val in (("--rx-depth", rx_depth),
+                          ("--tx-depth", tx_depth),
+                          ("--inflight", inflight)):
+            if val is not None:
+                tuning += [flag, str(val)]
+        last_exc: BaseException | None = None
+        for attempt in range(max(1, spawn_retries)):
+            try:
+                return _dag_attempt(
+                    topology, paths, inputs, codec=codec, env=env,
+                    artifact_dir=artifact_dir, tuning=tuning,
+                    rx_depth=rx_depth, tx_depth=tx_depth,
+                    stage_delays=stage_delays or {}, stats_out=stats_out,
+                    on_spawn=on_spawn, spawn_retries=spawn_retries,
+                    trace_sample_every=trace_sample_every, device=str(dev),
+                    timings_out=timings_out, timeout_s=timeout_s)
+            except _BindRace as e:
+                last_exc = e
+                print(f"run_dag_chain: bind race on attempt {attempt + 1} "
+                      f"({e}); retrying on fresh ports", file=sys.stderr,
+                      flush=True)
+        raise RuntimeError(
+            f"dag chain spawn lost the port race {spawn_retries} times: "
+            f"{last_exc}") from last_exc
+    finally:
+        if tmp is not None:
+            tmp.cleanup()
+
+
+def _dag_attempt(topology, paths, inputs, *, codec, env, artifact_dir,
+                 tuning, rx_depth, tx_depth, stage_delays, stats_out,
+                 on_spawn, spawn_retries, trace_sample_every, device,
+                 timings_out, timeout_s):
+    """One spawn -> stream -> teardown attempt of a branched topology (see
+    :func:`run_dag_chain`), with :func:`run_chain`'s discipline: a bind
+    race raises :class:`_BindRace` for a retry, any other failure kills
+    every vertex and names the dead ones' log tails."""
+    vs = topology.vertices
+
+    def argv_for(k: int, addrs, result) -> list[str]:
+        return _dag_flags(vs[k], paths[k], addrs=addrs, result_addr=result,
+                          codec=codec, stage_delays=stage_delays) + tuning
+
+    t0 = time.perf_counter()
+    with spawn_nodes(len(vs), log_dir=artifact_dir, device=device,
+                     argv_for=argv_for, labels=[v.label for v in vs],
+                     env=env, on_spawn=on_spawn,
+                     spawn_retries=spawn_retries) as nodes:
+        boot_s = time.perf_counter() - t0
+        try:
+            disp = ChainDispatcher(nodes.addrs[0], listen=nodes.result,
+                                   codec=codec, tx_depth=tx_depth or 8,
+                                   rx_depth=rx_depth or 8,
+                                   timeout_s=timeout_s,
+                                   trace_sample_every=trace_sample_every,
+                                   tier="tcp")
+        except OSError as e:
+            if any(m in str(e) for m in _BIND_RACE_MARKS):
+                raise _BindRace(f"dispatcher lost the result-port bind "
+                                f"race ({e})") from e
+            raise
+        failed = True
+        try:
+            t1 = time.perf_counter()
+            outs = disp.stream(inputs)
+            if timings_out is not None:
+                timings_out.update(boot_s=boot_s,
+                                   first_result_s=disp.first_result_s,
+                                   stream_s=time.perf_counter() - t1)
+            if stats_out is not None:
+                stats_out.extend(disp.stats(nodes.addrs))
+            if tracer().enabled:
+                try:
+                    disp.collect_trace(nodes.addrs)
+                except (OSError, ConnectionError) as e:
+                    print(f"run_dag_chain: trace collection failed: {e!r}",
+                          file=sys.stderr)
+            failed = False
+        finally:
+            if failed:
+                # kill the vertices first, so the dispatcher's drain hits
+                # dead sockets instead of waiting out its timeouts
+                _kill_procs(nodes.procs)
+            disp.close()
+    return outs

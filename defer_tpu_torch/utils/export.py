@@ -53,6 +53,10 @@ from .convert import hwio_to_oihw, is_hwio_leaf, oihw_to_hwio
 #: threads may not load at once (the nodes of one process load in-band
 #: deploys on their own serve threads)
 _LOAD_LOCK = threading.Lock()
+#: serialized programs by stage layout (see :func:`_program_bytes`), each
+#: beside its graph, held so that the graph's id is never reused
+_PROGRAMS: dict = {}
+_PROGRAMS_LOCK = threading.Lock()
 _MANIFEST = "manifest.json"
 _PROGRAM = "stage.pt2"
 _WEIGHTS = "weights.npz"
@@ -106,15 +110,68 @@ def _load_weights_blob(data: bytes, num: int) -> list[np.ndarray]:
 
 
 class _StageFn(torch.nn.Module):
-    """The exported function: ``(port-layout leaves, x) -> y``."""
+    """The exported function: ``(port-layout leaves, *xs) -> y`` — one
+    input, or a join stage's P inputs in path order."""
 
     def __init__(self, stage: StageSpec, paths):
         super().__init__()
         self.stage = stage
         self.paths = paths
 
-    def forward(self, leaves: list[torch.Tensor], x: torch.Tensor):
-        return self.stage.fn(flatbuf.unflatten_leaves(self.paths, leaves), x)
+    def forward(self, leaves: list[torch.Tensor], *xs: torch.Tensor):
+        return self.stage.fn(flatbuf.unflatten_leaves(self.paths, leaves),
+                             *xs)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _program_bytes(stage, paths, leaves, xs) -> bytes:
+    """The stage's ``torch.export`` program, serialized.  The weights are
+    inputs of the exported function, so the trace reads their shapes,
+    dtypes and strides and never their values: a stage exported again (a
+    redeploy with another codec, a replanned chain's unchanged stages, the
+    same topology spawned as processes) reuses the program traced the
+    first time in this process, keyed on the graph, the node slice, the
+    leaf layout and the inputs' shapes."""
+    key = (id(stage.graph), type(stage).__name__, tuple(stage.node_names),
+           tuple(getattr(stage, "input_names", None) or (stage.input_name,)),
+           stage.output_name, tuple(paths),
+           tuple((tuple(t.shape), t.dtype, t.stride()) for t in leaves),
+           tuple((tuple(x.shape), x.dtype) for x in xs))
+    with _PROGRAMS_LOCK:
+        hit = _PROGRAMS.get(key)
+        if hit is not None and hit[0] is stage.graph:
+            return hit[1]
+        with torch.no_grad():
+            program = torch.export.export(_StageFn(stage, paths),
+                                          (leaves, *xs))
+        # the trace's example inputs are the weights themselves: the
+        # artifact ships them once, in weights.npz
+        program.example_inputs = None
+        buf = io.BytesIO()
+        torch.export.save(program, buf)
+        _PROGRAMS[key] = (stage.graph, buf.getvalue())
+        return _PROGRAMS[key][1]
+
+
+def _traced(stage, paths, leaves, batch: int):
+    """(the stage's input specs, its serialized program at ``batch``)."""
+    leaves = [t.detach().cpu() for t in leaves]
+    in_specs = tuple(getattr(stage, "in_specs", None) or (stage.in_spec,))
+    xs = tuple(torch.zeros((batch,) + tuple(s.shape), dtype=s.dtype)
+               for s in in_specs)
+    return in_specs, _program_bytes(stage, paths, leaves, xs)
+
+
+def trace_stage(stage: StageSpec, params: dict[str, Any], *,
+                batch: int = 1) -> None:
+    """Trace the stage's program at ``batch`` and keep it, without packing
+    its weights: a later :func:`export_stage_bytes` of the stage finds the
+    trace ready (``deploy_chain`` traces while its nodes boot)."""
+    paths, leaves, _ = _leaves(stage, params)
+    _traced(stage, paths, leaves, batch)
 
 
 def export_stage_bytes(stage: StageSpec, params: dict[str, Any],
@@ -126,44 +183,44 @@ def export_stage_bytes(stage: StageSpec, params: dict[str, Any],
     (:func:`stage_weight_leaves`), and a JSON manifest with the JAX
     package's keys plus ``hwio_leaves`` — one blob the dispatcher ships
     over the control connection.
+
+    A :class:`~defer_tpu_torch.partition.stage.JoinStageSpec` (the join of
+    a branched pipeline) exports a program of P inputs, one per merged
+    branch path in path order, and its manifest adds ``num_inputs``,
+    ``in_shapes`` and ``in_dtypes`` as the JAX package's does.  A failed
+    trace raises: no artifact falls back to eager code.
     """
-    if getattr(stage, "in_specs", None):
-        raise NotImplementedError(
-            "join-stage artifacts (branched chains) come with ROADMAP A10c")
     paths, leaves, hwio = _leaves(stage, params)
-    leaves = [t.detach().cpu() for t in leaves]
-    spec = stage.in_spec
-    x = torch.zeros((batch,) + tuple(spec.shape), dtype=spec.dtype)
-    with torch.no_grad():
-        program = torch.export.export(_StageFn(stage, paths), (leaves, x))
-    # the trace's example inputs are the weights themselves: the artifact
-    # ships them once, in weights.npz
-    program.example_inputs = None
-    prog_buf = io.BytesIO()
-    torch.export.save(program, prog_buf)
+    in_specs, program = _traced(stage, paths, leaves, batch)
+    spec = in_specs[0]
 
     manifest = {
         "format": FORMAT,
         "index": stage.index,
         "name": stage.name,
         "graph": stage.graph.name,
-        "input": stage.input_name,
+        "input": (getattr(stage, "input_name", None)
+                  or ",".join(stage.input_names)),
         "output": stage.output_name,
         "batch": batch,
         "in_shape": list(spec.shape),
-        "in_dtype": str(spec.dtype).removeprefix("torch."),
+        "in_dtype": _dtype_name(spec.dtype),
         "out_shape": list(stage.out_spec.shape),
-        "out_dtype": str(stage.out_spec.dtype).removeprefix("torch."),
+        "out_dtype": _dtype_name(stage.out_spec.dtype),
         "num_weights": len(leaves),
         "hwio_leaves": hwio,
     }
+    if len(in_specs) > 1:
+        manifest["num_inputs"] = len(in_specs)
+        manifest["in_shapes"] = [list(s.shape) for s in in_specs]
+        manifest["in_dtypes"] = [_dtype_name(s.dtype) for s in in_specs]
     out = io.BytesIO()
     # the program (itself a zip) and the weights are stored, not deflated:
     # float weights barely compress, and deflating ResNet50's 102 MB would
     # cost seconds of every deploy
     with zipfile.ZipFile(out, "w", zipfile.ZIP_STORED) as z:
         z.writestr(_MANIFEST, json.dumps(manifest, indent=1))
-        z.writestr(_PROGRAM, prog_buf.getvalue())
+        z.writestr(_PROGRAM, program)
         z.writestr(_WEIGHTS, weights_blob(stage_weight_leaves(stage,
                                                               params)))
     return out.getvalue()
@@ -185,7 +242,7 @@ class StageProgram:
     :attr:`device` and returns the output tensor there (the analogue of the
     node's ``model_from_json`` + ``set_weights``, reference
     src/node.py:31-34).  ``x`` may be a numpy array or a tensor on any
-    device.  ``reweight(blob)`` installs a fresh weight set (same shapes
+    device; a join stage's program takes its P inputs, ``prog(*xs)``.  ``reweight(blob)`` installs a fresh weight set (same shapes
     and dtypes) without reloading the program.  The program is built on
     the CPU, where it was exported; :func:`load_stage_program` places it
     on its device with :meth:`place`.
@@ -196,7 +253,8 @@ class StageProgram:
         self.device = torch.device("cpu")
         self._program = program
         self._fn = program.module()
-        self._in_dtype = getattr(torch, manifest["in_dtype"])
+        self._in_dtypes = [getattr(torch, d) for d in manifest.get(
+            "in_dtypes", [manifest["in_dtype"]])]
         self._install(leaves)
 
     def _install(self, leaves: list[np.ndarray]) -> None:
@@ -242,10 +300,14 @@ class StageProgram:
                     f"re-push has {nw.shape}/{nw.dtype}")
         self._install(new)
 
-    def __call__(self, x) -> torch.Tensor:
-        t = torch.as_tensor(x).to(self.device, self._in_dtype)
+    def __call__(self, *xs) -> torch.Tensor:
+        if len(xs) != len(self._in_dtypes):
+            raise ValueError(f"stage {self.manifest['index']} takes "
+                             f"{len(self._in_dtypes)} inputs, got {len(xs)}")
+        ts = [torch.as_tensor(x).to(self.device, d)
+              for x, d in zip(xs, self._in_dtypes)]
         with torch.inference_mode():
-            return self._fn(self.leaves, t)
+            return self._fn(self.leaves, *ts)
 
     @property
     def graph(self):

@@ -803,6 +803,50 @@ def test_exported_stage_launches_flash_through_the_operator(cuda):
         x = want.numpy()
 
 
+def test_join_artifact_carries_the_flash_operator(cuda):
+    """The join of a branched MoE region (``moe_0`` merging the residual
+    and four experts, then ``block_1``) exported as a program of five
+    inputs on the CPU keeps the ``defer_tpu_torch::flash_attention``
+    operator: on the card it launches the hand kernel once per call, and
+    its output is within 1e-5 of max |y| of the same program on the CPU
+    (the plain version)."""
+    import numpy as np
+
+    from defer_tpu_torch import models
+    from defer_tpu_torch.plan import StageCostModel, solve_dag
+    from defer_tpu_torch.runtime.topology import ChainTopology
+    from defer_tpu_torch.utils.export import (export_stage_bytes,
+                                              load_stage_program)
+
+    g = models.moe_branched_tiny(seq_len=16)
+    p = g.init(torch.Generator().manual_seed(0))
+    heavy = {n: 1e-3 for n in g.topo_order
+             if n.startswith("block_") or "_e" in n}
+    cm = StageCostModel(g, gen="h100", link_bw_s=1e12,
+                        node_costs={n: heavy.get(n, 1e-6)
+                                    for n in g.topo_order})
+    topo = ChainTopology.from_json(
+        solve_dag(g, cm, num_nodes=12).topology_json())
+    join = next(s for v, s in zip(topo, topo.stage_specs(g))
+                if v.join >= 2)
+    assert join.num_inputs == 5 and "block_1" in join.node_names
+    blob = export_stage_bytes(join, p, batch=2)
+    on_cpu = load_stage_program(blob, device="cpu")
+    on_card = load_stage_program(blob, device=cuda)
+    assert any("flash_attention" in str(n.target)
+               for n in on_card.graph.nodes)
+    rng = np.random.default_rng(1)
+    xs = [rng.standard_normal((2,) + tuple(s.shape)).astype(np.float32)
+          for s in join.in_specs]
+    before = FLASH.launches
+    y = on_card(*xs)
+    torch.cuda.synchronize()
+    assert FLASH.launches == before + 1
+    want = on_cpu(*xs)
+    err = float((y.cpu() - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
 @pytest.mark.timeout(300)
 @pytest.mark.parametrize("model", ["bert_tiny", "resnet_tiny"])
 def test_two_thread_chain_on_card_equals_forward(cuda, model, monkeypatch):

@@ -234,3 +234,41 @@ def test_place_without_cuda_raises(resnet, tmp_path):
         prog.place("cuda")
     prog.place("cpu")
     assert prog.device.type == "cpu"
+
+
+@pytest.mark.timeout(120)
+def test_export_reuses_the_trace_and_ships_each_call_its_weights(resnet):
+    """A stage exported again reuses the program traced the first time (the
+    weights are the program's inputs, so the trace never reads their
+    values), and each artifact carries the weights of its own call: the
+    second export, on weights x1.5, computes the JAX program on those
+    weights, the first still computes the first.  Another batch traces
+    anew, and ``trace_stage`` keeps a trace for a later export."""
+    jg, jp, jstages, g, p, stages = resnet
+    s, js = stages[1], jstages[1]
+    jp2 = jax.tree.map(lambda a: a * 1.5, jp)
+    p2 = params_from_jax(g, jax.tree.map(np.asarray, jp2))
+    n0 = len(texport._PROGRAMS)
+    blob1 = texport.export_stage_bytes(s, p, batch=2)
+    n1 = len(texport._PROGRAMS)
+    blob2 = texport.export_stage_bytes(s, p2, batch=2)
+    assert len(texport._PROGRAMS) == n1 <= n0 + 1
+    with zipfile.ZipFile(io.BytesIO(blob1)) as a, \
+            zipfile.ZipFile(io.BytesIO(blob2)) as b:
+        assert a.read("stage.pt2") == b.read("stage.pt2")
+        assert a.read("weights.npz") != b.read("weights.npz")
+    x = np.random.default_rng(6).standard_normal(
+        (2,) + s.in_spec.shape).astype(np.float32)
+    y1 = texport.load_stage_program(blob1, device="cpu")(x).numpy()
+    y2 = texport.load_stage_program(blob2, device="cpu")(x).numpy()
+    _close(y1, np.asarray(jexport.load_stage_program(
+        jexport.export_stage_bytes(js, jp, batch=2))(x)))
+    _close(y2, np.asarray(jexport.load_stage_program(
+        jexport.export_stage_bytes(js, jp2, batch=2))(x)))
+    n2 = len(texport._PROGRAMS)
+    texport.trace_stage(s, p, batch=7)   # a batch no test traces
+    assert len(texport._PROGRAMS) == n2 + 1
+    blob7 = texport.export_stage_bytes(s, p, batch=7)   # the kept trace
+    assert len(texport._PROGRAMS) == n2 + 1
+    assert texport.load_stage_program(blob7, device="cpu").manifest[
+        "batch"] == 7

@@ -39,6 +39,8 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.obs.events; "
             "import defer_tpu_torch.transport.replay; "
             "import defer_tpu_torch.transport.replicate; "
+            "import defer_tpu_torch.transport.branch; "
+            "import defer_tpu_torch.runtime.topology; "
             "import defer_tpu_torch.models.gpt; "
             "import defer_tpu_torch.runtime.decode; "
             "import defer_tpu_torch.runtime.speculative; "
@@ -92,6 +94,8 @@ def test_import_loads_no_jax_module():
                 "defer_tpu_torch.obs.events",
                 "defer_tpu_torch.transport.replay",
                 "defer_tpu_torch.transport.replicate",
+                "defer_tpu_torch.transport.branch",
+                "defer_tpu_torch.runtime.topology",
                 "defer_tpu_torch.ops.launches",
                 "defer_tpu_torch.models.gpt",
                 "defer_tpu_torch.runtime.decode",
@@ -144,15 +148,19 @@ PLANNER_MODULES = ("defer_tpu_torch.utils.hw",
 
 
 def test_planner_imports_with_jax_blocked():
-    """The planner's modules, the CLI, the re-exporting batcher and the
-    replication transport (``transport.replicate`` and ``replay``, whose
-    JAX counterparts import no JAX either) import, and a plan solves, with
-    ``jax``, ``jaxlib`` and ``defer_tpu`` made unimportable (a meta-path
-    finder that refuses them)."""
+    """The planner's modules, the CLI, the re-exporting batcher, the
+    replication transport (``transport.replicate`` and ``replay``) and the
+    branched-chain modules (``transport.branch``, ``runtime.topology``),
+    whose JAX counterparts import no JAX either, import, and a plan
+    solves and deploys as a topology, with ``jax``, ``jaxlib`` and
+    ``defer_tpu`` made unimportable (a meta-path finder that refuses
+    them)."""
     mods = list(PLANNER_MODULES) + ["defer_tpu_torch.serve.batcher",
                                     "defer_tpu_torch.graph.analysis",
                                     "defer_tpu_torch.transport.replicate",
                                     "defer_tpu_torch.transport.replay",
+                                    "defer_tpu_torch.transport.branch",
+                                    "defer_tpu_torch.runtime.topology",
                                     "defer_tpu_torch.cli"]
     code = (
         "import importlib, json, sys\n"
@@ -168,6 +176,11 @@ def test_planner_imports_with_jax_blocked():
         "g = models.resnet_tiny()\n"
         "p = plan.solve(g, 3, plan.StageCostModel(g, gen='unknown'))\n"
         "assert len(p.cuts) == 2\n"
+        "from defer_tpu_torch.runtime.topology import ChainTopology\n"
+        "m = models.moe_branched_tiny()\n"
+        "d = plan.solve_dag(m, plan.StageCostModel(m, gen='unknown'), "
+        "num_nodes=4)\n"
+        "assert len(ChainTopology.from_json(d.topology_json())) >= 1\n"
         "print(json.dumps(sorted(sys.modules)))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

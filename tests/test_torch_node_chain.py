@@ -611,17 +611,17 @@ def test_nodes_and_dispatcher_take_the_colocated_tiers(make, check):
     {"cmd": "clock_probe"}, {"cmd": "obs_subscribe"},
     {"cmd": "profile_start"}])
 def test_node_refuses_unported_commands(tiny, msg):
-    """A deploy that asks for a branch role, and the commands of the live
-    observability plane, raise on the node: the control connection is
-    cut, never answered as if they had worked.  A deploy's replica roles
-    (``fan_in``, ``replica``) load the artifact, take the role and are
-    ACKed."""
+    """The commands of the live observability plane raise on the node: the
+    control connection is cut, never answered as if they had worked.  A
+    deploy's replica roles (``fan_in``, ``replica``) and branch roles
+    (``fan``, ``branch``, ``join``) load the artifact, take the role and
+    are ACKed."""
     import socket
 
     from defer_tpu_torch.transport.framed import K_ACK, recv_frame
     node = StageNode(None, "127.0.0.1:0", None, device="cpu")
     try:
-        if "fan_in" not in msg and "replica" not in msg:
+        if msg["cmd"] != "deploy":
             with pytest.raises(NotImplementedError, match="ROADMAP item"):
                 node._handle_ctrl(None, msg,
                                   recv=lambda: (tnode.K_BYTES, b""))
@@ -638,10 +638,13 @@ def test_node_refuses_unported_commands(tiny, msg):
             a.close()
             b.close()
         assert node.manifest["index"] == 1
-        assert (node.fan_in, node.replica) == \
-            ((2, None) if "fan_in" in msg else (1, 0))
-        assert node._span_label() == \
-            ("stage1" if "fan_in" in msg else "stage1.r0")
+        assert (node.fan_in, node.replica, node.fan_mode, node.branch,
+                node.join_in) == (msg.get("fan_in", 1), msg.get("replica"),
+                                  msg.get("fan", "rr"), msg.get("branch"),
+                                  msg.get("join", 0))
+        assert node._span_label() == ("stage1.r0" if "replica" in msg
+                                      else "stage1.b1" if "branch" in msg
+                                      else "stage1")
     finally:
         node._srv.close()
 
@@ -714,3 +717,35 @@ def test_cli_chain_command_runs_and_checks_the_forward(capsys):
     assert row["hop_tiers"] == ["shm"] and row["result_tier"] == "shm"
     assert row["max_abs_err_vs_single_program"] == 0.0
     assert row["value"] > 0
+
+
+@pytest.mark.timeout(240)
+def test_deploy_chain_persist_redeploys_the_same_nodes(tiny):
+    """``deploy_chain(persist=True)``: the node processes survive the END
+    of a stream segment, take a second in-band deploy (another hop codec)
+    and serve a new segment on the same ports; rows equal across the two
+    codecs and within the file's TOL of the JAX forward, every node counts
+    both segments, and leaving the block shuts every node down (exit 0)."""
+    jg, jp, g, p = tiny
+    _, stages = _stages(tiny, 3)
+    rng = np.random.default_rng(9)
+    xs = [rng.standard_normal((2,) + IN_SHAPE).astype(np.float32)
+          for _ in range(4)]
+    with tnode.deploy_chain(stages, p, batch=2, codec="lzb", in_band=True,
+                            tier="tcp", device="cpu", persist=True) as ch:
+        d = ch.dispatcher
+        lzb = np.stack(d.stream(xs))
+        d.end_stream()
+        d.codec = "raw"
+        d.deploy(stages, p, ch.addrs, batch=2, codecs=["raw"] * 3,
+                 tiers=["tcp"] * 3)
+        raw = np.stack(d.stream(xs))
+        st = d.stats(ch.addrs)
+        procs = ch.procs
+    assert [pr.returncode for pr in procs] == [0, 0, 0]
+    np.testing.assert_array_equal(lzb, raw)
+    assert [(s["codec"], s["processed"]) for s in st] == [("raw", 8)] * 3
+    fwd = jax.jit(jg.apply)
+    for x, y in zip(xs, raw):
+        np.testing.assert_allclose(y, np.asarray(fwd(jp, x)), rtol=TOL,
+                                   atol=TOL)

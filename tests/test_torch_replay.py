@@ -375,8 +375,15 @@ def test_fanout_heals_dead_channel_and_replays_unacked(fan_out, replica):
 
 def _kill_node(node) -> None:
     """A node's death as its peers see it: the listener stops, and its
-    data connections reach EOF both ways (the serve thread then fails)."""
-    node._srv.shutdown(socket.SHUT_RDWR)
+    data connections reach EOF both ways (the serve thread then fails).
+    A node whose stream already failed closes its listener in its own
+    serve loop, concurrently with a caller's teardown: a listener closed
+    that way is left alone (it is dead already), an open one must shut."""
+    try:
+        node._srv.shutdown(socket.SHUT_RDWR)
+    except OSError:
+        if node._srv.fileno() != -1:
+            raise
     for ch in (node._live_rx, node._live_tx):
         sock = getattr(ch, "_sock", None)
         if sock is not None:
@@ -624,6 +631,9 @@ def test_respawn_whose_load_hangs_fails_the_stream_at_the_grace(
         return StageNode(None, "127.0.0.1:0", None, device="cpu",
                          failover=True, **kw)
 
+    # this worker's recorder holds every earlier test's events, and an
+    # ephemeral port may repeat: read only the events of this test
+    cursor = recorder().cursor()
     n0 = boot()
     reps = [boot(replica=j, infer_delay_s=0.02) for j in range(2)]
     n2 = boot(fan_in=2, failover_grace_s=grace)
@@ -651,7 +661,8 @@ def test_respawn_whose_load_hangs_fails_the_stream_at_the_grace(
     assert grace <= failed_after < grace + 15 < timeout
     assert any(node is n2 for node, _ in ch.errs)
     # the respawn had bound: stage 0's heal redialed it and replayed
-    evs = [e for e in recorder().snapshot() if e["kind"] == "failover"
+    evs = [e for e in recorder().events_since(cursor)[1]
+           if e["kind"] == "failover"
            and e["data"].get("addr") == _addr(reps[1])]
     assert len(evs) == 1
 
