@@ -181,16 +181,40 @@ Phases, in order; any failure exits non-zero before the result line:
                    launches per frame, no quantizer launch); every wait
                    under its own deadline naming the vertex that did not
                    answer;
+                p. observability, riding k's and n's chains (its seconds
+                   carved out of theirs): on k's ResNet50/8 processes,
+                   deployed with ``plan=`` (the paper's cuts priced by
+                   ``plan.solve``'s model), ``align_clocks`` (each offset
+                   printed), a profiled 32-frame stream under the
+                   session's live view (rows for all eight stages, its
+                   bottleneck beside the stage with the largest infer
+                   p50; each node's dispatch + queue + device + host_sync
+                   within 0.15 of its infer, 0 recompiles, live bytes in
+                   (0, the card's memory); each node's MFU in (0, 1] and
+                   equal to ``flops / (infer p50 * 989e12)`` from its
+                   stats row) and the plan's ``obs`` entry covering every
+                   stage; on k's in-process BERT-Base/12 a profiled
+                   stream (12 flash launches per frame in each node's
+                   window, the phases tiling infer) with stage 0's window
+                   recorded by ``torch.profiler`` (the flash kernel among
+                   its kernels); on n's replicated chain, armed with
+                   ``journal_dir``, the supervisor's postmortem after the
+                   ``SIGKILL`` (``bundle.json`` and ``trace.json``, the
+                   verdict naming ``stage1.r1``, a journal for every node
+                   process and the dispatcher) and ``postmortem.collect``
+                   of the same directory giving the same verdict;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
-              ``replication_path``, ``dag_path``, the ``budget:`` line,
+              ``replication_path``, ``dag_path``, ``obs_path``, the
+              ``budget:`` line,
               ``phase_seconds`` and
               ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``; each phase's seconds are
               also printed as it ends.
 
 The phases run under a budget: ``phase_seconds`` should total at most
-BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s), paid for by
+BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s) and phase 4p
+at most OBS_BUDGET_S (40 s), paid for by
 running earlier paths smaller (PERF.md §4).  A watchdog armed at start
 fails the run at WATCHDOG_S (720 s): it names the phase still running,
 dumps every thread's stack, kills the node processes the smoke started
@@ -296,9 +320,12 @@ BUDGET_S = 600.0
 DAG_BUDGET_S = 100.0
 #: the watchdog's limit: the budget plus 20%
 WATCHDOG_S = 720.0
-#: the phases in order (``phase_seconds`` keys)
+#: phase 4p's share of BUDGET_S (its checks ride 4k's and 4n's chains)
+OBS_BUDGET_S = 40.0
+#: the phases in order (``phase_seconds`` keys); 4p's seconds are carved
+#: out of 4k's and 4n's, where its checks run
 PHASES = ("1", "2", "3", "4a", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
-          "4i", "4j", "4k", "4l", "4m", "4n", "4o")
+          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p")
 
 
 def kill_children() -> list:
@@ -2779,6 +2806,269 @@ def trace_ahead(*work):
     return t
 
 
+# ---------------------------------------------------------------------------
+# phase 4p: the observability plane, on 4k's and 4n's chains
+# ---------------------------------------------------------------------------
+
+#: a profile window's dispatch + queue + device + host_sync sums tile its
+#: infer sum within this relative error (tests/test_profile.py's bound)
+PHASE_TILE_REL = 0.15
+#: a node's MFU against ``flops / (infer p50 * peak)`` recomputed from its
+#: own stats row: the row's p50 is rounded to the microsecond
+MFU_REL = 1e-3
+#: the flash kernel's name in a torch.profiler trace
+FLASH_TRACE_NAME = "flash_attn_kernel"
+#: seconds phase 4p's checks took, carved out of the phases they ride
+OBS_SECONDS: list = []
+
+
+class obs_phase:
+    """Times a stretch of phase 4p inside another phase: the watchdog
+    names 4p while it runs and the seconds land in OBS_SECONDS."""
+
+    def __enter__(self):
+        self.prev = WATCH.phase
+        WATCH.enter("4p")
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
+        OBS_SECONDS.append(self.seconds)
+        WATCH.phase = self.prev
+        return False
+
+
+def profile_window(addrs, fn, trace_dirs=None):
+    """``profile_start`` on every node (one control connection each), run
+    ``fn``, ``profile_stop``: (``fn``'s result, each node's report by
+    address).  A refused start or stop fails the smoke."""
+    from defer_tpu_torch.runtime.node import _parse_hostport
+    from defer_tpu_torch.transport.framed import (K_CTRL, connect_retry,
+                                                  recv_expect, send_ctrl,
+                                                  send_end)
+    conns, reports = {}, {}
+    try:
+        for a in addrs:
+            s = conns[a] = connect_retry(*_parse_hostport(a), timeout_s=30)
+            msg = {"cmd": "profile_start"}
+            if trace_dirs and a in trace_dirs:
+                msg["trace_dir"] = trace_dirs[a]
+            send_ctrl(s, msg)
+            rep = recv_expect(s, K_CTRL)
+            if rep.get("cmd") != "profile_started":
+                fail(f"phase 4p: profile_start on {a} refused: {rep}")
+        out = fn()
+        for a, s in conns.items():
+            send_ctrl(s, {"cmd": "profile_stop"})
+            rep = recv_expect(s, K_CTRL)
+            if rep.get("cmd") != "profile_report":
+                fail(f"phase 4p: profile_stop on {a} failed: {rep}")
+            reports[a] = rep["report"]
+            send_end(s)
+    finally:
+        for s in conns.values():
+            s.close()
+    return out, reports
+
+
+def check_windows(torch, reports, frames: int, what: str) -> dict:
+    """Each node's window: ``frames`` frames, the four phases tiling infer
+    within PHASE_TILE_REL, no compilation, live bytes on the card below
+    its memory.  Returns the per-node tiles and memory."""
+    from defer_tpu_torch.obs import NODE_PHASES
+    total = torch.cuda.get_device_properties(0).total_memory
+    tiles, mem = {}, {}
+    for a, rep in reports.items():
+        ph = rep["phases"]
+        inf = ph["infer"]["sum_s"]
+        parts = sum(ph[k]["sum_s"] for k in NODE_PHASES)
+        tile = parts / inf if inf > 0 else float("nan")
+        tiles[rep["node"]], mem[rep["node"]] = tile, rep["mem_bytes"]
+        if (ph["infer"]["count"] != frames
+                or not abs(tile - 1.0) <= PHASE_TILE_REL
+                or rep["recompiles"] != 0
+                or not (rep["mem_bytes"] or 0) > 0
+                or not rep["mem_bytes"] < total):
+            fail(f"phase 4p {what}: node {rep['node']} window: infer count "
+                 f"{ph['infer']['count']} (want {frames}), phases/infer "
+                 f"{tile:.4f} (want within {PHASE_TILE_REL}), recompiles "
+                 f"{rep['recompiles']} (want 0), mem_bytes "
+                 f"{rep['mem_bytes']} (want in (0, {total}))")
+    return {"phase_tiles": tiles, "mem_bytes": mem}
+
+
+def obs_resnet(torch, chain, frames, want, card) -> dict:
+    """Phase 4p a, on 4k's persistent ResNet50/8 chain (deployed with
+    ``plan=``): clock offsets, one profiled stream of ``frames`` under the
+    session's live view, the view's rows and bottleneck, every node's MFU
+    recomputed from its stats row, and the ``obs`` entry of the plan."""
+    import numpy as np
+
+    from defer_tpu_torch.utils import hw
+
+    disp, addrs = chain.dispatcher, chain.addrs
+    res = {}
+    with obs_phase() as ph:
+        offs = disp.align_clocks(addrs)
+        res["clock_offsets_us"] = [offs[a]["offset_us"] for a in addrs]
+        res["clock_rtt_us"] = [offs[a]["rtt_us"] for a in addrs]
+        print(f"obs path: align_clocks over {len(addrs)} node processes: "
+              f"offsets us {[round(v, 1) for v in res['clock_offsets_us']]}"
+              f", min rtt us {res['clock_rtt_us']}; on {card}", flush=True)
+        out, reports = profile_window(
+            addrs, lambda: np.stack(disp.stream(frames)))
+        if not np.array_equal(out, want):
+            fail("phase 4p: the profiled stream's rows differ from 4k's")
+        time.sleep(2 * 0.25)  # two pushes past the stream's end
+        rows = chain.view.rows()
+        bott = chain.view.bottleneck()
+        st = disp.stats(addrs)
+        res.update(check_windows(torch, reports, len(frames),
+                                 "resnet50 chain"))
+        stages = sorted(r["stage"] for r in rows)
+        if stages != list(range(len(addrs))):
+            fail(f"phase 4p: the view's rows cover stages {stages}")
+        p50 = [s["infer_latency_s"]["p50"] for s in st]
+        peak = hw.peak_flops("h100")
+        mfu = [s["mfu"] for s in st]
+        want_mfu = [s["flops"] / (p * peak) for s, p in zip(st, p50)]
+        if hw.identify_chip(torch.device("cuda")) != "h100" or any(
+                m is None or not 0 < m <= 1
+                or abs(m - w) > MFU_REL * w for m, w in zip(mfu, want_mfu)):
+            fail(f"phase 4p: node MFU {mfu}, want {want_mfu} in (0, 1] "
+                 f"(card generation {hw.identify_chip(torch.device('cuda'))})")
+        obs = chain.obs()
+        stats_out = st + [{"obs": obs}]
+        if sorted(r["stage"] for r in stats_out[-1]["obs"]["rows"]) \
+                != list(range(len(addrs))):
+            fail(f"phase 4p: the obs entry's rows miss a stage: "
+                 f"{stats_out[-1]['obs']['rows']}")
+        slow = max(range(len(st)), key=lambda k: p50[k])
+        res.update({
+            "rows": len(rows), "bottleneck": bott,
+            "largest_infer_p50_stage": slow,
+            "node_infer_p50_ms": [v * 1e3 for v in p50],
+            "node_mfu": mfu, "node_flops": [s["flops"] for s in st],
+            "obs_bottleneck": obs["bottleneck"],
+            "stragglers": obs["stragglers"],
+            "replan_moved": (obs.get("replan") or {}).get("moved"),
+            "window_frames": len(frames)})
+    res["seconds"] = ph.seconds
+    print(f"obs path: resnet50 chain, {len(frames)} profiled frames: view "
+          f"rows {len(rows)}, bottleneck stage {bott} (largest infer p50: "
+          f"stage {slow}, {p50[slow] * 1e3:.3f} ms); phases/infer per node "
+          f"{[round(v, 4) for v in res['phase_tiles'].values()]}; MFU per "
+          f"node {[v if v is None else round(v, 5) for v in mfu]} (f32 stages against the bf16 "
+          f"peak 989e12); mem bytes {list(res['mem_bytes'].values())}; obs "
+          f"entry bottleneck {obs['bottleneck']}, {len(obs['stragglers'])} "
+          f"straggler flag(s), replan moved {res['replan_moved']}; "
+          f"{ph.seconds:.2f} s; on {card}", flush=True)
+    return res
+
+
+def obs_bert(torch, disp, addrs, frames, blocks, card) -> dict:
+    """Phase 4p b, on 4k's in-process BERT-Base/12 chain: a profiled
+    stream with stage 0's window also recorded by ``torch.profiler``: the
+    window's launches (the nodes share this process, so each node's window
+    sees every block's: ``blocks`` per frame), the phase tiles, and the
+    flash kernel among the trace's kernels."""
+    import tempfile
+
+    res = {}
+    with obs_phase() as ph:
+        tdir = tempfile.mkdtemp(prefix="defer_trace_")
+        _, reports = profile_window(addrs, lambda: disp.stream(frames),
+                                    trace_dirs={addrs[0]: tdir})
+        res.update(check_windows(torch, reports, len(frames), "bert chain"))
+        want = blocks * len(frames)
+        got = [r["kernel_launches"]["flash_attention"]
+               for r in reports.values()]
+        quant = [r["kernel_launches"]["quant_int8"] for r in reports.values()]
+        if set(got) != {want} or set(quant) != {0}:
+            fail(f"phase 4p: bert windows' flash launches {got}, quantizer "
+                 f"{quant} (want {want}: {blocks} per frame, and 0)")
+        path = reports[addrs[0]]["trace_file"]
+        if not path:
+            fail("phase 4p: stage 0's window wrote no torch.profiler trace")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        flash = [e for e in kern if FLASH_TRACE_NAME in e.get("name", "")]
+        if not flash:
+            fail(f"phase 4p: the trace's {len(kern)} kernels hold no "
+                 f"{FLASH_TRACE_NAME}")
+        res.update({"window_frames": len(frames),
+                    "window_flash_launches": got[0],
+                    "trace_kernels": len(kern), "trace_flash": len(flash),
+                    "trace_flash_us": sum(e.get("dur", 0) for e in flash)})
+    res["seconds"] = ph.seconds
+    print(f"obs path: bert chain, {len(frames)} profiled frames: "
+          f"{got[0]} flash launches in each node's window ({blocks} per "
+          f"frame), phases/infer per node "
+          f"{[round(v, 4) for v in res['phase_tiles'].values()]}; stage 0's "
+          f"torch.profiler trace: {len(kern)} kernels, {len(flash)} "
+          f"{FLASH_TRACE_NAME} ({res['trace_flash_us']:.1f} us); "
+          f"{ph.seconds:.2f} s; on {card}", flush=True)
+    return res
+
+
+def obs_autopsy(jdir, killed_at, node_pids, victim, card) -> dict:
+    """Phase 4p c, on 4n's replicated chain armed with ``journal_dir``:
+    the supervisor's postmortem bundle after the SIGKILL (``bundle.json``
+    and ``trace.json``), its verdict naming ``victim``, a journal for every
+    node process and for this dispatcher, and ``postmortem.collect`` of
+    the same directory giving the same verdict again."""
+    import glob
+    import os
+
+    from defer_tpu_torch.obs.postmortem import collect
+
+    res = {}
+    with obs_phase() as ph:
+        deadline = time.monotonic() + 30
+        found = []
+        while not found and time.monotonic() < deadline:
+            found = glob.glob(os.path.join(jdir, "bundle-*", "bundle.json"))
+            if not found:
+                time.sleep(0.1)
+        if not found:
+            fail(f"phase 4p: no postmortem bundle under {jdir} 30 s past "
+                 f"the respawn")
+        out_dir = os.path.dirname(found[0])
+        with open(found[0]) as f:
+            bundle = json.load(f)
+        pids = {p["pid"] for p in bundle["procs"]}
+        procs = sorted(p["proc"] for p in bundle["procs"])
+        missing = sorted(set(node_pids + [os.getpid()]) - pids)
+        first = bundle["verdict"]["first_fault"]
+        if (first != victim or missing
+                or not os.path.exists(os.path.join(out_dir, "trace.json"))):
+            fail(f"phase 4p: bundle verdict {first!r} (want {victim!r}), "
+                 f"journals missing for pids {missing}, procs {procs}, "
+                 f"evidence {bundle['verdict']['evidence']}")
+        again = collect(jdir, out_dir=os.path.join(jdir, "again"),
+                        reason="phase 4p")
+        if again["verdict"]["first_fault"] != first:
+            fail(f"phase 4p: collect again says "
+                 f"{again['verdict']['first_fault']!r}, the supervisor's "
+                 f"bundle {first!r}")
+        res.update({
+            "kill_to_bundle_s": os.path.getmtime(found[0]) - killed_at,
+            "first_fault": first, "procs": procs,
+            "evidence": bundle["verdict"]["evidence"],
+            "warnings": bundle["warnings"],
+            "timeline_events": len(bundle["timeline"])})
+    res["seconds"] = ph.seconds
+    print(f"obs path: autopsy after the SIGKILL: bundle.json "
+          f"{res['kill_to_bundle_s']:.2f} s after the kill, verdict "
+          f"{first!r} (collect again: the same), {len(procs)} journals "
+          f"{procs}, {len(bundle['warnings'])} warning(s), "
+          f"{len(bundle['timeline'])} events; evidence "
+          f"{res['evidence']}; {ph.seconds:.2f} s; on {card}", flush=True)
+    return res
+
+
 def chain_path(torch, device, kernels, card, mp, bp):
     """Phase 4k.  a: ResNet50/8 as eight OS processes held open by
     ``deploy_chain`` with ``persist`` (in-band deploy of ``torch.export``
@@ -2808,6 +3098,7 @@ def chain_path(torch, device, kernels, card, mp, bp):
     from defer_tpu_torch import Defer, DeferConfig
     from defer_tpu_torch.graph.ir import tree_map
     from defer_tpu_torch.partition import partition
+    from defer_tpu_torch.plan import StageCostModel, evaluate_cuts
     from defer_tpu_torch.runtime.node import (ChainDispatcher, StageNode,
                                               deploy_chain)
     from defer_tpu_torch.serve import ServeClient, ServeFrontDoor
@@ -2868,10 +3159,14 @@ def chain_path(torch, device, kernels, card, mp, bp):
     # so the raw chain is the same eight processes deployed again in-band
     # (each hop pinned to tcp: this phase measures the wire chain; phase
     # 4l runs the colocated tiers)
+    # phase 4p's plan: the paper's cuts priced by the model plan.solve
+    # uses, which the session's live view is read against
+    rplan = evaluate_cuts(g, cuts, StageCostModel(g, batch=MICROBATCH),
+                          hop_codecs=["raw"] * len(cuts))
     t_spawn = time.perf_counter()
     with deploy_chain(stages, params, batch=MICROBATCH, codec="lzb",
                       in_band=True, tier="tcp", device=device,
-                      persist=True) as chain:
+                      persist=True, plan=rplan, graph=g) as chain:
         disp, addrs = chain.dispatcher, chain.addrs
         boot_s, deploy_s = chain.boot_s, chain.deploy_s
         door = None
@@ -2936,6 +3231,8 @@ def chain_path(torch, device, kernels, card, mp, bp):
             ring_rel = _rel_err(np.asarray(ring_out), ref[cyc],
                                 "resnet50 ring timed run",
                                 BUFFER_REL_BOUND)
+            res["obs_resnet50"] = obs_resnet(torch, chain, timed, raw[cyc],
+                                             card)
             door = ServeFrontDoor(backend=ChainBackend(
                 disp, MICROBATCH, g.input_spec.shape)).start()
             images = batch.reshape((-1,) + tuple(g.input_spec.shape))
@@ -3086,6 +3383,9 @@ def chain_path(torch, device, kernels, card, mp, bp):
         if bad:
             fail(f"phase 4k: bert chain (stage, processed, reweights, "
                  f"device) after reweight: {bad}")
+        res["obs_bert_base"] = obs_bert(torch, disp, addrs, ids, blocks,
+                                        card)
+        b_total += len(ids)
     finally:
         disp.close()
     for t in ths:
@@ -3990,8 +4290,12 @@ def replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
     # --- a: ResNet50/8, stage 1 twice, failover, nine processes ---------
     # one row per node, stage by stage: each stage's OUTBOUND tier
     want_tiers = ["tcp"] * (k_rep + r_rep) + ["shm"] * (n - k_rep - 1)
+    # phase 4p c: every process of the chain, and this one, journals here
+    import tempfile
+    jdir = tempfile.mkdtemp(prefix="defer_journal_")
     with deploy_chain(stages, params, batch=MICROBATCH, replicas=REPL_RESNET,
-                      failover=True, tier="auto", device=device) as chain:
+                      failover=True, tier="auto", device=device,
+                      journal_dir=jdir) as chain:
         disp = chain.dispatcher
         t0 = time.perf_counter()
         out = np.stack(disp.stream(frames))
@@ -4056,6 +4360,7 @@ def replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
         # the kill: item 2 * KILL_AFTER is drawn only once KILL_AFTER
         # results have released the window
         victim = chain.pid(k_rep, 1)
+        node_pids = [pr.pid for pr in chain.procs]
         killed: dict = {}
 
         kcyc = np.arange(KILL_FRAMES) % n_frames
@@ -4098,6 +4403,8 @@ def replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
                  f"replica_respawn events {respawn_evs}, stage 0 failovers "
                  f"{st[0]['failovers']}, failover events {fo} (want one "
                  f"respawn that booted, one event, one failover)")
+        res["obs_autopsy"] = obs_autopsy(jdir, killed["at"], node_pids,
+                                         f"stage{k_rep}.r1", card)
         rec = chain.respawns[0]
         res["failover"] = {
             "byte_identical": True, "respawns": len(chain.respawns),
@@ -4787,10 +5094,15 @@ def main() -> int:
     kernels = [QUANT, FLASH]
     phase_s: dict = {}
     t_last = [time.perf_counter()]
+    carved = [0.0]   # phase 4p's seconds already carved out
 
     def phase_done(name: str) -> None:
+        # phase 4p's checks ride other phases' chains: their seconds
+        # count as 4p's, not as the phase's they ran in
         now = time.perf_counter()
-        phase_s[name] = now - t_last[0]
+        obs_s = sum(OBS_SECONDS) - carved[0]
+        carved[0] += obs_s
+        phase_s[name] = now - t_last[0] - obs_s
         t_last[0] = now
         print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
         i = PHASES.index(name)
@@ -4990,9 +5302,13 @@ def main() -> int:
     del dsetup
     phase_done("4o")
     WATCH.cancel()
+    # phase 4p: the observability checks that rode 4k's and 4n's chains
+    phase_s["4p"] = sum(OBS_SECONDS)
+    print(f"phase 4p: {phase_s['4p']:.1f} s (inside 4k and 4n)", flush=True)
     total_s = sum(phase_s.values())
     print(f"budget: phases {total_s:.1f} s of {BUDGET_S:.0f} s, phase 4o "
-          f"{phase_s['4o']:.1f} s of {DAG_BUDGET_S:.0f} s; watchdog "
+          f"{phase_s['4o']:.1f} s of {DAG_BUDGET_S:.0f} s, phase 4p "
+          f"{phase_s['4p']:.1f} s of {OBS_BUDGET_S:.0f} s; watchdog "
           f"{WATCHDOG_S:.0f} s; on {card}", flush=True)
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
@@ -5040,6 +5356,14 @@ def main() -> int:
     by_path["dag_inception_v3_processes"] = dg["inception_v3"][
         "process_run"]["launches"]
     by_path["dag_moe_branched"] = dg["moe_branched"]["launches"]
+    ob = {"resnet50_chain": ch.pop("obs_resnet50"),
+          "bert_base_chain": ch.pop("obs_bert_base"),
+          "autopsy": rp.pop("obs_autopsy")}
+    # the window's launches, read as the nodes' window deltas (the twelve
+    # nodes share this process's counts)
+    by_path["bert_base_chain_profiled_window"] = {
+        "flash_attention": ob["bert_base_chain"]["window_flash_launches"],
+        "quant_int8": 0}
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -5113,6 +5437,9 @@ def main() -> int:
         "models": "resnet50 + bert_base", "microbatch": MICROBATCH, **rp}}))
     print(json.dumps({"dag_path": {
         "microbatch": MICROBATCH, "budget_s": DAG_BUDGET_S, **dg}}))
+    print(json.dumps({"obs_path": {
+        "microbatch": MICROBATCH, "budget_s": OBS_BUDGET_S,
+        "seconds": phase_s["4p"], **ob}}))
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": sum(phase_s.values()),
                       "budget_s": BUDGET_S, "watchdog_s": WATCHDOG_S}))

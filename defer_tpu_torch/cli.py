@@ -7,6 +7,11 @@
         [--measured] [--calibrated F] [--json]
     python -m defer_tpu_torch partition --model resnet_tiny --stages 3 \\
         [--balance flops|measured|bottleneck] [--json]
+    python -m defer_tpu_torch monitor --nodes H:P,... [--plan F --model M]
+        [--serve H:P] [--events] [--json] [--align]
+    python -m defer_tpu_torch profile --nodes H:P,... [--seconds S]
+        [--torch-trace-dir D] [--trace-out F]
+    python -m defer_tpu_torch postmortem JOURNAL_DIR
 
 ``node`` boots one stage node (empty, to be deployed in-band, or from an
 ``--artifact`` file with its ``--next`` hop) and serves until its stream
@@ -21,11 +26,17 @@ constants from the chain's own ``stats`` and saves them.  ``plan`` solves
 the comm-aware bottleneck partition (``plan/``) against the quantile
 baseline on the same cost model, and ``partition`` prints the stage table
 (or its JSON) for explicit or automatic cuts; both print the JAX
-package's documents for the same flags.
+package's documents for the same flags.  ``monitor`` renders a running
+chain's push telemetry live (rows, bottleneck, stragglers and drift
+against a ``plan --json`` file, a serve front door's tenants),
+``profile`` brackets a window on every node and prints its phase
+breakdown, and ``postmortem`` assembles a forensics bundle from the
+black-box journals a ``--journal-dir`` chain wrote (either package's).
 
-These are four of the JAX package's subcommands (``defer_tpu/cli.py``);
-the others come with ROADMAP item A17.  Nodes, and the per-node timing of
-``--measured``/``--balance measured``, run on the CUDA card unless
+These are seven of the JAX package's subcommands (``defer_tpu/cli.py``);
+the others come with ROADMAP items A17, A7 and A16.  Nodes, and the
+per-node timing of ``--measured``/``--balance measured``, run on the CUDA
+card unless
 ``--device cpu`` is given; a float32 stage runs without TF32 (cuBLAS and
 cuDNN), so its rows match the float32 forward.
 """
@@ -51,6 +62,51 @@ def _no_tf32() -> None:
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+def _add_obs_flags(p) -> None:
+    p.add_argument("--trace-out", default=None, metavar="FILE",
+                   help="write spans as Chrome trace-event JSON "
+                        "(open at https://ui.perfetto.dev)")
+    p.add_argument("--metrics-out", default=None, metavar="FILE",
+                   help="write a JSON snapshot of the metrics registry "
+                        "(counters, byte counts, latency percentiles)")
+
+
+def _obs_begin(args, *, process: str = "dispatcher"):
+    """Enable the process tracer when a trace export was requested."""
+    if getattr(args, "trace_out", None):
+        from .obs import enable_tracing
+        enable_tracing(process=process).start_trace()
+
+
+def _obs_finish(args, extra: dict | None = None):
+    """Write the requested telemetry artifacts (no-op without flags)."""
+    if getattr(args, "trace_out", None):
+        from .obs import export_chrome_trace
+        export_chrome_trace(args.trace_out)
+        print(f"trace -> {args.trace_out}", file=sys.stderr)
+    if getattr(args, "metrics_out", None):
+        from .obs import REGISTRY
+        snap = {"registry": REGISTRY.snapshot()}
+        if extra:
+            snap.update(extra)
+        with open(args.metrics_out, "w") as f:
+            json.dump(snap, f, indent=2, default=str)
+            f.write("\n")
+        print(f"metrics -> {args.metrics_out}", file=sys.stderr)
+
+
+def _start_prom(args, who: str):
+    """``--prom-port N``: serve the process registry's Prometheus
+    exposition over stdlib HTTP (0 = ephemeral port, printed)."""
+    if getattr(args, "prom_port", None) is None:
+        return
+    from .obs.report import start_prom_server
+    srv = start_prom_server(args.prom_port)
+    print(f"{who}: prometheus exposition on "
+          f"http://127.0.0.1:{srv.server_address[1]}/metrics",
+          file=sys.stderr, flush=True)
 
 
 def _parse_co_stage(spec: str) -> dict:
@@ -101,11 +157,13 @@ def cmd_node(args) -> None:
     from .runtime.node import StageNode
     from .transport.framed import _codec
 
+    _start_prom(args, "node")
     _codec(args.codec)  # loud at boot, not when the first tensor relays
     specs = [_parse_co_stage(c) for c in args.co_stage or []]
     for kv in specs:
         _codec(kv.get("codec", "raw"))
     _no_tf32()
+    _obs_begin(args, process="node")
 
     def boot(artifact, listen, nxt, codec, tier, accept, device,
              primary):
@@ -157,6 +215,27 @@ def cmd_node(args) -> None:
                else kv.get("tier", args.tier) != "tcp",
                kv.get("device", device), False)
           for kv in specs]
+    if args.journal_dir:
+        # the black box: spill this process's events, obs rows and spans
+        # to a crash-safe journal a postmortem reads after a kill -9
+        from .obs import recorder, start_journal
+        m = node.manifest
+        label = (f"stage{m['index']}" if m is not None
+                 else f"node{node.address[1]}")
+        if args.replica is not None:
+            label += f".r{args.replica}"
+
+        def _journal_row(_node=node):
+            payload, _, _ = _node.obs_snapshot(
+                include_spans=False, subscriber=-101,
+                event_cursor=recorder().cursor())
+            # events and spans ride their own journal records; the
+            # snapshot is the last-known ClusterView-style row
+            payload.pop("trace", None)
+            payload.pop("events", None)
+            return payload
+
+        start_journal(args.journal_dir, label, snapshot_fn=_journal_row)
     counts: dict[int, int] = {}
 
     def serve_co(i: int):
@@ -178,7 +257,11 @@ def cmd_node(args) -> None:
     for t in threads:
         t.join()
     n += sum(counts.values())
+    if args.journal_dir:
+        from .obs import stop_journal
+        stop_journal()   # final spill: the clean exit's journal is whole
     print(f"node: served {n} tensors; chain drained", file=sys.stderr)
+    _obs_finish(args)
 
 
 def cmd_chain(args) -> None:
@@ -195,6 +278,8 @@ def cmd_chain(args) -> None:
     if args.dag or args.topology:
         _cmd_chain_dag(args, graph, params)
         return
+    _obs_begin(args)
+    _start_prom(args, "chain")
     cuts = args.cuts.split(",") if args.cuts else None
     stages = partition(graph, cuts, num_stages=None if cuts else args.stages)
     xs = _chain_inputs(graph, stages[0].in_spec, args.batch, args.count)
@@ -220,7 +305,8 @@ def cmd_chain(args) -> None:
                      inflight=args.inflight, replicas=replicas or None,
                      stats_out=stats, tier=args.tier, hop_tiers=hop_tiers,
                      devices=args.devices, device_map=device_map,
-                     failover=args.failover, device=args.device)
+                     failover=args.failover, device=args.device,
+                     journal_dir=args.journal_dir or None)
     dt = time.perf_counter() - t0
 
     dev = resolve_device(args.device)
@@ -256,6 +342,13 @@ def cmd_chain(args) -> None:
             {"stage": s["stage"], "replica": s["replica"],
              "processed": s["processed"]} for s in stats]
         row["failovers"] = sum(s["failovers"] for s in stats)
+    # node-side MFU (obs/capacity.py): only where a stage reported a
+    # figure against a known peak, never a 0.0 stand-in
+    mfu_of = {int(s["stage"]): s["mfu"] for s in stats
+              if s.get("stage") is not None and s.get("mfu") is not None}
+    if mfu_of:
+        row["stage_mfu"] = {f"stage{k}": round(v, 4)
+                            for k, v in sorted(mfu_of.items())}
     if args.emit_calibration:
         from .plan.calibrate import CalibrationError, fit_from_stats
         from .utils import hw
@@ -269,6 +362,7 @@ def cmd_chain(args) -> None:
         cal.save(args.emit_calibration)
         row["calibration"] = args.emit_calibration
     print(json.dumps(row))
+    _obs_finish(args)
 
 
 def _chain_inputs(graph, spec, batch: int, count: int) -> list:
@@ -733,6 +827,502 @@ def cmd_plan(args) -> None:
                  if met is not None else ""))
 
 
+def _render_monitor(rows, bottleneck, flags, offsets, *, clear: bool,
+                    drift=()):
+    """One refresh of the top-style monitor table (human mode)."""
+    tty = sys.stdout.isatty()
+    if clear and tty:
+        print("\x1b[2J\x1b[H", end="")
+    print(f"{'STAGE':>5} {'BR':>3} {'REP':>3} {'TIER':>5} {'INF/S':>8} "
+          f"{'P50MS':>9} "
+          f"{'P95MS':>9} {'P99MS':>9} {'HS50':>7} {'DISP':>7} "
+          f"{'DEV':>7} {'MEM':>7} {'MFU%':>6} "
+          f"{'PRED':>9} {'MEAS':>9} {'ERR%':>7} "
+          f"{'RXQ':>4} {'TXQ':>4} "
+          f"{'RX^':>4} {'TX^':>4} {'INF':>4} {'RX B/S':>11} "
+          f"{'TX B/S':>11} {'DONE':>8}  ADDR")
+    for r in rows:
+        stage = "-" if r["stage"] is None else str(r["stage"])
+        rep = "-" if r["replica"] is None else str(r["replica"])
+        # branched topologies: bJ = this row rides branch path J of a
+        # fork/join region, jP = this row is the P-path join — so the
+        # bottleneck highlight names a branch, not a flattened index
+        if r.get("branch") is not None:
+            br = f"b{r['branch']}"
+        elif (r.get("join") or 0) >= 2:
+            br = f"j{r['join']}"
+        else:
+            br = "-"
+        # a "!" marks a DEGRADED hop (this node offered a colocated
+        # tier, fell back, and is STILL riding tcp) — distinguishable
+        # from a hop that rides tcp because nothing better was ever
+        # offered; a later successful renegotiation clears the mark
+        # even though the lifetime fallback count stays nonzero
+        tier = r.get("tier") or "-"
+        tier = tier[:4] + "!" \
+            if r.get("tier_fallbacks") and tier == "tcp" else tier[:5]
+        p = r["infer_ms"]
+        # host-sync p50: "-" when the row recorded ZERO samples — an
+        # ici (device-resident) hop's proof mark
+        hs = r.get("host_sync_ms") or {}
+        hs50 = "-" if not hs.get("count") else f"{hs.get('p50', 0):.3f}"
+        # phase X-ray p50s (obs/profile.py): dispatch (the program call
+        # returning) / device (the CUDA event's wait) next to HS50 — "-"
+        # at zero samples, same convention
+        dp = r.get("dispatch_ms") or {}
+        disp = "-" if not dp.get("count") else f"{dp.get('p50', 0):.3f}"
+        dv = r.get("device_ms") or {}
+        dev = "-" if not dv.get("count") else f"{dv.get('p50', 0):.3f}"
+        # the card's live allocator megabytes — "-" from a process that
+        # has no card to read (None on the wire; a fake 0 would lie)
+        mem = "-" if r.get("mem_bytes") is None \
+            else f"{r['mem_bytes'] / 1e6:.1f}M"
+        # MFU is "-" unless the node reported an HONEST figure (known
+        # chip peak + deployed capacity) — a fabricated 0.0 would be
+        # indistinguishable from a real idle chip
+        mfu = "-" if r.get("mfu") is None else f"{r['mfu'] * 100:.1f}"
+        # predicted-vs-measured service audit (obs/capacity.py): only
+        # rendered when monitor has --plan and --model to predict from
+        pred = "-" if r.get("pred_ms") is None else f"{r['pred_ms']:.3f}"
+        meas = "-" if r.get("meas_ms") is None else f"{r['meas_ms']:.3f}"
+        errp = "-" if r.get("err") is None else f"{r['err'] * 100:+.1f}"
+        line = (f"{stage:>5} {br:>3} {rep:>3} {tier:>5} "
+                f"{r['throughput_per_s']:>8.1f} "
+                f"{p['p50']:>9.3f} {p['p95']:>9.3f} {p['p99']:>9.3f} "
+                f"{hs50:>7} {disp:>7} {dev:>7} {mem:>7} "
+                f"{mfu:>6} {pred:>9} {meas:>9} {errp:>7} "
+                f"{r['rx_q']:>4.0f} {r['tx_q']:>4.0f} "
+                f"{r['rx_hi']:>4.0f} {r['tx_hi']:>4.0f} "
+                f"{r['inflight']:>4.0f} {r['rx_bytes_per_s']:>11.0f} "
+                f"{r['tx_bytes_per_s']:>11.0f} {r['processed']:>8}  "
+                f"{r['addr'] or ''}")
+        mark = (bottleneck is not None and r["stage"] == bottleneck)
+        if not r["alive"]:
+            line += "  [DEAD]"
+        if mark:
+            line = f"\x1b[7m{line}\x1b[0m" if tty \
+                else line + "  <- bottleneck"
+        print(line)
+    for f in flags:
+        print(f"straggler: stage {f.stage} [{f.reason}] measured "
+              f"{f.measured_ms:.3f} ms vs planned {f.expected_ms:.3f} ms "
+              f"(x{f.ratio:.2f}, {f.intervals} intervals)")
+    for f in drift:
+        print(f"model_drift: stage {f.stage} predicted "
+              f"{f.predicted_ms:.3f} ms vs measured "
+              f"{f.measured_ms:.3f} ms ({f.rel_err * 100:+.1f}%, "
+              f"{f.intervals} intervals)")
+    if offsets:
+        worst = max(abs(v["offset_us"]) for v in offsets.values())
+        print(f"clock: {len(offsets)} nodes aligned "
+              f"(worst offset {worst / 1e3:.3f} ms)")
+    sys.stdout.flush()
+
+
+def _render_serve_stats(doc: dict) -> None:
+    """Per-tenant serving columns of the monitor."""
+    print(f"serve: mode={doc.get('mode')} width={doc.get('width')} "
+          f"frames={doc.get('frames')} queued={doc.get('queued')} "
+          f"inflight={doc.get('inflight')} service~"
+          f"{doc.get('service_estimate_ms')}ms")
+    print(f"{'TENANT':>12} {'W':>5} {'PRI':>3} {'QUEUED':>6} {'ADM':>7} "
+          f"{'SHED':>6} {'DONE':>7} {'QDELAY P50':>11} {'P99 MS':>8} "
+          f"{'SLO%':>6}")
+    attrib = doc.get("attribution") or {}
+    for name, r in (doc.get("tenants") or {}).items():
+        qd = r.get("queue_delay_s") or {}
+        p50 = (qd.get("p50", 0.0) or 0.0) * 1e3 if qd.get("count") else 0.0
+        p99 = (qd.get("p99", 0.0) or 0.0) * 1e3 if qd.get("count") else 0.0
+        # SLO attainment: fraction of DELIVERED units inside the
+        # tenant's deadline_ms ("-" = no deadline / nothing scored yet)
+        att = r.get("slo_attainment")
+        att_s = "-" if att is None else f"{att * 100:.1f}"
+        print(f"{name:>12} {r.get('weight', 1):>5.1f} "
+              f"{r.get('priority', 0):>3} {r.get('queued', 0):>6} "
+              f"{r.get('admitted', 0):>7} {r.get('shed', 0):>6} "
+              f"{r.get('completed', 0):>7} {p50:>11.3f} {p99:>8.3f} "
+              f"{att_s:>6}")
+        # where the tenant's latency goes: the door's always-on
+        # attribution buckets (p50 ms per bucket)
+        buckets = attrib.get(name)
+        if buckets and (buckets.get("e2e") or {}).get("count"):
+            parts = " ".join(
+                f"{k}={((buckets.get(k) or {}).get('p50', 0.0)):.2f}"
+                for k in ("admission", "gather", "chain", "result_edge"))
+            print(f"{'':>12}   p50ms: {parts} "
+                  f"e2e={(buckets['e2e'].get('p50', 0.0)):.2f}")
+
+
+def cmd_postmortem(args):
+    """Assemble a forensics bundle from the on-disk black-box journals
+    under a ``--journal-dir`` — no live process required; the journals
+    of dead (kill -9'd) processes are the whole point.  Either package's
+    journals are read."""
+    from .obs import collect_postmortem
+
+    bundle = collect_postmortem(args.dir, out_dir=args.out or None,
+                                reason=args.reason, last_s=args.last_s)
+    for w in bundle["warnings"]:
+        print(f"postmortem: WARNING: {w}", file=sys.stderr, flush=True)
+    verdict = bundle["verdict"] or {}
+    print(json.dumps({
+        "out_dir": bundle["out_dir"],
+        "procs": [p["proc"] for p in bundle["procs"]],
+        "events": len(bundle["timeline"]),
+        "events_dropped": bundle["events_dropped"],
+        "warnings": len(bundle["warnings"]),
+        "first_fault": verdict.get("first_fault"),
+        "evidence": verdict.get("evidence"),
+        "casualties": [c["proc"] for c in verdict.get("casualties", [])],
+    }, default=str), flush=True)
+
+
+def cmd_monitor(args):
+    """Live chain observability: subscribe to every node's obs_push
+    stream (passively estimating each node's clock offset; --align to
+    actively re-anchor), render a refreshing per-stage/per-replica
+    table with the bottleneck stage highlighted — or --json lines for
+    machine consumption.  With --plan
+    (a ``plan --json`` file) the straggler detector compares live
+    service estimates against the plan and, when --model is also given,
+    a flagged stage triggers a replan suggestion."""
+    from .obs.cluster import (ClusterView, StragglerDetector,
+                              expected_stage_ms)
+
+    addrs = [a for a in (args.nodes or "").split(",") if a]
+    if not addrs and not args.serve:
+        raise SystemExit("monitor requires --nodes host:port[,...] "
+                         "and/or --serve host:port")
+    # --follow is a pure event tail (implies --events); --kind narrows
+    # both the tail and the table's event footer to the listed kinds
+    kind_filter = {k for k in (getattr(args, "kind", "") or ""
+                               ).split(",") if k}
+    if kind_filter:
+        from .obs.events import EVENT_KINDS
+        unknown = kind_filter - set(EVENT_KINDS)
+        if unknown:
+            raise SystemExit(f"--kind: unknown event kind(s) "
+                             f"{sorted(unknown)}; known: "
+                             f"{sorted(EVENT_KINDS)}")
+    follow = bool(getattr(args, "follow", False))
+    if follow:
+        args.events = True
+    detector = plan = graph = auditor = None
+    if args.plan:
+        from .plan import plan_from_json
+        with open(args.plan) as f:
+            plan = plan_from_json(json.load(f))
+        detector = StragglerDetector(expected_stage_ms(plan),
+                                     factor=args.factor,
+                                     sustain=args.sustain)
+        if args.model:
+            graph = _get_model(args.model)
+            # drift auditor (obs/capacity.py): per-stage service
+            # predictions ALIGNED with what the view measures (max of
+            # compute / inbound decode / outbound encode, codec-only —
+            # plan.calibrate.predict_stage_service_s), scored against
+            # the window-bounded live estimates every interval.  The
+            # cost model is the plan's own (calibrated constants
+            # round-trip through plan JSON); --calibrated overlays a
+            # newer artifact
+            from .obs.capacity import DriftAuditor
+            from .plan.calibrate import predict_stage_service_s
+            from .plan.replan import cost_model_from_plan
+            cost = cost_model_from_plan(graph, plan)
+            if getattr(args, "calibrated", ""):
+                from .plan import CalibratedConstants
+                cost = CalibratedConstants.load(
+                    args.calibrated).apply(cost)
+            pred_ms = [s * 1e3 for s in predict_stage_service_s(
+                graph, plan.cuts, plan.codecs, cost)]
+            auditor = DriftAuditor(pred_ms,
+                                   threshold=args.drift_threshold,
+                                   sustain=args.sustain)
+    view = ClusterView()
+    if addrs:
+        # follow mode survives node restarts: the failover supervisor
+        # respawns a killed replica on its old port, so the reader
+        # redials with connect_retry's jittered backoff instead of
+        # exiting on the first dead socket (merge_events below dedups
+        # any resumed-stream overlap on the (proc, seq) key)
+        view.connect(addrs, interval_ms=args.interval_ms,
+                     align_clocks=args.align,
+                     timeout_s=args.connect_timeout,
+                     reconnect=follow)
+    door_ev_cursor = 0
+    door_ev_dropped = 0
+    last_dropped = 0
+    try:
+        i = 0
+        while True:
+            time.sleep(args.interval_ms / 1e3)
+            i += 1
+            events = None
+            if args.events:
+                # the merged flight-recorder log, incremental: node
+                # events arrive on the obs_push stream (drained from
+                # the view), the front door's over an events_since
+                # observer round-trip
+                from .obs.events import merge_events
+                batch = view.take_events()
+                if args.serve:
+                    from .serve.client import fetch_events
+                    h, _, p = args.serve.rpartition(":")
+                    try:
+                        rep = fetch_events(
+                            h or "127.0.0.1", int(p),
+                            cursor=door_ev_cursor,
+                            timeout_s=args.connect_timeout)
+                        batch += rep.get("events") or []
+                        door_ev_cursor = rep.get("cursor",
+                                                 door_ev_cursor)
+                        door_ev_dropped = rep.get("dropped", 0)
+                    except (OSError, ConnectionError):
+                        pass
+                events = merge_events(batch)
+                if kind_filter:
+                    events = [e for e in events
+                              if e["kind"] in kind_filter]
+            if follow:
+                # tail mode: one line per merged event as it arrives —
+                # a fleet-wide recompile/failover storm watched live
+                # instead of re-polled; no table, no clearing
+                for ev in events or []:
+                    if args.json:
+                        print(json.dumps(ev), flush=True)
+                    else:
+                        data = " ".join(
+                            f"{k}={v}" for k, v in
+                            sorted(ev["data"].items()))
+                        print(f"{ev['t_us'] / 1e6:16.6f} "
+                              f"[{ev['kind']:>14}] {ev['proc']}"
+                              f"#{ev['seq']} {data}", flush=True)
+                # evidence-gap footer: a tail with ring evictions is
+                # NOT the whole story — say so when the count grows
+                dropped = view.events_dropped + door_ev_dropped
+                if dropped > last_dropped:
+                    print(f"event: WARNING {dropped} events dropped "
+                          f"ring-wide — the merged log has gaps "
+                          f"(raise DEFER_EVENTS_CAP)", flush=True)
+                    last_dropped = dropped
+                if args.iterations and i >= args.iterations:
+                    return
+                continue
+            serve_doc = None
+            if args.serve:
+                from .serve.client import fetch_stats
+                host, _, port = args.serve.rpartition(":")
+                try:
+                    serve_doc = fetch_stats(host or "127.0.0.1",
+                                            int(port),
+                                            timeout_s=args.connect_timeout)
+                except (OSError, ConnectionError) as e:
+                    serve_doc = {"error": repr(e)}
+            rows = view.rows()
+            bott = view.bottleneck()
+            flags = detector.observe(view) if detector is not None else []
+            drift_flags = []
+            if auditor is not None:
+                drift_flags = auditor.observe(view)
+                for r in rows:
+                    audit = auditor.last.get(r.get("stage"))
+                    if audit:
+                        r.update(audit)
+            suggestion = err = None
+            if flags and graph is not None:
+                try:
+                    suggestion = detector.suggest(view, graph, plan)
+                except Exception as e:  # noqa: BLE001 — advisory
+                    err = repr(e)
+            if args.json:
+                doc = {"iteration": i, "bottleneck": bott, "rows": rows,
+                       "stragglers": [f.to_json() for f in flags],
+                       "drift": [f.to_json() for f in drift_flags],
+                       "clock_offsets": {
+                           a: round(v["offset_us"], 1)
+                           for a, v in view.clock_offsets.items()}}
+                if events is not None:
+                    doc["events"] = events
+                    doc["events_dropped"] = (view.events_dropped
+                                             + door_ev_dropped)
+                if serve_doc is not None:
+                    serve_doc.pop("cmd", None)
+                    doc["serve"] = serve_doc
+                if suggestion is not None:
+                    doc["replan"] = suggestion.to_json()
+                elif err is not None:
+                    doc["replan_error"] = err
+                print(json.dumps(doc), flush=True)
+            else:
+                _render_monitor(rows, bott, flags, view.clock_offsets,
+                                clear=i > 1, drift=drift_flags)
+                if events:
+                    for ev in events[-16:]:
+                        data = " ".join(f"{k}={v}" for k, v in
+                                        sorted(ev["data"].items()))
+                        print(f"event: [{ev['kind']}] {ev['proc']}"
+                              f"#{ev['seq']} {data}")
+                if args.events:
+                    # evidence-gap footer rides EVERY --events refresh
+                    # (not only ticks that happened to render events):
+                    # a nonzero total means the merged log has holes
+                    dropped = view.events_dropped + door_ev_dropped
+                    if dropped:
+                        print(f"event: ({dropped} dropped ring-wide — "
+                              f"merged log has gaps; raise "
+                              f"DEFER_EVENTS_CAP)")
+                if serve_doc is not None:
+                    _render_serve_stats(serve_doc)
+                if suggestion is not None:
+                    s = suggestion
+                    print(f"replan: moved={s.moved} predicted "
+                          f"improvement {s.predicted_improvement:.2f}x "
+                          f"(new cuts {','.join(s.new_plan.cuts) or '-'}"
+                          + (f", replicas "
+                             f"{getattr(s.new_plan, 'replicas', None)}"
+                             if getattr(s.new_plan, "replicas", None)
+                             else "") + ")")
+                elif err is not None:
+                    print(f"replan failed: {err}")
+            if args.iterations and i >= args.iterations:
+                return
+    except KeyboardInterrupt:
+        pass
+    finally:
+        view.close()
+
+
+def cmd_profile(args):
+    """Attach to a running chain's nodes for N seconds and produce the
+    stage-interior X-ray: per node a
+    ``profile_start``/``profile_stop`` bracket over the existing ctrl
+    connection (the obs_subscribe pattern — no new ports) whose stop
+    reply carries the window's DELTA phase breakdown
+    (dispatch/device/host_sync counts + summed seconds), recompiles,
+    and live device memory; optionally the sampled spans, dumped and
+    clock-shifted onto THIS process's timeline (passive: the nodes'
+    own anchors are never touched) and exported as one merged Perfetto
+    trace.  Machine-readable JSON on stdout (or --out)."""
+    import os
+
+    from .obs import tracer
+    from .obs.cluster import estimate_clock_offset
+    from .runtime.node import _parse_hostport
+    from .transport.framed import (K_CTRL, connect_retry, recv_expect,
+                                   send_ctrl,
+                                   send_end)
+
+    addrs = [a for a in (args.nodes or "").split(",") if a]
+    if not addrs:
+        raise SystemExit("profile requires --nodes host:port[,...]")
+    want_spans = args.spans or bool(args.trace_out)
+    tr = tracer()
+    conns: dict = {}
+    offsets: dict = {}
+    reports: dict = {}
+    try:
+        for addr in addrs:
+            s = connect_retry(*_parse_hostport(addr),
+                               timeout_s=args.connect_timeout)
+            conns[addr] = s
+            # passive min-RTT offset estimate per node: dumped spans
+            # are shifted HERE — an observer must not re-anchor spans
+            # a dispatcher may already have aligned
+            offsets[addr] = estimate_clock_offset(s)
+        if want_spans:
+            tr.enabled = True
+            tid = tr.start_trace()
+            tr.process = "profiler"
+            for addr, s in conns.items():
+                send_ctrl(s, {"cmd": "trace", "trace_id": tid,
+                              "sample_every": max(0, args.sample_every)})
+        for addr, s in conns.items():
+            msg: dict = {"cmd": "profile_start"}
+            if args.torch_trace_dir:
+                # per-node subdir: the node records the window with
+                # torch.profiler and writes its Chrome trace there
+                msg["trace_dir"] = os.path.join(
+                    args.torch_trace_dir, addr.replace(":", "_"))
+            send_ctrl(s, msg)
+            rep = recv_expect(s, K_CTRL)
+            if rep.get("cmd") != "profile_started":
+                raise SystemExit(f"profile_start on {addr} refused: "
+                                 f"{rep.get('error', rep)}")
+        time.sleep(args.seconds)
+        for addr, s in conns.items():
+            send_ctrl(s, {"cmd": "profile_stop"})
+            rep = recv_expect(s, K_CTRL)
+            if rep.get("cmd") != "profile_report":
+                raise SystemExit(f"profile_stop on {addr} failed: "
+                                 f"{rep.get('error', rep)}")
+            reports[addr] = rep["report"]
+        if want_spans:
+            n_spans = 0
+            for addr, s in conns.items():
+                send_ctrl(s, {"cmd": "trace_dump"})
+                doc = recv_expect(s, K_CTRL)
+                spans = doc.get("spans") or []
+                off = int(round(offsets[addr]["offset_us"]))
+                for sp in spans:
+                    sp["ts_us"] -= off
+                n_spans += len(spans)
+                tr.ingest(spans)
+            if n_spans == 0 and args.sample_every >= 1:
+                # 1-in-N waterfall sampling keys off the wire sequence
+                # stamp so every stage samples the SAME frames; a chain
+                # whose dispatcher doesn't stamp (trace_sample_every=0)
+                # carries no seqs and N>=1 matches nothing.  Say so
+                # instead of silently writing an empty trace.
+                print(f"profile: WARNING: --sample-every "
+                      f"{args.sample_every} returned zero spans — "
+                      f"1-in-N sampling needs sequence-stamped frames "
+                      f"(a dispatcher started with trace_sample_every "
+                      f">= 1).  Re-run with --sample-every 0 to record "
+                      f"every frame on any stream.",
+                      file=sys.stderr, flush=True)
+        for s in conns.values():
+            try:
+                send_end(s)
+            except OSError:
+                pass
+    finally:
+        for s in conns.values():
+            s.close()
+    for addr, rep in reports.items():
+        ph = rep.get("phases") or {}
+        inf = ph.get("infer") or {}
+        dsp = ph.get("dispatch") or {}
+        if inf.get("sum_s"):
+            # how much of the frame's wall is host-side dispatch
+            rep["dispatch_share"] = round(
+                (dsp.get("sum_s") or 0.0) / inf["sum_s"], 4)
+        parts = " ".join(
+            f"{name}={p['sum_s']:.3f}s/{p['count']}"
+            for name, p in ph.items())
+        print(f"{rep.get('node', addr)}: {parts} "
+              f"recompiles={rep.get('recompiles')} "
+              f"mem_bytes={rep.get('mem_bytes')} "
+              f"kernel_launches={rep.get('kernel_launches')} "
+              f"dispatch_share={rep.get('dispatch_share', '-')}",
+              file=sys.stderr, flush=True)
+    if args.trace_out:
+        from .obs import export_chrome_trace
+        export_chrome_trace(args.trace_out)
+        print(f"profile: merged trace -> {args.trace_out}",
+              file=sys.stderr, flush=True)
+    doc = {"seconds": args.seconds, "nodes": reports,
+           "clock_offsets": {a: round(v["offset_us"], 1)
+                             for a, v in offsets.items()}}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(doc, f, indent=2)
+            f.write("\n")
+        print(f"profile: breakdown -> {args.out}",
+              file=sys.stderr, flush=True)
+    else:
+        print(json.dumps(doc), flush=True)
+
+
 def _add_overlap_flags(p) -> None:
     """Transport-overlap tuning shared by ``node`` and ``chain``."""
     p.add_argument("--no-overlap", action="store_true",
@@ -831,7 +1421,18 @@ def main(argv=None) -> None:
                          "on one platform, local otherwise); accept gates "
                          "inbound offers (default: tier != tcp); device "
                          "pins the housemate's program to cuda:J")
+    nd.add_argument("--prom-port", type=int, default=None, metavar="PORT",
+                    help="serve this process's metrics registry as a "
+                         "Prometheus scrape endpoint on PORT (0 = "
+                         "ephemeral, printed to stderr)")
+    nd.add_argument("--journal-dir", default="", metavar="DIR",
+                    help="black-box flight recorder: spill this "
+                         "process's events, obs-row snapshots and sampled "
+                         "spans to a crash-safe on-disk journal under DIR "
+                         "(segment ring, per-record CRC, clock anchors), "
+                         "readable by `postmortem DIR` after any death")
     _add_overlap_flags(nd)
+    _add_obs_flags(nd)
 
     c = sub.add_parser("chain", help="spawn a local N-process chain and "
                                      "verify it against the forward")
@@ -899,7 +1500,17 @@ def main(argv=None) -> None:
                         "codec throughputs) from the chain's own "
                         "telemetry and write the versioned JSON "
                         "artifact — feed it back via `plan --calibrated`")
+    c.add_argument("--prom-port", type=int, default=None, metavar="PORT",
+                   help="serve the dispatcher process's metrics registry "
+                        "as a Prometheus scrape endpoint")
+    c.add_argument("--journal-dir", default="", metavar="DIR",
+                   help="black-box flight recorder: every stage process "
+                        "and the dispatcher journal their telemetry under "
+                        "DIR; a failover respawn or a chain failure "
+                        "assembles a postmortem bundle with a first-fault "
+                        "verdict, and `postmortem DIR` does it on demand")
     _add_overlap_flags(c)
+    _add_obs_flags(c)
 
     p = sub.add_parser("partition", help="show the stage table")
     p.add_argument("--model", required=True)
@@ -959,9 +1570,124 @@ def main(argv=None) -> None:
     pl.add_argument("--json", action="store_true")
     _add_cost_flags(pl)
 
+    mo = sub.add_parser("monitor", help="live top-style view of a "
+                                        "running chain's obs_push "
+                                        "telemetry")
+    mo.add_argument("--nodes", default="", metavar="host:port,...",
+                    help="the chain nodes' listen addresses (same list "
+                         "`stats`/deploy use)")
+    mo.add_argument("--interval-ms", type=float, default=500.0,
+                    help="push + refresh cadence (each node reports at "
+                         "this interval)")
+    mo.add_argument("--iterations", type=int, default=0, metavar="N",
+                    help="refresh N times then exit (0 = run until ^C)")
+    mo.add_argument("--json", action="store_true",
+                    help="one JSON line per refresh (rows, bottleneck, "
+                         "stragglers) instead of the table")
+    mo.add_argument("--plan", metavar="PLAN_JSON",
+                    help="a `plan --json` file: enables the straggler "
+                         "detector against the plan's per-stage "
+                         "expectations")
+    mo.add_argument("--model", default=None,
+                    help="with --plan: rebuild the layer graph so a "
+                         "flagged straggler emits a replan suggestion")
+    mo.add_argument("--factor", type=float, default=1.5,
+                    help="straggler threshold: live service estimate > "
+                         "factor x planned, sustained")
+    mo.add_argument("--sustain", type=int, default=2,
+                    help="reporting intervals a deviation must hold "
+                         "before it is flagged")
+    mo.add_argument("--calibrated", default="", metavar="FILE",
+                    help="with --plan and --model: overlay a "
+                         "CalibratedConstants artifact (`chain "
+                         "--emit-calibration`) on the plan's cost "
+                         "model before computing the drift auditor's "
+                         "per-stage predictions")
+    mo.add_argument("--drift-threshold", type=float, default=0.25,
+                    help="with --plan and --model: |measured - "
+                         "predicted| / predicted past this, sustained "
+                         "--sustain intervals, flags the stage and "
+                         "emits a model_drift event")
+    mo.add_argument("--serve", default="", metavar="host:port",
+                    help="also poll a serve front door's stats endpoint "
+                         "and render per-tenant columns (admitted / "
+                         "shed / queue-delay percentiles / SLO "
+                         "attainment / attribution buckets)")
+    mo.add_argument("--events", action="store_true",
+                    help="render the merged flight-recorder event log "
+                         "(sheds, tier negotiations/fallbacks, "
+                         "straggler flags, replan suggestions, node "
+                         "deaths, stream/client lifecycle) from every "
+                         "watched node's obs_push stream and — with "
+                         "--serve — the front door's events_since "
+                         "endpoint")
+    mo.add_argument("--kind", default="", metavar="a,b",
+                    help="with --events/--follow: only render events of "
+                         "the listed kinds (comma-separated; e.g. "
+                         "recompile,mem_pressure,failover)")
+    mo.add_argument("--follow", action="store_true",
+                    help="event tail mode (implies --events): one line "
+                         "per merged flight-recorder event as it "
+                         "arrives, no table — watch a fleet-wide "
+                         "recompile/failover storm live")
+    mo.add_argument("--align", action="store_true",
+                    help="actively clock-ALIGN every node's tracer to "
+                         "this process (default: passively estimate "
+                         "offsets only — an observer must not re-anchor "
+                         "spans the dispatcher already aligned)")
+    mo.add_argument("--connect-timeout", type=float, default=30.0)
+
+    pm = sub.add_parser("postmortem",
+                        help="assemble a forensics bundle (merged "
+                             "timeline, Perfetto trace, last-known "
+                             "rows, first-fault verdict) from the "
+                             "black-box journals under a --journal-dir "
+                             "— works on dead processes")
+    pm.add_argument("dir", metavar="JOURNAL_DIR",
+                    help="the --journal-dir a node/chain/serve wrote")
+    pm.add_argument("--out", default="", metavar="DIR",
+                    help="bundle output directory (default: a "
+                         "bundle-<stamp> dir inside JOURNAL_DIR)")
+    pm.add_argument("--last-s", type=float, default=30.0,
+                    help="Perfetto window: keep the final N seconds "
+                         "of spans/events in trace.json")
+    pm.add_argument("--reason", default="manual",
+                    help="reason recorded in the bundle")
+
+    pr = sub.add_parser("profile", help="attach to a running chain for "
+                                        "N seconds: per-stage phase "
+                                        "breakdown (dispatch/device/"
+                                        "host_sync), recompile + "
+                                        "memory telemetry, optional "
+                                        "merged Perfetto trace")
+    pr.add_argument("--nodes", required=True, metavar="host:port,...",
+                    help="the chain nodes' listen addresses (same list "
+                         "`stats`/monitor use)")
+    pr.add_argument("--seconds", type=float, default=5.0,
+                    help="profiled window length")
+    pr.add_argument("--out", default="", metavar="FILE",
+                    help="write the per-stage phase-breakdown JSON "
+                         "here (default: one JSON line on stdout)")
+    pr.add_argument("--spans", action="store_true",
+                    help="also collect each node's spans (trace + "
+                         "trace_dump) onto one clock-aligned timeline")
+    pr.add_argument("--trace-out", default="", metavar="FILE",
+                    help="export the merged timeline as Chrome/"
+                         "Perfetto trace JSON (implies --spans)")
+    pr.add_argument("--sample-every", type=int, default=0,
+                    help="span sampling: record every Nth wire "
+                         "sequence (0 = every frame — the window is "
+                         "short)")
+    pr.add_argument("--torch-trace-dir", default="", metavar="DIR",
+                    help="ask each node to record the window with "
+                         "torch.profiler and write its Chrome trace under "
+                         "DIR/<addr> (kernels on the card included)")
+    pr.add_argument("--connect-timeout", type=float, default=30.0)
+
     args = ap.parse_args(argv)
     {"node": cmd_node, "chain": cmd_chain, "partition": cmd_partition,
-     "plan": cmd_plan}[args.cmd](args)
+     "plan": cmd_plan, "monitor": cmd_monitor, "profile": cmd_profile,
+     "postmortem": cmd_postmortem}[args.cmd](args)
 
 
 if __name__ == "__main__":

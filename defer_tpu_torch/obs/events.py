@@ -12,15 +12,17 @@ into it, and the ring is
 * **seq-stamped** — a per-process monotone sequence number, so a consumer
   can prove it saw every event (gap = drop);
 * **timeline-aligned** — ``t_us`` comes from the process tracer's
-  anchored clock (:meth:`Tracer.now_us`), so events and spans interleave
-  on one axis;
+  anchored clock (:meth:`Tracer.now_us`), and a ``clock_adjust`` shifts
+  buffered events along with buffered spans, so events and spans
+  interleave on one axis;
 * **wire-schematized** — an event is a flat JSON-safe dict
   (``{"kind", "seq", "t_us", "proc", "data"}``), and
   :func:`validate_event` is the schema check both ends of a transfer
   share.
 
-Shifting buffered events when clocks are aligned across processes waits
-for the port of ``obs/cluster.py`` (ROADMAP A12).
+Stage nodes carry new events on their ``obs_push`` frames and answer
+``events_since`` queries, and ``obs.cluster.ClusterView`` merges every
+process's stream into one ordered log.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import os
 import threading
 
 from .registry import REGISTRY
-from .trace import tracer
+from .trace import register_anchor_hook, tracer
 
 #: known event kinds -> one-line meaning (the JAX package's table).
 #: Emitting an unknown kind raises: the schema is the contract that makes
@@ -147,6 +149,13 @@ class FlightRecorder:
                 _DROPPED.n += 1
         return ev
 
+    def shift_anchor(self, delta_us: int) -> None:
+        """Shift buffered events by ``delta_us``; runs through the tracer's
+        anchor hook when a ``clock_adjust`` lands."""
+        with self._lock:
+            for ev in self._ring:
+                ev["t_us"] += int(delta_us)
+
     def events_since(self, cursor: int, limit: int | None = None
                      ) -> tuple[int, list[dict]]:
         """(new_cursor, events emitted after ``cursor``) without draining.
@@ -204,6 +213,7 @@ def merge_events(*batches) -> list[dict]:
 
 #: process singleton, stamped on the process tracer's timeline
 _RECORDER = FlightRecorder()
+register_anchor_hook(_RECORDER.shift_anchor)
 
 
 def recorder() -> FlightRecorder:

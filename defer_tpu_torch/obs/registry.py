@@ -1,11 +1,13 @@
 """Process-wide metrics registry: named counters, gauges and histograms.
 
-The port's copy of the part of ``defer_tpu.obs.registry`` that the
-pipeline engines and the dispatcher use.  One registry per process
+The port's copy of ``defer_tpu.obs.registry``.  One registry per process
 (module-level :data:`REGISTRY`); instruments are created once by name and
 then held by the instrumented code as plain attributes, so the hot path
 never goes through the registry dict.  Snapshots are pull-based:
-``snapshot()`` returns a JSON-ready dict.
+``snapshot()`` returns a JSON-ready dict, ``exposition()`` a
+Prometheus-style text page (counters and gauges as they are, histograms as
+summaries with p50/p95/p99 quantile lines; the text is the JAX package's,
+byte for byte, for the same instruments).
 
 Callbacks let existing stat objects (``PipelineMetrics``'s plain-int
 counters) appear in snapshots without paying any registry cost when they
@@ -14,6 +16,8 @@ update: the registry calls them at snapshot time only.
 
 from __future__ import annotations
 
+import json
+import re
 import threading
 import weakref
 from typing import Callable
@@ -86,6 +90,28 @@ class Gauge:
         return f"Gauge({self.v})"
 
 
+def _prom_name(name: str) -> str:
+    """Dotted metric name -> Prometheus-legal name (``[a-zA-Z_:]`` first
+    char, ``[a-zA-Z0-9_:]`` after)."""
+    n = re.sub(r"[^a-zA-Z0-9_:]", "_", name)
+    if not n or n[0].isdigit():
+        n = "_" + n
+    return n
+
+
+def _prom_escape(text: str) -> str:
+    """Escape a HELP line per the Prometheus text format: backslash and
+    newline (HELP text is not quoted, so quotes pass through)."""
+    return text.replace("\\", r"\\").replace("\n", r"\n")
+
+
+def _prom_label_value(text: str) -> str:
+    """Escape a label VALUE per the text format: backslash, double quote,
+    newline."""
+    return (text.replace("\\", r"\\").replace('"', r"\"")
+            .replace("\n", r"\n"))
+
+
 class MetricsRegistry:
     """Named instruments with get-or-create semantics.
 
@@ -134,6 +160,33 @@ class MetricsRegistry:
         with self._lock:
             self._callbacks[name] = fn
 
+    def unregister(self, prefix: str) -> None:
+        """Drop every instrument and callback whose name starts with
+        ``prefix``."""
+        with self._lock:
+            for d in (self._metrics, self._callbacks):
+                for k in [k for k in d if k.startswith(prefix)]:
+                    del d[k]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._metrics.clear()
+            self._callbacks.clear()
+
+    def _live_metrics(self) -> dict:
+        """The instrument dict with weakrefs resolved; dead weak entries
+        are pruned in place (their owner was collected)."""
+        with self._lock:
+            out = {}
+            for name, m in list(self._metrics.items()):
+                if isinstance(m, weakref.ref):
+                    m = m()
+                    if m is None:
+                        del self._metrics[name]
+                        continue
+                out[name] = m
+            return out
+
     def snapshot(self) -> dict:
         """JSON-ready view: counters and gauges as numbers, histograms as
         summaries.
@@ -141,15 +194,8 @@ class MetricsRegistry:
         A callback returning ``None`` marks itself expired (its source was
         collected) and is pruned, as are dead weak-registered instruments.
         """
+        metrics = self._live_metrics()
         with self._lock:
-            metrics = {}
-            for name, m in list(self._metrics.items()):
-                if isinstance(m, weakref.ref):
-                    m = m()
-                    if m is None:
-                        del self._metrics[name]
-                        continue
-                metrics[name] = m
             callbacks = dict(self._callbacks)
         out: dict = {}
         for name, m in sorted(metrics.items()):
@@ -170,6 +216,60 @@ class MetricsRegistry:
                     self._callbacks.pop(name, None)
         return out
 
+    def exposition(self) -> str:
+        """Prometheus text format (histograms as summaries).  Every family
+        gets a ``# HELP`` line carrying the original dotted name, escaped;
+        names are sanitized to the legal charset (never digit-first), and
+        label values are escaped.  The family prefix stays the JAX
+        package's (``defer_tpu metric``), so one scrape config reads a
+        chain of either package's nodes."""
+        metrics = self._live_metrics()
+        with self._lock:
+            callbacks = dict(self._callbacks)
+        lines: list[str] = []
+
+        def family(name: str, kind: str) -> str:
+            pn = _prom_name(name)
+            lines.append(f"# HELP {pn} defer_tpu metric "
+                         f"{_prom_escape(name)}")
+            lines.append(f"# TYPE {pn} {kind}")
+            return pn
+
+        for name, m in sorted(metrics.items()):
+            if isinstance(m, LatencyHistogram):
+                pn = family(name, "summary")
+                for q in (0.5, 0.95, 0.99):
+                    lines.append(
+                        f'{pn}{{quantile="{_prom_label_value(str(q))}"}} '
+                        f'{m.quantile(q):.9g}')
+                lines.append(f"{pn}_sum {m.sum:.9g}")
+                lines.append(f"{pn}_count {m.count}")
+            elif isinstance(m, Counter):
+                pn = family(name, "counter")
+                lines.append(f"{pn} {m.value}")
+            elif isinstance(m, Gauge):
+                pn = family(name, "gauge")
+                lines.append(f"{pn} {m.value:.9g}")
+        for name, fn in sorted(callbacks.items()):
+            try:
+                v = fn()
+            except Exception:  # noqa: BLE001 — a dead callback must not
+                continue       # take the scrape page down
+            if isinstance(v, (int, float)) and not isinstance(v, bool):
+                pn = family(name, "gauge")
+                lines.append(f"{pn} {v:.9g}" if isinstance(v, float)
+                             else f"{pn} {v}")
+        return "\n".join(lines) + "\n"
+
+    def dump_json(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.snapshot(), f, indent=2, default=str)
+            f.write("\n")
+
 
 #: the process-wide registry every subsystem instruments into
 REGISTRY = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    return REGISTRY

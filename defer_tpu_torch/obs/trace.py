@@ -1,9 +1,7 @@
 """Span tracer: trace_id/span_id spans exportable as Chrome trace JSON.
 
-The port's copy of ``defer_tpu.obs.trace``, less its clock alignment
-(``shift_wall_anchor`` and the anchor hooks, which come with the cluster
-view).  One :class:`Tracer` per process (module singleton via
-:func:`tracer`), disabled by default.  The cost contract instrumentation
+The port's copy of ``defer_tpu.obs.trace``.  One :class:`Tracer` per
+process (module singleton via :func:`tracer`), disabled by default.  The cost contract instrumentation
 sites rely on:
 
 * disabled: ``tracer().enabled`` is one attribute read + branch;
@@ -36,6 +34,18 @@ from .registry import REGISTRY
 #: incremented whenever a span is evicted from a full buffer — the
 #: visible price of the cap
 _DROPPED = REGISTRY.counter("trace.dropped_spans")
+
+#: callbacks invoked with ``delta_us`` whenever the process tracer's wall
+#: anchor shifts (clock alignment): other timeline-stamped buffers (the
+#: flight recorder's event ring, a journal's anchor) register here so
+#: their buffered entries stay coherent with the shifted spans
+_ANCHOR_HOOKS: list = []
+
+
+def register_anchor_hook(fn) -> None:
+    """Register ``fn(delta_us)`` to run on every wall-anchor shift of the
+    process tracer."""
+    _ANCHOR_HOOKS.append(fn)
 
 def _new_id() -> str:
     return uuid.uuid4().hex[:16]
@@ -234,6 +244,25 @@ class Tracer:
         probe compares across processes."""
         return self._wall0_us + int(
             (time.perf_counter() - self._mono0) * 1e6)
+
+    def shift_wall_anchor(self, delta_us: int) -> None:
+        """Shift the wall anchor by ``delta_us``: clock alignment after a
+        ping-pong offset estimate (``obs.cluster.estimate_clock_offset``).
+        Buffered spans shift too, so the whole dump stays on one axis
+        whenever the correction lands.  Iterates a snapshot
+        (``list(deque)`` is atomic under the GIL): a span appended while
+        the anchor shifts may stay unshifted, a one-span error, where
+        iterating the live deque could raise in the connection worker
+        applying a ``clock_adjust``."""
+        delta_us = int(delta_us)
+        self._wall0_us += delta_us
+        for s in list(self._spans):
+            s["ts_us"] += delta_us
+        if self is _TRACER:
+            # coupled buffers (the flight recorder) follow the PROCESS
+            # tracer only: a test-local Tracer must not move the ring
+            for fn in _ANCHOR_HOOKS:
+                fn(delta_us)
 
     # -- cross-process stitching -------------------------------------------
 

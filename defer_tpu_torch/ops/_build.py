@@ -5,7 +5,8 @@ Each ``csrc/*.cu`` source compiles on its own into a shared library with a
 plain C interface, at first use, into ``defer_tpu_torch/_build/`` (listed
 in ``.gitignore``).  Library names carry a hash of the source and the
 flags, so an edited source rebuilds and an unchanged one is reused.
-:func:`build` starts one ``nvcc`` per source, all at once.
+:func:`build` starts one ``nvcc`` per source, all at once, and counts each
+build as one run-time compilation (``obs/profile.py``).
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and NO ``--use_fast_math`` — the
 quantizer's bit-exactness rests on IEEE division.  ``-Xptxas -v`` reports
@@ -25,6 +26,8 @@ import os
 import subprocess
 import time
 from pathlib import Path
+
+from ..obs.profile import record_compile
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
@@ -115,6 +118,7 @@ def build(sources: list[str],
                             f"{proc.returncode}):\n{log}")
             continue
         os.replace(tmp, dst)  # atomic: a reader never sees half a library
+        record_compile(seconds, via="nvcc", label=source)
         out[source] = {"path": dst, "seconds": seconds, "log": log}
     if failures:
         raise RuntimeError("\n".join(failures))

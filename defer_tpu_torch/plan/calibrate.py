@@ -35,10 +35,9 @@ This module closes that loop:
 prediction ALIGNED with what the runtime measures — stage ``k`` =
 ``max(compute_k, decode(hop k-1), encode(hop k))`` with CODEC-ONLY
 enc/dec parts, because the live service estimate
-(the JAX package's ``ClusterView._service_ms``; ROADMAP A12 in the
-port) is the max of the infer / per-channel decode / per-channel encode
-p50s, none of which include the host-sync round-trip (measured
-separately).
+(``obs/cluster.py`` ``_service_ms``, the JAX package's formula) is the
+max of the infer / per-channel decode / per-channel encode p50s, none of
+which include the host-sync round-trip (measured separately).
 
 Why a codec the model has never seen still calibrates: the fit keys
 fitted specs by the DEPLOYED codec name (``dsleep10+raw`` included).  A

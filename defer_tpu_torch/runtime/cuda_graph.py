@@ -6,16 +6,20 @@ prefill.  Each capture runs an eager warm-up pass first, on a side stream,
 so that library set-up (kernel loading, ``cudaFuncSetAttribute``, cuBLAS
 and cuDNN handles) happens outside the capture.  Neither pass counts as
 kernel launches: the capture's launches become the graph's own count,
-added at each replay (``ops/launches.py``).
+added at each replay (``ops/launches.py``).  Each capture is one
+run-time compilation to the profiling plane (``obs/profile.py``
+``record_compile``, labelled by the caller).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable
 
 import torch
 
+from ..obs.profile import record_compile
 from ..ops.launches import counted_kernels
 
 
@@ -35,9 +39,12 @@ class CapturedGraph:
 
 @torch.inference_mode()
 def capture(fn: Callable[[], None], device: torch.device,
-            warmup: Callable[[], None] | None = None) -> CapturedGraph:
+            warmup: Callable[[], None] | None = None, *,
+            label: str = "") -> CapturedGraph:
     """Run ``warmup`` (default ``fn``) once eagerly on a side stream, then
-    capture ``fn``.  The caller owns whatever state the warm-up wrote."""
+    capture ``fn``.  The caller owns whatever state the warm-up wrote.
+    ``label`` names the capture in its ``recompile`` event."""
+    t0 = time.perf_counter()
     kernels = counted_kernels()
     before = [k.snapshot() for k in kernels]
     side = torch.cuda.Stream(device)
@@ -56,4 +63,5 @@ def capture(fn: Callable[[], None], device: torch.device,
     launches = [(k, k.since(w)) for k, w in zip(kernels, warm)]
     for k, snap in zip(kernels, before):
         k.restore(snap)
+    record_compile(time.perf_counter() - t0, via="cuda_graph", label=label)
     return CapturedGraph(graph, launches, pool)

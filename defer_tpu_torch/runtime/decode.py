@@ -565,7 +565,8 @@ class PipelinedDecoder:
                 if key not in self._graphs:
                     t0 = time.perf_counter()
                     g = self._graphs[key] = capture(self._fn(key),
-                                                    self.device)
+                                                    self.device,
+                                                    label="decode")
                     self.capture_s += time.perf_counter() - t0
                     self.captures += 1
                     self.graph_pool_bytes += g.pool_bytes

@@ -31,6 +31,7 @@ import torch
 from ..graph.ir import LayerGraph
 from ..obs import REGISTRY, tracer
 from ..obs.events import emit as emit_event
+from ..obs.postmortem import maybe_autopsy
 from ..partition.partitioner import partition
 from ..transport.replay import ReplayBuffer
 from ..utils.config import DeferConfig, resolve_device
@@ -862,6 +863,10 @@ class Defer:
                                    gen=handle._gen,
                                    stalled_s=round(
                                        time.monotonic() - busy, 3))
+                        # a deployment declared dead triggers a postmortem
+                        # bundle from whatever journals exist (nothing
+                        # unless this process journals)
+                        maybe_autopsy("watchdog: deployment declared dead")
                         handle.error = TimeoutError(
                             f"pipeline dispatch made no progress for "
                             f"{wd:.1f}s; deployment declared dead")

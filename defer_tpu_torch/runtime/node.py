@@ -62,9 +62,17 @@ and :func:`run_dag_chain` deploy a ``defer_tpu.topology.v1`` document.
 Branch hops are wire-framed, so they never probe a tier, and they refuse
 replicas and colocation.
 
-What this module leaves out raises ``NotImplementedError`` naming the
-ROADMAP item that brings it: clock alignment, live telemetry pushes,
-profiling sessions and the flight-recorder journal (A12).
+Observability (the JAX package's plane, ``obs/``): a node answers
+``clock_probe``/``clock_adjust`` (the dispatcher aligns every process's
+timeline onto its own), ``obs_subscribe`` (an ``obs_push`` frame every
+interval on that connection, read by ``obs.cluster.ClusterView``),
+``profile_start``/``profile_stop`` (a phase breakdown, the recompiles and
+the hand-kernel launches of exactly that window, optionally a
+``torch.profiler`` trace) and reports live MFU against its card's peak
+(``utils/hw.py``) from the FLOPs the deploy carries.  ``run_chain`` and
+``deploy_chain`` watch a chain live against a plan (``plan=``) and journal
+every process to disk (``journal_dir=``), and a failed run or a respawn
+assembles a postmortem bundle (``obs.postmortem.maybe_autopsy``).
 """
 
 from __future__ import annotations
@@ -89,6 +97,13 @@ import torch
 from ..obs import REGISTRY, LatencyHistogram, new_span_id, tracer
 from ..obs.events import emit as emit_event
 from ..obs.events import recorder
+from ..obs.capacity import achieved_mfu, stage_flops_bytes
+from ..obs.cluster import ClusterView, align_clock
+from ..obs.journal import active_journal, start_journal, stop_journal
+from ..obs.postmortem import maybe_autopsy
+from ..obs.profile import (ProfileSession, device_memory_bytes,
+                           memory_watcher, recompile_watcher)
+from ..obs.report import ObsReporter, WatermarkSplit
 from ..transport.branch import BranchJoin, BroadcastSender
 from ..transport.channel import AsyncReceiver, AsyncSender, _sampled
 from ..transport.framed import (K_ACK, K_BYTES, K_CTRL, K_END, K_TENSOR,
@@ -121,10 +136,16 @@ _FAN_SENDERS = (FanOutSender, ReplayFanOut, BroadcastSender)
 _REPLAY_DEDUP_WINDOW = 4096
 
 
-def _not_ported(item: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP item {item}); the port runs "
-        f"linear, replicated and branched chains")
+#: guards the lazy creation of a node's watermark splitter
+_WM_LOCK = threading.Lock()
+
+#: how long the failover supervisor's postmortem waits after a respawn
+#: before it reads the journals: a dead process reads as the first fault
+#: once its journal stops ``STALL_MARGIN_US`` (1 s) before the survivors',
+#: and a survivor with no events writes a record only with its snapshot,
+#: once a second, so 2.5 s leaves the corpse at least 1.5 s behind (the
+#: JAX package waits 0.75 s, and its first bundle may name no fault)
+_AUTOPSY_DELAY_S = 2.5
 
 
 def _check_tier(tier: str, who: str) -> str:
@@ -299,9 +320,21 @@ class StageNode:
         self.tier_fallbacks = 0
         self.processed = 0    # tensors relayed, lifetime
         self.reweights = 0    # weights-only re-pushes accepted
-        #: analytic stage FLOPs a deploy may carry (the JAX dispatcher
-        #: ships them); reported, not yet divided into an MFU (A12)
+        #: analytic capacity of the deployed stage, shipped by the
+        #: dispatcher in the deploy message (FLOPs and HBM bytes at the
+        #: deploy batch): what the live MFU divides by.  None until a
+        #: deploy carries them (a node with no dispatcher reports no MFU)
         self.stage_flops: float | None = None
+        self.stage_bytes_moved: float | None = None
+        #: the card's peak FLOP/s, probed once: 0.0 = probed and unknown
+        #: (MFU stays None, never a number against a guessed peak)
+        self._peak_flops_s: float | None = None
+        #: the active profile_start session; None between sessions
+        self._profile = None
+        #: push subscriptions (one ObsReporter per obs_subscribe) and the
+        #: per-subscriber watermark splitter (lazy, under _WM_LOCK)
+        self._reporters: list[ObsReporter] = []
+        self._wm_split: WatermarkSplit | None = None
         #: waterfall sampling period carried by the trace context (0 =
         #: every frame records spans, N >= 1 = only wire-seq multiples)
         self.trace_sample_every = 0
@@ -678,6 +711,8 @@ class StageNode:
                                      float(msg["infer_delay_ms"]) / 1e3)
         if msg.get("flops") is not None:
             self.stage_flops = float(msg["flops"])
+        if msg.get("bytes_moved") is not None:
+            self.stage_bytes_moved = float(msg["bytes_moved"])
         self._check_tier_pin()
 
     def _handle_ctrl(self, conn, msg: dict, recv=None) -> bool:
@@ -697,8 +732,21 @@ class StageNode:
         trace:    adopt the dispatcher's trace context and cascade it
                   downstream when the data connection opens (no ACK).
         trace_dump: reply with (and drain) this process's spans.
+        clock_probe: reply with this process's tracer-timeline "now"
+                  (``{"cmd": "clock_probe_reply", "t_us", "echo"}``), one
+                  leg of the min-RTT offset estimator (obs/cluster.py).
+        clock_adjust: ``{"offset_us": d}`` -> shift the tracer's wall
+                  anchor (buffered spans and events included), ACK.
+        obs_subscribe: ``{"interval_ms", "spans", "span_limit"}`` -> push
+                  ``obs_push`` frames back on THIS connection every
+                  interval until it closes (obs/report.py).  The
+                  subscriber sends nothing more on it but its final END.
         events_since: reply with the flight recorder's events since a
                   cursor.
+        profile_start: open a profiling window (obs/profile.py; with
+                  ``trace_dir``, a ``torch.profiler`` trace too); a second
+                  start is refused with a ``profile_err`` reply.
+        profile_stop: close it and reply with its ``profile_report``.
         stats:    reply with what this node is and has done.
         quiesce:  reply once this node's data plane is drained.
         shutdown: ACK; a persistent node leaves its serve loop.
@@ -738,6 +786,31 @@ class StageNode:
                 if ch is not None:
                     ch.sample_every = self.trace_sample_every
             return True
+        if cmd == "clock_probe":
+            send_ctrl(conn, {"cmd": "clock_probe_reply",
+                             "t_us": tracer().now_us(),
+                             "echo": msg.get("echo")})
+            return True
+        if cmd == "clock_adjust":
+            tracer().shift_wall_anchor(int(msg.get("offset_us", 0)))
+            REGISTRY.gauge("clock.offset_us").inc(
+                float(msg.get("offset_us", 0)))
+            send_ack(conn)
+            return True
+        if cmd == "obs_subscribe":
+            rep = ObsReporter(
+                self, conn,
+                interval_s=float(msg.get("interval_ms", 250.0)) / 1e3,
+                spans=bool(msg.get("spans", True)),
+                span_limit=int(msg.get("span_limit", 256)))
+            self._reporters = [r for r in self._reporters
+                               if r.is_alive()] + [rep]
+            rep.start()
+            return True
+        if cmd == "profile_start":
+            return self._profile_start(conn, msg)
+        if cmd == "profile_stop":
+            return self._profile_stop(conn)
         if cmd == "events_since":
             rec = recorder()
             cursor, evs = rec.events_since(int(msg.get("cursor", 0)),
@@ -772,9 +845,6 @@ class StageNode:
             if self._done_q is not None:
                 self._done_q.put(_SHUTDOWN)
             return True
-        if cmd in ("clock_probe", "clock_adjust", "obs_subscribe",
-                   "profile_start", "profile_stop"):
-            raise _not_ported("A12", f"the {cmd!r} command")
         raise ValueError(f"unknown control command {msg!r}")
 
     def _stats(self, msg: dict) -> dict:
@@ -787,8 +857,7 @@ class StageNode:
         rec = recorder()
         _, evs = rec.events_since(int(msg.get("event_cursor", 0)),
                                   limit=int(msg.get("event_limit", 256)))
-        mem = (torch.cuda.memory_allocated(self.device)
-               if self.device.type == "cuda" else None)
+        cap = self._capacity()
         return {
             "stage": None if m is None else m["index"],
             "name": None if m is None else m["name"],
@@ -820,11 +889,13 @@ class StageNode:
             "dispatch_s": self.disp_hist.summary(),
             "queue_s": self.queue_hist.summary(),
             "device_s": self.dev_hist.summary(),
-            # no program is compiled at run time (the exported graph runs
-            # as it is); memory is the caching allocator's live bytes
-            "recompiles": 0,
-            "mem_bytes": mem,
-            "profiling": False,
+            # run-time compilations in this process (graph captures,
+            # artifact loads, kernel builds; obs/profile.py) and the
+            # caching allocator's live bytes on this node's card (None on
+            # the CPU)
+            "recompiles": REGISTRY.counter("compiles").value,
+            "mem_bytes": device_memory_bytes(device=self.device),
+            "profiling": self._profile is not None,
             "rx_s": reg.histogram("node.rx_s").summary(),
             "tx_s": reg.histogram("node.tx_s").summary(),
             "encode_latency_s": (tx.enc.summary() if tx is not None else
@@ -839,10 +910,13 @@ class StageNode:
             "rx_watermark": self._chan_hi(rx),
             "tx_watermark": self._chan_hi(tx),
             "inflight": reg.gauge("node.inflight").value,
+            # capacity accounting (obs/capacity.py): the deploy's stage
+            # FLOPs over the measured infer p50, and MFU against THIS
+            # card's peak (None without a deployed capacity or a known
+            # generation)
             "flops": self.stage_flops,
-            # MFU against the card's peak comes with obs/capacity.py (A12)
-            "mfu": None,
-            "achieved_flops_s": None,
+            "mfu": cap.get("mfu"),
+            "achieved_flops_s": cap.get("achieved_flops_s"),
             # the seq-replay plane: channels healed, frames retained for
             # replay, duplicates the fan-in dropped in its window
             "failovers": getattr(tx, "failovers", 0),
@@ -860,6 +934,167 @@ class StageNode:
         if chan is None:
             return 0
         return max(int(chan.hi), chan.qsize())
+
+    # -- live observability -------------------------------------------------
+
+    def _profile_start(self, conn, msg: dict) -> bool:
+        """Open a profiling window.  A double start is refused loudly (an
+        error reply, the connection kept): restarting silently would
+        corrupt the first caller's window arithmetic."""
+        if self._profile is not None:
+            send_ctrl(conn, {
+                "cmd": "profile_err",
+                "error": "profile session already active on this node "
+                         "(profile_stop it first)"})
+            return True
+        # the session marks warm-up done: arm the one-event-per-episode
+        # recompile emitter and prime the memory gauge
+        recompile_watcher().arm()
+        memory_watcher().observe(self.device)
+        sess = ProfileSession(
+            {"dispatch": self.disp_hist, "queue": self.queue_hist,
+             "device": self.dev_hist, "host_sync": self.host_sync_hist,
+             "infer": self.infer_hist},
+            processed=lambda: self.processed, launches=_kernel_launches,
+            trace_dir=msg.get("trace_dir") or None, device=self.device)
+        started = sess.start()
+        self._profile = sess
+        send_ctrl(conn, {"cmd": "profile_started",
+                         "node": self._span_label(), **started})
+        return True
+
+    def _profile_stop(self, conn) -> bool:
+        if self._profile is None:
+            send_ctrl(conn, {
+                "cmd": "profile_err",
+                "error": "no active profile session on this node "
+                         "(profile_start first)"})
+            return True
+        report = self._profile.stop()
+        self._profile = None
+        report["node"] = self._span_label()
+        m = self.manifest
+        report["stage"] = None if m is None else m["index"]
+        report["replica"] = self.replica
+        send_ctrl(conn, {"cmd": "profile_report", "report": report})
+        return True
+
+    def _capacity(self) -> dict:
+        """Live MFU accounting for stats and pushes: the deploy message's
+        analytic stage FLOPs against this node's measured infer p50 and
+        its OWN card's peak.  Empty when no deploy shipped capacity;
+        ``mfu`` is None, never a number, when the card's generation has no
+        peak (``utils/hw.py``)."""
+        if self.stage_flops is None:
+            return {}
+        if self._peak_flops_s is None:
+            from ..utils import hw
+            self._peak_flops_s = hw.peak_flops(hw.identify_chip(self.device))
+        hist = self.infer_hist
+        p50 = hist.quantile(0.5) if hist.count else 0.0
+        return {
+            "flops": self.stage_flops,
+            "bytes_moved": self.stage_bytes_moved,
+            "achieved_flops_s": (self.stage_flops / p50
+                                 if p50 > 0 else None),
+            "mfu": achieved_mfu(self.stage_flops, p50, self._peak_flops_s),
+        }
+
+    def _wm(self) -> WatermarkSplit:
+        with _WM_LOCK:
+            if self._wm_split is None:
+                self._wm_split = WatermarkSplit()
+            return self._wm_split
+
+    def obs_register(self, sid: int) -> None:
+        """Register a push subscriber with the watermark splitter (one per
+        :class:`ObsReporter`)."""
+        self._wm().register(sid)
+
+    def obs_unregister(self, sid: int) -> None:
+        self._wm().unregister(sid)
+
+    def obs_snapshot(self, *, cursor: int = 0, include_spans: bool = True,
+                     span_limit: int = 256, subscriber: int | None = None,
+                     event_cursor: int = 0, event_limit: int = 128
+                     ) -> tuple[dict, int, int]:
+        """One ``obs_push`` payload (the JAX node's keys): identity,
+        lifetime counters, queue depths and per-interval watermarks,
+        cumulative latency summaries, capacity, compile and memory
+        telemetry, the flight recorder's events since ``event_cursor``
+        and, when tracing is live, the spans recorded since ``cursor``
+        (without draining what ``trace_dump`` collects).  Runs on the
+        reporter's thread; everything read is an attribute or a registry
+        instrument, so the hot path never waits on it.
+
+        Watermarks are reset-on-read at the channel but split per
+        ``subscriber`` (:class:`WatermarkSplit`): every subscription sees
+        the true peak since its own last push."""
+        m = self.manifest
+        reg = REGISTRY
+        rx, tx = self._live_rx, self._live_tx
+        merge = self._merge if self._merge is not None else self._join
+        payload = {
+            "node": {"stage": None if m is None else m["index"],
+                     "name": None if m is None else m["name"],
+                     "replica": self.replica, "branch": self.branch,
+                     "join": self.join_in, "fan_in": self.fan_in,
+                     "port": self.address[1], "codec": self.codec,
+                     "tier": self.tier_out or self.tier,
+                     "tier_in": self.tier_in,
+                     "tier_fallbacks": self.tier_fallbacks,
+                     "device": str(self.device)},
+            "processed": self.processed,
+            "reweights": self.reweights,
+            "counters": {
+                "tx_frames": reg.counter("transport.tx_frames").value,
+                "tx_bytes": reg.counter("transport.tx_bytes").value,
+                "rx_frames": reg.counter("transport.rx_frames").value,
+                "rx_bytes": reg.counter("transport.rx_bytes").value,
+            },
+            "queues": {
+                "rx_depth": self.rx_depth, "tx_depth": self.tx_depth,
+                "rx": rx.qsize() if rx is not None else 0,
+                "tx": tx.qsize() if tx is not None else 0,
+                "rx_hi": self._wm().take(subscriber, "rx", rx),
+                "tx_hi": self._wm().take(subscriber, "tx", tx),
+                "inflight": reg.gauge("node.inflight").value,
+                "merge": merge.qsize() if merge is not None else 0,
+                # retained-frame memory of a failover fan-out
+                "replay": (tx.replay_depth()
+                           if isinstance(tx, ReplayFanOut) else 0),
+            },
+            "latency": {
+                "infer_s": self.infer_hist.summary(),
+                "host_sync_s": self.host_sync_hist.summary(),
+                "dispatch_s": self.disp_hist.summary(),
+                "queue_s": self.queue_hist.summary(),
+                "device_s": self.dev_hist.summary(),
+                "rx_s": reg.histogram("node.rx_s").summary(),
+                "tx_s": reg.histogram("node.tx_s").summary(),
+                "encode_s": (tx.enc.summary() if tx is not None
+                             else reg.histogram("codec.encode_s").summary()),
+                "decode_s": (rx.dec.summary() if rx is not None
+                             else reg.histogram("codec.decode_s").summary()),
+            },
+            "capacity": self._capacity(),
+            "kernel_launches": _kernel_launches(),
+        }
+        # observe() updates the device.mem_bytes gauge and runs the
+        # mem_pressure check: push cadence, never the frame hot path
+        payload["recompiles"] = reg.counter("compiles").value
+        payload["mem_bytes"] = memory_watcher().observe(self.device)
+        tr = tracer()
+        trace_doc: dict = {"dropped": tr.dropped}
+        if include_spans and tr.enabled:
+            cursor, spans = tr.spans_since(cursor, limit=span_limit)
+            trace_doc["spans"] = spans
+        payload["trace"] = trace_doc
+        rec = recorder()
+        event_cursor, evs = rec.events_since(event_cursor,
+                                             limit=event_limit)
+        payload["events"] = {"dropped": rec.dropped, "events": evs}
+        return payload, cursor, event_cursor
 
     def _quiesce(self, at_seq: int | None, timeout_s: float) -> int:
         """Block until this node's data plane is drained and stable:
@@ -1938,6 +2173,20 @@ class ChainDispatcher:
         finally:
             s.close()
 
+    @staticmethod
+    def _stage_capacity(stage, batch: int) -> dict:
+        """The deploy message's capacity fields: the stage's analytic FLOPs
+        and HBM bytes at the deploy ``batch``
+        (:func:`~defer_tpu_torch.obs.capacity.stage_flops_bytes`), so the
+        node reports live MFU against its own card's peak without the
+        graph.  Empty for a stage that carries no graph slice."""
+        graph = getattr(stage, "graph", None)
+        names = getattr(stage, "node_names", None)
+        if graph is None or not names:
+            return {}
+        flops, moved = stage_flops_bytes(graph, names, batch=batch)
+        return {"flops": flops, "bytes_moved": moved}
+
     def deploy(self, stages, params, node_addrs: Sequence, *,
                batch: int = 1, result_hop: str | None = None,
                codecs: Sequence[str] | None = None,
@@ -1982,7 +2231,8 @@ class ChainDispatcher:
             msg = {"cmd": "deploy",
                    "next": ",".join(groups[i + 1]) if i + 1 < len(groups)
                    else result_hop,
-                   "codec": codecs[i] if codecs else self.codec}
+                   "codec": codecs[i] if codecs else self.codec,
+                   **self._stage_capacity(stage, batch)}
             if tiers:
                 msg["tier"] = _check_tier(tiers[i], "deploy")
             if devices and devices[i] is not None:
@@ -2028,7 +2278,8 @@ class ChainDispatcher:
             msg = {"cmd": "deploy",
                    "next": (",".join(addrs[n] for n in v.next) if v.next
                             else result_hop),
-                   "codec": v.codec or self.codec}
+                   "codec": v.codec or self.codec,
+                   **self._stage_capacity(stage, batch)}
             if v.fan == "broadcast":
                 msg["fan"] = "broadcast"
             if v.join >= 2:
@@ -2271,6 +2522,36 @@ class ChainDispatcher:
                 f"still in flight (a stage replica died and cascaded "
                 f"END?)")
         return y
+
+    def align_clocks(self, node_addrs: Sequence[str], *,
+                     rounds: int = 8) -> dict:
+        """Clock-align every node's tracer to this process's timeline: per
+        node, a min-RTT ping-pong offset estimate over a control
+        connection, then a ``clock_adjust`` shifting the node's anchor
+        (obs/cluster.py).  Returns ``{addr: {"offset_us", "rtt_us",
+        "rounds"}}``, each offset measured before its correction."""
+        out = {}
+        for addr in node_addrs:
+            s = connect_retry(*_parse_hostport(addr),
+                              timeout_s=self.timeout_s)
+            try:
+                out[addr] = align_clock(s, rounds=rounds)
+                send_end(s)
+            finally:
+                s.close()
+        return out
+
+    def watch(self, node_addrs: Sequence[str], *,
+              interval_ms: float = 250.0, spans: bool = False,
+              align_clocks: bool = False) -> ClusterView:
+        """Subscribe to every node's live ``obs_push`` stream: returns a
+        :class:`~defer_tpu_torch.obs.cluster.ClusterView` aggregating the
+        pushes on background reader threads until ``view.close()``.  Works
+        mid-stream (each node serves a connection per thread)."""
+        view = ClusterView()
+        view.connect(node_addrs, interval_ms=interval_ms, spans=spans,
+                     align_clocks=align_clocks, timeout_s=self.timeout_s)
+        return view
 
     def collect_trace(self, node_addrs: Sequence[str]) -> int:
         """Fetch and merge every node's recorded spans into this process's
@@ -2707,7 +2988,8 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
               spawn_retries: int = 3,
               on_spawn=None,
               trace_sample_every: int = 0,
-              plan=None,
+              plan=None, graph=None,
+              report_interval_ms: float = 250.0,
               failover: bool = False,
               journal_dir: str | None = None,
               device: str = "cuda") -> list:
@@ -2787,8 +3069,19 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
     artifact path on its argv), at least one replicated stage, and every
     replicated stage interior (a fan-out above it, a fan-in below it).
 
-    Not ported yet, and raising ``NotImplementedError``: ``plan`` and
-    ``journal_dir`` (A12).
+    Live observability: with tracing on, every node's clock is aligned to
+    this process's before the stream.  ``plan`` (the deployment's solved
+    ``plan.solver.Plan``) together with ``stats_out`` watches every node's
+    push stream (``report_interval_ms`` apart) with an
+    ``obs.cluster.ClusterView`` while the stream runs, and appends one
+    ``{"obs": {"rows", "bottleneck", "stragglers"}}`` entry to
+    ``stats_out`` after the nodes' rows; with ``graph`` too the entry adds
+    a ``replan`` suggestion fed with the live measurements.
+    ``journal_dir`` arms the black box: every node process and this
+    dispatcher journal their events, rows and spans under the directory
+    (``obs/journal.py``), a failover respawn assembles a postmortem bundle
+    naming the first fault, and a failed run assembles one before the
+    error propagates (``obs.postmortem.maybe_autopsy``).
     """
     with deploy_chain(
             stages, params, batch=batch, codec=codec,
@@ -2798,7 +3091,9 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
             hop_tiers=hop_tiers, tier=tier, devices=devices,
             device_map=device_map, stage_delays=stage_delays,
             spawn_retries=spawn_retries, on_spawn=on_spawn,
-            trace_sample_every=trace_sample_every, plan=plan,
+            trace_sample_every=trace_sample_every,
+            plan=plan if stats_out is not None else None, graph=graph,
+            report_interval_ms=report_interval_ms,
             failover=failover, journal_dir=journal_dir,
             device=device) as chain:
         disp = chain.dispatcher
@@ -2807,6 +3102,8 @@ def run_chain(stages: Sequence, params: dict[str, Any], inputs,
             # queried while the nodes still serve (they exit once the
             # dispatcher's close cascades END)
             stats_out.extend(disp.stats(chain.addrs))
+            if chain.view is not None:
+                stats_out.append({"obs": chain.obs()})
         if tracer().enabled:
             try:
                 disp.collect_trace(chain.addrs)
@@ -2834,6 +3131,9 @@ class ChainSession(NamedTuple):
     #                   the seconds to its bind and to the line (it binds
     #                   first, then makes its CUDA context and loads its
     #                   artifact, then prints the line)
+    view: Any = None  # the live ClusterView over every node (plan= only)
+    plan: Any = None
+    graph: Any = None
 
     def pid(self, stage: int, replica: int = 0) -> int:
         """The pid of the process that runs replica ``replica`` of
@@ -2843,9 +3143,26 @@ class ChainSession(NamedTuple):
                 return self.procs[u].pid
         raise KeyError(f"no node for stage {stage} replica {replica}")
 
+    def obs(self) -> dict:
+        """The live view against the plan, now: every node's row, the
+        bottleneck stage, the straggler flags and, with a graph, the
+        replanner's suggestion (the JAX package's ``obs`` entry)."""
+        from ..obs.cluster import StragglerDetector, expected_stage_ms
+        det = StragglerDetector(expected_stage_ms(self.plan))
+        out = {"rows": self.view.rows(),
+               "bottleneck": self.view.bottleneck(),
+               "stragglers": [f.to_json() for f in det.observe(self.view)]}
+        if self.graph is not None:
+            try:
+                out["replan"] = det.suggest(self.view, self.graph,
+                                            self.plan).to_json()
+            except Exception as e:  # noqa: BLE001 — advisory only
+                out["replan_error"] = repr(e)
+        return out
+
 
 def _supervise(nodes: NodeProcs, units, r_of, stop: threading.Event,
-               respawns: list) -> None:
+               respawns: list, journal_dir: str | None = None) -> None:
     """The failover supervisor: poll the node processes, and respawn a
     replica process that died, from its original argv on the same port
     (the upstream fan-out's redial bridges the gap and replays its unacked
@@ -2856,7 +3173,9 @@ def _supervise(nodes: NodeProcs, units, r_of, stop: threading.Event,
     teardown to report.  Each respawn emits ``replica_respawn`` and is
     recorded in ``respawns``; once the new process's listening line shows
     (printed after its boot), the record gets the seconds to the bind the
-    line carries and to the line itself."""
+    line carries and to the line itself.  With ``journal_dir`` each respawn
+    also assembles a postmortem bundle there (rate-limited; the delay lets
+    the respawn's own event reach the journals first)."""
     watching: list[tuple[dict, str, int]] = []
     while not stop.wait(0.2):
         for rec, path, before in list(watching):
@@ -2896,6 +3215,10 @@ def _supervise(nodes: NodeProcs, units, r_of, stop: threading.Event,
                        rc=rc)
             print(f"deploy_chain: respawned stage{k}.r{j} (rc={rc})",
                   file=sys.stderr, flush=True)
+            if journal_dir is not None:
+                maybe_autopsy(f"failover: respawned stage{k}.r{j} rc={rc}",
+                              journal_dir=journal_dir,
+                              delay_s=_AUTOPSY_DELAY_S)
 
 
 @contextlib.contextmanager
@@ -2916,7 +3239,8 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                  spawn_retries: int = 3,
                  on_spawn=None,
                  trace_sample_every: int = 0,
-                 plan=None,
+                 plan=None, graph=None,
+                 report_interval_ms: float = 250.0,
                  failover: bool = False,
                  journal_dir: str | None = None,
                  device: str = "cuda",
@@ -2936,12 +3260,12 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
     ``failover`` the supervisor (:func:`_supervise`) runs for the whole
     session and stops before the teardown, so the END cascade's exits
     never read as deaths; ``ChainSession.pid`` names a replica's process
-    for a caller that kills one.
+    for a caller that kills one.  With ``plan`` the session's ``view``
+    watches every node from the deploy on and ``ChainSession.obs()`` reads
+    it against the plan; ``journal_dir`` journals every process and
+    assembles a postmortem bundle on a respawn or a failure (see
+    :func:`run_chain`).
     """
-    if plan is not None:
-        raise _not_ported("A12", "the live plan observation (plan=)")
-    if journal_dir is not None:
-        raise _not_ported("A12", "the flight-recorder journal (journal_dir=)")
     dev = resolve_device(device)
     sweep_orphan_segments()
     n = len(stages)
@@ -3066,6 +3390,12 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
     if artifact_dir is None:
         tmp = tempfile.TemporaryDirectory(prefix="defer_chain_")
         artifact_dir = tmp.name
+    started_journal = False
+    if journal_dir is not None and active_journal() is None:
+        # the dispatcher is a member of the fleet too: its events (the
+        # respawns, the stream's lifecycle) are a bundle's spine
+        start_journal(journal_dir, "dispatcher")
+        started_journal = True
     try:
         paths = None
         if not in_band:
@@ -3096,6 +3426,8 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                     argv += ["--replica", str(j)]
                 if delay_of[k]:
                     argv += ["--infer-delay-ms", str(delay_of[k] * 1e3)]
+            if journal_dir is not None:
+                argv += ["--journal-dir", journal_dir]
             return argv + tuning
 
         def co_stage_for(i: int, addrs, result) -> str:
@@ -3160,7 +3492,7 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                                             f"({e})") from e
                         raise
                     stop = threading.Event()
-                    supervisor = None
+                    supervisor = view = None
                     failed = True
                     try:
                         t0 = time.perf_counter()
@@ -3175,17 +3507,30 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                                         devices=[device_map.get(k)
                                                  for k in range(n)])
                         deploy_s = time.perf_counter() - t0
+                        if tracer().enabled:
+                            # one timeline across the processes: align
+                            # every node before any stream span records
+                            try:
+                                disp.align_clocks(nodes.addrs)
+                            except (OSError, ConnectionError) as e:
+                                print(f"run_chain: clock alignment "
+                                      f"failed: {e!r}", file=sys.stderr)
+                        if plan is not None:
+                            view = disp.watch(
+                                nodes.addrs, interval_ms=report_interval_ms)
                         respawns: list = []
                         if failover:
                             supervisor = threading.Thread(
                                 target=_supervise,
-                                args=(nodes, units, r_of, stop, respawns),
+                                args=(nodes, units, r_of, stop, respawns,
+                                      journal_dir),
                                 daemon=True, name="chain-supervisor")
                             supervisor.start()
                         yielded = True
                         yield ChainSession(disp, nodes.addrs, nodes.procs,
                                            boot_s, deploy_s, stage_addrs,
-                                           units, respawns)
+                                           units, respawns, view, plan,
+                                           graph)
                         failed = False
                     finally:
                         # stop before the teardown: the END cascade exits
@@ -3193,6 +3538,8 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                         stop.set()
                         if supervisor is not None:
                             supervisor.join(timeout=5.0)
+                        if view is not None:
+                            view.close()
                         if failed:
                             # kill the nodes first, so the dispatcher's
                             # drain hits dead sockets instead of waiting
@@ -3212,7 +3559,20 @@ def deploy_chain(stages: Sequence, params: dict[str, Any], *,
                       flush=True)
         raise RuntimeError(f"chain spawn lost the port race "
                            f"{spawn_retries} times: {last_exc}") from last_exc
+    except Exception as e:
+        if journal_dir is not None:
+            # the failure is the postmortem's trigger: spill this
+            # process's journal, then assemble the bundle before the error
+            # propagates (the nodes' journals are on disk, dead or alive)
+            if started_journal:
+                stop_journal()
+                started_journal = False
+            maybe_autopsy(f"run_chain: {type(e).__name__}: {e}",
+                          journal_dir=journal_dir, sync=True, delay_s=0.0)
+        raise
     finally:
+        if started_journal:
+            stop_journal()
         if tmp is not None:
             tmp.cleanup()
 

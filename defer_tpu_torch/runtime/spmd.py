@@ -244,7 +244,8 @@ class SpmdPipeline:
                          dtype=self.buffer_dtype, device=self.device)
         outs = self._slab(c)
         g = capture(lambda: self._chunk(self._a, xs, outs), self.device,
-                    warmup=lambda: self._chunk(self._a.clone(), xs, outs))
+                    warmup=lambda: self._chunk(self._a.clone(), xs, outs),
+                    label=f"spmd.chunk{c}")
         self.metrics.graph_pool_bytes += g.pool_bytes
         self.metrics.captures += 1
         return _ChunkGraph(g, xs, outs)

@@ -214,7 +214,8 @@ class ContinuousBatchEngine:
             for sample in (False, True):
                 t0 = time.perf_counter()
                 g = self._graphs[sample] = capture(
-                    lambda s=sample: self._step_body(s), dev)
+                    lambda s=sample: self._step_body(s), dev,
+                    label="engine.step")
                 self.capture_s += time.perf_counter() - t0
                 self.captures += 1
                 self.graph_pool_bytes += g.pool_bytes

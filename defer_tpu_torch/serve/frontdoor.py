@@ -51,6 +51,7 @@ from ..obs import REGISTRY, tracer
 from ..obs.attrib import DoorAttribution
 from ..obs.events import emit as emit_event
 from ..obs.events import recorder
+from ..obs.postmortem import maybe_autopsy
 from ..transport.channel import _sampled
 from ..transport.framed import (K_CTRL, K_END, K_TENSOR, configure_socket,
                                 recv_frame, send_ctrl, send_end, send_frame)
@@ -790,6 +791,9 @@ class ServeFrontDoor:
             if self._shed_unit(u, retry_s):
                 shed += 1
         emit_event("backend_lost", error=type(err).__name__, shed=shed)
+        # the serving plane's first-class failure: assemble a postmortem
+        # bundle (nothing unless this process journals)
+        maybe_autopsy(f"backend_lost: {type(err).__name__}")
 
     def _shed_unit(self, unit: _Unit, retry_s: float) -> bool:
         """Settle one in-flight unit as shed (backend lost): release its

@@ -34,6 +34,7 @@ import io
 import json
 import os
 import threading
+import time
 import zipfile
 from typing import Any
 
@@ -44,6 +45,7 @@ import torch
 # its siblings rather than in its turn of the serial in-band deploy
 import torch._export.serde.serialize  # noqa: F401
 
+from ..obs.profile import record_compile
 from ..partition.stage import StageSpec
 from ..runtime import flatbuf
 from .config import resolve_device
@@ -144,9 +146,12 @@ def _program_bytes(stage, paths, leaves, xs) -> bytes:
         hit = _PROGRAMS.get(key)
         if hit is not None and hit[0] is stage.graph:
             return hit[1]
+        t0 = time.perf_counter()
         with torch.no_grad():
             program = torch.export.export(_StageFn(stage, paths),
                                           (leaves, *xs))
+        record_compile(time.perf_counter() - t0, via="export.trace",
+                       label=stage.output_name)
         # the trace's example inputs are the weights themselves: the
         # artifact ships them once, in weights.npz
         program.example_inputs = None
@@ -332,8 +337,11 @@ def load_stage_program(src, *, device=None) -> StageProgram:
         if fmt != FORMAT:
             raise ValueError(f"{src!r:.80}: not a defer_tpu_torch stage "
                              f"artifact")
+        t0 = time.perf_counter()
         with _LOAD_LOCK:
             program = torch.export.load(io.BytesIO(z.read(_PROGRAM)))
+        record_compile(time.perf_counter() - t0, via="export.load",
+                       label=manifest.get("name"))
         leaves = _load_weights_blob(z.read(_WEIGHTS),
                                     manifest["num_weights"])
     prog = StageProgram(program, leaves, manifest)

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import time
 import weakref
 
 from ..obs import REGISTRY, LatencyHistogram
@@ -148,3 +149,28 @@ class PipelineMetrics:
             d["stage_latency_percentiles_ms"] = [
                 h.summary(scale=1e3, ndigits=4) for h in self.stage_hists]
         return d
+
+
+class StopwatchWindow:
+    """Timed-window throughput counter reproducing the reference harness
+    semantics (results drained in a window / window seconds,
+    test/test.py:25-37)."""
+
+    def __init__(self, window_s: float):
+        self.window_s = window_s
+        self.count = 0
+        self._t0 = time.perf_counter()
+
+    def tick(self, n: int = 1) -> bool:
+        """Record n results; returns False once the window has elapsed."""
+        self.count += n
+        return (time.perf_counter() - self._t0) < self.window_s
+
+    @property
+    def elapsed(self) -> float:
+        return time.perf_counter() - self._t0
+
+    @property
+    def rate(self) -> float:
+        e = self.elapsed
+        return self.count / e if e > 0 else 0.0

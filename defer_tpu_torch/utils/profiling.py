@@ -2,7 +2,8 @@
 
 The port of ``timed_window`` and ``measured_node_costs`` of
 ``defer_tpu.utils.profiling``.  Pipeline windows, traces and
-``profile_pipeline`` come with ROADMAP items A7 and A12.
+``profile_pipeline`` come with ROADMAP item A7 (a node's profiling
+window and its ``torch.profiler`` trace are ``obs/profile.py``'s).
 """
 
 from __future__ import annotations
@@ -99,7 +100,7 @@ def measured_node_costs(graph, params, *, batch: int = 1,
         run = _node_loop(node.op, p, xs, ts, k)
         if dev.type == "cuda":
             with torch.cuda.device(dev):
-                graph_ = capture(run, dev)
+                graph_ = capture(run, dev, label="node_costs")
             step = graph_.replay
         else:
             step = run

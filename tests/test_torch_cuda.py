@@ -30,6 +30,11 @@ shared batch, byte-identical on the card; the decode door serves
 concurrent clients from the engine's thread.  The planner's tests check
 the card's row (``utils/hw.py``) and count the flash launches of
 ``measured_node_costs``, whose ``k`` calls per node are one graph replay.
+The profiling plane's tests count a CUDA-graph capture as one run-time
+compilation, read a node's ``mem_bytes`` as the allocator's
+``torch.cuda.memory_allocated``, check its MFU against the card's row,
+and find the flash kernel, launched on another thread, in a profiling
+window's ``torch.profiler`` trace.
 """
 
 import math
@@ -1062,3 +1067,100 @@ def test_measured_node_costs_counts_flash_launches(cuda, dtype):
     assert FLASH.launches - before == blocks * k * (reps + 1)
     assert set(costs) == set(g.topo_order)
     assert all(math.isfinite(v) and v > 0 for v in costs.values())
+
+
+# ---------------------------------------------------------------------------
+# the profiling plane on the card (obs/profile.py)
+# ---------------------------------------------------------------------------
+
+def test_cuda_graph_capture_counts_one_recompile(cuda):
+    """A CUDA-graph capture is one run-time compilation: the counter moves
+    by one per capture, not per replay, and an armed watcher emits one
+    ``recompile`` event naming the capture."""
+    from defer_tpu_torch.obs import recorder, recompile_watcher
+    from defer_tpu_torch.runtime.cuda_graph import capture
+
+    with torch.inference_mode():
+        x = torch.ones(64, device=cuda)
+    w = recompile_watcher()
+    c0 = w.count
+    cursor = recorder().cursor()
+    w.arm()
+    try:
+        g = capture(lambda: x.mul_(1.0), cuda, label="unit")
+        for _ in range(3):
+            g.replay()
+        torch.cuda.synchronize()
+    finally:
+        w.disarm()
+    assert w.count - c0 == 1
+    _, evs = recorder().events_since(cursor)
+    evs = [e["data"] for e in evs if e["kind"] == "recompile"]
+    assert evs and evs[0]["via"] == "cuda_graph"
+    assert evs[0]["label"] == "unit"
+
+
+def test_mem_bytes_equals_memory_allocated(cuda):
+    """A node on the card reports the caching allocator's live bytes, and
+    the profiling plane reads the same number."""
+    from defer_tpu_torch.obs import device_memory_bytes
+    from defer_tpu_torch.runtime.node import StageNode
+
+    node = StageNode(None, "127.0.0.1:0", None, device="cuda")
+    try:
+        keep = torch.ones(1 << 20, device=cuda)
+        torch.cuda.synchronize()
+        want = torch.cuda.memory_allocated(node.device)
+        assert node._stats({})["mem_bytes"] == want
+        assert device_memory_bytes(device=cuda) == want > 0
+        payload, _, _ = node.obs_snapshot(include_spans=False)
+        assert payload["mem_bytes"] == want
+        del keep
+    finally:
+        node._srv.close()
+
+
+def test_node_mfu_on_the_card(cuda):
+    """MFU against the card's row: a number in (0, 1] on an H100, None on a
+    card without a row."""
+    from defer_tpu_torch.runtime.node import StageNode
+    from defer_tpu_torch.utils import hw
+
+    node = StageNode(None, "127.0.0.1:0", None, device="cuda")
+    try:
+        node.stage_flops = 4e9
+        node.infer_hist.record(0.002)
+        mfu = node._stats({})["mfu"]
+        if hw.identify_chip(cuda) == "h100":
+            assert mfu == 4e9 / (node.infer_hist.quantile(0.5) * 989e12)
+            assert 0 < mfu <= 1
+        else:
+            assert mfu is None
+    finally:
+        node._srv.close()
+
+
+def test_profile_window_trace_holds_the_flash_kernel(cuda, tmp_path):
+    """A profiling window with ``trace_dir`` records the card's kernels
+    launched on another thread (a node's compute loop) into its Chrome
+    trace, and counts the window's flash launches."""
+    import json
+    import threading
+
+    from defer_tpu_torch.obs import ProfileSession
+    from defer_tpu_torch.runtime.node import _kernel_launches
+
+    q = torch.randn(2, 4, 128, 64, device=cuda)
+    sess = ProfileSession({}, launches=_kernel_launches,
+                          trace_dir=str(tmp_path))
+    sess.start()
+    th = threading.Thread(target=lambda: [flash_attention(q, q, q)
+                                          for _ in range(3)])
+    th.start()
+    th.join(timeout=60)
+    torch.cuda.synchronize()
+    rep = sess.stop()
+    assert rep["kernel_launches"]["flash_attention"] == 3
+    events = json.load(open(rep["trace_file"]))["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    assert any("flash_attn_kernel" in n for n in names), names[:20]

@@ -1,7 +1,7 @@
 """Port parity: branched (DAG) chains — ``runtime/node.py``'s fork, branch
 and join roles, ``ChainDispatcher.deploy_topology``, ``run_dag_chain``
 and ``chain --dag`` — mirroring ``tests/test_dag_chain.py`` scenario for
-scenario (its monitor and cluster cases wait for ROADMAP A12).
+scenario (its monitor and cluster cases are in ``test_torch_obs_live.py``).
 
 Contracts, with their tolerances:
 

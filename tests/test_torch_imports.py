@@ -80,6 +80,7 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.plan.dag; "
             "import defer_tpu_torch.plan.calibrate; "
             "import defer_tpu_torch.plan.replan; "
+            + "".join(f"import {m}; " for m in OBS_MODULES) +
             "import defer_tpu_torch.codec.native as n; "
             "import defer_tpu_torch.transport.staging as st; "
             "assert n.load() is not None and st._load() is not None; "
@@ -128,7 +129,7 @@ def test_import_loads_no_jax_module():
                 "defer_tpu_torch.transport.ici",
                 "defer_tpu_torch.runtime.node",
                 "defer_tpu_torch.cli",
-                *PLANNER_MODULES):
+                *PLANNER_MODULES, *OBS_MODULES):
         assert new in mods
     bad = [m for m in mods if _is_forbidden(m)]
     assert bad == []
@@ -145,6 +146,101 @@ PLANNER_MODULES = ("defer_tpu_torch.utils.hw",
                    "defer_tpu_torch.plan.dag",
                    "defer_tpu_torch.plan.calibrate",
                    "defer_tpu_torch.plan.replan")
+
+
+#: the observability plane (the JAX package's ``obs/`` imports no JAX
+#: outside ``obs/profile.py``'s hooks; the port keeps its own copy)
+OBS_MODULES = ("defer_tpu_torch.obs",
+               "defer_tpu_torch.obs.cluster",
+               "defer_tpu_torch.obs.capacity",
+               "defer_tpu_torch.obs.report",
+               "defer_tpu_torch.obs.journal",
+               "defer_tpu_torch.obs.postmortem",
+               "defer_tpu_torch.obs.profile")
+
+
+def test_obs_imports_with_jax_blocked(tmp_path):
+    """The observability modules import, journal, and collect a
+    postmortem with ``jax``, ``jaxlib`` and ``defer_tpu`` made
+    unimportable."""
+    code = (
+        "import importlib, json, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'defer_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"for m in {OBS_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from defer_tpu_torch import obs\n"
+        f"obs.start_journal({str(tmp_path)!r}, 'unit', interval_s=0.05)\n"
+        "obs.emit_event('admit', rid=1)\n"
+        "obs.stop_journal()\n"
+        f"b = obs.collect_postmortem({str(tmp_path)!r})\n"
+        "assert [p['proc'] for p in b['procs']] == ['unit']\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(OBS_MODULES) <= set(loaded)
+    assert [m for m in loaded if _is_forbidden(m)] == []
+
+
+def test_no_not_ported_raise_remains():
+    """Every ROADMAP item the port has taken up answers: no module raises
+    a "not ported" error for the observability plane, and ``deploy_chain``
+    and ``run_chain`` take ``plan=`` and ``journal_dir=``."""
+    import inspect
+
+    from defer_tpu_torch.runtime import node
+    for f in sorted((ROOT / "defer_tpu_torch").rglob("*.py")):
+        text = f.read_text()
+        assert '_not_ported("A12"' not in text, f
+        assert "not ported yet (ROADMAP item A12" not in text, f
+    for fn in (node.deploy_chain, node.run_chain):
+        params = inspect.signature(fn).parameters
+        assert {"plan", "graph", "report_interval_ms",
+                "journal_dir"} <= set(params)
+
+
+@pytest.mark.parametrize("cmd,reply", [
+    ("clock_probe", "clock_probe_reply"), ("clock_adjust", None),
+    ("obs_subscribe", "obs_push"), ("profile_start", "profile_started"),
+    ("profile_stop", "profile_err")])
+def test_control_commands_answer(cmd, reply):
+    """The five commands a JAX node answers get the JAX node's answer
+    from a port node instead of a raise (``profile_stop`` with no window
+    open: the loud refusal)."""
+    import socket
+
+    from defer_tpu_torch.obs import tracer
+    from defer_tpu_torch.runtime.node import StageNode
+    from defer_tpu_torch.transport.framed import K_ACK, K_CTRL, recv_frame
+
+    node = StageNode(None, "127.0.0.1:0", None, device="cpu")
+    a, b = socket.socketpair()
+    tr = tracer()
+    wall0 = tr._wall0_us
+    try:
+        assert node._handle_ctrl(a, {"cmd": cmd, "interval_ms": 20,
+                                     "offset_us": 0}) is True
+        kind, msg = recv_frame(b)
+        if reply is None:
+            assert kind == K_ACK
+        else:
+            assert kind == K_CTRL and msg["cmd"] == reply
+    finally:
+        if node._profile is not None:
+            node._profile.stop()
+        a.close()
+        b.close()
+        node._srv.close()
+        for r in node._reporters:
+            r.join(timeout=10)
+        tr.shift_wall_anchor(wall0 - tr._wall0_us)
 
 
 def test_planner_imports_with_jax_blocked():
