@@ -202,19 +202,42 @@ Phases, in order; any failure exits non-zero before the result line:
                    ``SIGKILL`` (``bundle.json`` and ``trace.json``, the
                    verdict naming ``stage1.r1``, a journal for every node
                    process and the dispatcher) and ``postmortem.collect``
-                   of the same directory giving the same verdict;
+                   of the same directory giving the same verdict; the
+                   port's ``profile --torch-trace-dir`` command on one of
+                   k's ResNet50 node processes while the dispatcher
+                   streams (the trace that process wrote holds its
+                   convolution kernels);
+                q. the command line (``defer_tpu_torch.cli.main`` in this
+                   process, each command's model and seeded weights the
+                   ones its phase built), its seconds carved out of the
+                   phases it rides: after a, ``bench`` of ResNet50 at the
+                   paper's cuts on the int8 wire (a bf16 ring), images/s
+                   beside a's int8 rates, one quantizer launch per pushed
+                   step and no flash launch; after g, ``generate
+                   --prefill`` of GPT-2 small in 12 stages (g's prefill
+                   flash count for each of its two calls, its first row
+                   equal to g's decoder up to the first near tie,
+                   tokens/s); inside k, ``serve --nodes`` over k's eight
+                   ResNet50 processes and ``serve-client`` against it at
+                   half k's chain rate (every request completed, none
+                   shed, ``final_stats`` counting each, no kernel launch
+                   here or in the nodes); after k, ``export`` of
+                   BERT-Base in 12 stages on k's traces, a block stage
+                   loaded with ``load_stage`` on the card (one flash
+                   launch a frame, within 1e-5 of the ``StageModule``);
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
-              ``replication_path``, ``dag_path``, ``obs_path``, the
-              ``budget:`` line,
+              ``replication_path``, ``dag_path``, ``obs_path``,
+              ``cli_path``, the ``budget:`` line,
               ``phase_seconds`` and
               ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``; each phase's seconds are
               also printed as it ends.
 
 The phases run under a budget: ``phase_seconds`` should total at most
-BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s) and phase 4p
-at most OBS_BUDGET_S (40 s), paid for by
+BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s), phase 4p
+at most OBS_BUDGET_S (40 s) and phase 4q at most CLI_BUDGET_S (30 s),
+paid for by
 running earlier paths smaller (PERF.md §4).  A watchdog armed at start
 fails the run at WATCHDOG_S (720 s): it names the phase still running,
 dumps every thread's stack, kills the node processes the smoke started
@@ -322,10 +345,13 @@ DAG_BUDGET_S = 100.0
 WATCHDOG_S = 720.0
 #: phase 4p's share of BUDGET_S (its checks ride 4k's and 4n's chains)
 OBS_BUDGET_S = 40.0
-#: the phases in order (``phase_seconds`` keys); 4p's seconds are carved
-#: out of 4k's and 4n's, where its checks run
+#: phase 4q's share of BUDGET_S (its commands ride 4a's, 4g's and 4k's
+#: models and chains)
+CLI_BUDGET_S = 30.0
+#: the phases in order (``phase_seconds`` keys); 4p's and 4q's seconds
+#: are carved out of the phases where their checks run
 PHASES = ("1", "2", "3", "4a", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
-          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p")
+          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p", "4q")
 
 
 def kill_children() -> list:
@@ -1708,7 +1734,7 @@ def gpt_path(torch, device, kernels, card):
     dec, res = gpt_decode(torch, device, kernels, card, gp)
     res["score"] = gpt_score(torch, device, kernels, card, gp)
     res["speculative"] = gpt_speculative(torch, device, kernels, card, gp)
-    return dec, res
+    return dec, res, gp
 
 
 # ---------------------------------------------------------------------------
@@ -2822,21 +2848,30 @@ FLASH_TRACE_NAME = "flash_attn_kernel"
 OBS_SECONDS: list = []
 
 
-class obs_phase:
-    """Times a stretch of phase 4p inside another phase: the watchdog
-    names 4p while it runs and the seconds land in OBS_SECONDS."""
+class carved:
+    """Times a stretch of phase ``name`` inside another phase: the watchdog
+    names ``name`` while it runs and the seconds land in ``into``, which
+    ``phase_done`` subtracts from the phase it ran in."""
+
+    def __init__(self, name: str, into: list):
+        self.name, self.into = name, into
 
     def __enter__(self):
         self.prev = WATCH.phase
-        WATCH.enter("4p")
+        WATCH.enter(self.name)
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         self.seconds = time.perf_counter() - self.t0
-        OBS_SECONDS.append(self.seconds)
+        self.into.append(self.seconds)
         WATCH.phase = self.prev
         return False
+
+
+def obs_phase() -> carved:
+    """A stretch of phase 4p (its seconds land in OBS_SECONDS)."""
+    return carved("4p", OBS_SECONDS)
 
 
 def profile_window(addrs, fn, trace_dirs=None):
@@ -2967,6 +3002,90 @@ def obs_resnet(torch, chain, frames, want, card) -> dict:
     return res
 
 
+#: the ResNet50 node process whose window ``profile --torch-trace-dir``
+#: records, the window's seconds, and the frames streamed again and again
+#: while it is open
+NODE_TRACE_STAGE = 1
+NODE_TRACE_S = 1.0
+NODE_TRACE_FRAMES = 4
+#: substrings that name a convolution kernel (cuDNN's or its implicit GEMM)
+#: in a torch.profiler trace
+CONV_TRACE_NAMES = ("conv", "cudnn", "fprop", "implicit")
+
+
+def node_trace(torch, chain, frames, want, card) -> dict:
+    """Phase 4p d, on 4k's ResNet50/8 processes: the port's ``profile
+    --torch-trace-dir`` command (in this process) brackets a window on one
+    node process while the dispatcher streams; the Chrome trace that
+    process wrote holds its convolution kernels."""
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+
+    from defer_tpu_torch import cli
+
+    k = NODE_TRACE_STAGE
+    addr, pid = chain.addrs[k], chain.pid(k)
+    frames, want = frames[:NODE_TRACE_FRAMES], want[:NODE_TRACE_FRAMES]
+    res = {"stage": k}
+    with obs_phase() as ph, \
+            tempfile.TemporaryDirectory(prefix="defer_node_trace_") as d:
+        out = os.path.join(d, "profile.json")
+        errs: list = []
+
+        def profile():
+            try:
+                cli.main(["profile", "--nodes", addr, "--seconds",
+                          str(NODE_TRACE_S), "--torch-trace-dir", d,
+                          "--out", out])
+            except BaseException as e:  # noqa: BLE001 — failed below
+                errs.append(repr(e))
+
+        th = threading.Thread(target=profile, daemon=True,
+                              name="cli-profile")
+        th.start()
+        streams = 0
+        while th.is_alive():
+            rows = np.stack(chain.dispatcher.stream(frames))
+            if not np.array_equal(rows, want):
+                fail("phase 4p: a stream under the node's trace changed "
+                     "its rows")
+            streams += 1
+        th.join()
+        if errs or not os.path.exists(out):
+            fail(f"phase 4p: profile --torch-trace-dir failed: {errs}")
+        with open(out) as f:
+            rep = json.load(f)["nodes"][addr]
+        path = rep.get("trace_file")
+        if not path or f"trace-{pid}-" not in os.path.basename(path):
+            fail(f"phase 4p: node {addr} (pid {pid}) wrote trace {path!r} "
+                 f"(see its stderr)")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        conv = [e for e in kern if any(
+            n in e.get("name", "").lower() for n in CONV_TRACE_NAMES)]
+        names = sorted({e["name"] for e in conv})
+        if not conv:
+            fail(f"phase 4p: the trace of node process {pid} holds "
+                 f"{len(kern)} kernels and no convolution: "
+                 f"{sorted({e.get('name') for e in kern})[:12]}")
+        res.update({"pid": pid, "streams": streams,
+                    "window_frames": rep["phases"]["infer"]["count"],
+                    "trace_kernels": len(kern), "trace_conv": len(conv),
+                    "trace_conv_us": sum(e.get("dur", 0) for e in conv),
+                    "conv_names": names[:6]})
+    res["seconds"] = ph.seconds
+    print(f"obs path: profile --torch-trace-dir on node process {pid} "
+          f"(stage {k}) for {NODE_TRACE_S:g} s while {streams} streams of "
+          f"{len(frames)} frames ran: its trace holds {len(kern)} kernels, "
+          f"{len(conv)} convolutions ({res['trace_conv_us']:.1f} us; "
+          f"{names[:3]}); {ph.seconds:.2f} s; on {card}", flush=True)
+    return res
+
+
 def obs_bert(torch, disp, addrs, frames, blocks, card) -> dict:
     """Phase 4p b, on 4k's in-process BERT-Base/12 chain: a profiled
     stream with stage 0's window also recorded by ``torch.profiler``: the
@@ -3066,6 +3185,338 @@ def obs_autopsy(jdir, killed_at, node_pids, victim, card) -> dict:
           f"{procs}, {len(bundle['warnings'])} warning(s), "
           f"{len(bundle['timeline'])} events; evidence "
           f"{res['evidence']}; {ph.seconds:.2f} s; on {card}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4q: the command line, on 4a's, 4g's and 4k's models and chains
+# ---------------------------------------------------------------------------
+
+#: seconds phase 4q's commands took, carved out of the phases they ride
+CLI_SECONDS: list = []
+#: ``bench``'s timed window (s)
+CLI_BENCH_S = 2.0
+#: ``generate``: prompt tokens and new tokens
+CLI_PROMPT, CLI_NEW = 32, 8
+#: ``serve``'s life after its serving line (s): the client's trace, its
+#: drain and a margin
+CLI_SERVE_S = 4.0
+#: ``serve-client``'s trace (s) and the SLO its hello carries (ms)
+CLI_CLIENT_S = 2.0
+CLI_DEADLINE_MS = 5000.0
+#: the block stage of BERT-Base's export that is loaded and run
+CLI_EXPORT_STAGE = 1
+
+
+def cli_phase() -> carved:
+    """A stretch of phase 4q (its seconds land in CLI_SECONDS)."""
+    return carved("4q", CLI_SECONDS)
+
+
+class ThreadTee:
+    """``sys.stdout`` while CLI commands run in this process: every write
+    goes on to the real stdout and is kept by thread, so the smoke reads
+    each command's JSON lines apart from a command running beside it."""
+
+    def __init__(self, real):
+        import threading
+
+        self.real, self._lock, self.parts = real, threading.Lock(), {}
+
+    def write(self, text: str) -> int:
+        import threading
+
+        with self._lock:
+            self.parts.setdefault(threading.get_ident(), []).append(text)
+        return self.real.write(text)
+
+    def flush(self) -> None:
+        self.real.flush()
+
+    def lines(self, ident: int) -> list:
+        with self._lock:
+            text = "".join(self.parts.get(ident, []))
+        return [ln for ln in text.splitlines() if ln.strip()]
+
+
+class cli_runs:
+    """The port's CLI in this process, as a user calls it
+    (``defer_tpu_torch.cli.main(argv)``), with two things held for the
+    smoke: stdout tee'd by thread (``run`` returns a command's lines), and
+    each command's model and seeded weights served from the graphs and
+    parameters this smoke already built from the same factory, size and
+    seed (``built``: name -> (graph, params)).  A stage's ``torch.export``
+    trace is kept per graph object (``utils/export.py``), so a command on
+    a graph a chain already deployed reuses its traces."""
+
+    def __init__(self, built: dict | None = None):
+        from defer_tpu_torch import cli, models
+
+        self.cli, self.built = cli, dict(built or {})
+        if SEED != 0:
+            fail("phase 4q: the CLI's weights are seed 0; SEED must be 0")
+        for name, (g, _) in self.built.items():
+            fresh = getattr(models, name)()
+            if (fresh.topo_order != g.topo_order
+                    or fresh.input_spec != g.input_spec):
+                fail(f"phase 4q: the smoke's {name} is not the CLI's "
+                     f"{name}() ({g.input_spec} vs {fresh.input_spec})")
+
+    def __enter__(self):
+        cli = self.cli
+        self.saved = cli._get_model, cli._init_params
+        get_model, init_params = self.saved
+
+        def get(name):
+            return self.built[name][0] if name in self.built \
+                else get_model(name)
+
+        def init(graph):
+            for g, p in self.built.values():
+                if g is graph:
+                    return p
+            return init_params(graph)
+
+        cli._get_model, cli._init_params = get, init
+        self.tee = ThreadTee(sys.stdout)
+        sys.stdout = self.tee
+        return self
+
+    def __exit__(self, *exc):
+        sys.stdout = self.tee.real
+        self.cli._get_model, self.cli._init_params = self.saved
+        return False
+
+    def run(self, argv) -> list:
+        """Run one command on this thread; its stdout lines."""
+        import threading
+
+        self.cli.main([str(a) for a in argv])
+        return self.tee.lines(threading.get_ident())
+
+
+def _json_rows(lines) -> list:
+    return [json.loads(ln) for ln in lines if ln.startswith("{")]
+
+
+def cli_bench(torch, kernels, mp, thr, card) -> dict:
+    """Phase 4q a: ``bench`` on ResNet50 at the paper's eight-stage cuts,
+    int8 wire (a bf16 ring on the card), beside 4a's int8 rates; the
+    quantizer launches once per step of every push (the capture push's
+    replay included), flash never."""
+    with cli_phase() as ph, cli_runs({"resnet50": (mp["graph"],
+                                                   mp["params"])}) as c:
+        zero_counts(kernels)
+        row = _json_rows(c.run([
+            "bench", "--model", "resnet50", "--cuts", ",".join(mp["cuts"]),
+            "--microbatch", MICROBATCH, "--chunk", CHUNK, "--wire", "int8",
+            "--seconds", CLI_BENCH_S]))[-1]
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+    per_step = mp["launches"]["int8"]["quant_int8"] // mp["steps"]
+    pushed = row["steps"] + CHUNK
+    want = {"quant_int8": pushed * per_step, "flash_attention": 0}
+    if (launches != want or row["num_stages"] != len(mp["cuts"]) + 1
+            or not row["value"] > 0 or row["wire"] != "int8"):
+        fail(f"phase 4q bench: launches {launches} (want {want}: "
+             f"{per_step} per step, {pushed} steps pushed), row {row}")
+    free_card(torch)
+    res = {"images_per_s": row["value"], "steps": row["steps"],
+           "chunk_calls": row["chunk_calls"], "launches": launches,
+           "push_latency_ms": row.get("push_latency_ms"),
+           "ring_int8_images_per_s": thr["pipeline_int8"],
+           "ring_bf16_int8_images_per_s": thr["pipeline_bf16_int8"],
+           "seconds": ph.seconds}
+    print(f"cli path: bench --model resnet50 ({row['num_stages']} stages, "
+          f"microbatch {MICROBATCH}, chunk {CHUNK}, int8 wire on a bf16 "
+          f"ring, f32 "
+          f"compute) {row['value']:.1f} images/s over {row['steps']} steps "
+          f"beside 4a's int8 ring {thr['pipeline_int8']:.1f} (f32) and "
+          f"{thr['pipeline_bf16_int8']:.1f} (bf16 compute and ring) "
+          f"images/s; launches {launches} ({per_step} quantizer launch "
+          f"per step, {pushed} steps with the capture push's); "
+          f"{ph.seconds:.2f} s; on {card}", flush=True)
+    return res
+
+
+def cli_generate(torch, kernels, gdec, gres, gp, card) -> dict:
+    """Phase 4q b: ``generate --prefill`` on GPT-2 small in 12 stages: the
+    flash launches of 4g's fused prefill for each of the command's two
+    calls, and its first row equal to 4g's decoder on the same seeded
+    weights and prompt up to the first near tie."""
+    import numpy as np
+
+    g = gp["graph"]
+    with cli_phase() as ph, cli_runs({"gpt2_small": (g, gp["params"])}) \
+            as c:
+        zero_counts(kernels)
+        row = _json_rows(c.run([
+            "generate", "--model", "gpt2_small", "--stages", GPT_STAGES,
+            "--microbatch", MICROBATCH, "--prompt-len", CLI_PROMPT,
+            "--new-tokens", CLI_NEW, "--prefill"]))[-1]
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        free_card(torch)
+        # the command's prompts: seed 0 (its --seed), vocabulary-wide ids
+        vocab = g.nodes["lm_head"].out_spec.shape[-1]
+        prompt = np.random.default_rng(0).integers(
+            0, vocab, (row["batch"], CLI_PROMPT)).astype(np.int32)
+        ref = gdec.generate(prompt[:MICROBATCH], CLI_NEW, prefill=True)[0]
+        got = np.asarray(row["first_row"])
+        first_tie = first_diff = len(ref)
+        if not np.array_equal(got, ref):
+            first_diff = int(np.flatnonzero(got != ref)[0])
+            _, gap, lmax = incremental_greedy(
+                torch, g, gp["pdev"], prompt[:1], len(ref), GPT_MAX_LEN,
+                dtype=torch.float32)
+            tie = np.flatnonzero(gap[0] < TIE_REL * lmax[0])
+            first_tie = int(tie[0]) if tie.size else len(ref)
+    per_call = gres["launches"]["prefill_f32"]["flash_attention"]
+    want = {"flash_attention": 2 * per_call, "quant_int8": 0}
+    if row["batch"] != GPT_PROMPTS[0] or launches != want:
+        fail(f"phase 4q generate: batch {row['batch']}, launches {launches} "
+             f"(want {want}: 4g's {per_call} per generate(prefill=True), "
+             f"two calls)")
+    if first_diff < first_tie:
+        fail(f"phase 4q generate: first_row {got.tolist()} parts from the "
+             f"decoder's {ref.tolist()} at position {first_diff}, before "
+             f"any near tie")
+    res = {"tokens_per_s": row["tokens_per_s"], "batch": row["batch"],
+           "launches": launches, "first_row_equal": first_diff == len(ref),
+           "seconds": ph.seconds}
+    print(f"cli path: generate --model gpt2_small --stages {GPT_STAGES} "
+          f"--microbatch {MICROBATCH} --prompt-len {CLI_PROMPT} "
+          f"--new-tokens {CLI_NEW} --prefill: {row['tokens_per_s']:.1f} "
+          f"tokens/s ({row['batch']} prompts, the timed call); launches "
+          f"{launches} ({per_call} per call, as 4g's prefill); first_row "
+          f"{'equal to' if first_diff == len(ref) else 'equal up to a near tie with'}"
+          f" 4g's decoder; {ph.seconds:.2f} s; on {card}", flush=True)
+    return res
+
+
+def cli_export(torch, device, kernels, bp, card) -> dict:
+    """Phase 4q c: ``export`` of BERT-Base in 12 stages at batch MICROBATCH
+    (4k's traces of the same stages are kept), then one block stage loaded
+    with ``load_stage`` on the card: one flash launch for a frame, within
+    BUFFER_REL_BOUND of max |output| of the in-process ``StageModule`` on
+    the same weights."""
+    import os
+    import tempfile
+
+    from defer_tpu_torch.partition import partition
+    from defer_tpu_torch.partition.stage import StageModule
+    from defer_tpu_torch.utils.export import load_stage
+
+    k = CLI_EXPORT_STAGE
+    with cli_phase() as ph, cli_runs({"bert_base": (bp["graph"],
+                                                    bp["params"])}) as c, \
+            tempfile.TemporaryDirectory(prefix="defer_export_") as d:
+        paths = c.run(["export", "--model", "bert_base", "--stages", 12,
+                       "--batch", MICROBATCH, "--out", d])
+        sizes = [os.path.getsize(p) for p in paths]
+        if len(paths) != 12 or not all(sizes):
+            fail(f"phase 4q export: artifacts {paths}")
+        stage = partition(bp["graph"], None, num_stages=12)[k]
+        prog, manifest = load_stage(paths[k], device=device)
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        x = torch.randn((MICROBATCH,) + tuple(stage.in_spec.shape),
+                        generator=gen, device=device)
+        zero_counts(kernels)
+        out = prog(x)
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        with torch.inference_mode():
+            ref = StageModule(stage, bp["params"], device)(x)
+        rel = _rel_err(out.cpu().numpy(), ref.cpu().numpy(),
+                       f"exported stage {k}", BUFFER_REL_BOUND, phase="4q")
+        del prog
+    want = {"flash_attention": 1, "quant_int8": 0}
+    if launches != want or manifest["batch"] != MICROBATCH:
+        fail(f"phase 4q export: stage {k} launched {launches} (want {want})"
+             f", manifest batch {manifest['batch']}")
+    res = {"artifacts": len(paths), "bytes": sum(sizes), "stage": k,
+           "rel_err": rel, "launches": launches, "seconds": ph.seconds}
+    print(f"cli path: export --model bert_base --stages 12 --batch "
+          f"{MICROBATCH}: {len(paths)} artifacts, {sum(sizes) / 1e6:.1f} MB; "
+          f"stage {k} ({stage.name}) loaded on {device}: {rel:.3g} of max "
+          f"|output| off the StageModule, launches {launches}; "
+          f"{ph.seconds:.2f} s; on {card}", flush=True)
+    return res
+
+
+def cli_serve(torch, kernels, chain, mp, rate_hz: float, card) -> dict:
+    """Phase 4q d: ``serve --nodes`` over 4k's eight ResNet50 node
+    processes (deployed again in-band by the command's own dispatcher) on
+    a thread, and ``serve-client`` against it at ``rate_hz``: every request
+    completed, none shed, ``final_stats`` counting each one, and no
+    quantizer or flash launch in this process or in the nodes."""
+    import threading
+
+    addrs = chain.addrs
+    cuts = ",".join(mp["cuts"])
+    before = _sum_launches(chain.dispatcher.stats(addrs))
+    errs: list = []
+    with cli_phase() as ph, cli_runs({"resnet50": (mp["graph"],
+                                                   mp["params"])}) as c:
+        zero_counts(kernels)
+
+        def serve():
+            try:
+                c.run(["serve", "--nodes", ",".join(addrs), "--model",
+                       "resnet50", "--cuts", cuts, "--width", MICROBATCH,
+                       "--seconds", CLI_SERVE_S])
+            except BaseException as e:  # noqa: BLE001 — failed below
+                errs.append(repr(e))
+
+        th = threading.Thread(target=serve, daemon=True, name="cli-serve")
+        th.start()
+        head, t_up = None, time.monotonic() + 120
+        while head is None and th.is_alive() and time.monotonic() < t_up:
+            rows = [r for r in _json_rows(c.tee.lines(th.ident))
+                    if "serving" in r]
+            head = rows[0] if rows else None
+            time.sleep(0.01)
+        if head is None:
+            fail(f"phase 4q serve: no serving line ({errs or 'a hang'})")
+        client = _json_rows(c.run([
+            "serve-client", "--connect", head["serving"], "--sample-shape",
+            f"{IMAGE_SIZE},{IMAGE_SIZE},3", "--deadline-ms",
+            CLI_DEADLINE_MS, "--rate", f"{rate_hz:.1f}", "--seconds",
+            CLI_CLIENT_S]))[-1]
+        th.join(timeout=CLI_SERVE_S + 120)
+        final = [r["final_stats"] for r in _json_rows(c.tee.lines(th.ident))
+                 if "final_stats" in r]
+        launches = read_counts(kernels)
+    after = _sum_launches(chain.dispatcher.stats(addrs))
+    nodes = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    if errs or th.is_alive() or not final:
+        fail(f"phase 4q serve: {errs or 'no final_stats line'}")
+    ten = final[0]["tenants"].get(client["tenant"], {})
+    zero = {"quant_int8": 0, "flash_attention": 0}
+    if (client["completed"] != client["offered"] or client["shed"] != 0
+            or not client["offered"] > 0
+            or ten.get("completed") != client["offered"]
+            or ten.get("admitted") != client["offered"]
+            or ten.get("shed", 0) != 0 or launches != zero
+            or nodes != zero):
+        fail(f"phase 4q serve: client {client}, final_stats tenant {ten}, "
+             f"launches here {launches}, in the nodes {nodes} (want every "
+             f"request completed, none shed, no kernel launch)")
+    res = {"offered": client["offered"], "completed": client["completed"],
+           "shed": client["shed"], "rate_hz": rate_hz,
+           "throughput_per_s": client["throughput_per_s"],
+           "latency_p50_ms": client["latency_p50_ms"],
+           "latency_p99_ms": client["latency_p99_ms"],
+           "frames": final[0]["frames"], "launches": launches,
+           "node_launches": nodes, "seconds": ph.seconds}
+    print(f"cli path: serve --nodes (4k's {len(addrs)} ResNet50 processes, "
+          f"width {MICROBATCH}) + serve-client at {rate_hz:.1f} Hz for "
+          f"{CLI_CLIENT_S:g} s: {client['completed']}/{client['offered']} "
+          f"completed, {client['shed']} shed, {client['throughput_per_s']}"
+          f" images/s, p50 {client['latency_p50_ms']} ms, p99 "
+          f"{client['latency_p99_ms']} ms, {final[0]['frames']} frames; "
+          f"launches here {launches}, in the nodes {nodes}; "
+          f"{ph.seconds:.2f} s; on {card}", flush=True)
     return res
 
 
@@ -3233,6 +3684,8 @@ def chain_path(torch, device, kernels, card, mp, bp):
                                 BUFFER_REL_BOUND)
             res["obs_resnet50"] = obs_resnet(torch, chain, timed, raw[cyc],
                                              card)
+            res["obs_resnet50"]["node_trace"] = node_trace(
+                torch, chain, timed, raw[cyc], card)
             door = ServeFrontDoor(backend=ChainBackend(
                 disp, MICROBATCH, g.input_spec.shape)).start()
             images = batch.reshape((-1,) + tuple(g.input_spec.shape))
@@ -3269,6 +3722,13 @@ def chain_path(torch, device, kernels, card, mp, bp):
                         f"door {t} image {i}", BUFFER_REL_BOUND))
             door.healthcheck()
             st = disp.stats(addrs)
+            # phase 4q d: the serve command over the same processes; the
+            # door's stop closes this dispatcher and ends the segment
+            door.stop()
+            door = None
+            res["cli_serve"] = cli_serve(
+                torch, kernels, chain, mp, 0.5 * CHAIN_TIMED_FRAMES
+                * MICROBATCH / statistics.median(chain_w), card)
         finally:
             t0 = time.perf_counter()
             if door is not None:
@@ -5094,15 +5554,16 @@ def main() -> int:
     kernels = [QUANT, FLASH]
     phase_s: dict = {}
     t_last = [time.perf_counter()]
-    carved = [0.0]   # phase 4p's seconds already carved out
+    taken = [0.0]   # phase 4p's and 4q's seconds already carved out
 
     def phase_done(name: str) -> None:
-        # phase 4p's checks ride other phases' chains: their seconds
-        # count as 4p's, not as the phase's they ran in
+        # phase 4p's and 4q's checks ride other phases' models and chains:
+        # their seconds count as 4p's and 4q's, not as the phase's they
+        # ran in
         now = time.perf_counter()
-        obs_s = sum(OBS_SECONDS) - carved[0]
-        carved[0] += obs_s
-        phase_s[name] = now - t_last[0] - obs_s
+        inner = sum(OBS_SECONDS) + sum(CLI_SECONDS) - taken[0]
+        taken[0] += inner
+        phase_s[name] = now - t_last[0] - inner
         t_last[0] = now
         print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
         i = PHASES.index(name)
@@ -5174,6 +5635,8 @@ def main() -> int:
     mp = main_path(torch, device, kernels)
     thr = throughput(torch, device, mp, card, "img")
     prof = profile_step(torch, mp, RESNET_GROUPS)
+    # phase 4q a: the bench command on the same model (carved out)
+    cq = {"bench": cli_bench(torch, kernels, mp, thr, card)}
 
     phase_done("4a")
 
@@ -5224,9 +5687,12 @@ def main() -> int:
     phase_done("4f")
 
     # phase 4g: GPT-2 small, the counts zeroed just before each run
-    gdec, gres = gpt_path(torch, device, kernels, card)
+    gdec, gres, gp = gpt_path(torch, device, kernels, card)
     gres["profile_decode"] = profile_decode(torch, gdec, card)
-    del gdec
+    # phase 4q b: the generate command on the same model (carved out)
+    cq["generate"] = cli_generate(torch, kernels, gdec, gres, gp, card)
+    del gdec, gp
+    free_card(torch)
 
     phase_done("4g")
 
@@ -5271,6 +5737,10 @@ def main() -> int:
     # stream of the in-process chain, the node processes' own counts read
     # from their stats
     ch, raw, brows = chain_path(torch, device, kernels, card, mp, bp)
+    # phase 4q c and d: the export command on 4k's BERT-Base traces, and
+    # the serve command that rode 4k's ResNet50 processes (carved out)
+    cq["export"] = cli_export(torch, device, kernels, bp, card)
+    cq["serve"] = ch.pop("cli_serve")
     phase_done("4k")
 
     # phase 4l: the colocated tiers; the counts zeroed just before each
@@ -5305,10 +5775,15 @@ def main() -> int:
     # phase 4p: the observability checks that rode 4k's and 4n's chains
     phase_s["4p"] = sum(OBS_SECONDS)
     print(f"phase 4p: {phase_s['4p']:.1f} s (inside 4k and 4n)", flush=True)
+    # phase 4q: the commands that rode 4a's, 4g's and 4k's paths
+    phase_s["4q"] = sum(CLI_SECONDS)
+    print(f"phase 4q: {phase_s['4q']:.1f} s (inside 4a, 4g and 4k)",
+          flush=True)
     total_s = sum(phase_s.values())
     print(f"budget: phases {total_s:.1f} s of {BUDGET_S:.0f} s, phase 4o "
           f"{phase_s['4o']:.1f} s of {DAG_BUDGET_S:.0f} s, phase 4p "
-          f"{phase_s['4p']:.1f} s of {OBS_BUDGET_S:.0f} s; watchdog "
+          f"{phase_s['4p']:.1f} s of {OBS_BUDGET_S:.0f} s, phase 4q "
+          f"{phase_s['4q']:.1f} s of {CLI_BUDGET_S:.0f} s; watchdog "
           f"{WATCHDOG_S:.0f} s; on {card}", flush=True)
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
@@ -5364,6 +5839,8 @@ def main() -> int:
     by_path["bert_base_chain_profiled_window"] = {
         "flash_attention": ob["bert_base_chain"]["window_flash_launches"],
         "quant_int8": 0}
+    for key, r in cq.items():
+        by_path[f"cli_{key}"] = r["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -5440,6 +5917,9 @@ def main() -> int:
     print(json.dumps({"obs_path": {
         "microbatch": MICROBATCH, "budget_s": OBS_BUDGET_S,
         "seconds": phase_s["4p"], **ob}}))
+    print(json.dumps({"cli_path": {
+        "microbatch": MICROBATCH, "budget_s": CLI_BUDGET_S,
+        "seconds": phase_s["4q"], **cq}}))
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": sum(phase_s.values()),
                       "budget_s": BUDGET_S, "watchdog_s": WATCHDOG_S}))

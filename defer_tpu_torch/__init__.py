@@ -47,6 +47,7 @@ from .utils.checkpoint import (load_params, load_params_pt, save_params,
                                save_params_pt)
 from .utils.convert import params_from_jax, params_to_jax
 from .utils.pretrained import PRETRAINED_LOADERS, load_pretrained
+from .utils.profiling import profile_pipeline, trace
 
 __all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
            "SpmdPipeline", "MpmdPipeline", "PipelinedDecoder", "partition",
@@ -56,4 +57,4 @@ __all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
            "native_available", "save_params", "load_params",
            "save_params_pt", "load_params_pt", "load_pretrained",
            "PRETRAINED_LOADERS", "ServeFrontDoor", "ContinuousBatchEngine",
-           "DecodeRequest", "ServeClient"]
+           "DecodeRequest", "ServeClient", "profile_pipeline", "trace"]

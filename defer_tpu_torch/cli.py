@@ -1,5 +1,15 @@
-"""Command line of the port: the stage-node process chain and the planner.
+"""Command line of the port: ``python -m defer_tpu_torch <command>``.
 
+    python -m defer_tpu_torch models
+    python -m defer_tpu_torch bench --model resnet50 --cuts C0,C1,... \\
+        --microbatch 8 --chunk 4 --wire int8 [--device cpu]
+    python -m defer_tpu_torch export --model bert_base --stages 12 \\
+        --batch 8 --out DIR
+    python -m defer_tpu_torch generate --model gpt2_small --stages 12 \\
+        --microbatch 8 --prompt-len 32 --new-tokens 8 [--prefill]
+    python -m defer_tpu_torch serve --model resnet_tiny --stages 3 \\
+        [--nodes H:P,...] [--workload decode] [--seconds S]
+    python -m defer_tpu_torch serve-client --connect H:P --rate 20
     python -m defer_tpu_torch node --listen :5000 [--device cpu]
     python -m defer_tpu_torch chain --model resnet_tiny --stages 3 \\
         [--in-band] [--codec lzb] [--device cpu] [--emit-calibration F]
@@ -13,6 +23,14 @@
         [--torch-trace-dir D] [--trace-out F]
     python -m defer_tpu_torch postmortem JOURNAL_DIR
 
+``models`` lists the model zoo.  ``bench`` times a ring pipeline
+(``SpmdPipeline``) over a window and prints the JAX package's JSON line;
+``export`` writes one ``torch.export`` stage artifact per stage;
+``generate`` decodes random prompts through ``PipelinedDecoder``.
+``serve`` is the multi-tenant front door over one deployed chain
+(thread-per-stage nodes in this process, or running ``node`` processes
+with ``--nodes``) or over a continuous-batching decode engine, and
+``serve-client`` plays a seeded Poisson trace against it.
 ``node`` boots one stage node (empty, to be deployed in-band, or from an
 ``--artifact`` file with its ``--next`` hop) and serves until its stream
 ends; each ``--co-stage`` boards one more stage node on a thread of the
@@ -33,12 +51,13 @@ against a ``plan --json`` file, a serve front door's tenants),
 breakdown, and ``postmortem`` assembles a forensics bundle from the
 black-box journals a ``--journal-dir`` chain wrote (either package's).
 
-These are seven of the JAX package's subcommands (``defer_tpu/cli.py``);
-the others come with ROADMAP items A17, A7 and A16.  Nodes, and the
-per-node timing of ``--measured``/``--balance measured``, run on the CUDA
-card unless
-``--device cpu`` is given; a float32 stage runs without TF32 (cuBLAS and
-cuDNN), so its rows match the float32 forward.
+These are the JAX package's subcommands (``defer_tpu/cli.py``) but
+``train``, which comes with ROADMAP item A16.  Every command that runs a
+model (``bench``, ``generate``, ``serve``, ``node``, ``chain``, and the
+per-node timing of ``--measured``/``--balance measured``) runs on the
+CUDA card unless ``--device cpu`` is given; a float32 stage runs without
+TF32 (cuBLAS and cuDNN), so its rows match the float32 forward.  Weights
+are the seeded initialisation of :func:`_init_params`.
 """
 
 from __future__ import annotations
@@ -56,6 +75,13 @@ def _get_model(name: str):
         raise SystemExit(
             f"unknown model {name!r}; see defer_tpu_torch.models.__all__")
     return getattr(models, name)()
+
+
+def _init_params(graph) -> dict:
+    """The weights every command runs: the port's seeded initialisation
+    (seed 0).  The one place a command's parameters come from."""
+    import torch
+    return graph.init(torch.Generator().manual_seed(0))
 
 
 def _no_tf32() -> None:
@@ -157,6 +183,7 @@ def cmd_node(args) -> None:
     from .runtime.node import StageNode
     from .transport.framed import _codec
 
+    _apply_sock_buf(args)
     _start_prom(args, "node")
     _codec(args.codec)  # loud at boot, not when the first tensor relays
     specs = [_parse_co_stage(c) for c in args.co_stage or []]
@@ -274,7 +301,7 @@ def cmd_chain(args) -> None:
     from .utils.convert import params_to_device
 
     graph = _get_model(args.model)
-    params = graph.init(torch.Generator().manual_seed(0))
+    params = _init_params(graph)
     if args.dag or args.topology:
         _cmd_chain_dag(args, graph, params)
         return
@@ -282,6 +309,11 @@ def cmd_chain(args) -> None:
     _start_prom(args, "chain")
     cuts = args.cuts.split(",") if args.cuts else None
     stages = partition(graph, cuts, num_stages=None if cuts else args.stages)
+    # size every data socket's kernel buffers to the fattest boundary
+    # frame this partition ships (overridable with --sock-buf)
+    from .graph.analysis import max_activation_bytes
+    _apply_sock_buf(args, auto_bytes=max_activation_bytes(
+        graph, [s.output_name for s in stages[:-1]], batch=args.batch))
     xs = _chain_inputs(graph, stages[0].in_spec, args.batch, args.count)
     hop_tiers = ([t.strip() for t in args.hop_tiers.split(",") if t.strip()]
                  if args.hop_tiers else None)
@@ -417,6 +449,10 @@ def _cmd_chain_dag(args, graph, params) -> None:
                         num_nodes=args.nodes or args.stages)
         dag_doc = dag.to_json()
         topo = ChainTopology.from_json(dag.topology_json())
+    from .graph.analysis import max_activation_bytes
+    _apply_sock_buf(args, auto_bytes=max_activation_bytes(
+        graph, [v.output for v in topo.vertices[:-1]
+                if v.output in graph.nodes], batch=args.batch))
     xs = _chain_inputs(graph, graph.out_spec(topo.entry.inputs[0]),
                        args.batch, args.count)
     stats: list = []
@@ -550,10 +586,8 @@ def _cost_model(args, graph, *, node_costs=None):
 def _measured_costs(args, graph) -> dict:
     """Per-node seconds of ``graph`` at ``--batch`` on ``--device`` (seeded
     random weights: the timing does not depend on their values)."""
-    import torch
-
     from .utils.profiling import measured_node_costs
-    params = graph.init(torch.Generator().manual_seed(0))
+    params = _init_params(graph)
     _no_tf32()
     return measured_node_costs(graph, params, batch=args.batch,
                                device=_device_arg(args.device))
@@ -1323,6 +1357,390 @@ def cmd_profile(args):
         print(json.dumps(doc), flush=True)
 
 
+def cmd_models(_args) -> None:
+    from . import models
+    for n in models.__all__:
+        obj = getattr(models, n)
+        if callable(obj):
+            print(n)
+        else:
+            print(f"{n}  (cut list, {len(obj)} cuts)")
+
+
+def _apply_sock_buf(args, *, auto_bytes: int | None = None) -> None:
+    """``--sock-buf N`` sizes SO_SNDBUF/SO_RCVBUF on every data socket of
+    this process — and, via the environment, of any chain children.
+
+    ``auto_bytes`` (the partition's fattest boundary frame, from
+    ``graph.analysis.max_activation_bytes``) sizes the default when no
+    explicit ``--sock-buf`` was given: kernel buffers scale with what
+    the chain actually ships instead of a flat constant."""
+    buf = getattr(args, "sock_buf", 0)
+    if not buf and auto_bytes:
+        from .transport.framed import default_sock_buf
+        buf = default_sock_buf(auto_bytes)
+        print(f"sock-buf: auto {buf} bytes "
+              f"(2x max boundary frame {auto_bytes})", file=sys.stderr)
+    if buf:
+        from .transport import framed
+        framed.SOCK_SNDBUF = framed.SOCK_RCVBUF = buf
+        os.environ["DEFER_SOCK_SNDBUF"] = str(buf)
+        os.environ["DEFER_SOCK_RCVBUF"] = str(buf)
+
+
+def cmd_bench(args) -> None:
+    """Timed-window throughput of a ring pipeline (``SpmdPipeline``): one
+    capture push, then pushes of one resident chunk for ``--seconds``,
+    each waited for; the JAX package's JSON line."""
+    import numpy as np
+    import torch
+
+    from . import SpmdPipeline, partition
+    from .obs import tracer
+    from .utils.config import resolve_device
+
+    device = resolve_device(_device_arg(args.device))
+    _obs_begin(args)
+    graph = _get_model(args.model)
+    params = _init_params(graph)
+    cuts = args.cuts.split(",") if args.cuts else None
+    if cuts is not None and args.balance != "flops":
+        raise SystemExit(f"--cuts and --balance {args.balance} conflict: "
+                         "explicit cuts leave nothing to balance")
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if cuts is None and args.stages is None:
+        # default deployment: the JAX package runs one stage per device;
+        # the port's ring runs on one card, so one stage per card
+        args.stages = cards
+    stages = partition(graph, cuts, num_stages=args.stages,
+                       objective="bottleneck"
+                       if cuts is None and args.balance == "bottleneck"
+                       else "quantile")
+    n = len(stages)
+    _no_tf32()
+    # a bf16 ring on the card (the JAX package's on the accelerator), f32
+    # on the CPU
+    pipe = SpmdPipeline(
+        stages, params, device=device, microbatch=args.microbatch,
+        chunk=args.chunk, wire=args.wire,
+        buffer_dtype=torch.bfloat16 if device.type == "cuda"
+        else torch.float32)
+    xs = pipe.stage_inputs(np.zeros(
+        (args.chunk, args.microbatch) + tuple(stages[0].in_spec.shape),
+        np.float32))
+
+    def step():
+        pipe.push(xs, n_real=args.chunk)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    step()  # capture (a CUDA graph of the chunk on the card)
+    # the capture push must not pollute the exported steady-state
+    # percentiles (it is seconds; the window pushes are milliseconds)
+    pipe.metrics.clear_counters()
+    with tracer().span("dispatcher.bench_window",
+                       {"model": args.model, "chunk": args.chunk,
+                        "microbatch": args.microbatch}):
+        t0 = time.perf_counter()
+        iters = 0
+        while time.perf_counter() - t0 < args.seconds:
+            step()
+            iters += 1
+        dt = time.perf_counter() - t0
+    ips = iters * args.chunk * args.microbatch / dt
+    if args.trace_out or args.metrics_out:
+        # per-stage spans + latency histograms for the exports (times the
+        # deployed stages; not part of the throughput window above)
+        pipe.stage_latencies(iters=3)
+    print(json.dumps({
+        "metric": f"{args.model}_{n}stage_throughput",
+        "value": round(ips, 3), "unit": "inferences/sec",
+        "wire": args.wire,
+        "devices": cards,
+        **pipe.metrics.as_dict()}))
+    _obs_finish(args, {"pipeline": pipe.metrics.as_dict()})
+
+
+def cmd_export(args) -> None:
+    """One ``torch.export`` artifact per stage of the partition
+    (``utils/export.py``), traced on the CPU; prints each path."""
+    from . import partition
+    from .utils.export import export_pipeline
+
+    graph = _get_model(args.model)
+    params = _init_params(graph)
+    cuts = args.cuts.split(",") if args.cuts else None
+    stages = partition(graph, cuts, num_stages=args.stages)
+    paths = export_pipeline(stages, params, args.out, batch=args.batch)
+    for p in paths:
+        print(p)
+
+
+def cmd_generate(args) -> None:
+    """Pipelined autoregressive generation of random prompts: a first
+    call that captures the decoder's graphs, then a timed call."""
+    import numpy as np
+
+    from .obs import REGISTRY, tracer
+    from .runtime.decode import PipelinedDecoder
+
+    graph = _get_model(args.model)
+    if "lm_head" not in graph.nodes:
+        raise SystemExit(f"{args.model} is not a decoder model; use one of "
+                         "the gpt* families")
+    params = _init_params(graph)
+    vocab = graph.nodes["lm_head"].out_spec.shape[-1]
+    _no_tf32()
+    dec = PipelinedDecoder(graph, params, num_stages=args.stages,
+                           microbatch=args.microbatch,
+                           kv_cache=args.kv_cache,
+                           weight_dtype=args.weight_dtype or None,
+                           beam_width=args.beam,
+                           device=_device_arg(args.device))
+    rng = np.random.default_rng(args.seed)
+    b = args.stages * (args.microbatch // args.beam)
+    prompt = rng.integers(0, vocab, (b, args.prompt_len)).astype(np.int32)
+    # pass everything through: incompatible combinations (e.g. beam +
+    # prefill) surface as the decoder's ValueError instead of a silently
+    # different configuration than the JSON record claims
+    kw = dict(token_chunk=args.token_chunk, temperature=args.temperature,
+              top_k=args.top_k, seed=args.seed, prefill=args.prefill)
+    dec.generate(prompt, args.new_tokens, **kw)   # captures
+    # steady-state exports only: drop the first run's decode samples and
+    # enable tracing for the warm run
+    REGISTRY.histogram("decode.dispatch_s").clear()
+    REGISTRY.counter("decode.dispatches").n = 0
+    _obs_begin(args)
+    t0 = time.perf_counter()
+    with tracer().span("generate", {"model": args.model,
+                                    "new_tokens": args.new_tokens}):
+        toks = dec.generate(prompt, args.new_tokens, **kw)   # warm
+    dt = time.perf_counter() - t0
+    print(json.dumps({
+        "model": args.model, "stages": args.stages,
+        "batch": b, "prompt_len": args.prompt_len,
+        "new_tokens": args.new_tokens, "prefill": args.prefill,
+        "kv_cache": args.kv_cache, "beam": args.beam,
+        "weight_dtype": args.weight_dtype or "compute",
+        "tokens_per_s": round(b * args.new_tokens / dt, 2),
+        "first_row": toks[0].tolist(),
+    }))
+    _obs_finish(args)
+
+
+def _parse_tenant_specs(specs) -> list:
+    """``name=weight[:priority[:deadline_ms]]`` (repeatable) ->
+    TenantConfig list."""
+    from .serve import TenantConfig
+    out = []
+    for spec in specs or []:
+        name, sep, rest = spec.partition("=")
+        if not sep or not name:
+            raise SystemExit(f"--tenant: {spec!r} is not "
+                             f"name=weight[:priority[:deadline_ms]]")
+        parts = rest.split(":")
+        try:
+            out.append(TenantConfig(
+                name=name, weight=float(parts[0] or 1.0),
+                priority=int(parts[1]) if len(parts) > 1 and parts[1]
+                else 0,
+                deadline_ms=float(parts[2])
+                if len(parts) > 2 and parts[2] else None))
+        except ValueError as e:
+            raise SystemExit(f"--tenant {spec!r}: {e}")
+    return out
+
+
+def cmd_serve(args) -> None:
+    """The serving front door: accept many concurrent client streams,
+    admit under per-tenant weighted-fair queuing with SLO-aware shedding,
+    coalesce admitted samples across tenants into frames of ``--width``
+    (from the planner's latency budget with ``--budget-ms``), and
+    multiplex them onto one deployed chain (tensor mode) or a
+    continuous-batching decode engine (``--workload decode``)."""
+    import threading
+
+    from . import partition
+    from .serve import ServeFrontDoor
+    from .serve.frontdoor import ChainBackend
+
+    graph = _get_model(args.model)
+    params = _init_params(graph)
+    tenants = _parse_tenant_specs(args.tenant)
+    device = _device_arg(args.device)
+    _start_prom(args, "serve")
+    # request-scoped tracing composes with serving: --trace-out enables
+    # the tracer, --trace-sample N samples whole REQUESTS 1-in-N (every
+    # frame of a sampled request traces end to end across the front door
+    # AND every stage process)
+    _obs_begin(args, process="serve")
+    _no_tf32()
+    ext_addrs: list[str] = []
+
+    if args.workload == "decode":
+        from .serve import ContinuousBatchEngine
+        if "lm_head" not in graph.nodes:
+            raise SystemExit(f"{args.model} is not a decoder model; "
+                             "--workload decode needs a gpt* family")
+        width = args.width or 4
+        engine = ContinuousBatchEngine(graph, params,
+                                       num_stages=args.stages,
+                                       width=width, device=device)
+        door = ServeFrontDoor(
+            engine=engine, listen=args.listen, tenants=tenants,
+            decode_defaults={"max_new_tokens": args.max_new})
+        cleanup = lambda: None  # noqa: E731
+    else:
+        cuts = args.cuts.split(",") if args.cuts else None
+        stages = partition(graph, cuts, num_stages=args.stages)
+        cut_names = [s.output_name for s in stages[:-1]]
+        width = args.width
+        if args.budget_ms:
+            # dynamic-microbatch width from the planner's cost model:
+            # the largest frame batch whose slowest stage stays inside
+            # the per-stage latency budget
+            from .plan import max_batch_within_budget
+            cm = _cost_model(args, graph)
+            width = max_batch_within_budget(
+                graph, cut_names, cm, args.budget_ms,
+                cap=args.max_width)
+            print(f"serve: width {width} from --budget-ms "
+                  f"{args.budget_ms:g}", file=sys.stderr, flush=True)
+        width = width or 4
+        hop_codecs = [c for c in args.hop_codecs.split(",") if c] or None
+        from .runtime.node import ChainDispatcher
+        if args.nodes:
+            addrs = [a for a in args.nodes.split(",") if a]
+            if len(addrs) != len(stages):
+                raise SystemExit(f"{len(stages)} stages but "
+                                 f"{len(addrs)} --nodes")
+            disp = ChainDispatcher(addrs[0], codec=args.codec)
+            disp.deploy(stages, params, addrs, batch=width,
+                        codecs=hop_codecs)
+            ext_addrs = addrs
+            from .obs import tracer
+            if tracer().enabled:
+                # external stage processes: re-anchor their tracers so
+                # a sampled request's cross-process waterfall lands on
+                # one Perfetto timeline
+                disp.align_clocks(addrs)
+            cleanup = lambda: None  # noqa: E731 — nodes are external
+        else:
+            # self-contained deployment: thread-per-stage nodes in this
+            # process (run `node` per host + --nodes for a real
+            # multi-process chain)
+            from .runtime.node import StageNode
+            nodes = [StageNode(None, "127.0.0.1:0", None, device=device)
+                     for _ in stages]
+            addrs = [f"127.0.0.1:{n.address[1]}" for n in nodes]
+            threads = [threading.Thread(target=n.serve, daemon=True)
+                       for n in nodes]
+            for t in threads:
+                t.start()
+            disp = ChainDispatcher(addrs[0], codec=args.codec)
+            disp.deploy(stages, params, addrs, batch=width,
+                        codecs=hop_codecs)
+
+            def cleanup(_threads=threads):
+                for t in _threads:
+                    t.join(timeout=10)
+        backend = ChainBackend(disp, width,
+                               tuple(stages[0].in_spec.shape),
+                               window=args.window,
+                               trace_sample_every=args.trace_sample)
+        door = ServeFrontDoor(backend=backend, listen=args.listen,
+                              tenants=tenants,
+                              gather_s=args.gather_ms / 1e3)
+    door.start()
+    if args.journal_dir:
+        # the front door is a fleet member too: its admission/shed
+        # events and pressure snapshots belong in the black box
+        from .obs import start_journal
+
+        def _serve_row(_door=door):
+            return {"pressure": _door.pressure(),
+                    "stats": _door.stats()}
+
+        start_journal(args.journal_dir, "serve", snapshot_fn=_serve_row)
+    print(json.dumps({"serving": f"{door.address[0]}:{door.address[1]}",
+                      "mode": door.mode, "width": door.width,
+                      "model": args.model, "stages": args.stages}),
+          flush=True)
+    try:
+        deadline = time.monotonic() + args.seconds if args.seconds > 0 \
+            else None
+        while deadline is None or time.monotonic() < deadline:
+            time.sleep(0.5 if deadline is None
+                       else min(0.5, max(0.0,
+                                         deadline - time.monotonic())))
+            # a dead backend/engine loop must fail the process, not
+            # silently serve nothing until the timer runs out
+            door.healthcheck()
+    except KeyboardInterrupt:
+        pass
+    except BaseException as e:
+        if args.journal_dir:
+            # a dead backend/engine is exactly what the black box is
+            # for: final-spill, then bundle synchronously before dying
+            from .obs import maybe_autopsy, stop_journal
+            stop_journal()
+            maybe_autopsy(f"serve: {type(e).__name__}: {e}",
+                          journal_dir=args.journal_dir, sync=True,
+                          delay_s=0.0)
+        raise
+    finally:
+        from .obs import tracer
+        if tracer().enabled and ext_addrs:
+            # stitch the external stage processes' spans in while they
+            # are still alive (in-process thread nodes already share
+            # this tracer, so only --nodes chains need the collection)
+            try:
+                disp.collect_trace(ext_addrs)
+            except Exception as e:  # noqa: BLE001 — advisory
+                print(f"serve: trace collection failed: {e!r}",
+                      file=sys.stderr, flush=True)
+        door.stop()
+        cleanup()
+        if args.journal_dir:
+            from .obs import stop_journal
+            stop_journal()
+        _obs_finish(args)
+        print(json.dumps({"final_stats": door.stats()}), flush=True)
+
+
+def cmd_serve_client(args) -> None:
+    """Load-generating client: play a deterministic open-loop Poisson
+    arrival trace (optional burst phases) against a front door and print
+    the latency/shed summary."""
+    import numpy as np
+
+    from .serve import LoadGenerator, ServeClient, poisson_trace
+
+    host, _, port = args.connect.rpartition(":")
+    bursts = []
+    for spec in args.burst or []:
+        t0, t1, mult = spec.split(":")
+        bursts.append((float(t0), float(t1), float(mult)))
+    offsets = poisson_trace(args.rate, args.seconds, seed=args.seed,
+                            bursts=bursts or None)
+    rng = np.random.default_rng(args.seed)
+    hello = {}
+    if args.max_new:
+        hello["max_new_tokens"] = args.max_new
+    if args.prompt_len:
+        samples = [rng.integers(0, args.vocab, (args.prompt_len,))
+                   .astype(np.int32) for _ in range(max(1, len(offsets)))]
+    else:
+        shape = tuple(int(d) for d in args.sample_shape.split(",") if d)
+        samples = [rng.standard_normal(shape).astype(np.float32)
+                   for _ in range(max(1, min(64, len(offsets))))]
+    client = ServeClient(host or "127.0.0.1", int(port), args.tenant,
+                         weight=args.weight, priority=args.priority,
+                         deadline_ms=args.deadline_ms or None, **hello)
+    print(json.dumps(LoadGenerator(client, samples, offsets).run()),
+          flush=True)
+
+
 def _add_overlap_flags(p) -> None:
     """Transport-overlap tuning shared by ``node`` and ``chain``."""
     p.add_argument("--no-overlap", action="store_true",
@@ -1336,13 +1754,47 @@ def _add_overlap_flags(p) -> None:
     p.add_argument("--inflight", type=int, default=2, metavar="N",
                    help="stage programs kept un-synced per node (the "
                         "window of CUDA events waited on in order)")
+    p.add_argument("--sock-buf", type=int, default=0, metavar="BYTES",
+                   help="SO_SNDBUF/SO_RCVBUF for every data socket "
+                        "(0 = kernel default for `node`; `chain` sizes "
+                        "it to the partition's fattest boundary frame)")
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(
         prog="python -m defer_tpu_torch",
-        description="DEFER's stage-node process chain, in PyTorch")
+        description="DEFER's pipelined DNN inference, in PyTorch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    sub.add_parser("models", help="list the model zoo")
+
+    b = sub.add_parser("bench", help="timed pipeline throughput")
+    b.add_argument("--model", default="resnet_tiny")
+    b.add_argument("--stages", type=int,
+                   help="stage count for automatic cuts (default: one "
+                        "per card, one on the CPU)")
+    b.add_argument("--cuts")
+    b.add_argument("--balance", choices=["flops", "bottleneck"],
+                   default="flops",
+                   help="auto-cut objective for --stages (bottleneck: "
+                        "the comm-aware exact solver)")
+    b.add_argument("--chunk", type=int, default=16)
+    b.add_argument("--microbatch", type=int, default=1)
+    b.add_argument("--wire", default="buffer", choices=["buffer", "int8"])
+    b.add_argument("--seconds", type=float, default=5.0)
+    b.add_argument("--device", default="cuda",
+                   help="where the ring runs: cuda (the default; a bf16 "
+                        "ring), cuda:N, a card index, or cpu (an f32 "
+                        "ring)")
+    _add_obs_flags(b)
+
+    e = sub.add_parser("export", help="write per-stage torch.export "
+                                      "artifacts")
+    e.add_argument("--model", required=True)
+    e.add_argument("--stages", type=int)
+    e.add_argument("--cuts")
+    e.add_argument("--out", required=True)
+    e.add_argument("--batch", type=int, default=1)
 
     nd = sub.add_parser("node", help="run one standalone stage node")
     nd.add_argument("--artifact", default=None,
@@ -1684,10 +2136,137 @@ def main(argv=None) -> None:
                          "DIR/<addr> (kernels on the card included)")
     pr.add_argument("--connect-timeout", type=float, default=30.0)
 
+    sv = sub.add_parser("serve", help="multi-tenant serving front door: "
+                                      "admission + continuous batching "
+                                      "+ SLO shedding over one chain")
+    sv.add_argument("--model", default="resnet_tiny")
+    sv.add_argument("--stages", type=int, default=3)
+    sv.add_argument("--cuts")
+    sv.add_argument("--workload", choices=["tensor", "decode"],
+                    default="tensor",
+                    help="tensor: samples through the deployed chain; "
+                         "decode: continuous-batching autoregressive "
+                         "generation (gpt* models, prompts in / token "
+                         "ids out)")
+    sv.add_argument("--listen", default="127.0.0.1:0",
+                    metavar="[host]:port")
+    sv.add_argument("--nodes", default="", metavar="host:port,...",
+                    help="deploy onto these already-running stage nodes "
+                         "(one per stage); default: thread-per-stage "
+                         "nodes inside this process")
+    sv.add_argument("--width", type=int, default=0, metavar="W",
+                    help="microbatch width (slots per frame); 0 = from "
+                         "--budget-ms, else 4")
+    sv.add_argument("--budget-ms", type=float, default=0.0,
+                    help="per-stage latency budget: width becomes the "
+                         "largest batch whose slowest stage stays "
+                         "inside it (plan.max_batch_within_budget)")
+    sv.add_argument("--max-width", type=int, default=64)
+    sv.add_argument("--batch", type=int, default=1,
+                    help="cost-model batch for --budget-ms sizing")
+    sv.add_argument("--window", type=int, default=8,
+                    help="formed frames in flight inside the chain")
+    sv.add_argument("--gather-ms", type=float, default=0.0,
+                    help="how long a partial frame waits for company "
+                         "(0 = never: the pipeline is the batching "
+                         "window)")
+    sv.add_argument("--codec", default="raw")
+    sv.add_argument("--hop-codecs", default="", metavar="C0,C1,...",
+                    help="per-stage outbound hop codecs for the "
+                         "deployed chain")
+    sv.add_argument("--tenant", action="append", default=[],
+                    metavar="NAME=W[:PRI[:DEADLINE_MS]]",
+                    help="pre-configure a tenant (repeatable): WFQ "
+                         "weight, strict priority, per-sample SLO")
+    sv.add_argument("--max-new", type=int, default=16,
+                    help="decode mode: default tokens per request")
+    sv.add_argument("--seconds", type=float, default=0.0,
+                    help="serve for N seconds then exit (0 = forever)")
+    sv.add_argument("--device", default="cuda",
+                    help="where the in-process stage nodes or the decode "
+                         "engine run: cuda (the default), cuda:N, a card "
+                         "index, or cpu (--nodes run where they run)")
+    sv.add_argument("--prom-port", type=int, default=None, metavar="PORT",
+                    help="serve this process's metrics registry — front-"
+                         "door admission/shed/completion counters and "
+                         "per-tenant histograms included — as a "
+                         "Prometheus scrape endpoint on PORT")
+    sv.add_argument("--trace-sample", type=int, default=0, metavar="N",
+                    help="with --trace-out: request-scoped waterfall "
+                         "sampling — 1-in-N formed frames (and every "
+                         "request riding them) record spans end to end "
+                         "across the front door and every stage "
+                         "process, on one clock-aligned timeline")
+    sv.add_argument("--journal-dir", default="", metavar="DIR",
+                    help="black-box flight recorder: journal the front "
+                         "door's events and pressure snapshots under "
+                         "DIR; a failed healthcheck auto-emits a "
+                         "postmortem bundle")
+    _add_obs_flags(sv)
+    _add_cost_flags(sv)
+
+    sc = sub.add_parser("serve-client", help="open-loop load generator "
+                                             "against a serve front "
+                                             "door (Poisson + bursts)")
+    sc.add_argument("--connect", required=True, metavar="host:port")
+    sc.add_argument("--tenant", default="default")
+    sc.add_argument("--weight", type=float, default=1.0)
+    sc.add_argument("--priority", type=int, default=0)
+    sc.add_argument("--deadline-ms", type=float, default=0.0,
+                    help="per-sample SLO carried in the hello (0 = "
+                         "no deadline)")
+    sc.add_argument("--rate", type=float, default=20.0,
+                    help="mean arrival rate (Hz)")
+    sc.add_argument("--seconds", type=float, default=5.0)
+    sc.add_argument("--seed", type=int, default=0)
+    sc.add_argument("--burst", action="append", default=[],
+                    metavar="T0:T1:MULT",
+                    help="burst phase: MULTx the base rate over "
+                         "[T0, T1) seconds (repeatable)")
+    sc.add_argument("--sample-shape", default="32,32,3",
+                    help="tensor mode: one sample's shape")
+    sc.add_argument("--prompt-len", type=int, default=0,
+                    help="decode mode: send random prompts of this "
+                         "length instead of tensors")
+    sc.add_argument("--vocab", type=int, default=97)
+    sc.add_argument("--max-new", type=int, default=0,
+                    help="decode mode: tokens per request (rides the "
+                         "hello)")
+
+    g = sub.add_parser("generate", help="pipelined autoregressive "
+                                        "generation demo (gpt models)")
+    g.add_argument("--model", default="gpt_tiny")
+    g.add_argument("--stages", type=int, default=4)
+    g.add_argument("--microbatch", type=int, default=2)
+    g.add_argument("--prompt-len", type=int, default=4)
+    g.add_argument("--new-tokens", type=int, default=8)
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--top-k", type=int, default=None)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--prefill", action="store_true",
+                   help="fused full-sequence prompt prefill")
+    g.add_argument("--token-chunk", type=int, default=None)
+    g.add_argument("--kv-cache", default="buffer",
+                   choices=["buffer", "int8"],
+                   help="int8: quantized KV cache (~1 byte/value reads)")
+    g.add_argument("--weight-dtype", default="",
+                   choices=["", "int8"],
+                   help="int8: W8A16 weight-only quantization "
+                        "(channel-wise scales, dequant fused per stage)")
+    g.add_argument("--beam", type=int, default=1,
+                   help="beam width (must divide --microbatch)")
+    g.add_argument("--device", default="cuda",
+                   help="where the decoder runs: cuda (the default), "
+                        "cuda:N, a card index, or cpu")
+    _add_obs_flags(g)
+
     args = ap.parse_args(argv)
-    {"node": cmd_node, "chain": cmd_chain, "partition": cmd_partition,
+    {"models": cmd_models, "bench": cmd_bench, "export": cmd_export,
+     "node": cmd_node, "chain": cmd_chain, "partition": cmd_partition,
      "plan": cmd_plan, "monitor": cmd_monitor, "profile": cmd_profile,
-     "postmortem": cmd_postmortem}[args.cmd](args)
+     "postmortem": cmd_postmortem, "serve": cmd_serve,
+     "serve-client": cmd_serve_client,
+     "generate": cmd_generate}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -164,6 +164,10 @@ class LayerGraph:
     def topo_order(self) -> list[str]:
         return list(self.nodes)
 
+    def predecessors(self, name: str) -> tuple[str, ...]:
+        """DEFER's ``get_previous`` (reference src/dag_util.py:3-7)."""
+        return self.nodes[name].inputs
+
     def out_spec(self, name: str) -> ShapeSpec:
         if name == self.input_name:
             return self.input_spec

@@ -105,6 +105,13 @@ class LatencyHistogram:
     def mean(self) -> float:
         return self.sum / self.count if self.count else 0.0
 
+    @property
+    def percentiles(self) -> dict:
+        """The headline view: p50/p95/p99/max (0.0s when empty)."""
+        return {"p50": self.quantile(0.50), "p95": self.quantile(0.95),
+                "p99": self.quantile(0.99),
+                "max": self.max if self.count else 0.0}
+
     def summary(self, scale: float = 1.0, ndigits: int = 6) -> dict:
         """JSON-ready summary; ``scale`` converts units (1e3: s -> ms)."""
         if self.count == 0:
@@ -131,6 +138,6 @@ class LatencyHistogram:
     def __repr__(self):
         if self.count == 0:
             return "LatencyHistogram(empty)"
-        return (f"LatencyHistogram(n={self.count}, "
-                f"p50={self.quantile(0.5):.6g}, "
-                f"p99={self.quantile(0.99):.6g}, max={self.max:.6g})")
+        p = self.percentiles
+        return (f"LatencyHistogram(n={self.count}, p50={p['p50']:.6g}, "
+                f"p99={p['p99']:.6g}, max={p['max']:.6g})")

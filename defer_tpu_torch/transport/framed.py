@@ -59,6 +59,21 @@ SOCK_SNDBUF = _env_int("DEFER_SOCK_SNDBUF")
 SOCK_RCVBUF = _env_int("DEFER_SOCK_RCVBUF")
 
 
+def default_sock_buf(max_frame_bytes: int, *, floor: int = 1 << 16,
+                     ceil: int = 1 << 23) -> int:
+    """SO_SNDBUF/SO_RCVBUF sized to a chain's fattest boundary frame.
+
+    Two frames of headroom (one draining into the kernel while the next
+    encodes), clamped to [64 KiB, 8 MiB]: below the floor small-tensor
+    chains would lose to syscall churn, above the ceiling a 100 MB
+    activation should flow-control rather than buffer whole in the
+    kernel.  Callers derive ``max_frame_bytes`` from the partition's
+    boundary specs (``graph.analysis.max_activation_bytes``) instead of
+    guessing a flat constant.
+    """
+    return max(floor, min(ceil, 2 * int(max_frame_bytes)))
+
+
 def configure_socket(sock: socket.socket, *, nodelay: bool = True,
                      sndbuf: int | None = None,
                      rcvbuf: int | None = None) -> socket.socket:
@@ -257,6 +272,14 @@ def wire_dtype(dtype) -> str:
 #: the dtype string of a bfloat16 frame (the JAX package's ``wire_dtype``
 #: of an ``ml_dtypes`` bfloat16 array)
 BF16 = "bfloat16"
+
+
+def dtype_from_wire(s: str):
+    """Inverse of :func:`wire_dtype`: a numpy dtype, or ``torch.bfloat16``
+    for a ``"bfloat16"`` string (the bf16 rule above; no ``ml_dtypes``)."""
+    if s == BF16:
+        return torch.bfloat16
+    return np.dtype(s)
 
 
 def _as_sendable(x, codec: Codec) -> tuple[np.ndarray, str]:

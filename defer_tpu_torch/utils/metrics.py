@@ -46,6 +46,15 @@ class PipelineMetrics:
     #: registry prefix once bound (``bind``), e.g. "pipeline3"
     prefix: str | None = None
 
+    def clear_counters(self):
+        """Zero the streaming counters (keep stage latencies / geometry) —
+        e.g. after a harness's warmup pushes, before a measured window."""
+        self.inferences = 0
+        self.steps = 0
+        self.wall_s = 0.0
+        self.chunk_calls = 0
+        self.push_latency.clear()
+
     def bind(self, registry=None, prefix: str | None = None) -> str:
         """Publish this deployment's metrics into ``registry`` (default:
         the process-wide one) under ``prefix`` (default: a fresh

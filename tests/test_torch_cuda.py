@@ -34,7 +34,10 @@ The profiling plane's tests count a CUDA-graph capture as one run-time
 compilation, read a node's ``mem_bytes`` as the allocator's
 ``torch.cuda.memory_allocated``, check its MFU against the card's row,
 and find the flash kernel, launched on another thread, in a profiling
-window's ``torch.profiler`` trace.
+window's ``torch.profiler`` trace.  The command line's tests count the
+flash launches of ``amortized_forward_seconds``, whose ``k`` forwards are
+one graph replay, and the quantizer launches of ``bench --wire int8`` (a
+bf16 ring on the card).
 """
 
 import math
@@ -1164,3 +1167,54 @@ def test_profile_window_trace_holds_the_flash_kernel(cuda, tmp_path):
     events = json.load(open(rep["trace_file"]))["traceEvents"]
     names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
     assert any("flash_attn_kernel" in n for n in names), names[:20]
+
+
+# ---------------------------------------------------------------------------
+# the profiling helpers and the bench command on the card
+# ---------------------------------------------------------------------------
+
+def test_amortized_forward_seconds_is_one_graph_replay(cuda):
+    """The ``k`` forwards of a timed call are one CUDA-graph replay: every
+    replay (one warm call, ``max_iters`` timed ones) adds ``k`` flash
+    launches per block, and the capture and its warm-up add none."""
+    import math
+
+    from defer_tpu_torch.models import bert_tiny
+    from defer_tpu_torch.obs import recompile_watcher
+    from defer_tpu_torch.utils.convert import params_to_device
+    from defer_tpu_torch.utils.profiling import amortized_forward_seconds
+    g = bert_tiny()
+    params = params_to_device(g.init(torch.Generator().manual_seed(0)),
+                              cuda)
+    blocks = sum(n.startswith("block_") for n in g.topo_order)
+    ids = torch.zeros((2,) + tuple(g.input_spec.shape), dtype=torch.int32,
+                      device=cuda)
+    k, timed = 4, 3
+    before, compiles = FLASH.launches, recompile_watcher().count
+    sec = amortized_forward_seconds(g.apply, params, ids, k,
+                                    min_iters=timed, min_s=0.0,
+                                    max_iters=timed)
+    torch.cuda.synchronize()
+    assert FLASH.launches - before == blocks * k * (timed + 1)
+    assert recompile_watcher().count - compiles == 1
+    assert math.isfinite(sec) and sec > 0
+
+
+def test_bench_int8_counts_one_quantizer_launch_per_step(cuda, capsys):
+    """``bench --wire int8`` on the card: a bf16 ring, one bf16 quantizer
+    launch per pipeline step of every push (the capture push's replay
+    included, the capture itself not), no flash launch."""
+    import json
+
+    from defer_tpu_torch import cli
+    q0, f0 = KERNEL.snapshot(), FLASH.launches
+    cli.main(["bench", "--model", "resnet_tiny", "--stages", "2",
+              "--chunk", "4", "--wire", "int8", "--seconds", "0.5"])
+    torch.cuda.synchronize()
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    n, by_dtype = KERNEL.since(q0)
+    assert row["wire"] == "int8" and row["devices"] >= 1
+    assert n == row["steps"] + 4 and row["steps"] == 4 * row["chunk_calls"]
+    assert dict(by_dtype) == {"bfloat16": n}
+    assert FLASH.launches == f0
+    assert row["value"] > 0
