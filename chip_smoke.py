@@ -113,7 +113,7 @@ Phases, in order; any failure exits non-zero before the result line:
                    ``reweight`` equal to the forward on the new weights);
                    ``ServeFrontDoor`` in tensor mode over the raw chain
                    (two tenants' rows equal to the forward's); each chain
-                   timed on streams of 32 frames beside the ring pipeline
+                   timed on streams of 16 frames beside the ring pipeline
                    on the same frames; boot, deploy, exit seconds and the
                    short streams' time to their last result; every hop
                    pinned to tcp (``tier="tcp"``, ``--tier tcp``);
@@ -124,7 +124,7 @@ Phases, in order; any failure exits non-zero before the result line:
                    one process with seven ici hops (``--co-stage``
                    threads; no host sync on the seven nodes before the
                    dispatcher's edge, rows within 1e-5, top-1 equal), each
-                   timed on 32-frame streams beside the ring; BERT-Base/12
+                   timed on 16-frame streams beside the ring; BERT-Base/12
                    as twelve in-process nodes on ici hops (12 flash
                    launches per frame, no host sync on any node, rows
                    within 1e-5 of 4b's forward), then fused into two
@@ -185,7 +185,7 @@ Phases, in order; any failure exits non-zero before the result line:
                    carved out of theirs): on k's ResNet50/8 processes,
                    deployed with ``plan=`` (the paper's cuts priced by
                    ``plan.solve``'s model), ``align_clocks`` (each offset
-                   printed), a profiled 32-frame stream under the
+                   printed), a profiled 16-frame stream under the
                    session's live view (rows for all eight stages, its
                    bottleneck beside the stage with the largest infer
                    p50; each node's dispatch + queue + device + host_sync
@@ -225,10 +225,26 @@ Phases, in order; any failure exits non-zero before the result line:
                    BERT-Base in 12 stages on k's traces, a block stage
                    loaded with ``load_stage`` on the card (one flash
                    launch a frame, within 1e-5 of the ``StageModule``);
+                r. training (``PipelineTrainer``, eager, TF32 off), its
+                   seconds carved out of the phases it rides: after a, on
+                   ResNet50/8 (4a's weights, 4 microbatches = 11 ring
+                   steps, remat) the buffer wire's loss and per-stage
+                   gradients against a whole-graph autograd reference,
+                   the int8 wire (the straight-through hop on the
+                   quantizer kernel, one launch per ring step) against the
+                   buffer wire, the same chunk on the plain quantizer,
+                   three Adam steps, the captured graph serving the
+                   trained rows equal to a fresh pipeline; bf16 compute on
+                   float32 master rows; the ``train`` command with its
+                   checkpoint resumed in a fresh trainer; after g, GPT-2
+                   small/12 (``attn_impl="xla"``, 4 x 8 sequences of 64)
+                   against its whole-graph reference, three Adam steps and
+                   the trained weights in 4g's decoder (greedy next tokens
+                   equal to the trained graph's argmax up to a near tie);
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
               ``replication_path``, ``dag_path``, ``obs_path``,
-              ``cli_path``, the ``budget:`` line,
+              ``cli_path``, ``train_path``, the ``budget:`` line,
               ``phase_seconds`` and
               ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``; each phase's seconds are
@@ -236,8 +252,8 @@ Phases, in order; any failure exits non-zero before the result line:
 
 The phases run under a budget: ``phase_seconds`` should total at most
 BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s), phase 4p
-at most OBS_BUDGET_S (40 s) and phase 4q at most CLI_BUDGET_S (30 s),
-paid for by
+at most OBS_BUDGET_S (40 s), phase 4q at most CLI_BUDGET_S (30 s) and
+phase 4r at most TRAIN_BUDGET_S (45 s), paid for by
 running earlier paths smaller (PERF.md §4).  A watchdog armed at start
 fails the run at WATCHDOG_S (720 s): it names the phase still running,
 dumps every thread's stack, kills the node processes the smoke started
@@ -348,10 +364,10 @@ OBS_BUDGET_S = 40.0
 #: phase 4q's share of BUDGET_S (its commands ride 4a's, 4g's and 4k's
 #: models and chains)
 CLI_BUDGET_S = 30.0
-#: the phases in order (``phase_seconds`` keys); 4p's and 4q's seconds
-#: are carved out of the phases where their checks run
+#: the phases in order (``phase_seconds`` keys); 4p's, 4q's and 4r's
+#: seconds are carved out of the phases where their checks run
 PHASES = ("1", "2", "3", "4a", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
-          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p", "4q")
+          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p", "4q", "4r")
 
 
 def kill_children() -> list:
@@ -2781,9 +2797,10 @@ CHAIN_SEQS = 16
 DOOR_IMAGES = 16
 #: alternating timed rounds of the chain's stream and the ring pipeline
 CHAIN_ROUNDS = 1
-#: frames of each timed stream: four times the stage count, so the chain's
-#: fill and drain are a small part of its wall
-CHAIN_TIMED_FRAMES = 32
+#: frames of each timed stream: twice the stage count (32 until phase 4r
+#: came; its seconds are paid for here), so a stream's rate includes its
+#: fill and drain
+CHAIN_TIMED_FRAMES = 16
 
 
 def _rel_err(out, ref, what: str, bound: float, phase: str = "4k"
@@ -3517,6 +3534,483 @@ def cli_serve(torch, kernels, chain, mp, rate_hz: float, card) -> dict:
           f"{client['latency_p99_ms']} ms, {final[0]['frames']} frames; "
           f"launches here {launches}, in the nodes {nodes}; "
           f"{ph.seconds:.2f} s; on {card}", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4r: training on the card (rides 4a's ResNet50 and 4g's GPT-2 small)
+# ---------------------------------------------------------------------------
+
+#: phase 4r's share of BUDGET_S (its checks ride 4a's and 4g's models)
+TRAIN_BUDGET_S = 45.0
+#: seconds phase 4r took, carved out of the phases it rides
+TRAIN_SECONDS: list = []
+#: microbatches per training chunk: T = TRAIN_M + N - 1 ring steps
+TRAIN_M = 4
+#: loss against the whole-graph autograd reference (the summed loss of the
+#: same microbatches; the same ops, so only summation order separates them)
+TRAIN_LOSS_RTOL = 1e-5
+#: each stage's gradient leaf against the reference: within this fraction
+#: of the leaf's max |g| (cuDNN and cuBLAS may pick another backward
+#: algorithm for a stage's slice of the graph)
+TRAIN_GRAD_REL = 1e-3
+#: int8 against the buffer wire: the JAX package's bounds
+#: (tests/test_training.py, test_int8_wire_trains_straight_through)
+TRAIN_INT8_LOSS_REL = 0.05
+TRAIN_INT8_COS = 0.98
+#: the int8 chunk with the plain quantizer in place of the kernel: the
+#: quantizer is bit-equal, so only reduction order separates the runs
+TRAIN_PLAIN_REL = 1e-5
+#: optimizer steps and learning rates of 4r's trajectories
+TRAIN_STEPS = 3
+TRAIN_ADAM_LR = 1e-4
+TRAIN_SGD_LR = 1e-3
+#: GPT-2 small training: tokens per sequence; Adam's learning rate
+TRAIN_SEQ = 64
+TRAIN_GPT_LR = 1e-4
+#: the ``train`` command: steps, then one more after its checkpoint
+TRAIN_CLI_STEPS = 2
+
+
+def train_phase() -> carved:
+    """A stretch of phase 4r (its seconds land in TRAIN_SECONDS)."""
+    return carved("4r", TRAIN_SECONDS)
+
+
+def train_ce(torch):
+    """Mean cross-entropy of a microbatch's logits (the ``train``
+    command's loss)."""
+    return lambda logits, labels: torch.nn.functional.cross_entropy(
+        logits.float(), labels)
+
+
+def train_lm(torch):
+    """Next-token cross-entropy of a microbatch of sequences
+    (tests/test_gpt_training.py's ``lm_loss``)."""
+    def lm(logits, ids):
+        return torch.nn.functional.cross_entropy(
+            logits[:, :-1].float().flatten(0, 1),
+            ids[:, 1:].long().flatten())
+    return lm
+
+
+def whole_graph_grads(torch, graph, pdev, xs, ys, loss_fn, device):
+    """The summed per-microbatch loss through the whole graph and its
+    gradient per (node, leaf path), by autograd on the card."""
+    from defer_tpu_torch.graph.ir import flatten_tree, tree_map
+
+    p = tree_map(lambda v: v.detach().clone().requires_grad_(
+        v.is_floating_point()), pdev)
+    total = 0.0
+    for x, y in zip(xs, ys):
+        x = torch.from_numpy(x).to(device)
+        if not graph.input_spec.dtype.is_floating_point:
+            x = x.to(graph.input_spec.dtype)
+        total = total + loss_fn(graph.apply(p, x),
+                                torch.as_tensor(y).to(device))
+    leaves = [((n, k), v) for n, sub in p.items()
+              for k, v in flatten_tree(sub).items() if v.requires_grad]
+    grads = torch.autograd.grad(total, [v for _, v in leaves])
+    return float(total.detach()), {key: g for (key, _), g in
+                                   zip(leaves, grads)}
+
+
+def check_stage_grads(torch, trainer, grads, ref, what: str) -> float:
+    """Each stage's gradient leaves against the whole-graph reference:
+    within TRAIN_GRAD_REL of the leaf's max |g|.  Returns the worst
+    fraction."""
+    from defer_tpu_torch.graph.ir import flatten_tree
+
+    worst, seen = 0.0, 0
+    for sg in trainer.stage_grads(grads):
+        for n, sub in sg.items():
+            for k, v in flatten_tree(sub).items():
+                r = ref[(n, k)].float().cpu()
+                scale = float(r.abs().max())
+                err = float((v - r).abs().max())
+                if not err <= TRAIN_GRAD_REL * max(scale, 1e-30):
+                    fail(f"phase 4r {what}: gradient of {n}/{k} off the "
+                         f"whole-graph reference by {err:.3g} (max |g| "
+                         f"{scale:.3g}, bound {TRAIN_GRAD_REL} of it)")
+                worst = max(worst, err / max(scale, 1e-30))
+                seen += 1
+    if seen != len(ref):
+        fail(f"phase 4r {what}: {seen} gradient leaves, the reference has "
+             f"{len(ref)}")
+    return worst
+
+
+def _cos(torch, a, b) -> float:
+    a = torch.cat([g.flatten().double() for g in a])
+    b = torch.cat([g.flatten().double() for g in b])
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def _counted(torch, kernels, fn):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after (the device synchronised): (result, launches, seconds)."""
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, read_counts(kernels), time.perf_counter() - t0
+
+
+def _want_launches(what: str, got: dict, quant: int) -> None:
+    want = {"quant_int8": quant, "flash_attention": 0}
+    if got != want:
+        fail(f"phase 4r {what}: launches {got} (want {want})")
+
+
+def train_resnet(torch, device, kernels, card, mp) -> dict:
+    """Phase 4r a, b, c and e on 4a's ResNet50/8 (its graph, seed-0
+    weights, cuts and first TRAIN_M microbatches of inputs), TF32 off.
+
+    a: ``loss_and_grad`` on the buffer wire against the whole-graph
+    autograd reference: loss within TRAIN_LOSS_RTOL, each stage's leaves
+    within TRAIN_GRAD_REL of the reference's max |g|.  b: the same chunk
+    on ``wire="int8"`` (the straight-through hop): the loss within 5% of
+    a's and the gradient cosine above 0.98; the quantizer launched once per
+    ring step (T = M + N - 1; the recompute reruns no hop); the same chunk
+    with the plain quantizer within TRAIN_PLAIN_REL of the kernel's; three
+    Adam steps lower the loss; then the pipeline's captured graph serves
+    the trained rows (no new capture) equal to a fresh pipeline of
+    ``trained_params()``.  c: bf16 compute on float32 master rows: the rows
+    stay float32, a fresh master-bf16 pipeline's run equals a plain bf16
+    one's, one SGD step runs.  e: the ``train`` command (int8, ``--save``)
+    in this process; its checkpoint loads into a fresh trainer whose next
+    loss equals that of a trainer that carried on."""
+    import numpy as np
+
+    from defer_tpu_torch import PipelineTrainer, SpmdPipeline
+    from defer_tpu_torch.ops import quant
+    from defer_tpu_torch.partition import partition
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g, params, cuts = mp["graph"], mp["params"], mp["cuts"]
+    stages = partition(g, cuts)
+    n = len(stages)
+    steps = TRAIN_M + n - 1
+    classes = g.output_spec.shape[-1]
+    xs = mp["inputs"][:TRAIN_M]
+    ys = np.random.default_rng(SEED).integers(0, classes,
+                                              (TRAIN_M, MICROBATCH))
+    ce = train_ce(torch)
+    kw = dict(device=device, microbatch=MICROBATCH, chunk=CHUNK)
+    res: dict = {"model": "resnet50", "stages": n, "microbatches": TRAIN_M,
+                 "ring_steps": steps, "launches": {}}
+
+    # a. the buffer wire against the whole-graph reference
+    tb = PipelineTrainer(SpmdPipeline(stages, params, **kw), ce)
+    (lb, gb), got, sec = _counted(torch, kernels,
+                                  lambda: tb.loss_and_grad(xs, ys))
+    _want_launches("a buffer", got, 0)
+    res["launches"]["buffer"] = got
+    ref_l, ref_g = whole_graph_grads(torch, g, mp["pdev"], xs, ys, ce,
+                                     device)
+    if not abs(float(lb) - ref_l) <= TRAIN_LOSS_RTOL * abs(ref_l):
+        fail(f"phase 4r a: loss {float(lb)!r} against the whole graph's "
+             f"{ref_l!r} (rtol {TRAIN_LOSS_RTOL})")
+    worst = check_stage_grads(torch, tb, gb, ref_g, "a buffer")
+    res["buffer"] = {"loss": float(lb), "reference_loss": ref_l,
+                     "worst_grad_rel": worst, "seconds": sec}
+    print(f"train path a: PipelineTrainer(resnet50, {n} stages, buffer "
+          f"wire, microbatch {MICROBATCH}) loss_and_grad on {TRAIN_M} "
+          f"microbatches ({steps} ring steps, remat) {sec:.3f} s; loss "
+          f"{float(lb):.6f} (whole graph {ref_l:.6f}); worst gradient leaf "
+          f"{worst:.3g} of its max |g| (bound {TRAIN_GRAD_REL}); launches "
+          f"{got}; on {card}", flush=True)
+    del ref_g, tb
+
+    # b. the int8 wire: the straight-through hop on the quantizer kernel
+    pq = SpmdPipeline(stages, params, wire="int8", **kw)
+    before = pq.run(xs)  # captures the chunk's graph before training
+    captures = pq.metrics.captures
+    tq = PipelineTrainer(pq, ce, optimizer=lambda rows: torch.optim.Adam(
+        rows, lr=TRAIN_ADAM_LR))
+    (lq, gq), got, sec_q = _counted(torch, kernels,
+                                    lambda: tq.loss_and_grad(xs, ys))
+    _want_launches("b int8", got, steps)
+    res["launches"]["int8"] = got
+    rel = abs(float(lq) - float(lb)) / abs(float(lb))
+    cos = _cos(torch, gq, gb)
+    if not (rel < TRAIN_INT8_LOSS_REL and cos > TRAIN_INT8_COS):
+        fail(f"phase 4r b: int8 loss {float(lq)!r} is {rel:.3g} off the "
+             f"buffer wire's (bound {TRAIN_INT8_LOSS_REL}), gradient cosine "
+             f"{cos:.6f} (want > {TRAIN_INT8_COS})")
+    del gb
+    plain = quant.quantize_int8_blocks
+    quant.quantize_int8_blocks = quant.quantize_int8_blocks_plain
+    try:
+        (lp, gp), got_p, sec_p = _counted(torch, kernels,
+                                          lambda: tq.loss_and_grad(xs, ys))
+    finally:
+        quant.quantize_int8_blocks = plain
+    _want_launches("b plain quantizer", got_p, 0)
+    res["launches"]["int8_plain_quantizer"] = got_p
+    prel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for a, b in zip(gp, gq))
+    if not (abs(float(lp) - float(lq)) <= TRAIN_PLAIN_REL * abs(float(lq))
+            and prel <= TRAIN_PLAIN_REL):
+        fail(f"phase 4r b: the plain quantizer's loss {float(lp)!r} and "
+             f"gradients ({prel:.3g} of max |g|) against the kernel's "
+             f"{float(lq)!r} (bound {TRAIN_PLAIN_REL})")
+    del gp, gq
+    losses, got_s, sec_s = _counted(torch, kernels, lambda: [
+        tq.step(xs, ys) for _ in range(TRAIN_STEPS)])
+    _want_launches("b Adam steps", got_s, TRAIN_STEPS * steps)
+    res["launches"]["int8_adam_steps"] = got_s
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"phase 4r b: Adam losses {losses} (want finite, the last "
+             "below the first)")
+    ring_steps = pq.metrics.steps
+    out, got_r, _ = _counted(torch, kernels, lambda: pq.run(xs))
+    _want_launches("b replay", got_r, pq.metrics.steps - ring_steps)
+    if pq.metrics.captures != captures:
+        fail(f"phase 4r b: the trained pipeline captured anew "
+             f"({pq.metrics.captures} captures, {captures} before)")
+    res["launches"]["int8_replay"] = got_r
+    fresh, got_f, _ = _counted(torch, kernels, lambda: SpmdPipeline(
+        stages, tq.trained_params(), wire="int8", **kw).run(xs))
+    res["launches"]["int8_fresh"] = got_f
+    scale = float(np.abs(fresh).max())
+    gerr = float(np.abs(out - fresh).max())
+    moved = float(np.abs(out - before).max())
+    if not (gerr <= GRAPH_REL_BOUND * scale and moved > 0):
+        fail(f"phase 4r b: the replayed trained pipeline is {gerr:.3g} off "
+             f"a fresh pipeline of trained_params() (bound "
+             f"{GRAPH_REL_BOUND} of {scale:.3g}); moved {moved:.3g} from "
+             "its output before training")
+    res["int8"] = {"loss": float(lq), "rel_to_buffer": rel, "cosine": cos,
+                   "plain_quantizer_loss": float(lp),
+                   "plain_quantizer_grad_rel": prel, "adam_lr": TRAIN_ADAM_LR,
+                   "adam_losses": losses, "replay_rel_err": gerr / scale,
+                   "captures": pq.metrics.captures,
+                   "loss_and_grad_s": sec_q, "plain_s": sec_p,
+                   "step_s": sec_s / TRAIN_STEPS}
+    print(f"train path b: int8 wire loss {float(lq):.6f} ({rel:.3g} off the "
+          f"buffer wire's), gradient cosine {cos:.6f}; loss_and_grad "
+          f"{sec_q:.3f} s with {got['quant_int8']} quantizer launches (one "
+          f"per ring step; the recompute reruns no hop), {sec_p:.3f} s on "
+          f"the plain quantizer ({prel:.3g} of max |g| apart); Adam "
+          f"(lr {TRAIN_ADAM_LR:g}) losses {[round(x, 4) for x in losses]}, "
+          f"{sec_s / TRAIN_STEPS:.3f} s a step; the captured graph serves "
+          f"the trained rows {gerr / scale:.3g} of max|out| off a fresh "
+          f"pipeline ({pq.metrics.captures} capture); on {card}", flush=True)
+    del tq, pq
+    free_card(torch)
+
+    # c. master weights: bf16 compute on float32 rows
+    pm = SpmdPipeline(stages, params, master_weights=True, **mp["bf16"],
+                      **kw)
+    rows32 = all(m.row.dtype == torch.float32 for m in pm.modules)
+    out_m = pm.run(xs)
+    out_p = SpmdPipeline(stages, params, **mp["bf16"], **kw).run(xs)
+    free_card(torch)
+    merr = float(np.abs(out_m - out_p).max())
+    mscale = float(np.abs(out_p).max())
+    tm = PipelineTrainer(pm, ce, optimizer=lambda rows: torch.optim.SGD(
+        rows, lr=TRAIN_SGD_LR))
+    lm, got_m, sec_m = _counted(torch, kernels, lambda: tm.step(xs, ys))
+    _want_launches("c master weights", got_m, 0)
+    res["launches"]["master_bf16"] = got_m
+    if not (rows32 and all(r.dtype == torch.float32 for r in tm.rows)
+            and merr <= GRAPH_REL_BOUND * mscale and math.isfinite(lm)):
+        fail(f"phase 4r c: master rows float32 {rows32}, master against "
+             f"plain bf16 {merr:.3g} (bound {GRAPH_REL_BOUND} of {mscale:.3g})"
+             f", SGD loss {lm!r}")
+    res["master_bf16"] = {"rows": "float32", "vs_plain_bf16_rel":
+                          merr / mscale, "sgd_loss": lm, "step_s": sec_m}
+    print(f"train path c: master_weights (bf16 compute, {mp['bf16']}) rows "
+          f"float32 before and after an SGD step (loss {lm:.6f}, "
+          f"{sec_m:.3f} s); a fresh master pipeline {merr / mscale:.3g} of "
+          f"max|out| off a plain bf16 one; on {card}", flush=True)
+    del tm, pm
+    free_card(torch)
+
+    # e. the train command, its checkpoint into a fresh trainer
+    res["cli"] = train_cli(torch, device, kernels, mp, stages, card)
+    free_card(torch)
+    return res
+
+
+def train_cli(torch, device, kernels, mp, stages, card) -> dict:
+    """Phase 4r e: ``train`` on ResNet50/8 (int8, ``--save``, Adam at
+    TRAIN_ADAM_LR) through ``cli.main`` in this process on 4a's graph and
+    weights; its losses finite and equal to the same steps through the
+    API, and its checkpoint loaded into a fresh trainer, whose next loss
+    equals that of the trainer that carried on (rtol TRAIN_LOSS_RTOL).
+    cuDNN runs deterministic algorithms here: its default weight-gradient
+    kernels sum in a varying order, and Adam turns a last-bit difference
+    in a near-zero gradient into a step of 2 lr, so two runs of the same
+    steps would drift apart."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from defer_tpu_torch import PipelineTrainer, SpmdPipeline
+
+    n = len(stages)
+    chunk = TRAIN_M + n - 1  # the command trains chunk - N + 1 microbatches
+    steps = chunk
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory(prefix="defer_train_") as d, \
+            cli_runs({"resnet50": (mp["graph"], mp["params"])}) as c:
+        ck = os.path.join(d, "ckpt")
+        lines, got, sec = _counted(torch, kernels, lambda: c.run([
+            "train", "--model", "resnet50", "--cuts", ",".join(mp["cuts"]),
+            "--microbatch", MICROBATCH, "--chunk", chunk, "--wire", "int8",
+            "--steps", TRAIN_CLI_STEPS, "--lr", TRAIN_ADAM_LR,
+            "--save", ck]))
+        row = _json_rows(lines)[-1]
+        _want_launches("e train command", got, TRAIN_CLI_STEPS * steps)
+        if not (row["stages"] == n and len(row["losses"]) == TRAIN_CLI_STEPS
+                and np.isfinite(row["losses"]).all()
+                and row["attn_impl"] is None):
+            fail(f"phase 4r e: the train command printed {row}")
+        # the command's data (its seeded generator) through the API
+        rng = np.random.default_rng(0)
+        xs = rng.standard_normal((TRAIN_M, MICROBATCH) + tuple(
+            stages[0].in_spec.shape)).astype(np.float32)
+        ys = rng.integers(0, mp["graph"].output_spec.shape[-1],
+                          (TRAIN_M, MICROBATCH))
+
+        def trainer():
+            return PipelineTrainer(
+                SpmdPipeline(stages, mp["params"], device=device,
+                             microbatch=MICROBATCH, chunk=chunk,
+                             wire="int8"), train_ce(torch),
+                optimizer=lambda rows: torch.optim.Adam(
+                    rows, lr=TRAIN_ADAM_LR))
+
+        on = trainer()
+        carried, got_c, _ = _counted(torch, kernels, lambda: [
+            on.step(xs, ys) for _ in range(TRAIN_CLI_STEPS + 1)])
+        _want_launches("e carried on", got_c, (TRAIN_CLI_STEPS + 1) * steps)
+        del on
+        resumed = trainer()
+        resumed.load_checkpoint(ck)
+        nxt, got_n, _ = _counted(torch, kernels,
+                                 lambda: resumed.step(xs, ys))
+        _want_launches("e resumed", got_n, steps)
+    torch.backends.cudnn.deterministic = deterministic
+    if not all(abs(a - b) <= 1e-4 + TRAIN_LOSS_RTOL * abs(b)
+               for a, b in zip(row["losses"], carried)):
+        fail(f"phase 4r e: the command's losses {row['losses']} are not the "
+             f"API's {carried[:TRAIN_CLI_STEPS]} on its data")
+    if not abs(nxt - carried[-1]) <= TRAIN_LOSS_RTOL * abs(carried[-1]):
+        fail(f"phase 4r e: the resumed trainer's next loss {nxt!r} against "
+             f"{carried[-1]!r} for the trainer that carried on (rtol "
+             f"{TRAIN_LOSS_RTOL})")
+    print(f"train path e: train --model resnet50 --wire int8 --steps "
+          f"{TRAIN_CLI_STEPS} --save: losses {row['losses']} in {sec:.2f} s "
+          f"(launches {got}: one per ring step, {steps} a step); resumed "
+          f"from its checkpoint the next loss {nxt:.6f} against "
+          f"{carried[-1]:.6f} carried on; on {card}", flush=True)
+    return {"losses": row["losses"], "launches": got, "seconds": sec,
+            "resumed_loss": nxt, "carried_loss": carried[-1],
+            "api_launches": {"carried_on": got_c, "resumed": got_n}}
+
+
+def train_gpt(torch, device, kernels, card, gp, gdec) -> dict:
+    """Phase 4r d: GPT-2 small (4g's seed-0 weights, 12 stages, a block
+    per stage, every block on ``attn_impl="xla"``) trained on TRAIN_M
+    microbatches of MICROBATCH sequences of TRAIN_SEQ tokens with the
+    next-token loss: per-stage gradients against the whole-graph
+    reference as in a, TRAIN_STEPS Adam steps lower the loss, no kernel
+    launches; the trained weights ``reweight``ed into 4g's decoder, whose
+    next greedy token equals the trained graph's argmax up to a near tie.
+    The graph of TRAIN_SEQ positions holds the first TRAIN_SEQ rows of
+    4g's position table; the decoder takes the trained rows and keeps the
+    rest (rows the training never reached)."""
+    import numpy as np
+
+    from defer_tpu_torch import PipelineTrainer, SpmdPipeline, models
+    from defer_tpu_torch.graph import with_attn_impl
+    from defer_tpu_torch.partition import partition
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = with_attn_impl(models.gpt2_small(seq_len=TRAIN_SEQ), "xla")
+    params = dict(gp["params"])
+    emb = dict(params["embeddings"])
+    emb["wpe"] = emb["wpe"][:TRAIN_SEQ]
+    params["embeddings"] = emb
+    cuts = models.gpt_stage_cuts(GPT_STAGES, GPT_STAGES)
+    stages = partition(g, cuts)
+    n = len(stages)
+    vocab = g.nodes["lm_head"].out_spec.shape[-1]
+    ids = np.random.default_rng(SEED).integers(
+        0, vocab, (TRAIN_M, MICROBATCH, TRAIN_SEQ))
+    xs = ids.astype(np.float32)  # ids ride the f32 buffer exactly
+    lm = train_lm(torch)
+    t = PipelineTrainer(
+        SpmdPipeline(stages, params, device=device, microbatch=MICROBATCH,
+                     chunk=CHUNK), lm,
+        optimizer=lambda rows: torch.optim.Adam(rows, lr=TRAIN_GPT_LR))
+    (l0, g0), got, sec = _counted(torch, kernels,
+                                  lambda: t.loss_and_grad(xs, ids))
+    _want_launches("d gpt2", got, 0)
+    ref_l, ref_g = whole_graph_grads(torch, g, params_to_device(
+        params, device), xs, ids, lm, device)
+    if not abs(float(l0) - ref_l) <= TRAIN_LOSS_RTOL * abs(ref_l):
+        fail(f"phase 4r d: GPT-2 loss {float(l0)!r} against the whole "
+             f"graph's {ref_l!r} (rtol {TRAIN_LOSS_RTOL})")
+    worst = check_stage_grads(torch, t, g0, ref_g, "d gpt2")
+    del g0, ref_g
+    losses, got_s, sec_s = _counted(torch, kernels, lambda: [
+        t.step(xs, ids) for _ in range(TRAIN_STEPS)])
+    _want_launches("d gpt2 Adam steps", got_s, 0)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"phase 4r d: GPT-2 Adam losses {losses} (want finite, the "
+             "last below the first)")
+
+    # the trained weights into 4g's decoder (its graph's 256 positions)
+    trained = t.trained_params()
+    del t
+    free_card(torch)
+    full = dict(trained)
+    wpe = gp["params"]["embeddings"]["wpe"]
+    full["embeddings"] = dict(trained["embeddings"], wpe=torch.cat(
+        [trained["embeddings"]["wpe"], wpe[TRAIN_SEQ:]]))
+    gdec.reweight(full)
+    prompt = ids[0, :, :GPT_PROMPTS[1]].astype(np.int32)
+    toks, got_d, _ = _counted(torch, kernels,
+                              lambda: gdec.generate(prompt, 1))
+    _want_launches("d decoder", got_d, 0)
+    with torch.inference_mode():
+        logits = g.apply(params_to_device(trained, device),
+                         torch.from_numpy(prompt).to(device))[:, -1]
+        logits = logits.float().cpu().numpy()
+    top2 = np.sort(logits, -1)[:, -2:]
+    tie = (top2[:, 1] - top2[:, 0]) < TIE_REL * float(np.abs(logits).max())
+    agree = toks[:, -1] == logits.argmax(-1)
+    if not (agree | tie).all():
+        fail(f"phase 4r d: the decoder's next tokens {toks[:, -1]} against "
+             f"the trained graph's argmax {logits.argmax(-1)} (near ties "
+             f"{tie})")
+    res = {"model": "gpt2_small", "stages": n, "microbatches": TRAIN_M,
+           "seq_len": TRAIN_SEQ, "ring_steps": TRAIN_M + n - 1,
+           "loss": float(l0), "reference_loss": ref_l,
+           "worst_grad_rel": worst, "adam_lr": TRAIN_GPT_LR,
+           "adam_losses": losses, "loss_and_grad_s": sec,
+           "step_s": sec_s / TRAIN_STEPS,
+           "decoder_tokens_agree": f"{int(agree.sum())}/{agree.size}",
+           "near_ties": int(tie.sum()),
+           "launches": {"loss_and_grad": got, "adam_steps": got_s,
+                        "decoder": got_d}}
+    print(f"train path d: PipelineTrainer(gpt2_small, {n} stages, attn_impl "
+          f"xla, {TRAIN_M} x {MICROBATCH} sequences of {TRAIN_SEQ}) "
+          f"loss_and_grad {sec:.3f} s, loss {float(l0):.6f} (whole graph "
+          f"{ref_l:.6f}), worst gradient leaf {worst:.3g} of its max |g|; "
+          f"Adam (lr {TRAIN_GPT_LR:g}) losses {[round(x, 4) for x in losses]}"
+          f", {sec_s / TRAIN_STEPS:.3f} s a step; 4g's decoder on the "
+          f"trained weights: next tokens {res['decoder_tokens_agree']} equal "
+          f"to the trained graph's argmax ({int(tie.sum())} near ties); "
+          f"launches {got}; on {card}", flush=True)
     return res
 
 
@@ -5554,14 +6048,15 @@ def main() -> int:
     kernels = [QUANT, FLASH]
     phase_s: dict = {}
     t_last = [time.perf_counter()]
-    taken = [0.0]   # phase 4p's and 4q's seconds already carved out
+    taken = [0.0]   # phase 4p's, 4q's and 4r's seconds already carved out
 
     def phase_done(name: str) -> None:
-        # phase 4p's and 4q's checks ride other phases' models and chains:
-        # their seconds count as 4p's and 4q's, not as the phase's they
+        # phase 4p's, 4q's and 4r's checks ride other phases' models and
+        # chains: their seconds count as theirs, not as the phase's they
         # ran in
         now = time.perf_counter()
-        inner = sum(OBS_SECONDS) + sum(CLI_SECONDS) - taken[0]
+        inner = (sum(OBS_SECONDS) + sum(CLI_SECONDS) + sum(TRAIN_SECONDS)
+                 - taken[0])
         taken[0] += inner
         phase_s[name] = now - t_last[0] - inner
         t_last[0] = now
@@ -5637,6 +6132,9 @@ def main() -> int:
     prof = profile_step(torch, mp, RESNET_GROUPS)
     # phase 4q a: the bench command on the same model (carved out)
     cq = {"bench": cli_bench(torch, kernels, mp, thr, card)}
+    # phase 4r a, b, c, e: training on the same model (carved out)
+    with train_phase():
+        tr = {"resnet50": train_resnet(torch, device, kernels, card, mp)}
 
     phase_done("4a")
 
@@ -5691,6 +6189,9 @@ def main() -> int:
     gres["profile_decode"] = profile_decode(torch, gdec, card)
     # phase 4q b: the generate command on the same model (carved out)
     cq["generate"] = cli_generate(torch, kernels, gdec, gres, gp, card)
+    # phase 4r d: training GPT-2 small, into 4g's decoder (carved out)
+    with train_phase():
+        tr["gpt2"] = train_gpt(torch, device, kernels, card, gp, gdec)
     del gdec, gp
     free_card(torch)
 
@@ -5779,11 +6280,15 @@ def main() -> int:
     phase_s["4q"] = sum(CLI_SECONDS)
     print(f"phase 4q: {phase_s['4q']:.1f} s (inside 4a, 4g and 4k)",
           flush=True)
+    # phase 4r: the training that rode 4a's and 4g's models
+    phase_s["4r"] = sum(TRAIN_SECONDS)
+    print(f"phase 4r: {phase_s['4r']:.1f} s (inside 4a and 4g)", flush=True)
     total_s = sum(phase_s.values())
     print(f"budget: phases {total_s:.1f} s of {BUDGET_S:.0f} s, phase 4o "
           f"{phase_s['4o']:.1f} s of {DAG_BUDGET_S:.0f} s, phase 4p "
           f"{phase_s['4p']:.1f} s of {OBS_BUDGET_S:.0f} s, phase 4q "
-          f"{phase_s['4q']:.1f} s of {CLI_BUDGET_S:.0f} s; watchdog "
+          f"{phase_s['4q']:.1f} s of {CLI_BUDGET_S:.0f} s, phase 4r "
+          f"{phase_s['4r']:.1f} s of {TRAIN_BUDGET_S:.0f} s; watchdog "
           f"{WATCHDOG_S:.0f} s; on {card}", flush=True)
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
@@ -5841,6 +6346,13 @@ def main() -> int:
         "quant_int8": 0}
     for key, r in cq.items():
         by_path[f"cli_{key}"] = r["launches"]
+    for key, cnt in tr["resnet50"]["launches"].items():
+        by_path[f"train_resnet50_{key}"] = cnt
+    by_path["train_cli"] = tr["resnet50"]["cli"]["launches"]
+    for key, cnt in tr["resnet50"]["cli"]["api_launches"].items():
+        by_path[f"train_cli_{key}"] = cnt
+    for key, cnt in tr["gpt2"]["launches"].items():
+        by_path[f"train_gpt2_{key}"] = cnt
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -5920,6 +6432,9 @@ def main() -> int:
     print(json.dumps({"cli_path": {
         "microbatch": MICROBATCH, "budget_s": CLI_BUDGET_S,
         "seconds": phase_s["4q"], **cq}}))
+    print(json.dumps({"train_path": {
+        "microbatch": MICROBATCH, "budget_s": TRAIN_BUDGET_S,
+        "seconds": phase_s["4r"], **tr}}))
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": sum(phase_s.values()),
                       "budget_s": BUDGET_S, "watchdog_s": WATCHDOG_S}))

@@ -15,7 +15,9 @@ standard torchvision / Hugging Face files (:func:`load_pretrained`).
 weighted-fair admission with SLO shedding in front of a
 :class:`ContinuousBatchEngine`, in which GPT requests join and leave a
 fixed set of KV slots between decode steps; :class:`ServeClient` is its
-client.
+client.  :class:`PipelineTrainer` trains an :class:`SpmdPipeline`
+deployment through its own ring (autograd, ``torch.optim``), and the
+trained rows serve at once.
 
 Entry points (:class:`Defer`, :class:`SpmdPipeline`,
 :class:`MpmdPipeline`, :class:`PipelinedDecoder`,
@@ -39,7 +41,8 @@ from .codec import (BlockFloatCodec, LosslessCodec, PipelineCodec, RawCodec,
 from .graph import fold_batchnorm, summary, to_dot
 from .partition import partition
 from .runtime import (END_OF_STREAM, Defer, DeferHandle, MpmdPipeline,
-                      PipelinedDecoder, SpmdPipeline, speculative_generate)
+                      PipelinedDecoder, PipelineTrainer, SpmdPipeline,
+                      speculative_generate)
 from .serve import (ContinuousBatchEngine, DecodeRequest, ServeClient,
                     ServeFrontDoor)
 from .utils.config import DeferConfig
@@ -50,7 +53,8 @@ from .utils.pretrained import PRETRAINED_LOADERS, load_pretrained
 from .utils.profiling import profile_pipeline, trace
 
 __all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
-           "SpmdPipeline", "MpmdPipeline", "PipelinedDecoder", "partition",
+           "SpmdPipeline", "MpmdPipeline", "PipelineTrainer",
+           "PipelinedDecoder", "partition",
            "models", "plan", "params_from_jax", "params_to_jax",
            "speculative_generate", "fold_batchnorm", "summary", "to_dot",
            "BlockFloatCodec", "LosslessCodec", "PipelineCodec", "RawCodec",

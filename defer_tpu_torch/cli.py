@@ -10,6 +10,8 @@
     python -m defer_tpu_torch serve --model resnet_tiny --stages 3 \\
         [--nodes H:P,...] [--workload decode] [--seconds S]
     python -m defer_tpu_torch serve-client --connect H:P --rate 20
+    python -m defer_tpu_torch train --model resnet_tiny --stages 4 \\
+        [--wire int8] [--steps 5] [--save CKPT] [--device cpu]
     python -m defer_tpu_torch node --listen :5000 [--device cpu]
     python -m defer_tpu_torch chain --model resnet_tiny --stages 3 \\
         [--in-band] [--codec lzb] [--device cpu] [--emit-calibration F]
@@ -51,13 +53,17 @@ against a ``plan --json`` file, a serve front door's tenants),
 breakdown, and ``postmortem`` assembles a forensics bundle from the
 black-box journals a ``--journal-dir`` chain wrote (either package's).
 
-These are the JAX package's subcommands (``defer_tpu/cli.py``) but
-``train``, which comes with ROADMAP item A16.  Every command that runs a
-model (``bench``, ``generate``, ``serve``, ``node``, ``chain``, and the
-per-node timing of ``--measured``/``--balance measured``) runs on the
-CUDA card unless ``--device cpu`` is given; a float32 stage runs without
-TF32 (cuBLAS and cuDNN), so its rows match the float32 forward.  Weights
-are the seeded initialisation of :func:`_init_params`.
+``train`` trains a ring deployment on seeded synthetic data through
+:class:`~defer_tpu_torch.runtime.training.PipelineTrainer` (Adam), its
+attention blocks on ``attn_impl="xla"``, and prints each step's loss.
+
+These are the JAX package's subcommands (``defer_tpu/cli.py``).  Every
+command that runs a model (``bench``, ``generate``, ``serve``, ``train``,
+``node``, ``chain``, and the per-node timing of
+``--measured``/``--balance measured``) runs on the CUDA card unless
+``--device cpu`` is given; a float32 stage runs without TF32 (cuBLAS and
+cuDNN), so its rows match the float32 forward.  Weights are the seeded
+initialisation of :func:`_init_params`.
 """
 
 from __future__ import annotations
@@ -1476,6 +1482,64 @@ def cmd_export(args) -> None:
         print(p)
 
 
+def cmd_train(args) -> None:
+    """Pipeline-parallel training demo: seeded synthetic data, mean
+    cross-entropy per microbatch, Adam; each step's loss on stderr, one
+    JSON line at the end.  Attention blocks train on ``attn_impl="xla"``
+    (the flash operator has no backward)."""
+    import numpy as np
+    import torch
+
+    from . import SpmdPipeline, partition
+    from .graph import with_attn_impl
+    from .graph.ops import TransformerBlock
+    from .runtime.training import PipelineTrainer
+
+    graph = _get_model(args.model)
+    params = _init_params(graph)
+    attn = any(isinstance(n.op, TransformerBlock)
+               for n in graph.nodes.values())
+    if attn:
+        graph = with_attn_impl(graph, "xla")
+    cuts = args.cuts.split(",") if args.cuts else None
+    stages = partition(graph, cuts, num_stages=args.stages)
+    _no_tf32()
+    pipe = SpmdPipeline(stages, params, device=_device_arg(args.device),
+                        microbatch=args.microbatch, chunk=args.chunk,
+                        wire=args.wire)
+    in_spec, out_spec = pipe.in_spec, pipe.out_spec
+    classes = out_spec.shape[-1]
+
+    def ce(logits, labels):
+        return torch.nn.functional.cross_entropy(logits.float(), labels)
+
+    trainer = PipelineTrainer(
+        pipe, ce, optimizer=lambda rows: torch.optim.Adam(rows, lr=args.lr))
+    rng = np.random.default_rng(0)
+    m = max(args.chunk - len(stages) + 1, 1)
+    if not in_spec.dtype.is_floating_point:
+        xs = rng.integers(0, 64, (m, args.microbatch) + in_spec.shape
+                          ).astype(np.float32)
+    else:
+        xs = rng.standard_normal(
+            (m, args.microbatch) + in_spec.shape).astype(np.float32)
+    ys = rng.integers(0, classes, (m, args.microbatch))
+
+    losses = []
+    for i in range(args.steps):
+        t0 = time.perf_counter()
+        loss = trainer.step(xs, ys)
+        losses.append(round(loss, 4))
+        print(f"step {i}: loss {loss:.4f} "
+              f"({time.perf_counter() - t0:.2f}s)", file=sys.stderr)
+    if args.save:
+        trainer.save_checkpoint(args.save)
+        print(f"checkpoint -> {args.save}", file=sys.stderr)
+    print(json.dumps({"model": args.model, "stages": len(stages),
+                      "steps": args.steps, "losses": losses,
+                      "attn_impl": "xla" if attn else None}))
+
+
 def cmd_generate(args) -> None:
     """Pipelined autoregressive generation of random prompts: a first
     call that captures the decoder's graphs, then a timed call."""
@@ -2233,6 +2297,25 @@ def main(argv=None) -> None:
                     help="decode mode: tokens per request (rides the "
                          "hello)")
 
+    t = sub.add_parser("train", help="pipeline-parallel training demo "
+                                     "(synthetic data, cross-entropy; "
+                                     "attention blocks train on "
+                                     "attn_impl=\"xla\", and the JSON "
+                                     "line says so)")
+    t.add_argument("--model", default="resnet_tiny")
+    t.add_argument("--stages", type=int, default=4)
+    t.add_argument("--cuts")
+    t.add_argument("--chunk", type=int, default=8)
+    t.add_argument("--microbatch", type=int, default=1)
+    t.add_argument("--steps", type=int, default=5)
+    t.add_argument("--lr", type=float, default=1e-3)
+    t.add_argument("--wire", default="buffer", choices=["buffer", "int8"],
+                   help="int8: train the quantized deployment (STE)")
+    t.add_argument("--save", help="write a training checkpoint here")
+    t.add_argument("--device", default="cuda",
+                   help="where the ring trains: cuda (the default), "
+                        "cuda:N, a card index, or cpu")
+
     g = sub.add_parser("generate", help="pipelined autoregressive "
                                         "generation demo (gpt models)")
     g.add_argument("--model", default="gpt_tiny")
@@ -2265,7 +2348,7 @@ def main(argv=None) -> None:
      "node": cmd_node, "chain": cmd_chain, "partition": cmd_partition,
      "plan": cmd_plan, "monitor": cmd_monitor, "profile": cmd_profile,
      "postmortem": cmd_postmortem, "serve": cmd_serve,
-     "serve-client": cmd_serve_client,
+     "serve-client": cmd_serve_client, "train": cmd_train,
      "generate": cmd_generate}[args.cmd](args)
 
 

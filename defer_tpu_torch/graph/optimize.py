@@ -4,6 +4,10 @@
 channel, so it folds exactly into the preceding convolution's weights and
 bias, removing the op (and its passes over the activation) from every
 stage.
+
+**Attention path** — :func:`with_attn_impl` sets every attention block's
+``attn_impl``; training uses it to run the plain ``"xla"`` path, since the
+flash operator has no backward (nor has the JAX package's Pallas kernel).
 """
 
 from __future__ import annotations
@@ -15,7 +19,7 @@ import numpy as np
 import torch
 
 from .ir import LayerGraph, LayerNode, ShapeSpec, tree_map
-from .ops import BatchNorm, Conv2D, DepthwiseConv2D
+from .ops import BatchNorm, Conv2D, DepthwiseConv2D, TransformerBlock
 
 
 def _consumers(graph: LayerGraph, name: str) -> list[str]:
@@ -105,3 +109,20 @@ def fold_batchnorm(graph: LayerGraph, params: dict[str, Any]
     out = LayerGraph(graph.name + "+bnfold", rewired, graph.input_name,
                      resolve(graph.output_name), graph.input_spec)
     return out, new_params, folded
+
+
+def with_attn_impl(graph: LayerGraph, impl: str) -> LayerGraph:
+    """``graph`` with every attention block (``TransformerBlock`` and its
+    subclasses) set to ``attn_impl=impl``: a new graph of the same name,
+    nodes and parameters; ``graph`` is left untouched."""
+    if impl not in ("auto", "flash", "xla"):
+        raise ValueError(
+            f"attn_impl must be 'auto', 'flash' or 'xla', got {impl!r}")
+    nodes = {}
+    for name, node in graph.nodes.items():
+        if isinstance(node.op, TransformerBlock):
+            node = dataclasses.replace(
+                node, op=dataclasses.replace(node.op, attn_impl=impl))
+        nodes[name] = node
+    return LayerGraph(graph.name, nodes, graph.input_name,
+                      graph.output_name, graph.input_spec)

@@ -97,12 +97,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``block_q``/``block_k`` are the JAX signature's tile sizes.  They are
     validated and accepted; the CUDA kernel runs its own fixed tile
     (``csrc/flash_attention.cu``), which changes results only by rounding.
+
+    Forward only, as the JAX package's Pallas kernel: with grad mode on
+    and an input that requires grad it raises, on every device, rather
+    than let the plain version stand in for the kernel.  Attention models
+    train through ``attn_impl="xla"`` blocks
+    (``graph.optimize.with_attn_impl``).
     """
     _check_blocks(block_q, block_k)
     _check(q, k, v)
     if q.device.type not in ("cpu", "meta", "cuda"):
         raise ValueError(f"flash_attention: no implementation for device "
                          f"{q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward (neither has the JAX "
+            "package's Pallas kernel): build the attention blocks with "
+            "attn_impl=\"xla\" to train, e.g. "
+            "graph.optimize.with_attn_impl(graph, \"xla\")")
     return torch.ops.defer_tpu_torch.flash_attention(q, k, v, bool(causal))
 
 

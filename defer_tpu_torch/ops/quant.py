@@ -85,3 +85,26 @@ def quantized_ring_hop(y: torch.Tensor, out_dtype) -> torch.Tensor:
     q, s = quantize_int8_blocks(y)
     return dequantize_int8_blocks(torch.roll(q, 1, 0), torch.roll(s, 1, 0),
                                   out_dtype)
+
+
+class _StraightThroughHop(torch.autograd.Function):
+    """:func:`quantized_ring_hop` forward; the backward treats dequant∘quant
+    as identity and rolls the cotangent one slot back (the JAX trainer's
+    ``_hop_bwd``, a ``ppermute`` by the inverse ring).  It saves nothing,
+    so a recompute never needs to rerun the quantizer."""
+
+    @staticmethod
+    def forward(ctx, y, out_dtype):
+        return quantized_ring_hop(y, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.roll(g, -1, 0), None
+
+
+def ste_ring_hop(y: torch.Tensor, out_dtype) -> torch.Tensor:
+    """The int8 ring hop with a straight-through estimator: exactly
+    :func:`quantized_ring_hop` forward (one quantizer launch for the whole
+    ring), ``torch.roll(g, -1, 0)`` backward.  With grad off (inference, a
+    CUDA-graph capture) it is the plain hop."""
+    return _StraightThroughHop.apply(y, out_dtype)

@@ -122,22 +122,30 @@ class StageModule(nn.Module):
     """One stage holding its parameters on ``device`` in one flat row.
 
     ``row`` is one contiguous tensor in ``weight_dtype`` — the compute
-    dtype when one is set, else float32, as in the JAX engine
-    (``runtime/flatbuf.py`` lays it out) — and each leaf the stage function
-    reads is a frozen view into it — conv kernels as OIHW with
-    channels_last strides, so cuDNN reads them without a per-call
-    relayout.  :meth:`load` packs and validates new parameters and
-    :meth:`install` copies them into the same row, so every view (and any
-    CUDA graph that captured them) sees the new weights.
+    dtype when one is set and ``master_weights`` is off, else float32, as
+    in the JAX engine (``runtime/flatbuf.py`` lays it out) — and each leaf
+    the stage function reads is a frozen view into it — conv kernels as
+    OIHW with channels_last strides, so cuDNN reads them without a
+    per-call relayout.  :meth:`load` packs and validates new parameters
+    and :meth:`install` copies them into the same row, so every view (and
+    any CUDA graph that captured them) sees the new weights.
 
     Leaf dtypes follow the JAX engine: under ``compute_dtype`` a float
     leaf is read in the compute dtype; otherwise every leaf comes back in
     its original dtype.  A leaf whose dtype is the row's is a view; any
-    other (an integer leaf, say) is cast from its view at each call.
+    other (an integer leaf, or a float leaf of an f32 master row under a
+    bf16 compute dtype) is cast from its view at each call.
+
+    Training (``runtime/training.py``) sets ``row.requires_grad``.  Views
+    cut before that carry no graph, so with grad mode on the leaves are cut
+    from the row at each call; the row itself is only ever updated in
+    place, so the frozen views and captured graphs read the trained
+    weights.
     """
 
     def __init__(self, stage: StageSpec, params: dict[str, Any],
-                 device: torch.device, *, compute_dtype=None):
+                 device: torch.device, *, compute_dtype=None,
+                 master_weights: bool = False):
         # imported here: ``runtime``'s package imports this module
         from ..runtime import flatbuf
 
@@ -145,7 +153,8 @@ class StageModule(nn.Module):
         self.stage = stage
         self.compute_dtype = (None if compute_dtype is None
                               else as_dtype(compute_dtype))
-        self.weight_dtype = self.compute_dtype or torch.float32
+        self.weight_dtype = (torch.float32 if master_weights
+                             else self.compute_dtype or torch.float32)
         self.paths, leaves = flatbuf.flatten_leaves(
             stage.select_params(params))
         self.meta = flatbuf.leaf_meta(leaves)
@@ -193,18 +202,22 @@ class StageModule(nn.Module):
         return self._pack(leaves)
 
     def install(self, row: torch.Tensor) -> None:
-        """Copy a row from :meth:`load` into the deployed one, in place."""
+        """Copy a row from :meth:`load` into the deployed one, in place
+        (also when the row requires grad)."""
         with torch.inference_mode():
             self.row.copy_(row)
 
     def params(self) -> dict[str, Any]:
         """The nested parameters the stage function reads."""
-        if self._tree is not None:
-            return self._tree
         from ..runtime import flatbuf
+        leaves = self.leaves
+        if torch.is_grad_enabled() and self.row.requires_grad:
+            leaves = flatbuf.unpack_leaves(self.row, self.meta)
+        elif self._tree is not None:
+            return self._tree
         return flatbuf.unflatten_leaves(
             self.paths, [v if v.dtype == d else v.to(d)
-                         for v, d in zip(self.leaves, self._dtypes)])
+                         for v, d in zip(leaves, self._dtypes)])
 
     def forward(self, *xs: torch.Tensor) -> torch.Tensor:
         """The stage on its input (a join stage: its P inputs, in path

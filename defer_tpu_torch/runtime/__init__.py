@@ -3,6 +3,8 @@ from .dispatcher import END_OF_STREAM, Defer, DeferHandle
 from .mpmd import MpmdPipeline
 from .speculative import speculative_generate
 from .spmd import SpmdPipeline
+from .training import PipelineTrainer
 
 __all__ = ["END_OF_STREAM", "Defer", "DeferHandle", "MpmdPipeline",
-           "PipelinedDecoder", "SpmdPipeline", "speculative_generate"]
+           "PipelineTrainer", "PipelinedDecoder", "SpmdPipeline",
+           "speculative_generate"]

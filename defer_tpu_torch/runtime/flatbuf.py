@@ -168,10 +168,25 @@ def unpack_quant_leaves(q_row: torch.Tensor, s_row: torch.Tensor,
 def unpack_leaves(row: torch.Tensor, meta: Sequence[LeafMeta]
                   ) -> list[torch.Tensor]:
     """Each leaf as a view into ``row``, in the row's dtype: 4-D leaves as
-    OIHW with channels_last strides, the others contiguous."""
+    OIHW with channels_last strides, the others contiguous.
+
+    The views come from one ``split`` of the row (the gaps between leaves
+    are pieces of their own), so on a row that requires grad the leaves'
+    gradients gather into the row's in one ``cat`` — a view per leaf
+    (``narrow``) would give each leaf a row-sized zero gradient to add."""
+    sizes, pieces, end = [], [], 0
+    for off, size, _, _ in meta:
+        if off > end:
+            sizes.append(off - end)  # the gap before the leaf
+        pieces.append(len(sizes))
+        sizes.append(size)
+        end = off + size
+    if row.numel() > end:
+        sizes.append(row.numel() - end)
+    parts = row.split(sizes)
     leaves = []
-    for off, size, shape, _ in meta:
-        seg = row.narrow(0, off, size)
+    for p, (_, _, shape, _) in zip(pieces, meta):
+        seg = parts[p]
         if len(shape) == 4:
             o, i, h, w = shape
             leaves.append(seg.view(o, h, w, i).permute(0, 3, 1, 2))

@@ -22,7 +22,12 @@ microbatch t-N+1.
 
 Weights: each stage holds one flat row (``runtime/flatbuf.py``) in
 ``weight_dtype`` — ``compute_dtype`` when set, else float32, as in the JAX
-engine — and ``reweight`` copies new weights into the same rows.
+engine; ``master_weights=True`` keeps the rows float32 and casts each float
+leaf to the compute dtype at each call (the mixed-precision training
+recipe) — and ``reweight`` copies new weights into the same rows.
+``runtime/training.py`` differentiates the same step (:meth:`_stages`, then
+:meth:`_hop`) and updates the rows in place, so the deployment that trains
+is the one that serves.
 
 A chunk of steps: the JAX engine compiles it into one program (``lax.scan``
 inside ``jit``).  On the card its counterpart is one CUDA-graph replay per
@@ -45,7 +50,7 @@ import torch
 from ..graph.ir import ShapeSpec, as_dtype
 from ..obs import tracer
 from ..ops.launches import counted_kernels
-from ..ops.quant import quantized_ring_hop
+from ..ops.quant import ste_ring_hop
 from ..partition.stage import StageModule, StageSpec, buffer_footprint
 from ..utils.config import resolve_device
 from ..utils.metrics import PipelineMetrics
@@ -56,8 +61,7 @@ COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_single_card(*, compute_dtype=None, data_parallel: int = 1,
-                      tensor_parallel: int = 1,
-                      master_weights: bool = False) -> None:
+                      tensor_parallel: int = 1) -> None:
     """Raise for the reference options this port does not support yet."""
     if compute_dtype is not None and as_dtype(compute_dtype) \
             not in COMPUTE_DTYPES:
@@ -68,10 +72,32 @@ def check_single_card(*, compute_dtype=None, data_parallel: int = 1,
         raise NotImplementedError(
             "data_parallel / tensor_parallel need a multi-card ring "
             "(ROADMAP queue A15)")
-    if master_weights:
-        raise NotImplementedError(
-            "master_weights belongs to the pipeline trainer (ROADMAP queue "
-            "A16)")
+
+
+class _RingOf(torch.autograd.Function):
+    """The ring of the stages' outputs ``[b, out_sz_k]``: slot k holds
+    output k cast to ``dtype`` and zero-padded to ``buf`` values (written
+    in place into one new ring, as inference always did).  The backward
+    hands each output its slot's slice of the ring's gradient, a view:
+    written through autograd, each slot's in-place copy would clone the
+    whole ring's gradient in the backward."""
+
+    @staticmethod
+    def forward(ctx, buf: int, dtype, *outs):
+        y = outs[0].new_empty((len(outs), outs[0].shape[0], buf),
+                              dtype=dtype)
+        for k, out in enumerate(outs):
+            sz = out.shape[1]
+            y[k, :, :sz] = out  # cast to the buffer
+            if sz < buf:
+                y[k, :, sz:] = 0
+        ctx.outs = [(out.shape[1], out.dtype) for out in outs]
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *(g[k, :, :sz].to(dt)
+                              for k, (sz, dt) in enumerate(ctx.outs)))
 
 
 @dataclasses.dataclass
@@ -114,8 +140,7 @@ class SpmdPipeline:
     ):
         check_single_card(compute_dtype=compute_dtype,
                           data_parallel=data_parallel,
-                          tensor_parallel=tensor_parallel,
-                          master_weights=master_weights)
+                          tensor_parallel=tensor_parallel)
         if wire not in ("buffer", "int8"):
             raise ValueError(f"wire must be 'buffer' or 'int8', got {wire!r}")
         self.device = resolve_device(device)
@@ -126,8 +151,11 @@ class SpmdPipeline:
         self.buffer_dtype = as_dtype(buffer_dtype)
         self.compute_dtype = cd = (None if compute_dtype is None
                                    else as_dtype(compute_dtype))
-        #: the flat rows' dtype: the compute dtype when set, else float32
-        self.weight_dtype = cd or torch.float32
+        self.master_weights = bool(master_weights)
+        #: the flat rows' dtype: the compute dtype when set (and not
+        #: ``master_weights``), else float32
+        self.weight_dtype = (torch.float32 if self.master_weights
+                             else cd or torch.float32)
         self.wire = wire
 
         self._in_sizes = [s.in_spec.size for s in self.stages]
@@ -150,7 +178,8 @@ class SpmdPipeline:
                 f"representable in {self.buffer_dtype}")
 
         #: stage k's module, holding its flat weight row on the device
-        self.modules = [StageModule(s, params, self.device, compute_dtype=cd)
+        self.modules = [StageModule(s, params, self.device, compute_dtype=cd,
+                                    master_weights=self.master_weights)
                         for s in self.stages]
 
         self.metrics = PipelineMetrics(
@@ -198,18 +227,24 @@ class SpmdPipeline:
         return self.modules[k](x.to(self._x_dtypes[k])).reshape(
             b, self._out_sizes[k])
 
-    def _step(self, a: torch.Tensor) -> torch.Tensor:
-        """Run every stage on its slot of ring ``a`` and rotate: the ring
-        of the next step (``a`` is not modified)."""
-        buf = a.shape[2]
-        y = torch.empty_like(a)
-        for k in range(self.num_stages):
-            out_sz = self._out_sizes[k]
-            y[k, :, :out_sz] = self._branch(k, a[k])  # cast to the buffer
-            if out_sz < buf:
-                y[k, :, out_sz:] = 0
+    def _stages(self, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """Run every stage on its slot of ring ``a``, stage 0 on the
+        injected input ``x`` (the dispatcher feeding node 0) in place of
+        slot 0: the ring before the hop (``a`` is not modified).  The slots
+        are one ``unbind`` of the ring, whose backward stacks the slots'
+        gradients once."""
+        slots = a.unbind(0)
+        return _RingOf.apply(
+            a.shape[2], self.buffer_dtype,
+            *(self._branch(k, x if k == 0 else slots[k])
+              for k in range(self.num_stages)))
+
+    def _hop(self, y: torch.Tensor) -> torch.Tensor:
+        """Rotate the ring one slot (stage k's output to slot k+1); under
+        ``wire="int8"`` through the quantized hop, whose backward is the
+        straight-through roll back."""
         if self.wire == "int8":
-            return quantized_ring_hop(y, self.buffer_dtype)
+            return ste_ring_hop(y, self.buffer_dtype)
         return torch.roll(y, 1, 0)
 
     def _chunk(self, ring: torch.Tensor, xs: torch.Tensor,
@@ -219,8 +254,7 @@ class SpmdPipeline:
         out_sz = self._out_sizes[-1]
         a = ring
         for t in range(xs.shape[0]):
-            a[0] = xs[t]  # inject at stage 0 (the dispatcher feeding node 0)
-            a = self._step(a)
+            a = self._hop(self._stages(a, xs[t]))
             outs[t] = a[0, :, :out_sz]
         if a is not ring:
             ring.copy_(a)

@@ -43,8 +43,7 @@ class DeferConfig:
     # dtype activations are cast to inside each stage (None = model dtype):
     # float32 or bfloat16; the ring engine then stores weights in it too
     compute_dtype: str | None = None
-    # keep weights in f32 and cast inside each stage (training recipe);
-    # not supported by this port so far
+    # keep weights in f32 and cast inside each stage (training recipe)
     master_weights: bool = False
     # stage->stage hop encoding: "buffer" sends the raw transfer buffer;
     # "int8" block-quantizes every hop on the device (the analogue of the

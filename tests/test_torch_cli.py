@@ -1,5 +1,6 @@
 """The port's command line against the JAX package's: ``models``, ``bench``,
-``export``, ``generate``, ``serve``, ``serve-client`` and ``--sock-buf``.
+``export``, ``generate``, ``serve``, ``serve-client``, ``train`` and
+``--sock-buf``.
 
 Both CLIs run in this process (``cli.main([...])``) on the CPU; the port's
 commands take ``--device cpu`` (without it they run on the card, and raise
@@ -198,6 +199,64 @@ def test_generate_defaults_to_the_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main(["generate", "--model", "gpt_tiny"])
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+TRAIN = ["train", "--stages", "2", "--chunk", "3", "--steps", "2",
+         "--device", "cpu"]
+
+
+def _ce(logits, labels):
+    return torch.nn.functional.cross_entropy(logits.float(), labels)
+
+
+@pytest.mark.parametrize("wire", ["buffer", "int8"])
+def test_train_losses_equal_the_api_and_checkpoint(wire, capsys, tmp_path):
+    """``train`` prints the JAX package's JSON line (plus ``attn_impl``);
+    its losses are the API's on the same seed (Adam at ``--lr``, the
+    command's seeded data), and ``--save`` writes the trained rows."""
+    from defer_tpu_torch import PipelineTrainer, SpmdPipeline, partition
+
+    ck = str(tmp_path / "ck")
+    cli.main(TRAIN + ["--model", "resnet_tiny", "--wire", wire,
+                      "--save", ck])
+    (row,) = _json_lines(capsys.readouterr().out)
+    assert list(row) == ["model", "stages", "steps", "losses", "attn_impl"]
+    assert (row["model"], row["stages"], row["steps"]) == ("resnet_tiny",
+                                                           2, 2)
+    assert row["attn_impl"] is None and np.isfinite(row["losses"]).all()
+
+    g = models.resnet_tiny()
+    pipe = SpmdPipeline(partition(g, num_stages=2), cli._init_params(g),
+                        device="cpu", microbatch=1, chunk=3, wire=wire)
+    adam = lambda rows: torch.optim.Adam(rows, lr=1e-3)  # noqa: E731
+    t = PipelineTrainer(pipe, _ce, optimizer=adam)
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((2, 1, 32, 32, 3)).astype(np.float32)
+    ys = rng.integers(0, 10, (2, 1))
+    assert [round(t.step(xs, ys), 4) for _ in range(2)] == row["losses"]
+    t2 = PipelineTrainer(SpmdPipeline(
+        partition(g, num_stages=2), cli._init_params(g), device="cpu",
+        microbatch=1, chunk=3, wire=wire), _ce, optimizer=adam)
+    t2.load_checkpoint(ck)
+    for a, b in zip(t2.rows, t.rows):
+        assert torch.equal(a, b)
+
+
+def test_train_attention_model_reports_xla(capsys):
+    cli.main(TRAIN + ["--model", "bert_tiny", "--steps", "1"])
+    (row,) = _json_lines(capsys.readouterr().out)
+    assert row["attn_impl"] == "xla" and np.isfinite(row["losses"]).all()
+
+
+def test_train_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["train", "--model", "resnet_tiny"])
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,10 @@ and find the flash kernel, launched on another thread, in a profiling
 window's ``torch.profiler`` trace.  The command line's tests count the
 flash launches of ``amortized_forward_seconds``, whose ``k`` forwards are
 one graph replay, and the quantizer launches of ``bench --wire int8`` (a
-bf16 ring on the card).
+bf16 ring on the card).  The training tests hold the straight-through hop
+to the inference hop (forward bit for bit, backward the roll back) and one
+``PipelineTrainer.loss_and_grad`` on the card to the same on the CPU,
+counting the quantizer's launches.
 """
 
 import math
@@ -1218,3 +1221,63 @@ def test_bench_int8_counts_one_quantizer_launch_per_step(cuda, capsys):
     assert dict(by_dtype) == {"bfloat16": n}
     assert FLASH.launches == f0
     assert row["value"] > 0
+
+
+def test_ste_hop_on_card_is_the_inference_hop(cuda):
+    """The straight-through hop on the card: its forward is the inference
+    hop bit for bit in one quantizer launch, its backward rolls the
+    cotangent one slot back and launches nothing."""
+    from defer_tpu_torch.ops.quant import quantized_ring_hop, ste_ring_hop
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        y = torch.randn((4, 8, 1024), generator=gen, device=cuda).to(
+            dtype).requires_grad_(True)
+        before = KERNEL.launches
+        out = ste_ring_hop(y, dtype)
+        assert KERNEL.launches == before + 1
+        ct = torch.randn((4, 8, 1024), generator=gen, device=cuda).to(dtype)
+        (gy,) = torch.autograd.grad(out, y, ct)
+        assert KERNEL.launches == before + 1
+        assert torch.equal(gy, torch.roll(ct, -1, 0))
+        with torch.no_grad():
+            assert torch.equal(out, quantized_ring_hop(y, dtype))
+
+
+@pytest.mark.parametrize("wire", ["buffer", "int8"])
+def test_training_step_on_card_matches_cpu(cuda, wire):
+    """One ``loss_and_grad`` of a 4-stage resnet_tiny ring on the card
+    against the same on the CPU: the quantizer launched once per step of
+    the chunk (T = M + N - 1; the recompute reruns no hop).  Buffer wire:
+    loss rtol 1e-5, each stage's gradient row within 1e-4 of its max |g|
+    (cuDNN and the CPU sum in other orders).  int8: a rounding flip moves
+    one value by one int8 step, so loss rtol 1e-3, rows within 1e-2."""
+    import numpy as np
+
+    from defer_tpu_torch import (PipelineTrainer, SpmdPipeline, models,
+                                 partition)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = models.resnet_tiny()
+    params = g.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    xs = rng.standard_normal((3, 2, 32, 32, 3)).astype(np.float32)
+    ys = rng.integers(0, 10, (3, 2))
+    stages = partition(g, num_stages=4)
+    loss_fn = lambda lg, y: torch.nn.functional.cross_entropy(  # noqa: E731
+        lg.float(), y)
+    res = {}
+    for dev in ("cpu", cuda):
+        t = PipelineTrainer(SpmdPipeline(stages, params, device=dev,
+                                         microbatch=2, wire=wire), loss_fn)
+        before = KERNEL.launches
+        loss, grads = t.loss_and_grad(xs, ys)
+        torch.cuda.synchronize()
+        want = 3 + 4 - 1 if dev == cuda and wire == "int8" else 0
+        assert KERNEL.launches - before == want
+        res[str(dev)] = (float(loss), [gr.cpu() for gr in grads])
+    (lc, gc), (lg, gg) = res["cpu"], res[str(cuda)]
+    loss_rtol, rel = (1e-5, 1e-4) if wire == "buffer" else (1e-3, 1e-2)
+    assert abs(lg - lc) <= loss_rtol * abs(lc)
+    for a, b in zip(gg, gc):
+        assert (a - b).abs().max() <= rel * b.abs().max()

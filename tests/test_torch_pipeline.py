@@ -231,7 +231,6 @@ def test_unported_options_raise(tiny):
     stages = partition(tg, num_stages=2)
     for kw, match in ((dict(data_parallel=2), "A15"),
                       (dict(tensor_parallel=2), "A15"),
-                      (dict(master_weights=True), "A16"),
                       (dict(compute_dtype="float16"), "compute_dtype")):
         with pytest.raises(NotImplementedError, match=match):
             SpmdPipeline(stages, params, device="cpu", **kw)
