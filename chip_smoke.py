@@ -171,7 +171,7 @@ Phases, in order; any failure exits non-zero before the result line:
                    in-process nodes (rows byte-identical to the serial
                    composition of the nodes' own programs, within 1e-5 of
                    the forward with top-1 equal, every branch every frame,
-                   the join's ``join`` = 3), timed on 32 frames beside
+                   the join's ``join`` = 3), timed on 16 frames beside
                    ``best_linear_plan``'s chain, then as five node
                    processes through ``run_dag_chain`` (rows
                    byte-identical to the in-process rows; boot, export and
@@ -233,18 +233,42 @@ Phases, in order; any failure exits non-zero before the result line:
                    the int8 wire (the straight-through hop on the
                    quantizer kernel, one launch per ring step) against the
                    buffer wire, the same chunk on the plain quantizer,
-                   three Adam steps, the captured graph serving the
+                   two Adam steps, the captured graph serving the
                    trained rows equal to a fresh pipeline; bf16 compute on
                    float32 master rows; the ``train`` command with its
                    checkpoint resumed in a fresh trainer; after g, GPT-2
                    small/12 (``attn_impl="xla"``, 4 x 8 sequences of 64)
-                   against its whole-graph reference, three Adam steps and
+                   against its whole-graph reference, two Adam steps and
                    the trained weights in 4g's decoder (greedy next tokens
                    equal to the trained graph's argmax up to a near tie);
+                s. mesh parallelism (``defer_tpu_torch.parallel``) on
+                   one-card meshes, after o (its training checks carved
+                   out of a and g): BERT-Base/12 on a (stage 12, model 2)
+                   mesh, both wires, rows against 4b's tp=1 ring (buffer
+                   1e-4, int8 5% of max |output|), 24 flash launches per
+                   step (two ranks of 6 local heads per block), one
+                   quantizer launch per int8 step, one capture per chunk
+                   length, sequences/s beside 4b's; BERT-Base/4 through
+                   ``Defer(DeferConfig(tensor_parallel=2,
+                   data_parallel=2))``, equal to ``SpmdPipeline.run`` on
+                   the same mesh; ring (8 ranks) and Ulysses (4 ranks)
+                   attention at ``[1, 12, 8192, 64]``, causal and not,
+                   within 2e-5 of ``full_attention``, the ring's peak
+                   memory below the full product's; expert parallelism on
+                   ``moe_0`` at BERT-Base widths over 4 ranks, equal to the
+                   dense MoE within 1e-5, capacity 1 dropping tokens to
+                   exactly their residual; ResNet50/8 int8 training on a
+                   (data 2, stage 8) mesh (loss and gradients against 4r's
+                   dp=1, one quantizer launch per ring step) and GPT-2
+                   small/12 on a (stage 12, model 2) mesh (loss, unsharded
+                   gradients and one SGD step's weights against 4r's
+                   tp=1); ``MpmdPipeline(devices=[card] * 8)`` against 4a's
+                   forward, and a mesh over two cards refused (A15b);
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
               ``replication_path``, ``dag_path``, ``obs_path``,
-              ``cli_path``, ``train_path``, the ``budget:`` line,
+              ``cli_path``, ``train_path``, ``mesh_path``, the ``budget:``
+              line,
               ``phase_seconds`` and
               ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``; each phase's seconds are
@@ -252,12 +276,16 @@ Phases, in order; any failure exits non-zero before the result line:
 
 The phases run under a budget: ``phase_seconds`` should total at most
 BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s), phase 4p
-at most OBS_BUDGET_S (40 s), phase 4q at most CLI_BUDGET_S (30 s) and
-phase 4r at most TRAIN_BUDGET_S (45 s), paid for by
+at most OBS_BUDGET_S (40 s), phase 4q at most CLI_BUDGET_S (30 s),
+phase 4r at most TRAIN_BUDGET_S (45 s) and phase 4s at most
+MESH_BUDGET_S (30 s), paid for by
 running earlier paths smaller (PERF.md §4).  A watchdog armed at start
 fails the run at WATCHDOG_S (720 s): it names the phase still running,
 dumps every thread's stack, kills the node processes the smoke started
-and exits 1.
+and exits 1.  Where the installed torch carries no bytecode and Python
+may not write it (``PYTHONDONTWRITEBYTECODE``), the smoke keeps the
+bytecode it compiles under ``defer_tpu_torch/_build/pycache`` and its
+node processes read it there (``bytecode_cache``).
 
 Weights are the port's own seeded random initialisation (phase 4i also
 reads them back from files it writes); inputs come from ``numpy`` with a
@@ -333,6 +361,10 @@ FLASH_CASES = [
     ("gpt2_score_bf16", 8, 12, 128, 128, 64, True, "bfloat16"),
     # moe_tiny's and moe_branched_tiny's blocks at microbatch 8 (phase 4h)
     ("moe_tiny", 8, 2, 16, 16, 16, False, "float32"),
+    # BERT-Base's local heads under 2-way tensor parallelism (phase 4s):
+    # 6 heads of a rank's fused [b, t, 3 * 6 * 64] projection
+    ("bert_base_tp2", 8, 6, 128, 128, 64, False, "float32"),
+    ("bf16_bert_base_tp2", 8, 6, 128, 128, 64, False, "bfloat16"),
 ]
 #: the causal GPT-2 cases timed beside SDPA's causal mode
 GPT2_FLASH_CASES = ("gpt2_prefill", "gpt2_prefill_bf16", "gpt2_score",
@@ -354,6 +386,40 @@ TF32_TERMS = 3
 SLEEP_CYCLES = 200_000_000
 
 
+#: where the run keeps the bytecode of what it and its node processes
+#: import, when the installed torch has none beside its sources and Python
+#: may not write any there (``PYTHONDONTWRITEBYTECODE``): every fresh
+#: process then compiled torch's modules anew, most of a node's boot
+#: (``scripts/torch_chain_boot.py``)
+PYCACHE = ("defer_tpu_torch", "_build", "pycache")
+
+
+def bytecode_cache() -> str | None:
+    """Keep this process's and its children's bytecode under the checkout's
+    build directory (``PYCACHE``), unless the caller chose a prefix, the
+    package is not beside this script, or torch ships its bytecode.  Runs
+    before ``import torch``: this process compiles torch once and writes
+    it, and every node process it spawns reads it.  Returns the prefix
+    (None when left alone)."""
+    import importlib.util
+    import os
+    from pathlib import Path
+
+    pkg = Path(__file__).resolve().parent / PYCACHE[0]
+    spec = importlib.util.find_spec("torch")
+    if (os.environ.get("PYTHONPYCACHEPREFIX") or not pkg.is_dir()
+            or spec is None or spec.origin is None or os.path.exists(
+                importlib.util.cache_from_source(spec.origin))):
+        return None
+    prefix = pkg.parent.joinpath(*PYCACHE)
+    prefix.mkdir(parents=True, exist_ok=True)
+    sys.pycache_prefix = str(prefix)
+    sys.dont_write_bytecode = False
+    os.environ["PYTHONPYCACHEPREFIX"] = str(prefix)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    return str(prefix)
+
+
 #: the smoke's time budget: every phase's seconds together, and phase 4o's
 BUDGET_S = 600.0
 DAG_BUDGET_S = 100.0
@@ -367,7 +433,7 @@ CLI_BUDGET_S = 30.0
 #: the phases in order (``phase_seconds`` keys); 4p's, 4q's and 4r's
 #: seconds are carved out of the phases where their checks run
 PHASES = ("1", "2", "3", "4a", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
-          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4p", "4q", "4r")
+          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4s", "4p", "4q", "4r")
 
 
 def kill_children() -> list:
@@ -610,13 +676,14 @@ def check_flash(torch, device, card):
     tensors = {}
     for name, b, h, tq, tk, d, causal, dt in FLASH_CASES:
         dtype = getattr(torch, dt)
-        if name == "bert_base":
+        if name in ("bert_base", "bert_base_tp2", "bf16_bert_base_tp2"):
             # the main path's layout: head-split views of the fused
             # [b, t, 3 * h * d] projection, read by stride
-            qkv = torch.randn((b, tq, 3 * h * d), generator=g, device=device)
+            qkv = torch.randn((b, tq, 3 * h * d), generator=g,
+                              device=device).to(dtype)
             q, k, v = (x.reshape(b, tq, h, d).transpose(1, 2)
                        for x in qkv.chunk(3, dim=-1))
-            tensors["bert_base_qkv"] = qkv
+            tensors[f"{name}_qkv"] = qkv
         elif name == "offset_view":
             # bases 4 bytes past a 16-byte boundary
             q, k, v = (torch.randn(math.prod(shape) + 1, generator=g,
@@ -729,6 +796,16 @@ def check_flash(torch, device, card):
     qkv16 = tensors["bert_base_qkv"].to(torch.bfloat16)
     row["bf16"] = timed(*(x.reshape(b, t, h, d).transpose(1, 2)
                           for x in qkv16.chunk(3, dim=-1)))
+    # phase 4s's local heads: each tensor-parallel rank's 6 of 12
+    tp2 = row["tp2_local_heads"] = timed(*tensors["bert_base_tp2"])
+    tp2["bf16"] = timed(*tensors["bf16_bert_base_tp2"])
+    for r in (tp2, tp2["bf16"]):
+        print(f"kernel flash_attention bert_base_tp2 {tuple(r['shape'])} "
+              f"{r['dtype']} (a rank's local heads): {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms'] * 100:.1f}% of "
+              f"the bound, on {card}", flush=True)
     return {"name": KERNEL.name, "route": "cuda",
             "source": "defer_tpu_torch/csrc/flash_attention.cu",
             "replaces": "defer_tpu/ops/flash_attention.py:41",
@@ -904,6 +981,7 @@ def bert_path(torch, device, kernels):
             fail(f"bert {wire}-wire error above its bound")
         res["launches"][wire] = launches
         res["rel_err"][wire] = err / scale
+        res.setdefault("rows", {})[wire] = out
         if wire == "int8":
             res["defer"] = defer
     res.update(graph=g, params=params, inputs=ids, pdev=pdev, cuts=cuts,
@@ -3756,6 +3834,8 @@ def train_resnet(torch, device, kernels, card, mp) -> dict:
         fail(f"phase 4r b: the plain quantizer's loss {float(lp)!r} and "
              f"gradients ({prel:.3g} of max |g|) against the kernel's "
              f"{float(lq)!r} (bound {TRAIN_PLAIN_REL})")
+    # phase 4s e's dp=1 baseline: this chunk's int8 loss and gradients
+    res["_int8_baseline"] = {"loss": float(lq), "grads": tq.stage_grads(gq)}
     del gp, gq
     losses, got_s, sec_s = _counted(torch, kernels, lambda: [
         tq.step(xs, ys) for _ in range(TRAIN_STEPS)])
@@ -3960,6 +4040,11 @@ def train_gpt(torch, device, kernels, card, gp, gdec) -> dict:
         fail(f"phase 4r d: GPT-2 loss {float(l0)!r} against the whole "
              f"graph's {ref_l!r} (rtol {TRAIN_LOSS_RTOL})")
     worst = check_stage_grads(torch, t, g0, ref_g, "d gpt2")
+    # phase 4s e's tp=1 baseline: this chunk's loss and gradients, and the
+    # weights they start from
+    baseline = {"loss": float(l0), "grads": t.stage_grads(g0),
+                "params": params, "graph": g, "cuts": cuts, "xs": xs,
+                "ids": ids}
     del g0, ref_g
     losses, got_s, sec_s = _counted(torch, kernels, lambda: [
         t.step(xs, ids) for _ in range(TRAIN_STEPS)])
@@ -4001,7 +4086,7 @@ def train_gpt(torch, device, kernels, card, gp, gdec) -> dict:
            "decoder_tokens_agree": f"{int(agree.sum())}/{agree.size}",
            "near_ties": int(tie.sum()),
            "launches": {"loss_and_grad": got, "adam_steps": got_s,
-                        "decoder": got_d}}
+                        "decoder": got_d}, "_tp1_baseline": baseline}
     print(f"train path d: PipelineTrainer(gpt2_small, {n} stages, attn_impl "
           f"xla, {TRAIN_M} x {MICROBATCH} sequences of {TRAIN_SEQ}) "
           f"loss_and_grad {sec:.3f} s, loss {float(l0):.6f} (whole graph "
@@ -6022,6 +6107,455 @@ def dag_path(torch, device, kernels, card, setup=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 4s: mesh parallelism on one card
+# ---------------------------------------------------------------------------
+
+#: phase 4s's share of BUDGET_S (its training checks ride 4a and 4g)
+MESH_BUDGET_S = 30.0
+#: seconds of phase 4s carved out of the phases it rides
+MESH_SECONDS: list = []
+#: pp x tp (x dp) rows against the tp=1 ring's on the buffer wire: the
+#: same f32 ops, but each block's four products split over the ranks and
+#: summed by the psums in another order
+MESH_REL_BOUND = 1e-4
+#: timed rounds of the tensor-parallel ring (one capture replay each)
+MESH_ROUNDS = 3
+#: BERT-Base's cuts for the (data 2, stage 4, model 2) mesh
+MESH_DP_TP_CUTS = ["block_2", "block_5", "block_8"]
+#: sequence parallelism at GPT-2 small's widths on a long context: the
+#: ring over 8 ranks; Ulysses needs heads % ranks == 0, so its 12 heads go
+#: over 4 ranks (8 must raise)
+SP_SHAPE = (1, 12, 8192, 64)
+SP_RANKS = 8
+SP_ULYSSES_RANKS = 4
+#: both schemes against full_attention and each other (the JAX tests'
+#: 2e-5, as a fraction of max |out|): the same f32 softmax, TF32 off
+SP_REL_BOUND = 2e-5
+#: expert parallelism: moe_0 of DAG_MOE's graph on [8, 128, 768] tokens
+EP_RANKS = 4
+EP_TOKENS = (8, 128)
+#: against the dense MoE.apply while no token overflows (the JAX test's)
+EP_REL_BOUND = 1e-5
+
+
+def mesh_phase() -> carved:
+    """A stretch of phase 4s (its seconds land in MESH_SECONDS)."""
+    return carved("4s", MESH_SECONDS)
+
+
+def _mesh_rel(out, want) -> float:
+    import numpy as np
+    return float(np.abs(out - want).max()) / float(np.abs(want).max())
+
+
+def mesh_bert(torch, device, kernels, card, bp, bthr) -> dict:
+    """Phase 4s a and b.  a: BERT-Base/12 (4b's graph, weights and ids) on
+    the one-card (stage 12, model 2) mesh, both wires: rows against 4b's
+    tp=1 ring rows (buffer within MESH_REL_BOUND, int8 within
+    INT8_REL_BOUND of max |output|); 2 x 12 flash launches per ring step
+    (each block's two ranks at 6 local heads), one quantizer launch per
+    int8 step; one capture per chunk length; sequences/s beside 4b's tp=1
+    ring and the chunk's device time (CUDA events around a replay).  b:
+    BERT-Base/4 through ``Defer(DeferConfig(tensor_parallel=2,
+    data_parallel=2))``: rows as a's buffer wire and equal to
+    ``SpmdPipeline.run`` on the same (data 2, stage 4, model 2) mesh."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, SpmdPipeline
+    from defer_tpu_torch.parallel import pipeline_mesh
+    from defer_tpu_torch.partition import partition
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g, params, ids = bp["graph"], bp["params"], bp["inputs"]
+    blocks = sum(name.startswith("block_") for name in g.topo_order)
+    m = ids.shape[0]
+    res: dict = {"launches": {}, "rel_err": {}}
+
+    stages = partition(g, bp["cuts"])
+    n = len(stages)
+    steps = CHUNK * -(-(m + n - 1) // CHUNK)
+    for wire, bound in (("buffer", MESH_REL_BOUND),
+                        ("int8", INT8_REL_BOUND)):
+        pipe = SpmdPipeline(stages, params, device=device,
+                            microbatch=MICROBATCH, chunk=CHUNK, wire=wire,
+                            tensor_parallel=2)
+        out, got, _ = _counted(torch, kernels, lambda: pipe.run(ids))
+        want = {"flash_attention": 2 * blocks * steps,
+                "quant_int8": steps if wire == "int8" else 0}
+        if got != want or pipe.metrics.captures != 1:
+            fail(f"phase 4s a {wire}: launches {got} (want {want}: 2 ranks "
+                 f"x {blocks} blocks of flash a step), "
+                 f"{pipe.metrics.captures} captures (want 1)")
+        rel = _mesh_rel(out, bp["rows"][wire])
+        if not (np.isfinite(out).all() and rel <= bound):
+            fail(f"phase 4s a {wire}: pp x tp rows {rel:.3g} of max|output| "
+                 f"off the tp=1 ring's (bound {bound})")
+        res["launches"][f"tp2_{wire}"] = got
+        res["rel_err"][f"tp2_{wire}"] = rel
+        # steady state: a captured chunk, replayed
+        xs = pipe.stage_inputs(ids[:CHUNK])
+        for _ in range(2):
+            pipe.push(xs)
+        walls = []
+        for _ in range(MESH_ROUNDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.push(xs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        pipe.push(xs)  # one replay of the captured chunk
+        ev[1].record()
+        ev[1].synchronize()
+        wall = statistics.median(walls)
+        res[f"tp2_{wire}"] = {
+            "sequences_per_s": CHUNK * MICROBATCH / wall,
+            "tp1_sequences_per_s": bthr[f"pipeline_{wire}"],
+            "device_ms_per_step": ev[0].elapsed_time(ev[1]) / CHUNK,
+            "wall_ms_per_step": wall * 1e3 / CHUNK,
+            "rows_per_stage_rank": [r.numel() for r in pipe.modules[1].rows]}
+        print(f"mesh path a: SpmdPipeline(bert_base, {n} stages x 2 "
+              f"tensor-parallel ranks, wire={wire}, microbatch {MICROBATCH}) "
+              f"on {m} microbatches = {steps} steps: launches {got}, rows "
+              f"{rel:.3g} of max|output| off the tp=1 ring's (bound {bound}),"
+              f" {pipe.metrics.captures} capture; "
+              f"{res[f'tp2_{wire}']['sequences_per_s']:.1f} sequences/s "
+              f"(4b's tp=1 ring {bthr[f'pipeline_{wire}']:.1f}; one card, "
+              f"no scaling claim), device "
+              f"{res[f'tp2_{wire}']['device_ms_per_step']:.3f} ms of "
+              f"{res[f'tp2_{wire}']['wall_ms_per_step']:.3f} ms a step; on "
+              f"{card}", flush=True)
+        del pipe
+    free_card(torch)
+    # where a tensor-parallel step's device time goes (one profiled chunk)
+    res["profile_tp2_int8"] = profile_step(
+        torch, bp, BERT_GROUPS, label="tp2 int8", defer=Defer(DeferConfig(
+            wire="int8", microbatch=MICROBATCH, chunk=CHUNK, device=device,
+            tensor_parallel=2)))
+    free_card(torch)
+
+    # b. pp x dp x tp through Defer, against SpmdPipeline on the same mesh
+    n4 = len(MESH_DP_TP_CUTS) + 1
+    steps4 = CHUNK * -(-(m + n4 - 1) // CHUNK)
+    defer = Defer(DeferConfig(microbatch=MICROBATCH, chunk=CHUNK,
+                              device=device, tensor_parallel=2,
+                              data_parallel=2))
+    out, got, sec = _counted(torch, kernels, lambda: defer.run(
+        g, params, ids, cut_points=MESH_DP_TP_CUTS))
+    want = {"flash_attention": 2 * blocks * steps4, "quant_int8": 0}
+    mesh = pipeline_mesh(n4, 2, 2, devices=[device] * (4 * n4))
+    same = SpmdPipeline(partition(g, MESH_DP_TP_CUTS), params, mesh=mesh,
+                        microbatch=MICROBATCH, chunk=CHUNK).run(ids)
+    rel = _mesh_rel(out, bp["rows"]["buffer"])
+    if got != want or rel > MESH_REL_BOUND or not np.array_equal(out, same):
+        fail(f"phase 4s b: Defer(tensor_parallel=2, data_parallel=2) "
+             f"launches {got} (want {want}), rows {rel:.3g} of max|output| "
+             f"off the tp=1 ring's (bound {MESH_REL_BOUND}), equal to "
+             f"SpmdPipeline on the same mesh: {np.array_equal(out, same)}")
+    res["launches"]["dp2_tp2"] = got
+    res["rel_err"]["dp2_tp2"] = rel
+    res["dp2_tp2"] = {"mesh": mesh.shape, "steps": steps4, "run_s": sec}
+    print(f"mesh path b: Defer(DeferConfig(tensor_parallel=2, "
+          f"data_parallel=2)).run(bert_base, {n4} stages) on the mesh "
+          f"{mesh.shape}: launches {got}, rows {rel:.3g} of max|output| off "
+          f"the tp=1 ring's, equal to SpmdPipeline.run on the same mesh; "
+          f"{sec:.2f} s with the capture; on {card}", flush=True)
+    del defer
+    free_card(torch)
+    return res
+
+
+def mesh_sequence(torch, device, card) -> dict:
+    """Phase 4s c: ``sequence_parallel_attention`` (the ring over
+    SP_RANKS ranks) and its Ulysses counterpart (SP_ULYSSES_RANKS ranks)
+    at SP_SHAPE, causal and not, against ``full_attention`` and each other
+    (SP_REL_BOUND of max |out|); the ring's peak memory below the full
+    product's (each rank's score block is (T/8)^2); Ulysses over 8 ranks
+    refuses 12 heads."""
+    from defer_tpu_torch.parallel import (Mesh, full_attention,
+                                          sequence_parallel_attention,
+                                          sequence_parallel_attention_ulysses)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    q, k, v = (torch.randn(SP_SHAPE, generator=gen, device=device)
+               for _ in range(3))
+    ring_mesh = Mesh([device] * SP_RANKS, ("seq",))
+    uly_mesh = Mesh([device] * SP_ULYSSES_RANKS, ("seq",))
+    try:
+        sequence_parallel_attention_ulysses(q, k, v, ring_mesh)
+        fail(f"phase 4s c: Ulysses over {SP_RANKS} ranks took "
+             f"{SP_SHAPE[1]} heads")
+    except ValueError as e:
+        if "divisible" not in str(e):
+            raise
+    res: dict = {"shape": list(SP_SHAPE), "ring_ranks": SP_RANKS,
+                 "ulysses_ranks": SP_ULYSSES_RANKS}
+
+    def measured(fn):
+        free_card(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        return out, torch.cuda.max_memory_allocated() - base, sec
+
+    for causal in (False, True):
+        full, full_peak, full_s = measured(
+            lambda: full_attention(q, k, v, causal=causal))
+        ring, ring_peak, ring_s = measured(
+            lambda: sequence_parallel_attention(q, k, v, ring_mesh,
+                                                causal=causal))
+        uly, uly_peak, uly_s = measured(
+            lambda: sequence_parallel_attention_ulysses(
+                q, k, v, uly_mesh, causal=causal))
+        scale = float(full.abs().max())
+        errs = {"ring_vs_full": float((ring - full).abs().max()) / scale,
+                "ulysses_vs_full": float((uly - full).abs().max()) / scale,
+                "ring_vs_ulysses": float((ring - uly).abs().max()) / scale}
+        if not (max(errs.values()) <= SP_REL_BOUND
+                and ring_peak < full_peak):
+            fail(f"phase 4s c causal={causal}: {errs} (bound "
+                 f"{SP_REL_BOUND} of max|out|), peak bytes ring {ring_peak}"
+                 f" against full {full_peak}")
+        key = "causal" if causal else "full"
+        res[key] = {**errs, "peak_bytes": {"full": full_peak,
+                                           "ring": ring_peak,
+                                           "ulysses": uly_peak},
+                    "seconds": {"full": full_s, "ring": ring_s,
+                                "ulysses": uly_s}}
+        print(f"mesh path c: attention {tuple(SP_SHAPE)} causal={causal}: "
+              f"ring ({SP_RANKS} ranks) {errs['ring_vs_full']:.3g}, Ulysses "
+              f"({SP_ULYSSES_RANKS} ranks) {errs['ulysses_vs_full']:.3g} of "
+              f"max|out| off full_attention, {errs['ring_vs_ulysses']:.3g} "
+              f"apart (bound {SP_REL_BOUND}); peak {full_peak / 1e9:.3f} GB "
+              f"full, {ring_peak / 1e9:.3f} ring, {uly_peak / 1e9:.3f} "
+              f"Ulysses; {full_s * 1e3:.1f}/{ring_s * 1e3:.1f}/"
+              f"{uly_s * 1e3:.1f} ms (first call, host clock); on {card}",
+              flush=True)
+        del full, ring, uly
+    del q, k, v
+    free_card(torch)
+    return res
+
+
+def mesh_expert(torch, device, card) -> dict:
+    """Phase 4s d: ``moe_0`` of ``moe_transformer(*DAG_MOE)`` (seed-0
+    weights) on EP_TOKENS tokens of width 768 over EP_RANKS expert ranks:
+    with ``capacity_factor=EP_RANKS`` (no token dropped) within
+    EP_REL_BOUND of max |out| of the dense ``MoE.apply``; with capacity 1,
+    all but the at most EP_RANKS^2 kept tokens equal their input exactly
+    (the residual) and the kept ones the dense result."""
+    from defer_tpu_torch import models
+    from defer_tpu_torch.parallel import (expert_parallel_fn,
+                                          expert_parallel_mesh,
+                                          shard_moe_params)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = models.moe_transformer(*DAG_MOE)
+    op = g.nodes["moe_0"].op
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = g.init(gen)["moe_0"]
+    d = g.out_spec("moe_0").shape[-1]
+    x = torch.randn(EP_TOKENS + (d,), generator=gen, device=device)
+    mesh = expert_parallel_mesh(EP_RANKS, devices=[device] * EP_RANKS)
+    stk = shard_moe_params(op, params, EP_RANKS, mesh=mesh)
+    with torch.inference_mode():
+        dense = op.apply(params, x)
+        t0 = time.perf_counter()
+        out = expert_parallel_fn(op, mesh, capacity_factor=float(
+            EP_RANKS))(stk, x)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        cut = expert_parallel_fn(op, mesh, capacity_factor=1.0,
+                                 tokens_per_device=1)(stk, x)
+    scale = float(dense.abs().max())
+    rel = float((out - dense).abs().max()) / scale
+    dropped = (cut == x).all(-1)
+    kept = ~dropped
+    kept_rel = (float((cut[kept] - dense[kept]).abs().max()) / scale
+                if bool(kept.any()) else 0.0)
+    tokens = EP_TOKENS[0] * EP_TOKENS[1]
+    if not (rel <= EP_REL_BOUND and kept_rel <= EP_REL_BOUND
+            and int(kept.sum()) <= EP_RANKS * EP_RANKS
+            and int(dropped.sum()) >= tokens - EP_RANKS * EP_RANKS):
+        fail(f"phase 4s d: expert-parallel {rel:.3g} of max|out| off the "
+             f"dense MoE (bound {EP_REL_BOUND}); capacity 1 kept "
+             f"{int(kept.sum())} tokens (at most {EP_RANKS ** 2}), kept "
+             f"tokens {kept_rel:.3g} off the dense result")
+    res = {"tokens": tokens, "experts": op.num_experts, "ranks": EP_RANKS,
+           "rel_err": rel, "capacity1_kept": int(kept.sum()),
+           "capacity1_dropped": int(dropped.sum()),
+           "capacity1_kept_rel_err": kept_rel, "seconds": sec}
+    print(f"mesh path d: expert_parallel_fn(moe_0 of moe_transformer"
+          f"{DAG_MOE}, {EP_RANKS} ranks) on {tokens} tokens: {rel:.3g} of "
+          f"max|out| off the dense MoE.apply (bound {EP_REL_BOUND}), "
+          f"{sec * 1e3:.1f} ms; capacity 1: {int(dropped.sum())} tokens "
+          f"dropped to exactly their residual, {int(kept.sum())} kept "
+          f"({kept_rel:.3g} off the dense result); on {card}", flush=True)
+    del g, params, stk, x, dense, out, cut
+    free_card(torch)
+    return res
+
+
+def mesh_guard(torch, device, card, mp) -> dict:
+    """Phase 4s f: ``MpmdPipeline(devices=[card] * 8)`` (round-robin, every
+    stage on the card) gives 4a's forward rows (BUFFER_REL_BOUND of max
+    |logit|); a mesh naming ``cuda:0`` and ``cuda:1`` raises, naming
+    ROADMAP A15b, before anything is placed."""
+    import numpy as np
+
+    from defer_tpu_torch import MpmdPipeline, SpmdPipeline
+    from defer_tpu_torch.parallel import pipeline_mesh
+    from defer_tpu_torch.partition import partition
+
+    stages = partition(mp["graph"], mp["cuts"])
+    mpmd = MpmdPipeline(stages, mp["params"], devices=[device] * 8)
+    out = mpmd.run(mp["inputs"])
+    rel = _mesh_rel(out, mp["ref"])
+    if rel > BUFFER_REL_BOUND or len(set(mpmd.devices)) != 1:
+        fail(f"phase 4s f: MpmdPipeline(devices=[{device}] * 8) rows "
+             f"{rel:.3g} of max|logit| off 4a's forward (bound "
+             f"{BUFFER_REL_BOUND}), devices {mpmd.devices}")
+    try:
+        SpmdPipeline(stages, mp["params"], mesh=pipeline_mesh(
+            len(stages), devices=["cuda:0", "cuda:1"] * 4))
+        fail("phase 4s f: a mesh over cuda:0 and cuda:1 did not raise")
+    except NotImplementedError as e:
+        if "A15b" not in str(e):
+            raise
+    print(f"mesh path f: MpmdPipeline(devices=[{device}] * 8) rows "
+          f"{rel:.3g} of max|logit| off 4a's forward; a mesh over cuda:0 "
+          f"and cuda:1 raises NotImplementedError naming A15b; on {card}",
+          flush=True)
+    del mpmd
+    free_card(torch)
+    return {"mpmd_rel_err": rel, "distinct_devices_raise": "A15b"}
+
+
+def mesh_train_resnet(torch, device, kernels, card, mp, base) -> dict:
+    """Phase 4s e, ResNet50/8: the int8 ring on the one-card (data 2,
+    stage 8) mesh, one ``loss_and_grad`` of 4r's chunk (TRAIN_M
+    microbatches, each shard's half of the microbatch, the shards' losses
+    averaged): loss within TRAIN_LOSS_RTOL of 4r's dp=1 int8 loss, each
+    gradient leaf within TRAIN_GRAD_REL of dp=1's max |g|, one quantizer
+    launch per ring step."""
+    import numpy as np
+
+    from defer_tpu_torch import PipelineTrainer, SpmdPipeline
+    from defer_tpu_torch.partition import partition
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = mp["graph"]
+    stages = partition(g, mp["cuts"])
+    steps = TRAIN_M + len(stages) - 1
+    xs = mp["inputs"][:TRAIN_M]
+    ys = np.random.default_rng(SEED).integers(
+        0, g.output_spec.shape[-1], (TRAIN_M, MICROBATCH))
+    t = PipelineTrainer(SpmdPipeline(
+        stages, mp["params"], device=device, microbatch=MICROBATCH,
+        chunk=CHUNK, wire="int8", data_parallel=2), train_ce(torch))
+    (loss, grads), got, sec = _counted(torch, kernels,
+                                       lambda: t.loss_and_grad(xs, ys))
+    if got != {"quant_int8": steps, "flash_attention": 0}:
+        fail(f"phase 4s e: pp x dp launches {got} (want {steps} quantizer, "
+             "one per ring step)")
+    worst = _worst_leaf(t.stage_grads(grads), base["grads"])
+    if not (abs(float(loss) - base["loss"]) <= TRAIN_LOSS_RTOL
+            * abs(base["loss"]) and worst <= TRAIN_GRAD_REL):
+        fail(f"phase 4s e: pp x dp loss {float(loss)!r} against dp=1's "
+             f"{base['loss']!r} (rtol {TRAIN_LOSS_RTOL}); worst gradient "
+             f"leaf {worst:.3g} of dp=1's max |g| (bound {TRAIN_GRAD_REL})")
+    print(f"mesh path e: PipelineTrainer(resnet50, {len(stages)} stages x 2 "
+          f"data-parallel shards, int8 wire) loss_and_grad {sec:.3f} s, "
+          f"loss {float(loss):.6f} (dp=1 {base['loss']:.6f}), worst "
+          f"gradient leaf {worst:.3g} of dp=1's max |g|; launches {got}; on "
+          f"{card}", flush=True)
+    del t, grads
+    free_card(torch)
+    return {"loss": float(loss), "dp1_loss": base["loss"],
+            "worst_grad_rel": worst, "loss_and_grad_s": sec,
+            "launches": got}
+
+
+def _worst_leaf(got: list, want: list) -> float:
+    """The largest leaf difference between two lists of per-stage
+    parameter dicts, each as a fraction of the wanted leaf's max |v|."""
+    from defer_tpu_torch.graph.ir import flatten_tree
+
+    worst = 0.0
+    for gs, ws in zip(got, want):
+        for n, sub in ws.items():
+            flat = flatten_tree(gs[n])
+            for k, w in flatten_tree(sub).items():
+                w = w.float()
+                err = float((flat[k].float() - w).abs().max())
+                worst = max(worst, err / max(float(w.abs().max()), 1e-30))
+    return worst
+
+
+def mesh_train_gpt(torch, device, kernels, card, base) -> dict:
+    """Phase 4s e, GPT-2 small/12 (4r's graph on ``attn_impl="xla"``,
+    weights and 4 x 8 x 64 tokens) on the one-card (stage 12, model 2)
+    mesh: one ``loss_and_grad`` (loss within TRAIN_LOSS_RTOL of 4r's tp=1
+    loss, the unsharded gradients within TRAIN_GRAD_REL of tp=1's max
+    |g|) and one SGD step at TRAIN_SGD_LR, whose unsharded weights are
+    within 1e-5 of max |w| of tp=1's after the same step."""
+    from defer_tpu_torch import PipelineTrainer, SpmdPipeline
+    from defer_tpu_torch.graph.ir import flatten_tree
+    from defer_tpu_torch.partition import partition
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stages = partition(base["graph"], base["cuts"])
+    t = PipelineTrainer(
+        SpmdPipeline(stages, base["params"], device=device,
+                     microbatch=MICROBATCH, chunk=CHUNK, tensor_parallel=2),
+        train_lm(torch),
+        optimizer=lambda rows: torch.optim.SGD(rows, lr=TRAIN_SGD_LR))
+    (loss, grads), got, sec = _counted(
+        torch, kernels, lambda: t.loss_and_grad(base["xs"], base["ids"]))
+    if got != {"quant_int8": 0, "flash_attention": 0}:
+        fail(f"phase 4s e: GPT-2 pp x tp launches {got} (want none: "
+             "attn_impl xla)")
+    worst = _worst_leaf(t.stage_grads(grads), base["grads"])
+    t._apply(grads)
+    del grads
+    trained = flatten_tree(t.trained_params())
+    wworst = 0.0
+    for sg in base["grads"]:
+        for n, sub in sg.items():
+            w0 = flatten_tree(base["params"][n])
+            for k, gr in flatten_tree(sub).items():
+                want = w0[k].float().cpu() - TRAIN_SGD_LR * gr
+                err = float((trained[f"{n}/{k}"].float() - want).abs().max())
+                wworst = max(wworst, err / max(float(want.abs().max()),
+                                               1e-30))
+    if not (abs(float(loss) - base["loss"]) <= TRAIN_LOSS_RTOL
+            * abs(base["loss"]) and worst <= TRAIN_GRAD_REL
+            and wworst <= 1e-5):
+        fail(f"phase 4s e: GPT-2 pp x tp loss {float(loss)!r} against "
+             f"tp=1's {base['loss']!r} (rtol {TRAIN_LOSS_RTOL}); worst "
+             f"gradient leaf {worst:.3g} (bound {TRAIN_GRAD_REL}); weights "
+             f"after one SGD step {wworst:.3g} of max |w| off tp=1's (bound "
+             "1e-5)")
+    print(f"mesh path e: PipelineTrainer(gpt2_small, {len(stages)} stages x "
+          f"2 tensor-parallel ranks, attn_impl xla) loss_and_grad "
+          f"{sec:.3f} s, loss {float(loss):.6f} (tp=1 {base['loss']:.6f}), "
+          f"worst unsharded gradient leaf {worst:.3g} of tp=1's max |g|, "
+          f"weights after one SGD step (lr {TRAIN_SGD_LR:g}) {wworst:.3g} "
+          f"of max |w| off tp=1's; launches {got}; on {card}", flush=True)
+    del t
+    free_card(torch)
+    return {"loss": float(loss), "tp1_loss": base["loss"],
+            "worst_grad_rel": worst, "sgd_weights_rel": wworst,
+            "loss_and_grad_s": sec, "launches": got}
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -6033,6 +6567,7 @@ BERT_GROUPS = {"flash_attention": ("flash_attn",),
 
 
 def main() -> int:
+    pycache = bytecode_cache()
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs a CUDA "
@@ -6048,15 +6583,15 @@ def main() -> int:
     kernels = [QUANT, FLASH]
     phase_s: dict = {}
     t_last = [time.perf_counter()]
-    taken = [0.0]   # phase 4p's, 4q's and 4r's seconds already carved out
+    taken = [0.0]   # phase 4p's, 4q's, 4r's and 4s's seconds carved out
 
     def phase_done(name: str) -> None:
-        # phase 4p's, 4q's and 4r's checks ride other phases' models and
-        # chains: their seconds count as theirs, not as the phase's they
-        # ran in
+        # phase 4p's, 4q's, 4r's and 4s's checks ride other phases' models
+        # and chains: their seconds count as theirs, not as the phase's
+        # they ran in
         now = time.perf_counter()
         inner = (sum(OBS_SECONDS) + sum(CLI_SECONDS) + sum(TRAIN_SECONDS)
-                 - taken[0])
+                 + sum(MESH_SECONDS) - taken[0])
         taken[0] += inner
         phase_s[name] = now - t_last[0] - inner
         t_last[0] = now
@@ -6068,7 +6603,7 @@ def main() -> int:
     # phase 1: the card
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}", flush=True)
+          f"{torch.version.cuda}; bytecode cache {pycache}", flush=True)
 
     phase_done("1")
 
@@ -6135,6 +6670,11 @@ def main() -> int:
     # phase 4r a, b, c, e: training on the same model (carved out)
     with train_phase():
         tr = {"resnet50": train_resnet(torch, device, kernels, card, mp)}
+    # phase 4s e: pp x dp training on the same model (carved out)
+    with mesh_phase():
+        ms = {"train_resnet50_dp2": mesh_train_resnet(
+            torch, device, kernels, card, mp,
+            tr["resnet50"].pop("_int8_baseline"))}
 
     phase_done("4a")
 
@@ -6192,6 +6732,10 @@ def main() -> int:
     # phase 4r d: training GPT-2 small, into 4g's decoder (carved out)
     with train_phase():
         tr["gpt2"] = train_gpt(torch, device, kernels, card, gp, gdec)
+    # phase 4s e: pp x tp training on the same model (carved out)
+    with mesh_phase():
+        ms["train_gpt2_tp2"] = mesh_train_gpt(
+            torch, device, kernels, card, tr["gpt2"].pop("_tp1_baseline"))
     del gdec, gp
     free_card(torch)
 
@@ -6272,6 +6816,17 @@ def main() -> int:
     dg = dag_path(torch, device, kernels, card, dsetup)
     del dsetup
     phase_done("4o")
+
+    # phase 4s: mesh parallelism on the card; the counts zeroed just before
+    # each run (its training checks rode 4a and 4g)
+    ms["bert_base"] = mesh_bert(torch, device, kernels, card, bp, bthr)
+    ms["sequence"] = mesh_sequence(torch, device, card)
+    ms["expert"] = mesh_expert(torch, device, card)
+    ms["guard"] = mesh_guard(torch, device, card, mp)
+    phase_done("4s")
+    phase_s["4s"] += sum(MESH_SECONDS)
+    print(f"phase 4s: {phase_s['4s']:.1f} s (of which "
+          f"{sum(MESH_SECONDS):.1f} s inside 4a and 4g)", flush=True)
     WATCH.cancel()
     # phase 4p: the observability checks that rode 4k's and 4n's chains
     phase_s["4p"] = sum(OBS_SECONDS)
@@ -6288,7 +6843,8 @@ def main() -> int:
           f"{phase_s['4o']:.1f} s of {DAG_BUDGET_S:.0f} s, phase 4p "
           f"{phase_s['4p']:.1f} s of {OBS_BUDGET_S:.0f} s, phase 4q "
           f"{phase_s['4q']:.1f} s of {CLI_BUDGET_S:.0f} s, phase 4r "
-          f"{phase_s['4r']:.1f} s of {TRAIN_BUDGET_S:.0f} s; watchdog "
+          f"{phase_s['4r']:.1f} s of {TRAIN_BUDGET_S:.0f} s, phase 4s "
+          f"{phase_s['4s']:.1f} s of {MESH_BUDGET_S:.0f} s; watchdog "
           f"{WATCHDOG_S:.0f} s; on {card}", flush=True)
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
@@ -6353,6 +6909,11 @@ def main() -> int:
         by_path[f"train_cli_{key}"] = cnt
     for key, cnt in tr["gpt2"]["launches"].items():
         by_path[f"train_gpt2_{key}"] = cnt
+    for key, cnt in ms["bert_base"]["launches"].items():
+        by_path[f"mesh_bert_base_{key}"] = cnt
+    by_path["mesh_train_resnet50_dp2_int8"] = ms["train_resnet50_dp2"][
+        "launches"]
+    by_path["mesh_train_gpt2_tp2"] = ms["train_gpt2_tp2"]["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -6435,6 +6996,9 @@ def main() -> int:
     print(json.dumps({"train_path": {
         "microbatch": MICROBATCH, "budget_s": TRAIN_BUDGET_S,
         "seconds": phase_s["4r"], **tr}}))
+    print(json.dumps({"mesh_path": {
+        "microbatch": MICROBATCH, "budget_s": MESH_BUDGET_S,
+        "seconds": phase_s["4s"], **ms}}))
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": sum(phase_s.values()),
                       "budget_s": BUDGET_S, "watchdog_s": WATCHDOG_S}))

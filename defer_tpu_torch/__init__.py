@@ -17,7 +17,10 @@ weighted-fair admission with SLO shedding in front of a
 fixed set of KV slots between decode steps; :class:`ServeClient` is its
 client.  :class:`PipelineTrainer` trains an :class:`SpmdPipeline`
 deployment through its own ring (autograd, ``torch.optim``), and the
-trained rows serve at once.
+trained rows serve at once.  :mod:`.parallel` holds the meshes and the
+collectives: the ring engines run pp x dp x tp on a one-card (data,
+stage, model) mesh, and tensor, expert, ring and Ulysses parallelism run
+over any mesh axis.
 
 Entry points (:class:`Defer`, :class:`SpmdPipeline`,
 :class:`MpmdPipeline`, :class:`PipelinedDecoder`,
@@ -39,6 +42,15 @@ from . import plan
 from .codec import (BlockFloatCodec, LosslessCodec, PipelineCodec, RawCodec,
                     native_available)
 from .graph import fold_batchnorm, summary, to_dot
+from .parallel import (DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS,
+                       STAGE_AXIS, Mesh, expert_parallel_fn,
+                       expert_parallel_mesh, initialize,
+                       multihost_pipeline_mesh, pipeline_mesh,
+                       process_local_batch, ring_attention,
+                       sequence_parallel_attention,
+                       sequence_parallel_attention_ulysses, shard_moe_params,
+                       shard_tp_params, tensor_parallel_fn,
+                       tensor_parallel_mesh, ulysses_attention)
 from .partition import partition
 from .runtime import (END_OF_STREAM, Defer, DeferHandle, MpmdPipeline,
                       PipelinedDecoder, PipelineTrainer, SpmdPipeline,
@@ -61,4 +73,11 @@ __all__ = ["END_OF_STREAM", "Defer", "DeferConfig", "DeferHandle",
            "native_available", "save_params", "load_params",
            "save_params_pt", "load_params_pt", "load_pretrained",
            "PRETRAINED_LOADERS", "ServeFrontDoor", "ContinuousBatchEngine",
-           "DecodeRequest", "ServeClient", "profile_pipeline", "trace"]
+           "DecodeRequest", "ServeClient", "profile_pipeline", "trace",
+           "Mesh", "pipeline_mesh", "STAGE_AXIS", "DATA_AXIS",
+           "SEQ_AXIS", "ring_attention", "sequence_parallel_attention",
+           "sequence_parallel_attention_ulysses", "ulysses_attention",
+           "MODEL_AXIS", "shard_tp_params", "tensor_parallel_fn",
+           "tensor_parallel_mesh", "EXPERT_AXIS", "expert_parallel_fn",
+           "expert_parallel_mesh", "shard_moe_params", "initialize",
+           "multihost_pipeline_mesh", "process_local_batch"]

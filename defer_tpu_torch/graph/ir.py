@@ -123,6 +123,37 @@ class Op:
         del in_specs
         return out_spec.size  # elementwise default
 
+    # -- tensor parallelism (parallel/tensor.py) ---------------------------
+    # Default: parameters replicated, apply per rank.  Matmul-bearing ops
+    # override all three to shard weights over the "model" mesh axis.
+
+    def tp_shard(self, params: Params, tp: int, rank: int) -> Params:
+        """Rank ``rank``'s shard of ``params`` for ``tp``-way TP."""
+        del tp, rank
+        return params
+
+    def tp_apply(self, params: Sequence[Params],
+                 *xs: Sequence[torch.Tensor], tp: int = 1
+                 ) -> list[torch.Tensor]:
+        """Forward on the ranks' shards: ``params`` holds one shard per
+        rank and each input one tensor per rank; returns one output per
+        rank (an override sums partial results with
+        ``parallel.mesh.psum``).  The default applies the op on every
+        rank; ranks that hold the very same parameters and inputs (a
+        parameterless op after a psum, on one card) share one result."""
+        del tp
+        if all(p is params[0] for p in params) and all(
+                all(x[r] is x[0] for r in range(len(params))) for x in xs):
+            y = self.apply(params[0], *(x[0] for x in xs))
+            return [y] * len(params)
+        return [self.apply(p, *(x[r] for x in xs))
+                for r, p in enumerate(params)]
+
+    def tp_unshard(self, shards: Sequence[Params]) -> Params:
+        """Inverse of :meth:`tp_shard`: all ranks' shards -> full params.
+        Default (replicated params): every rank holds the full copy."""
+        return shards[0]
+
     def __repr__(self):
         return type(self).__name__
 
@@ -201,6 +232,7 @@ class LayerGraph:
         start: str | None = None,
         node_names: Sequence[str] | None = None,
         seeds: dict[str, torch.Tensor] | None = None,
+        tp: int = 1,
     ) -> torch.Tensor:
         """Memoized forward pass over (a sub-range of) the graph.
 
@@ -210,6 +242,11 @@ class LayerGraph:
         with several boundary tensors instead — how the join stage of a
         branched pipeline resumes from all of its merge op's inputs at
         once (``partition.stage.JoinStageSpec``).
+
+        With ``tp > 1`` every op runs its tensor-parallel path
+        (``Op.tp_apply``, see ``parallel/tensor.py``): ``params`` is a
+        list of the ranks' shards, ``x`` (and each seed) a list of the
+        ranks' tensors, and the result one tensor per rank.
         """
         if x is None and seeds is None:
             raise TypeError("apply() needs an input tensor x (or seeds= "
@@ -224,7 +261,11 @@ class LayerGraph:
                 continue
             node = self.nodes[name]
             xs = [cache[i] for i in node.inputs]
-            cache[name] = node.op.apply(params.get(name), *xs)
+            if tp > 1:
+                cache[name] = node.op.tp_apply(
+                    [p.get(name) for p in params], *xs, tp=tp)
+            else:
+                cache[name] = node.op.apply(params.get(name), *xs)
             if name == upto:
                 break
         return cache[upto]

@@ -19,8 +19,11 @@ Conventions:
   * BatchNorm is inference-mode, in the JAX package's formula.
   * Attention goes through ``ops.flash_attention``: the hand-written Hopper
     kernel for a CUDA tensor, its plain PyTorch version on the CPU.
-  * The tensor-parallel methods (``tp_shard``/``tp_apply``) are not ported
-    yet (ROADMAP queue A15).
+  * Tensor parallelism (``parallel/tensor.py``): ``Dense`` and
+    ``TransformerBlock`` shard their weights Megatron-style
+    (``tp_shard``/``tp_unshard``) and ``tp_apply`` loops over the ranks,
+    summing partial products with ``parallel.mesh.psum``; every other op
+    keeps the replicated default of ``graph/ir.py``.
 """
 
 from __future__ import annotations
@@ -129,15 +132,43 @@ class Dense(Op):
         return p
 
     def apply(self, params, x):
-        p = _cast(params, x.dtype)
-        y = x @ p["w"]
-        if self.use_bias:
-            y = y + p["b"]
-        return y
+        return self.tp_apply([params], [x])[0]
 
     def flops(self, in_specs, out_spec):
         (spec,) = in_specs
         return 2 * spec.size * self.features
+
+    # -- tensor parallelism: row-parallel (input dim sharded, one psum) ----
+
+    def tp_shard(self, params, tp, rank):
+        w = params["w"]
+        d = w.shape[0]
+        if d % tp:
+            raise ValueError(f"Dense input dim {d} not divisible by tp={tp}")
+        blk = d // tp
+        out = {"w": w[rank * blk:(rank + 1) * blk]}
+        if self.use_bias:
+            out["b"] = params["b"]  # replicated; added once after the psum
+        return out
+
+    def tp_apply(self, params, x, *, tp=1):
+        """Each rank multiplies its block of the input by its rows of
+        ``w``, one psum, the bias once; one rank is :meth:`apply` (the
+        psum of one tensor is that tensor)."""
+        from ..parallel.mesh import psum
+        ps = [_cast(p, xr.dtype) for p, xr in zip(params, x)]
+        blk = ps[0]["w"].shape[0]
+        ys = psum([xr[..., r * blk:(r + 1) * blk] @ p["w"]
+                   for r, (p, xr) in enumerate(zip(ps, x))])
+        if self.use_bias:
+            ys = [y + p["b"] for y, p in zip(ys, ps)]
+        return ys
+
+    def tp_unshard(self, shards):
+        out = {"w": torch.cat([s["w"] for s in shards], dim=0)}
+        if self.use_bias:
+            out["b"] = shards[0]["b"]  # replicated
+        return out
 
 
 @dataclasses.dataclass(frozen=True, repr=False)
@@ -555,7 +586,8 @@ class TransformerBlock(Op):
         return torch.einsum("bhqk,bhkd->bhqd", att.softmax(dim=-1), v)
 
     def _split_qkv(self, qkv):
-        """q/k/v column split of the fused projection (subclass hook)."""
+        """q/k/v column split of the fused projection, or of a tensor-
+        parallel rank's share of it (subclass hook)."""
         return qkv.chunk(3, dim=-1)
 
     def _kv_head_count(self) -> int:
@@ -568,46 +600,151 @@ class TransformerBlock(Op):
     def apply_with_kv(self, params, x):
         """Forward that also returns the raw K/V projections
         ([b, t, kv*hd], before the head split) for decode-cache seeding."""
-        p = _cast(params, x.dtype)
-        b, t, d = x.shape
-        nh = self.num_heads
-        hd = d // nh
-        kvh = self._kv_head_count()
+        outs, ks, vs = self._rank_forward([params], [x])
+        return outs[0], ks[0], vs[0]
+
+    def _rank_forward(self, params, x):
+        """The block on each rank's shard (``params`` and ``x`` one per
+        rank), in two phases between its two psums: each rank runs its
+        ``num_heads / tp`` query heads and its rows of the output
+        projection, then, after the first psum, its column block of the
+        MLP.  Returns the per-rank outputs and raw K/V projections.  With
+        one rank the psums return their input: this is the whole block."""
+        from ..parallel.mesh import psum
+        tp = len(params)
+        ps = [_cast(p, xr.dtype) for p, xr in zip(params, x)]
+        b, t, d = x[0].shape
+        hd = d // self.num_heads
+        nh = self.num_heads // tp           # local query heads
+        kvh = self._kv_head_count() // tp   # local KV heads (GQA: fewer)
         eps = self.ln_eps
         post = self.norm == "post"
 
-        y = x if post else _layer_norm(p["ln1"], x, eps)
-        qkv = y @ p["qkv"]["w"] + p["qkv"]["b"]
-        q, k, v = self._split_qkv(qkv)
-        # head-split views (no copy): the kernel reads them by stride
-        qh = q.reshape(b, t, nh, hd).transpose(1, 2)
-        kh = k.reshape(b, t, kvh, hd).transpose(1, 2)
-        vh = v.reshape(b, t, kvh, hd).transpose(1, 2)
-        if kvh != nh:
-            # broadcast each KV head over its query group (exact GQA)
-            kh = kh.repeat_interleave(nh // kvh, dim=1)
-            vh = vh.repeat_interleave(nh // kvh, dim=1)
-        y = self._attend(qh, kh, vh)
-        y = y.transpose(1, 2).reshape(b, t, d)
-        y = y @ p["proj"]["w"] + p["proj"]["b"]
-        x = _layer_norm(p["ln1"], x + y, eps) if post else x + y
-
-        y = x if post else _layer_norm(p["ln2"], x, eps)
-        # post-LN (BERT) uses the exact erf GELU; pre-LN the tanh form
-        y = F.gelu(y @ p["fc1"]["w"] + p["fc1"]["b"],
-                   approximate="none" if post else "tanh")
-        y = y @ p["fc2"]["w"] + p["fc2"]["b"]
-        out = _layer_norm(p["ln2"], x + y, eps) if post else x + y
-        return out, k, v
+        partial, ks, vs = [], [], []
+        for p, xr in zip(ps, x):
+            y = xr if post else _layer_norm(p["ln1"], xr, eps)
+            q, k, v = self._split_qkv(y @ p["qkv"]["w"] + p["qkv"]["b"])
+            ks.append(k)
+            vs.append(v)
+            # head-split views (no copy): the kernel reads them by stride
+            qh = q.reshape(b, t, nh, hd).transpose(1, 2)
+            kh = k.reshape(b, t, kvh, hd).transpose(1, 2)
+            vh = v.reshape(b, t, kvh, hd).transpose(1, 2)
+            if kvh != nh:
+                # broadcast each KV head over its query group (exact GQA)
+                kh = kh.repeat_interleave(nh // kvh, dim=1)
+                vh = vh.repeat_interleave(nh // kvh, dim=1)
+            y = self._attend(qh, kh, vh).transpose(1, 2).reshape(
+                b, t, nh * hd)
+            partial.append(y @ p["proj"]["w"])
+        mids, partial2 = [], []
+        for p, xr, y in zip(ps, x, psum(partial)):
+            y = y + p["proj"]["b"]
+            h = _layer_norm(p["ln1"], xr + y, eps) if post else xr + y
+            mids.append(h)
+            y = h if post else _layer_norm(p["ln2"], h, eps)
+            # post-LN (BERT) uses the exact erf GELU; pre-LN the tanh form
+            y = F.gelu(y @ p["fc1"]["w"] + p["fc1"]["b"],
+                       approximate="none" if post else "tanh")
+            partial2.append(y @ p["fc2"]["w"])
+        outs = []
+        for p, h, y in zip(ps, mids, psum(partial2)):
+            y = y + p["fc2"]["b"]
+            outs.append(_layer_norm(p["ln2"], h + y, eps) if post
+                        else h + y)
+        return outs, ks, vs
 
     def flops(self, in_specs, out_spec):
         (spec,) = in_specs
         t, d = spec.shape
         return 2 * t * d * (4 * d + 2 * self.mlp_ratio * d) + 4 * t * t * d
 
+    # -- tensor parallelism: Megatron column->row pairing, heads sharded ---
+
+    def tp_shard(self, params, tp, rank):
+        nh, kv = self.num_heads, self._kv_head_count()
+        if nh % tp or kv % tp:
+            raise ValueError(
+                f"heads={nh}/kv_heads={kv} not divisible by tp={tp} "
+                f"(each rank must hold whole query groups)")
+        d = params["qkv"]["w"].shape[0]
+        hd = d // nh
+        blk = d // tp                 # query columns per rank
+        kvblk = (kv // tp) * hd       # K (and V) columns per rank
+        # fused layout: [q (nh*hd) | k (kv*hd) | v (kv*hd)]; kv == nh
+        # reduces to the classic Megatron equal-thirds slice
+        q0, k0, v0 = 0, d, d + kv * hd
+
+        def qkv_cols(a):
+            # per-chunk column slice so each rank gets whole (query) heads
+            return torch.cat(
+                [a[..., q0 + rank * blk: q0 + (rank + 1) * blk],
+                 a[..., k0 + rank * kvblk: k0 + (rank + 1) * kvblk],
+                 a[..., v0 + rank * kvblk: v0 + (rank + 1) * kvblk]],
+                dim=-1)
+
+        return {
+            "qkv": {"w": qkv_cols(params["qkv"]["w"]),
+                    "b": qkv_cols(params["qkv"]["b"])},
+            **self._tp_shard_common(params, tp, rank),
+        }
+
+    def _tp_shard_common(self, params, tp, rank):
+        """The non-qkv Megatron shards (LNs replicated, proj rows, MLP
+        column->row pair), shared by the MHA and GQA qkv schemes."""
+        d = params["qkv"]["w"].shape[0]
+        h = params["fc1"]["w"].shape[1]
+        if h % tp:
+            raise ValueError(f"mlp width {h} not divisible by tp={tp}")
+        blk, hblk = d // tp, h // tp
+        return {
+            "ln1": params["ln1"],
+            "proj": {"w": params["proj"]["w"][rank * blk:(rank + 1) * blk],
+                     "b": params["proj"]["b"]},
+            "ln2": params["ln2"],
+            "fc1": {"w": params["fc1"]["w"][:, rank * hblk:(rank + 1) * hblk],
+                    "b": params["fc1"]["b"][rank * hblk:(rank + 1) * hblk]},
+            "fc2": {"w": params["fc2"]["w"][rank * hblk:(rank + 1) * hblk],
+                    "b": params["fc2"]["b"]},
+        }
+
+    def tp_unshard(self, shards):
+        """Inverse of :meth:`tp_shard`: each rank's query/K/V column groups
+        back into the fused layout, proj/fc2 rows and fc1 columns back to
+        full width; LNs and biases are replicated."""
+        tp = len(shards)
+        nh, kv = self.num_heads, self._kv_head_count()
+        d = shards[0]["proj"]["w"].shape[1]
+        hd = d // nh
+        blk, kvblk = d // tp, (kv // tp) * hd
+
+        def qkv_cat(key):
+            qs, ks, vs = [], [], []
+            for sh in shards:
+                a = sh["qkv"][key]
+                qs.append(a[..., :blk])
+                ks.append(a[..., blk: blk + kvblk])
+                vs.append(a[..., blk + kvblk:])
+            return torch.cat(qs + ks + vs, dim=-1)
+
+        return {
+            "ln1": shards[0]["ln1"],
+            "qkv": {"w": qkv_cat("w"), "b": qkv_cat("b")},
+            "proj": {"w": torch.cat([sh["proj"]["w"] for sh in shards], 0),
+                     "b": shards[0]["proj"]["b"]},
+            "ln2": shards[0]["ln2"],
+            "fc1": {"w": torch.cat([sh["fc1"]["w"] for sh in shards], 1),
+                    "b": torch.cat([sh["fc1"]["b"] for sh in shards], 0)},
+            "fc2": {"w": torch.cat([sh["fc2"]["w"] for sh in shards], 0),
+                    "b": shards[0]["fc2"]["b"]},
+        }
+
+    def tp_apply(self, params, x, *, tp=1):
+        return self._rank_forward(params, x)[0]
+
 
 # ---------------------------------------------------------------------------
-# mixture of experts (the expert-parallel path waits for ROADMAP queue A15)
+# mixture of experts (expert parallelism rides parallel/expert.py)
 # ---------------------------------------------------------------------------
 
 
@@ -617,6 +754,10 @@ class MoE(Op):
 
     ``apply`` evaluates every expert and masks (exact, as in the JAX
     package); expert weights are stacked ``[e, d, h]`` and ``[e, h, d]``.
+    The expert-parallel path (experts sharded over an "expert" mesh axis,
+    capacity-based ``all_to_all`` token dispatch) is
+    :mod:`defer_tpu_torch.parallel.expert`, equal to ``apply`` whenever no
+    token exceeds capacity.
     """
 
     num_experts: int
@@ -641,6 +782,18 @@ class MoE(Op):
         probs = torch.softmax(logits, dim=-1)
         eid = logits.argmax(dim=-1)
         return eid, probs.gather(-1, eid[..., None])[..., 0]
+
+    def expert_fn(self, params, x, eid: int):
+        """Run local expert ``eid`` on tokens ``x`` [..., d]: ``params``
+        holds stacked expert weights ``[E_local, ...]`` and ``eid`` indexes
+        that local stack."""
+        w1 = params["fc1"]["w"][eid].to(x.dtype)
+        b1 = params["fc1"]["b"][eid].to(x.dtype)
+        w2 = params["fc2"]["w"][eid].to(x.dtype)
+        b2 = params["fc2"]["b"][eid].to(x.dtype)
+        # jax.nn.gelu's default is the tanh form
+        h = F.gelu(x @ w1 + b1, approximate="tanh")
+        return h @ w2 + b2
 
     def apply(self, params, x):
         eid, pe = self.route(params, x)

@@ -71,12 +71,12 @@ class CausalTransformerBlock(TransformerBlock):
         return p
 
     def _split_qkv(self, qkv):
-        """Static q/k/v column split: d query cols, kv*hd each for K/V."""
+        """Static q/k/v column split in the ratio nh : kv : kv (d query
+        cols and kv*hd each for K/V, or a tensor-parallel rank's share)."""
         nh, kv = self.num_heads, self.kv_heads
-        hd = qkv.shape[-1] // (nh + 2 * kv)
-        dq = nh * hd
-        return (qkv[..., :dq], qkv[..., dq: dq + kv * hd],
-                qkv[..., dq + kv * hd:])
+        w = qkv.shape[-1]
+        dq, dk = w * nh // (nh + 2 * kv), w * kv // (nh + 2 * kv)
+        return (qkv[..., :dq], qkv[..., dq: dq + dk], qkv[..., dq + dk:])
 
     def _kv_head_count(self) -> int:
         return self.kv_heads

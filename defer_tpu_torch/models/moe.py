@@ -6,7 +6,7 @@ card) with switch-MoE FFN layers (``ops.MoE``); every block output is a
 single-tensor cut point, so the family pipelines exactly like BERT.
 ``moe_branched`` puts each expert on its own graph branch
 (``ops.ExpertBranch``) joined by an ``Add``.  The expert-parallel
-all_to_all execution waits for ROADMAP queue A15.
+all_to_all execution is ``parallel/expert.py``.
 """
 
 from __future__ import annotations

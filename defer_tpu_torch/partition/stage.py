@@ -51,15 +51,31 @@ class StageSpec:
     in_spec: ShapeSpec
     out_spec: ShapeSpec
 
-    def fn(self, stage_params: dict[str, Any], x: torch.Tensor) -> torch.Tensor:
-        """Batched forward for this stage."""
+    def fn(self, stage_params, x, *, tp: int = 1):
+        """Batched forward for this stage; with ``tp > 1`` over the ranks'
+        shards and inputs (lists), one output per rank."""
         return self.graph.apply(stage_params, x, start=self.input_name,
                                 upto=self.output_name,
-                                node_names=self.node_names)
+                                node_names=self.node_names, tp=tp)
 
     def select_params(self, params: dict[str, Any]) -> dict[str, Any]:
         """Subset of the full parameters owned by this stage."""
         return {n: params[n] for n in self.node_names if n in params}
+
+    def tp_shard_params(self, params: dict[str, Any], tp: int,
+                        rank: int) -> dict[str, Any]:
+        """Rank ``rank``'s TP shard of this stage's parameters."""
+        sp = self.select_params(params)
+        return {n: self.graph.nodes[n].op.tp_shard(sp[n], tp, rank)
+                for n in sp}
+
+    def tp_unshard_params(self, rank_params: list[dict[str, Any]]
+                          ) -> dict[str, Any]:
+        """Inverse of :meth:`tp_shard_params`: all ranks' stage shards ->
+        the stage's full parameters (op-specific reassembly)."""
+        return {n: self.graph.nodes[n].op.tp_unshard(
+                    [rp[n] for rp in rank_params])
+                for n in rank_params[0]}
 
     def __repr__(self):
         return (f"StageSpec({self.index}: {self.input_name} -> "
@@ -119,7 +135,8 @@ class JoinStageSpec:
 
 
 class StageModule(nn.Module):
-    """One stage holding its parameters on ``device`` in one flat row.
+    """One stage holding its parameters on ``device`` in one flat row (one
+    row per rank under tensor parallelism).
 
     ``row`` is one contiguous tensor in ``weight_dtype`` — the compute
     dtype when one is set and ``master_weights`` is off, else float32, as
@@ -127,8 +144,16 @@ class StageModule(nn.Module):
     the stage function reads is a frozen view into it — conv kernels as
     OIHW with channels_last strides, so cuDNN reads them without a
     per-call relayout.  :meth:`load` packs and validates new parameters
-    and :meth:`install` copies them into the same row, so every view (and
+    and :meth:`install` copies them into the same rows, so every view (and
     any CUDA graph that captured them) sees the new weights.
+
+    With ``tp > 1`` the module holds ``rows``, one per rank of the model
+    axis (``devices``, default ``device`` for every rank): rank r's row
+    packs ``StageSpec.tp_shard_params(params, tp, r)``, so each row is
+    shorter than the whole stage's; the ranks' shards share one layout
+    (``paths``, ``meta``), and ``replicated`` flags the leaves every rank
+    holds whole.  The forward runs the stage's tensor-parallel path on
+    the ranks' leaves and returns rank 0's output.
 
     Leaf dtypes follow the JAX engine: under ``compute_dtype`` a float
     leaf is read in the compute dtype; otherwise every leaf comes back in
@@ -136,35 +161,60 @@ class StageModule(nn.Module):
     other (an integer leaf, or a float leaf of an f32 master row under a
     bf16 compute dtype) is cast from its view at each call.
 
-    Training (``runtime/training.py``) sets ``row.requires_grad``.  Views
-    cut before that carry no graph, so with grad mode on the leaves are cut
-    from the row at each call; the row itself is only ever updated in
-    place, so the frozen views and captured graphs read the trained
-    weights.
+    Training (``runtime/training.py``) sets ``requires_grad`` on the rows.
+    Views cut before that carry no graph, so with grad mode on the leaves
+    are cut from the rows at each call; the rows themselves are only ever
+    updated in place, so the frozen views and captured graphs read the
+    trained weights.
     """
 
     def __init__(self, stage: StageSpec, params: dict[str, Any],
                  device: torch.device, *, compute_dtype=None,
-                 master_weights: bool = False):
+                 master_weights: bool = False, tp: int = 1,
+                 devices=None):
         # imported here: ``runtime``'s package imports this module
         from ..runtime import flatbuf
 
         super().__init__()
         self.stage = stage
+        self.tp = tp
+        self.devices = (list(devices) if devices is not None
+                        else [device] * tp)
         self.compute_dtype = (None if compute_dtype is None
                               else as_dtype(compute_dtype))
         self.weight_dtype = (torch.float32 if master_weights
                              else self.compute_dtype or torch.float32)
-        self.paths, leaves = flatbuf.flatten_leaves(
-            stage.select_params(params))
+        shards = self._shards(params)
+        self.paths, leaves = flatbuf.flatten_leaves(shards[0])
         self.meta = flatbuf.leaf_meta(leaves)
-        self.row = self._pack(leaves).to(device)
-        #: each leaf as a view into ``row`` (in the row's dtype)
-        self.leaves = flatbuf.unpack_leaves(self.row, self.meta)
+        full = flatbuf.flatten_leaves(stage.select_params(params))[1]
+        #: per leaf: every rank holds it whole (its shard is the leaf)
+        self.replicated = [tuple(a.shape) == tuple(b.shape)
+                           for a, b in zip(leaves, full)]
+        self.rows = [self._pack(flatbuf.flatten_leaves(sh)[1]).to(d)
+                     for sh, d in zip(shards, self.devices)]
+        #: each rank's leaves as views into its row (in the row's dtype);
+        #: ``leaves`` is rank 0's
+        self.rank_leaves = [flatbuf.unpack_leaves(r, self.meta)
+                            for r in self.rows]
+        self.leaves = self.rank_leaves[0]
         self._dtypes = [self._leaf_dtype(m[3]) for m in self.meta]
-        self._tree = None
+        self._trees = None
         if all(d == self.row.dtype for d in self._dtypes):
-            self._tree = flatbuf.unflatten_leaves(self.paths, self.leaves)
+            self._trees = [flatbuf.unflatten_leaves(self.paths, lv)
+                           for lv in self.rank_leaves]
+
+    @property
+    def row(self) -> torch.Tensor:
+        """Rank 0's row (the stage's only row without tensor
+        parallelism)."""
+        return self.rows[0]
+
+    def _shards(self, params: dict[str, Any]) -> list[dict[str, Any]]:
+        if self.tp == 1:
+            return [self.stage.select_params(params)]
+        return [self.stage.tp_shard_params(params, self.tp, r)
+                for r in range(self.tp)]
 
     def _leaf_dtype(self, dtype: torch.dtype) -> torch.dtype:
         if self.compute_dtype is not None and dtype.is_floating_point:
@@ -191,35 +241,43 @@ class StageModule(nn.Module):
         return flatbuf.pack_leaves(leaves, self.meta, self.weight_dtype,
                                    self._to_wire)
 
-    def load(self, params: dict[str, Any], what: str) -> torch.Tensor:
-        """``params``' leaves for this stage packed into a new row (on the
-        leaves' device), after checking them against the deployed
-        layout."""
+    def load(self, params: dict[str, Any], what: str) -> list[torch.Tensor]:
+        """``params``' leaves for this stage packed into new rows, one per
+        rank (on the leaves' device), after checking them against the
+        deployed layout."""
         from ..runtime import flatbuf
-        paths, leaves = flatbuf.flatten_leaves(
-            self.stage.select_params(params))
-        flatbuf.check_layout(leaves, paths, self.meta, self.paths, what)
-        return self._pack(leaves)
+        rows = []
+        for shard in self._shards(params):
+            paths, leaves = flatbuf.flatten_leaves(shard)
+            flatbuf.check_layout(leaves, paths, self.meta, self.paths, what)
+            rows.append(self._pack(leaves))
+        return rows
 
-    def install(self, row: torch.Tensor) -> None:
-        """Copy a row from :meth:`load` into the deployed one, in place
-        (also when the row requires grad)."""
+    def install(self, rows: list[torch.Tensor]) -> None:
+        """Copy rows from :meth:`load` into the deployed ones, in place
+        (also when the rows require grad)."""
         with torch.inference_mode():
-            self.row.copy_(row)
+            for row, new in zip(self.rows, rows):
+                row.copy_(new)
 
-    def params(self) -> dict[str, Any]:
-        """The nested parameters the stage function reads."""
+    def params(self, rank: int = 0) -> dict[str, Any]:
+        """The nested parameters rank ``rank``'s stage function reads."""
         from ..runtime import flatbuf
-        leaves = self.leaves
-        if torch.is_grad_enabled() and self.row.requires_grad:
-            leaves = flatbuf.unpack_leaves(self.row, self.meta)
-        elif self._tree is not None:
-            return self._tree
+        row, leaves = self.rows[rank], self.rank_leaves[rank]
+        if torch.is_grad_enabled() and row.requires_grad:
+            leaves = flatbuf.unpack_leaves(row, self.meta)
+        elif self._trees is not None:
+            return self._trees[rank]
         return flatbuf.unflatten_leaves(
             self.paths, [v if v.dtype == d else v.to(d)
                          for v, d in zip(leaves, self._dtypes)])
 
     def forward(self, *xs: torch.Tensor) -> torch.Tensor:
         """The stage on its input (a join stage: its P inputs, in path
-        order)."""
-        return self.stage.fn(self.params(), *xs)
+        order); under tensor parallelism the input goes to every rank and
+        rank 0's output comes back."""
+        if self.tp == 1:
+            return self.stage.fn(self.params(), *xs)
+        (x,) = xs
+        return self.stage.fn([self.params(r) for r in range(self.tp)],
+                             [x.to(d) for d in self.devices], tp=self.tp)[0]

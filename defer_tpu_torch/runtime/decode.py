@@ -64,10 +64,9 @@ import torch
 from ..graph.ir import LayerGraph, as_dtype
 from ..models.gpt import CausalTransformerBlock, GptEmbedding
 from ..obs import REGISTRY, tracer
-from ..utils.config import resolve_device
 from . import flatbuf
 from .cuda_graph import capture
-from .spmd import COMPUTE_DTYPES
+from .spmd import COMPUTE_DTYPES, ring_mesh
 
 _M32 = 0xFFFFFFFF
 #: step key of the fused prefill's draws: ``PREFILL_KEY + group``, a domain
@@ -162,7 +161,9 @@ class PipelinedDecoder:
 
     ``prompt_ids`` is [B, prompt_len]; returns [B, prompt_len +
     max_new_tokens].  ``device=None`` means the CUDA card (an error when
-    CUDA is absent).  On the card each unit is a graph replay; setting
+    CUDA is absent); ``mesh=`` (a one-card pipeline mesh) gives the device
+    and must have ``num_stages`` on its stage axis, whose size is all the
+    decoder reads of it.  On the card each unit is a graph replay; setting
     ``cuda_graphs = False`` runs the same steps eagerly there (the CPU
     always does), which is what a replay is checked against.
     """
@@ -174,6 +175,7 @@ class PipelinedDecoder:
         *,
         num_stages: int,
         max_len: int | None = None,
+        mesh=None,
         device: str | torch.device | None = None,
         microbatch: int = 1,
         compute_dtype=None,
@@ -181,7 +183,11 @@ class PipelinedDecoder:
         weight_dtype: str | None = None,
         beam_width: int = 1,
     ):
-        self.device = dev = resolve_device(device)
+        # the stage axis only, as the JAX decoder reads its mesh; a mesh
+        # over several devices is the multi-card decoder (A15b)
+        self.mesh, dev = ring_mesh("PipelinedDecoder", num_stages, mesh,
+                                   device)
+        self.device = dev
         self.graph = graph
         self.num_stages = n = num_stages
         self.microbatch = mb = microbatch

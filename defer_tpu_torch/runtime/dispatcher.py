@@ -118,12 +118,27 @@ class Defer:
 
     The device is ``config.device``; ``None`` means the CUDA card, and the
     constructor raises when CUDA is absent (pass ``device="cpu"`` in the
-    config to run on the CPU).
+    config to run on the CPU).  ``mesh`` (a one-card ``pipeline_mesh``)
+    plays the part of the JAX ``Defer``'s mesh: the SPMD ring runs on it,
+    MPMD places its stages over its devices, and ``generate``/``score``
+    take their stage count from its stage axis.  Without a mesh the ring
+    runs on the one-card mesh of ``config.data_parallel`` x stages x
+    ``config.tensor_parallel``.
     """
 
-    def __init__(self, config: DeferConfig | None = None):
+    def __init__(self, config: DeferConfig | None = None, mesh=None):
         self.config = config or DeferConfig()
-        self.device = resolve_device(self.config.device)
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel.mesh import mesh_device
+            dev = mesh_device(mesh, "Defer")
+            if self.config.device is not None and resolve_device(
+                    self.config.device) != resolve_device(dev):
+                raise ValueError(f"config.device {self.config.device!r} is "
+                                 f"not the mesh's {dev}")
+            self.device = resolve_device(dev)
+        else:
+            self.device = resolve_device(self.config.device)
         # engine caches (decoders, length-bucketed score pipelines): a
         # rebuild repacks the weights and, on the card, captures graphs
         # anew.  Values keep the (graph, params) refs alive so the id()
@@ -140,6 +155,18 @@ class Defer:
         return (c.microbatch, c.chunk, str(c.compute_dtype),
                 str(c.buffer_dtype), c.wire, c.mode, c.master_weights,
                 c.data_parallel, c.tensor_parallel)
+
+    def _default_num_stages(self) -> int:
+        """Stage count from this deployment's mesh (1 when mesh-less), as
+        the JAX ``Defer`` takes it for ``generate`` and ``score``."""
+        from ..parallel.mesh import STAGE_AXIS
+        if self.mesh is None:
+            return 1
+        if STAGE_AXIS not in self.mesh.shape:
+            raise ValueError(
+                f"mesh has no {STAGE_AXIS!r} axis; pass num_stages or a "
+                "pipeline_mesh")
+        return self.mesh.shape[STAGE_AXIS]
 
     def _cached(self, cache: dict, key: tuple, graph, params, make):
         hit = cache.get(key)
@@ -158,14 +185,17 @@ class Defer:
         cfg = self.config
         stages = partition(graph, cut_points, num_stages=num_stages)
         if cfg.mode == "mpmd":
-            return MpmdPipeline(stages, params, device=self.device,
-                                microbatch=cfg.microbatch,
-                                compute_dtype=cfg.compute_dtype)
+            if self.mesh is not None:
+                placed = {"devices": list(self.mesh.devices.flat)}
+            else:
+                placed = {"device": self.device}
+            return MpmdPipeline(stages, params, microbatch=cfg.microbatch,
+                                compute_dtype=cfg.compute_dtype, **placed)
         if cfg.mode != "spmd":
             raise ValueError(f"mode must be 'spmd' or 'mpmd', got "
                              f"{cfg.mode!r}")
         return SpmdPipeline(
-            stages, params, device=self.device,
+            stages, params, mesh=self.mesh, device=self.device,
             microbatch=cfg.microbatch, chunk=cfg.chunk,
             buffer_dtype=cfg.buffer_dtype,
             compute_dtype=cfg.compute_dtype,
@@ -183,19 +213,21 @@ class Defer:
 
         A :class:`~defer_tpu_torch.runtime.decode.PipelinedDecoder` on this
         deployment's device and config (microbatch, compute dtype), its
-        blocks split over ``num_stages`` (default 1), cached across calls;
+        blocks split over ``num_stages`` (default: the mesh's stage axis,
+        or 1), cached across calls;
         decodes ``max_new_tokens`` past each prompt.  ``sample_kw`` passes
         through (temperature, top_k, seed, eos_id, token_chunk, prefill,
         on_tokens).
         """
         if num_stages is None:
-            num_stages = 1  # as the JAX package's mesh-less Defer
+            num_stages = self._default_num_stages()
         key = (id(graph), id(params), num_stages, max_len, kv_cache,
                weight_dtype, self._cfg_cache_key())
         dec = self._cached(self._decoder_cache, key, graph, params,
                            lambda: PipelinedDecoder(
                                graph, params, num_stages=num_stages,
                                max_len=max_len, device=self.device,
+                               mesh=self.mesh,
                                microbatch=self.config.microbatch,
                                compute_dtype=self.config.compute_dtype,
                                kv_cache=kv_cache, weight_dtype=weight_dtype))
@@ -230,7 +262,7 @@ class Defer:
             raise ValueError(
                 f"B={b} must be a non-zero multiple of microbatch={mb}")
         if cut_points is None and num_stages is None:
-            num_stages = 1  # as the JAX package's mesh-less Defer
+            num_stages = self._default_num_stages()
         t_model = graph.input_spec.shape[0]
         if t > t_model:
             raise ValueError(
@@ -276,10 +308,13 @@ class Defer:
         builds the pipeline and pushes one all-bubble chunk through it.
         Raises nothing: failures come back in the report."""
         report: dict[str, Any] = {"ok": False, "stages": None,
-                                  "device": str(self.device), "error": None}
+                                  "mesh": None, "device": str(self.device),
+                                  "error": None}
         try:
             pipe = self.build(graph, params, cut_points, num_stages)
             report["stages"] = len(pipe.stages)
+            if getattr(pipe, "mesh", None) is not None:
+                report["mesh"] = dict(pipe.mesh.shape)
             pipe.warmup()
             report["ok"] = True
         except Exception as e:  # noqa: BLE001 — report, don't raise

@@ -1,7 +1,9 @@
 """MPMD relay pipeline — the correctness oracle / debug execution mode.
 
-The port of ``defer_tpu.runtime.mpmd``: one module per stage, run in
-sequence on one device, with each microbatch relayed stage to stage.  The
+The port of ``defer_tpu.runtime.mpmd``: one module per stage, each on its
+device, with each microbatch relayed stage to stage (``.to()`` between
+devices; on one card every stage shares it).  ``devices=`` places the
+stages round-robin over the devices, as the JAX engine does.  The
 in-flight window (as deep as the pipeline) falls out of PyTorch's
 asynchronous CUDA launches, as it falls out of JAX's async dispatch in the
 reference.  Same streaming contract as :class:`SpmdPipeline`:
@@ -26,8 +28,8 @@ from .spmd import check_single_card
 
 
 class MpmdPipeline:
-    """Per-stage modules relaying each microbatch, on one device
-    (``device=None`` means the CUDA card).
+    """Per-stage modules relaying each microbatch: all on ``device``
+    (``None`` means the CUDA card), or round-robin over ``devices``.
 
     Under ``compute_dtype`` the stages keep float32 weights and only a
     floating model input is cast to the compute dtype, as in the JAX
@@ -40,16 +42,25 @@ class MpmdPipeline:
 
     def __init__(self, stages: Sequence[StageSpec], params: dict[str, Any],
                  *, device: str | torch.device | None = None,
-                 microbatch: int = 1, compute_dtype=None):
+                 devices=None, microbatch: int = 1, compute_dtype=None):
         check_single_card(compute_dtype=compute_dtype)
-        self.device = resolve_device(device)
+        if devices is not None and device is not None:
+            raise ValueError("pass device= or devices=, not both")
+        devs = ([resolve_device(d) for d in devices] if devices is not None
+                else [resolve_device(device)])
+        if not devs:
+            raise ValueError("devices= names no device")
         self.stages = list(stages)
         self.num_stages = n = len(self.stages)
+        # round-robin placement when there are fewer devices than stages
+        # (one card: every stage on it)
+        self.devices = [devs[i % len(devs)] for i in range(n)]
+        self.device = self.devices[0]
         self.microbatch = microbatch
         self.compute_dtype = (None if compute_dtype is None
                               else as_dtype(compute_dtype))
-        self.modules = [StageModule(s, params, self.device)
-                        for s in self.stages]
+        self.modules = [StageModule(s, params, d)
+                        for s, d in zip(self.stages, self.devices)]
         self.in_spec = self.stages[0].in_spec
         self.out_spec = self.stages[-1].out_spec
         self._x_dtype = (self.compute_dtype
@@ -76,12 +87,12 @@ class MpmdPipeline:
         x = torch.as_tensor(np.asarray(x_np)).to(self.device,
                                                  self.in_spec.dtype)
         x = x.to(self._x_dtype)
-        for module in self.modules:
-            x = module(x)
+        for module, dev in zip(self.modules, self.devices):
+            x = module(x.to(dev))
         done = None
-        if self.device.type == "cuda":
+        if self.devices[-1].type == "cuda":
             done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
+            done.record(torch.cuda.current_stream(self.devices[-1]))
         return x, done
 
     def push(self, xs, n_real: int | None = None):

@@ -20,6 +20,24 @@ Schedule (unchanged): at step t stage 0 starts microbatch t, stage k
 computes microbatch t-k, and the output at slot 0 after step t is
 microbatch t-N+1.
 
+The mesh: as in the JAX engine, a pipeline runs on a (data, stage[,
+model]) mesh (``parallel/mesh.py``); with no ``mesh=`` the engine builds
+the one-card mesh of the extents it is asked for (``data_parallel``,
+``tensor_parallel``) on its ``device``.  The ring runs on one card: a mesh
+naming two or more devices raises before anything is placed (ROADMAP
+A15b).  On one card the mesh's positions share the ring:
+
+  * data parallelism splits the microbatch over the data axis (it must
+    divide); the replicas' slices sit side by side on the ring's batch axis
+    and, sharing the card and the stage rows, run as one batch — the same
+    ops on the same weights, as the JAX engine runs each shard;
+  * tensor parallelism gives each stage one weight row per rank of the
+    model axis (its Megatron shard, ``StageModule``); each step runs every
+    rank's shard of the stage in turn, with the in-stage psums between
+    them (``Op.tp_apply``), and the ring carries the activation every rank
+    holds after the stage's last psum (rank 0's).  A chunk is still one
+    CUDA-graph replay, the int8 hop still one quantizer launch a step.
+
 Weights: each stage holds one flat row (``runtime/flatbuf.py``) in
 ``weight_dtype`` — ``compute_dtype`` when set, else float32, as in the JAX
 engine; ``master_weights=True`` keeps the rows float32 and casts each float
@@ -51,6 +69,8 @@ from ..graph.ir import ShapeSpec, as_dtype
 from ..obs import tracer
 from ..ops.launches import counted_kernels
 from ..ops.quant import ste_ring_hop
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh,
+                             mesh_device, one_card_mesh)
 from ..partition.stage import StageModule, StageSpec, buffer_footprint
 from ..utils.config import resolve_device
 from ..utils.metrics import PipelineMetrics
@@ -60,18 +80,38 @@ from .cuda_graph import CapturedGraph, capture
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def check_single_card(*, compute_dtype=None, data_parallel: int = 1,
-                      tensor_parallel: int = 1) -> None:
-    """Raise for the reference options this port does not support yet."""
+def check_single_card(*, compute_dtype=None) -> None:
+    """Raise for a compute dtype the port's kernels do not take."""
     if compute_dtype is not None and as_dtype(compute_dtype) \
             not in COMPUTE_DTYPES:
         raise NotImplementedError(
             f"compute_dtype {compute_dtype!r} is not ported (float32 or "
             "bfloat16)")
-    if data_parallel != 1 or tensor_parallel != 1:
-        raise NotImplementedError(
-            "data_parallel / tensor_parallel need a multi-card ring "
-            "(ROADMAP queue A15)")
+
+
+def ring_mesh(engine: str, num_stages: int, mesh: Mesh | None, device,
+              data_parallel: int = 1, tensor_parallel: int = 1
+              ) -> tuple[Mesh, torch.device]:
+    """``(mesh, device)`` of a ring engine: the given mesh and its one
+    device (a mesh over several devices raises, naming ROADMAP A15b, before
+    anything is placed), or the one-card mesh of these extents on
+    ``device``."""
+    if mesh is None:
+        dev = resolve_device(device)
+        return one_card_mesh(dev, num_stages, data_parallel,
+                             tensor_parallel), dev
+    dev = mesh_device(mesh, engine)
+    if mesh.shape.get(STAGE_AXIS) != num_stages:
+        raise ValueError(f"mesh stage axis is {mesh.shape.get(STAGE_AXIS)} "
+                         f"but the pipeline has {num_stages} stages")
+    for axis, asked in ((DATA_AXIS, data_parallel),
+                        (MODEL_AXIS, tensor_parallel)):
+        if asked != 1 and mesh.shape.get(axis, 1) != asked:
+            raise ValueError(f"{axis} axis {mesh.shape.get(axis, 1)} of the "
+                             f"mesh != the {asked} asked for")
+    if device is not None and resolve_device(device) != resolve_device(dev):
+        raise ValueError(f"device {device!r} is not the mesh's {dev}")
+    return mesh, resolve_device(dev)
 
 
 class _RingOf(torch.autograd.Function):
@@ -121,6 +161,8 @@ class SpmdPipeline:
 
     or streaming: ``reset()`` / ``push(chunk, n_real)`` / ``flush()``.
     ``device=None`` means the CUDA card (an error when CUDA is absent).
+    ``mesh=`` (a one-card ``pipeline_mesh``) or ``data_parallel`` /
+    ``tensor_parallel`` run the pipeline pp x dp x tp.
     """
 
     def __init__(
@@ -128,6 +170,7 @@ class SpmdPipeline:
         stages: Sequence[StageSpec],
         params: dict[str, Any],
         *,
+        mesh: Mesh | None = None,
         device: str | torch.device | None = None,
         microbatch: int = 1,
         chunk: int = 16,
@@ -138,14 +181,18 @@ class SpmdPipeline:
         tensor_parallel: int = 1,
         master_weights: bool = False,
     ):
-        check_single_card(compute_dtype=compute_dtype,
-                          data_parallel=data_parallel,
-                          tensor_parallel=tensor_parallel)
-        if wire not in ("buffer", "int8"):
-            raise ValueError(f"wire must be 'buffer' or 'int8', got {wire!r}")
-        self.device = resolve_device(device)
         self.stages = list(stages)
         self.num_stages = n = len(self.stages)
+        self.mesh, self.device = ring_mesh(
+            "SpmdPipeline", n, mesh, device, data_parallel, tensor_parallel)
+        check_single_card(compute_dtype=compute_dtype)
+        if wire not in ("buffer", "int8"):
+            raise ValueError(f"wire must be 'buffer' or 'int8', got {wire!r}")
+        self.data_parallel = self.mesh.shape.get(DATA_AXIS, 1)
+        self.tensor_parallel = tp = self.mesh.shape.get(MODEL_AXIS, 1)
+        if microbatch % self.data_parallel:
+            raise ValueError(f"microbatch {microbatch} must divide by "
+                             f"data_parallel {self.data_parallel}")
         self.microbatch = microbatch
         self.chunk = chunk
         self.buffer_dtype = as_dtype(buffer_dtype)
@@ -177,9 +224,11 @@ class SpmdPipeline:
                 "buffer_dtype=float32: ids above 256 are not exactly "
                 f"representable in {self.buffer_dtype}")
 
-        #: stage k's module, holding its flat weight row on the device
+        #: stage k's module, holding its flat weight row (one per rank of
+        #: the model axis) on the device
         self.modules = [StageModule(s, params, self.device, compute_dtype=cd,
-                                    master_weights=self.master_weights)
+                                    master_weights=self.master_weights,
+                                    tp=tp)
                         for s in self.stages]
 
         self.metrics = PipelineMetrics(
@@ -211,8 +260,8 @@ class SpmdPipeline:
         """
         rows = [m.load(params, f"reweight: stage {s.name!r}")
                 for m, s in zip(self.modules, self.stages)]
-        for m, row in zip(self.modules, rows):
-            m.install(row)
+        for m, r in zip(self.modules, rows):
+            m.install(r)
 
     # ------------------------------------------------------------------
     # one stage / one pipeline step / one chunk
@@ -493,8 +542,9 @@ class SpmdPipeline:
                         iters: int = 10) -> list[float]:
         """Per-stage latency (seconds) of the deployed stages on a bubble
         slot: ``iters`` calls of each stage, timed with CUDA events on the
-        card and the host clock on the CPU.  The deployment's own rows,
-        compute dtype and buffer dtype are what run.  ``params`` is
+        card and the host clock on the CPU.  The deployment's own rows
+        (every rank's shard, with the in-stage psums, under tensor
+        parallelism), compute dtype and buffer dtype are what run.  ``params`` is
         accepted for the JAX signature and unused.  Fills
         ``metrics.stage_latency_s``; kernel launches made here are not
         pipeline steps and are not counted."""

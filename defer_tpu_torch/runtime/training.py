@@ -28,10 +28,22 @@ and ``torch.autograd.grad`` runs the ring backwards:
     updates the deployed rows in place, so the CUDA graphs captured for
     inference serve the trained weights without a new capture.
 
-Training runs eagerly (a chunk is not captured as a CUDA graph).  Only the
-pipeline's own ring on one card is supported; pp x dp and pp x tp come with
-the multi-card ring (ROADMAP queue A15), whose options ``SpmdPipeline``
-refuses.
+Training runs eagerly (a chunk is not captured as a CUDA graph), on the
+pipeline's one-card mesh, pp x dp x tp as the JAX trainer:
+
+  * data parallelism: ``loss_fn`` sees each data-parallel shard's
+    ``[microbatch/dp, ...]`` logits and targets, and the shards' losses are
+    averaged (the JAX trainer's pmean over the data axis), so a wider dp
+    does not scale the learning rate;
+  * tensor parallelism: each stage trains one row per rank of the model
+    axis.  Autograd differentiates the ranks' loop and its psums exactly
+    (a psum's backward hands every rank the summed cotangent once), so a
+    sharded leaf's gradient is its rank's.  A replicated leaf (a
+    LayerNorm, a bias added after a psum) is one weight held by every rank:
+    its copies get the SUM of their gradients, as the JAX trainer's
+    tied-copy fix gives them, and so stay equal after every update.
+    ``trained_params`` and ``stage_grads`` reassemble the ranks' shards
+    (``tp_unshard_params``).
 """
 
 from __future__ import annotations
@@ -56,12 +68,14 @@ class PipelineTrainer:
     """Train a model through an :class:`SpmdPipeline` deployment.
 
     ``loss_fn(logits, targets) -> scalar tensor`` is applied per microbatch
-    (``[microbatch, *out_shape]`` logits in the ring's buffer dtype) and
-    SUMMED over the chunk's microbatches.  ``optimizer`` is a callable that
+    (``[microbatch/dp, *out_shape]`` logits in the ring's buffer dtype, per
+    data-parallel shard), SUMMED over the chunk's microbatches and
+    AVERAGED across the shards.  ``optimizer`` is a callable that
     takes the stage rows and returns a ``torch.optim.Optimizer`` (e.g.
     ``lambda rows: torch.optim.Adam(rows, lr=1e-3)``); the default is SGD
     at 1e-2.  ``wire="int8"`` pipelines train through the straight-through
-    hop.  The trainer sets ``requires_grad`` on the pipeline's rows.
+    hop.  The trainer sets ``requires_grad`` on the pipeline's rows
+    (``rows``: every stage's, rank by rank under tensor parallelism).
     """
 
     def __init__(self, pipe: SpmdPipeline, loss_fn: Callable,
@@ -72,12 +86,31 @@ class PipelineTrainer:
                             f"{type(pipe).__name__}")
         self.pipe = pipe
         self.loss_fn = loss_fn
-        #: the deployed flat rows, one per stage: the trained tensors
-        self.rows = [m.row for m in pipe.modules]
+        #: the deployed flat rows, stage by stage (rank by rank within a
+        #: stage under tensor parallelism): the trained tensors
+        self.rows = [r for m in pipe.modules for r in m.rows]
         for row in self.rows:
             row.requires_grad_(True)
+        #: stage k's rows are ``rows[_spans[k]]``
+        self._spans, i = [], 0
+        for m in pipe.modules:
+            self._spans.append(slice(i, i + len(m.rows)))
+            i += len(m.rows)
+        #: per tensor-parallel stage: True over its replicated leaves
+        self._tied = {k: self._tied_mask(m) for k, m in
+                      enumerate(pipe.modules) if m.tp > 1}
         self.optimizer = (optimizer or _sgd)(self.rows)
         self._a0: torch.Tensor | None = None  # the trainer's zero ring
+
+    @staticmethod
+    def _tied_mask(mod) -> torch.Tensor:
+        """A row-shaped mask over the leaves every rank holds whole."""
+        mask = torch.zeros(mod.row.shape[0], dtype=torch.bool,
+                           device=mod.row.device)
+        for (off, size, _, _), rep in zip(mod.meta, mod.replicated):
+            if rep:
+                mask[off:off + size] = True
+        return mask
 
     # -- one chunk ----------------------------------------------------------
 
@@ -109,8 +142,11 @@ class PipelineTrainer:
         inference engine's step (each step's stages under remat)."""
         pipe = self.pipe
         n = pipe.num_stages
+        dp = pipe.data_parallel
         out_sz = pipe._out_sizes[-1]
         out_shape = (pipe.microbatch,) + pipe.out_spec.shape
+        shards = [slice(d * pipe.microbatch // dp,
+                        (d + 1) * pipe.microbatch // dp) for d in range(dp)]
         if self._a0 is None:
             self._a0 = torch.zeros(
                 (n, pipe.microbatch, pipe.buf_elems),
@@ -123,8 +159,12 @@ class PipelineTrainer:
                                      preserve_rng_state=False))
             j = t - (n - 1)
             if j >= 0:  # microbatch j is back at slot 0
-                loss = self.loss_fn(a[0, :, :out_sz].reshape(out_shape),
-                                    ys[j])
+                out = a[0, :, :out_sz].reshape(out_shape)
+                loss = self.loss_fn(out[shards[0]], ys[j][shards[0]])
+                for sh in shards[1:]:
+                    loss = loss + self.loss_fn(out[sh], ys[j][sh])
+                if dp > 1:
+                    loss = loss / dp
                 total = loss if total is None else total + loss
         return total
 
@@ -137,13 +177,21 @@ class PipelineTrainer:
         ``xs``: [M, microbatch, *in_shape]; ``ys``: [M, microbatch, ...]
         targets (whatever ``loss_fn`` consumes).  Returns the loss (a
         detached scalar tensor) and one gradient row per stage, each
-        shaped and typed as the stage's row."""
+        shaped and typed as the stage's row (one per row of ``rows``: rank
+        by rank under tensor parallelism, a replicated leaf holding the sum
+        of its copies' gradients in every rank's row)."""
         xs_dev, ys_dev = self._schedule(xs, ys)
         with torch.enable_grad():
             loss = self._chunk_loss(xs_dev, ys_dev)
             grads = torch.autograd.grad(loss, self.rows, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(r) if g is None else g
-                               for r, g in zip(self.rows, grads)]
+        grads = [torch.zeros_like(r) if g is None else g
+                 for r, g in zip(self.rows, grads)]
+        for k, mask in self._tied.items():
+            span = self._spans[k]
+            tot = sum(g.to(mask.device) for g in grads[span])
+            grads[span] = [torch.where(mask.to(g.device), tot.to(g.device),
+                                       g) for g in grads[span]]
+        return loss.detach(), grads
 
     def _apply(self, grads: Sequence[torch.Tensor]) -> None:
         """One optimizer update of the rows, in place."""
@@ -178,35 +226,40 @@ class PipelineTrainer:
 
     # -- interop ------------------------------------------------------------
 
-    def _unpack(self, k: int, row: torch.Tensor,
+    def _unpack(self, k: int, rows: Sequence[torch.Tensor],
                 dtype: torch.dtype | None) -> dict[str, Any]:
-        """Stage k's leaves of a row-shaped tensor as CPU copies in the
-        port's layout, each in ``dtype`` (None: the leaf's own)."""
+        """Stage k's leaves of its row-shaped tensors (one per rank) as CPU
+        copies in the port's layout, each in ``dtype`` (None: the leaf's
+        own); the ranks' shards reassembled under tensor parallelism."""
         mod = self.pipe.modules[k]
-        leaves = flatbuf.unpack_leaves(row.detach(), mod.meta)
-        return flatbuf.unflatten_leaves(mod.paths, [
+        trees = [flatbuf.unflatten_leaves(mod.paths, [
             v.to("cpu", dtype or meta[3], copy=True).contiguous()
-            for v, meta in zip(leaves, mod.meta)])
+            for v, meta in zip(flatbuf.unpack_leaves(row.detach(), mod.meta),
+                               mod.meta)]) for row in rows]
+        if mod.tp == 1:
+            return trees[0]
+        return mod.stage.tp_unshard_params(trees)
 
     def trained_params(self) -> dict[str, Any]:
         """The deployment's CURRENT weights as a standard parameter dict
-        (CPU tensors in their original dtypes): a fresh deployment, a
-        decoder's ``reweight`` or ``save_params`` takes it."""
+        (CPU tensors in their original dtypes, unsharded): a fresh
+        deployment, a decoder's ``reweight`` or ``save_params`` takes
+        it."""
         params: dict[str, Any] = {}
-        for k, row in enumerate(self.rows):
-            params.update(self._unpack(k, row, None))
+        for k, span in enumerate(self._spans):
+            params.update(self._unpack(k, self.rows[span], None))
         return params
 
     def stage_grads(self, grads: Sequence[torch.Tensor]
                     ) -> list[dict[str, Any]]:
         """Per-stage gradient rows unflattened into the stages' parameter
-        dicts (float32 CPU tensors, the port's layout; ``params_to_jax``
-        carries a whole graph's to the JAX layout)."""
-        return [self._unpack(k, g, torch.float32)
-                for k, g in enumerate(grads)]
+        dicts (float32 CPU tensors, the port's layout, unsharded;
+        ``params_to_jax`` carries a whole graph's to the JAX layout)."""
+        return [self._unpack(k, grads[span], torch.float32)
+                for k, span in enumerate(self._spans)]
 
     def save_checkpoint(self, path: str) -> None:
-        """Persist the training state: each stage's row (``w/<k>``) and
+        """Persist the training state: each row of ``rows`` (``w/<k>``) and
         every tensor of the optimizer's state (``opt/<param>/<name>``), in
         float32, in one npz.  Before the first step the optimizer holds no
         state (torch makes it at the first update), and none is written."""

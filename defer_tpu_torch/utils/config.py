@@ -49,8 +49,9 @@ class DeferConfig:
     # "int8" block-quantizes every hop on the device (the analogue of the
     # reference's ZFP wire compression)
     wire: str = "buffer"
-    # batch-parallel replicas / intra-stage sharding: multi-card only, not
-    # supported by this port so far
+    # batch-parallel replicas (mesh "data" axis) and intra-stage
+    # Megatron-style weight sharding (mesh "model" axis), on one card's
+    # mesh (parallel/mesh.py)
     data_parallel: int = 1
     tensor_parallel: int = 1
     # "spmd" (ring engine, primary) or "mpmd" (per-stage relay, oracle)

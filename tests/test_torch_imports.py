@@ -80,7 +80,8 @@ def test_import_loads_no_jax_module():
             "import defer_tpu_torch.plan.dag; "
             "import defer_tpu_torch.plan.calibrate; "
             "import defer_tpu_torch.plan.replan; "
-            + "".join(f"import {m}; " for m in OBS_MODULES) +
+            + "".join(f"import {m}; " for m in OBS_MODULES)
+            + "".join(f"import {m}; " for m in PARALLEL_MODULES) +
             "import defer_tpu_torch.codec.native as n; "
             "import defer_tpu_torch.transport.staging as st; "
             "assert n.load() is not None and st._load() is not None; "
@@ -129,7 +130,7 @@ def test_import_loads_no_jax_module():
                 "defer_tpu_torch.transport.ici",
                 "defer_tpu_torch.runtime.node",
                 "defer_tpu_torch.cli",
-                *PLANNER_MODULES, *OBS_MODULES):
+                *PLANNER_MODULES, *OBS_MODULES, *PARALLEL_MODULES):
         assert new in mods
     bad = [m for m in mods if _is_forbidden(m)]
     assert bad == []
@@ -146,6 +147,16 @@ PLANNER_MODULES = ("defer_tpu_torch.utils.hw",
                    "defer_tpu_torch.plan.dag",
                    "defer_tpu_torch.plan.calibrate",
                    "defer_tpu_torch.plan.replan")
+
+
+#: mesh parallelism (the JAX package's ``parallel/``)
+PARALLEL_MODULES = ("defer_tpu_torch.parallel",
+                    "defer_tpu_torch.parallel.mesh",
+                    "defer_tpu_torch.parallel.tensor",
+                    "defer_tpu_torch.parallel.expert",
+                    "defer_tpu_torch.parallel.ring_attention",
+                    "defer_tpu_torch.parallel.ulysses",
+                    "defer_tpu_torch.parallel.distributed")
 
 
 #: the observability plane (the JAX package's ``obs/`` imports no JAX

@@ -227,13 +227,28 @@ def test_entry_points_default_to_cuda(tiny):
 
 
 def test_unported_options_raise(tiny):
+    """``compute_dtype="float16"`` and a mesh over distinct devices (the
+    multi-card ring, ROADMAP A15b) raise; ``data_parallel`` and
+    ``tensor_parallel`` run on the one-card mesh: dp equal to the plain
+    pipeline, tp within 1e-5 of max |logit| (its head is a row-parallel
+    ``Dense``, two partial products summed in another order)."""
     _, _, tg, params = tiny
     stages = partition(tg, num_stages=2)
-    for kw, match in ((dict(data_parallel=2), "A15"),
-                      (dict(tensor_parallel=2), "A15"),
-                      (dict(compute_dtype="float16"), "compute_dtype")):
-        with pytest.raises(NotImplementedError, match=match):
-            SpmdPipeline(stages, params, device="cpu", **kw)
+    x = _inputs(2, m=3)
+    want = SpmdPipeline(stages, params, device="cpu", microbatch=2,
+                        chunk=2).run(x)
+    for kw in (dict(data_parallel=2), dict(tensor_parallel=2)):
+        got = SpmdPipeline(stages, params, device="cpu", microbatch=2,
+                           chunk=2, **kw).run(x)
+        err = np.abs(got - want).max()
+        assert err <= (1e-5 * np.abs(want).max() if "tensor_parallel" in kw
+                       else 0), (kw, err)
+    with pytest.raises(NotImplementedError, match="compute_dtype"):
+        SpmdPipeline(stages, params, device="cpu", compute_dtype="float16")
+    from defer_tpu_torch.parallel import pipeline_mesh as torch_mesh
+    with pytest.raises(NotImplementedError, match="A15b"):
+        SpmdPipeline(stages, params,
+                     mesh=torch_mesh(2, devices=["cuda:0", "cuda:1"]))
     with pytest.raises(ValueError, match="wire"):
         SpmdPipeline(stages, params, device="cpu", wire="zfp")
     with pytest.raises(ValueError, match="mode"):

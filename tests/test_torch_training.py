@@ -549,8 +549,9 @@ def test_master_weights_mixed_precision_training(master):
 
 
 def test_master_weights_through_defer(master):
-    """``DeferConfig(master_weights=True)`` builds the master deployment;
-    ``data_parallel`` and ``tensor_parallel`` still raise, naming A15."""
+    """``DeferConfig(master_weights=True)`` builds the master deployment,
+    also on a pp x dp and a pp x tp mesh, whose rows equal the plain
+    master deployment's."""
     m = master
     cfg = dict(device="cpu", microbatch=1, chunk=2,
                compute_dtype="bfloat16")
@@ -561,10 +562,172 @@ def test_master_weights_through_defer(master):
     out = d.run(m.tg, m.params, m.xs, num_stages=2)
     want = Defer(DeferConfig(**cfg)).run(m.tg, m.params, m.xs, num_stages=2)
     np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-6)
+    for kw in (dict(data_parallel=1), dict(tensor_parallel=1)):
+        d = Defer(DeferConfig(master_weights=True, **cfg, **kw))
+        pipe = d.build(m.tg, m.params, num_stages=2)
+        assert pipe.master_weights and all(
+            r.dtype == torch.float32 for mod in pipe.modules
+            for r in mod.rows)
+        assert pipe.mesh.shape == {"data": 1, "stage": 2}
+
+
+def test_master_weights_on_a_data_and_model_mesh():
+    """Master rows on pp x dp (microbatch 2 split in two) and pp x tp
+    (bert_tiny's 2 heads over 2 ranks): bf16 compute on float32 rows,
+    rows equal to the master deployment without the mesh."""
+    g = models.bert_tiny()
+    p = g.init(torch.Generator().manual_seed(2))
+    ids = np.random.default_rng(5).integers(0, 90, (2, 2, 16)).astype(
+        np.float32)
+    cfg = dict(device="cpu", microbatch=2, chunk=2,
+               compute_dtype="bfloat16", master_weights=True)
+    want = Defer(DeferConfig(**cfg)).run(g, p, ids, num_stages=2)
     for kw in (dict(data_parallel=2), dict(tensor_parallel=2)):
-        with pytest.raises(NotImplementedError, match="A15"):
-            Defer(DeferConfig(master_weights=True, **cfg, **kw)).build(
-                m.tg, m.params, num_stages=2)
+        pipe = Defer(DeferConfig(**cfg, **kw)).build(g, p, num_stages=2)
+        assert all(r.dtype == torch.float32 for mod in pipe.modules
+                   for r in mod.rows)
+        out = pipe.run(ids)
+        if "data_parallel" in kw:
+            np.testing.assert_array_equal(out, want)
+        else:
+            # bf16 partial products summed by the psums round where the
+            # whole products do not (0.4% a rounding), through 4 blocks
+            err = float(np.abs(out - want).max())
+            assert err <= 5e-2 * float(np.abs(want).max()), err
+
+
+# ------------------------------------------------- pp x dp and pp x tp
+
+
+def _jax_unsharded_grads(jpipe, g) -> dict:
+    """A JAX pp x tp gradient buffer [N, tp, Pmax] reassembled into the
+    graph's parameters (``tp_unshard_params`` per stage; the replicated
+    leaves hold the tied sum on every rank)."""
+    g = np.asarray(g)
+    out = {}
+    for k, s in enumerate(jpipe.stages):
+        ranks = [jax.tree.unflatten(jpipe._wtreedef[k], [
+            g[k, r, off:off + size].reshape(shape)
+            for off, size, shape, _ in jpipe._wmeta[k]])
+            for r in range(g.shape[1])]
+        out.update(s.tp_unshard_params(ranks))
+    return out
+
+
+def test_training_with_data_parallel_matches_jax():
+    """pp x dp (``tests/test_training.py::test_training_with_data_
+    parallel``): the loss of each dp shard's half of the microbatch,
+    averaged over the shards, and its gradients, against the JAX trainer
+    on a (data 2, stage 2) mesh and against the whole graph."""
+    jg, tg = jax_models.resnet_tiny(), models.resnet_tiny()
+    np_params = jax.tree.map(np.asarray,
+                             jax.jit(jg.init)(jax.random.key(0)))
+    params = params_from_jax(tg, np_params)
+    rng = np.random.default_rng(3)
+    xs = _images(rng, 2, 2)
+    ys = rng.integers(0, 10, (2, 2))
+    jpipe = JaxSpmdPipeline(jax_partition(jg, num_stages=2), np_params,
+                            mesh=pipeline_mesh(2, data_parallel=2),
+                            microbatch=2, chunk=2)
+    jt = JaxTrainer(jpipe, _jloss)
+    jl, jgrads = jt.loss_and_grad(xs, ys)
+    pipe = SpmdPipeline(partition(tg, num_stages=2), params, device="cpu",
+                        microbatch=2, chunk=2, data_parallel=2)
+    t = PipelineTrainer(pipe, _loss)
+    loss, grads = t.loss_and_grad(xs, ys)
+    got = params_to_jax(tg, _merge(t.stage_grads(grads)))
+    np.testing.assert_allclose(float(loss), float(jl), rtol=LOSS_RTOL)
+    _close_rel(got, _merge(jt.stage_grads(jgrads)), GRAD_REL,
+               "pp x dp port vs JAX")
+    # the whole graph, each shard's loss halved: a mean loss keeps its
+    # per-sample scale whatever the dp factor
+    ref_l, ref_g = _single_program(
+        tg, params, xs.reshape(4, 1, 32, 32, 3), ys.reshape(4, 1),
+        lambda out, y: _loss(out, y) / 2)
+    np.testing.assert_allclose(float(loss), ref_l, rtol=LOSS_RTOL)
+    _close_rel(got, ref_g, GRAD_REL, "pp x dp port vs single program")
+
+
+@pytest.fixture(scope="module")
+def bert_tp():
+    """bert_tiny (``attn_impl="xla"``) in 2 stages over 2 tensor-parallel
+    ranks, microbatch 1 — ``tests/test_training.py``'s tp scenario — and
+    the JAX trainer's loss, unsharded gradients and one-SGD-step weights
+    on a (stage 2, model 2) mesh."""
+    jg = _jax_xla(jax_models.bert_tiny())
+    tg = with_attn_impl(models.bert_tiny(), "xla")
+    np_params = jax.tree.map(np.asarray,
+                             jax.jit(jg.init)(jax.random.key(6)))
+    rng = np.random.default_rng(7)
+    xs = rng.integers(0, 90, (2, 1, 16)).astype(np.float32)
+    ys = rng.integers(0, 2, (2, 1))
+    jpipe = JaxSpmdPipeline(jax_partition(jg, num_stages=2), np_params,
+                            mesh=pipeline_mesh(2, tensor_parallel=2),
+                            microbatch=1, chunk=3)
+    jt = JaxTrainer(jpipe, _jloss, optimizer=optax.sgd(0.05))
+    jl, jgrads = jt.loss_and_grad(xs, ys)
+    jt.step(xs, ys)
+    return dict(tg=tg, params=params_from_jax(tg, np_params), xs=xs, ys=ys,
+                jl=float(jl), jg=_jax_unsharded_grads(jpipe, jgrads),
+                jw=jt.trained_params())
+
+
+def _tp_trainer(bt, opt=None):
+    pipe = SpmdPipeline(partition(bt["tg"], num_stages=2), bt["params"],
+                        device="cpu", microbatch=1, chunk=3,
+                        tensor_parallel=2)
+    return PipelineTrainer(pipe, _loss, optimizer=opt)
+
+
+def test_training_with_tensor_parallel_matches_jax(bert_tp):
+    """pp x tp: the loss, the unsharded gradients (a replicated leaf's
+    copies summed) and the weights after one SGD step against the JAX
+    trainer, the gradients also against the whole graph."""
+    bt = bert_tp
+    t = _tp_trainer(bt, lambda rows: torch.optim.SGD(rows, lr=0.05))
+    assert len(t.rows) == 4  # 2 stages x 2 ranks
+    loss, grads = t.loss_and_grad(bt["xs"], bt["ys"])
+    got = params_to_jax(bt["tg"], _merge(t.stage_grads(grads)))
+    np.testing.assert_allclose(float(loss), bt["jl"], rtol=LOSS_RTOL)
+    _close_rel(got, bt["jg"], GRAD_REL, "pp x tp port vs JAX")
+    ref_l, ref_g = _single_program(bt["tg"], bt["params"], bt["xs"],
+                                   bt["ys"], _loss)
+    np.testing.assert_allclose(float(loss), ref_l, rtol=LOSS_RTOL)
+    _close_rel(got, ref_g, GRAD_REL, "pp x tp port vs single program")
+    # every rank's copy of a replicated leaf got the same (summed) grad
+    for k, mod in enumerate(t.pipe.modules):
+        g0, g1 = grads[t._spans[k]]
+        for (off, size, _, _), rep in zip(mod.meta, mod.replicated):
+            if rep:
+                assert torch.equal(g0[off:off + size], g1[off:off + size])
+    t.step(bt["xs"], bt["ys"])
+    _close_rel(params_to_jax(bt["tg"], t.trained_params()), bt["jw"],
+               SGD_REL, "pp x tp weights after one SGD step")
+
+
+def test_trained_params_roundtrip_tensor_parallel(bert_tp, tmp_path):
+    """Under pp x tp ``trained_params`` inverts the sharding exactly
+    before training; after a step a fresh UNSHARDED deployment of the
+    exported weights serves the trained tp deployment's rows (the JAX
+    test's 2e-4), and a checkpoint of the per-rank rows resumes to the
+    same next loss."""
+    bt = bert_tp
+    t = _tp_trainer(bt, lambda rows: torch.optim.Adam(rows, lr=1e-3))
+    exported = flatten_tree(t.trained_params())
+    for k, v in flatten_tree(bt["params"]).items():
+        assert torch.equal(exported[k], v), k
+    t.step(bt["xs"], bt["ys"])
+    fresh = SpmdPipeline(partition(bt["tg"], num_stages=2),
+                         t.trained_params(), device="cpu", microbatch=1,
+                         chunk=3)
+    np.testing.assert_allclose(fresh.run(bt["xs"]), t.pipe.run(bt["xs"]),
+                               rtol=2e-4, atol=2e-4)
+    ckpt = str(tmp_path / "tp.npz")
+    t.save_checkpoint(ckpt)
+    t2 = _tp_trainer(bt, lambda rows: torch.optim.Adam(rows, lr=1e-3))
+    t2.load_checkpoint(ckpt)
+    np.testing.assert_allclose(t2.step(bt["xs"], bt["ys"]),
+                               t.step(bt["xs"], bt["ys"]), rtol=1e-6)
 
 
 # ------------------------------------------------------------ the families
