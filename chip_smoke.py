@@ -264,11 +264,22 @@ Phases, in order; any failure exits non-zero before the result line:
                    gradients and one SGD step's weights against 4r's
                    tp=1); ``MpmdPipeline(devices=[card] * 8)`` against 4a's
                    forward, and a mesh over two cards refused (A15b);
+     4t. the ring across processes: four ``torch.distributed`` processes
+         sharing the card over gloo (``scripts/torch_ring_procs.py``,
+         spawned once): ResNet50/8 on a (stage 8) mesh, two stages a
+         process, both wires, against 4a's ring (one quantizer launch per
+         process and int8 step, the bytes a boundary carries, images/s
+         beside 4a's); BERT-Base/12, three stages a process, against 4b's
+         ring (12 flash launches a step over the processes); ResNet50/4 on
+         (data 2, stage 4), each line on a sub-group, against the one-card
+         ring on that mesh; ``Defer(mesh=).run``/``.stream``; the
+         collectives across processes against one card; the guards (A15c,
+         A15b) and NCCL on one card refused;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
               ``replication_path``, ``dag_path``, ``obs_path``,
-              ``cli_path``, ``train_path``, ``mesh_path``, the ``budget:``
-              line,
+              ``cli_path``, ``train_path``, ``mesh_path``,
+              ``procs_path``, the ``budget:`` line,
               ``phase_seconds`` and
               ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``; each phase's seconds are
@@ -277,8 +288,8 @@ Phases, in order; any failure exits non-zero before the result line:
 The phases run under a budget: ``phase_seconds`` should total at most
 BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s), phase 4p
 at most OBS_BUDGET_S (40 s), phase 4q at most CLI_BUDGET_S (30 s),
-phase 4r at most TRAIN_BUDGET_S (45 s) and phase 4s at most
-MESH_BUDGET_S (30 s), paid for by
+phase 4r at most TRAIN_BUDGET_S (45 s), phase 4s at most
+MESH_BUDGET_S (30 s) and phase 4t at most PROCS_BUDGET_S (30 s), paid for by
 running earlier paths smaller (PERF.md §4).  A watchdog armed at start
 fails the run at WATCHDOG_S (720 s): it names the phase still running,
 dumps every thread's stack, kills the node processes the smoke started
@@ -433,7 +444,8 @@ CLI_BUDGET_S = 30.0
 #: the phases in order (``phase_seconds`` keys); 4p's, 4q's and 4r's
 #: seconds are carved out of the phases where their checks run
 PHASES = ("1", "2", "3", "4a", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
-          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4s", "4p", "4q", "4r")
+          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4s", "4t", "4p", "4q",
+          "4r")
 
 
 def kill_children() -> list:
@@ -907,6 +919,7 @@ def main_path(torch, device, kernels):
             "top1_agree": f"{int((top_ref == top_out).sum())}/"
                           f"{top_ref.size}", "buffer_rel_err": berr / scale,
             "defer": defer, "graph": g, "params": params, "inputs": inputs,
+            "rows": {"int8": out, "buffer": buf},
             "pdev": pdev, "cuts": RESNET50_8STAGE_CUTS, "ref": ref,
             # phase 4d's bf16 deployment: bf16 weights and ring
             "bf16": dict(compute_dtype="bfloat16", buffer_dtype="bfloat16")}
@@ -1334,7 +1347,9 @@ GPT_STAGES = 12
 GPT_MAX_LEN = 256
 #: [sequences, prompt length] from numpy seed SEED: one fill of the ring
 GPT_PROMPTS = (96, 32)
-GPT_NEW = 32
+#: new tokens of the decode-rate checks, halved twice to keep the smoke in
+#: its budget (the decoder's generate calls are most of 4g; PERF.md §4)
+GPT_NEW = 16
 #: shorter generations for the graph/eager, reweight and beam checks
 GPT_SHORT_NEW = 8
 #: prefill tokens may part from decode-rate ones only at or after a
@@ -6556,6 +6571,241 @@ def mesh_train_gpt(torch, device, kernels, card, base) -> dict:
             "loss_and_grad_s": sec, "launches": got}
 
 
+# ---------------------------------------------------------------------------
+# phase 4t: the ring across processes on one card
+# ---------------------------------------------------------------------------
+
+#: phase 4t's share of BUDGET_S
+PROCS_BUDGET_S = 30.0
+#: worker processes sharing the card (gloo: NCCL refuses two ranks on one
+#: card), and the spawn's deadline (the watchdog still covers the phase)
+RING_PROCS = 4
+PROCS_DEADLINE_S = 90.0
+#: the int8 (data 2, stage 4) rows against the one-card ring on the same
+#: one-card mesh, and the buffer rows against 4a's: the same f32 ops on
+#: the same rows (cuDNN may choose another algorithm for another batch)
+PROCS_REL_BOUND = 1e-5
+
+
+def ring_procs_module():
+    """``scripts/torch_ring_procs.py``, the launcher the CPU tests spawn
+    too, loaded from the checkout beside this script."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "scripts" / "torch_ring_procs.py"
+    spec = importlib.util.spec_from_file_location("torch_ring_procs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sum_worker_launches(res, key: str) -> dict:
+    out: dict = {}
+    for r in res:
+        for name, c in r["meta"][key]["launches"].items():
+            out[name] = out.get(name, 0) + c
+    return out
+
+
+def procs_path(torch, device, kernels, card, mp, bp, thr, bthr) -> dict:
+    """Phase 4t. Four ``torch.distributed`` processes on the one card (gloo),
+    spawned once by ``scripts/torch_ring_procs.py`` with 4a's and 4b's
+    seed-0 weights and inputs (written once for the workers to map), TF32
+    off: (a) ResNet50/8
+    on a (stage 8) mesh, two stages a process, both wires: rows against
+    4a's ring (buffer within PROCS_REL_BOUND of max |logit|, int8 within
+    INT8_REL_BOUND and top-1 equal), one quantizer launch per process and
+    int8 step, the transport, the bytes a boundary carries a step, images/s
+    of the median of TIMED_PUSHES steady pushes (the slowest process's)
+    beside 4a's ring; (b) BERT-Base/12, three stages a
+    process, both wires, against 4b's ring rows, 12 flash launches a step
+    over the processes; (c) ResNet50/4 on (data 2, stage 4), int8, each
+    line's ring on a sub-group, against the one-card ring on the same
+    one-card mesh; (d) ``Defer(mesh=).run`` and ``.stream`` of (a)'s int8
+    deployment equal to its ``SpmdPipeline.run``; (e) the collectives over
+    a stage axis across processes (every process on one line, and lines on
+    sub-groups) equal to the same calls on one card; (f) the guards name
+    A15c (A15b for two devices in one process), and NCCL on one card is
+    refused naming gloo."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from defer_tpu_torch import SpmdPipeline, partition
+    from defer_tpu_torch.parallel import mesh as M
+    from defer_tpu_torch.parallel import pipeline_mesh
+
+    R = ring_procs_module()
+    cfg = R.PRESETS["card"]
+    if (cfg["microbatch"], cfg["chunk"], cfg["frames"]) != (
+            MICROBATCH, CHUNK, 2 * CHUNK):
+        fail("phase 4t: the launcher's card preset is not 4a's batch")
+    # (c)'s reference first: the one-card (data 2, stage 4) ring, int8
+    dstages = cfg["dp_stages"]
+    one = SpmdPipeline(partition(mp["graph"], num_stages=dstages),
+                       mp["params"], mesh=pipeline_mesh(
+                           dstages, 2, devices=[device] * 2 * dstages),
+                       microbatch=MICROBATCH, chunk=CHUNK, wire="int8")
+    dp_ref = one.run(mp["inputs"])
+    del one
+    free_card(torch)
+
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent.joinpath(*PYCACHE[:2],
+                                                       "ring_procs")
+    inputs = {"resnet_params": mp["params"], "resnet_x": mp["inputs"],
+              "bert_params": bp["params"], "bert_ids": bp["inputs"]}
+    try:
+        res = R.spawn(RING_PROCS, "cuda", "card", out_dir, inputs,
+                      deadline_s=PROCS_DEADLINE_S, timeout_s=60.0)
+    except RuntimeError as e:
+        fail(f"phase 4t: {e}")
+    spawn_s = time.perf_counter() - t0
+    # each worker's timeline from its start, the latest worker's
+    marks = {k: max(r["meta"]["seconds"][k] for r in res)
+             for k in res[0]["meta"]["seconds"]}
+    out = {"spawn_s": spawn_s, "procs": RING_PROCS, "backend": "gloo",
+           "timed_pushes": R.TIMED_PUSHES, "worker_seconds": marks}
+    print("procs path workers (s from each start, the latest of 4): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in marks.items()), flush=True)
+    if any(len(r["meta"]["stage_latencies"]) != 2
+           or min(r["meta"]["stage_latencies"]) <= 0 for r in res):
+        fail("phase 4t: stage_latencies is not each process's two stages")
+
+    def rel(a, b):
+        return float(np.abs(a - b).max()) / float(np.abs(b).max())
+
+    def held(key, want_rows, bound, top1=False):
+        errs = [rel(r[f"{key}_rows"], want_rows) for r in res]
+        if max(errs) > bound:
+            fail(f"phase 4t: {key} rows {max(errs):.3g} of max |output| off "
+                 f"the one-process ring (bound {bound})")
+        if top1 and not all((r[f"{key}_rows"].argmax(-1)
+                             == want_rows.argmax(-1)).all() for r in res):
+            fail(f"phase 4t: {key} changed a top-1 class")
+        return max(errs)
+
+    # (a) and (b): rows, launches, transport, bytes, rates
+    ring_thr = {"resnet": thr, "bert": bthr}
+    want_flash = {"resnet": 0, "bert": sum(
+        name.startswith("block_") for name in bp["graph"].topo_order)}
+    for key, ref in (("resnet", mp), ("bert", bp)):
+        for wire in R.WIRES:
+            k = f"{key}_{wire}"
+            metas = [r["meta"][k] for r in res]
+            steps = metas[0]["steps"]
+            bound = PROCS_REL_BOUND if wire == "buffer" else INT8_REL_BOUND
+            err = held(k, ref["rows"][wire], bound,
+                       top1=key == "resnet" and wire == "int8")
+            launches = _sum_worker_launches(res, k)
+            want = {"quant_int8": RING_PROCS * steps if wire == "int8"
+                    else 0, "flash_attention": want_flash[key] * steps}
+            if (launches != want or any(
+                    m["launches"]["quant_int8"] != (steps if wire == "int8"
+                                                    else 0)
+                    for m in metas)):
+                fail(f"phase 4t: {k} launches {launches} (per process "
+                     f"{[m['launches'] for m in metas]}), want {want}: one "
+                     "quantizer launch per process and int8 step")
+            buf = metas[0]["buf_elems"]
+            hop = (MICROBATCH * (buf + 4 * (buf // 256)) if wire == "int8"
+                   else MICROBATCH * buf * 4)
+            per_send = [m["boundary_bytes"] / m["boundary_sends"]
+                        for m in metas]
+            seen = [(m["transport"], m["captures"], m["boundary_sends"])
+                    for m in metas]
+            if (any(t != ("gloo", 0, steps) for t in seen)
+                    or any(b != hop for b in per_send)):
+                fail(f"phase 4t: {k} transport/captures/sends {seen} (want "
+                     f"gloo, 0, {steps}) or bytes a boundary a step "
+                     f"{per_send} (want {hop})")
+            # the slowest process's median push, and its pushes' spread
+            slow = max(metas, key=lambda m: m["push_s"])
+            rate = CHUNK * MICROBATCH / slow["push_s"]
+            one_rate = ring_thr[key][f"pipeline_{wire}"]
+            unit = "img" if key == "resnet" else "seq"
+            out[k] = {"rel_err": err, "launches": launches, "steps": steps,
+                      "bytes_per_boundary_step": hop,
+                      "per_second": rate, "push_s": slow["push_s"],
+                      "push_spread_s": slow["push_spread_s"],
+                      "one_process_per_second": one_rate,
+                      "local_stages": [m["local_stages"] for m in metas]}
+            print(f"procs path {k}: {RING_PROCS} processes x "
+                  f"{len(metas[0]['local_stages'])} stages over gloo, rows "
+                  f"{err:.3g} of max|output| off the one-process ring "
+                  f"(bound {bound}); launches {launches} in {steps} steps; "
+                  f"{hop / 1e6:.3f} MB a boundary a step; {rate:.1f} "
+                  f"{unit}/s (median of {R.TIMED_PUSHES} steady pushes, "
+                  f"{slow['push_s'] * 1e3:.1f} ms, spread "
+                  f"{slow['push_spread_s'] * 1e3:.1f} ms) against the "
+                  f"one-process ring's {one_rate:.1f} (graph replay); on "
+                  f"{card}", flush=True)
+
+    # (c) (data 2, stage 4): each line's ring on a sub-group
+    err = held("dp_int8", dp_ref, PROCS_REL_BOUND)
+    metas = [r["meta"]["dp_int8"] for r in res]
+    launches = _sum_worker_launches(res, "dp_int8")
+    if launches["quant_int8"] != RING_PROCS * metas[0]["steps"]:
+        fail(f"phase 4t: dp int8 launches {launches}")
+    out["dp_int8"] = {"rel_err": err, "launches": launches,
+                      "local_stages": [m["local_stages"] for m in metas],
+                      "per_second": CHUNK * MICROBATCH / max(
+                          m["push_s"] for m in metas)}
+    print(f"procs path dp_int8: (data 2, stage {dstages}) over "
+          f"{RING_PROCS} processes, rows {err:.3g} of max|logit| off the "
+          f"one-card ring on the same one-card mesh (bound "
+          f"{PROCS_REL_BOUND}); launches {launches}", flush=True)
+
+    # (d) Defer over the same mesh
+    for what in ("run", "stream"):
+        for r in res:
+            if not np.array_equal(r[f"defer_{what}_rows"],
+                                  r["resnet_int8_rows"]):
+                fail(f"phase 4t: Defer(mesh=).{what} differs from "
+                     "SpmdPipeline.run")
+
+    # (e) the collectives against the same calls on one card
+    for which, dp in (("line", 1), ("sub", 2)):
+        n = len(res[0][f"{which}_positions"]) * RING_PROCS // dp
+        x = np.random.default_rng(R.SEED + 1).integers(
+            -8, 8, (dp, n, 8, 8)).astype(np.float32)
+        ring = [(i, (i + 1) % n) for i in range(n)]
+        for d in range(dp):
+            xs = [torch.from_numpy(a.copy()) for a in x[d]]
+            want = {"psum": M.psum(xs), "ppermute": M.ppermute(xs, ring),
+                    "ppermute_partial": M.ppermute(xs, [(0, 1)]),
+                    "all_gather": M.all_gather(xs, 0),
+                    "all_gather_tiled": M.all_gather(xs, 0, True),
+                    "all_to_all": M.all_to_all(xs, 0, 1)}
+            for op in R.COLLECTIVES:
+                for r in res:
+                    for pos, got in zip(r[f"{which}_positions"],
+                                        r[f"{which}_{op}"]):
+                        if pos[0] == d and not np.array_equal(
+                                got, want[op][pos[1]].numpy()):
+                            fail(f"phase 4t: {op} across processes ({which})"
+                                 f" differs at {pos.tolist()}")
+    # (f) the guards
+    for r in res:
+        for name, queue in R.GUARDS.items():
+            if queue not in r["meta"]["guards"][name]:
+                fail(f"phase 4t: guard {name} did not raise naming {queue}: "
+                     f"{r['meta']['guards'][name]!r}")
+        if 'backend="gloo"' not in r["meta"]["nccl_refused"]:
+            fail("phase 4t: NCCL on one card was not refused naming gloo: "
+                 f"{r['meta']['nccl_refused']!r}")
+    print(f"procs path: Defer(mesh=).run/.stream equal to SpmdPipeline.run; "
+          f"{len(R.COLLECTIVES)} collectives x 2 meshes equal to one card; "
+          f"guards {sorted(R.GUARDS)} raise naming their queues; NCCL on "
+          f"one card refused: {res[0]['meta']['nccl_refused']!r}; spawn "
+          f"to results {spawn_s:.1f} s; on {card}", flush=True)
+    out["guards"] = {k: R.GUARDS[k] for k in R.GUARDS}
+    del res
+    free_card(torch)
+    return out
+
+
 RESNET_GROUPS = {"quant_int8": ("quant_int8",),
                  "conv (cuDNN, incl. layout)": ("xmma", "cudnn", "conv",
                                                 "Nchw", "Nhwc", "implicit"),
@@ -6827,6 +7077,11 @@ def main() -> int:
     phase_s["4s"] += sum(MESH_SECONDS)
     print(f"phase 4s: {phase_s['4s']:.1f} s (of which "
           f"{sum(MESH_SECONDS):.1f} s inside 4a and 4g)", flush=True)
+
+    # phase 4t: the ring across four processes on the card; each worker's
+    # counts zeroed just before its runs and read just after
+    pt = procs_path(torch, device, kernels, card, mp, bp, thr, bthr)
+    phase_done("4t")
     WATCH.cancel()
     # phase 4p: the observability checks that rode 4k's and 4n's chains
     phase_s["4p"] = sum(OBS_SECONDS)
@@ -6844,7 +7099,8 @@ def main() -> int:
           f"{phase_s['4p']:.1f} s of {OBS_BUDGET_S:.0f} s, phase 4q "
           f"{phase_s['4q']:.1f} s of {CLI_BUDGET_S:.0f} s, phase 4r "
           f"{phase_s['4r']:.1f} s of {TRAIN_BUDGET_S:.0f} s, phase 4s "
-          f"{phase_s['4s']:.1f} s of {MESH_BUDGET_S:.0f} s; watchdog "
+          f"{phase_s['4s']:.1f} s of {MESH_BUDGET_S:.0f} s, phase 4t "
+          f"{phase_s['4t']:.1f} s of {PROCS_BUDGET_S:.0f} s; watchdog "
           f"{WATCHDOG_S:.0f} s; on {card}", flush=True)
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
@@ -6914,6 +7170,9 @@ def main() -> int:
     by_path["mesh_train_resnet50_dp2_int8"] = ms["train_resnet50_dp2"][
         "launches"]
     by_path["mesh_train_gpt2_tp2"] = ms["train_gpt2_tp2"]["launches"]
+    for key in ("resnet_buffer", "resnet_int8", "bert_buffer", "bert_int8",
+                "dp_int8"):
+        by_path[f"procs_{key}"] = pt[key]["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -6999,6 +7258,9 @@ def main() -> int:
     print(json.dumps({"mesh_path": {
         "microbatch": MICROBATCH, "budget_s": MESH_BUDGET_S,
         "seconds": phase_s["4s"], **ms}}))
+    print(json.dumps({"procs_path": {
+        "microbatch": MICROBATCH, "budget_s": PROCS_BUDGET_S,
+        "seconds": phase_s["4t"], **pt}}))
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": sum(phase_s.values()),
                       "budget_s": BUDGET_S, "watchdog_s": WATCHDOG_S}))

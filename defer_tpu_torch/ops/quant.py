@@ -73,18 +73,27 @@ def dequantize_int8_blocks(q: torch.Tensor, scale: torch.Tensor,
     return (xb * scale[..., None]).reshape(*lead, n).to(dtype)
 
 
-def quantized_ring_hop(y: torch.Tensor, out_dtype) -> torch.Tensor:
-    """The int8 stage->successor hop over a one-card ring ``[N, ...]``:
-    block-quantize every slot in ONE launch, rotate the int8 payload and
-    its scales one slot (slot k's output moves to slot k+1, the last wraps
-    to slot 0 — ``lax.ppermute`` in the JAX package), dequantize.
+def quantized_ring_hop(y: torch.Tensor, out_dtype, cross=None) -> torch.Tensor:
+    """The int8 stage->successor hop over a ring ``[N, ...]``: block-quantize
+    every slot in ONE launch, rotate the int8 payload and its scales one
+    slot (slot k's output moves to slot k+1, the last wraps to slot 0 —
+    ``lax.ppermute`` in the JAX package), dequantize.
 
     Quantizing the whole ring at once equals quantizing per device: the
     quant blocks never straddle two slots (each slot's length is a
-    multiple of BLOCK)."""
+    multiple of BLOCK).
+
+    With ``cross`` the ring is this process's segment of a ring over
+    several processes: after the rotation slot 0 holds the last local
+    slot's ``(q, s)``, which ``cross([q0, s0])`` sends to the process of
+    the next stage, returning the ``(q, s)`` the previous stage's process
+    sent, which take slot 0's place.  So what crosses the process boundary
+    is the int8 payload and its scales, as over the JAX ``ppermute``."""
     q, s = quantize_int8_blocks(y)
-    return dequantize_int8_blocks(torch.roll(q, 1, 0), torch.roll(s, 1, 0),
-                                  out_dtype)
+    q, s = torch.roll(q, 1, 0), torch.roll(s, 1, 0)
+    if cross is not None:
+        q[0], s[0] = cross([q[0], s[0]])
+    return dequantize_int8_blocks(q, s, out_dtype)
 
 
 class _StraightThroughHop(torch.autograd.Function):

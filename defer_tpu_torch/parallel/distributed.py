@@ -7,35 +7,42 @@ with ``torch.distributed.init_process_group`` and lays its own
 :class:`~defer_tpu_torch.parallel.mesh.Mesh` over every process's devices,
 each position recording the process that owns it.  This module is the one
 place the port calls ``torch.distributed`` to form a group; the
-collectives of ``parallel/mesh.py`` all-reduce over it where an axis
+collectives of ``parallel/mesh.py`` and the ring across processes
+(``runtime/spmd.py``) send, receive and all-reduce over it where an axis
 crosses processes.
 
 On a single host everything degrades gracefully: ``initialize`` without
 arguments or a cluster environment is a no-op, and the meshes cover the
 local devices.
+
+Several processes on ONE card (as the one-card machine runs a ring across
+processes) need ``backend="gloo"``: NCCL refuses two ranks on the same
+device ("Duplicate GPU detected"), so ``initialize`` checks each rank's
+card under NCCL and raises, naming gloo, before the first collective
+would fail.  gloo's point-to-point ops take host tensors; the port stages
+a CUDA tensor through pinned host memory (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
+import datetime
 import os
+import socket
+import time
 
 import numpy as np
 import torch
 
-from .mesh import Mesh, pipeline_mesh, visible_cards
+from .mesh import Mesh, _dist, current_process, pipeline_mesh, visible_cards
 
 _initialized = False
-
-
-def _dist():
-    import torch.distributed as dist
-    return dist
 
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None,
-               backend: str | None = None) -> None:
+               backend: str | None = None,
+               timeout_s: float | None = None) -> None:
     """Join the multi-host process group (idempotent; a no-op on a single
     host).
 
@@ -45,7 +52,11 @@ def initialize(coordinator_address: str | None = None,
     ``RANK``, as ``torchrun`` sets them) is used when present; otherwise
     the call returns without latching, so a later call with explicit
     arguments can still form the group.  ``backend`` defaults to ``nccl``
-    when CUDA is available, else ``gloo``.
+    when CUDA is available, else ``gloo``; several processes on one card
+    need ``gloo`` (NCCL raises here, see the module's docstring).
+    ``timeout_s`` bounds the group's formation and every collective
+    (``init_process_group``'s ``timeout``): a dead peer then fails its
+    neighbours instead of leaving them blocked.
     """
     global _initialized
     dist = _dist()
@@ -54,18 +65,73 @@ def initialize(coordinator_address: str | None = None,
         return
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    kw = ({} if timeout_s is None
+          else {"timeout": datetime.timedelta(seconds=timeout_s)})
     if coordinator_address is None and num_processes is None:
         if not {"MASTER_ADDR", "WORLD_SIZE", "RANK"} <= set(os.environ):
             return  # one host, no cluster environment: not latched
-        dist.init_process_group(backend, init_method="env://")
+        dist.init_process_group(backend, init_method="env://", **kw)
     else:
         if num_processes is None or process_id is None:
             raise ValueError("initialize needs num_processes and "
                              "process_id with a coordinator address")
         dist.init_process_group(
             backend, init_method=f"tcp://{coordinator_address}",
-            world_size=num_processes, rank=process_id)
+            world_size=num_processes, rank=process_id, **kw)
+    if backend == "nccl":
+        _refuse_shared_cards(dist, card_key())
     _initialized = True
+
+
+def card_key(local_rank: int | None = None) -> str:
+    """A process's card as its host and the card's UUID (its index where
+    torch gives no UUID), the same across ``CUDA_VISIBLE_DEVICES``
+    renumberings.  The card is the local rank's (``LOCAL_RANK`` by
+    default, as ``torchrun`` sets it) where that card is visible, else the
+    current device's: the port calls no ``set_device``, since a ring's
+    card comes from its mesh."""
+    if local_rank is None:
+        local_rank = int(os.environ.get("LOCAL_RANK", -1))
+    i = (local_rank if local_rank in range(torch.cuda.device_count())
+         else torch.cuda.current_device())
+    uuid = getattr(torch.cuda.get_device_properties(i), "uuid", None)
+    return f"{socket.gethostname()}/{uuid if uuid is not None else i}"
+
+
+def shared_cards(keys: list[str]) -> dict[str, list[int]]:
+    """The cards named by more than one rank (``keys[rank]``, as
+    :func:`card_key` gives them), each with its ranks."""
+    ranks: dict[str, list[int]] = {}
+    for r, k in enumerate(keys):
+        ranks.setdefault(k, []).append(r)
+    return {k: rs for k, rs in ranks.items() if len(rs) > 1}
+
+
+def swap_card_keys(store, rank: int, world: int, key: str) -> list[str]:
+    """Every rank's card key (``keys[rank]``), swapped through ``store``:
+    each rank sets its own and reads them all."""
+    store.set(f"defer_card/{rank}", key)
+    return [store.get(f"defer_card/{r}").decode() for r in range(world)]
+
+
+def _refuse_shared_cards(dist, key: str) -> None:
+    """Under NCCL, raise (and leave the group) when two ranks share a
+    card, which NCCL's first collective would refuse ("Duplicate GPU
+    detected").  ``key`` is this rank's card (:func:`card_key`); the ranks
+    swap theirs through the group's store."""
+    store = dist.distributed_c10d._get_default_store()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    shared = shared_cards(swap_card_keys(store, rank, world, key))
+    if shared:
+        # rank 0 serves the store: it leaves once every rank has read
+        store.add("defer_card/read", 1)
+        while rank == 0 and store.add("defer_card/read", 0) < world:
+            time.sleep(0.01)
+        dist.destroy_process_group()
+        raise RuntimeError(
+            f"NCCL cannot run two ranks on one card ({shared}): pass "
+            "backend=\"gloo\" for several processes on one card (a "
+            "process's card is its LOCAL_RANK's, else its current device)")
 
 
 def process_count() -> int:
@@ -75,8 +141,8 @@ def process_count() -> int:
 
 
 def process_index() -> int:
-    dist = _dist()
-    return dist.get_rank() if dist.is_initialized() else 0
+    """This process's rank (0 before or without ``initialize``)."""
+    return current_process()
 
 
 def multihost_pipeline_mesh(num_stages: int, data_parallel: int = 1,

@@ -24,6 +24,16 @@ all-reduces the cotangent.
 A mesh on one card names the same device in every position, the
 counterpart of the JAX tests' eight virtual CPU devices; ask for it with
 ``devices=[dev] * n`` or through an engine's ``device=``.
+
+Several processes (``torch.distributed``, one per card as ``torchrun``
+launches them, or several sharing one card): a mesh from
+``multihost_pipeline_mesh`` records each position's process, and each
+process holds the positions of its one device (:func:`mesh_placement`).
+A collective over an axis that crosses processes takes this process's
+ranks of its line along the axis and exchanges with the line's other
+processes: ``ppermute``, ``all_gather`` and ``all_to_all`` by
+point-to-point sends and receives (:func:`exchange`), ``psum`` by an
+all-reduce over the line's process group (:func:`line_group`).
 """
 
 from __future__ import annotations
@@ -36,6 +46,18 @@ import torch
 STAGE_AXIS = "stage"
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+
+
+def _dist():
+    import torch.distributed as dist
+    return dist
+
+
+def current_process() -> int:
+    """This process's ``torch.distributed`` rank (0 without a group)."""
+    dist = _dist()
+    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
+            else 0)
 
 
 def visible_cards() -> list[torch.device]:
@@ -70,6 +92,9 @@ class Mesh:
         if self.processes.shape != arr.shape:
             raise ValueError(f"processes {self.processes.shape} != devices "
                              f"{arr.shape}")
+        #: per axis: the process group of this process's line
+        #: (:func:`line_group`), made once
+        self._groups: dict = {}
 
     @property
     def shape(self) -> dict[str, int]:
@@ -95,12 +120,22 @@ class Mesh:
                     for j in range(self.devices.ndim))
         return list(self.devices[idx])
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the positions belong to more than one process."""
+        return len(set(self.processes.flat)) > 1
+
+    def axis_lines(self, axis: str) -> np.ndarray:
+        """``[lines, size]``: the owning process of each rank, per line
+        along ``axis`` (every other axis's index flattened)."""
+        i = self.axis_names.index(axis)
+        return np.moveaxis(self.processes, i, -1).reshape(
+            -1, self.devices.shape[i])
+
     def axis_crosses_processes(self, axis: str) -> bool:
         """Whether some line along ``axis`` holds positions of several
         processes (a collective over it must call ``torch.distributed``)."""
-        i = self.axis_names.index(axis)
-        lines = np.moveaxis(self.processes, i, -1).reshape(
-            -1, self.devices.shape[i])
+        lines = self.axis_lines(axis)
         return bool((lines != lines[:, :1]).any())
 
     def __repr__(self):
@@ -145,19 +180,44 @@ def one_card_mesh(device, num_stages: int, data_parallel: int = 1,
                          devices=[device] * need)
 
 
-def mesh_device(mesh: Mesh, engine: str) -> torch.device:
-    """The one device of a one-card mesh, for an engine that runs its ring
-    on one card.  A mesh naming two or more devices (or positions of
-    another process) raises ``NotImplementedError`` before anything is
-    placed: the ring across cards is ROADMAP queue A15b."""
-    devs = mesh.distinct_devices()
-    if len(devs) != 1 or len(set(mesh.processes.flat)) != 1:
+def mesh_placement(mesh: Mesh, engine: str) -> tuple[np.ndarray, torch.device]:
+    """This process's positions (a boolean mask over the mesh) and its one
+    device.  A mesh held by one process is this process's, whatever its
+    rank.  Positions of this process naming two or more devices raise
+    ``NotImplementedError`` before anything is placed: one process driving
+    several cards is ROADMAP queue A15b."""
+    if mesh.spans_processes:
+        me = current_process()
+        mine = mesh.processes == me
+        if not mine.any():
+            raise ValueError(f"{engine}: process {me} holds no position of "
+                             f"the mesh {mesh.shape}")
+    else:
+        mine = np.ones(mesh.devices.shape, bool)
+    devs = []
+    for d in mesh.devices[mine]:
+        if d not in devs:
+            devs.append(d)
+    if len(devs) != 1:
         raise NotImplementedError(
-            f"{engine} runs a mesh on one card; this mesh names "
-            f"{[str(d) for d in devs]} in processes "
-            f"{sorted(set(int(p) for p in mesh.processes.flat))}: the ring "
-            "across several devices is ROADMAP queue A15b")
-    return devs[0]
+            f"{engine} runs one device per process; this process's "
+            f"positions name {[str(d) for d in devs]}: one process driving "
+            "several devices is ROADMAP queue A15b")
+    return mine, devs[0]
+
+
+def mesh_device(mesh: Mesh, engine: str) -> torch.device:
+    """The one device of a mesh held by one process, for an engine that
+    runs within one process.  Several devices in this process raise naming
+    ROADMAP A15b (:func:`mesh_placement`), a mesh over several processes
+    naming A15c, both before anything is placed."""
+    _, dev = mesh_placement(mesh, engine)
+    if mesh.spans_processes:
+        raise NotImplementedError(
+            f"{engine} runs within one process; this mesh spans processes "
+            f"{sorted(set(int(p) for p in mesh.processes.flat))}: it is "
+            "ROADMAP queue A15c")
+    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -165,34 +225,129 @@ def mesh_device(mesh: Mesh, engine: str) -> torch.device:
 # ---------------------------------------------------------------------------
 
 
+def _line(mesh: Mesh, axis: str) -> tuple[np.ndarray, list[int]]:
+    """``(owners, ranks)``: the owning process of each rank of this
+    process's line along ``axis``, and this process's ranks on it.  This
+    process's positions must lie on one line of the axis."""
+    me = current_process()
+    lines = [line for line in mesh.axis_lines(axis) if (line == me).any()]
+    if not lines:
+        raise ValueError(f"process {me} holds no position of the mesh")
+    if any(not np.array_equal(line, lines[0]) for line in lines[1:]):
+        raise ValueError(f"process {me}'s positions lie on several lines "
+                         f"along {axis!r}: pass one line's ranks")
+    owners = lines[0]
+    return owners, [r for r in range(len(owners)) if owners[r] == me]
+
+
+def _crosses(mesh: Mesh | None, axis: str | None) -> bool:
+    return (mesh is not None and axis is not None
+            and mesh.axis_crosses_processes(axis))
+
+
+def line_group(mesh: Mesh, axis: str):
+    """The process group of this process's line along ``axis``: the
+    default group where a line spans every process, a sub-group from
+    ``dist.new_group`` where it spans some, None where it lies in this
+    process alone.  ``new_group`` must be called by every process, in the
+    same order, for every group, including processes outside it: so the
+    groups of every line of the axis are made here at once, in one order,
+    and cached on the mesh.  An engine calls this at construction."""
+    if axis in mesh._groups:
+        return mesh._groups[axis]
+    dist = _dist()
+    world = dist.get_world_size()
+    me = dist.get_rank()
+    sets = sorted({tuple(sorted(set(int(p) for p in line)))
+                   for line in mesh.axis_lines(axis)})
+    mine = None
+    for ranks in sets:
+        if len(ranks) == 1:
+            continue
+        group = (dist.group.WORLD if len(ranks) == world
+                 else dist.new_group(list(ranks)))
+        if me in ranks:
+            mine = group
+    mesh._groups[axis] = mine
+    return mine
+
+
+def _staged(t: torch.Tensor) -> bool:
+    """gloo's point-to-point ops and this module's broadcasts take host
+    tensors: a CUDA tensor crosses through pinned host memory."""
+    return t.is_cuda and _dist().get_backend() == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of ``t`` (the copy synchronizes with the stream
+    that produced ``t``)."""
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def exchange(sends, recvs) -> list[torch.Tensor]:
+    """One ``dist.batch_isend_irecv`` of ``sends`` (``(tensor, process)``)
+    and ``recvs`` (``(like, process)``: a tensor of the shape, dtype and
+    device to receive); returns the received tensors, each on its
+    ``like``'s device.  Every send and receive is posted before any is
+    waited for, so a ring of them cannot deadlock; two processes exchange
+    their messages in the order both list them.  Over gloo a CUDA tensor
+    is staged through pinned host memory (the copy back is queued on the
+    current stream, so the kernels after it read it in order)."""
+    dist = _dist()
+    ops, landed = [], []
+    for t, peer in sends:
+        t = _to_host(t) if _staged(t) else t.contiguous()
+        ops.append(dist.P2POp(dist.isend, t, int(peer)))
+    for like, peer in recvs:
+        staged = _staged(like)
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if staged else like.device,
+                          pin_memory=staged)
+        ops.append(dist.P2POp(dist.irecv, buf, int(peer)))
+        landed.append((buf, like.device))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [buf.to(dev, non_blocking=True) if buf.device != dev else buf
+            for buf, dev in landed]
+
+
+def broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
+    """``t`` of process ``src`` on every process (the default group;
+    every process calls it with a tensor of the same shape and dtype)."""
+    dist = _dist()
+    if not _staged(t):
+        dist.broadcast(t, src)
+        return t
+    h = _to_host(t)
+    dist.broadcast(h, src)
+    return h.to(t.device, non_blocking=True)
+
+
 def _all_reduce(total: torch.Tensor, mesh: Mesh | None,
                 axis: str | None) -> torch.Tensor:
-    """``total`` summed with the other processes' partial sums when the
-    axis crosses processes (every process's lines must then span all of
-    them: a sub-group is ROADMAP A15b)."""
-    if mesh is None or axis is None or not mesh.axis_crosses_processes(axis):
+    """``total`` summed with the partial sums of the other processes on
+    this process's line when the axis crosses processes: over the default
+    group or the line's sub-group."""
+    if not _crosses(mesh, axis):
         return total
-    import torch.distributed as dist
-
-    i = mesh.axis_names.index(axis)
-    lines = np.moveaxis(mesh.processes, i, -1).reshape(
-        -1, mesh.devices.shape[i])
-    world = set(range(dist.get_world_size()))
-    if any(set(line.tolist()) != world for line in lines):
-        raise NotImplementedError(
-            f"a psum over {axis!r} whose lines span only some processes "
-            "needs process sub-groups (ROADMAP queue A15b)")
+    group = line_group(mesh, axis)
+    if group is None:  # this process's line lies in this process
+        return total
     # the autograd-aware all-reduce: its backward all-reduces the
     # cotangent, so gradients flow through a psum across processes
     from torch.distributed.nn.functional import all_reduce
-    return all_reduce(total)
+    return all_reduce(total, group=group)
 
 
 def psum(xs: Sequence[torch.Tensor], *, mesh: Mesh | None = None,
          axis: str | None = None) -> list[torch.Tensor]:
     """Sum over the ranks: every rank gets the sum, on its own device.
     With ``mesh`` and ``axis`` naming an axis that crosses processes,
-    ``xs`` are this process's ranks and the sum is all-reduced."""
+    ``xs`` are this process's ranks of its line and the sum is
+    all-reduced over the line's processes."""
     total = xs[0]
     for x in xs[1:]:
         total = total + x.to(total.device)
@@ -210,37 +365,101 @@ def pmean(xs: Sequence[torch.Tensor], *, mesh: Mesh | None = None,
     return [s / n for s in psum(xs, mesh=mesh, axis=axis)]
 
 
-def ppermute(xs: Sequence[torch.Tensor],
-             perm: Sequence[tuple[int, int]]) -> list[torch.Tensor]:
+def _local_line(xs, mesh, axis):
+    """``(owners, ranks, at)`` of this process's line, checked against
+    the ``xs`` given for it (``at``: rank -> index into ``xs``)."""
+    owners, ranks = _line(mesh, axis)
+    if len(xs) != len(ranks):
+        raise ValueError(f"{len(xs)} tensors for this process's "
+                         f"{len(ranks)} ranks along {axis!r}")
+    return owners, ranks, {r: i for i, r in enumerate(ranks)}
+
+
+def ppermute(xs: Sequence[torch.Tensor], perm: Sequence[tuple[int, int]],
+             *, mesh: Mesh | None = None,
+             axis: str | None = None) -> list[torch.Tensor]:
     """``lax.ppermute``: rank ``dst`` gets rank ``src``'s tensor for each
-    ``(src, dst)`` pair; a rank no pair sends to gets zeros."""
-    out: list[torch.Tensor | None] = [None] * len(xs)
+    ``(src, dst)`` pair; a rank no pair sends to gets zeros.  Over an axis
+    that crosses processes, ``xs`` are this process's ranks and a pair
+    between two processes is a send and a receive (:func:`exchange`)."""
+    if not _crosses(mesh, axis):
+        out: list[torch.Tensor | None] = [None] * len(xs)
+        for src, dst in perm:
+            out[dst] = xs[src].to(xs[dst].device)
+        return [torch.zeros_like(x) if o is None else o
+                for x, o in zip(xs, out)]
+    owners, _, at = _local_line(xs, mesh, axis)
+    me = current_process()
+    out = [None] * len(xs)
+    sends, recvs, into = [], [], []
     for src, dst in perm:
-        out[dst] = xs[src].to(xs[dst].device)
+        if owners[src] == me and owners[dst] == me:
+            out[at[dst]] = xs[at[src]].to(xs[at[dst]].device)
+        elif owners[src] == me:
+            sends.append((xs[at[src]], owners[dst]))
+        elif owners[dst] == me:
+            recvs.append((xs[at[dst]], owners[src]))
+            into.append(at[dst])
+    for i, t in zip(into, exchange(sends, recvs)):
+        out[i] = t
     return [torch.zeros_like(x) if o is None else o
             for x, o in zip(xs, out)]
 
 
 def all_to_all(xs: Sequence[torch.Tensor], split_axis: int,
-               concat_axis: int) -> list[torch.Tensor]:
+               concat_axis: int, *, mesh: Mesh | None = None,
+               axis: str | None = None) -> list[torch.Tensor]:
     """``lax.all_to_all(..., tiled=True)``: each rank splits its tensor
     into ``n`` chunks along ``split_axis`` and sends chunk ``j`` to rank
     ``j``; rank ``j`` concatenates what it received, in rank order, along
-    ``concat_axis``."""
-    n = len(xs)
+    ``concat_axis``.  Over an axis that crosses processes, ``xs`` are this
+    process's ranks; chunks between processes are sent and received."""
+    crosses = _crosses(mesh, axis)
+    n = mesh.shape[axis] if crosses else len(xs)
     size = xs[0].shape[split_axis]
     if size % n:
         raise ValueError(f"axis {split_axis} of size {size} does not split "
                          f"over {n} ranks")
-    chunks = [x.chunk(n, dim=split_axis) for x in xs]
-    return [torch.cat([chunks[src][dst].to(xs[dst].device)
+    if not crosses:
+        chunks = [x.chunk(n, dim=split_axis) for x in xs]
+        return [torch.cat([chunks[src][dst].to(xs[dst].device)
+                           for src in range(n)], dim=concat_axis)
+                for dst in range(n)]
+    owners, ranks, at = _local_line(xs, mesh, axis)
+    me = current_process()
+    chunks = {r: xs[at[r]].chunk(n, dim=split_axis) for r in ranks}
+    like = chunks[ranks[0]]
+    sends = [(chunks[src][dst], owners[dst]) for src in ranks
+             for dst in range(n) if owners[dst] != me]
+    remote = [(src, dst) for src in range(n) if owners[src] != me
+              for dst in ranks]
+    got = dict(zip(remote, exchange(
+        sends, [(like[dst], owners[src]) for src, dst in remote])))
+    return [torch.cat([chunks[src][dst].to(xs[at[dst]].device)
+                       if owners[src] == me else got[src, dst]
                        for src in range(n)], dim=concat_axis)
-            for dst in range(n)]
+            for dst in ranks]
 
 
 def all_gather(xs: Sequence[torch.Tensor], axis: int = 0,
-               tiled: bool = False) -> list[torch.Tensor]:
+               tiled: bool = False, *, mesh: Mesh | None = None,
+               axis_name: str | None = None) -> list[torch.Tensor]:
     """``lax.all_gather``: every rank gets all ranks' tensors, stacked on
-    a new ``axis`` (concatenated along it with ``tiled=True``)."""
+    a new ``axis`` (concatenated along it with ``tiled=True``).  Over a
+    mesh axis (``axis_name``, as JAX names it: ``axis`` is the tensor's)
+    that crosses processes, ``xs`` are this process's ranks; each is sent
+    to the line's other processes."""
     join = torch.cat if tiled else torch.stack
-    return [join([x.to(dst.device) for x in xs], dim=axis) for dst in xs]
+    if not _crosses(mesh, axis_name):
+        return [join([x.to(dst.device) for x in xs], dim=axis) for dst in xs]
+    owners, ranks, at = _local_line(xs, mesh, axis_name)
+    me = current_process()
+    peers = sorted(set(int(p) for p in owners) - {me})
+    remote = [r for r in range(len(owners)) if owners[r] != me]
+    got = dict(zip(remote, exchange(
+        [(xs[at[r]], q) for r in ranks for q in peers],
+        [(xs[0], owners[r]) for r in remote])))
+    full = [xs[at[r]] if owners[r] == me else got[r]
+            for r in range(len(owners))]
+    return [join([x.to(xs[at[r]].device) for x in full], dim=axis)
+            for r in ranks]

@@ -184,7 +184,9 @@ class PipelinedDecoder:
         beam_width: int = 1,
     ):
         # the stage axis only, as the JAX decoder reads its mesh; a mesh
-        # over several devices is the multi-card decoder (A15b)
+        # over several devices is the multi-card decoder (A15b), one over
+        # several processes the decoder across processes (A15c): its ring
+        # roll and beam reorder are per-stage state on other processes
         self.mesh, dev = ring_mesh("PipelinedDecoder", num_stages, mesh,
                                    device)
         self.device = dev

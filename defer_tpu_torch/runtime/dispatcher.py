@@ -123,15 +123,18 @@ class Defer:
     MPMD places its stages over its devices, and ``generate``/``score``
     take their stage count from its stage axis.  Without a mesh the ring
     runs on the one-card mesh of ``config.data_parallel`` x stages x
-    ``config.tensor_parallel``.
+    ``config.tensor_parallel``.  A mesh over several ``torch.distributed``
+    processes (``multihost_pipeline_mesh``) runs ``build``, ``run`` and
+    ``stream`` through the ring across processes (``SpmdPipeline``); every
+    other entry point raises naming ROADMAP A15c before placing anything.
     """
 
     def __init__(self, config: DeferConfig | None = None, mesh=None):
         self.config = config or DeferConfig()
         self.mesh = mesh
         if mesh is not None:
-            from ..parallel.mesh import mesh_device
-            dev = mesh_device(mesh, "Defer")
+            from ..parallel.mesh import mesh_placement
+            dev = mesh_placement(mesh, "Defer")[1]
             if self.config.device is not None and resolve_device(
                     self.config.device) != resolve_device(dev):
                 raise ValueError(f"config.device {self.config.device!r} is "
@@ -155,6 +158,15 @@ class Defer:
         return (c.microbatch, c.chunk, str(c.compute_dtype),
                 str(c.buffer_dtype), c.wire, c.mode, c.master_weights,
                 c.data_parallel, c.tensor_parallel)
+
+    def _one_process(self, entry: str) -> None:
+        """Raise, naming ROADMAP A15c, where an entry point that runs within
+        one process is given a mesh over several."""
+        if self.mesh is not None and self.mesh.spans_processes:
+            raise NotImplementedError(
+                f"Defer.{entry} runs within one process; this mesh spans "
+                "processes: it is ROADMAP queue A15c (the SPMD ring's "
+                "build, run and stream take it)")
 
     def _default_num_stages(self) -> int:
         """Stage count from this deployment's mesh (1 when mesh-less), as
@@ -183,6 +195,8 @@ class Defer:
               num_stages: int | None = None):
         """Partition + build; returns the pipeline engine."""
         cfg = self.config
+        if cfg.mode == "mpmd":
+            self._one_process("build(mode='mpmd')")
         stages = partition(graph, cut_points, num_stages=num_stages)
         if cfg.mode == "mpmd":
             if self.mesh is not None:
@@ -219,6 +233,7 @@ class Defer:
         through (temperature, top_k, seed, eos_id, token_chunk, prefill,
         on_tokens).
         """
+        self._one_process("generate")
         if num_stages is None:
             num_stages = self._default_num_stages()
         key = (id(graph), id(params), num_stages, max_len, kv_cache,
@@ -253,6 +268,7 @@ class Defer:
         The verification forward of speculative decoding and :meth:`score`
         both ride this.
         """
+        self._one_process("logits")
         ids = np.asarray(ids)
         if ids.ndim != 2:
             raise ValueError("ids must be [B, T]")
@@ -289,6 +305,7 @@ class Defer:
         through :meth:`logits` and sums the next-token log-probabilities
         (float32).  Returns ``(logprob [B], perplexity [B])``.
         """
+        self._one_process("score")
         ids = np.asarray(ids)
         if ids.ndim != 2:
             raise ValueError("ids must be [B, T]")
@@ -395,6 +412,7 @@ class Defer:
                                         recv_frame, send_end, send_frame)
         from ..transport.staging import HostStagingRing
 
+        self._one_process("serve_endpoint")
         pipe = self.build(graph, params, cut_points, num_stages)
         if isinstance(pipe, MpmdPipeline):
             raise ValueError("serve_endpoint requires spmd mode")
@@ -652,6 +670,7 @@ class Defer:
         ``handle.stop()`` — to shut down after draining the pipe.  On a
         failure the handle records the error and the output queue gets
         ``END_OF_STREAM``."""
+        self._one_process("run_defer")
         pipe = self.build(graph, params, cut_points, num_stages)
         stop = threading.Event()
         cfg = self.config

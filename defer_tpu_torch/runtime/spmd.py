@@ -1,4 +1,4 @@
-"""Ring pipeline engine on one card: the port of ``defer_tpu.runtime.spmd``.
+"""Ring pipeline engine: the port of ``defer_tpu.runtime.spmd``.
 
 The JAX engine is one SPMD program over a ``stage`` mesh axis: per step
 every device runs its stage on its slot of the activation ring and
@@ -23,9 +23,10 @@ microbatch t-N+1.
 The mesh: as in the JAX engine, a pipeline runs on a (data, stage[,
 model]) mesh (``parallel/mesh.py``); with no ``mesh=`` the engine builds
 the one-card mesh of the extents it is asked for (``data_parallel``,
-``tensor_parallel``) on its ``device``.  The ring runs on one card: a mesh
-naming two or more devices raises before anything is placed (ROADMAP
-A15b).  On one card the mesh's positions share the ring:
+``tensor_parallel``) on its ``device``.  A process runs its positions on
+one device: positions of one process naming two or more devices raise
+before anything is placed (ROADMAP A15b).  On one device a process's
+positions share its ring:
 
   * data parallelism splits the microbatch over the data axis (it must
     divide); the replicas' slices sit side by side on the ring's batch axis
@@ -37,6 +38,31 @@ A15b).  On one card the mesh's positions share the ring:
     them (``Op.tp_apply``), and the ring carries the activation every rank
     holds after the stage's last psum (rank 0's).  A chunk is still one
     CUDA-graph replay, the int8 hop still one quantizer launch a step.
+
+Across processes (a mesh from ``multihost_pipeline_mesh``, one
+``torch.distributed`` process per card or several sharing one): each
+process holds a block of consecutive stages of consecutive data lines,
+builds the ``StageModule``s of its stages only and a ring ``[n_local,
+microbatch * lines / data_parallel, buf_elems]``.  Every process is called
+with the same inputs, as JAX's multi-controller program is; the process
+holding stage 0 of a line injects that line's rows, and only it copies
+them to its device.  At each hop the ring rotates within the process and
+the slot leaving it crosses to the process of the next stage (``_cross``:
+one ``batch_isend_irecv`` a step); under ``wire="int8"`` the process
+quantizes its slots in one launch and the boundary slot's int8 payload
+and scales are what cross (``ops.quant.quantized_ring_hop``).  The wrap
+hop lands the outputs on stage 0's process; every push then gathers them
+over the data lines and broadcasts them, so ``run``/``push``/``flush``
+return the full rows on EVERY process (JAX's ``outs[0]`` is readable only
+on the process holding device 0: returning them everywhere is the port's
+choice).
+``hop_transport`` names how the hop crosses: ``"local"`` (one process),
+``"gloo"`` (host-staged: gloo's sends take host tensors, so a CUDA slot
+goes through pinned memory) or ``"nccl"`` (device tensors).  Such a ring
+runs its chunks eagerly: a CUDA graph cannot hold a gloo send, and the
+engine decides that from the mesh at construction.  ``metrics`` counts the
+bytes that cross (``boundary_bytes``, ``boundary_sends``).  The schedule
+and the outputs are the one-process ring's.
 
 Weights: each stage holds one flat row (``runtime/flatbuf.py``) in
 ``weight_dtype`` — ``compute_dtype`` when set, else float32, as in the JAX
@@ -68,9 +94,11 @@ import torch
 from ..graph.ir import ShapeSpec, as_dtype
 from ..obs import tracer
 from ..ops.launches import counted_kernels
-from ..ops.quant import ste_ring_hop
+from ..ops.quant import quantized_ring_hop, ste_ring_hop
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh,
-                             mesh_device, one_card_mesh)
+                             broadcast, current_process, exchange,
+                             line_group, mesh_device, mesh_placement,
+                             one_card_mesh)
 from ..partition.stage import StageModule, StageSpec, buffer_footprint
 from ..utils.config import resolve_device
 from ..utils.metrics import PipelineMetrics
@@ -90,17 +118,28 @@ def check_single_card(*, compute_dtype=None) -> None:
 
 
 def ring_mesh(engine: str, num_stages: int, mesh: Mesh | None, device,
-              data_parallel: int = 1, tensor_parallel: int = 1
-              ) -> tuple[Mesh, torch.device]:
-    """``(mesh, device)`` of a ring engine: the given mesh and its one
-    device (a mesh over several devices raises, naming ROADMAP A15b, before
-    anything is placed), or the one-card mesh of these extents on
-    ``device``."""
+              data_parallel: int = 1, tensor_parallel: int = 1, *,
+              across_processes: bool = False) -> tuple[Mesh, torch.device]:
+    """``(mesh, device)`` of a ring engine: the given mesh and this
+    process's one device, or the one-card mesh of these extents on
+    ``device``.  Before anything is placed, several devices in this
+    process raise naming ROADMAP A15b; a mesh over several processes
+    raises naming A15c unless the engine runs ``across_processes``, and
+    then so does a model axis that crosses processes (tensor parallelism
+    stays inside a process)."""
     if mesh is None:
         dev = resolve_device(device)
         return one_card_mesh(dev, num_stages, data_parallel,
                              tensor_parallel), dev
-    dev = mesh_device(mesh, engine)
+    if across_processes:
+        dev = mesh_placement(mesh, engine)[1]
+        if (MODEL_AXIS in mesh.axis_names
+                and mesh.axis_crosses_processes(MODEL_AXIS)):
+            raise NotImplementedError(
+                f"{engine}: the mesh's model axis crosses processes; "
+                "tensor parallelism across processes is ROADMAP queue A15c")
+    else:
+        dev = mesh_device(mesh, engine)
     if mesh.shape.get(STAGE_AXIS) != num_stages:
         raise ValueError(f"mesh stage axis is {mesh.shape.get(STAGE_AXIS)} "
                          f"but the pipeline has {num_stages} stages")
@@ -112,6 +151,48 @@ def ring_mesh(engine: str, num_stages: int, mesh: Mesh | None, device,
     if device is not None and resolve_device(device) != resolve_device(dev):
         raise ValueError(f"device {device!r} is not the mesh's {dev}")
     return mesh, resolve_device(dev)
+
+
+def ring_block(mesh: Mesh, mine: np.ndarray
+               ) -> tuple[range, range, np.ndarray]:
+    """``(lines, stages, owners)`` of this process on a (data, stage[,
+    model]) mesh: the data lines and the stages whose positions it holds
+    (``mine``), which must be consecutive and form one block, and the
+    process owning each (line, stage), ``[data, stage]``."""
+    names, procs, held = mesh.axis_names, mesh.processes, mine
+    if MODEL_AXIS in names:  # a model line lies in one process
+        i = names.index(MODEL_AXIS)
+        procs, held = np.take(procs, 0, axis=i), held.any(axis=i)
+        names = tuple(a for a in names if a != MODEL_AXIS)
+    if DATA_AXIS not in names:
+        procs, held, names = procs[None], held[None], (DATA_AXIS,) + names
+    if set(names) != {DATA_AXIS, STAGE_AXIS}:
+        raise ValueError(f"a ring mesh has axes (data, stage[, model]), "
+                         f"not {mesh.axis_names}")
+    order = [names.index(DATA_AXIS), names.index(STAGE_AXIS)]
+    procs, held = procs.transpose(order), held.transpose(order)
+    ds, ss = np.flatnonzero(held.any(1)), np.flatnonzero(held.any(0))
+    lines = range(int(ds[0]), int(ds[-1]) + 1)
+    stages = range(int(ss[0]), int(ss[-1]) + 1)
+    if held.sum() != len(lines) * len(stages):
+        raise ValueError(
+            f"process {current_process()}'s positions are not consecutive "
+            f"stages of consecutive data lines: {np.argwhere(held).tolist()}")
+    return lines, stages, procs
+
+
+def _runs(owners, lines: range, per: int, base: int = 0):
+    """``[(rows, process)]``: consecutive data lines with one owner as one
+    slice of rows (``per`` rows a line, counted from line ``base``)."""
+    out = []
+    for d in lines:
+        p = int(owners[d])
+        rows = slice((d - base) * per, (d - base + 1) * per)
+        if out and out[-1][1] == p:
+            out[-1] = (slice(out[-1][0].start, rows.stop), p)
+        else:
+            out.append((rows, p))
+    return out
 
 
 class _RingOf(torch.autograd.Function):
@@ -161,8 +242,13 @@ class SpmdPipeline:
 
     or streaming: ``reset()`` / ``push(chunk, n_real)`` / ``flush()``.
     ``device=None`` means the CUDA card (an error when CUDA is absent).
-    ``mesh=`` (a one-card ``pipeline_mesh``) or ``data_parallel`` /
-    ``tensor_parallel`` run the pipeline pp x dp x tp.
+    ``mesh=`` (a one-card ``pipeline_mesh``, or a mesh over several
+    ``torch.distributed`` processes from ``multihost_pipeline_mesh``) or
+    ``data_parallel`` / ``tensor_parallel`` run the pipeline pp x dp x tp.
+    Across processes, ``modules`` holds this process's stages
+    (``local_stages``), ``run``/``push``/``flush`` return every row on
+    every process, and ``stage_latencies`` and ``metrics`` are this
+    process's (see the module's docstring).
     """
 
     def __init__(
@@ -184,7 +270,8 @@ class SpmdPipeline:
         self.stages = list(stages)
         self.num_stages = n = len(self.stages)
         self.mesh, self.device = ring_mesh(
-            "SpmdPipeline", n, mesh, device, data_parallel, tensor_parallel)
+            "SpmdPipeline", n, mesh, device, data_parallel, tensor_parallel,
+            across_processes=True)
         check_single_card(compute_dtype=compute_dtype)
         if wire not in ("buffer", "int8"):
             raise ValueError(f"wire must be 'buffer' or 'int8', got {wire!r}")
@@ -224,24 +311,68 @@ class SpmdPipeline:
                 "buffer_dtype=float32: ids above 256 are not exactly "
                 f"representable in {self.buffer_dtype}")
 
-        #: stage k's module, holding its flat weight row (one per rank of
-        #: the model axis) on the device
-        self.modules = [StageModule(s, params, self.device, compute_dtype=cd,
+        self._place(microbatch)
+        #: this process's stages' modules (``local_stages``), each holding
+        #: its flat weight row (one per rank of the model axis) on the device
+        self.modules = [StageModule(self.stages[k], params, self.device,
+                                    compute_dtype=cd,
                                     master_weights=self.master_weights,
                                     tp=tp)
-                        for s in self.stages]
+                        for k in self.local_stages]
 
         self.metrics = PipelineMetrics(
             num_stages=n, microbatch=microbatch, buffer_elems=self.buf_elems,
             buffer_bytes_per_hop=self._footprint["bytes_per_hop"])
         self.metrics.bind()
         self._flush_zeros = None  # lazy device-resident bubble block
-        #: the ring: allocated once, zeroed in place by ``reset``, read and
-        #: written in place by every chunk (a captured graph holds it)
-        self._a = torch.zeros((n, microbatch, self.buf_elems),
+        #: the ring (this process's slots and rows): allocated once, zeroed
+        #: in place by ``reset``, read and written in place by every chunk
+        #: (a captured graph holds it)
+        self._a = torch.zeros((len(self.local_stages), self._b,
+                               self.buf_elems),
                               dtype=self.buffer_dtype, device=self.device)
         self._graphs: dict[int, _ChunkGraph] = {}
         self.reset()
+
+    def _place(self, microbatch: int) -> None:
+        """This process's block of the ring, the hop's transport and the
+        sends and receives across process boundaries (none in one
+        process)."""
+        n, mesh = self.num_stages, self.mesh
+        mine, _ = mesh_placement(mesh, "SpmdPipeline")
+        lines, self.local_stages, owners = ring_block(mesh, mine)
+        per = microbatch // self.data_parallel
+        #: this process's rows of a microbatch, and their count
+        self._rows = slice(lines.start * per, lines.stop * per)
+        self._b = len(lines) * per
+        #: the rows of a microbatch this process injects: its lines' where
+        #: it holds stage 0, none elsewhere (every row in one process)
+        self._in_rows = (self._rows if self.local_stages.start == 0
+                         else slice(0, 0))
+        self._sends = self._recvs = self._out_srcs = None
+        if not mesh.spans_processes:
+            self.hop_transport = "local"
+        else:
+            import torch.distributed as dist
+            if set(int(p) for p in mesh.processes.flat) != set(
+                    range(dist.get_world_size())):
+                raise ValueError("a ring across processes needs a mesh "
+                                 "over every process of the group")
+            self.hop_transport = dist.get_backend()
+            for axis in mesh.axis_names:  # every process, in one order
+                if mesh.axis_crosses_processes(axis):
+                    line_group(mesh, axis)
+            #: stage 0's rows, gathered from their processes each push
+            self._out_srcs = _runs(owners[:, 0], range(owners.shape[0]), per)
+            if len(self.local_stages) < n:
+                nxt = self.local_stages.stop % n
+                prv = (self.local_stages.start - 1) % n
+                self._sends = _runs(owners[:, nxt], lines, per, lines.start)
+                self._recvs = _runs(owners[:, prv], lines, per, lines.start)
+        #: CUDA graphs per chunk only within one process (a graph cannot
+        #: hold a gloo send); chosen here, from the mesh
+        self._graphed = (self.device.type == "cuda"
+                         and self.hop_transport == "local")
 
     # ------------------------------------------------------------------
     # weights
@@ -258,8 +389,8 @@ class SpmdPipeline:
         REMAINING stages under the new weights (mixed-generation
         execution) — call ``flush()`` first when a clean cut matters.
         """
-        rows = [m.load(params, f"reweight: stage {s.name!r}")
-                for m, s in zip(self.modules, self.stages)]
+        rows = [m.load(params, f"reweight: stage {self.stages[k].name!r}")
+                for m, k in zip(self.modules, self.local_stages)]
         for m, r in zip(self.modules, rows):
             m.install(r)
 
@@ -267,34 +398,58 @@ class SpmdPipeline:
     # one stage / one pipeline step / one chunk
     # ------------------------------------------------------------------
 
-    def _branch(self, k: int, slot: torch.Tensor) -> torch.Tensor:
-        """Stage k on one ring slot ``[b, buf_elems]``: ``[b, out_sz]`` in
-        the stage's compute dtype."""
+    def _branch(self, i: int, slot: torch.Tensor) -> torch.Tensor:
+        """This process's i-th stage on one ring slot ``[b, buf_elems]``:
+        ``[b, out_sz]`` in the stage's compute dtype."""
+        k = self.local_stages[i]
         b = slot.shape[0]
         spec = self.stages[k].in_spec
         x = slot[:, :self._in_sizes[k]].reshape((b,) + spec.shape)
-        return self.modules[k](x.to(self._x_dtypes[k])).reshape(
+        return self.modules[i](x.to(self._x_dtypes[k])).reshape(
             b, self._out_sizes[k])
 
     def _stages(self, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        """Run every stage on its slot of ring ``a``, stage 0 on the
-        injected input ``x`` (the dispatcher feeding node 0) in place of
-        slot 0: the ring before the hop (``a`` is not modified).  The slots
-        are one ``unbind`` of the ring, whose backward stacks the slots'
-        gradients once."""
+        """Run every stage (of this process) on its slot of ring ``a``,
+        stage 0 on the injected input ``x`` (the dispatcher feeding node 0)
+        in place of slot 0: the ring before the hop (``a`` is not
+        modified).  The slots are one ``unbind`` of the ring, whose
+        backward stacks the slots' gradients once."""
         slots = a.unbind(0)
         return _RingOf.apply(
             a.shape[2], self.buffer_dtype,
-            *(self._branch(k, x if k == 0 else slots[k])
-              for k in range(self.num_stages)))
+            *(self._branch(i, x if k == 0 else slots[i])
+              for i, k in enumerate(self.local_stages)))
 
     def _hop(self, y: torch.Tensor) -> torch.Tensor:
         """Rotate the ring one slot (stage k's output to slot k+1); under
         ``wire="int8"`` through the quantized hop, whose backward is the
-        straight-through roll back."""
+        straight-through roll back.  Across processes the slot leaving
+        this process crosses to the next stage's (:meth:`_cross`)."""
+        if self._sends is None:
+            if self.wire == "int8":
+                return ste_ring_hop(y, self.buffer_dtype)
+            return torch.roll(y, 1, 0)
         if self.wire == "int8":
-            return ste_ring_hop(y, self.buffer_dtype)
-        return torch.roll(y, 1, 0)
+            return quantized_ring_hop(y, self.buffer_dtype, self._cross)
+        y = torch.roll(y, 1, 0)
+        y[0] = self._cross([y[0]])[0]
+        return y
+
+    def _cross(self, slot: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Send the tensors of the slot leaving this process (its rows per
+        data line) to the process of the next stage, and return the slot
+        arriving from the previous stage's: one ``batch_isend_irecv``."""
+        sends = [(t[rows], p) for rows, p in self._sends for t in slot]
+        got = iter(exchange(sends, [(t[rows], p) for rows, p in self._recvs
+                                    for t in slot]))
+        out = [torch.empty_like(t) for t in slot]
+        for rows, _ in self._recvs:
+            for o in out:
+                o[rows] = next(got)
+        self.metrics.boundary_sends += len(self._sends)
+        self.metrics.boundary_bytes += sum(t.numel() * t.element_size()
+                                           for t, _ in sends)
+        return out
 
     def _chunk(self, ring: torch.Tensor, xs: torch.Tensor,
                outs: torch.Tensor) -> None:
@@ -308,16 +463,31 @@ class SpmdPipeline:
         if a is not ring:
             ring.copy_(a)
 
-    def _slab(self, c: int) -> torch.Tensor:
-        return torch.empty((c, self.microbatch, self._out_sizes[-1]),
+    def _slab(self, c: int, rows: int | None = None) -> torch.Tensor:
+        return torch.empty((c, rows or self._b, self._out_sizes[-1]),
                            dtype=self.buffer_dtype, device=self.device)
 
     @torch.inference_mode()
     def _eager_chunk(self, xs: torch.Tensor) -> torch.Tensor:
-        """One chunk run step by step (the CPU's path): ``[C, B, out_sz]``."""
+        """One chunk run step by step (the CPU's path, and every ring
+        across processes): ``[C, B, out_sz]``."""
         outs = self._slab(xs.shape[0])
+        if self._out_srcs is None:
+            self._chunk(self._a, xs, outs)
+            return outs
         self._chunk(self._a, xs, outs)
-        return outs
+        return self._gather(outs)
+
+    def _gather(self, outs: torch.Tensor) -> torch.Tensor:
+        """Every row of the chunk's outputs on every process: each data
+        line's rows broadcast from the process holding its stage 0."""
+        full = self._slab(outs.shape[0], self.microbatch)
+        me, r0 = current_process(), self._rows.start
+        for rows, src in self._out_srcs:
+            block = (outs[:, rows.start - r0:rows.stop - r0].contiguous()
+                     if src == me else full[:, rows].contiguous())
+            full[:, rows] = broadcast(block, src)
+        return full
 
     def _capture(self, c: int) -> _ChunkGraph:
         """Capture the chunk of length ``c`` as a CUDA graph over static
@@ -349,7 +519,7 @@ class SpmdPipeline:
         """Advance ``xs.shape[0]`` steps; returns ``[C, B, out_sz_last]``:
         what the last stage delivered to slot 0 at each step (on the card,
         the graph's slab, which the next replay overwrites)."""
-        if self.device.type == "cuda":
+        if self._graphed:
             return self._graph_chunk(xs)
         return self._eager_chunk(xs)
 
@@ -367,12 +537,20 @@ class SpmdPipeline:
         self._real: collections.deque[bool] = collections.deque()
         self._emitted = 0
 
+    @property
+    def _n_in(self) -> int:
+        return self._in_rows.stop - self._in_rows.start
+
     def _flatten_inputs(self, xs, staged: bool = False) -> torch.Tensor:
+        """``xs`` as the ring's input block on the device, ``[C, rows,
+        buf_elems]``: only the rows this process injects (``_in_rows``)."""
+        rows = self._in_rows
         if (isinstance(xs, torch.Tensor) and xs.device == self.device
-                and xs.ndim == 3
-                and tuple(xs.shape[1:]) == (self.microbatch, self.buf_elems)
-                and xs.dtype == self.buffer_dtype):
-            return xs  # already staged via stage_inputs()
+                and xs.ndim == 3 and xs.dtype == self.buffer_dtype
+                and xs.shape[2] == self.buf_elems
+                and xs.shape[1] in (self._n_in, self.microbatch)):
+            # already staged via stage_inputs() (or a full staged block)
+            return xs if xs.shape[1] == self._n_in else xs[:, rows]
         if not isinstance(xs, torch.Tensor):
             xs = torch.from_numpy(np.asarray(xs, np.float32))
         if staged:
@@ -383,21 +561,22 @@ class SpmdPipeline:
                 raise ValueError(
                     f"staged block must be [C, {self.microbatch}, "
                     f"{self.buf_elems}], got {tuple(xs.shape)}")
-            return xs.to(self.device, self.buffer_dtype)
+            return xs[:, rows].to(self.device, self.buffer_dtype)
         c = xs.shape[0]
         flat = xs.reshape(c, self.microbatch, -1)
         if flat.shape[-1] != self._in_sizes[0]:
             raise ValueError(
                 f"input sample size {flat.shape[-1]} != stage-0 input "
                 f"size {self._in_sizes[0]}")
-        buf = torch.zeros((c, self.microbatch, self.buf_elems),
+        buf = torch.zeros((c, self._n_in, self.buf_elems),
                           dtype=self.buffer_dtype, device=self.device)
-        buf[..., :flat.shape[-1]] = flat.to(self.device, torch.float32)
+        buf[..., :flat.shape[-1]] = flat[:, rows].to(self.device,
+                                                     torch.float32)
         return buf
 
     def stage_inputs(self, xs) -> torch.Tensor:
-        """Pre-stage a [C, microbatch, *in_shape] block on the device;
-        ``push`` takes the result as it is."""
+        """Pre-stage a [C, microbatch, *in_shape] block on the device (the
+        rows this process injects); ``push`` takes the result as it is."""
         return self._flatten_inputs(xs)
 
     def push(self, xs, n_real: int | None = None, *,
@@ -473,7 +652,7 @@ class SpmdPipeline:
         """Cached device-resident all-bubble [chunk, ...] input block."""
         if self._flush_zeros is None:
             self._flush_zeros = torch.zeros(
-                (self.chunk, self.microbatch, self.buf_elems),
+                (self.chunk, self._n_in, self.buf_elems),
                 dtype=self.buffer_dtype, device=self.device)
         return self._flush_zeros
 
@@ -547,22 +726,23 @@ class SpmdPipeline:
         parallelism), compute dtype and buffer dtype are what run.  ``params`` is
         accepted for the JAX signature and unused.  Fills
         ``metrics.stage_latency_s``; kernel launches made here are not
-        pipeline steps and are not counted."""
+        pipeline steps and are not counted.  Across processes: this
+        process's stages (``local_stages``) only."""
         del params  # weights come from the deployed rows
         kernels = counted_kernels()
         before = [k.snapshot() for k in kernels]
-        slot = torch.zeros((self.microbatch, self.buf_elems),
+        slot = torch.zeros((self._b, self.buf_elems),
                            dtype=self.buffer_dtype, device=self.device)
         cuda = self.device.type == "cuda"
         lats = []
-        for k in range(self.num_stages):
-            self._branch(k, slot)  # warm-up
+        for i, k in enumerate(self.local_stages):
+            self._branch(i, slot)  # warm-up
             t0 = time.perf_counter()
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
             for _ in range(iters):
-                self._branch(k, slot)
+                self._branch(i, slot)
             if cuda:
                 ev[1].record()
                 ev[1].synchronize()
@@ -579,5 +759,6 @@ class SpmdPipeline:
                            "iters": iters})
         for kernel, snap in zip(kernels, before):
             kernel.restore(snap)
-        self.metrics.stage_latency_s = lats
+        if len(lats) == self.num_stages:
+            self.metrics.stage_latency_s = lats
         return lats

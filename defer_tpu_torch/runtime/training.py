@@ -84,6 +84,11 @@ class PipelineTrainer:
         if not isinstance(pipe, SpmdPipeline):
             raise TypeError(f"PipelineTrainer trains an SpmdPipeline, got "
                             f"{type(pipe).__name__}")
+        if pipe.hop_transport != "local":
+            raise NotImplementedError(
+                "PipelineTrainer runs within one process; this pipeline's "
+                "ring crosses processes (autograd through its sends and "
+                "receives is ROADMAP queue A15c)")
         self.pipe = pipe
         self.loss_fn = loss_fn
         #: the deployed flat rows, stage by stage (rank by rank within a

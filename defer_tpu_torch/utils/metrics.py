@@ -43,6 +43,12 @@ class PipelineMetrics:
     #: device memory the captured graphs hold in their private pools
     #: (``torch.cuda.memory_reserved`` across each capture)
     graph_pool_bytes: int = 0
+    #: bytes this process sent across process boundaries on the ring's
+    #: hops (a ring over several ``torch.distributed`` processes; 0 in
+    #: one process), and the sends: one per boundary a step.  Their ratio
+    #: is a boundary's bytes a step (int8: the payload and its scales)
+    boundary_bytes: int = 0
+    boundary_sends: int = 0
     #: registry prefix once bound (``bind``), e.g. "pipeline3"
     prefix: str | None = None
 
@@ -53,6 +59,8 @@ class PipelineMetrics:
         self.steps = 0
         self.wall_s = 0.0
         self.chunk_calls = 0
+        self.boundary_bytes = 0
+        self.boundary_sends = 0
         self.push_latency.clear()
 
     def bind(self, registry=None, prefix: str | None = None) -> str:
@@ -70,7 +78,7 @@ class PipelineMetrics:
         ref = weakref.ref(self)
         for field in ("num_stages", "microbatch", "inferences", "steps",
                       "wall_s", "chunk_calls", "buffer_bytes_per_hop",
-                      "captures"):
+                      "captures", "boundary_bytes", "boundary_sends"):
             registry.register_callback(
                 f"{p}.{field}",
                 lambda r=ref, f=field:

@@ -1,0 +1,520 @@
+"""The ring across processes: N ``torch.distributed`` workers run the
+port's ``SpmdPipeline`` and ``Defer`` on meshes spread over them, and the
+collectives over an axis that crosses them.
+
+    python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/ring
+
+The parent writes the weights and inputs once (``<out>/inputs.pt``:
+:func:`make_inputs`'s seeded ones, or the caller's own); each worker maps
+them, joins a gloo group on a free localhost port (``initialize`` with a
+timeout, so a dead peer fails its neighbours), builds its preset's graphs,
+runs the cases below on its share of each mesh, and writes its rows,
+launch counts, boundary bytes and collective results to
+``<out>/worker<i>.npz`` (arrays) with their scalars in the ``meta`` entry
+(JSON).  The parent waits for all of them: when one exits non-zero or the
+deadline passes it kills every worker and fails with that worker's stderr
+tail, so no worker is left blocked in a receive.  gloo is the one backend:
+the workers share one device (NCCL refuses two ranks on one card).
+
+Cases (``preset`` sizes them: ``cpu`` the tiny graphs the CPU tests run,
+``card`` the full-width graphs the chip smoke runs, one card shared by
+every worker):
+
+* ``resnet``: ResNet in 8 stages on a (stage 8) mesh, two stages per
+  process (``multihost_pipeline_mesh(8, local_devices=[dev] * 2)``), both
+  wires; ``Defer(mesh=).run`` and ``.stream`` of the int8 deployment;
+  ``stage_latencies`` of this process's stages, and (``cpu``) the buffer
+  ring reweighted with the seed-1 weights and run again;
+* ``bert``: BERT on a (stage S) mesh, S / N stages per process, both wires;
+* ``dp``: ResNet on a (data 2, stage S) mesh: each data line's ring on a
+  sub-group of the processes;
+* ``collectives``: ``psum``, ``ppermute``, ``all_gather`` and
+  ``all_to_all`` over the stage axis of the resnet mesh (every process on
+  one line) and of the dp mesh (each line on some processes), on
+  integer-valued f32 (sums exact in any order);
+* ``guards``: what waits for ROADMAP A15c raises naming it; a mesh naming
+  two devices in one process raises naming A15b; NCCL for several
+  processes on one card raises naming gloo (on the CPU, which has no
+  NCCL, the same check over a gloo group whose ranks name one card).
+
+Launch counts: on the card each kernel wrapper's own count
+(``ops/launches.py``); on the CPU the calls of the dispatching functions
+(``ops.quant.quantize_int8_blocks``, ``ops.flash_attention.flash_attention``),
+which run the plain versions there.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+SEED = 0
+
+#: per preset: the graphs, their cuts or stage counts, the batch, the
+#: wires of the dp case, and whether the resnet ring is reweighted with
+#: the seed-1 weights and run again (a second seeded init of ResNet50 is
+#: seconds a worker, so the card leaves it to the CPU tests)
+PRESETS = {
+    "cpu": {"resnet": ("resnet_tiny", {}, None, 8), "image": 32,
+            "bert": ("bert_tiny", {}, None, 4),
+            "dp_stages": 2, "dp_wires": ("buffer", "int8"), "reweight": True,
+            "microbatch": 2, "chunk": 3, "frames": 6},
+    "card": {"resnet": ("resnet50", {"image_size": 224},
+                        "RESNET50_8STAGE_CUTS", 8), "image": 224,
+             "bert": ("bert_base", {"seq_len": 128},
+                      "BERT_BASE_12STAGE_CUTS", 12),
+             "dp_stages": 4, "dp_wires": ("int8",), "reweight": False,
+             "microbatch": 8, "chunk": 4, "frames": 8},
+}
+WIRES = ("buffer", "int8")
+#: the guards and the ROADMAP queue each must name
+GUARDS = {"decoder": "A15c", "trainer": "A15c", "mpmd": "A15c",
+          "generate": "A15c", "logits": "A15c", "score": "A15c",
+          "run_defer": "A15c", "serve_endpoint": "A15c",
+          "model_axis": "A15c", "two_devices": "A15b"}
+#: the collectives and the meshes they cross
+COLLECTIVES = ("psum", "ppermute", "ppermute_partial", "all_gather",
+               "all_gather_tiled", "all_to_all")
+#: steady pushes timed per ring (a worker reports their median)
+TIMED_PUSHES = 5
+
+
+def free_port() -> int:
+    with socket.create_server(("127.0.0.1", 0)) as s:
+        return s.getsockname()[1]
+
+
+def load(path: Path) -> dict:
+    """A worker's npz: its arrays, and its scalars under ``"meta"``."""
+    with np.load(path) as f:
+        out = {k: f[k] for k in f.files}
+    out["meta"] = json.loads(str(out["meta"]))
+    return out
+
+
+def _tail(path: Path, n: int = 4000) -> str:
+    try:
+        return path.read_text(errors="replace")[-n:]
+    except OSError:
+        return ""
+
+
+def make_inputs(preset: str) -> dict:
+    """The seeded weights (seed ``SEED``) and numpy inputs of ``preset``'s
+    ResNet and BERT, as the chip smoke's phases 4a and 4b make them: what
+    :func:`spawn` hands the workers."""
+    import torch
+
+    from defer_tpu_torch import models
+
+    cfg, out = PRESETS[preset], {}
+    s = cfg["image"]
+    g, _, _ = _model(models, cfg["resnet"])
+    out["resnet_params"] = g.init(torch.Generator().manual_seed(SEED))
+    out["resnet_x"] = np.random.default_rng(SEED).standard_normal(
+        (cfg["frames"], cfg["microbatch"], s, s, 3)).astype(np.float32)
+    g, _, _ = _model(models, cfg["bert"])
+    vocab = g.nodes["embeddings"].op.vocab
+    out["bert_params"] = g.init(torch.Generator().manual_seed(SEED))
+    out["bert_ids"] = np.random.default_rng(SEED).integers(
+        0, vocab, (cfg["frames"], cfg["microbatch"]) + g.input_spec.shape
+    ).astype(np.float32)
+    return out
+
+
+def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
+          deadline_s: float = 120.0, timeout_s: float = 60.0,
+          env: dict | None = None) -> list[dict]:
+    """Write ``inputs`` (:func:`make_inputs`'s keys) to ``out_dir``, run
+    ``procs`` workers on them and return every worker's results
+    (:func:`load`).  A worker that exits non-zero, or the deadline, kills
+    every worker and raises ``RuntimeError`` with the stderr tails.  Build
+    the kernels before spawning on the card: the workers load the built
+    libraries."""
+    import torch
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    torch.save({k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                for k, v in inputs.items()}, out / "inputs.pt")
+    port, nccl_port = free_port(), free_port()
+    env = dict(os.environ if env is None else env)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    workers = []
+    try:
+        for i in range(procs):
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
+                   str(i), "--procs", str(procs), "--port", str(port),
+                   "--nccl-port", str(nccl_port), "--device", device,
+                   "--preset", preset, "--out", str(out),
+                   "--timeout", str(timeout_s)]
+            err = out / f"worker{i}.err"
+            with open(out / f"worker{i}.out", "w") as so, \
+                    open(err, "w") as se:
+                workers.append((subprocess.Popen(cmd, stdout=so, stderr=se,
+                                                 env=env), err))
+        failed = _wait(workers, deadline_s)
+    finally:
+        for p, _ in workers:
+            if p.poll() is None:
+                p.kill()
+        for p, _ in workers:
+            p.wait()
+    if failed is not None:
+        tails = "\n".join(f"--- worker {i} stderr ---\n{_tail(err)}"
+                          for i, (_, err) in enumerate(workers))
+        raise RuntimeError(f"ring across processes failed: {failed}\n"
+                           f"{tails}")
+    return [load(out / f"worker{i}.npz") for i in range(procs)]
+
+
+def _wait(workers: list, deadline_s: float) -> str | None:
+    """Poll until every worker exits 0 (None), one exits non-zero or the
+    deadline passes (what went wrong)."""
+    t0 = time.monotonic()
+    while True:
+        rcs = [p.poll() for p, _ in workers]
+        bad = [i for i, rc in enumerate(rcs) if rc not in (None, 0)]
+        if bad:
+            return f"worker {bad[0]} exited {rcs[bad[0]]}"
+        if all(rc == 0 for rc in rcs):
+            return None
+        if time.monotonic() - t0 > deadline_s:
+            return (f"workers still running after {deadline_s:.0f} s (exit "
+                    f"codes {rcs})")
+        time.sleep(0.05)
+
+
+# ---------------------------------------------------------------------------
+# the worker
+# ---------------------------------------------------------------------------
+
+
+class Counts:
+    """Kernel launches: the wrappers' own counts on the card, the calls
+    of the dispatching functions on the CPU."""
+
+    def __init__(self, device: str):
+        from defer_tpu_torch.ops import flash_attention_cuda, quant_cuda
+        self.kernels = [quant_cuda.KERNEL, flash_attention_cuda.KERNEL]
+        self.cpu = device == "cpu"
+        self.calls = {k.name: 0 for k in self.kernels}
+        if self.cpu:
+            self._wrap("defer_tpu_torch.ops.quant", "quantize_int8_blocks",
+                       "quant_int8")
+            self._wrap("defer_tpu_torch.ops.flash_attention",
+                       "flash_attention", "flash_attention")
+
+    def _wrap(self, module: str, attr: str, name: str) -> None:
+        mod = sys.modules[module]
+        fn = getattr(mod, attr)
+
+        def counted(*a, **kw):
+            self.calls[name] += 1
+            return fn(*a, **kw)
+
+        setattr(mod, attr, counted)
+
+    def zero(self) -> None:
+        for k in self.kernels:
+            k.zero()
+        self.calls = dict.fromkeys(self.calls, 0)
+
+    def read(self) -> dict:
+        if self.cpu:
+            return dict(self.calls)
+        return {k.name: k.launches for k in self.kernels}
+
+
+def _model(models, spec):
+    factory, kw, cuts, stages = spec
+    return getattr(models, factory)(**kw), (
+        getattr(models, cuts) if cuts else None), stages
+
+
+def _sync(torch, device: str) -> None:
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def ring_case(torch, res, arrays, key, counts, stages, params, x, mesh, wire,
+              cfg, device):
+    """One pipeline run on the mesh, its launches zeroed just before and
+    read just after; then ``TIMED_PUSHES`` steady pushes of a chunk, each
+    timed (host clock, ending in a synchronize on the card; the ring
+    filled by two pushes first), and their median kept."""
+    from defer_tpu_torch import SpmdPipeline
+
+    pipe = SpmdPipeline(stages, params, mesh=mesh,
+                        microbatch=cfg["microbatch"], chunk=cfg["chunk"],
+                        wire=wire)
+    counts.zero()
+    rows = pipe.run(x)
+    _sync(torch, device)
+    m = pipe.metrics
+    res[key] = {"launches": counts.read(), "steps": m.steps,
+                "boundary_bytes": m.boundary_bytes,
+                "boundary_sends": m.boundary_sends,
+                "captures": m.captures, "transport": pipe.hop_transport,
+                "local_stages": list(pipe.local_stages),
+                "buf_elems": pipe.buf_elems, "ring": list(pipe._a.shape)}
+    arrays[f"{key}_rows"] = rows
+    xs = pipe.stage_inputs(x[:cfg["chunk"]])
+    res[key]["staged_rows"] = xs.shape[1]
+    for _ in range(2):
+        pipe.push(xs)
+    _sync(torch, device)
+    times = []
+    for _ in range(TIMED_PUSHES):
+        t0 = time.perf_counter()
+        pipe.push(xs)
+        _sync(torch, device)
+        times.append(time.perf_counter() - t0)
+    res[key]["push_s"] = float(np.median(times))
+    res[key]["push_spread_s"] = max(times) - min(times)
+    return pipe
+
+
+def collectives(torch, mesh, axis: str, dev, arrays, key) -> None:
+    """Every collective over ``axis`` on this process's ranks of its line:
+    rank s of line d holds ``X[d, s]`` (integer-valued f32)."""
+    from defer_tpu_torch.parallel import mesh as M
+
+    d_ax = mesh.axis_names.index(axis)
+    shape = mesh.devices.shape
+    x = np.random.default_rng(SEED + 1).integers(
+        -8, 8, shape + (8, 8)).astype(np.float32)
+    me = M.current_process()
+    mine = np.argwhere(mesh.processes == me)  # positions, in order
+    xs = [torch.from_numpy(x[tuple(p)].copy()).to(dev) for p in mine]
+    n = shape[d_ax]
+    ring = [(i, (i + 1) % n) for i in range(n)]
+    kw = {"mesh": mesh, "axis": axis}
+    out = {"psum": M.psum(xs, **kw),
+           "ppermute": M.ppermute(xs, ring, **kw),
+           "ppermute_partial": M.ppermute(xs, [(0, 1)], **kw),
+           "all_gather": M.all_gather(xs, 0, mesh=mesh, axis_name=axis),
+           "all_gather_tiled": M.all_gather(xs, 0, True, mesh=mesh,
+                                            axis_name=axis),
+           "all_to_all": M.all_to_all(xs, 0, 1, **kw)}
+    arrays[f"{key}_positions"] = mine
+    for op, ys in out.items():
+        arrays[f"{key}_{op}"] = np.stack([y.cpu().numpy() for y in ys])
+
+
+def guards(torch, res, dev, cfg, g, params, mesh, pipe) -> None:
+    """Each guard's message (empty when it did not raise)."""
+    import queue
+
+    from defer_tpu_torch import (Defer, DeferConfig, PipelinedDecoder,
+                                 PipelineTrainer, SpmdPipeline, models)
+    from defer_tpu_torch.parallel import multihost_pipeline_mesh
+
+    n = mesh.shape["stage"]
+    gpt = models.gpt_tiny(seq_len=16)
+    ids = np.zeros((cfg["microbatch"], 8), np.int64)
+    d = Defer(DeferConfig(microbatch=cfg["microbatch"], device=dev),
+              mesh=mesh)
+    procs = int(mesh.processes.max()) + 1
+    local = int((mesh.processes == 0).sum())
+    tries = {
+        "decoder": lambda: PipelinedDecoder(gpt, None, num_stages=n,
+                                            mesh=mesh),
+        "trainer": lambda: PipelineTrainer(
+            pipe, lambda y, t: y.sum()),
+        "mpmd": lambda: Defer(DeferConfig(mode="mpmd", device=dev),
+                              mesh=mesh).build(g, params, num_stages=n),
+        "generate": lambda: d.generate(gpt, None, ids, 2),
+        "logits": lambda: d.logits(gpt, None, ids),
+        "score": lambda: d.score(gpt, None, ids),
+        "run_defer": lambda: d.run_defer(g, params, None, queue.Queue(),
+                                         queue.Queue(), num_stages=n),
+        "serve_endpoint": lambda: d.serve_endpoint(g, params,
+                                                   num_stages=n),
+        # (stage procs/2, model 2 x local): every model line on 2
+        # processes; both meshes raise before the stage count is read
+        "model_axis": lambda: SpmdPipeline(
+            pipe.stages, params,
+            mesh=multihost_pipeline_mesh(procs // 2, tensor_parallel=2 *
+                                         local, local_devices=[dev] * local),
+            microbatch=cfg["microbatch"]),
+        "two_devices": lambda: SpmdPipeline(
+            pipe.stages, params,
+            mesh=multihost_pipeline_mesh(2 * procs, local_devices=[
+                "cuda:0", "cuda:1"]), microbatch=cfg["microbatch"]),
+    }
+    res["guards"] = {}
+    for name, fn in tries.items():
+        try:
+            fn()
+            res["guards"][name] = ""
+        except NotImplementedError as e:
+            res["guards"][name] = str(e)
+
+
+def nccl_refusal(torch, D, args) -> str:
+    """Several processes on one card under NCCL: ``initialize`` raises
+    naming gloo (its message; empty when it did not raise).  The CPU has
+    no NCCL: there the same check runs over a gloo group whose ranks all
+    name one card."""
+    dist = torch.distributed
+    try:
+        if args.device != "cpu":
+            D.initialize(f"127.0.0.1:{args.nccl_port}", args.procs,
+                         args.worker, backend="nccl", timeout_s=args.timeout)
+        else:
+            dist.init_process_group(
+                "gloo", init_method=f"tcp://127.0.0.1:{args.nccl_port}",
+                world_size=args.procs, rank=args.worker)
+            D._refuse_shared_cards(dist, "host/one-card")
+    except RuntimeError as e:
+        return str(e)
+    dist.destroy_process_group()
+    D._initialized = False
+    return ""
+
+
+def prepare(torch, models, cfg, path: Path) -> dict:
+    """A worker's host work, before it touches the card or the group: the
+    graphs and their stages (``dp``: ResNet's in ``dp_stages``), and the
+    parent's weights and inputs, mapped from ``path``."""
+    from defer_tpu_torch import partition
+
+    given = torch.load(path, mmap=True, weights_only=True)
+    g, cuts, n = _model(models, cfg["resnet"])
+    prep = {"resnet": (g, cuts, partition(g, cuts, num_stages=n),
+                       given["resnet_params"], given["resnet_x"].numpy()),
+            "dp": partition(g, num_stages=cfg["dp_stages"])}
+    g, cuts, n = _model(models, cfg["bert"])
+    prep["bert"] = (partition(g, cuts, num_stages=n), given["bert_params"],
+                    given["bert_ids"].numpy())
+    return prep
+
+
+def worker(args) -> None:
+    t0 = time.perf_counter()
+    marks: dict = {}
+
+    def mark(what: str) -> None:
+        marks[what] = time.perf_counter() - t0
+
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    from defer_tpu_torch import Defer, DeferConfig, models
+    from defer_tpu_torch.parallel import distributed as D
+    from defer_tpu_torch.parallel import multihost_pipeline_mesh
+
+    cfg = PRESETS[args.preset]
+    dev = args.device
+    torch.set_num_threads(1 if dev == "cpu" else 2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res: dict = {"worker": args.worker, "procs": args.procs,
+                 "device": dev, "preset": args.preset, "seconds": marks}
+    arrays: dict = {}
+    mark("import")
+    prep = prepare(torch, models, cfg, Path(args.out) / "inputs.pt")
+    mark("prepare")
+    res["nccl_refused"] = nccl_refusal(torch, D, args)
+    mark("nccl_refused")
+    D.initialize(f"127.0.0.1:{args.port}", args.procs, args.worker,
+                 backend="gloo", timeout_s=args.timeout)
+    mark("gloo_group")
+    counts = Counts(dev)
+    n_proc, mb = args.procs, cfg["microbatch"]
+
+    # resnet: 8 stages, two a process, both wires; Defer.run and .stream
+    g, cuts, stages, params, x = prep.pop("resnet")
+    n = len(stages)
+    mesh = multihost_pipeline_mesh(n, local_devices=[dev] * (n // n_proc))
+    pipes = {w: ring_case(torch, res, arrays, f"resnet_{w}", counts, stages,
+                          params, x, mesh, w, cfg, dev)
+             for w in WIRES}
+    defer = Defer(DeferConfig(wire="int8", microbatch=mb,
+                              chunk=cfg["chunk"], device=dev), mesh=mesh)
+    arrays["defer_run_rows"] = defer.run(g, params, x, cut_points=cuts,
+                                         num_stages=n)
+    arrays["defer_stream_rows"] = np.stack([
+        y.float().cpu().numpy() for y in defer.stream(
+            g, params, list(x), cut_points=cuts, num_stages=n)])
+    mark("resnet_rings")
+    pipe = pipes["buffer"]
+    res["stage_latencies"] = pipe.stage_latencies(iters=2)
+    guards(torch, res, dev, cfg, g, params, mesh, pipe)
+    if cfg["reweight"]:
+        pipe.reweight(g.init(torch.Generator().manual_seed(SEED + 1)))
+        arrays["reweight_rows"] = pipe.run(x)
+    collectives(torch, mesh, "stage", dev, arrays, "line")
+    del pipes, pipe, defer
+    mark("resnet_checks")
+
+    # dp: (data 2, stage S), each data line on a sub-group
+    stages = prep.pop("dp")
+    dmesh = multihost_pipeline_mesh(len(stages), 2, local_devices=[dev] * (
+        2 * len(stages) // n_proc))
+    for w in cfg["dp_wires"]:
+        ring_case(torch, res, arrays, f"dp_{w}", counts, stages, params, x,
+                  dmesh, w, cfg, dev)
+    collectives(torch, dmesh, "stage", dev, arrays, "sub")
+    del g, params, x
+    mark("dp")
+
+    # bert: S stages, S / N a process, both wires
+    stages, params, ids = prep.pop("bert")
+    bmesh = multihost_pipeline_mesh(len(stages), local_devices=[dev] * (
+        len(stages) // n_proc))
+    for w in WIRES:
+        ring_case(torch, res, arrays, f"bert_{w}", counts, stages, params,
+                  ids, bmesh, w, cfg, dev)
+    mark("bert_rings")
+
+    arrays["meta"] = np.array(json.dumps(res))
+    np.savez(Path(args.out) / f"worker{args.worker}.npz", **arrays)
+    torch.distributed.destroy_process_group()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--procs", type=int, default=4)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--preset", choices=sorted(PRESETS), default=None,
+                    help="default: cpu on the CPU, card otherwise")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--deadline", type=float, default=120.0,
+                    help="seconds the parent waits for every worker")
+    ap.add_argument("--timeout", type=float, default=60.0,
+                    help="the process group's timeout, seconds")
+    ap.add_argument("--worker", type=int, default=None)
+    ap.add_argument("--port", type=int, default=None)
+    ap.add_argument("--nccl-port", type=int, default=None)
+    args = ap.parse_args(argv)
+    if args.preset is None:
+        args.preset = "cpu" if args.device == "cpu" else "card"
+    if args.worker is not None:
+        worker(args)
+        return 0
+    t0 = time.perf_counter()
+    results = spawn(args.procs, args.device, args.preset, args.out,
+                    make_inputs(args.preset), deadline_s=args.deadline,
+                    timeout_s=args.timeout)
+    w0 = results[0]["meta"]
+    print(json.dumps({"procs": args.procs, "device": args.device,
+                      "seconds": time.perf_counter() - t0,
+                      **{k: v for k, v in w0.items() if k.startswith((
+                          "resnet", "bert", "dp"))}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -322,7 +322,35 @@ def _imports(path: Path):
 def test_source_scan_finds_no_jax_import():
     files = sorted((ROOT / "defer_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files.append(ROOT / "scripts" / "torch_ring_procs.py")
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imports(f) if _is_forbidden(m)]
     assert bad == []
+
+
+def test_ring_procs_script_imports_with_jax_blocked():
+    """``scripts/torch_ring_procs.py`` (the launcher of the ring across
+    processes), its worker's modules and its launch counts load with
+    ``jax``, ``jaxlib`` and ``defer_tpu`` made unimportable."""
+    code = (
+        "import importlib, json, sys\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'defer_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, Block())\n"
+        f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+        "import torch_ring_procs as R\n"
+        "import defer_tpu_torch.parallel.distributed\n"
+        "import defer_tpu_torch.runtime.spmd\n"
+        "R.Counts('cpu')\n"
+        "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "torch_ring_procs" in loaded
+    assert [m for m in loaded if _is_forbidden(m)] == []
