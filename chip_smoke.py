@@ -274,7 +274,14 @@ Phases, in order; any failure exits non-zero before the result line:
          (data 2, stage 4), each line on a sub-group, against the one-card
          ring on that mesh; ``Defer(mesh=).run``/``.stream``; the
          collectives across processes against one card; the guards (A15c,
-         A15b) and NCCL on one card refused;
+         A15b) and NCCL on one card refused when a ring is placed; GPT-2
+         small/12, three stages a process, on 4g's weights:
+         ``Defer(mesh=).generate`` of 4g's 96 prompts with the prefill
+         (tokens against 4g's decoder up to a near tie, the same on every
+         process, 144 flash launches over the processes, no capture) and
+         ``Defer(mesh=).score`` on both wires against the one-process
+         ``score`` (flash launches = blocks x steps, one quantizer launch
+         per process and int8 step); tokens/s and sequences/s beside 4g's;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
               ``replication_path``, ``dag_path``, ``obs_path``,
@@ -289,7 +296,7 @@ The phases run under a budget: ``phase_seconds`` should total at most
 BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s), phase 4p
 at most OBS_BUDGET_S (40 s), phase 4q at most CLI_BUDGET_S (30 s),
 phase 4r at most TRAIN_BUDGET_S (45 s), phase 4s at most
-MESH_BUDGET_S (30 s) and phase 4t at most PROCS_BUDGET_S (30 s), paid for by
+MESH_BUDGET_S (30 s) and phase 4t at most PROCS_BUDGET_S (45 s), paid for by
 running earlier paths smaller (PERF.md §4).  A watchdog armed at start
 fails the run at WATCHDOG_S (720 s): it names the phase still running,
 dumps every thread's stack, kills the node processes the smoke started
@@ -1350,8 +1357,9 @@ GPT_PROMPTS = (96, 32)
 #: new tokens of the decode-rate checks, halved twice to keep the smoke in
 #: its budget (the decoder's generate calls are most of 4g; PERF.md §4)
 GPT_NEW = 16
-#: shorter generations for the graph/eager, reweight and beam checks
-GPT_SHORT_NEW = 8
+#: shorter generations for the graph/eager, reweight, beam and speculative
+#: checks, halved twice to keep the smoke in its budget (PERF.md §4)
+GPT_SHORT_NEW = 4
 #: prefill tokens may part from decode-rate ones only at or after a
 #: position whose reference top-2 logit gap is below this share of max
 #: |logit| (float reduction order can flip a near tie)
@@ -1524,6 +1532,8 @@ def gpt_decode(torch, device, kernels, card, gp):
              "near tie")
     res.update(prefill_cache_rel_err=cache_err, near_ties=int(tie.sum()),
                prefill_token_agree=float((pre == out).mean()))
+    # what phase 4t's decoder across processes is held to
+    gp.update(prefill_tokens=pre, gap=gap, lmax=lmax)
 
     # time to first token and generated tokens/s (capture excluded: the
     # graphs exist by now)
@@ -4577,7 +4587,9 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw,
     nodes, stage 0 pinned to shm into a stage 1 that refuses every offer
     (``tier_accept=False``, what ``--tier-accept 0`` sets): the hop runs
     over tcp with one labeled fallback and a ``tier`` event in stage 0's
-    flight recorder, rows equal to the forward."""
+    flight recorder, rows equal to the forward.  d runs on a thread while
+    b's process boots and deploys (host work in other processes), and ends
+    before b streams."""
     import threading
 
     import numpy as np
@@ -4699,15 +4711,39 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw,
           f"{[round(v, 3) for v in r['host_sync_p50_ms']]}; on {card}",
           flush=True)
 
+    # --- d, started here: ResNet50/8 fused into two processes, one shm hop,
+    # through run_chain; it runs while b's process boots and deploys and is
+    # done before b streams anything
+    fused: dict = {}
+
+    def run_fused():
+        stats = []
+        t0 = time.perf_counter()
+        try:
+            fused["out"] = np.stack(run_chain(
+                stages, params, frames, batch=MICROBATCH, in_band=True,
+                tx_depth=depth, device=device, hop_tiers=rtiers,
+                stats_out=stats))
+        except Exception as e:  # noqa: BLE001 — failed after the join
+            fused["error"] = e
+        fused["secs"], fused["stats"] = time.perf_counter() - t0, stats
+
+    fused_th = threading.Thread(target=run_fused, daemon=True,
+                                name="chip-4l-fused")
+    fused_th.start()
+
     # --- b: ResNet50/8, one process, seven ici hops ----------------------
     # one process boots here, beside seven idle cores: ``ahead_of`` (phase
-    # 4o's stage programs) traces meanwhile
+    # 4o's stage programs) traces meanwhile, and d runs
     ahead = trace_ahead(*ahead_of)
     with deploy_chain(stages, params, batch=MICROBATCH, in_band=True,
                       hop_tiers=["ici"] * (n - 1), tier="auto",
                       tx_depth=depth, device=device) as chain:
-        # the traces are done before anything is timed
+        # the traces and d are done before anything is timed
         ahead.join()
+        fused_th.join()
+        if "error" in fused:
+            fail(f"phase 4l fused chain: {fused['error']!r}")
         disp = chain.dispatcher
         t0 = time.perf_counter()
         out = np.stack(disp.stream(frames))
@@ -4830,13 +4866,9 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw,
           f"seq/s; on {card}", flush=True)
     free_card(torch)
 
-    # --- d: ResNet50/8 fused into two processes, one shm hop ------------
-    stats = []
-    t0 = time.perf_counter()
-    out = np.stack(run_chain(stages, params, frames, batch=MICROBATCH,
-                             in_band=True, tx_depth=depth, device=device,
-                             hop_tiers=rtiers, stats_out=stats))
-    secs = time.perf_counter() - t0
+    # --- d: ResNet50/8 fused into two processes, one shm hop (ran beside
+    # b's boot and deploy) ---------------------------------------------------
+    out, stats, secs = fused["out"], fused["stats"], fused["secs"]
     rel = check_rows(out, "fused chain", exact=raw)
     if ([s["tier"] for s in stats] != ["shm", "shm"]
             or stats[1]["tier_in"] != "shm"
@@ -4851,7 +4883,8 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw,
                     "launches": _sum_launches(stats), **_node_phases(stats)}
     print(f"colocate path: resnet50 fused into 2 processes, one shm hop: "
           f"rows {rel:.3g} of max |logit| off the forward, byte-identical "
-          f"to 4k's tcp rows; run_chain {secs:.2f} s; on {card}", flush=True)
+          f"to 4k's tcp rows; run_chain {secs:.2f} s (beside b's boot and "
+          f"deploy); on {card}", flush=True)
 
     # --- e: a refused offer ---------------------------------------------
     tg = models.resnet_tiny()
@@ -6575,8 +6608,8 @@ def mesh_train_gpt(torch, device, kernels, card, base) -> dict:
 # phase 4t: the ring across processes on one card
 # ---------------------------------------------------------------------------
 
-#: phase 4t's share of BUDGET_S
-PROCS_BUDGET_S = 30.0
+#: phase 4t's share of BUDGET_S (30 s before its GPT-2 cases)
+PROCS_BUDGET_S = 45.0
 #: worker processes sharing the card (gloo: NCCL refuses two ranks on one
 #: card), and the spawn's deadline (the watchdog still covers the phase)
 RING_PROCS = 4
@@ -6585,6 +6618,16 @@ PROCS_DEADLINE_S = 90.0
 #: one-card mesh, and the buffer rows against 4a's: the same f32 ops on
 #: the same rows (cuDNN may choose another algorithm for another batch)
 PROCS_REL_BOUND = 1e-5
+#: GPT-2 small across the processes: the new tokens of its
+#: ``Defer(mesh=).generate`` with the prefill (on 4g's prompts), and the ids
+#: its ``Defer.score`` takes, the first 32 of 4g's SCORE_IDS rows (bucket
+#: 32: ``logits`` broadcasts every row from stage 0's process, 103 MB of
+#: f32 logits a call here against 412 MB at 4g's bucket 128)
+PROCS_GPT_NEW = 8
+PROCS_SCORE_IDS = (16, 32)
+#: its scores against the one-process ``score`` on the same wire (the same
+#: kernels on the same rows: 0 expected)
+PROCS_SCORE_RTOL = 1e-5
 
 
 def ring_procs_module():
@@ -6608,7 +6651,154 @@ def _sum_worker_launches(res, key: str) -> dict:
     return out
 
 
-def procs_path(torch, device, kernels, card, mp, bp, thr, bthr) -> dict:
+def procs_gpt_refs(torch, device, g4t, ids) -> dict:
+    """Phase 4t's GPT-2 references on the card: the one-process
+    ``Defer.score`` of ``ids`` on each wire (4g's cuts, a graph replay a
+    chunk) and the whole-graph forward's log-probabilities."""
+    import numpy as np
+
+    from defer_tpu_torch import Defer, DeferConfig, models
+    from defer_tpu_torch.utils.convert import params_to_device
+
+    g, params = g4t["graph"], g4t["params"]
+    cuts = models.gpt_stage_cuts(GPT_STAGES, GPT_STAGES)
+    out = {}
+    for wire in ("buffer", "int8"):
+        defer = Defer(DeferConfig(wire=wire, microbatch=MICROBATCH,
+                                  chunk=CHUNK, device=device))
+        out[wire] = defer.score(g, params, ids, cut_points=cuts)[0]
+        del defer
+    pdev = params_to_device(params, device)
+    ref = []
+    with torch.inference_mode():
+        for lo in range(0, len(ids), MICROBATCH):
+            x = torch.from_numpy(ids[lo:lo + MICROBATCH].astype(
+                np.int32)).to(device)
+            logp = g.apply(pdev, x).float().log_softmax(dim=-1)
+            tgt = torch.from_numpy(ids[lo:lo + MICROBATCH, 1:]).to(device)
+            ref.append(logp[:, :-1].gather(-1, tgt[..., None])[..., 0]
+                       .sum(-1).cpu().numpy())
+    out["forward"] = np.concatenate(ref)
+    del pdev
+    free_card(torch)
+    return out
+
+
+def procs_gpt(torch, res, card, g4t, refs) -> dict:
+    """Phase 4t (g) and (h): the workers' GPT-2 small/12 cases against 4g's
+    decoder and the one-process references (:func:`procs_gpt_refs`)."""
+    import numpy as np
+
+    n_seq, plen = GPT_PROMPTS
+    t_tok = plen + PROCS_GPT_NEW
+    blocks = sum(nm.startswith("block_") for nm in g4t["graph"].topo_order)
+    metas = [r["meta"]["decode"]["s12"] for r in res]
+    out = {}
+
+    def slowest(case, units):
+        # each process's median call, the slowest process's
+        med = max(statistics.median(m[case]["seconds"]) for m in metas)
+        return units / med, med
+
+    def shares(case, want_flash, want_quant):
+        # each process launches its stages' share, summed over the four
+        got = [m[case]["launches"] for m in metas]
+        want = [{"quant_int8": want_quant,
+                 "flash_attention": want_flash
+                 * len(m[case]["local_stages"]) // GPT_STAGES}
+                for m in metas]
+        if got != want:
+            fail(f"phase 4t: gpt2 {case} launches {got} per process, want "
+                 f"{want}")
+        return {k: sum(c[k] for c in got) for k in got[0]}
+
+    # (g) generate with the prefill: tokens against 4g's decoder
+    case = "defer_prefill"
+    toks = [r[f"dec_s12_{case}__tokens"] for r in res]
+    if any(not np.array_equal(t, toks[0]) for t in toks[1:]):
+        fail("phase 4t: gpt2 generate returned different tokens on the "
+             "processes")
+    want = g4t["prefill_tokens"][:, :t_tok]
+    if toks[0].shape != want.shape:
+        fail(f"phase 4t: gpt2 tokens {toks[0].shape}, want {want.shape}")
+    tie = g4t["gap"][:, :t_tok] < TIE_REL * g4t["lmax"][:, :t_tok]
+    first_tie = np.where(tie.any(1), tie.argmax(1), t_tok)
+    diff = toks[0] != want
+    first_diff = np.where(diff.any(1), diff.argmax(1), t_tok)
+    bad = int((first_diff < first_tie).sum())
+    want_flash = blocks * (n_seq // MICROBATCH)
+    launches = shares(case, want_flash, 0)
+    caps = [m[case]["captures"] for m in metas]
+    rate, med = slowest(case, n_seq * PROCS_GPT_NEW)
+    print(f"procs path gpt2 generate: Defer(mesh=).generate({GPT_PROMPTS} "
+          f"prompts, {PROCS_GPT_NEW} new, prefill=True) over {RING_PROCS} "
+          f"processes x {len(metas[0][case]['local_stages'])} stages: the "
+          f"same tokens on every process; {int(diff.sum())} of {diff.size} "
+          f"tokens differ from 4g's one-process decoder, rows parting "
+          f"before a near tie {bad}; launches {launches} (want {want_flash} "
+          f"flash: {blocks} blocks x {n_seq // MICROBATCH} groups); "
+          f"captures {caps}; {rate:.1f} generated tokens/s (the slowest "
+          f"process's median of {len(metas[0][case]['seconds'])} calls, "
+          f"{med:.3f} s) beside 4g's {g4t['tokens_per_s_prefill']:.1f} "
+          f"({GPT_NEW} new, graph replay; no speed claim: four processes "
+          f"time-share the card and every hop crosses host memory); on "
+          f"{card}", flush=True)
+    if bad:
+        fail(f"phase 4t: gpt2 generate: {bad} rows differ from 4g's "
+             "decoder before any near tie")
+    if any(caps):
+        fail(f"phase 4t: gpt2 generate captured {caps} graphs across "
+             "processes")
+    out["generate_prefill"] = {
+        "launches": launches, "tokens_differing": int(diff.sum()),
+        "rows_parting_before_a_near_tie": bad, "tokens_per_s": rate,
+        "call_s": med,
+        "one_process_tokens_per_s": g4t["tokens_per_s_prefill"],
+        "local_stages": [m[case]["local_stages"] for m in metas],
+        "boundary_bytes": [m[case]["boundary_bytes"] for m in metas]}
+
+    # (h) score on both wires against the one-process score
+    for wire in ("buffer", "int8"):
+        case = f"score_{wire}"
+        lps = [r[f"dec_s12_{case}__logprob"] for r in res]
+        if any(not np.array_equal(lp, lps[0]) for lp in lps[1:]):
+            fail(f"phase 4t: gpt2 {case} differs between the processes")
+        lp = lps[0]
+        if lp.shape != refs[wire].shape or not np.isfinite(lp).all():
+            fail(f"phase 4t: gpt2 {case} not finite or misshapen")
+        err = float(np.abs(lp - refs[wire]).max() / np.abs(refs[wire]).max())
+        ferr = float(np.abs(lp - refs["forward"]).max()
+                     / np.abs(refs["forward"]).max())
+        steps = metas[0][case]["steps"]
+        launches = shares(case, blocks * steps,
+                          steps if wire == "int8" else 0)
+        rate, med = slowest(case, PROCS_SCORE_IDS[0])
+        print(f"procs path gpt2 {case}: Defer(mesh=).score("
+              f"{PROCS_SCORE_IDS} ids, bucket {PROCS_SCORE_IDS[1]}) over "
+              f"{RING_PROCS} processes, {steps} steps: log-probs {err:.3g} "
+              f"max rel off the one-process score (rtol {PROCS_SCORE_RTOL}),"
+              f" {ferr:.3g} off the whole-graph forward; launches "
+              f"{launches} (one quantizer launch per process and int8 "
+              f"step); {rate:.1f} scored sequences/s (the slowest "
+              f"process's median of {len(metas[0][case]['seconds'])} calls, "
+              f"{med:.3f} s) beside 4g's "
+              f"{g4t['score_sequences_per_s'][wire]:.1f} (16 x 100, bucket "
+              f"128, graph replay); on {card}", flush=True)
+        if not np.allclose(lp, refs[wire], rtol=PROCS_SCORE_RTOL, atol=0):
+            fail(f"phase 4t: gpt2 {case} differs from the one-process "
+                 "score")
+        if wire == "buffer" and not np.allclose(lp, refs["forward"],
+                                                rtol=SCORE_RTOL, atol=0):
+            fail("phase 4t: gpt2 score differs from the whole-graph forward")
+        out[case] = {"launches": launches, "steps": steps, "rel_err": err,
+                     "forward_rel_err": ferr, "sequences_per_s": rate,
+                     "call_s": med, "boundary_bytes": [
+                         m[case]["boundary_bytes"] for m in metas]}
+    return out
+
+
+def procs_path(torch, device, kernels, card, mp, bp, thr, bthr,
+               g4t) -> dict:
     """Phase 4t. Four ``torch.distributed`` processes on the one card (gloo),
     spawned once by ``scripts/torch_ring_procs.py`` with 4a's and 4b's
     seed-0 weights and inputs (written once for the workers to map), TF32
@@ -6627,7 +6817,12 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr) -> dict:
     a stage axis across processes (every process on one line, and lines on
     sub-groups) equal to the same calls on one card; (f) the guards name
     A15c (A15b for two devices in one process), and NCCL on one card is
-    refused naming gloo."""
+    refused naming gloo when a ring is placed; (g) GPT-2 small/12, three
+    stages a process, on 4g's weights: ``Defer(mesh=).generate`` of 4g's
+    prompts with the prefill against 4g's decoder (:func:`procs_gpt`);
+    (h) ``Defer(mesh=).score`` on both wires against the one-process
+    score (:func:`procs_gpt_refs`)."""
+    import threading
     from pathlib import Path
 
     import numpy as np
@@ -6637,11 +6832,42 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr) -> dict:
     from defer_tpu_torch.parallel import pipeline_mesh
 
     R = ring_procs_module()
-    cfg = R.PRESETS["card"]
+    cfg, dc = R.PRESETS["card"], R.DECODE["card"]
     if (cfg["microbatch"], cfg["chunk"], cfg["frames"]) != (
             MICROBATCH, CHUNK, 2 * CHUNK):
         fail("phase 4t: the launcher's card preset is not 4a's batch")
-    # (c)'s reference first: the one-card (data 2, stage 4) ring, int8
+    if ((dc["microbatch"], dc["chunk"], dc["max_len"], dc["prompts"],
+         dc["new"], dc["score_ids"])
+            != (MICROBATCH, CHUNK, GPT_MAX_LEN, GPT_PROMPTS, PROCS_GPT_NEW,
+                PROCS_SCORE_IDS)
+            or dc["meshes"]["s12"][1] != GPT_STAGES):
+        fail("phase 4t: the launcher's card decode preset is not 4g's")
+    vocab = g4t["graph"].nodes["lm_head"].out_spec.shape[-1]
+    ids = np.random.default_rng(SEED + 2).integers(
+        0, vocab, SCORE_IDS)[:, :PROCS_SCORE_IDS[1]]
+
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent.joinpath(*PYCACHE[:2],
+                                                       "ring_procs")
+    inputs = {"resnet_params": mp["params"], "resnet_x": mp["inputs"],
+              "bert_params": bp["params"], "bert_ids": bp["inputs"],
+              "gpt2_small_params": g4t["params"],
+              "gpt_prompts": g4t["prompts"], "gpt_score_ids": ids}
+    spawned: list = []
+
+    def spawn():
+        try:
+            spawned.append(R.spawn(RING_PROCS, "cuda", "card", out_dir,
+                                   inputs, deadline_s=PROCS_DEADLINE_S,
+                                   timeout_s=60.0))
+        except RuntimeError as e:
+            spawned.append(e)
+
+    # the workers import and build their graphs on the host for several
+    # seconds before they touch the card: the references run meanwhile
+    th = threading.Thread(target=spawn, daemon=True)
+    th.start()
+    # (c)'s reference: the one-card (data 2, stage 4) ring, int8
     dstages = cfg["dp_stages"]
     one = SpmdPipeline(partition(mp["graph"], num_stages=dstages),
                        mp["params"], mesh=pipeline_mesh(
@@ -6649,26 +6875,23 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr) -> dict:
                        microbatch=MICROBATCH, chunk=CHUNK, wire="int8")
     dp_ref = one.run(mp["inputs"])
     del one
-    free_card(torch)
-
-    t0 = time.perf_counter()
-    out_dir = Path(__file__).resolve().parent.joinpath(*PYCACHE[:2],
-                                                       "ring_procs")
-    inputs = {"resnet_params": mp["params"], "resnet_x": mp["inputs"],
-              "bert_params": bp["params"], "bert_ids": bp["inputs"]}
-    try:
-        res = R.spawn(RING_PROCS, "cuda", "card", out_dir, inputs,
-                      deadline_s=PROCS_DEADLINE_S, timeout_s=60.0)
-    except RuntimeError as e:
-        fail(f"phase 4t: {e}")
+    # (h)'s: 4g's score ids cut to PROCS_SCORE_IDS, the one-process score
+    grefs = procs_gpt_refs(torch, device, g4t, ids)
+    refs_s = time.perf_counter() - t0
+    th.join()
+    res = spawned[0]
+    if isinstance(res, RuntimeError):
+        fail(f"phase 4t: {res}")
     spawn_s = time.perf_counter() - t0
     # each worker's timeline from its start, the latest worker's
     marks = {k: max(r["meta"]["seconds"][k] for r in res)
              for k in res[0]["meta"]["seconds"]}
-    out = {"spawn_s": spawn_s, "procs": RING_PROCS, "backend": "gloo",
+    out = {"spawn_s": spawn_s, "references_s": refs_s, "procs": RING_PROCS,
+           "backend": "gloo",
            "timed_pushes": R.TIMED_PUSHES, "worker_seconds": marks}
     print("procs path workers (s from each start, the latest of 4): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in marks.items()), flush=True)
+          + ", ".join(f"{k} {v:.2f}" for k, v in marks.items())
+          + f"; the references beside them in {refs_s:.2f} s", flush=True)
     if any(len(r["meta"]["stage_latencies"]) != 2
            or min(r["meta"]["stage_latencies"]) <= 0 for r in res):
         fail("phase 4t: stage_latencies is not each process's two stages")
@@ -6801,6 +7024,8 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr) -> dict:
           f"one card refused: {res[0]['meta']['nccl_refused']!r}; spawn "
           f"to results {spawn_s:.1f} s; on {card}", flush=True)
     out["guards"] = {k: R.GUARDS[k] for k in R.GUARDS}
+    # (g) and (h): GPT-2 small across the processes
+    out["gpt2"] = procs_gpt(torch, res, card, g4t, grefs)
     del res
     free_card(torch)
     return out
@@ -6986,6 +7211,12 @@ def main() -> int:
     with mesh_phase():
         ms["train_gpt2_tp2"] = mesh_train_gpt(
             torch, device, kernels, card, tr["gpt2"].pop("_tp1_baseline"))
+    # phase 4t's GPT-2 small: 4g's weights (on the host), prompts, prefill
+    # tokens and near ties
+    g4t = {k: gp[k] for k in ("graph", "params", "prompts", "prefill_tokens",
+                              "gap", "lmax")}
+    g4t["tokens_per_s_prefill"] = gres["tokens_per_s_prefill"]
+    g4t["score_sequences_per_s"] = gres["score"]["sequences_per_s"]
     del gdec, gp
     free_card(torch)
 
@@ -7080,7 +7311,8 @@ def main() -> int:
 
     # phase 4t: the ring across four processes on the card; each worker's
     # counts zeroed just before its runs and read just after
-    pt = procs_path(torch, device, kernels, card, mp, bp, thr, bthr)
+    pt = procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t)
+    del g4t
     phase_done("4t")
     WATCH.cancel()
     # phase 4p: the observability checks that rode 4k's and 4n's chains
@@ -7173,6 +7405,8 @@ def main() -> int:
     for key in ("resnet_buffer", "resnet_int8", "bert_buffer", "bert_int8",
                 "dp_int8"):
         by_path[f"procs_{key}"] = pt[key]["launches"]
+    for key, r in pt["gpt2"].items():
+        by_path[f"procs_gpt2_{key}"] = r["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})

@@ -17,15 +17,20 @@ local devices.
 
 Several processes on ONE card (as the one-card machine runs a ring across
 processes) need ``backend="gloo"``: NCCL refuses two ranks on the same
-device ("Duplicate GPU detected"), so ``initialize`` checks each rank's
-card under NCCL and raises, naming gloo, before the first collective
-would fail.  gloo's point-to-point ops take host tensors; the port stages
-a CUDA tensor through pinned host memory (``parallel/mesh.py``).
+device ("Duplicate GPU detected").  A ring engine built over NCCL checks
+every rank's card where it is known, at placement (``runtime/spmd.py``
+``ring_transport``, keyed on the ring's own device), and raises, naming
+gloo, before the first collective would fail, whether a launcher maps
+ranks to cards through ``CUDA_VISIBLE_DEVICES`` or only through the
+mesh's ``local_devices``.  gloo's point-to-point ops take host tensors;
+the port stages a CUDA tensor through pinned host memory
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
 import datetime
+import itertools
 import os
 import socket
 import time
@@ -36,6 +41,9 @@ import torch
 from .mesh import Mesh, _dist, current_process, pipeline_mesh, visible_cards
 
 _initialized = False
+#: the card swaps made so far: each swap's store keys are its own (every
+#: rank refuses in the same order, so the rank's count names the swap)
+_swaps = itertools.count()
 
 
 def initialize(coordinator_address: str | None = None,
@@ -53,7 +61,8 @@ def initialize(coordinator_address: str | None = None,
     the call returns without latching, so a later call with explicit
     arguments can still form the group.  ``backend`` defaults to ``nccl``
     when CUDA is available, else ``gloo``; several processes on one card
-    need ``gloo`` (NCCL raises here, see the module's docstring).
+    need ``gloo`` (a ring engine raises under NCCL, see the module's
+    docstring).
     ``timeout_s`` bounds the group's formation and every collective
     (``init_process_group``'s ``timeout``): a dead peer then fails its
     neighbours instead of leaving them blocked.
@@ -78,22 +87,17 @@ def initialize(coordinator_address: str | None = None,
         dist.init_process_group(
             backend, init_method=f"tcp://{coordinator_address}",
             world_size=num_processes, rank=process_id, **kw)
-    if backend == "nccl":
-        _refuse_shared_cards(dist, card_key())
     _initialized = True
 
 
-def card_key(local_rank: int | None = None) -> str:
-    """A process's card as its host and the card's UUID (its index where
+def card_key(device=None) -> str:
+    """A ring's card as its host and the card's UUID (its index where
     torch gives no UUID), the same across ``CUDA_VISIBLE_DEVICES``
-    renumberings.  The card is the local rank's (``LOCAL_RANK`` by
-    default, as ``torchrun`` sets it) where that card is visible, else the
-    current device's: the port calls no ``set_device``, since a ring's
-    card comes from its mesh."""
-    if local_rank is None:
-        local_rank = int(os.environ.get("LOCAL_RANK", -1))
-    i = (local_rank if local_rank in range(torch.cuda.device_count())
-         else torch.cuda.current_device())
+    renumberings.  The card is ``device``'s (a CUDA device: ``"cuda:1"``
+    names card 1, ``"cuda"`` the current device): the port calls no
+    ``set_device``, since a ring's card comes from its mesh."""
+    dev = torch.device("cuda" if device is None else device)
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
     uuid = getattr(torch.cuda.get_device_properties(i), "uuid", None)
     return f"{socket.gethostname()}/{uuid if uuid is not None else i}"
 
@@ -107,31 +111,43 @@ def shared_cards(keys: list[str]) -> dict[str, list[int]]:
     return {k: rs for k, rs in ranks.items() if len(rs) > 1}
 
 
-def swap_card_keys(store, rank: int, world: int, key: str) -> list[str]:
-    """Every rank's card key (``keys[rank]``), swapped through ``store``:
-    each rank sets its own and reads them all."""
-    store.set(f"defer_card/{rank}", key)
-    return [store.get(f"defer_card/{r}").decode() for r in range(world)]
+def swap_card_keys(store, rank: int, world: int, key: str,
+                   prefix: str = "defer_card") -> list[str]:
+    """Every rank's card key (``keys[rank]``), swapped through ``store``
+    under ``prefix``: each rank sets its own and reads them all."""
+    store.set(f"{prefix}/{rank}", key)
+    return [store.get(f"{prefix}/{r}").decode() for r in range(world)]
+
+
+def refuse_shared_cards(device) -> None:
+    """Under NCCL, on every rank: raise when two ranks' rings share a card
+    (``device``, this rank's ring's; :func:`card_key`), leaving the group
+    (see :func:`_refuse_shared_cards`).  A ring engine calls it at
+    placement (``runtime/spmd.py`` ``ring_transport``)."""
+    _refuse_shared_cards(_dist(), card_key(device))
 
 
 def _refuse_shared_cards(dist, key: str) -> None:
-    """Under NCCL, raise (and leave the group) when two ranks share a
-    card, which NCCL's first collective would refuse ("Duplicate GPU
-    detected").  ``key`` is this rank's card (:func:`card_key`); the ranks
-    swap theirs through the group's store."""
+    """Raise (and leave the group) when two ranks share a card, which
+    NCCL's first collective would refuse ("Duplicate GPU detected").
+    ``key`` is this rank's card (:func:`card_key`); the ranks swap theirs
+    through the group's store, under keys of this swap's own."""
+    global _initialized
     store = dist.distributed_c10d._get_default_store()
     rank, world = dist.get_rank(), dist.get_world_size()
-    shared = shared_cards(swap_card_keys(store, rank, world, key))
+    prefix = f"defer_card/{next(_swaps)}"
+    shared = shared_cards(swap_card_keys(store, rank, world, key, prefix))
     if shared:
         # rank 0 serves the store: it leaves once every rank has read
-        store.add("defer_card/read", 1)
-        while rank == 0 and store.add("defer_card/read", 0) < world:
+        store.add(f"{prefix}/read", 1)
+        while rank == 0 and store.add(f"{prefix}/read", 0) < world:
             time.sleep(0.01)
         dist.destroy_process_group()
+        _initialized = False
         raise RuntimeError(
             f"NCCL cannot run two ranks on one card ({shared}): pass "
             "backend=\"gloo\" for several processes on one card (a "
-            "process's card is its LOCAL_RANK's, else its current device)")
+            "rank's card is its ring's device)")
 
 
 def process_count() -> int:

@@ -206,20 +206,6 @@ def mesh_placement(mesh: Mesh, engine: str) -> tuple[np.ndarray, torch.device]:
     return mine, devs[0]
 
 
-def mesh_device(mesh: Mesh, engine: str) -> torch.device:
-    """The one device of a mesh held by one process, for an engine that
-    runs within one process.  Several devices in this process raise naming
-    ROADMAP A15b (:func:`mesh_placement`), a mesh over several processes
-    naming A15c, both before anything is placed."""
-    _, dev = mesh_placement(mesh, engine)
-    if mesh.spans_processes:
-        raise NotImplementedError(
-            f"{engine} runs within one process; this mesh spans processes "
-            f"{sorted(set(int(p) for p in mesh.processes.flat))}: it is "
-            "ROADMAP queue A15c")
-    return dev
-
-
 # ---------------------------------------------------------------------------
 # collectives over the per-rank tensors of one axis
 # ---------------------------------------------------------------------------

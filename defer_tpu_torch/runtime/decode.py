@@ -48,6 +48,26 @@ On one card:
     draws cannot equal the JAX package's ``jax.random`` ones; what holds
     is their distribution.
 
+Across processes (a mesh from ``multihost_pipeline_mesh``, one
+``torch.distributed`` process per card or several sharing one): each
+process holds a block of consecutive stages (``local_stages``,
+``runtime/spmd.py`` ``ring_block``) and packs the weight rows and
+allocates the KV caches of those stages only; ``caches[name]``,
+``_rows`` and the ring ``[n_local, mb, d(+1)]`` are indexed by local
+stage.  A step runs the local stages, rolls the local segment and swaps
+the slot leaving the process with the one arriving from the previous
+stage's (``runtime/spmd.py`` ``cross_slot``: one ``batch_isend_irecv``,
+counted in ``metrics.boundary_bytes``/``boundary_sends``); under beam
+search the parent column rides inside that slot.  The fused prefill sends
+each group's ``[mb, plen, d]`` activation to the next stage's process.
+The host reads the same values on every process, as the JAX
+multi-controller program returns one global value: the wrap link's ids
+(stage 0's process fills ``_emit``), the prefill's first tokens and the
+beam ledger (both the last stage's) are broadcast from the process that
+holds them, so ``generate`` returns the same tokens everywhere and
+``eos_id``/``on_tokens`` see the same ids.  Such a decoder runs its units
+eagerly (``cuda_graphs`` is False): a CUDA graph cannot hold a gloo send.
+
 Scope: the ``gpt()`` node contract (``embeddings`` / ``block_i`` /
 ``final_ln`` / ``lm_head`` — models/gpt.py).
 """
@@ -64,9 +84,12 @@ import torch
 from ..graph.ir import LayerGraph, as_dtype
 from ..models.gpt import CausalTransformerBlock, GptEmbedding
 from ..obs import REGISTRY, tracer
+from ..parallel.mesh import broadcast, exchange, mesh_placement
+from ..utils.metrics import PipelineMetrics
 from . import flatbuf
 from .cuda_graph import capture
-from .spmd import COMPUTE_DTYPES, ring_mesh
+from .spmd import COMPUTE_DTYPES, cross_slot, ring_block, ring_mesh, \
+    ring_transport
 
 _M32 = 0xFFFFFFFF
 #: step key of the fused prefill's draws: ``PREFILL_KEY + group``, a domain
@@ -165,7 +188,10 @@ class PipelinedDecoder:
     and must have ``num_stages`` on its stage axis, whose size is all the
     decoder reads of it.  On the card each unit is a graph replay; setting
     ``cuda_graphs = False`` runs the same steps eagerly there (the CPU
-    always does), which is what a replay is checked against.
+    always does), which is what a replay is checked against.  A mesh over
+    several ``torch.distributed`` processes spreads the stages over them
+    (see the module's docstring): every process calls ``generate`` with
+    the same arguments and gets the same tokens.
     """
 
     def __init__(
@@ -184,15 +210,15 @@ class PipelinedDecoder:
         beam_width: int = 1,
     ):
         # the stage axis only, as the JAX decoder reads its mesh; a mesh
-        # over several devices is the multi-card decoder (A15b), one over
-        # several processes the decoder across processes (A15c): its ring
-        # roll and beam reorder are per-stage state on other processes
+        # over several devices in one process is the multi-card decoder
+        # (A15b)
         self.mesh, dev = ring_mesh("PipelinedDecoder", num_stages, mesh,
                                    device)
         self.device = dev
         self.graph = graph
         self.num_stages = n = num_stages
         self.microbatch = mb = microbatch
+        self._place()
         self.compute_dtype = cd = (torch.float32 if compute_dtype is None
                                    else as_dtype(compute_dtype))
         if cd not in COMPUTE_DTYPES:
@@ -214,7 +240,9 @@ class PipelinedDecoder:
                 f"microbatch={mb} (each group's rows hold "
                 "microbatch/beam_width sequences x beam_width beams)")
         self.beam_width = beam_width
-        self.cuda_graphs = dev.type == "cuda"
+        #: one graph replay per unit on the card, within one process only
+        #: (a CUDA graph cannot hold a gloo send)
+        self.cuda_graphs = dev.type == "cuda" and self.hop_transport == "local"
 
         nodes = graph.nodes
         for req in ("embeddings", "final_ln", "lm_head"):
@@ -264,7 +292,9 @@ class PipelinedDecoder:
                 names += ["final_ln", "lm_head"]
             self._stage_param_names.append(names)
 
-        # --- per-stage weight rows (in the compute dtype, or W8A16)
+        # --- this process's stages' weight rows (in the compute dtype, or
+        # W8A16), indexed by local stage
+        nl = len(self.local_stages)
         self._paths: list = []
         self._wmeta: list = []
         self._smeta: list = []
@@ -272,10 +302,10 @@ class PipelinedDecoder:
                       for rows in self._pack(params, init=True)]
         self._views = [None if self.weight_quant else
                        flatbuf.unflatten_leaves(
-                           self._paths[s],
-                           flatbuf.unpack_leaves(self._rows[s][0],
-                                                 self._wmeta[s]))
-                       for s in range(n)]
+                           self._paths[i],
+                           flatbuf.unpack_leaves(self._rows[i][0],
+                                                 self._wmeta[i]))
+                       for i in range(nl)]
 
         # --- state the steps read and write in place (a graph holds it)
         self._cache_shape = (self.l_max, n, mb, self.num_kv_heads,
@@ -283,19 +313,24 @@ class PipelinedDecoder:
         #: per-row f32 scales for the int8 cache (one per head x position)
         self._scale_shape = self._cache_shape[:-1]
         cdt = torch.int8 if kv_cache == "int8" else cd
+        #: this process's stages' caches, indexed by local stage
         self.caches: dict[str, list[torch.Tensor]] = {
             "k": [torch.zeros(self._cache_shape, dtype=cdt, device=dev)
-                  for _ in range(n)],
+                  for _ in range(nl)],
             "v": [torch.zeros(self._cache_shape, dtype=cdt, device=dev)
-                  for _ in range(n)]}
+                  for _ in range(nl)]}
         if kv_cache == "int8":
             for name in ("ks", "vs"):
                 self.caches[name] = [torch.zeros(self._scale_shape,
                                                  device=dev)
-                                     for _ in range(n)]
+                                     for _ in range(nl)]
         #: ring width: beam mode adds a column carrying each row's parent
         self._ring_width = d + (1 if beam_width > 1 else 0)
-        self._a = torch.zeros((n, mb, self._ring_width), device=dev)
+        #: the ring: this process's slots
+        self._a = torch.zeros((nl, mb, self._ring_width), device=dev)
+        #: the bytes and sends that cross process boundaries (0 in one
+        #: process)
+        self.metrics = PipelineMetrics(num_stages=n, microbatch=mb)
         #: per-group cumulative beam scores (the last stage's ledger)
         self._beam_cum = torch.zeros((n, mb), device=dev)
         #: what arrived on the wrap link at each step of a unit
@@ -320,32 +355,58 @@ class PipelinedDecoder:
         self.capture_s = 0.0
         self.graph_pool_bytes = 0
 
+    def _place(self) -> None:
+        """This process's block of stages, the hop's transport and the
+        peers across process boundaries (none in one process)."""
+        n = self.num_stages
+        #: the process holding stage 0 and the last stage (of data line
+        #: 0), whose values every process reads; None in one process
+        self._first_src = self._last_src = None
+        self._sends = self._recvs = None
+        if not self.mesh.spans_processes:
+            self.local_stages = range(n)
+            self.hop_transport = "local"
+            return
+        mine, _ = mesh_placement(self.mesh, "PipelinedDecoder")
+        lines, self.local_stages, owners = ring_block(self.mesh, mine)
+        self.hop_transport = ring_transport(self.mesh, self.device)
+        self._first_src = int(owners[0, 0])
+        self._last_src = int(owners[0, n - 1])
+        if len(self.local_stages) < n:
+            # a line's every row crosses: one send and one receive a step
+            line, mb = lines.start, self.microbatch
+            nxt = int(owners[line, self.local_stages.stop % n])
+            prv = int(owners[line, (self.local_stages.start - 1) % n])
+            self._sends = [(slice(0, mb), nxt)]
+            self._recvs = [(slice(0, mb), prv)]
+
     # ------------------------------------------------------------------
     # weights
     # ------------------------------------------------------------------
 
     def _pack(self, params, *, init: bool = False) -> list[tuple]:
-        """Each stage's rows (CPU tensors): ``(row,)``, or ``(q_row,
-        scale_row)`` under W8A16.  With ``init=False`` (reweight) the new
-        leaves must match the deployed paths, shapes and dtypes."""
+        """This process's stages' rows (CPU tensors): ``(row,)``, or
+        ``(q_row, scale_row)`` under W8A16.  With ``init=False``
+        (reweight) the new leaves must match the deployed paths, shapes
+        and dtypes."""
         out = []
-        for s, names in enumerate(self._stage_param_names):
+        for i, s in enumerate(self.local_stages):
             paths, leaves = flatbuf.flatten_leaves(
-                {nm: params[nm] for nm in names})
+                {nm: params[nm] for nm in self._stage_param_names[s]})
             if init:
                 self._paths.append(paths)
                 self._wmeta.append(flatbuf.leaf_meta(leaves))
             else:
-                flatbuf.check_layout(leaves, paths, self._wmeta[s],
-                                     self._paths[s], f"reweight: stage {s}")
+                flatbuf.check_layout(leaves, paths, self._wmeta[i],
+                                     self._paths[i], f"reweight: stage {s}")
             leaves = [leaf.detach().cpu() for leaf in leaves]
             if not self.weight_quant:
                 wdt = self.compute_dtype
-                out.append((flatbuf.pack_leaves(leaves, self._wmeta[s], wdt,
+                out.append((flatbuf.pack_leaves(leaves, self._wmeta[i], wdt,
                                                 lambda a: a.to(wdt)),))
                 continue
             q_row, s_row, smeta = flatbuf.quantize_leaves(leaves,
-                                                          self._wmeta[s])
+                                                          self._wmeta[i])
             if init:
                 self._smeta.append(smeta)
             out.append((q_row, s_row))
@@ -363,12 +424,14 @@ class PipelinedDecoder:
                     d_row.copy_(s_row)
 
     def _stage_params(self, s: int) -> dict:
+        """Stage ``s``'s leaves (a stage of this process)."""
+        i = s - self.local_stages.start
         if not self.weight_quant:
-            return self._views[s]
-        q_row, s_row = self._rows[s]
+            return self._views[i]
+        q_row, s_row = self._rows[i]
         return flatbuf.unflatten_leaves(
-            self._paths[s], flatbuf.unpack_quant_leaves(
-                q_row, s_row, self._wmeta[s], self._smeta[s],
+            self._paths[i], flatbuf.unpack_quant_leaves(
+                q_row, s_row, self._wmeta[i], self._smeta[i],
                 self.compute_dtype))
 
     # ------------------------------------------------------------------
@@ -396,7 +459,8 @@ class PipelinedDecoder:
         safe_pos = pos.clamp(0, self.max_len - 1)
         write_pos = torch.where(valid, safe_pos, self.max_len)
         # this stage's caches of group g: views [Lmax, mb, ...]
-        caches = {name: cs[s][:, g] for name, cs in self.caches.items()}
+        i = s - self.local_stages.start
+        caches = {name: cs[i][:, g] for name, cs in self.caches.items()}
 
         if beam > 1:
             # re-parent this group's cache rows before appending: the
@@ -478,16 +542,23 @@ class PipelinedDecoder:
 
     def _unit(self, sample: bool, top_k: int | None) -> None:
         """N steps from ``self._t`` (a multiple of N): each step runs every
-        stage on its slot, then rotates the ring; what arrives on the wrap
-        link at step j lands in ``self._emit[j]``."""
+        stage (of this process) on its slot, then rotates the ring; what
+        arrives on the wrap link at step j lands in ``self._emit[j]`` (on
+        stage 0's process)."""
         n, d = self.num_stages, self.d_model
+        first = self.local_stages.start == 0
         a = self._a
         for j in range(n):
             t = self._t + j
             y = torch.empty_like(a)
-            for s in range(n):
-                y[s] = self._branch(s, (j - s) % n, a[s], t, sample, top_k)
+            for i, s in enumerate(self.local_stages):
+                y[i] = self._branch(s, (j - s) % n, a[i], t, sample, top_k)
             a = torch.roll(y, 1, 0)
+            if self._sends is not None:
+                a[0] = cross_slot([a[0]], self._sends, self._recvs,
+                                  self.metrics)[0]
+            if not first:
+                continue
             if self.beam_width > 1:
                 self._emit[j, :, 0] = a[0, :, 0]
                 self._emit[j, :, 1] = a[0, :, d]
@@ -511,6 +582,7 @@ class PipelinedDecoder:
         cd = self.compute_dtype
         mb, kvh, hd = self.microbatch, self.num_kv_heads, self.head_dim
         p = self._stage_params(s)
+        i = s - self.local_stages.start
         if s == 0:
             x = self.embed_op.apply(p["embeddings"],
                                     self._prompt[g, :, :plen]).to(cd)
@@ -525,10 +597,10 @@ class PipelinedDecoder:
             if self.kv_cache == "int8":
                 k, ks = op.quantize_row(k)  # [mb, kv, plen] scales
                 v, vs = op.quantize_row(v)
-                self.caches["ks"][s][l, g, :, :, :plen] = ks
-                self.caches["vs"][s][l, g, :, :, :plen] = vs
-            self.caches["k"][s][l, g, :, :, :plen] = k
-            self.caches["v"][s][l, g, :, :, :plen] = v
+                self.caches["ks"][i][l, g, :, :, :plen] = ks
+                self.caches["vs"][i][l, g, :, :, :plen] = vs
+            self.caches["k"][i][l, g, :, :, :plen] = k
+            self.caches["v"][i][l, g, :, :, :plen] = v
         if s < self.num_stages - 1:
             return x.to(torch.float32)
         h = nodes["final_ln"].op.apply(p["final_ln"], x[:, -1])
@@ -546,14 +618,42 @@ class PipelinedDecoder:
         """The pipelined prefill schedule: ``2N-1`` steps, stage s serving
         group ``t - s`` at step t.  Only the N*N live stage-steps run; the
         JAX program's bubble steps write a scratch group and change no
-        result."""
+        result.  Across processes, after each step the activation the
+        block's last stage produced goes to the next stage's process and
+        the one its first stage needs next arrives from the previous
+        stage's (:meth:`_prefill_hop`)."""
         n = self.num_stages
         xs: list = [None] * n
         for t in range(2 * n - 1):
-            for s in range(n):
+            for s in self.local_stages:
                 if 0 <= t - s < n:
                     xs[t - s] = self._prefill_stage(s, t - s, xs[t - s],
                                                     plen, sample, top_k)
+            if self._first_src is not None:
+                self._prefill_hop(xs, t, plen)
+
+    def _prefill_hop(self, xs: list, t: int, plen: int) -> None:
+        """Step ``t``'s sends and receives of the prefill across processes:
+        group ``t - (hi - 1)``'s activation from this block's last stage
+        to the next stage's process, group ``t - (lo - 1)``'s from the
+        previous stage's into ``xs`` (the schedule is static, so both ends
+        agree on what crosses)."""
+        n, lo, hi = self.num_stages, self.local_stages.start, \
+            self.local_stages.stop
+        sends, recvs = [], []
+        g_out, g_in = t - (hi - 1), t - (lo - 1)
+        if hi < n and 0 <= g_out < n:
+            sends.append((xs[g_out], self._sends[0][1]))
+        if lo > 0 and 0 <= g_in < n:
+            recvs.append((torch.empty((self.microbatch, plen, self.d_model),
+                                      device=self.device),
+                          self._recvs[0][1]))
+        got = exchange(sends, recvs)
+        if recvs:
+            xs[g_in] = got[0]
+        self.metrics.boundary_sends += len(sends)
+        self.metrics.boundary_bytes += sum(x.numel() * x.element_size()
+                                           for x, _ in sends)
 
     # ------------------------------------------------------------------
     # running: graphs or eager
@@ -596,12 +696,18 @@ class PipelinedDecoder:
 
     def _dispatch(self, key: tuple, units: int) -> torch.Tensor:
         """``units`` units back to back (no host sync); the wrap link's
-        ids for each step, ``[units*N, mb(, 2)]`` on the device."""
+        ids for each step, ``[units*N, mb(, 2)]`` on the device (across
+        processes, broadcast from stage 0's process)."""
         emits = []
         for _ in range(units):
             self._run(key)
             emits.append(self._emit.clone())
-        return torch.cat(emits)
+        return self._from(self._first_src, torch.cat(emits))
+
+    def _from(self, src: int | None, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as process ``src`` holds it, on every process (``t``
+        itself in one process)."""
+        return t if src is None else broadcast(t.contiguous(), src)
 
     def _load(self, prompt: np.ndarray, plen: int, seed: int,
               temperature: float) -> None:
@@ -763,6 +869,11 @@ class PipelinedDecoder:
         first_ids_np = None
         if prefill:
             self._run(pkey)
+            if self._last_src is not None:
+                # the last stage's choice, read by stage 0's first step
+                with torch.inference_mode():
+                    self._first_ids.copy_(self._from(self._last_src,
+                                                     self._first_ids))
             first_ids_np = self._first_ids.cpu().numpy()
         self._set_schedule(num_steps, start, plen if prefill else -1)
 
@@ -880,7 +991,8 @@ class PipelinedDecoder:
         arr = torch.cat(chunks).cpu().numpy()
         toks = np.round(arr[..., 0]).astype(np.int64)   # [T, mb]
         pars = np.round(arr[..., 1]).astype(np.int64)
-        cum = self._beam_cum.cpu().numpy()              # [n_groups, mb]
+        cum = self._from(self._last_src,
+                         self._beam_cum).cpu().numpy()  # [n_groups, mb]
 
         out = np.zeros((b, t_tok), np.int64)
         out[:, :plen] = prompt_ids

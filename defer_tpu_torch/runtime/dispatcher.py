@@ -125,8 +125,12 @@ class Defer:
     runs on the one-card mesh of ``config.data_parallel`` x stages x
     ``config.tensor_parallel``.  A mesh over several ``torch.distributed``
     processes (``multihost_pipeline_mesh``) runs ``build``, ``run`` and
-    ``stream`` through the ring across processes (``SpmdPipeline``); every
-    other entry point raises naming ROADMAP A15c before placing anything.
+    ``stream`` through the ring across processes (``SpmdPipeline``), and
+    ``generate`` (the decoder across processes), ``logits`` and ``score``
+    on it, each returning the same values on every process; ``run_defer``
+    and ``serve_endpoint`` raise naming ROADMAP A15c before placing
+    anything, and so does ``mode="mpmd"``, which stays within one process
+    by design (see :meth:`build`).
     """
 
     def __init__(self, config: DeferConfig | None = None, mesh=None):
@@ -159,14 +163,15 @@ class Defer:
                 str(c.buffer_dtype), c.wire, c.mode, c.master_weights,
                 c.data_parallel, c.tensor_parallel)
 
-    def _one_process(self, entry: str) -> None:
+    def _one_process(self, entry: str, why: str = "it is ROADMAP queue "
+                     "A15c") -> None:
         """Raise, naming ROADMAP A15c, where an entry point that runs within
         one process is given a mesh over several."""
         if self.mesh is not None and self.mesh.spans_processes:
             raise NotImplementedError(
                 f"Defer.{entry} runs within one process; this mesh spans "
-                "processes: it is ROADMAP queue A15c (the SPMD ring's "
-                "build, run and stream take it)")
+                f"processes: {why} (the SPMD ring's build, run, stream, "
+                "logits and score and the decoder's generate take it)")
 
     def _default_num_stages(self) -> int:
         """Stage count from this deployment's mesh (1 when mesh-less), as
@@ -193,10 +198,17 @@ class Defer:
     def build(self, graph: LayerGraph, params: dict[str, Any],
               cut_points: list[str] | None = None,
               num_stages: int | None = None):
-        """Partition + build; returns the pipeline engine."""
+        """Partition + build; returns the pipeline engine.  ``mode="mpmd"``
+        over a mesh spanning processes raises: the MPMD relay is one
+        controller's, as the JAX one places each stage with
+        ``jax.device_put``, which reaches only this process's devices (by
+        design, ROADMAP A15c)."""
         cfg = self.config
         if cfg.mode == "mpmd":
-            self._one_process("build(mode='mpmd')")
+            self._one_process("build(mode='mpmd')", "the MPMD relay places "
+                              "every stage from one controller, as the JAX "
+                              "one does; across processes it is not ported "
+                              "by design (ROADMAP A15c)")
         stages = partition(graph, cut_points, num_stages=num_stages)
         if cfg.mode == "mpmd":
             if self.mesh is not None:
@@ -231,9 +243,9 @@ class Defer:
         or 1), cached across calls;
         decodes ``max_new_tokens`` past each prompt.  ``sample_kw`` passes
         through (temperature, top_k, seed, eos_id, token_chunk, prefill,
-        on_tokens).
+        on_tokens).  Over a mesh spanning processes every process calls it
+        with the same arguments and gets the same tokens.
         """
-        self._one_process("generate")
         if num_stages is None:
             num_stages = self._default_num_stages()
         key = (id(graph), id(params), num_stages, max_len, kv_cache,
@@ -266,9 +278,9 @@ class Defer:
         positions < T, so the ids are padded to the bucket and the real
         prefix is read.  Ids ride the float32 ring, exact below 2**24.
         The verification forward of speculative decoding and :meth:`score`
-        both ride this.
+        both ride this.  Over a mesh spanning processes every process gets
+        every row.
         """
-        self._one_process("logits")
         ids = np.asarray(ids)
         if ids.ndim != 2:
             raise ValueError("ids must be [B, T]")
@@ -303,9 +315,9 @@ class Defer:
 
         ``ids``: [B, T] ints (B % microbatch == 0).  Runs the causal graph
         through :meth:`logits` and sums the next-token log-probabilities
-        (float32).  Returns ``(logprob [B], perplexity [B])``.
+        (float32).  Returns ``(logprob [B], perplexity [B])``, the same on
+        every process of a mesh spanning processes.
         """
-        self._one_process("score")
         ids = np.asarray(ids)
         if ids.ndim != 2:
             raise ValueError("ids must be [B, T]")

@@ -58,11 +58,14 @@ on the process holding device 0: returning them everywhere is the port's
 choice).
 ``hop_transport`` names how the hop crosses: ``"local"`` (one process),
 ``"gloo"`` (host-staged: gloo's sends take host tensors, so a CUDA slot
-goes through pinned memory) or ``"nccl"`` (device tensors).  Such a ring
+goes through pinned memory) or ``"nccl"`` (device tensors; the engine
+first refuses ranks whose rings share a card, which NCCL cannot run,
+keyed on each ring's own device: :func:`ring_transport`).  Such a ring
 runs its chunks eagerly: a CUDA graph cannot hold a gloo send, and the
 engine decides that from the mesh at construction.  ``metrics`` counts the
 bytes that cross (``boundary_bytes``, ``boundary_sends``).  The schedule
-and the outputs are the one-process ring's.
+and the outputs are the one-process ring's; only the microbatches that
+complete in a push are broadcast (the real ones, unless ``raw``).
 
 Weights: each stage holds one flat row (``runtime/flatbuf.py``) in
 ``weight_dtype`` — ``compute_dtype`` when set, else float32, as in the JAX
@@ -97,7 +100,7 @@ from ..ops.launches import counted_kernels
 from ..ops.quant import quantized_ring_hop, ste_ring_hop
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh,
                              broadcast, current_process, exchange,
-                             line_group, mesh_device, mesh_placement,
+                             line_group, mesh_placement,
                              one_card_mesh)
 from ..partition.stage import StageModule, StageSpec, buffer_footprint
 from ..utils.config import resolve_device
@@ -118,28 +121,24 @@ def check_single_card(*, compute_dtype=None) -> None:
 
 
 def ring_mesh(engine: str, num_stages: int, mesh: Mesh | None, device,
-              data_parallel: int = 1, tensor_parallel: int = 1, *,
-              across_processes: bool = False) -> tuple[Mesh, torch.device]:
+              data_parallel: int = 1, tensor_parallel: int = 1
+              ) -> tuple[Mesh, torch.device]:
     """``(mesh, device)`` of a ring engine: the given mesh and this
     process's one device, or the one-card mesh of these extents on
     ``device``.  Before anything is placed, several devices in this
-    process raise naming ROADMAP A15b; a mesh over several processes
-    raises naming A15c unless the engine runs ``across_processes``, and
-    then so does a model axis that crosses processes (tensor parallelism
-    stays inside a process)."""
+    process raise naming ROADMAP A15b, and a model axis that crosses
+    processes raises naming A15c (tensor parallelism stays inside a
+    process)."""
     if mesh is None:
         dev = resolve_device(device)
         return one_card_mesh(dev, num_stages, data_parallel,
                              tensor_parallel), dev
-    if across_processes:
-        dev = mesh_placement(mesh, engine)[1]
-        if (MODEL_AXIS in mesh.axis_names
-                and mesh.axis_crosses_processes(MODEL_AXIS)):
-            raise NotImplementedError(
-                f"{engine}: the mesh's model axis crosses processes; "
-                "tensor parallelism across processes is ROADMAP queue A15c")
-    else:
-        dev = mesh_device(mesh, engine)
+    dev = mesh_placement(mesh, engine)[1]
+    if (MODEL_AXIS in mesh.axis_names
+            and mesh.axis_crosses_processes(MODEL_AXIS)):
+        raise NotImplementedError(
+            f"{engine}: the mesh's model axis crosses processes; "
+            "tensor parallelism across processes is ROADMAP queue A15c")
     if mesh.shape.get(STAGE_AXIS) != num_stages:
         raise ValueError(f"mesh stage axis is {mesh.shape.get(STAGE_AXIS)} "
                          f"but the pipeline has {num_stages} stages")
@@ -179,6 +178,52 @@ def ring_block(mesh: Mesh, mine: np.ndarray
             f"process {current_process()}'s positions are not consecutive "
             f"stages of consecutive data lines: {np.argwhere(held).tolist()}")
     return lines, stages, procs
+
+
+def ring_transport(mesh: Mesh, device: torch.device) -> str:
+    """How a ring's hop crosses on ``mesh`` (see the module's docstring):
+    ``"local"`` in one process, else the group's backend.  The mesh must
+    cover every process of the group.  Under NCCL, ranks whose rings share
+    a card are refused first, keyed on ``device``, the ring's own
+    (``parallel/distributed.py`` ``refuse_shared_cards``).  Then every
+    axis that crosses processes gets its line groups, made by every
+    process in one order (``line_group``): call this at construction, on
+    every process."""
+    if not mesh.spans_processes:
+        return "local"
+    import torch.distributed as dist
+    if set(int(p) for p in mesh.processes.flat) != set(
+            range(dist.get_world_size())):
+        raise ValueError("a ring across processes needs a mesh over every "
+                         "process of the group")
+    backend = dist.get_backend()
+    if backend == "nccl":
+        from ..parallel.distributed import refuse_shared_cards
+        refuse_shared_cards(device)
+    for axis in mesh.axis_names:  # every process, in one order
+        if mesh.axis_crosses_processes(axis):
+            line_group(mesh, axis)
+    return backend
+
+
+def cross_slot(slot: list[torch.Tensor], sends, recvs,
+               metrics: PipelineMetrics) -> list[torch.Tensor]:
+    """Send the tensors of the slot leaving this process (their rows per
+    data line: ``sends``, ``[(rows, process)]``) to the process of the
+    next stage, and return the slot arriving from the previous stage's
+    (``recvs``): one ``batch_isend_irecv``.  ``metrics`` counts the sends
+    and their bytes."""
+    out_sends = [(t[rows], p) for rows, p in sends for t in slot]
+    got = iter(exchange(out_sends, [(t[rows], p) for rows, p in recvs
+                                    for t in slot]))
+    out = [torch.empty_like(t) for t in slot]
+    for rows, _ in recvs:
+        for o in out:
+            o[rows] = next(got)
+    metrics.boundary_sends += len(sends)
+    metrics.boundary_bytes += sum(t.numel() * t.element_size()
+                                  for t, _ in out_sends)
+    return out
 
 
 def _runs(owners, lines: range, per: int, base: int = 0):
@@ -270,8 +315,7 @@ class SpmdPipeline:
         self.stages = list(stages)
         self.num_stages = n = len(self.stages)
         self.mesh, self.device = ring_mesh(
-            "SpmdPipeline", n, mesh, device, data_parallel, tensor_parallel,
-            across_processes=True)
+            "SpmdPipeline", n, mesh, device, data_parallel, tensor_parallel)
         check_single_card(compute_dtype=compute_dtype)
         if wire not in ("buffer", "int8"):
             raise ValueError(f"wire must be 'buffer' or 'int8', got {wire!r}")
@@ -350,18 +394,8 @@ class SpmdPipeline:
         self._in_rows = (self._rows if self.local_stages.start == 0
                          else slice(0, 0))
         self._sends = self._recvs = self._out_srcs = None
-        if not mesh.spans_processes:
-            self.hop_transport = "local"
-        else:
-            import torch.distributed as dist
-            if set(int(p) for p in mesh.processes.flat) != set(
-                    range(dist.get_world_size())):
-                raise ValueError("a ring across processes needs a mesh "
-                                 "over every process of the group")
-            self.hop_transport = dist.get_backend()
-            for axis in mesh.axis_names:  # every process, in one order
-                if mesh.axis_crosses_processes(axis):
-                    line_group(mesh, axis)
+        self.hop_transport = ring_transport(mesh, self.device)
+        if mesh.spans_processes:
             #: stage 0's rows, gathered from their processes each push
             self._out_srcs = _runs(owners[:, 0], range(owners.shape[0]), per)
             if len(self.local_stages) < n:
@@ -436,20 +470,9 @@ class SpmdPipeline:
         return y
 
     def _cross(self, slot: list[torch.Tensor]) -> list[torch.Tensor]:
-        """Send the tensors of the slot leaving this process (its rows per
-        data line) to the process of the next stage, and return the slot
-        arriving from the previous stage's: one ``batch_isend_irecv``."""
-        sends = [(t[rows], p) for rows, p in self._sends for t in slot]
-        got = iter(exchange(sends, [(t[rows], p) for rows, p in self._recvs
-                                    for t in slot]))
-        out = [torch.empty_like(t) for t in slot]
-        for rows, _ in self._recvs:
-            for o in out:
-                o[rows] = next(got)
-        self.metrics.boundary_sends += len(self._sends)
-        self.metrics.boundary_bytes += sum(t.numel() * t.element_size()
-                                           for t, _ in sends)
-        return out
+        """The slot leaving this process to the next stage's, the one
+        arriving from the previous stage's (:func:`cross_slot`)."""
+        return cross_slot(slot, self._sends, self._recvs, self.metrics)
 
     def _chunk(self, ring: torch.Tensor, xs: torch.Tensor,
                outs: torch.Tensor) -> None:
@@ -470,17 +493,17 @@ class SpmdPipeline:
     @torch.inference_mode()
     def _eager_chunk(self, xs: torch.Tensor) -> torch.Tensor:
         """One chunk run step by step (the CPU's path, and every ring
-        across processes): ``[C, B, out_sz]``."""
+        across processes): ``[C, B, out_sz]``, this process's rows (across
+        processes :meth:`_collect` gathers the ones it returns)."""
         outs = self._slab(xs.shape[0])
-        if self._out_srcs is None:
-            self._chunk(self._a, xs, outs)
-            return outs
         self._chunk(self._a, xs, outs)
-        return self._gather(outs)
+        return outs
 
+    @torch.inference_mode()
     def _gather(self, outs: torch.Tensor) -> torch.Tensor:
-        """Every row of the chunk's outputs on every process: each data
-        line's rows broadcast from the process holding its stage 0."""
+        """Every row of outputs ``[k, rows, out_sz]`` on every process:
+        each data line's rows broadcast from the process holding its stage
+        0."""
         full = self._slab(outs.shape[0], self.microbatch)
         me, r0 = current_process(), self._rows.start
         for rows, src in self._out_srcs:
@@ -631,22 +654,23 @@ class SpmdPipeline:
             raise RuntimeError("pipeline outputs out of feed order: "
                                f"{(self._step_count, j0, n, self._emitted)}")
         self._step_count += c
-        done = outs[j0:j1].clone() if cnt else None
-
+        mask = np.array([self._real.popleft() for _ in range(cnt)], bool)
+        self._emitted += cnt
+        self.metrics.inferences += int(mask.sum()) * self.microbatch
         if raw:
-            mask = np.array([self._real.popleft() for _ in range(cnt)], bool)
-            self._emitted += cnt
-            self.metrics.inferences += int(mask.sum()) * self.microbatch
+            done = outs[j0:j1] if cnt else None
+            if done is not None:
+                done = (done.clone() if self._out_srcs is None
+                        else self._gather(done))
             return done, mask
-
-        emitted = []
-        for j in range(cnt):
-            is_real = self._real.popleft()
-            self._emitted += 1
-            if is_real:
-                self.metrics.inferences += self.microbatch
-                emitted.append(done[j].reshape(out_shape))
-        return emitted
+        # the real ones (across processes only they are broadcast)
+        keep = [j0 + j for j in range(cnt) if mask[j]]
+        if not keep:
+            return []
+        done = outs[keep] if len(keep) < j1 - j0 else outs[j0:j1].clone()
+        if self._out_srcs is not None:
+            done = self._gather(done)
+        return [o.reshape(out_shape) for o in done]
 
     def _bubble_block(self) -> torch.Tensor:
         """Cached device-resident all-bubble [chunk, ...] input block."""

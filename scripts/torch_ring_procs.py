@@ -1,8 +1,10 @@
 """The ring across processes: N ``torch.distributed`` workers run the
-port's ``SpmdPipeline`` and ``Defer`` on meshes spread over them, and the
-collectives over an axis that crosses them.
+port's ``SpmdPipeline``, ``PipelinedDecoder`` and ``Defer`` on meshes
+spread over them, and the collectives over an axis that crosses them.
 
     python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/ring
+    python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/dec \
+        --cases decode
 
 The parent writes the weights and inputs once (``<out>/inputs.pt``:
 :func:`make_inputs`'s seeded ones, or the caller's own); each worker maps
@@ -18,7 +20,8 @@ the workers share one device (NCCL refuses two ranks on one card).
 
 Cases (``preset`` sizes them: ``cpu`` the tiny graphs the CPU tests run,
 ``card`` the full-width graphs the chip smoke runs, one card shared by
-every worker):
+every worker).  ``--cases`` picks the groups to run, ``ring`` (the first
+five below) and ``decode`` (the last); both by default:
 
 * ``resnet``: ResNet in 8 stages on a (stage 8) mesh, two stages per
   process (``multihost_pipeline_mesh(8, local_devices=[dev] * 2)``), both
@@ -34,8 +37,21 @@ every worker):
   integer-valued f32 (sums exact in any order);
 * ``guards``: what waits for ROADMAP A15c raises naming it; a mesh naming
   two devices in one process raises naming A15b; NCCL for several
-  processes on one card raises naming gloo (on the CPU, which has no
-  NCCL, the same check over a gloo group whose ranks name one card).
+  processes on one card raises naming gloo when a ring engine is placed
+  (on the CPU, which has no NCCL, the same placement over a gloo group
+  named NCCL whose ranks name one card);
+* ``decode``: the decoder and the entry points that serve with it on a
+  (stage S) mesh over the processes (:data:`DECODE_CASES`, run by
+  :class:`DecodeRun`): ``PipelinedDecoder.generate`` greedy (with and
+  without the fused prefill, at two ``token_chunk`` values), sampled,
+  beam, int8 KV cache, W8A16 and ``eos_id`` with ``on_tokens``;
+  ``Defer(mesh=).generate``, ``.logits`` and ``.score`` on both wires;
+  ``speculative_generate`` over that ``Defer``.  ``cpu``: ``gpt_tiny`` in
+  4 stages (one a process), an eight-block ``gpt_tiny`` in 8 (two a
+  process), and greedy on (data 2, stage 2); ``card``: GPT-2 small in 12
+  stages (three a process), ``Defer.generate`` with the prefill and
+  ``Defer.score`` on both wires, each timed.  The CPU tests run the same
+  cases in one process (``mesh=None``) as the reference.
 
 Launch counts: on the card each kernel wrapper's own count
 (``ops/launches.py``); on the CPU the calls of the dispatching functions
@@ -76,11 +92,66 @@ PRESETS = {
              "microbatch": 8, "chunk": 4, "frames": 8},
 }
 WIRES = ("buffer", "int8")
+#: the groups of cases ``--cases`` picks from
+CASE_GROUPS = ("ring", "decode")
 #: the guards and the ROADMAP queue each must name
-GUARDS = {"decoder": "A15c", "trainer": "A15c", "mpmd": "A15c",
-          "generate": "A15c", "logits": "A15c", "score": "A15c",
-          "run_defer": "A15c", "serve_endpoint": "A15c",
-          "model_axis": "A15c", "two_devices": "A15b"}
+GUARDS = {"trainer": "A15c", "mpmd": "A15c", "run_defer": "A15c",
+          "serve_endpoint": "A15c", "model_axis": "A15c",
+          "two_devices": "A15b"}
+#: per preset, the decoder cases' models (factory, keyword arguments), the
+#: meshes (name -> (model, stages, data lines, draft model)) and the cases
+#: each runs, the weights' microbatch and ring chunk, the prompts
+#: ``[B, plen]``, the new tokens, the ids ``Defer.logits``/``score`` take
+#: ``[B, T]``, the calls timed per case, and whether each process's
+#: weight rows are kept for the tests
+DECODE = {
+    "cpu": {"models": {
+        "gpt_tiny": ("gpt_tiny", {"seq_len": 24, "vocab": 97}),
+        "gpt_tiny8": ("gpt", {"num_layers": 8, "hidden": 32, "heads": 2,
+                              "seq_len": 24, "vocab": 97,
+                              "name": "gpt_tiny8"}),
+        "draft4": ("gpt", {"num_layers": 4, "hidden": 16, "heads": 2,
+                           "seq_len": 24, "vocab": 97, "name": "draft4"}),
+        "draft8": ("gpt", {"num_layers": 8, "hidden": 16, "heads": 2,
+                           "seq_len": 24, "vocab": 97, "name": "draft8"})},
+        "meshes": {"s4": ("gpt_tiny", 4, 1, "draft4"),
+                   "s8": ("gpt_tiny8", 8, 1, "draft8"),
+                   "dp": ("gpt_tiny", 2, 2, None)},
+        "cases": {"s4": "all", "s8": "all", "dp": ("greedy",)},
+        "microbatch": 2, "chunk": 4, "max_len": 24, "prompts": (16, 5),
+        "new": 9, "score_ids": (4, 10), "timed": 1, "keep_rows": True},
+    "card": {"models": {"gpt2_small": ("gpt2_small", {"seq_len": 256})},
+             "meshes": {"s12": ("gpt2_small", 12, 1, None)},
+             "cases": {"s12": ("defer_prefill", "score_buffer",
+                               "score_int8")},
+             "microbatch": 8, "chunk": 4, "max_len": 256,
+             "prompts": (96, 32), "new": 8, "score_ids": (16, 32),
+             "timed": 3, "keep_rows": False},
+}
+#: the decoder cases: (what runs, the engine's keyword arguments, the
+#: call's); ``"eos": True`` stops at the greedy run's token at position
+#: plen + 1 of row 0 and streams through ``on_tokens``
+DECODE_CASES = {
+    "greedy": ("decoder", {}, {}),
+    "greedy_chunk2": ("decoder", {}, {"token_chunk": 2}),
+    "prefill": ("decoder", {}, {"prefill": True}),
+    "prefill_chunk2": ("decoder", {}, {"prefill": True, "token_chunk": 2}),
+    "sampled": ("decoder", {}, {"temperature": 0.8, "top_k": 5, "seed": 1,
+                                "token_chunk": 2}),
+    "beam": ("decoder", {"beam_width": 2}, {}),
+    "int8_kv": ("decoder", {"kv_cache": "int8"}, {}),
+    "w8a16": ("decoder", {"weight_dtype": "int8"}, {}),
+    "eos": ("decoder", {}, {"token_chunk": 2, "eos": True}),
+    "defer_generate": ("defer", {}, {}),
+    "defer_prefill": ("defer", {}, {"prefill": True}),
+    "logits_buffer": ("logits", {"wire": "buffer"}, {}),
+    "logits_int8": ("logits", {"wire": "int8"}, {}),
+    "score_buffer": ("score", {"wire": "buffer"}, {}),
+    "score_int8": ("score", {"wire": "int8"}, {}),
+    "speculative": ("speculative", {}, {"gamma": 3}),
+}
+#: the cases a mesh runs when its preset says "all"
+ALL_DECODE = tuple(c for c in DECODE_CASES if c != "defer_prefill")
 #: the collectives and the meshes they cross
 COLLECTIVES = ("psum", "ppermute", "ppermute_partial", "all_gather",
                "all_gather_tiled", "all_to_all")
@@ -108,38 +179,55 @@ def _tail(path: Path, n: int = 4000) -> str:
         return ""
 
 
-def make_inputs(preset: str) -> dict:
+def make_inputs(preset: str, cases=CASE_GROUPS) -> dict:
     """The seeded weights (seed ``SEED``) and numpy inputs of ``preset``'s
-    ResNet and BERT, as the chip smoke's phases 4a and 4b make them: what
-    :func:`spawn` hands the workers."""
+    groups of ``cases``, as the chip smoke's phases 4a, 4b and 4g make
+    them: what :func:`spawn` hands the workers.  ``ring``: ResNet's and
+    BERT's; ``decode``: each decoder model's (drafts seed ``SEED + 1``),
+    the prompts (seed ``SEED``) and the scored ids (seed ``SEED + 2``, the
+    first ``T`` of 4g's rows on the card)."""
     import torch
 
     from defer_tpu_torch import models
 
     cfg, out = PRESETS[preset], {}
-    s = cfg["image"]
-    g, _, _ = _model(models, cfg["resnet"])
-    out["resnet_params"] = g.init(torch.Generator().manual_seed(SEED))
-    out["resnet_x"] = np.random.default_rng(SEED).standard_normal(
-        (cfg["frames"], cfg["microbatch"], s, s, 3)).astype(np.float32)
-    g, _, _ = _model(models, cfg["bert"])
-    vocab = g.nodes["embeddings"].op.vocab
-    out["bert_params"] = g.init(torch.Generator().manual_seed(SEED))
-    out["bert_ids"] = np.random.default_rng(SEED).integers(
-        0, vocab, (cfg["frames"], cfg["microbatch"]) + g.input_spec.shape
-    ).astype(np.float32)
+    if "ring" in cases:
+        s = cfg["image"]
+        g, _, _ = _model(models, cfg["resnet"])
+        out["resnet_params"] = g.init(torch.Generator().manual_seed(SEED))
+        out["resnet_x"] = np.random.default_rng(SEED).standard_normal(
+            (cfg["frames"], cfg["microbatch"], s, s, 3)).astype(np.float32)
+        g, _, _ = _model(models, cfg["bert"])
+        vocab = g.nodes["embeddings"].op.vocab
+        out["bert_params"] = g.init(torch.Generator().manual_seed(SEED))
+        out["bert_ids"] = np.random.default_rng(SEED).integers(
+            0, vocab, (cfg["frames"], cfg["microbatch"]) + g.input_spec.shape
+        ).astype(np.float32)
+    if "decode" in cases:
+        dc = DECODE[preset]
+        graphs = decode_graphs(models, dc)
+        for name, g in graphs.items():
+            seed = SEED + 1 if name.startswith("draft") else SEED
+            out[f"{name}_params"] = g.init(torch.Generator().manual_seed(
+                seed))
+        vocab = next(iter(graphs.values())).nodes["lm_head"].out_spec.shape[-1]
+        out["gpt_prompts"] = np.random.default_rng(SEED).integers(
+            0, vocab, dc["prompts"])
+        b, t = dc["score_ids"]
+        out["gpt_score_ids"] = np.random.default_rng(SEED + 2).integers(
+            0, vocab, (b, max(t, 100)))[:, :t]
     return out
 
 
 def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
-          deadline_s: float = 120.0, timeout_s: float = 60.0,
-          env: dict | None = None) -> list[dict]:
-    """Write ``inputs`` (:func:`make_inputs`'s keys) to ``out_dir``, run
-    ``procs`` workers on them and return every worker's results
-    (:func:`load`).  A worker that exits non-zero, or the deadline, kills
-    every worker and raises ``RuntimeError`` with the stderr tails.  Build
-    the kernels before spawning on the card: the workers load the built
-    libraries."""
+          cases=CASE_GROUPS, deadline_s: float = 120.0,
+          timeout_s: float = 60.0, env: dict | None = None) -> list[dict]:
+    """Write ``inputs`` (:func:`make_inputs`'s keys for ``cases``) to
+    ``out_dir``, run ``procs`` workers on them and return every worker's
+    results (:func:`load`).  A worker that exits non-zero, or the
+    deadline, kills every worker and raises ``RuntimeError`` with the
+    stderr tails.  Build the kernels before spawning on the card: the
+    workers load the built libraries."""
     import torch
 
     out = Path(out_dir)
@@ -157,7 +245,7 @@ def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
                    str(i), "--procs", str(procs), "--port", str(port),
                    "--nccl-port", str(nccl_port), "--device", device,
                    "--preset", preset, "--out", str(out),
-                   "--timeout", str(timeout_s)]
+                   "--timeout", str(timeout_s), "--cases", ",".join(cases)]
             err = out / f"worker{i}.err"
             with open(out / f"worker{i}.out", "w") as so, \
                     open(err, "w") as se:
@@ -202,13 +290,15 @@ def _wait(workers: list, deadline_s: float) -> str | None:
 
 class Counts:
     """Kernel launches: the wrappers' own counts on the card, the calls
-    of the dispatching functions on the CPU."""
+    of the dispatching functions on the CPU (not those on ``meta``
+    tensors: a graph's shape inference, which launches nothing)."""
 
     def __init__(self, device: str):
         from defer_tpu_torch.ops import flash_attention_cuda, quant_cuda
         self.kernels = [quant_cuda.KERNEL, flash_attention_cuda.KERNEL]
         self.cpu = device == "cpu"
         self.calls = {k.name: 0 for k in self.kernels}
+        self._wrapped: list = []
         if self.cpu:
             self._wrap("defer_tpu_torch.ops.quant", "quantize_int8_blocks",
                        "quant_int8")
@@ -220,10 +310,18 @@ class Counts:
         fn = getattr(mod, attr)
 
         def counted(*a, **kw):
-            self.calls[name] += 1
+            if a[0].device.type != "meta":
+                self.calls[name] += 1
             return fn(*a, **kw)
 
         setattr(mod, attr, counted)
+        self._wrapped.append((mod, attr, fn))
+
+    def close(self) -> None:
+        """Put the wrapped functions back."""
+        for mod, attr, fn in self._wrapped:
+            setattr(mod, attr, fn)
+        self._wrapped.clear()
 
     def zero(self) -> None:
         for k in self.kernels:
@@ -316,27 +414,20 @@ def guards(torch, res, dev, cfg, g, params, mesh, pipe) -> None:
     """Each guard's message (empty when it did not raise)."""
     import queue
 
-    from defer_tpu_torch import (Defer, DeferConfig, PipelinedDecoder,
-                                 PipelineTrainer, SpmdPipeline, models)
+    from defer_tpu_torch import (Defer, DeferConfig, PipelineTrainer,
+                                 SpmdPipeline)
     from defer_tpu_torch.parallel import multihost_pipeline_mesh
 
     n = mesh.shape["stage"]
-    gpt = models.gpt_tiny(seq_len=16)
-    ids = np.zeros((cfg["microbatch"], 8), np.int64)
     d = Defer(DeferConfig(microbatch=cfg["microbatch"], device=dev),
               mesh=mesh)
     procs = int(mesh.processes.max()) + 1
     local = int((mesh.processes == 0).sum())
     tries = {
-        "decoder": lambda: PipelinedDecoder(gpt, None, num_stages=n,
-                                            mesh=mesh),
         "trainer": lambda: PipelineTrainer(
             pipe, lambda y, t: y.sum()),
         "mpmd": lambda: Defer(DeferConfig(mode="mpmd", device=dev),
                               mesh=mesh).build(g, params, num_stages=n),
-        "generate": lambda: d.generate(gpt, None, ids, 2),
-        "logits": lambda: d.logits(gpt, None, ids),
-        "score": lambda: d.score(gpt, None, ids),
         "run_defer": lambda: d.run_defer(g, params, None, queue.Queue(),
                                          queue.Queue(), num_stages=n),
         "serve_endpoint": lambda: d.serve_endpoint(g, params,
@@ -362,21 +453,40 @@ def guards(torch, res, dev, cfg, g, params, mesh, pipe) -> None:
             res["guards"][name] = str(e)
 
 
-def nccl_refusal(torch, D, args) -> str:
-    """Several processes on one card under NCCL: ``initialize`` raises
-    naming gloo (its message; empty when it did not raise).  The CPU has
-    no NCCL: there the same check runs over a gloo group whose ranks all
-    name one card."""
+def nccl_refusal(torch, D, args, stages, params, microbatch: int) -> str:
+    """Several processes on one card under NCCL: placing a ring on them
+    raises naming gloo (its message; empty when it did not raise).  The
+    group forms and an ``SpmdPipeline`` of ``stages`` over every process is
+    placed, each process's ring on the one device.  The CPU has no NCCL
+    and no card: there the group is gloo's, named NCCL to the placement,
+    and every rank's ring names one card."""
+    from defer_tpu_torch import SpmdPipeline
+    from defer_tpu_torch.parallel import multihost_pipeline_mesh
+
     dist = torch.distributed
+    n = len(stages)
+
+    def place():
+        SpmdPipeline(stages, params, mesh=multihost_pipeline_mesh(
+            n, local_devices=[args.device] * (n // args.procs)),
+            microbatch=microbatch)
+
     try:
         if args.device != "cpu":
             D.initialize(f"127.0.0.1:{args.nccl_port}", args.procs,
                          args.worker, backend="nccl", timeout_s=args.timeout)
+            place()
         else:
             dist.init_process_group(
                 "gloo", init_method=f"tcp://127.0.0.1:{args.nccl_port}",
                 world_size=args.procs, rank=args.worker)
-            D._refuse_shared_cards(dist, "host/one-card")
+            real = dist.get_backend, D.card_key
+            dist.get_backend = lambda group=None: "nccl"
+            D.card_key = lambda device=None: "host/one-card"
+            try:
+                place()
+            finally:
+                dist.get_backend, D.card_key = real
     except RuntimeError as e:
         return str(e)
     dist.destroy_process_group()
@@ -384,13 +494,12 @@ def nccl_refusal(torch, D, args) -> str:
     return ""
 
 
-def prepare(torch, models, cfg, path: Path) -> dict:
-    """A worker's host work, before it touches the card or the group: the
-    graphs and their stages (``dp``: ResNet's in ``dp_stages``), and the
-    parent's weights and inputs, mapped from ``path``."""
+def prepare(torch, models, cfg, given) -> dict:
+    """A worker's host work for the ``ring`` cases, before it touches the
+    card or the group: the graphs and their stages (``dp``: ResNet's in
+    ``dp_stages``), and the parent's weights and inputs."""
     from defer_tpu_torch import partition
 
-    given = torch.load(path, mmap=True, weights_only=True)
     g, cuts, n = _model(models, cfg["resnet"])
     prep = {"resnet": (g, cuts, partition(g, cuts, num_stages=n),
                        given["resnet_params"], given["resnet_x"].numpy()),
@@ -401,39 +510,13 @@ def prepare(torch, models, cfg, path: Path) -> dict:
     return prep
 
 
-def worker(args) -> None:
-    t0 = time.perf_counter()
-    marks: dict = {}
-
-    def mark(what: str) -> None:
-        marks[what] = time.perf_counter() - t0
-
-    sys.path.insert(0, str(ROOT))
-    import torch
-
-    from defer_tpu_torch import Defer, DeferConfig, models
-    from defer_tpu_torch.parallel import distributed as D
+def ring_group(torch, res, arrays, counts, models, cfg, prep, dev, n_proc,
+               mark) -> None:
+    """The ``ring`` cases (see the module's docstring)."""
+    from defer_tpu_torch import Defer, DeferConfig
     from defer_tpu_torch.parallel import multihost_pipeline_mesh
 
-    cfg = PRESETS[args.preset]
-    dev = args.device
-    torch.set_num_threads(1 if dev == "cpu" else 2)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    res: dict = {"worker": args.worker, "procs": args.procs,
-                 "device": dev, "preset": args.preset, "seconds": marks}
-    arrays: dict = {}
-    mark("import")
-    prep = prepare(torch, models, cfg, Path(args.out) / "inputs.pt")
-    mark("prepare")
-    res["nccl_refused"] = nccl_refusal(torch, D, args)
-    mark("nccl_refused")
-    D.initialize(f"127.0.0.1:{args.port}", args.procs, args.worker,
-                 backend="gloo", timeout_s=args.timeout)
-    mark("gloo_group")
-    counts = Counts(dev)
-    n_proc, mb = args.procs, cfg["microbatch"]
-
+    mb = cfg["microbatch"]
     # resnet: 8 stages, two a process, both wires; Defer.run and .stream
     g, cuts, stages, params, x = prep.pop("resnet")
     n = len(stages)
@@ -479,6 +562,266 @@ def worker(args) -> None:
                   ids, bmesh, w, cfg, dev)
     mark("bert_rings")
 
+
+# ---------------------------------------------------------------------------
+# the decoder cases
+# ---------------------------------------------------------------------------
+
+
+def decode_graphs(models, dc) -> dict:
+    """The decoder cases' graphs by name (``DECODE[preset]["models"]``)."""
+    return {name: getattr(models, factory)(**kw)
+            for name, (factory, kw) in dc["models"].items()}
+
+
+def decode_cases(dc, key: str) -> tuple:
+    cases = dc["cases"][key]
+    return ALL_DECODE if cases == "all" else tuple(cases)
+
+
+class DecodeRun:
+    """The decoder cases of one of ``DECODE[preset]``'s meshes, on the
+    given weights and inputs (:func:`make_inputs`'s keys) and graphs
+    (:func:`decode_graphs`): the workers run them on ``mesh`` across
+    processes; with ``mesh=None`` they run on the one-process engines in
+    as many stages, the CPU tests' reference.
+    Engines are built once per mesh and configuration and reused, as a
+    server would; :meth:`case` runs one case."""
+
+    def __init__(self, torch, models, dc, given, key, device, graphs,
+                 mesh=None):
+        self.torch, self.dc, self.device, self.mesh = torch, dc, device, mesh
+        model, self.n, _, draft = dc["meshes"][key]
+        self.graph, self.params = graphs[model], given[f"{model}_params"]
+        blocks = sum(nm.startswith("block_") for nm in self.graph.topo_order)
+        self.cuts = models.gpt_stage_cuts(blocks, self.n)
+        self.draft = None
+        if draft is not None:
+            dg = graphs[draft]
+            self.draft = (dg, given[f"{draft}_params"], models.gpt_stage_cuts(
+                sum(nm.startswith("block_") for nm in dg.topo_order),
+                self.n))
+        self.prompts = np.asarray(given["gpt_prompts"])
+        self.ids = np.asarray(given["gpt_score_ids"])
+        self._engines: dict = {}
+        #: each case's first result (``tokens``, ``logits``, ...)
+        self.results: dict = {}
+
+    def _place(self) -> dict:
+        return ({"device": self.device} if self.mesh is None
+                else {"mesh": self.mesh})
+
+    def decoder(self, **ctor):
+        from defer_tpu_torch import PipelinedDecoder
+
+        key = ("decoder",) + tuple(sorted(ctor.items()))
+        if key not in self._engines:
+            self._engines[key] = PipelinedDecoder(
+                self.graph, self.params, num_stages=self.n,
+                microbatch=self.dc["microbatch"],
+                max_len=self.dc["max_len"], **self._place(), **ctor)
+        return self._engines[key]
+
+    def defer(self, wire: str = "buffer"):
+        from defer_tpu_torch import Defer, DeferConfig
+
+        key = ("defer", wire)
+        if key not in self._engines:
+            self._engines[key] = Defer(DeferConfig(
+                microbatch=self.dc["microbatch"], chunk=self.dc["chunk"],
+                wire=wire, device=self.device), mesh=self.mesh)
+        return self._engines[key]
+
+    def _stages(self) -> dict:
+        """``num_stages`` for a call of ``Defer`` without a mesh."""
+        return {"num_stages": self.n} if self.mesh is None else {}
+
+    def _call(self, name: str):
+        """``(fn, engine)``: the case's call and what runs it."""
+        from defer_tpu_torch import speculative_generate
+
+        kind, ctor, kw = DECODE_CASES[name]
+        kw, new, mb = dict(kw), self.dc["new"], self.dc["microbatch"]
+        if kind == "decoder":
+            dec = self.decoder(**ctor)
+            prompts = self.prompts
+            if dec.beam_width > 1:
+                prompts = prompts[:self.n * (mb // dec.beam_width)]
+            if kw.pop("eos", False):
+                kw["eos_id"] = self.eos_id()
+                spans = self.results.setdefault(f"{name}_spans", [])
+                kw["on_tokens"] = lambda lo, hi, t, rows: spans.append(
+                    (lo, hi, rows[0], rows[1], t))
+            return (lambda: {"tokens": dec.generate(prompts, new, **kw)},
+                    dec)
+        if kind == "defer":
+            d = self.defer()
+            return (lambda: {"tokens": d.generate(
+                self.graph, self.params, self.prompts, new,
+                max_len=self.dc["max_len"], **self._stages(), **kw)}, d)
+        if kind in ("logits", "score"):
+            d = self.defer(ctor["wire"])
+            if kind == "logits":
+                return (lambda: {"logits": d.logits(
+                    self.graph, self.params, self.ids,
+                    cut_points=self.cuts)}, d)
+            return (lambda: dict(zip(("logprob", "perplexity"), d.score(
+                self.graph, self.params, self.ids, cut_points=self.cuts))),
+                d)
+        d = self.defer()
+        dg, dp, dcuts = self.draft
+
+        def spec():
+            out, stats = speculative_generate(
+                d, self.graph, self.params, dg, dp, self.prompts[:2 * mb],
+                new, cut_points=self.cuts, draft_cut_points=dcuts,
+                return_stats=True, **kw)
+            self.results["speculative_stats"] = stats
+            return {"tokens": out}
+        return spec, d
+
+    def eos_id(self) -> int:
+        """The greedy run's token at position plen + 1 of row 0."""
+        return int(self.results["greedy"]["tokens"][0, self.prompts.shape[1]
+                                                    + 1])
+
+    def case(self, name: str, counts) -> tuple[dict, dict]:
+        """Run case ``name`` ``DECODE[preset]["timed"]`` times, the kernel
+        counts zeroed just before the first call and read just after it;
+        returns its arrays (the first call's) and its scalars (the
+        engine's for the first call: what crossed, ring steps)."""
+        torch = self.torch
+        fn, engine = self._call(name)
+        kind = DECODE_CASES[name][0]
+        times, meta = [], {}
+        for i in range(self.dc["timed"]):
+            if i == 0:
+                before = self._engine_meta(engine, kind)
+                counts.zero()
+            _sync(torch, self.device)
+            t0 = time.perf_counter()
+            out = fn()
+            _sync(torch, self.device)
+            times.append(time.perf_counter() - t0)
+            if i == 0:
+                first, meta["launches"] = out, counts.read()
+                meta.update(self._engine_meta(engine, kind))
+                for k in ("boundary_bytes", "boundary_sends", "steps"):
+                    if k in meta:
+                        meta[k] -= before.get(k, 0)
+        self.results[name] = first
+        meta["seconds"] = times
+        spans = self.results.pop(f"{name}_spans", None)
+        arrays = {k: np.asarray(v) for k, v in first.items()}
+        if spans is not None:
+            meta["spans"] = [list(sp[:4]) for sp in spans]
+            for i, sp in enumerate(spans):
+                arrays[f"span{i}"] = sp[4]
+        if name == "speculative":
+            meta["stats"] = self.results.pop("speculative_stats")
+        return arrays, meta
+
+    @staticmethod
+    def _engine_meta(engine, kind: str) -> dict:
+        """What the engine that ran a case (a decoder, or the one a
+        ``Defer`` built: its decoder or its score pipeline) reports."""
+        if kind != "decoder":
+            cache = (engine._decoder_cache if kind == "defer"
+                     else engine._score_cache)
+            if not cache:
+                return {}
+            engine = next(iter(cache.values()))[2]
+        m = engine.metrics
+        out = {"local_stages": list(engine.local_stages),
+               "transport": engine.hop_transport,
+               "boundary_bytes": m.boundary_bytes,
+               "boundary_sends": m.boundary_sends}
+        if hasattr(engine, "caches"):
+            out.update(captures=engine.captures,
+                       caches={k: len(v) for k, v in engine.caches.items()},
+                       rows=len(engine._rows))
+        else:
+            out.update(captures=m.captures, steps=m.steps)
+        return out
+
+    def rows(self) -> dict:
+        """This process's weight rows of the greedy decoder, by stage."""
+        dec = self.decoder()
+        return {f"row{s}": dec._rows[i][0].float().cpu().numpy()
+                for i, s in enumerate(dec.local_stages)}
+
+
+def decode_group(torch, res, arrays, counts, models, preset, given, dev,
+                 n_proc, mark) -> None:
+    """The ``decode`` cases on each of ``DECODE[preset]``'s meshes, spread
+    over the ``n_proc`` processes: arrays ``dec_<mesh>_<case>__<name>``
+    and scalars ``res["decode"][mesh][case]``."""
+    from defer_tpu_torch.parallel import multihost_pipeline_mesh
+
+    dc = DECODE[preset]
+    graphs = decode_graphs(models, dc)
+    res["decode"] = {}
+    for key, (_, n, dp, _) in dc["meshes"].items():
+        mesh = multihost_pipeline_mesh(n, dp, local_devices=[dev] * (
+            n * dp // n_proc))
+        run = DecodeRun(torch, models, dc, given, key, dev, graphs,
+                        mesh=mesh)
+        res["decode"][key] = {}
+        for case in decode_cases(dc, key):
+            got, meta = run.case(case, counts)
+            res["decode"][key][case] = meta
+            for k, v in got.items():
+                arrays[f"dec_{key}_{case}__{k}"] = v
+        if dc["keep_rows"]:
+            for k, v in run.rows().items():
+                arrays[f"dec_{key}_{k}"] = v
+        del run
+        mark(f"decode_{key}")
+
+
+def worker(args) -> None:
+    t0 = time.perf_counter()
+    marks: dict = {}
+
+    def mark(what: str) -> None:
+        marks[what] = time.perf_counter() - t0
+
+    import torch
+
+    from defer_tpu_torch import models
+    from defer_tpu_torch.parallel import distributed as D
+
+    cfg = PRESETS[args.preset]
+    cases = args.cases.split(",")
+    dev = args.device
+    torch.set_num_threads(1 if dev == "cpu" else 2)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res: dict = {"worker": args.worker, "procs": args.procs,
+                 "device": dev, "preset": args.preset, "cases": cases,
+                 "seconds": marks}
+    arrays: dict = {}
+    mark("import")
+    given = torch.load(Path(args.out) / "inputs.pt", mmap=True,
+                       weights_only=True)
+    prep = prepare(torch, models, cfg, given) if "ring" in cases else None
+    mark("prepare")
+    if "ring" in cases:
+        stages, params = prep["bert"][:2]
+        res["nccl_refused"] = nccl_refusal(torch, D, args, stages, params,
+                                           cfg["microbatch"])
+        mark("nccl_refused")
+    D.initialize(f"127.0.0.1:{args.port}", args.procs, args.worker,
+                 backend="gloo", timeout_s=args.timeout)
+    mark("gloo_group")
+    counts = Counts(dev)
+    if "ring" in cases:
+        ring_group(torch, res, arrays, counts, models, cfg, prep, dev,
+                   args.procs, mark)
+    if "decode" in cases:
+        decode_group(torch, res, arrays, counts, models, args.preset, given,
+                     dev, args.procs, mark)
+
     arrays["meta"] = np.array(json.dumps(res))
     np.savez(Path(args.out) / f"worker{args.worker}.npz", **arrays)
     torch.distributed.destroy_process_group()
@@ -490,6 +833,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--preset", choices=sorted(PRESETS), default=None,
                     help="default: cpu on the CPU, card otherwise")
+    ap.add_argument("--cases", default=",".join(CASE_GROUPS),
+                    help="the groups of cases, comma-separated: "
+                    + ", ".join(CASE_GROUPS))
     ap.add_argument("--out", required=True)
     ap.add_argument("--deadline", type=float, default=120.0,
                     help="seconds the parent waits for every worker")
@@ -501,18 +847,22 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.preset is None:
         args.preset = "cpu" if args.device == "cpu" else "card"
+    cases = tuple(args.cases.split(","))
+    if set(cases) - set(CASE_GROUPS):
+        ap.error(f"--cases: choose from {', '.join(CASE_GROUPS)}")
+    sys.path.insert(0, str(ROOT))
     if args.worker is not None:
         worker(args)
         return 0
     t0 = time.perf_counter()
     results = spawn(args.procs, args.device, args.preset, args.out,
-                    make_inputs(args.preset), deadline_s=args.deadline,
-                    timeout_s=args.timeout)
+                    make_inputs(args.preset, cases), cases=cases,
+                    deadline_s=args.deadline, timeout_s=args.timeout)
     w0 = results[0]["meta"]
     print(json.dumps({"procs": args.procs, "device": args.device,
                       "seconds": time.perf_counter() - t0,
                       **{k: v for k, v in w0.items() if k.startswith((
-                          "resnet", "bert", "dp"))}}))
+                          "resnet", "bert", "dp", "decode"))}}))
     return 0
 
 

@@ -63,14 +63,14 @@ def test_pipeline_mesh_too_few_devices_and_one_card():
             M.pipeline_mesh(2)
     mesh = M.one_card_mesh("cpu", 4, 2, 2)
     assert mesh.shape == {"data": 2, "stage": 4, "model": 2}
-    assert M.mesh_device(mesh, "x") == torch.device("cpu")
+    assert M.mesh_placement(mesh, "x")[1] == torch.device("cpu")
     assert M.stage_axis_size(mesh) == 4
 
 
 def test_mesh_over_distinct_devices_raises_naming_a15b():
     mesh = M.pipeline_mesh(2, devices=["cuda:0", "cuda:1"])
     with pytest.raises(NotImplementedError, match="A15b"):
-        M.mesh_device(mesh, "SpmdPipeline")
+        M.mesh_placement(mesh, "SpmdPipeline")
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])

@@ -1,7 +1,8 @@
 """Port parity: the ring across ``torch.distributed`` processes.
 
 One spawn of ``scripts/torch_ring_procs.py`` (four gloo CPU processes, a
-deadline of 120 s) runs every case; the tests read its results.  The
+deadline of 120 s) runs its ``ring`` cases; the tests read its results
+(``tests/test_torch_multiproc_decode.py`` spawns the ``decode`` cases).  The
 workers map the seeded ``resnet_tiny`` / ``bert_tiny`` weights and numpy
 inputs that this process builds and hands them, so the same values go
 through:
@@ -65,7 +66,8 @@ PIPES = [(c, w) for c in CASES for w in R.WIRES]
 @pytest.fixture(scope="module")
 def ring(tmp_path_factory):
     return R.spawn(PROCS, "cpu", "cpu", tmp_path_factory.mktemp("ring"),
-                   R.make_inputs("cpu"), deadline_s=120.0, timeout_s=60.0)
+                   R.make_inputs("cpu", ("ring",)), cases=("ring",),
+                   deadline_s=120.0, timeout_s=60.0)
 
 
 def _graph(name):
@@ -86,7 +88,7 @@ def _inputs(case, g):
 def test_the_workers_inputs_are_this_process_seeded_ones():
     """What the spawn hands the workers is what the references below
     build: the same seeded weights and inputs."""
-    given = R.make_inputs("cpu")
+    given = R.make_inputs("cpu", ("ring",))
     for case, name in (("resnet", "resnet_tiny"), ("bert", "bert_tiny")):
         g, p = _graph(name)
         np.testing.assert_array_equal(
@@ -277,8 +279,9 @@ def test_guard_names_its_queue(ring, name):
 
 
 def test_ranks_sharing_a_card_are_refused_naming_gloo(ring):
-    """``initialize``'s NCCL check, run over a gloo group whose four ranks
-    name one card: every rank raises naming gloo and the card's ranks."""
+    """The NCCL check of a ring's placement, run over a gloo group named
+    NCCL to it whose four ranks' rings name one card: every rank raises
+    naming gloo and the card's ranks."""
     for r in ring:
         msg = r["meta"]["nccl_refused"]
         assert 'backend="gloo"' in msg and "[0, 1, 2, 3]" in msg, msg
@@ -291,7 +294,8 @@ def test_ranks_sharing_a_card_are_refused_naming_gloo(ring):
 
 def test_one_process_mesh_is_any_ranks():
     """A mesh held by one process is that process's whatever its rank;
-    a process holding no position of a mesh over several is refused."""
+    of a mesh over several, a process holds its own positions, and one
+    holding none is refused."""
     mesh = M.pipeline_mesh(2, 2, devices=["cpu"] * 4)
     mine, dev = M.mesh_placement(mesh, "x")
     assert mine.all() and dev == torch.device("cpu")
@@ -299,9 +303,9 @@ def test_one_process_mesh_is_any_ranks():
     far.processes = np.array([[1, 2]])
     with pytest.raises(ValueError, match="holds no position"):
         M.mesh_placement(far, "x")
-    with pytest.raises(NotImplementedError, match="A15c"):
-        M.mesh_device(M.Mesh(np.array(["cpu", "cpu"], object), ("stage",),
-                             processes=[0, 1]), "x")
+    mine, dev = M.mesh_placement(M.Mesh(np.array(["cpu", "cpu"], object),
+                                        ("stage",), processes=[0, 1]), "x")
+    assert mine.tolist() == [True, False] and dev == torch.device("cpu")
 
 
 def test_ring_block_needs_consecutive_stages_of_consecutive_lines():
@@ -319,19 +323,18 @@ def test_shared_cards_names_each_card_and_its_ranks():
     assert D.shared_cards(["h/a", "h/b", "h/a", "h/a"]) == {"h/a": [0, 2, 3]}
 
 
-def _swapped(local_ranks):
-    """Each rank's view of every rank's card
-    (``card_key(local_ranks[r])``), swapped through one store by a thread
-    a rank."""
+def _swapped(devices):
+    """Each rank's view of every rank's card (``card_key(devices[r])``,
+    its ring's device), swapped through one store by a thread a rank."""
     store = torch.distributed.HashStore()
-    views = [None] * len(local_ranks)
+    views = [None] * len(devices)
 
     def rank(r):
-        views[r] = D.swap_card_keys(store, r, len(local_ranks),
-                                    D.card_key(local_ranks[r]))
+        views[r] = D.swap_card_keys(store, r, len(devices),
+                                    D.card_key(devices[r]))
 
     threads = [threading.Thread(target=rank, args=(r,))
-               for r in range(len(local_ranks))]
+               for r in range(len(devices))]
     for t in threads:
         t.start()
     for t in threads:
@@ -341,22 +344,21 @@ def _swapped(local_ranks):
 
 def test_ranks_on_distinct_cards_are_not_refused(monkeypatch):
     """The port calls no ``set_device``, so every rank's current device is
-    card 0: ranks with local ranks 0 and 1 (``LOCAL_RANK``, as ``torchrun``
-    sets it) are not refused; ranks with none share card 0 and are.  A
-    local rank names its card only where that card is visible."""
+    card 0: ranks whose rings name cards 0 and 1 (a launcher mapping
+    ranks to cards only through the mesh's ``local_devices``) are not
+    refused, whatever ``LOCAL_RANK`` says; rings that name no index share
+    the current card and are."""
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda i: types.SimpleNamespace(uuid=f"GPU-{i}"))
-    monkeypatch.delenv("LOCAL_RANK", raising=False)
-    for view in _swapped([0, 1]):
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    for view in _swapped([torch.device("cuda", 0), "cuda:1"]):
         assert D.shared_cards(view) == {}
-    for view in _swapped([None, None]):
+    for view in _swapped(["cuda", torch.device("cuda")]):
         assert list(D.shared_cards(view).values()) == [[0, 1]]
-    monkeypatch.setenv("LOCAL_RANK", "1")
-    assert D.card_key().endswith("/GPU-1")
-    monkeypatch.setenv("LOCAL_RANK", "2")  # not visible: the current card
-    assert D.card_key().endswith("/GPU-0")
+    assert D.card_key("cuda:1").endswith("/GPU-1")
+    assert D.card_key().endswith("/GPU-0")  # the current card
 
 
 def test_a_failing_worker_fails_the_spawn_with_its_stderr(tmp_path):
@@ -369,5 +371,5 @@ def test_the_deadline_kills_every_worker(tmp_path):
     fails (the two wait for each other in the ring's first receive at the
     latest)."""
     with pytest.raises(RuntimeError, match="still running after"):
-        R.spawn(2, "cpu", "cpu", tmp_path, R.make_inputs("cpu"),
-                deadline_s=1.0)
+        R.spawn(2, "cpu", "cpu", tmp_path, R.make_inputs("cpu", ("ring",)),
+                cases=("ring",), deadline_s=1.0)
