@@ -266,7 +266,8 @@ Phases, in order; any failure exits non-zero before the result line:
                    forward, and a mesh over two cards refused (A15b);
      4t. the ring across processes: four ``torch.distributed`` processes
          sharing the card over gloo (``scripts/torch_ring_procs.py``,
-         spawned once): ResNet50/8 on a (stage 8) mesh, two stages a
+         spawned once, as 4s begins: a worker's host start runs beside
+         4s): ResNet50/8 on a (stage 8) mesh, two stages a
          process, both wires, against 4a's ring (one quantizer launch per
          process and int8 step, the bytes a boundary carries, images/s
          beside 4a's); BERT-Base/12, three stages a process, against 4b's
@@ -282,6 +283,13 @@ Phases, in order; any failure exits non-zero before the result line:
          ``Defer(mesh=).score`` on both wires against the one-process
          ``score`` (flash launches = blocks x steps, one quantizer launch
          per process and int8 step); tokens/s and sequences/s beside 4g's;
+         ``PipelineTrainer`` of ResNet50/8 on the (stage 8) mesh, two
+         stages a process, on 4r's chunk: the int8 ``loss_and_grad`` and
+         the buffer wire's against 4r b's and a's loss and gradients, one
+         quantizer launch per process and ring step, 3 Adam steps against
+         4r b's losses, ``trained_params`` the same on every process and
+         the trained deployment's run against a fresh pipeline of it, the
+         bytes a boundary carries forward and back, seconds beside 4r's;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
               ``replication_path``, ``dag_path``, ``obs_path``,
@@ -3818,6 +3826,8 @@ def train_resnet(torch, device, kernels, card, mp) -> dict:
     worst = check_stage_grads(torch, tb, gb, ref_g, "a buffer")
     res["buffer"] = {"loss": float(lb), "reference_loss": ref_l,
                      "worst_grad_rel": worst, "seconds": sec}
+    # phase 4t (iii)'s reference: this chunk's buffer-wire loss, gradients
+    res["_buffer_baseline"] = {"loss": float(lb), "grads": tb.stage_grads(gb)}
     print(f"train path a: PipelineTrainer(resnet50, {n} stages, buffer "
           f"wire, microbatch {MICROBATCH}) loss_and_grad on {TRAIN_M} "
           f"microbatches ({steps} ring steps, remat) {sec:.3f} s; loss "
@@ -3859,11 +3869,18 @@ def train_resnet(torch, device, kernels, card, mp) -> dict:
         fail(f"phase 4r b: the plain quantizer's loss {float(lp)!r} and "
              f"gradients ({prel:.3g} of max |g|) against the kernel's "
              f"{float(lq)!r} (bound {TRAIN_PLAIN_REL})")
-    # phase 4s e's dp=1 baseline: this chunk's int8 loss and gradients
+    # phase 4s e's dp=1 baseline and 4t (i)'s reference: this chunk's int8
+    # loss and gradients
     res["_int8_baseline"] = {"loss": float(lq), "grads": tq.stage_grads(gq)}
     del gp, gq
+    # cuDNN runs deterministic algorithms for the Adam steps (as in e):
+    # Adam turns a last-bit difference in a near-zero gradient into a step
+    # of 2 lr, and phase 4t holds its processes' steps to these
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     losses, got_s, sec_s = _counted(torch, kernels, lambda: [
         tq.step(xs, ys) for _ in range(TRAIN_STEPS)])
+    torch.backends.cudnn.deterministic = deterministic
     _want_launches("b Adam steps", got_s, TRAIN_STEPS * steps)
     res["launches"]["int8_adam_steps"] = got_s
     if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
@@ -4953,9 +4970,9 @@ def colocate_path(torch, device, kernels, card, mp, bp, ch, raw,
 # phase 4m: the planner on the card
 # ---------------------------------------------------------------------------
 
-#: measured_node_costs: calls per graph replay (the reference's scan
-#: length) and timed replays per node
-PLAN_K = 32
+#: measured_node_costs: calls per graph replay (16, half the reference's
+#: scan length, to pay for phase 4t's training) and timed replays per node
+PLAN_K = 16
 PLAN_REPS = 3
 #: alternating timed rounds of the ring at the solved and the paper's cuts,
 #: each a run of PLAN_RING_REPEAT x phase 4a's microbatches
@@ -5651,7 +5668,7 @@ def replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
 #: InceptionV3 DAG (a): frames of MICROBATCH images through the in-process
 #: deployment's checked stream, its timed stream, and the process run
 DAG_FRAMES = 16
-DAG_TIMED_FRAMES = 32
+DAG_TIMED_FRAMES = 16
 DAG_PROC_FRAMES = 8
 #: InceptionV3's image size (torchvision's) and the node budget of its DAG
 #: and of its linear comparison
@@ -6628,6 +6645,9 @@ PROCS_SCORE_IDS = (16, 32)
 #: its scores against the one-process ``score`` on the same wire (the same
 #: kernels on the same rows: 0 expected)
 PROCS_SCORE_RTOL = 1e-5
+#: ResNet50/8's Adam losses across the processes against 4r b's (the JAX
+#: package's Adam bound, tests/test_torch_training.py)
+PROCS_ADAM_RTOL = 1e-4
 
 
 def ring_procs_module():
@@ -6797,11 +6817,228 @@ def procs_gpt(torch, res, card, g4t, refs) -> dict:
     return out
 
 
-def procs_path(torch, device, kernels, card, mp, bp, thr, bthr,
-               g4t) -> dict:
+def procs_train(torch, res, card, t4) -> dict:
+    """Phase 4t (i)-(iv): the workers' ResNet50/8 training across the four
+    processes (``R.TRAIN["card"]``: 4r's chunk and targets, two stages a
+    process) against 4r's own results (``t4``: 4r b's int8 loss, stage
+    gradients and Adam losses, 4r a's buffer-wire loss and gradients)."""
+    import numpy as np
+
+    from defer_tpu_torch.graph.ir import flatten_tree
+
+    metas = {k: [r["meta"]["train"][k] for r in res]
+             for k in res[0]["meta"]["train"]}
+    out = {}
+
+    def slowest(key, case):
+        # each process's median call, the slowest process's
+        return max(statistics.median(m[case]["seconds"])
+                   for m in metas[key])
+
+    def per_process(key, case, quant):
+        got = [m[case]["launches"] for m in metas[key]]
+        want = {"quant_int8": quant, "flash_attention": 0}
+        if any(g != want for g in got):
+            fail(f"phase 4t: train {key} {case} launches {got} per process, "
+                 f"want {want} each")
+        return {k: sum(g[k] for g in got) for k in want}
+
+    def held(key, base) -> float:
+        # the loss on every process, every stage's leaves from its process
+        ref = {f"{n}/{k}": v for sg in base["grads"] for n, sub in sg.items()
+               for k, v in flatten_tree(sub).items()}
+        losses = [m["grad"]["loss"] for m in metas[key]]
+        if not all(abs(lo - base["loss"]) <= TRAIN_LOSS_RTOL
+                   * abs(base["loss"]) for lo in losses):
+            fail(f"phase 4t: train {key} losses {losses} against 4r's "
+                 f"{base['loss']!r} (rtol {TRAIN_LOSS_RTOL})")
+        pre, seen, worst = f"tr_{key}_grad__g/", set(), 0.0
+        for r in res:
+            for name in r:
+                if not name.startswith(pre):
+                    continue
+                leaf = name[len(pre):]
+                want = ref[leaf].float().numpy()
+                scale = max(float(np.abs(want).max()), 1e-30)
+                err = float(np.abs(r[name] - want).max()) / scale
+                if not err <= TRAIN_GRAD_REL:
+                    fail(f"phase 4t: train {key} gradient of {leaf} "
+                         f"{err:.3g} of 4r's max |g| (bound "
+                         f"{TRAIN_GRAD_REL})")
+                worst = max(worst, err)
+                seen.add(leaf)
+        if seen != set(ref):
+            fail(f"phase 4t: train {key}: the processes returned "
+                 f"{len(seen)} gradient leaves, 4r has {len(ref)}")
+        return worst
+
+    def wire_bytes(key):
+        # a boundary's bytes a ring step, forward and backward apart
+        m = metas[key][0]["grad"]
+        buf, steps = m["buf_elems"], m["ring_steps"]
+        fwd = (MICROBATCH * (buf + 4 * (buf // 256)) if "int8" in key
+               else MICROBATCH * buf * 4)
+        bwd = MICROBATCH * buf * 4
+        for mm in metas[key]:
+            g = mm["grad"]
+            if (g["boundary_sends"] != 2 * steps
+                    or g["boundary_bytes"] != steps * (fwd + bwd)
+                    or g["transport"] != "gloo"):
+                fail(f"phase 4t: train {key} crossed {g['boundary_bytes']} "
+                     f"bytes in {g['boundary_sends']} sends over "
+                     f"{g['transport']} (want {steps} x ({fwd} + {bwd}) in "
+                     f"{2 * steps}, gloo)")
+        return steps, fwd, bwd
+
+    # (i) int8 loss_and_grad against 4r b
+    key = "s8_int8"
+    steps, fwd, bwd = wire_bytes(key)
+    worst = held(key, t4["int8"])
+    launches = per_process(key, "grad", steps)
+    sec = slowest(key, "grad")
+    out["int8_loss_and_grad"] = {
+        "losses": [m["grad"]["loss"] for m in metas[key]],
+        "reference_loss": t4["int8"]["loss"], "worst_grad_rel": worst,
+        "launches": launches, "ring_steps": steps, "seconds": sec,
+        "one_process_seconds": t4["int8_s"],
+        "local_stages": [m["grad"]["local_stages"] for m in metas[key]],
+        "bytes_per_boundary_step": {"forward": fwd, "backward": bwd}}
+    print(f"procs path train (i): PipelineTrainer(resnet50, 8 stages, int8) "
+          f"over {RING_PROCS} processes x 2 stages: loss "
+          f"{metas[key][0]['grad']['loss']:.6f} on every process (4r "
+          f"{t4['int8']['loss']:.6f}), worst gradient leaf {worst:.3g} of "
+          f"4r's max |g| (bound {TRAIN_GRAD_REL}); launches {launches} "
+          f"({steps} a process, one per ring step); a boundary carries "
+          f"{fwd / 1e6:.3f} MB forward (int8) and {bwd / 1e6:.3f} MB back "
+          f"(f32) a step; loss_and_grad {sec:.3f} s (the slowest process) "
+          f"beside 4r's {t4['int8_s']:.3f} s in one process (no speed "
+          f"claim: four processes time-share the card and every hop "
+          f"crosses host memory); on {card}", flush=True)
+
+    # (ii) 3 Adam steps at TRAIN_ADAM_LR against 4r b's
+    adam = [m["adam"] for m in metas[key]]
+    losses = adam[0]["losses"]
+    launches = per_process(key, "adam", TRAIN_STEPS * steps)
+    digests = {a["digest"] for a in adam}
+    if (any(a["losses"] != losses for a in adam)
+            or not np.allclose(losses, t4["adam_losses"],
+                               rtol=PROCS_ADAM_RTOL, atol=0)
+            or not losses[-1] < losses[0] or len(digests) != 1):
+        fail(f"phase 4t: train Adam losses {[a['losses'] for a in adam]} "
+             f"against 4r's {t4['adam_losses']} (rtol {PROCS_ADAM_RTOL}, "
+             f"falling); trained_params digests {sorted(digests)}")
+    rel = [float(np.abs(r[f"tr_{key}_adam__run_rows"]
+                        - r[f"tr_{key}_adam__fresh_rows"]).max())
+           / float(np.abs(r[f"tr_{key}_adam__fresh_rows"]).max())
+           for r in res]
+    if max(rel) > PROCS_REL_BOUND:
+        fail(f"phase 4t: the trained deployment's run is {max(rel):.3g} of "
+             f"max |output| off a fresh pipeline of trained_params() (bound "
+             f"{PROCS_REL_BOUND})")
+    step_s = slowest(key, "adam")
+    out["int8_adam"] = {"losses": losses, "reference_losses":
+                        t4["adam_losses"], "launches": launches,
+                        "step_s": step_s, "one_process_step_s":
+                        t4["step_s"], "run_vs_fresh_rel": max(rel),
+                        "trained_params_equal": True}
+    print(f"procs path train (ii): Adam (lr {TRAIN_ADAM_LR:g}) losses "
+          f"{[round(x, 4) for x in losses]} on every process (4r "
+          f"{[round(x, 4) for x in t4['adam_losses']]}); launches "
+          f"{launches}; trained_params() equal on every process; the "
+          f"trained deployment's run {max(rel):.3g} of max |output| off a "
+          f"fresh pipeline of it; {step_s:.3f} s a step (the slowest "
+          f"process's median) beside 4r's {t4['step_s']:.3f} s; on {card}",
+          flush=True)
+
+    # (iii) the buffer wire against 4r a
+    key = "s8_buffer"
+    steps, fwd, bwd = wire_bytes(key)
+    worst = held(key, t4["buffer"])
+    launches = per_process(key, "grad", 0)
+    sec = slowest(key, "grad")
+    out["buffer_loss_and_grad"] = {
+        "losses": [m["grad"]["loss"] for m in metas[key]],
+        "reference_loss": t4["buffer"]["loss"], "worst_grad_rel": worst,
+        "launches": launches, "seconds": sec,
+        "one_process_seconds": t4["buffer_s"],
+        "bytes_per_boundary_step": {"forward": fwd, "backward": bwd}}
+    print(f"procs path train (iii): buffer wire loss "
+          f"{metas[key][0]['grad']['loss']:.6f} on every process (4r "
+          f"{t4['buffer']['loss']:.6f}), worst gradient leaf {worst:.3g}; "
+          f"launches {launches}; {fwd / 1e6:.3f} MB a boundary a step each "
+          f"way; loss_and_grad {sec:.3f} s beside 4r's "
+          f"{t4['buffer_s']:.3f} s; on {card}", flush=True)
+    return out
+
+
+def procs_spawn(mp, bp, g4t) -> dict:
+    """Phase 4t's spawn, started as phase 4s begins: the launcher's card
+    presets checked against this smoke's sizes, 4a's, 4b's, 4g's and 4r's
+    weights and inputs written once, and ``scripts/torch_ring_procs.py``'s
+    four workers spawned on a thread.  A worker imports torch and builds
+    its graphs on the host (8-13 s) before it touches the card, so that
+    runs beside 4s; :func:`procs_path` joins the thread."""
+    import threading
+    from pathlib import Path
+
+    import numpy as np
+
+    R = ring_procs_module()
+    cfg, dc = R.PRESETS["card"], R.DECODE["card"]
+    if (cfg["microbatch"], cfg["chunk"], cfg["frames"]) != (
+            MICROBATCH, CHUNK, 2 * CHUNK):
+        fail("phase 4t: the launcher's card preset is not 4a's batch")
+    if ((dc["microbatch"], dc["chunk"], dc["max_len"], dc["prompts"],
+         dc["new"], dc["score_ids"])
+            != (MICROBATCH, CHUNK, GPT_MAX_LEN, GPT_PROMPTS, PROCS_GPT_NEW,
+                PROCS_SCORE_IDS)
+            or dc["meshes"]["s12"][1] != GPT_STAGES):
+        fail("phase 4t: the launcher's card decode preset is not 4g's")
+    tc = R.TRAIN["card"]
+    if ((tc["m"], tc["microbatch"], tc["chunk"], tc["steps"]["resnet50"],
+         tc["lr"]["resnet50"]["adam"], tc["models"]["resnet50"][2])
+            != (TRAIN_M, MICROBATCH, CHUNK, TRAIN_STEPS, TRAIN_ADAM_LR,
+                "RESNET50_8STAGE_CUTS")
+            or list(tc["runs"]) != ["s8_int8", "s8_buffer"]):
+        fail("phase 4t: the launcher's card train preset is not 4r's")
+    vocab = g4t["graph"].nodes["lm_head"].out_spec.shape[-1]
+    ids = np.random.default_rng(SEED + 2).integers(
+        0, vocab, SCORE_IDS)[:, :PROCS_SCORE_IDS[1]]
+
+    out_dir = Path(__file__).resolve().parent.joinpath(*PYCACHE[:2],
+                                                       "ring_procs")
+    inputs = {"resnet_params": mp["params"], "resnet_x": mp["inputs"],
+              "bert_params": bp["params"], "bert_ids": bp["inputs"],
+              "gpt2_small_params": g4t["params"],
+              "gpt_prompts": g4t["prompts"], "gpt_score_ids": ids,
+              # (i)-(iii): 4r's weights (4a's), chunk and targets
+              "train_resnet50_params": mp["params"],
+              "train_resnet50_x": mp["inputs"][:TRAIN_M],
+              "train_resnet50_y": np.random.default_rng(SEED).integers(
+                  0, mp["graph"].output_spec.shape[-1],
+                  (TRAIN_M, MICROBATCH))}
+    spawned: list = []
+
+    def spawn():
+        try:
+            spawned.append(R.spawn(RING_PROCS, "cuda", "card", out_dir,
+                                   inputs, deadline_s=PROCS_DEADLINE_S,
+                                   timeout_s=60.0))
+        except RuntimeError as e:
+            spawned.append(e)
+
+    th = threading.Thread(target=spawn, daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    return {"R": R, "ids": ids, "thread": th, "spawned": spawned, "t0": t0}
+
+
+def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
+               run) -> dict:
     """Phase 4t. Four ``torch.distributed`` processes on the one card (gloo),
     spawned once by ``scripts/torch_ring_procs.py`` with 4a's and 4b's
-    seed-0 weights and inputs (written once for the workers to map), TF32
+    seed-0 weights and inputs (written once for the workers to map;
+    :func:`procs_spawn` started them as 4s began: ``run``), TF32
     off: (a) ResNet50/8
     on a (stage 8) mesh, two stages a process, both wires: rows against
     4a's ring (buffer within PROCS_REL_BOUND of max |logit|, int8 within
@@ -6821,52 +7058,19 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr,
     stages a process, on 4g's weights: ``Defer(mesh=).generate`` of 4g's
     prompts with the prefill against 4g's decoder (:func:`procs_gpt`);
     (h) ``Defer(mesh=).score`` on both wires against the one-process
-    score (:func:`procs_gpt_refs`)."""
-    import threading
-    from pathlib import Path
-
+    score (:func:`procs_gpt_refs`); (i)-(iv) ``PipelineTrainer`` of
+    ResNet50/8, two stages a process, against 4r's results
+    (:func:`procs_train`)."""
     import numpy as np
 
     from defer_tpu_torch import SpmdPipeline, partition
     from defer_tpu_torch.parallel import mesh as M
     from defer_tpu_torch.parallel import pipeline_mesh
 
-    R = ring_procs_module()
-    cfg, dc = R.PRESETS["card"], R.DECODE["card"]
-    if (cfg["microbatch"], cfg["chunk"], cfg["frames"]) != (
-            MICROBATCH, CHUNK, 2 * CHUNK):
-        fail("phase 4t: the launcher's card preset is not 4a's batch")
-    if ((dc["microbatch"], dc["chunk"], dc["max_len"], dc["prompts"],
-         dc["new"], dc["score_ids"])
-            != (MICROBATCH, CHUNK, GPT_MAX_LEN, GPT_PROMPTS, PROCS_GPT_NEW,
-                PROCS_SCORE_IDS)
-            or dc["meshes"]["s12"][1] != GPT_STAGES):
-        fail("phase 4t: the launcher's card decode preset is not 4g's")
-    vocab = g4t["graph"].nodes["lm_head"].out_spec.shape[-1]
-    ids = np.random.default_rng(SEED + 2).integers(
-        0, vocab, SCORE_IDS)[:, :PROCS_SCORE_IDS[1]]
-
+    R, ids, th = run["R"], run["ids"], run["thread"]
+    cfg = R.PRESETS["card"]
     t0 = time.perf_counter()
-    out_dir = Path(__file__).resolve().parent.joinpath(*PYCACHE[:2],
-                                                       "ring_procs")
-    inputs = {"resnet_params": mp["params"], "resnet_x": mp["inputs"],
-              "bert_params": bp["params"], "bert_ids": bp["inputs"],
-              "gpt2_small_params": g4t["params"],
-              "gpt_prompts": g4t["prompts"], "gpt_score_ids": ids}
-    spawned: list = []
-
-    def spawn():
-        try:
-            spawned.append(R.spawn(RING_PROCS, "cuda", "card", out_dir,
-                                   inputs, deadline_s=PROCS_DEADLINE_S,
-                                   timeout_s=60.0))
-        except RuntimeError as e:
-            spawned.append(e)
-
-    # the workers import and build their graphs on the host for several
-    # seconds before they touch the card: the references run meanwhile
-    th = threading.Thread(target=spawn, daemon=True)
-    th.start()
+    # the references run while the workers finish their host start
     # (c)'s reference: the one-card (data 2, stage 4) ring, int8
     dstages = cfg["dp_stages"]
     one = SpmdPipeline(partition(mp["graph"], num_stages=dstages),
@@ -6879,19 +7083,22 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr,
     grefs = procs_gpt_refs(torch, device, g4t, ids)
     refs_s = time.perf_counter() - t0
     th.join()
-    res = spawned[0]
+    res = run["spawned"][0]
     if isinstance(res, RuntimeError):
         fail(f"phase 4t: {res}")
-    spawn_s = time.perf_counter() - t0
+    spawn_s = time.perf_counter() - run["t0"]
+    wait_s = time.perf_counter() - t0
     # each worker's timeline from its start, the latest worker's
     marks = {k: max(r["meta"]["seconds"][k] for r in res)
              for k in res[0]["meta"]["seconds"]}
-    out = {"spawn_s": spawn_s, "references_s": refs_s, "procs": RING_PROCS,
-           "backend": "gloo",
+    out = {"spawn_s": spawn_s, "phase_wait_s": wait_s,
+           "references_s": refs_s, "procs": RING_PROCS, "backend": "gloo",
            "timed_pushes": R.TIMED_PUSHES, "worker_seconds": marks}
     print("procs path workers (s from each start, the latest of 4): "
           + ", ".join(f"{k} {v:.2f}" for k, v in marks.items())
-          + f"; the references beside them in {refs_s:.2f} s", flush=True)
+          + f"; the references beside them in {refs_s:.2f} s; spawn to "
+          f"results {spawn_s:.1f} s, {wait_s:.1f} s of them in 4t",
+          flush=True)
     if any(len(r["meta"]["stage_latencies"]) != 2
            or min(r["meta"]["stage_latencies"]) <= 0 for r in res):
         fail("phase 4t: stage_latencies is not each process's two stages")
@@ -7026,6 +7233,8 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr,
     out["guards"] = {k: R.GUARDS[k] for k in R.GUARDS}
     # (g) and (h): GPT-2 small across the processes
     out["gpt2"] = procs_gpt(torch, res, card, g4t, grefs)
+    # (i)-(iv): ResNet50/8 training across the processes
+    out["train"] = procs_train(torch, res, card, t4)
     del res
     free_card(torch)
     return out
@@ -7145,11 +7354,17 @@ def main() -> int:
     # phase 4r a, b, c, e: training on the same model (carved out)
     with train_phase():
         tr = {"resnet50": train_resnet(torch, device, kernels, card, mp)}
+    # phase 4t (i)-(iii)'s references: 4r a's and b's own results
+    r50 = tr["resnet50"]
+    t4 = {"int8": r50["_int8_baseline"], "buffer": r50.pop("_buffer_baseline"),
+          "adam_losses": r50["int8"]["adam_losses"],
+          "int8_s": r50["int8"]["loss_and_grad_s"],
+          "step_s": r50["int8"]["step_s"],
+          "buffer_s": r50["buffer"]["seconds"]}
     # phase 4s e: pp x dp training on the same model (carved out)
     with mesh_phase():
         ms = {"train_resnet50_dp2": mesh_train_resnet(
-            torch, device, kernels, card, mp,
-            tr["resnet50"].pop("_int8_baseline"))}
+            torch, device, kernels, card, mp, r50.pop("_int8_baseline"))}
 
     phase_done("4a")
 
@@ -7298,6 +7513,9 @@ def main() -> int:
     del dsetup
     phase_done("4o")
 
+    # phase 4t's workers start beside 4s: they import and build their
+    # graphs on the host before they touch the card
+    procs = procs_spawn(mp, bp, g4t)
     # phase 4s: mesh parallelism on the card; the counts zeroed just before
     # each run (its training checks rode 4a and 4g)
     ms["bert_base"] = mesh_bert(torch, device, kernels, card, bp, bthr)
@@ -7311,8 +7529,9 @@ def main() -> int:
 
     # phase 4t: the ring across four processes on the card; each worker's
     # counts zeroed just before its runs and read just after
-    pt = procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t)
-    del g4t
+    pt = procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t,
+                    t4, procs)
+    del g4t, t4, procs
     phase_done("4t")
     WATCH.cancel()
     # phase 4p: the observability checks that rode 4k's and 4n's chains
@@ -7407,6 +7626,8 @@ def main() -> int:
         by_path[f"procs_{key}"] = pt[key]["launches"]
     for key, r in pt["gpt2"].items():
         by_path[f"procs_gpt2_{key}"] = r["launches"]
+    for key, r in pt["train"].items():
+        by_path[f"procs_train_resnet50_{key}"] = r["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})

@@ -99,21 +99,34 @@ def quantized_ring_hop(y: torch.Tensor, out_dtype, cross=None) -> torch.Tensor:
 class _StraightThroughHop(torch.autograd.Function):
     """:func:`quantized_ring_hop` forward; the backward treats dequant∘quant
     as identity and rolls the cotangent one slot back (the JAX trainer's
-    ``_hop_bwd``, a ``ppermute`` by the inverse ring).  It saves nothing,
-    so a recompute never needs to rerun the quantizer."""
+    ``_hop_bwd``, a ``ppermute`` by the inverse ring).  Across processes
+    ``back(g0)`` sends slot 0's cotangent to the previous stage's process
+    and returns the last slot's, from the next stage's; ``token`` (a leaf
+    that requires grad, or None) records the hop under autograd even
+    where ``y`` needs no gradient, so that exchange always runs.  It saves
+    nothing, so a recompute never needs to rerun the quantizer."""
 
     @staticmethod
-    def forward(ctx, y, out_dtype):
-        return quantized_ring_hop(y, out_dtype)
+    def forward(ctx, y, out_dtype, cross, back, token):
+        ctx.back = back
+        return quantized_ring_hop(y, out_dtype, cross)
 
     @staticmethod
     def backward(ctx, g):
-        return torch.roll(g, -1, 0), None
+        gy = torch.roll(g, -1, 0)
+        if ctx.back is not None:
+            gy[-1] = ctx.back(g[0])
+        return gy, None, None, None, None
 
 
-def ste_ring_hop(y: torch.Tensor, out_dtype) -> torch.Tensor:
+def ste_ring_hop(y: torch.Tensor, out_dtype, cross=None, back=None,
+                 token=None) -> torch.Tensor:
     """The int8 ring hop with a straight-through estimator: exactly
     :func:`quantized_ring_hop` forward (one quantizer launch for the whole
-    ring), ``torch.roll(g, -1, 0)`` backward.  With grad off (inference, a
-    CUDA-graph capture) it is the plain hop."""
-    return _StraightThroughHop.apply(y, out_dtype)
+    ring; with ``cross``, this process's segment of a ring across
+    processes), ``torch.roll(g, -1, 0)`` backward, its last slot from
+    ``back`` across processes: the cotangent crosses in the ring's dtype,
+    not as int8, as in the JAX trainer (``token``: see
+    ``_StraightThroughHop``).  With grad off (inference, a CUDA-graph
+    capture) it is the plain hop."""
+    return _StraightThroughHop.apply(y, out_dtype, cross, back, token)

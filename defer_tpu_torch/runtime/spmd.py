@@ -97,7 +97,7 @@ import torch
 from ..graph.ir import ShapeSpec, as_dtype
 from ..obs import tracer
 from ..ops.launches import counted_kernels
-from ..ops.quant import quantized_ring_hop, ste_ring_hop
+from ..ops.quant import ste_ring_hop
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh,
                              broadcast, current_process, exchange,
                              line_group, mesh_placement,
@@ -224,6 +224,35 @@ def cross_slot(slot: list[torch.Tensor], sends, recvs,
     metrics.boundary_bytes += sum(t.numel() * t.element_size()
                                   for t, _ in out_sends)
     return out
+
+
+class _CrossSlot(torch.autograd.Function):
+    """:func:`cross_slot` of one tensor with a backward: the forward sends
+    the slot leaving this process to the next stage's and returns the one
+    arriving from the previous stage's; the backward sends the arriving
+    slot's gradient back to the process that sent it and returns the
+    gradient of the slot this process sent, received from the next
+    stage's (the same ``batch_isend_irecv`` with the sends and receives
+    swapped: the JAX trainer's transpose of ``lax.ppermute``).  Both count
+    in ``metrics``.  It saves nothing, so a recompute never reruns it.
+    Every process must run the backward of every crossing, in reverse
+    order, or a neighbour blocks in its receive: ``token`` (the
+    pipeline's ``_cross_token``, a leaf that requires grad) records the
+    crossing under autograd even where nothing this process trains feeds
+    the slot (a stage without weights), and ``runtime/training.py`` asks
+    for the token's gradient beside the rows' and makes each ring a step
+    leaves a root, so autograd runs every crossing's backward."""
+
+    @staticmethod
+    def forward(ctx, slot, token, sends, recvs, metrics):
+        ctx.route = (sends, recvs, metrics)
+        return cross_slot([slot], sends, recvs, metrics)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        sends, recvs, metrics = ctx.route
+        return (cross_slot([g], recvs, sends, metrics)[0], None, None, None,
+                None)
 
 
 def _runs(owners, lines: range, per: int, base: int = 0):
@@ -394,6 +423,9 @@ class SpmdPipeline:
         self._in_rows = (self._rows if self.local_stages.start == 0
                          else slice(0, 0))
         self._sends = self._recvs = self._out_srcs = None
+        #: across processes, an input of every crossing under autograd
+        #: (:class:`_CrossSlot`): a leaf that requires grad
+        self._cross_token = None
         self.hop_transport = ring_transport(mesh, self.device)
         if mesh.spans_processes:
             #: stage 0's rows, gathered from their processes each push
@@ -403,6 +435,8 @@ class SpmdPipeline:
                 prv = (self.local_stages.start - 1) % n
                 self._sends = _runs(owners[:, nxt], lines, per, lines.start)
                 self._recvs = _runs(owners[:, prv], lines, per, lines.start)
+                self._cross_token = torch.zeros(0, device=self.device,
+                                                requires_grad=True)
         #: CUDA graphs per chunk only within one process (a graph cannot
         #: hold a gloo send); chosen here, from the mesh
         self._graphed = (self.device.type == "cuda"
@@ -458,21 +492,33 @@ class SpmdPipeline:
         """Rotate the ring one slot (stage k's output to slot k+1); under
         ``wire="int8"`` through the quantized hop, whose backward is the
         straight-through roll back.  Across processes the slot leaving
-        this process crosses to the next stage's (:meth:`_cross`)."""
+        this process crosses to the next stage's (:meth:`_cross`) and,
+        under autograd, its gradient crosses back (:class:`_CrossSlot`;
+        on the int8 wire the straight-through hop's :meth:`_cross_back`):
+        the forward's launches, bytes and rows are the same either way."""
         if self._sends is None:
             if self.wire == "int8":
                 return ste_ring_hop(y, self.buffer_dtype)
             return torch.roll(y, 1, 0)
         if self.wire == "int8":
-            return quantized_ring_hop(y, self.buffer_dtype, self._cross)
+            return ste_ring_hop(y, self.buffer_dtype, self._cross,
+                                self._cross_back, self._cross_token)
         y = torch.roll(y, 1, 0)
-        y[0] = self._cross([y[0]])[0]
+        y[0] = _CrossSlot.apply(y[0], self._cross_token, self._sends,
+                                self._recvs, self.metrics)
         return y
 
     def _cross(self, slot: list[torch.Tensor]) -> list[torch.Tensor]:
         """The slot leaving this process to the next stage's, the one
         arriving from the previous stage's (:func:`cross_slot`)."""
         return cross_slot(slot, self._sends, self._recvs, self.metrics)
+
+    def _cross_back(self, g: torch.Tensor) -> torch.Tensor:
+        """The gradient of the arriving slot back to the previous stage's
+        process; returns the gradient of the slot this process sent,
+        from the next stage's (in the buffer dtype, as JAX's
+        ``ppermute(g, inv_perm)``)."""
+        return cross_slot([g], self._recvs, self._sends, self.metrics)[0]
 
     def _chunk(self, ring: torch.Tensor, xs: torch.Tensor,
                outs: torch.Tensor) -> None:

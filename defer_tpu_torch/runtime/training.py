@@ -28,8 +28,8 @@ and ``torch.autograd.grad`` runs the ring backwards:
     updates the deployed rows in place, so the CUDA graphs captured for
     inference serve the trained weights without a new capture.
 
-Training runs eagerly (a chunk is not captured as a CUDA graph), on the
-pipeline's one-card mesh, pp x dp x tp as the JAX trainer:
+Training runs eagerly (a chunk is not captured as a CUDA graph), pp x dp x
+tp as the JAX trainer, on the pipeline's one-card mesh or across processes:
 
   * data parallelism: ``loss_fn`` sees each data-parallel shard's
     ``[microbatch/dp, ...]`` logits and targets, and the shards' losses are
@@ -43,25 +43,100 @@ pipeline's one-card mesh, pp x dp x tp as the JAX trainer:
     its copies get the SUM of their gradients, as the JAX trainer's
     tied-copy fix gives them, and so stay equal after every update.
     ``trained_params`` and ``stage_grads`` reassemble the ranks' shards
-    (``tp_unshard_params``).
+    (``tp_unshard_params``);
+  * across processes (a mesh from ``multihost_pipeline_mesh``: each
+    process holds a block of consecutive stages of consecutive data lines,
+    ``SpmdPipeline``'s ``local_stages``), every process calls
+    ``loss_and_grad``/``step``/``accumulate_step`` with the same inputs, as
+    every process calls ``run``.  A process trains its own stages' rows
+    (``rows``).  The hop's crossing is an autograd function whose backward
+    sends each slot's gradient back to the process that sent the slot
+    (``runtime/spmd.py`` ``_CrossSlot``; on the int8 wire the straight-
+    through hop's), the transpose of the JAX trainer's ``ppermute``.  Each
+    such backward is one exchange its neighbours' must match, so every
+    process runs every crossing's backward, in reverse step order: every
+    ring a step leaves is a root of ``autograd.grad`` under a zero
+    cotangent (with the local loss, where the process holds stage 0), and
+    the engine runs a graph's nodes from the last made.  The loss is
+    all-reduced over the processes (JAX's psum over the stage axis, pmean
+    over the data axis), so every process returns the same; a stage whose
+    rows sit on several processes (data lines on different processes)
+    gets the sum of their gradients over its data line's group.
+    ``trained_params``, ``stage_grads`` and the checkpoints give the
+    one-process view: every stage's leaves on every process, gathered from
+    each stage's process, and one npz in the one-process layout.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Callable, Iterable, Sequence
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import (DATA_AXIS, broadcast, current_process, exchange,
+                             line_group, mesh_placement)
 from ..utils.checkpoint import _npz_path
 from . import flatbuf
-from .spmd import SpmdPipeline
+from .spmd import SpmdPipeline, ring_block
 
 
 def _sgd(rows: Sequence[torch.Tensor]) -> torch.optim.Optimizer:
     """The default optimizer, as the JAX trainer's ``optax.sgd(1e-2)``."""
     return torch.optim.SGD(rows, lr=1e-2)
+
+
+def _move(t: torch.Tensor, src: int, dst: int | None) -> torch.Tensor:
+    """``t`` of process ``src`` on process ``dst`` (every process when
+    ``dst`` is None: a broadcast; every process passes a tensor of the
+    shape and dtype).  With a ``dst`` only ``src`` and ``dst`` call it."""
+    if dst is None:
+        return broadcast(t, src)
+    if src == dst:
+        return t
+    if current_process() == src:
+        exchange([(t, dst)], [])
+        return t
+    return exchange([], [(t, src)])[0]
+
+
+def _share(named, src: int, device, dst: int | None = None):
+    """``named`` (``[(key, tensor)]``, JSON-able keys) of process ``src``
+    as CPU tensors on process ``dst`` (every process when None; elsewhere
+    None): its sizes, a JSON header (keys, dtypes, shapes), then every
+    tensor's bytes in one buffer, on ``device`` for the move.  ``named``
+    is None except on ``src``."""
+    me = current_process()
+    if me == src:
+        cpu = [(k, t.detach().to("cpu").contiguous()) for k, t in named]
+        head = torch.tensor(list(json.dumps([
+            [k, str(t.dtype).removeprefix("torch."), list(t.shape)]
+            for k, t in cpu]).encode()), dtype=torch.uint8)
+        body = torch.cat([torch.empty(0, dtype=torch.uint8)] + [
+            t.reshape(-1).view(torch.uint8) for _, t in cpu])
+        sizes = torch.tensor([head.numel(), body.numel()])
+    elif dst is not None and me != dst:
+        return None  # neither sends nor receives
+    else:
+        sizes = torch.zeros(2, dtype=torch.int64)
+    sizes = _move(sizes.to(device), src, dst).cpu()
+    if me != src:
+        head = torch.empty(int(sizes[0]), dtype=torch.uint8)
+        body = torch.empty(int(sizes[1]), dtype=torch.uint8)
+    head = _move(head.to(device), src, dst).cpu()
+    if body.numel():  # a stage without weights sends no bytes
+        body = _move(body.to(device), src, dst).cpu()
+    if dst is not None and me != dst:
+        return None
+    out, off = [], 0
+    for key, dtype, shape in json.loads(bytes(head.tolist()).decode()):
+        dt = getattr(torch, dtype)
+        n = int(np.prod(shape, dtype=np.int64)) * dt.itemsize
+        out.append((key, body[off:off + n].clone().view(dt).reshape(shape)))
+        off += n
+    return out
 
 
 class PipelineTrainer:
@@ -75,7 +150,9 @@ class PipelineTrainer:
     ``lambda rows: torch.optim.Adam(rows, lr=1e-3)``); the default is SGD
     at 1e-2.  ``wire="int8"`` pipelines train through the straight-through
     hop.  The trainer sets ``requires_grad`` on the pipeline's rows
-    (``rows``: every stage's, rank by rank under tensor parallelism).
+    (``rows``: every stage's of this process, rank by rank under tensor
+    parallelism).  Across processes every process builds its trainer and
+    calls each method in the same order (see the module's docstring).
     """
 
     def __init__(self, pipe: SpmdPipeline, loss_fn: Callable,
@@ -84,15 +161,15 @@ class PipelineTrainer:
         if not isinstance(pipe, SpmdPipeline):
             raise TypeError(f"PipelineTrainer trains an SpmdPipeline, got "
                             f"{type(pipe).__name__}")
-        if pipe.hop_transport != "local":
-            raise NotImplementedError(
-                "PipelineTrainer runs within one process; this pipeline's "
-                "ring crosses processes (autograd through its sends and "
-                "receives is ROADMAP queue A15c)")
         self.pipe = pipe
         self.loss_fn = loss_fn
+        #: whether the pipeline's mesh spreads over processes
+        self._spread = pipe.mesh.spans_processes
+        if self._spread:
+            self._place()
         #: the deployed flat rows, stage by stage (rank by rank within a
-        #: stage under tensor parallelism): the trained tensors
+        #: stage under tensor parallelism; this process's stages across
+        #: processes): the trained tensors
         self.rows = [r for m in pipe.modules for r in m.rows]
         for row in self.rows:
             row.requires_grad_(True)
@@ -106,6 +183,26 @@ class PipelineTrainer:
                       enumerate(pipe.modules) if m.tp > 1}
         self.optimizer = (optimizer or _sgd)(self.rows)
         self._a0: torch.Tensor | None = None  # the trainer's zero ring
+
+    def _place(self) -> None:
+        """Across processes: the process holding each stage's rows for
+        the one-process view (line 0's), and the group over which this
+        process's stages' gradients sum (the processes holding those
+        stages of the other data lines; None where this one holds them
+        all)."""
+        pipe = self.pipe
+        mine, _ = mesh_placement(pipe.mesh, "PipelineTrainer")
+        _, stages, owners = ring_block(pipe.mesh, mine)
+        self._owners = [int(p) for p in owners[0]]
+        holders = {tuple(sorted({int(p) for p in owners[:, k]}))
+                   for k in stages}
+        if len(holders) != 1:
+            raise ValueError(f"PipelineTrainer: this process's stages "
+                             f"{list(stages)} are held by different sets "
+                             f"of processes across the data lines: "
+                             f"{sorted(holders)}")
+        self._data_group = (line_group(pipe.mesh, DATA_AXIS)
+                            if len(holders.pop()) > 1 else None)
 
     @staticmethod
     def _tied_mask(mod) -> torch.Tensor:
@@ -142,36 +239,45 @@ class PipelineTrainer:
         full[:m] = xs
         return pipe._flatten_inputs(full), ys
 
-    def _chunk_loss(self, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    def _chunk_loss(self, xs: torch.Tensor, ys: torch.Tensor
+                    ) -> tuple[torch.Tensor | None, list[torch.Tensor]]:
         """The chunk's summed loss, the ring run from zeros through the
-        inference engine's step (each step's stages under remat)."""
+        inference engine's step (each step's stages under remat), and,
+        across processes, the ring each step left (every crossing's
+        output; ``[]`` in one process).  The loss is this process's data
+        lines', None where it does not hold stage 0."""
         pipe = self.pipe
         n = pipe.num_stages
         dp = pipe.data_parallel
+        per = pipe.microbatch // dp
+        r0 = pipe._rows.start
         out_sz = pipe._out_sizes[-1]
-        out_shape = (pipe.microbatch,) + pipe.out_spec.shape
-        shards = [slice(d * pipe.microbatch // dp,
-                        (d + 1) * pipe.microbatch // dp) for d in range(dp)]
+        out_shape = (per,) + pipe.out_spec.shape
         if self._a0 is None:
             self._a0 = torch.zeros(
-                (n, pipe.microbatch, pipe.buf_elems),
+                (len(pipe.local_stages), pipe._b, pipe.buf_elems),
                 dtype=pipe.buffer_dtype, device=pipe.device)
         a = self._a0
-        total = None
+        total, rings = None, []
         for t in range(xs.shape[0]):
             a = pipe._hop(checkpoint(pipe._stages, a, xs[t],
                                      use_reentrant=False,
                                      preserve_rng_state=False))
+            if self._spread:
+                rings.append(a)
             j = t - (n - 1)
-            if j >= 0:  # microbatch j is back at slot 0
-                out = a[0, :, :out_sz].reshape(out_shape)
-                loss = self.loss_fn(out[shards[0]], ys[j][shards[0]])
-                for sh in shards[1:]:
-                    loss = loss + self.loss_fn(out[sh], ys[j][sh])
+            if j >= 0 and pipe.local_stages.start == 0:
+                # microbatch j is back at slot 0: each data shard's loss
+                out = a[0, :, :out_sz]
+                loss = None
+                for r in range(0, pipe._b, per):
+                    part = self.loss_fn(out[r:r + per].reshape(out_shape),
+                                        ys[j][r0 + r:r0 + r + per])
+                    loss = part if loss is None else loss + part
                 if dp > 1:
                     loss = loss / dp
                 total = loss if total is None else total + loss
-        return total
+        return total, rings
 
     # -- stepping -----------------------------------------------------------
 
@@ -181,14 +287,18 @@ class PipelineTrainer:
 
         ``xs``: [M, microbatch, *in_shape]; ``ys``: [M, microbatch, ...]
         targets (whatever ``loss_fn`` consumes).  Returns the loss (a
-        detached scalar tensor) and one gradient row per stage, each
-        shaped and typed as the stage's row (one per row of ``rows``: rank
-        by rank under tensor parallelism, a replicated leaf holding the sum
-        of its copies' gradients in every rank's row)."""
+        detached scalar tensor, the same on every process) and one
+        gradient row per row of ``rows``, each shaped and typed as the
+        row (rank by rank under tensor parallelism, a replicated leaf
+        holding the sum of its copies' gradients in every rank's row)."""
         xs_dev, ys_dev = self._schedule(xs, ys)
         with torch.enable_grad():
-            loss = self._chunk_loss(xs_dev, ys_dev)
-            grads = torch.autograd.grad(loss, self.rows, allow_unused=True)
+            loss, rings = self._chunk_loss(xs_dev, ys_dev)
+            if not self._spread:
+                grads = torch.autograd.grad(loss, self.rows,
+                                            allow_unused=True)
+            else:
+                grads = self._spread_grads(loss, rings)
         grads = [torch.zeros_like(r) if g is None else g
                  for r, g in zip(self.rows, grads)]
         for k, mask in self._tied.items():
@@ -196,7 +306,40 @@ class PipelineTrainer:
             tot = sum(g.to(mask.device) for g in grads[span])
             grads[span] = [torch.where(mask.to(g.device), tot.to(g.device),
                                        g) for g in grads[span]]
+        if self._spread:
+            loss, grads = self._reduce(loss, grads)
         return loss.detach(), grads
+
+    def _spread_grads(self, loss, rings) -> tuple:
+        """Across processes, the rows' gradients of the local loss with
+        every crossing's backward run on this process, the last step's
+        first: each ring a step left is a root under a zero cotangent, and
+        the pipeline's crossing token is asked for beside the rows, so no
+        crossing is pruned (see the module's docstring)."""
+        roots = [r for r in rings if r.requires_grad]
+        cots = [torch.zeros_like(rings[0])] * len(roots)
+        if loss is not None:
+            roots, cots = [loss] + roots, [torch.ones_like(loss)] + cots
+        token = self.pipe._cross_token
+        wrt = self.rows + ([] if token is None else [token])
+        return torch.autograd.grad(roots, wrt, cots,
+                                   allow_unused=True)[:len(self.rows)]
+
+    def _reduce(self, loss, grads):
+        """Across processes: the loss summed over every process (0 where
+        a process holds no stage 0), and each gradient row summed over
+        the processes holding its stage of the other data lines."""
+        import torch.distributed as dist
+
+        total = (torch.zeros(1, device=self.pipe.device) if loss is None
+                 else loss.detach().float().reshape(1))
+        dist.all_reduce(total)
+        if self._data_group is not None:
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            dist.all_reduce(flat, group=self._data_group)
+            grads = [f.view_as(g) for f, g in zip(
+                flat.split([g.numel() for g in grads]), grads)]
+        return total.reshape(()), grads
 
     def _apply(self, grads: Sequence[torch.Tensor]) -> None:
         """One optimizer update of the rows, in place."""
@@ -233,9 +376,10 @@ class PipelineTrainer:
 
     def _unpack(self, k: int, rows: Sequence[torch.Tensor],
                 dtype: torch.dtype | None) -> dict[str, Any]:
-        """Stage k's leaves of its row-shaped tensors (one per rank) as CPU
-        copies in the port's layout, each in ``dtype`` (None: the leaf's
-        own); the ranks' shards reassembled under tensor parallelism."""
+        """Local stage k's leaves of its row-shaped tensors (one per rank)
+        as CPU copies in the port's layout, each in ``dtype`` (None: the
+        leaf's own); the ranks' shards reassembled under tensor
+        parallelism."""
         mod = self.pipe.modules[k]
         trees = [flatbuf.unflatten_leaves(mod.paths, [
             v.to("cpu", dtype or meta[3], copy=True).contiguous()
@@ -245,43 +389,93 @@ class PipelineTrainer:
             return trees[0]
         return mod.stage.tp_unshard_params(trees)
 
+    def _stages_unpacked(self, rows: Sequence[torch.Tensor],
+                         dtype: torch.dtype | None) -> list[dict[str, Any]]:
+        """Every stage's leaves of the row-shaped ``rows`` (one per row of
+        ``rows``), stage by stage: across processes each stage's from the
+        process holding it (line 0's), on every process."""
+        if not self._spread:
+            return [self._unpack(k, rows[span], dtype)
+                    for k, span in enumerate(self._spans)]
+        first, out = self.pipe.local_stages.start, []
+        for k, src in enumerate(self._owners):
+            named = None
+            if src == current_process():
+                i = k - first
+                paths, leaves = flatbuf.flatten_leaves(
+                    self._unpack(i, rows[self._spans[i]], dtype))
+                named = list(zip(paths, leaves))
+            got = _share(named, src, self.pipe.device)
+            out.append(flatbuf.unflatten_leaves(
+                [tuple(p) for p, _ in got], [v for _, v in got]))
+        return out
+
     def trained_params(self) -> dict[str, Any]:
         """The deployment's CURRENT weights as a standard parameter dict
         (CPU tensors in their original dtypes, unsharded): a fresh
         deployment, a decoder's ``reweight`` or ``save_params`` takes
-        it."""
+        it.  Across processes every stage's, on every process."""
         params: dict[str, Any] = {}
-        for k, span in enumerate(self._spans):
-            params.update(self._unpack(k, self.rows[span], None))
+        for tree in self._stages_unpacked(self.rows, None):
+            params.update(tree)
         return params
 
     def stage_grads(self, grads: Sequence[torch.Tensor]
                     ) -> list[dict[str, Any]]:
         """Per-stage gradient rows unflattened into the stages' parameter
         dicts (float32 CPU tensors, the port's layout, unsharded;
-        ``params_to_jax`` carries a whole graph's to the JAX layout)."""
-        return [self._unpack(k, grads[span], torch.float32)
-                for k, span in enumerate(self._spans)]
+        ``params_to_jax`` carries a whole graph's to the JAX layout).
+        Across processes every stage's, on every process."""
+        return self._stages_unpacked(grads, torch.float32)
+
+    def _row_base(self) -> int:
+        """The one-process index of this process's first row (stage
+        major, rank minor)."""
+        return self.pipe.local_stages.start * self.pipe.tensor_parallel
 
     def save_checkpoint(self, path: str) -> None:
         """Persist the training state: each row of ``rows`` (``w/<k>``) and
         every tensor of the optimizer's state (``opt/<param>/<name>``), in
         float32, in one npz.  Before the first step the optimizer holds no
-        state (torch makes it at the first update), and none is written."""
-        arrays = {f"w/{k}": row.detach().float().cpu().numpy()
-                  for k, row in enumerate(self.rows)}
-        for i, st in self.optimizer.state_dict()["state"].items():
-            for name, v in st.items():
-                if isinstance(v, torch.Tensor):
-                    arrays[f"opt/{i}/{name}"] = \
-                        v.detach().float().cpu().numpy()
-        np.savez(_npz_path(path), **arrays)
+        state (torch makes it at the first update), and none is written.
+        Across processes process 0 writes the one-process layout (``k``
+        the row's index over every stage), gathered from each stage's
+        process; every process returns once the file is written."""
+        state = self.optimizer.state_dict()["state"]
+        base = self._row_base()
+
+        def arrays_of(rows: range) -> list:
+            out = []
+            for i in rows:
+                out.append((f"w/{base + i}", self.rows[i].detach().float()))
+                out += [(f"opt/{base + i}/{name}", v.detach().float())
+                        for name, v in state.get(i, {}).items()
+                        if isinstance(v, torch.Tensor)]
+            return out
+
+        if not self._spread:
+            np.savez(_npz_path(path), **{
+                k: v.cpu().numpy() for k, v in arrays_of(
+                    range(len(self.rows)))})
+            return
+        me, first, arrays = current_process(), self.pipe.local_stages.start, {}
+        for k, src in enumerate(self._owners):
+            span = self._spans[k - first] if src == me else None
+            got = _share(None if span is None else arrays_of(
+                range(span.start, span.stop)), src, self.pipe.device, dst=0)
+            if me == 0:
+                arrays.update((key, v.numpy()) for key, v in got)
+        if me == 0:
+            np.savez(_npz_path(path), **arrays)
+        broadcast(torch.zeros(1, device=self.pipe.device), 0)
 
     def load_checkpoint(self, path: str) -> None:
         """Restore a :meth:`save_checkpoint` file into this deployment
         (same partition and optimizer): the rows in place (captured
         graphs keep serving), the optimizer's state through its
-        ``load_state_dict``."""
+        ``load_state_dict``.  Across processes each process reads its own
+        rows and their state (a checkpoint of one process loads across
+        processes, and the reverse)."""
         with np.load(_npz_path(path)) as z:
             rows = {}
             state: dict[int, dict[str, torch.Tensor]] = {}
@@ -292,15 +486,17 @@ class PipelineTrainer:
                 elif kind == "opt":
                     state.setdefault(int(rest[0]), {})[rest[1]] = \
                         torch.from_numpy(z[key])
+        base = self._row_base()
+        mine = range(base, base + len(self.rows))
         shapes = [tuple(r.shape) for r in self.rows]
-        got = [rows[k].shape if k in rows else None
-               for k in range(len(self.rows))]
-        if len(rows) != len(self.rows) or got != shapes:
+        got = [rows[k].shape if k in rows else None for k in mine]
+        if (len(rows) != self.pipe.num_stages * self.pipe.tensor_parallel
+                or got != shapes):
             raise ValueError(f"checkpoint mismatch: rows {got} != the "
                              f"deployment's {shapes}")
         with torch.no_grad():
-            for k, row in enumerate(self.rows):
+            for k, row in zip(mine, self.rows):
                 row.copy_(torch.from_numpy(rows[k]))
         sd = self.optimizer.state_dict()
-        sd["state"] = state
+        sd["state"] = {k - base: v for k, v in state.items() if k in mine}
         self.optimizer.load_state_dict(sd)

@@ -45,8 +45,10 @@ class PipelineMetrics:
     graph_pool_bytes: int = 0
     #: bytes this process sent across process boundaries on the ring's
     #: hops (a ring over several ``torch.distributed`` processes; 0 in
-    #: one process), and the sends: one per boundary a step.  Their ratio
-    #: is a boundary's bytes a step (int8: the payload and its scales)
+    #: one process), and the sends: one per boundary a step, and under
+    #: training one more a step for the gradient slot sent back (in the
+    #: ring's dtype).  Their ratio is a boundary's bytes a step (int8: the
+    #: payload and its scales)
     boundary_bytes: int = 0
     boundary_sends: int = 0
     #: registry prefix once bound (``bind``), e.g. "pipeline3"

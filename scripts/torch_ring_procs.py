@@ -1,10 +1,13 @@
 """The ring across processes: N ``torch.distributed`` workers run the
-port's ``SpmdPipeline``, ``PipelinedDecoder`` and ``Defer`` on meshes
-spread over them, and the collectives over an axis that crosses them.
+port's ``SpmdPipeline``, ``PipelinedDecoder``, ``Defer`` and
+``PipelineTrainer`` on meshes spread over them, and the collectives over
+an axis that crosses them.
 
     python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/ring
     python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/dec \
         --cases decode
+    python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/tr \
+        --cases train
 
 The parent writes the weights and inputs once (``<out>/inputs.pt``:
 :func:`make_inputs`'s seeded ones, or the caller's own); each worker maps
@@ -15,13 +18,15 @@ launch counts, boundary bytes and collective results to
 ``<out>/worker<i>.npz`` (arrays) with their scalars in the ``meta`` entry
 (JSON).  The parent waits for all of them: when one exits non-zero or the
 deadline passes it kills every worker and fails with that worker's stderr
-tail, so no worker is left blocked in a receive.  gloo is the one backend:
-the workers share one device (NCCL refuses two ranks on one card).
+tail, so no worker is left blocked in a receive; a worker whose probed
+port was taken before it bound it makes the parent spawn them all again
+on fresh ports.  gloo is the one backend: the workers share one device
+(NCCL refuses two ranks on one card).
 
 Cases (``preset`` sizes them: ``cpu`` the tiny graphs the CPU tests run,
 ``card`` the full-width graphs the chip smoke runs, one card shared by
 every worker).  ``--cases`` picks the groups to run, ``ring`` (the first
-five below) and ``decode`` (the last); both by default:
+five below), ``decode`` and ``train``; all three by default:
 
 * ``resnet``: ResNet in 8 stages on a (stage 8) mesh, two stages per
   process (``multihost_pipeline_mesh(8, local_devices=[dev] * 2)``), both
@@ -51,7 +56,19 @@ five below) and ``decode`` (the last); both by default:
   process), and greedy on (data 2, stage 2); ``card``: GPT-2 small in 12
   stages (three a process), ``Defer.generate`` with the prefill and
   ``Defer.score`` on both wires, each timed.  The CPU tests run the same
-  cases in one process (``mesh=None``) as the reference.
+  cases in one process (``mesh=None``) as the reference;
+* ``train``: ``PipelineTrainer`` on meshes over the processes
+  (:data:`TRAIN`, run by :class:`TrainRun`): ``loss_and_grad``, SGD and
+  Adam steps, ``accumulate_step``, the trained deployment's ``run``,
+  ``trained_params`` and checkpoints saved across processes (one npz in
+  the one-process layout, written by process 0) and from one process.
+  ``cpu``: ``resnet_tiny`` in 8 stages (two a process) on both wires,
+  ``gpt_tiny`` in 4 (one a process, ``attn_impl="xla"``) on both wires,
+  and ``resnet_tiny`` in 4 stages on (data 2, stage 4), int8, each line's
+  ring on two processes; ``card``: ResNet50/8, two stages a process,
+  ``loss_and_grad`` and 3 Adam steps on the int8 wire and
+  ``loss_and_grad`` on the buffer wire.  The CPU tests run the same cases
+  in one process (``mesh=None``) as the reference.
 
 Launch counts: on the card each kernel wrapper's own count
 (``ops/launches.py``); on the CPU the calls of the dispatching functions
@@ -93,11 +110,10 @@ PRESETS = {
 }
 WIRES = ("buffer", "int8")
 #: the groups of cases ``--cases`` picks from
-CASE_GROUPS = ("ring", "decode")
+CASE_GROUPS = ("ring", "decode", "train")
 #: the guards and the ROADMAP queue each must name
-GUARDS = {"trainer": "A15c", "mpmd": "A15c", "run_defer": "A15c",
-          "serve_endpoint": "A15c", "model_axis": "A15c",
-          "two_devices": "A15b"}
+GUARDS = {"mpmd": "A15c", "run_defer": "A15c", "serve_endpoint": "A15c",
+          "model_axis": "A15c", "two_devices": "A15b"}
 #: per preset, the decoder cases' models (factory, keyword arguments), the
 #: meshes (name -> (model, stages, data lines, draft model)) and the cases
 #: each runs, the weights' microbatch and ring chunk, the prompts
@@ -152,6 +168,39 @@ DECODE_CASES = {
 }
 #: the cases a mesh runs when its preset says "all"
 ALL_DECODE = tuple(c for c in DECODE_CASES if c != "defer_prefill")
+#: the training cases (:class:`TrainRun`), in the order a run takes them
+TRAIN_CASES = ("grad", "sgd", "adam", "accumulate", "ckpt_in")
+#: per preset, the training runs' models (factory, keyword arguments, cut
+#: list, loss: ``ce`` on the logits or ``lm`` on the next tokens), the
+#: runs (name -> (model, stages, data lines, wire, cases)), the
+#: microbatches of a chunk, the batch, the ring chunk of ``run``, each
+#: model's optimizer steps and learning rates, and whether every process
+#: keeps every stage's gradients and weights (else its own stages'
+#: gradients and a digest of the weights)
+TRAIN = {
+    "cpu": {"models": {
+        "resnet_tiny": ("resnet_tiny", {}, None, "ce"),
+        "gpt_tiny": ("gpt_tiny", {"seq_len": 12, "vocab": 61}, None, "lm")},
+        "runs": {"s8_buffer": ("resnet_tiny", 8, 1, "buffer", TRAIN_CASES),
+                 "s8_int8": ("resnet_tiny", 8, 1, "int8", TRAIN_CASES),
+                 "gpt_buffer": ("gpt_tiny", 4, 1, "buffer",
+                                ("grad", "adam")),
+                 "gpt_int8": ("gpt_tiny", 4, 1, "int8", ("grad", "adam")),
+                 "dp_int8": ("resnet_tiny", 4, 2, "int8", ("grad",))},
+        "m": 2, "microbatch": 2, "chunk": 2,
+        "steps": {"resnet_tiny": 3, "gpt_tiny": 1},
+        "lr": {"resnet_tiny": {"sgd": 1e-3, "adam": 1e-3,
+                               "accumulate": 1e-3},
+               "gpt_tiny": {"adam": 5e-3}},
+        "keep_all": True},
+    "card": {"models": {"resnet50": ("resnet50", {"image_size": 224},
+                                     "RESNET50_8STAGE_CUTS", "ce")},
+             "runs": {"s8_int8": ("resnet50", 8, 1, "int8", ("grad", "adam")),
+                      "s8_buffer": ("resnet50", 8, 1, "buffer", ("grad",))},
+             "m": 4, "microbatch": 8, "chunk": 4,
+             "steps": {"resnet50": 3}, "lr": {"resnet50": {"adam": 1e-4}},
+             "keep_all": False},
+}
 #: the collectives and the meshes they cross
 COLLECTIVES = ("psum", "ppermute", "ppermute_partial", "all_gather",
                "all_gather_tiled", "all_to_all")
@@ -159,9 +208,24 @@ COLLECTIVES = ("psum", "ppermute", "ppermute_partial", "all_gather",
 TIMED_PUSHES = 5
 
 
+#: what a worker's stderr says when the port the parent probed was taken
+#: before the worker bound it (the group's store failed to listen)
+BIND_RACE_MARKS = ("EADDRINUSE", "Address already in use",
+                   "address already in use")
+#: spawns on fresh ports before a port lost that way fails the run
+SPAWN_TRIES = 3
+
+
 def free_port() -> int:
+    """A localhost port free when probed: the probe binds port 0 and
+    closes, so another process may take the port before a worker binds it
+    (:func:`spawn` then spawns again on fresh ports)."""
     with socket.create_server(("127.0.0.1", 0)) as s:
         return s.getsockname()[1]
+
+
+class _BindRace(RuntimeError):
+    """A worker lost the port the parent probed before it bound it."""
 
 
 def load(path: Path) -> dict:
@@ -216,7 +280,30 @@ def make_inputs(preset: str, cases=CASE_GROUPS) -> dict:
         b, t = dc["score_ids"]
         out["gpt_score_ids"] = np.random.default_rng(SEED + 2).integers(
             0, vocab, (b, max(t, 100)))[:, :t]
+    if "train" in cases:
+        tc = TRAIN[preset]
+        for model in tc["models"]:
+            g, _, loss = train_graph(models, tc, model)
+            out[f"train_{model}_params"] = g.init(
+                torch.Generator().manual_seed(SEED))
+            out[f"train_{model}_x"], out[f"train_{model}_y"] = train_inputs(
+                g, loss, tc["m"], tc["microbatch"])
     return out
+
+
+def train_inputs(g, loss: str, m: int, mb: int):
+    """``(xs, ys)`` of a training chunk of ``m`` microbatches of ``mb``
+    (seed ``SEED``): images and class targets (``ce``, as phase 4r makes
+    them on the card), or token ids as the f32 inputs and themselves as
+    the targets (``lm``)."""
+    rng = np.random.default_rng(SEED)
+    shape = (m, mb) + tuple(g.input_spec.shape)
+    classes = g.output_spec.shape[-1]
+    if loss == "lm":
+        ids = rng.integers(0, classes, shape)
+        return ids.astype(np.float32), ids
+    xs = rng.standard_normal(shape).astype(np.float32)
+    return xs, np.random.default_rng(SEED).integers(0, classes, (m, mb))
 
 
 def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
@@ -226,18 +313,41 @@ def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
     ``out_dir``, run ``procs`` workers on them and return every worker's
     results (:func:`load`).  A worker that exits non-zero, or the
     deadline, kills every worker and raises ``RuntimeError`` with the
-    stderr tails.  Build the kernels before spawning on the card: the
-    workers load the built libraries."""
+    stderr tails; where a worker's stderr says its group's port was taken
+    between the probe and its bind (:data:`BIND_RACE_MARKS`), the workers
+    are spawned again on fresh ports, up to :data:`SPAWN_TRIES` spawns,
+    each under its own deadline.  Build the kernels before spawning on the
+    card: the workers load the built libraries."""
     import torch
 
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     torch.save({k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
                 for k, v in inputs.items()}, out / "inputs.pt")
-    port, nccl_port = free_port(), free_port()
     env = dict(os.environ if env is None else env)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (str(ROOT), env.get("PYTHONPATH")) if p)
+    for attempt in range(1, SPAWN_TRIES + 1):
+        try:
+            _spawn_once(procs, device, preset, out, cases, deadline_s,
+                        timeout_s, env)
+            break
+        except _BindRace as e:
+            if attempt == SPAWN_TRIES:
+                raise RuntimeError(f"ring across processes failed: every "
+                                   f"one of {SPAWN_TRIES} spawns lost a "
+                                   f"port before binding it\n{e}") from None
+    return [load(out / f"worker{i}.npz") for i in range(procs)]
+
+
+def _spawn_once(procs, device, preset, out, cases, deadline_s, timeout_s,
+                env) -> None:
+    """One spawn on freshly probed ports: every worker exits 0, or every
+    worker is killed and it raises (:class:`_BindRace` where a worker lost
+    its port, else ``RuntimeError``), with the stderr tails."""
+    port, nccl_port = free_port(), free_port()
+    for i in range(procs):  # no results of an earlier spawn survive
+        (out / f"worker{i}.npz").unlink(missing_ok=True)
     workers = []
     try:
         for i in range(procs):
@@ -258,12 +368,14 @@ def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
                 p.kill()
         for p, _ in workers:
             p.wait()
-    if failed is not None:
-        tails = "\n".join(f"--- worker {i} stderr ---\n{_tail(err)}"
-                          for i, (_, err) in enumerate(workers))
-        raise RuntimeError(f"ring across processes failed: {failed}\n"
-                           f"{tails}")
-    return [load(out / f"worker{i}.npz") for i in range(procs)]
+    if failed is None:
+        return
+    tails = [_tail(err) for _, err in workers]
+    text = "\n".join(f"--- worker {i} stderr ---\n{t}"
+                     for i, t in enumerate(tails))
+    if any(m in t for t in tails for m in BIND_RACE_MARKS):
+        raise _BindRace(f"ports {port}, {nccl_port}: {failed}\n{text}")
+    raise RuntimeError(f"ring across processes failed: {failed}\n{text}")
 
 
 def _wait(workers: list, deadline_s: float) -> str | None:
@@ -414,8 +526,7 @@ def guards(torch, res, dev, cfg, g, params, mesh, pipe) -> None:
     """Each guard's message (empty when it did not raise)."""
     import queue
 
-    from defer_tpu_torch import (Defer, DeferConfig, PipelineTrainer,
-                                 SpmdPipeline)
+    from defer_tpu_torch import Defer, DeferConfig, SpmdPipeline
     from defer_tpu_torch.parallel import multihost_pipeline_mesh
 
     n = mesh.shape["stage"]
@@ -424,8 +535,6 @@ def guards(torch, res, dev, cfg, g, params, mesh, pipe) -> None:
     procs = int(mesh.processes.max()) + 1
     local = int((mesh.processes == 0).sum())
     tries = {
-        "trainer": lambda: PipelineTrainer(
-            pipe, lambda y, t: y.sum()),
         "mpmd": lambda: Defer(DeferConfig(mode="mpmd", device=dev),
                               mesh=mesh).build(g, params, num_stages=n),
         "run_defer": lambda: d.run_defer(g, params, None, queue.Queue(),
@@ -779,6 +888,271 @@ def decode_group(torch, res, arrays, counts, models, preset, given, dev,
         mark(f"decode_{key}")
 
 
+# ---------------------------------------------------------------------------
+# the training cases
+# ---------------------------------------------------------------------------
+
+
+def train_graph(models, tc, model: str):
+    """``(graph, cuts, loss)`` of one of ``TRAIN[preset]``'s models (a
+    GPT's blocks on ``attn_impl="xla"``: the flash operator has no
+    backward)."""
+    from defer_tpu_torch.graph import with_attn_impl
+
+    factory, kw, cuts, loss = tc["models"][model]
+    g = getattr(models, factory)(**kw)
+    if loss == "lm":
+        g = with_attn_impl(g, "xla")
+    return g, getattr(models, cuts) if cuts else None, loss
+
+
+def train_loss(torch, kind: str):
+    """The summed loss's per-microbatch term: cross-entropy of the logits
+    (``ce``) or of each next token (``lm``, the ids as targets)."""
+    F = torch.nn.functional
+    if kind == "ce":
+        return lambda logits, y: F.cross_entropy(logits.float(), y)
+    return lambda logits, ids: F.cross_entropy(
+        logits[:, :-1].float().flatten(0, 1), ids[:, 1:].long().flatten())
+
+
+def params_digest(params) -> str:
+    """A hash of a parameter dict's leaves (paths, dtypes and bytes, in
+    path order): equal digests, equal weights."""
+    import hashlib
+
+    import torch
+
+    from defer_tpu_torch.graph.ir import flatten_tree
+
+    h = hashlib.sha256()
+    flat = {f"{n}/{k}": v for n, sub in params.items()
+            for k, v in flatten_tree(sub).items()}
+    for k in sorted(flat):
+        v = flat[k].detach().cpu().contiguous()
+        h.update(f"{k}:{v.dtype}:{tuple(v.shape)}".encode())
+        h.update(v.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _leaves(prefix: str, trees) -> dict:
+    """``{prefix/node/path: array}`` of parameter dicts."""
+    from defer_tpu_torch.graph.ir import flatten_tree
+
+    return {f"{prefix}/{n}/{k}": v.float().numpy()
+            for tree in trees for n, sub in tree.items()
+            for k, v in flatten_tree(sub).items()}
+
+
+class TrainRun:
+    """The training cases of one of ``TRAIN[preset]``'s runs, on the given
+    weights and inputs (:func:`make_inputs`'s keys): the workers run them
+    on ``mesh`` across processes; with ``mesh=None`` they run the
+    one-process trainer in as many stages and data lines, the CPU tests'
+    reference.  One pipeline serves every case, reweighted with the
+    initial weights before each; :meth:`case` runs one case.
+
+    * ``grad``: one ``loss_and_grad``: the loss and every stage's gradient
+      leaves (this process's stages only unless the preset keeps all);
+    * ``sgd``, ``adam``: ``steps`` optimizer steps from the initial
+      weights: the losses and ``trained_params``; ``adam`` saves a
+      checkpoint before its last step (``ckpt_out``, where ``out`` is
+      given) and then runs the trained deployment and a fresh pipeline of
+      ``trained_params`` on the inputs;
+    * ``accumulate``: one SGD ``accumulate_step`` over the chunk's two
+      halves;
+    * ``ckpt_in``: a one-process trainer (on process 0 across processes)
+      takes ``steps - 1`` Adam steps and saves; this run's trainer loads
+      the checkpoint and takes the last step.
+
+    ``built`` (shared by the runs) holds each (model, stages)'s partition
+    and loss, made by the first run that needs it."""
+
+    def __init__(self, torch, models, tc, given, key, device, mesh=None,
+                 out=None, built=None):
+        from defer_tpu_torch import SpmdPipeline, partition
+
+        self.torch, self.tc, self.device, self.mesh = torch, tc, device, mesh
+        self.out = None if out is None else Path(out)
+        self.key = key
+        model, n, self.dp, self.wire, self.cases = tc["runs"][key]
+        # runs of one model in as many stages share its graph and stages
+        built = {} if built is None else built
+        if (model, n) not in built:
+            g, cuts, loss = train_graph(models, tc, model)
+            built[model, n] = (partition(g, cuts, num_stages=None if cuts
+                                         else n), loss)
+        self.stages, loss = built[model, n]
+        self.params = given[f"train_{model}_params"]
+        self.x = np.asarray(given[f"train_{model}_x"])
+        self.y = np.asarray(given[f"train_{model}_y"])
+        self.loss = train_loss(torch, loss)
+        self.steps, self.lr = tc["steps"][model], tc["lr"][model]
+        self.pipe_kw = dict(microbatch=tc["microbatch"], chunk=tc["chunk"],
+                            wire=self.wire)
+        self.pipe = SpmdPipeline(self.stages, self.params,
+                                 **self._place(), **self.pipe_kw)
+
+    def _place(self) -> dict:
+        return ({"device": self.device, "data_parallel": self.dp}
+                if self.mesh is None else {"mesh": self.mesh})
+
+    def trainer(self, opt: str | None = None, lr: float = 0.0, pipe=None):
+        """A trainer of ``pipe`` (this run's, reweighted with the initial
+        weights) with ``torch.optim`` ``opt`` at ``lr`` (None: the
+        trainer's default)."""
+        from defer_tpu_torch import PipelineTrainer
+
+        if pipe is None:
+            pipe = self.pipe
+            pipe.reweight(self.params)
+        cls = None if opt is None else getattr(self.torch.optim, opt)
+        return PipelineTrainer(pipe, self.loss, optimizer=None if cls is None
+                               else lambda rows: cls(rows, lr=lr))
+
+    def _timed(self, fn):
+        """``(fn(), seconds)``, the device synchronised."""
+        _sync(self.torch, self.device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(self.torch, self.device)
+        return out, time.perf_counter() - t0
+
+    def _grads(self, t, grads) -> dict:
+        trees = t.stage_grads(grads)
+        if not self.tc["keep_all"]:
+            trees = [trees[k] for k in self.pipe.local_stages]
+        return _leaves("g", trees)
+
+    def _trained(self, t, meta) -> tuple[dict, dict]:
+        """``trained_params`` (the weights every process gathered) and
+        their leaves where the preset keeps them; ``meta`` gets their
+        digest."""
+        params = t.trained_params()
+        meta["digest"] = params_digest(params)
+        return params, (_leaves("p", [params]) if self.tc["keep_all"]
+                        else {})
+
+    def case(self, name: str, counts) -> tuple[dict, dict]:
+        """Run case ``name``: its arrays and its scalars (the losses, the
+        kernel counts zeroed just before its trainer's calls and read just
+        after, what crossed in them, seconds)."""
+        torch, x, y, steps = self.torch, self.x, self.y, self.steps
+        m = self.pipe.metrics
+        before = (m.boundary_bytes, m.boundary_sends)
+        arrays, meta = {}, {}
+        if name == "grad":
+            t = self.trainer()
+            counts.zero()
+            (loss, grads), sec = self._timed(lambda: t.loss_and_grad(x, y))
+            meta.update(loss=float(loss), launches=counts.read(),
+                        seconds=[sec])
+            arrays.update(self._grads(t, grads))
+        elif name in ("sgd", "adam", "accumulate"):
+            t = self.trainer("Adam" if name == "adam" else "SGD",
+                             self.lr[name])
+            counts.zero()
+            if name == "accumulate":
+                h = x.shape[0] // 2
+                loss, sec = self._timed(lambda: t.accumulate_step(
+                    [(x[:h], y[:h]), (x[h:], y[h:])]))
+                losses, secs = [loss], [sec]
+            else:
+                losses, secs = [], []
+                for i in range(steps):
+                    if name == "adam" and i == steps - 1 and self.out:
+                        t.save_checkpoint(
+                            str(self.out / f"ckpt_out_{self.key}"))
+                    loss, sec = self._timed(lambda: t.step(x, y))
+                    losses.append(loss)
+                    secs.append(sec)
+            meta.update(losses=losses, launches=counts.read(), seconds=secs)
+            params, got = self._trained(t, meta)
+            arrays.update(got)
+            if name == "adam":
+                arrays.update(self._serve(params, counts, meta))
+        elif name == "ckpt_in":
+            t = self._loaded()
+            counts.zero()
+            loss, sec = self._timed(lambda: t.step(x, y))
+            meta.update(losses=[loss], launches=counts.read(), seconds=[sec])
+            arrays.update(self._trained(t, meta)[1])
+        else:
+            raise ValueError(f"no training case {name!r}")
+        meta["boundary_bytes"] = m.boundary_bytes - before[0]
+        meta["boundary_sends"] = m.boundary_sends - before[1]
+        meta["transport"] = self.pipe.hop_transport
+        meta["local_stages"] = list(self.pipe.local_stages)
+        meta["buf_elems"] = self.pipe.buf_elems
+        meta["ring_steps"] = x.shape[0] + len(self.stages) - 1
+        return arrays, meta
+
+    def _serve(self, params, counts, meta) -> dict:
+        """The trained deployment's run, and a fresh pipeline's of its
+        ``trained_params`` on the same placement."""
+        from defer_tpu_torch import SpmdPipeline
+
+        counts.zero()
+        rows = self.pipe.run(self.x)
+        meta["run_launches"] = counts.read()
+        fresh = SpmdPipeline(self.stages, params, **self._place(),
+                             **self.pipe_kw).run(self.x)
+        return {"run_rows": rows, "fresh_rows": fresh}
+
+    def _loaded(self):
+        """A trainer of this run's pipeline that loaded a one-process
+        trainer's checkpoint after ``steps - 1`` Adam steps (made on
+        process 0 across processes)."""
+        from defer_tpu_torch import SpmdPipeline
+        from defer_tpu_torch.parallel.mesh import current_process
+
+        torch, lr = self.torch, self.lr["adam"]
+        path = str((self.out or Path(".")) / f"ckpt_in_{self.key}")
+        if self.mesh is None or current_process() == 0:
+            one = self.trainer("Adam", lr, pipe=SpmdPipeline(
+                self.stages, self.params, device=self.device,
+                data_parallel=self.dp, **self.pipe_kw))
+            for _ in range(self.steps - 1):
+                one.step(self.x, self.y)
+            one.save_checkpoint(path)
+            del one
+        if self.mesh is not None:
+            torch.distributed.barrier()
+        t = self.trainer("Adam", lr)
+        t.load_checkpoint(path)
+        return t
+
+
+def train_group(torch, res, arrays, counts, models, preset, given, dev,
+                n_proc, out, mark, built: dict) -> None:
+    """The ``train`` cases of each of ``TRAIN[preset]``'s runs, spread over
+    the ``n_proc`` processes: arrays ``tr_<run>_<case>__<name>`` and
+    scalars ``res["train"][run][case]``; ``built`` holds the stages
+    already partitioned, by (model, stages) (:class:`TrainRun`)."""
+    from defer_tpu_torch.parallel import multihost_pipeline_mesh
+
+    tc = TRAIN[preset]
+    res["train"] = {}
+    # cuDNN's default weight-gradient kernels sum in a varying order, and
+    # Adam turns a last-bit difference in a near-zero gradient into a step
+    # of 2 lr: the card's one-process reference (the chip smoke's phase 4r
+    # b) takes its steps on deterministic algorithms, and so do these
+    torch.backends.cudnn.deterministic = True
+    for key, (_, n, dp, _, cases) in tc["runs"].items():
+        mesh = multihost_pipeline_mesh(n, dp, local_devices=[dev] * (
+            n * dp // n_proc))
+        run = TrainRun(torch, models, tc, given, key, dev, mesh=mesh,
+                       out=out, built=built)
+        res["train"][key] = {}
+        for case in cases:
+            got, meta = run.case(case, counts)
+            res["train"][key][case] = meta
+            for k, v in got.items():
+                arrays[f"tr_{key}_{case}__{k}"] = v
+        del run
+        mark(f"train_{key}")
+
+
 def worker(args) -> None:
     t0 = time.perf_counter()
     marks: dict = {}
@@ -792,19 +1166,27 @@ def worker(args) -> None:
     from defer_tpu_torch.parallel import distributed as D
 
     cfg = PRESETS[args.preset]
-    cases = args.cases.split(",")
+    cases = [c for c in args.cases.split(",") if c]
     dev = args.device
     torch.set_num_threads(1 if dev == "cpu" else 2)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     res: dict = {"worker": args.worker, "procs": args.procs,
                  "device": dev, "preset": args.preset, "cases": cases,
-                 "seconds": marks}
+                 "port": args.port, "seconds": marks}
     arrays: dict = {}
     mark("import")
     given = torch.load(Path(args.out) / "inputs.pt", mmap=True,
                        weights_only=True)
     prep = prepare(torch, models, cfg, given) if "ring" in cases else None
+    # the training runs of the ring's ResNet in as many stages take its
+    # graph's stages, built once
+    built: dict = {}
+    if prep is not None and "train" in cases:
+        tc, spec = TRAIN[args.preset], cfg["resnet"]
+        for model, (*same, loss) in tc["models"].items():
+            if tuple(same) == spec[:3]:
+                built[model, spec[3]] = (prep["resnet"][2], loss)
     mark("prepare")
     if "ring" in cases:
         stages, params = prep["bert"][:2]
@@ -821,6 +1203,9 @@ def worker(args) -> None:
     if "decode" in cases:
         decode_group(torch, res, arrays, counts, models, args.preset, given,
                      dev, args.procs, mark)
+    if "train" in cases:
+        train_group(torch, res, arrays, counts, models, args.preset, given,
+                    dev, args.procs, args.out, mark, built)
 
     arrays["meta"] = np.array(json.dumps(res))
     np.savez(Path(args.out) / f"worker{args.worker}.npz", **arrays)
@@ -847,7 +1232,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.preset is None:
         args.preset = "cpu" if args.device == "cpu" else "card"
-    cases = tuple(args.cases.split(","))
+    cases = tuple(c for c in args.cases.split(",") if c)
     if set(cases) - set(CASE_GROUPS):
         ap.error(f"--cases: choose from {', '.join(CASE_GROUPS)}")
     sys.path.insert(0, str(ROOT))
@@ -862,7 +1247,7 @@ def main(argv=None) -> int:
     print(json.dumps({"procs": args.procs, "device": args.device,
                       "seconds": time.perf_counter() - t0,
                       **{k: v for k, v in w0.items() if k.startswith((
-                          "resnet", "bert", "dp", "decode"))}}))
+                          "resnet", "bert", "dp", "decode", "train"))}}))
     return 0
 
 

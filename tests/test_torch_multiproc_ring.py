@@ -24,6 +24,7 @@ through:
   ``shard_map`` on the same integer-valued f32 (exact in any order).
 """
 
+import socket
 import sys
 import threading
 import types
@@ -364,6 +365,33 @@ def test_ranks_on_distinct_cards_are_not_refused(monkeypatch):
 def test_a_failing_worker_fails_the_spawn_with_its_stderr(tmp_path):
     with pytest.raises(RuntimeError, match="invalid choice"):
         R.spawn(2, "cpu", "no_such_preset", tmp_path, {})
+
+
+def test_a_port_taken_before_the_workers_bind_is_retried(tmp_path,
+                                                        monkeypatch):
+    """The first probe's ports are held by a listener when the workers
+    start: worker 0's group store cannot bind (EADDRINUSE), every worker
+    is killed and the spawn runs again on fresh ports, returning every
+    worker's results (here with no cases: the group forms, and each
+    worker writes its scalars)."""
+    held = socket.create_server(("127.0.0.1", 0))
+    taken = held.getsockname()[1]
+    handed: list = []
+    probe = R.free_port
+
+    def port():
+        handed.append(taken if len(handed) < 2 else probe())
+        return handed[-1]
+
+    monkeypatch.setattr(R, "free_port", port)
+    try:
+        res = R.spawn(2, "cpu", "cpu", tmp_path, {}, cases=(),
+                      deadline_s=60.0)
+    finally:
+        held.close()
+    assert len(handed) == 4 and handed[:2] == [taken, taken]
+    assert [r["meta"]["worker"] for r in res] == [0, 1]
+    assert all(r["meta"]["port"] == handed[2] != taken for r in res)
 
 
 def test_the_deadline_kills_every_worker(tmp_path):
