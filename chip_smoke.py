@@ -290,6 +290,15 @@ Phases, in order; any failure exits non-zero before the result line:
          4r b's losses, ``trained_params`` the same on every process and
          the trained deployment's run against a fresh pipeline of it, the
          bytes a boundary carries forward and back, seconds beside 4r's;
+         ``Defer(mesh=).run_defer`` of ResNet50/8 on the int8 wire, two
+         stages a process, on 4a's 8 microbatches (the rows bit-equal to
+         the ring group's ``Defer(mesh=).run`` on every process, then
+         ``END_OF_STREAM``; one quantizer launch per process and step,
+         preflight and drain included) and ``Defer(mesh=).serve_endpoint``
+         with two concurrent clients of 4 frames each (raw replies within
+         1e-6 of those rows, END echoed to both, the leader's counters at
+         64 images, the same address on every process), images/s beside
+         4i's with no speed claim;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
               ``replication_path``, ``dag_path``, ``obs_path``,
@@ -6648,6 +6657,9 @@ PROCS_SCORE_RTOL = 1e-5
 #: ResNet50/8's Adam losses across the processes against 4r b's (the JAX
 #: package's Adam bound, tests/test_torch_training.py)
 PROCS_ADAM_RTOL = 1e-4
+#: the serve group's images: 8 microbatches of 8 (4a's inputs), and the
+#: endpoint's two clients' frames of 8 images each
+PROCS_SERVE_IMAGES = 2 * CHUNK * MICROBATCH
 
 
 def ring_procs_module():
@@ -6971,6 +6983,107 @@ def procs_train(torch, res, card, t4) -> dict:
     return out
 
 
+def procs_serve(res, card, ep_rate: float) -> dict:
+    """Phase 4t (j) and (k): the workers' ResNet50/8 services on the int8
+    wire, two stages a process, against the ring group's own
+    ``Defer(mesh=).run`` int8 rows of the same 8 microbatches
+    (``defer_run_rows``).  (j) ``run_defer``: the rows bit-equal and the
+    same on every process, then ``END_OF_STREAM``; one quantizer launch
+    per process and step (preflight and drain included); every handle
+    healthy.  (k) ``serve_endpoint(max_clients=2)``: two concurrent
+    clients in the leader's worker, frames 0-3 and 4-7, raw replies
+    within ENDPOINT_RAW_REL_BOUND of max |output| of those rows; END
+    echoed to both (no client error), no endpoint error on any process,
+    the leader's counters at 64 images and the followers' at 0, the same
+    address everywhere.  Neither captures a graph."""
+    import numpy as np
+
+    want = res[0]["defer_run_rows"]
+    out: dict = {}
+    # (j) run_defer
+    metas = [r["meta"]["serve"]["queue_int8"] for r in res]
+    for i, (r, m) in enumerate(zip(res, metas)):
+        rows = r.get("sv_queue_int8__rows")
+        if not (m["end"] and m["healthy"]) or m["error"] or m["threads_left"]:
+            fail(f"phase 4t: run_defer on process {i}: end {m['end']}, "
+                 f"healthy {m['healthy']}, error {m['error']!r}, threads "
+                 f"left {m['threads_left']}")
+        if rows is None or not np.array_equal(rows, want) \
+                or not np.array_equal(r["defer_run_rows"], want):
+            fail(f"phase 4t: run_defer rows on process {i} are not the "
+                 "ring group's Defer(mesh=).run int8 rows")
+        if m["launches"]["quant_int8"] != m["steps"] or m["captures"]:
+            fail(f"phase 4t: run_defer on process {i} made "
+                 f"{m['launches']} launches in {m['steps']} steps, "
+                 f"{m['captures']} captures: want one quantizer launch a "
+                 "step, none captured")
+    for k in ("steps", "pushes", "dispatches", "inferences"):
+        if len({m[k] for m in metas}) != 1:
+            fail(f"phase 4t: run_defer {k} differ between the processes: "
+                 f"{[m[k] for m in metas]}")
+    j = metas[0]
+    out["run_defer"] = {
+        "launches": _sum_worker_launches([{"meta": r["meta"]["serve"]}
+                                          for r in res], "queue_int8"),
+        "steps": j["steps"], "pushes": j["pushes"],
+        "dispatches": j["dispatches"], "inferences": j["inferences"],
+        "seconds": max(m["seconds"] for m in metas), "max_abs_diff": 0.0}
+    print(f"procs path run_defer: ResNet50/8 int8 across {RING_PROCS} "
+          f"processes, {PROCS_SERVE_IMAGES} images then END_OF_STREAM on "
+          "every process, bit-equal to Defer(mesh=).run; "
+          f"{j['pushes']} pushes ({j['steps']} steps, preflight and drain "
+          f"included), quantizer launches {out['run_defer']['launches']} "
+          f"(one a process and step); {j['dispatches']} dispatches and "
+          f"{j['inferences']} inferences on each; "
+          f"{out['run_defer']['seconds']:.2f} s; on {card}", flush=True)
+    # (k) serve_endpoint, two concurrent clients
+    metas = [r["meta"]["serve"]["ep_pair_int8"] for r in res]
+    lead = metas[0]
+    if lead["client_errors"] or any(m["errors"] or m["alive"]
+                                    for m in metas):
+        fail(f"phase 4t: serve_endpoint: client errors "
+             f"{lead['client_errors']}, endpoint errors "
+             f"{[m['errors'] for m in metas]}, alive "
+             f"{[m['alive'] for m in metas]}")
+    got = np.concatenate([res[0][f"sv_ep_pair_int8__{k}"] for k in "ab"])
+    if got.shape != want.shape:
+        fail(f"phase 4t: serve_endpoint rows {got.shape}, want {want.shape}")
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    if err > ENDPOINT_RAW_REL_BOUND * scale:
+        fail(f"phase 4t: serve_endpoint rows {err / scale:.3g} of max "
+             f"|output| off Defer(mesh=).run (bound "
+             f"{ENDPOINT_RAW_REL_BOUND})")
+    counters = [(m["samples_in"], m["samples_out"]) for m in metas]
+    if counters != [(PROCS_SERVE_IMAGES,) * 2] + [(0, 0)] * (RING_PROCS - 1):
+        fail(f"phase 4t: serve_endpoint counters {counters}")
+    if len({tuple(m["address"]) for m in metas}) != 1:
+        fail("phase 4t: serve_endpoint addresses differ: "
+             f"{[m['address'] for m in metas]}")
+    if any(m["launches"]["quant_int8"] != m["steps"] or m["captures"]
+           for m in metas):
+        fail(f"phase 4t: serve_endpoint launches "
+             f"{[m['launches'] for m in metas]} in "
+             f"{[m['steps'] for m in metas]} steps")
+    rate = PROCS_SERVE_IMAGES / lead["clients_s"]
+    out["serve_endpoint"] = {
+        "rel_err": err / scale, "launches": _sum_worker_launches(
+            [{"meta": r["meta"]["serve"]} for r in res], "ep_pair_int8"),
+        "steps": lead["steps"], "pushes": lead["pushes"],
+        "images_per_s": rate, "clients_s": lead["clients_s"],
+        "one_process_images_per_s": ep_rate}
+    print(f"procs path serve_endpoint: two concurrent clients of 4 frames "
+          f"x {MICROBATCH} images, raw replies {err / scale:.3g} of max "
+          f"|output| off Defer(mesh=).run (bound {ENDPOINT_RAW_REL_BOUND}),"
+          f" END echoed to both; counters {counters[0]} on the leader, 0 "
+          f"elsewhere; {lead['pushes']} pushes, quantizer launches "
+          f"{out['serve_endpoint']['launches']}; {rate:.1f} images/s "
+          f"beside 4i's {ep_rate:.1f} (bf16, one process): no speed claim, "
+          "four processes time-share one card and every hop crosses host "
+          f"memory; on {card}", flush=True)
+    return out
+
+
 def procs_spawn(mp, bp, g4t) -> dict:
     """Phase 4t's spawn, started as phase 4s begins: the launcher's card
     presets checked against this smoke's sizes, 4a's, 4b's, 4g's and 4r's
@@ -7034,7 +7147,7 @@ def procs_spawn(mp, bp, g4t) -> dict:
 
 
 def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
-               run) -> dict:
+               run, ep_rate) -> dict:
     """Phase 4t. Four ``torch.distributed`` processes on the one card (gloo),
     spawned once by ``scripts/torch_ring_procs.py`` with 4a's and 4b's
     seed-0 weights and inputs (written once for the workers to map;
@@ -7060,7 +7173,9 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
     (h) ``Defer(mesh=).score`` on both wires against the one-process
     score (:func:`procs_gpt_refs`); (i)-(iv) ``PipelineTrainer`` of
     ResNet50/8, two stages a process, against 4r's results
-    (:func:`procs_train`)."""
+    (:func:`procs_train`); (j) and (k) ``Defer(mesh=).run_defer`` and
+    ``.serve_endpoint`` of (a)'s int8 deployment against (d)'s rows
+    (:func:`procs_serve`)."""
     import numpy as np
 
     from defer_tpu_torch import SpmdPipeline, partition
@@ -7235,6 +7350,8 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
     out["gpt2"] = procs_gpt(torch, res, card, g4t, grefs)
     # (i)-(iv): ResNet50/8 training across the processes
     out["train"] = procs_train(torch, res, card, t4)
+    # (j) and (k): ResNet50/8's queue service and endpoint
+    out["serve"] = procs_serve(res, card, ep_rate)
     del res
     free_card(torch)
     return out
@@ -7530,7 +7647,7 @@ def main() -> int:
     # phase 4t: the ring across four processes on the card; each worker's
     # counts zeroed just before its runs and read just after
     pt = procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t,
-                    t4, procs)
+                    t4, procs, ep["images_per_s"]["endpoint"])
     del g4t, t4, procs
     phase_done("4t")
     WATCH.cancel()
@@ -7628,6 +7745,8 @@ def main() -> int:
         by_path[f"procs_gpt2_{key}"] = r["launches"]
     for key, r in pt["train"].items():
         by_path[f"procs_train_resnet50_{key}"] = r["launches"]
+    for key, r in pt["serve"].items():
+        by_path[f"procs_{key}_resnet50_int8"] = r["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})

@@ -41,6 +41,9 @@ import torch
 from .mesh import Mesh, _dist, current_process, pipeline_mesh, visible_cards
 
 _initialized = False
+#: ``initialize``'s ``timeout_s``: the default group's, and that of the
+#: groups made later for a mesh from :func:`multihost_pipeline_mesh`
+_timeout_s: float | None = None
 #: the card swaps made so far: each swap's store keys are its own (every
 #: rank refuses in the same order, so the rank's count names the swap)
 _swaps = itertools.count()
@@ -65,9 +68,11 @@ def initialize(coordinator_address: str | None = None,
     docstring).
     ``timeout_s`` bounds the group's formation and every collective
     (``init_process_group``'s ``timeout``): a dead peer then fails its
-    neighbours instead of leaving them blocked.
+    neighbours instead of leaving them blocked.  The groups the port makes
+    later for a mesh from :func:`multihost_pipeline_mesh`
+    (``parallel/mesh.py``'s line groups and ``regroup``) time out alike.
     """
-    global _initialized
+    global _initialized, _timeout_s
     dist = _dist()
     if _initialized or dist.is_initialized():
         _initialized = True
@@ -76,6 +81,7 @@ def initialize(coordinator_address: str | None = None,
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     kw = ({} if timeout_s is None
           else {"timeout": datetime.timedelta(seconds=timeout_s)})
+    _timeout_s = timeout_s
     if coordinator_address is None and num_processes is None:
         if not {"MASTER_ADDR", "WORLD_SIZE", "RANK"} <= set(os.environ):
             return  # one host, no cluster environment: not latched
@@ -181,6 +187,7 @@ def multihost_pipeline_mesh(num_stages: int, data_parallel: int = 1,
                          devices=devices)
     mesh.processes = np.asarray(owners[:mesh.size],
                                 np.int64).reshape(mesh.devices.shape)
+    mesh.group_timeout_s = _timeout_s
     return mesh
 
 

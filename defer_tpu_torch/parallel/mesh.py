@@ -34,10 +34,17 @@ ranks of its line along the axis and exchanges with the line's other
 processes: ``ppermute``, ``all_gather`` and ``all_to_all`` by
 point-to-point sends and receives (:func:`exchange`), ``psum`` by an
 all-reduce over the line's process group (:func:`line_group`).
+
+A mesh's collectives run on the default group unless it was made by
+:func:`regroup`, a copy whose groups are its own (and which
+:func:`release` destroys): sends made on one such copy can only ever meet
+receives made on it.
 """
 
 from __future__ import annotations
 
+import copy
+import datetime
 from typing import Sequence
 
 import numpy as np
@@ -95,6 +102,16 @@ class Mesh:
         #: per axis: the process group of this process's line
         #: (:func:`line_group`), made once
         self._groups: dict = {}
+        #: the group over every process that this mesh's collectives use
+        #: (None: the default group; :func:`regroup` gives a copy its own)
+        self.world = None
+        #: seconds a collective on a group made for this mesh waits (None:
+        #: torch's default); ``multihost_pipeline_mesh`` gives the default
+        #: group's, as ``initialize(timeout_s=)`` set it
+        self.group_timeout_s: float | None = None
+        #: whether ``world`` and ``_groups`` were made for this mesh alone
+        #: (:func:`regroup`), for :func:`release` to destroy
+        self._own_groups = False
 
     @property
     def shape(self) -> dict[str, int]:
@@ -250,12 +267,51 @@ def line_group(mesh: Mesh, axis: str):
     for ranks in sets:
         if len(ranks) == 1:
             continue
-        group = (dist.group.WORLD if len(ranks) == world
-                 else dist.new_group(list(ranks)))
+        group = ((mesh.world or dist.group.WORLD) if len(ranks) == world
+                 else _new_group(list(ranks), mesh.group_timeout_s))
         if me in ranks:
             mine = group
     mesh._groups[axis] = mine
     return mine
+
+
+def _new_group(ranks: list[int], timeout_s: float | None):
+    """``dist.new_group(ranks)`` whose collectives wait ``timeout_s``."""
+    kw = ({} if timeout_s is None
+          else {"timeout": datetime.timedelta(seconds=timeout_s)})
+    return _dist().new_group(ranks, **kw)
+
+
+def regroup(mesh: Mesh) -> Mesh:
+    """A copy of ``mesh`` whose collectives run on groups of its own: a new
+    group over every process (``world``) and line groups made anew
+    (:func:`line_group`), none shared with ``mesh`` or another copy.  A
+    mesh within one process is returned as it is.  ``new_group`` is
+    collective: every process calls this in one order, as it makes every
+    group, and from no other thread while it runs."""
+    if not mesh.spans_processes:
+        return mesh
+    out = copy.copy(mesh)
+    out._groups = {}
+    out.world = _new_group(list(range(_dist().get_world_size())),
+                           mesh.group_timeout_s)
+    out._own_groups = True
+    return out
+
+
+def release(mesh: Mesh) -> None:
+    """Destroy the groups of a copy made by :func:`regroup` (any other
+    mesh is left as it is), once this process's collectives on them are
+    over.  Destroying is local: a peer still waiting on one of them times
+    out as the group's timeout says."""
+    if not mesh._own_groups:
+        return
+    mesh._own_groups = False
+    dist = _dist()
+    groups = {id(g): g for g in (mesh.world, *mesh._groups.values())
+              if g is not None}
+    for g in groups.values():
+        dist.destroy_process_group(g)
 
 
 def _staged(t: torch.Tensor) -> bool:
@@ -272,7 +328,7 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def exchange(sends, recvs) -> list[torch.Tensor]:
+def exchange(sends, recvs, group=None) -> list[torch.Tensor]:
     """One ``dist.batch_isend_irecv`` of ``sends`` (``(tensor, process)``)
     and ``recvs`` (``(like, process)``: a tensor of the shape, dtype and
     device to receive); returns the received tensors, each on its
@@ -280,18 +336,20 @@ def exchange(sends, recvs) -> list[torch.Tensor]:
     waited for, so a ring of them cannot deadlock; two processes exchange
     their messages in the order both list them.  Over gloo a CUDA tensor
     is staged through pinned host memory (the copy back is queued on the
-    current stream, so the kernels after it read it in order)."""
+    current stream, so the kernels after it read it in order).  ``group``:
+    a group over every process, as a mesh's ``world`` (None: the default
+    group)."""
     dist = _dist()
     ops, landed = [], []
     for t, peer in sends:
         t = _to_host(t) if _staged(t) else t.contiguous()
-        ops.append(dist.P2POp(dist.isend, t, int(peer)))
+        ops.append(dist.P2POp(dist.isend, t, int(peer), group))
     for like, peer in recvs:
         staged = _staged(like)
         buf = torch.empty(like.shape, dtype=like.dtype,
                           device="cpu" if staged else like.device,
                           pin_memory=staged)
-        ops.append(dist.P2POp(dist.irecv, buf, int(peer)))
+        ops.append(dist.P2POp(dist.irecv, buf, int(peer), group))
         landed.append((buf, like.device))
     if ops:
         for work in dist.batch_isend_irecv(ops):
@@ -300,15 +358,16 @@ def exchange(sends, recvs) -> list[torch.Tensor]:
             for buf, dev in landed]
 
 
-def broadcast(t: torch.Tensor, src: int) -> torch.Tensor:
-    """``t`` of process ``src`` on every process (the default group;
-    every process calls it with a tensor of the same shape and dtype)."""
+def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """``t`` of process ``src`` on every process (every process calls it
+    with a tensor of the same shape and dtype; ``group`` as in
+    :func:`exchange`)."""
     dist = _dist()
     if not _staged(t):
-        dist.broadcast(t, src)
+        dist.broadcast(t, src, group=group)
         return t
     h = _to_host(t)
-    dist.broadcast(h, src)
+    dist.broadcast(h, src, group=group)
     return h.to(t.device, non_blocking=True)
 
 

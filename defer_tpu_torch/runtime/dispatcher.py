@@ -13,6 +13,20 @@ language models (``models/gpt.py``): generation on the pipelined decoder
 power-of-two length bucket.  ``serve_endpoint`` is the network front
 door: framed tensors in over TCP, through the native host staging ring
 into the pipeline, replies out in each client's own order.
+
+Over a mesh spread across ``torch.distributed`` processes every process
+calls ``run_defer`` or ``serve_endpoint`` with the same arguments.  The
+ring runs in lock-step, so one process decides each serve-loop step and
+the others follow (:class:`_Lockstep`): the leader, the process holding
+stage 0 of data line 0, alone reads the input queue, keeps the resubmit
+log, binds the socket and runs the staging ring; every step it takes
+(push, idle, stop, fail or reweight) with the others in one all-reduce,
+which also tells it the fewest outputs any process has emitted, and it
+deals a push's rows to the processes that inject them.  Each generation
+of a deployment builds its ring and its steps on process groups of its
+own (``parallel/mesh.py`` ``regroup``), destroyed when its thread ends
+(``release``).  Within one process the same code runs, each step taken
+alone.
 """
 
 from __future__ import annotations
@@ -35,6 +49,7 @@ from ..obs.postmortem import maybe_autopsy
 from ..partition.partitioner import partition
 from ..transport.replay import ReplayBuffer
 from ..utils.config import DeferConfig, resolve_device
+from ..parallel.mesh import current_process, regroup, release
 from .decode import PipelinedDecoder
 from .mpmd import MpmdPipeline
 from .spmd import SpmdPipeline
@@ -42,10 +57,206 @@ from .spmd import SpmdPipeline
 #: sentinel a producer puts on the input queue to end the stream
 END_OF_STREAM = None
 
+#: the steps a serve loop's leader decides across processes (_Lockstep)
+_IDLE, _PUSH, _STOP, _FAIL, _REWEIGHT = range(5)
+
 
 def _host(outs: list[torch.Tensor]) -> list[np.ndarray]:
     """Outputs as float32 host arrays (waits for the device)."""
     return [o.float().cpu().numpy() for o in outs]
+
+
+class _Abandoned(Exception):
+    """A serving generation's thread leaves it: the watchdog has moved the
+    deployment to a new generation (raised at a step every process of the
+    generation takes, so all leave together)."""
+
+
+class _Lockstep:
+    """One serving generation's agreement over its ring.
+
+    Across processes the ring runs in lock-step, so one process, the
+    leader (``pipe.first_process``: stage 0 of data line 0), takes each
+    serve-loop step and the others follow it.  A step (:meth:`step`) is
+    one all-reduce (MAX) of six integers on the generation's group
+    (``Mesh.world``): the leader's ``(operation, argument, dealt,
+    generation)`` beside the followers' zeros, every process's
+    ``-emitted`` and whether its generation was abandoned.  So every step
+    also tells every process the fewest outputs any process has emitted
+    (where a recovery's replay starts), and a generation's threads leave
+    it together, at one step.  A push's argument is its ``n_real`` and
+    ``dealt`` says whether it carries rows (:meth:`SpmdPipeline.deal`) or
+    is a bubble push; a reweight's argument is its epoch.  A follower
+    raises on the leader's ``fail`` and on another generation's step.
+
+    Within one process the same object decides alone: the leader is this
+    process and a step returns at once with its own values.  That is the
+    one difference in what a caller sees: across processes every stream of
+    ``run_defer`` ends with ``END_OF_STREAM`` (a follower's caller puts no
+    END of its own to see the end by), within one process only a failed
+    one does."""
+
+    def __init__(self, pipe: SpmdPipeline, gen: int = 0):
+        self.pipe, self.gen = pipe, gen
+        self.across = pipe.mesh.spans_processes
+        self.leader = pipe.first_process
+        self.leads = not self.across or current_process() == self.leader
+        if self.across:
+            import torch.distributed as dist
+            self._dist, self.group = dist, pipe.mesh.world
+            self.device = (torch.device("cpu")
+                           if dist.get_backend(self.group) == "gloo"
+                           else pipe.device)
+
+    def _all_reduce(self, values: list[int], op) -> list[int]:
+        t = torch.tensor(values, dtype=torch.int64, device=self.device)
+        self._dist.all_reduce(t, op=op, group=self.group)
+        return t.tolist()
+
+    def step(self, op: int = _IDLE, arg: int = 0, dealt: int = 0, *,
+             emitted: int = 0, quit: bool = False):
+        """One step, taken by every process: the leader's ``(op, arg,
+        dealt)`` (a follower's are ignored), this process's ``emitted``
+        outputs and whether it ``quit`` the generation.  Returns ``(op,
+        arg, dealt, floor, quit)``: the leader's step, the fewest outputs
+        any process had emitted, and whether any process quit."""
+        if not self.across:
+            return op, arg, dealt, emitted, quit
+        mine = [op, arg, dealt, self.gen] if self.leads else [0, 0, 0, 0]
+        op, arg, dealt, gen, floor, quit = self._all_reduce(
+            mine + [-emitted, int(quit)], self._dist.ReduceOp.MAX)
+        if gen != self.gen:
+            raise RuntimeError(f"serve step of generation {gen} read by "
+                               f"generation {self.gen}")
+        if op == _FAIL and not self.leads:
+            raise RuntimeError(
+                f"the serving leader (process {self.leader}) failed; its "
+                "handle holds the error")
+        if op not in (_IDLE, _PUSH, _STOP, _FAIL, _REWEIGHT):
+            raise RuntimeError(f"unknown serve step {op}")
+        return op, arg, dealt, -floor, bool(quit)
+
+    def pushes(self, step=None, reweights=None):
+        """A follower's loop: the leader's steps until its stop, yielding
+        each push as ``(dealt, n_real)``; idles are taken here and
+        reweights installed (``reweights``, :class:`_Reweights`).
+        ``step()`` takes one step (default :meth:`step`; the dispatcher
+        arms its watchdog around it)."""
+        step = step or self.step
+        while True:
+            op, arg, dealt = step()[:3]
+            if op == _STOP:
+                return
+            if op == _REWEIGHT:
+                reweights.install(arg)
+            elif op == _PUSH:
+                yield dealt, arg
+
+    def share(self, obj):
+        """The leader's picklable ``obj`` on every process."""
+        if not self.across:
+            return obj
+        box = [obj]
+        self._dist.broadcast_object_list(
+            box, self.leader, group=self.group,
+            device=None if self.device.type == "cpu" else self.device)
+        return box[0]
+
+    def stage(self, block: np.ndarray):
+        """The leader's input block, checked before any process pushes:
+        across processes staged on the device with every row, as
+        :meth:`SpmdPipeline.deal` takes it (a bad input raises here);
+        within one process as it is, for the push to stage."""
+        if not self.across:
+            return block
+        return self.pipe.stage_inputs(block, every_row=True)
+
+    def push(self, block, n_real: int, raw: bool = False):
+        """The leader's push of a step: its staged block, dealt to the
+        processes that inject rows (None: a bubble push)."""
+        pipe = self.pipe
+        if block is None:
+            block = pipe._bubble_block()
+        elif self.across:
+            block = pipe.deal(block, self.leader)
+        return pipe.push(block, n_real=n_real, raw=raw)
+
+    def follow_push(self, dealt: int, n_real: int, raw: bool = False):
+        """A follower's push of a step: the rows it injects, dealt by the
+        leader, or the bubble block."""
+        pipe = self.pipe
+        xs = (pipe.deal(None, self.leader) if dealt
+              else pipe._bubble_block())
+        return pipe.push(xs, n_real=n_real, raw=raw)
+
+    def preflight(self) -> None:
+        """The bubble chunk (``warmup``); across processes first every
+        process runs its stages alone and they agree whether all ran: a
+        stage that cannot run fails every process, not only its own."""
+        if self.across:
+            err = None
+            try:
+                self.pipe.check_stages()
+            except Exception as e:  # noqa: BLE001 — agreed on below
+                err = e
+            ok = self._all_reduce([int(err is None)],
+                                  self._dist.ReduceOp.MIN)[0]
+            if err is not None:
+                raise err
+            if not ok:
+                raise RuntimeError(
+                    "preflight: a stage of another process cannot run; "
+                    "its handle holds the error")
+        self.pipe.warmup()
+
+
+class _Reweights:
+    """``thread.reweight`` of an endpoint.  Within one process it swaps
+    the weights at once (``SpmdPipeline.reweight``).  Across processes
+    every process is handed the same params and packs its own stages'
+    rows (a layout error raises in the caller), and every process installs
+    epoch ``e`` at the step the leader names it, before the same push;
+    ``hand`` returns once this process has installed them."""
+
+    def __init__(self, lock: _Lockstep, wait_s: float, alive):
+        self.pipe, self.across = lock.pipe, lock.across
+        self.wait_s, self.alive = wait_s, alive
+        self.cond = threading.Condition()
+        self.rows: list = []
+        self.applied = 0
+
+    def hand(self, params) -> None:
+        if not self.across:
+            self.pipe.reweight(params)
+            return
+        rows = self.pipe.pack_weights(params)
+        with self.cond:
+            self.rows.append(rows)
+            epoch = len(self.rows)
+            while self.applied < epoch:
+                if not self.alive():  # no step follows: install here
+                    self.pipe.install_weights(rows)
+                    self.applied = epoch
+                    break
+                self.cond.wait(0.05)
+
+    def due(self) -> int:
+        """The next epoch to install (0: none is waiting)."""
+        with self.cond:
+            return self.applied + 1 if len(self.rows) > self.applied else 0
+
+    def install(self, epoch: int) -> None:
+        deadline = time.monotonic() + self.wait_s
+        with self.cond:
+            while len(self.rows) < epoch:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"reweight epoch {epoch} was not handed to this "
+                        f"process within {self.wait_s:.0f}s")
+                self.cond.wait(0.05)
+            self.pipe.install_weights(self.rows[epoch - 1])
+            self.applied = epoch
+            self.cond.notify_all()
 
 
 class DeferHandle:
@@ -71,17 +282,30 @@ class DeferHandle:
         #: completed watchdog recoveries (rebuild + replay)
         self.recoveries: int = 0
         #: fed-but-not-yet-emitted real microbatch inputs, seq-stamped
-        #: ("ack" = "output emitted"): a recovery generation replays
-        #: ``unacked()``.  Assigned by ``run_defer``.
+        #: ("ack" = "output emitted by every process"): a recovery
+        #: generation replays ``unacked()``.  Assigned by ``run_defer``.
         self._resubmit: ReplayBuffer | None = None
-        #: next feed seq to stamp / cumulative outputs emitted
+        #: next feed seq to stamp / outputs this process emitted, both
+        #: counted over the deployment's generations
         self._fed: int = 0
         self._emitted: int = 0
+        #: set when a peer process abandoned the generation (across
+        #: processes): the watchdog then recovers at once
+        self._peer_left: bool = False
         #: True once END_OF_STREAM was consumed from the input queue — a
         #: recovery generation must not wait for a second END
         self._end_seen: bool = False
+        #: every serve thread started, one a generation (named
+        #: ``defer-dispatcher-g<gen>``): an abandoned one may still be
+        #: finishing its step; across processes it leaves at the next step
+        #: its peers' abandoned threads take, or when a collective of its
+        #: generation's groups times out (``initialize(timeout_s=)``)
+        self.threads: list[threading.Thread] = []
 
     def stop(self):
+        """Shut down after draining the pipe.  Across processes it takes
+        effect where it is called on the leader; on a follower alone it
+        does nothing (the follower follows the leader to its end)."""
         self._stop.set()
 
     @property
@@ -124,13 +348,15 @@ class Defer:
     take their stage count from its stage axis.  Without a mesh the ring
     runs on the one-card mesh of ``config.data_parallel`` x stages x
     ``config.tensor_parallel``.  A mesh over several ``torch.distributed``
-    processes (``multihost_pipeline_mesh``) runs ``build``, ``run`` and
-    ``stream`` through the ring across processes (``SpmdPipeline``), and
-    ``generate`` (the decoder across processes), ``logits`` and ``score``
-    on it, each returning the same values on every process; ``run_defer``
-    and ``serve_endpoint`` raise naming ROADMAP A15c before placing
-    anything, and so does ``mode="mpmd"``, which stays within one process
-    by design (see :meth:`build`).
+    processes (``multihost_pipeline_mesh``) runs every entry point through
+    the ring across processes (``SpmdPipeline``; ``generate`` on the
+    decoder across processes), each called by every process with the same
+    arguments: ``build``, ``run``, ``stream``, ``logits`` and ``score``
+    return the same values on every process; ``run_defer`` and
+    ``serve_endpoint`` serve from the leader's queue or socket, one process
+    deciding each step (see the module's docstring).  Only ``mode="mpmd"``
+    raises there, before placing anything: it stays within one process by
+    design (see :meth:`build`).
     """
 
     def __init__(self, config: DeferConfig | None = None, mesh=None):
@@ -163,15 +389,18 @@ class Defer:
                 str(c.buffer_dtype), c.wire, c.mode, c.master_weights,
                 c.data_parallel, c.tensor_parallel)
 
-    def _one_process(self, entry: str, why: str = "it is ROADMAP queue "
-                     "A15c") -> None:
-        """Raise, naming ROADMAP A15c, where an entry point that runs within
-        one process is given a mesh over several."""
-        if self.mesh is not None and self.mesh.spans_processes:
+    def _one_process(self, entry: str, why: str) -> None:
+        """Raise, naming why, where an entry point that runs within one
+        process (the MPMD relay) is given a mesh over several."""
+        if self._across:
             raise NotImplementedError(
                 f"Defer.{entry} runs within one process; this mesh spans "
-                f"processes: {why} (the SPMD ring's build, run, stream, "
-                "logits and score and the decoder's generate take it)")
+                f"processes: {why} (every entry point of the SPMD ring "
+                "takes it)")
+
+    @property
+    def _across(self) -> bool:
+        return self.mesh is not None and self.mesh.spans_processes
 
     def _default_num_stages(self) -> int:
         """Stage count from this deployment's mesh (1 when mesh-less), as
@@ -203,6 +432,13 @@ class Defer:
         controller's, as the JAX one places each stage with
         ``jax.device_put``, which reaches only this process's devices (by
         design, ROADMAP A15c)."""
+        return self._build(graph, params, cut_points, num_stages)
+
+    def _build(self, graph, params, cut_points, num_stages,
+               regrouped: bool = False):
+        """:meth:`build`; ``regrouped`` places an SPMD ring across
+        processes on groups of its own (``regroup``: every process makes
+        them, in one order), as each serving generation is placed."""
         cfg = self.config
         if cfg.mode == "mpmd":
             self._one_process("build(mode='mpmd')", "the MPMD relay places "
@@ -220,8 +456,11 @@ class Defer:
         if cfg.mode != "spmd":
             raise ValueError(f"mode must be 'spmd' or 'mpmd', got "
                              f"{cfg.mode!r}")
+        mesh = self.mesh
+        if regrouped and mesh is not None:
+            mesh = regroup(mesh)
         return SpmdPipeline(
-            stages, params, mesh=self.mesh, device=self.device,
+            stages, params, mesh=mesh, device=self.device,
             microbatch=cfg.microbatch, chunk=cfg.chunk,
             buffer_dtype=cfg.buffer_dtype,
             compute_dtype=cfg.compute_dtype,
@@ -419,22 +658,38 @@ class Defer:
         The registry counters ``endpoint.samples_in``/``samples_out`` count
         samples: ``microbatch`` per frame (the JAX package counts frames;
         the two agree at microbatch 1).
+
+        Across processes every process calls it with the same arguments
+        and gets the same address.  The leader (the process holding stage
+        0 of data line 0) binds the socket and runs the staging ring, the
+        acceptor, the readers and the serve loop, deciding each step; the
+        other processes' threads follow it (:class:`_Lockstep`) and
+        create no ring and no staging blocks.  ``thread.reweight(params)``
+        is called on every process with the same params and installs them
+        at the step the leader names; ``thread.stop()`` takes effect on
+        the leader (on a follower it does nothing); the endpoint counters
+        count on the leader only, the followers' stay 0; a follower's
+        ``thread.errors`` holds the leader's failure, if it failed.
         """
         from ..transport.framed import (K_END, K_TENSOR, configure_socket,
                                         recv_frame, send_end, send_frame)
         from ..transport.staging import HostStagingRing
 
-        self._one_process("serve_endpoint")
-        pipe = self.build(graph, params, cut_points, num_stages)
+        pipe = self._build(graph, params, cut_points, num_stages,
+                           regrouped=True)
         if isinstance(pipe, MpmdPipeline):
             raise ValueError("serve_endpoint requires spmd mode")
         pipe.warmup()  # on the card: captures the chunk's graph
+        lock = _Lockstep(pipe)
+        if not lock.leads:
+            return lock.share(None), self._follow_endpoint(
+                lock, stall_timeout_s)
         mb, buf, chunk = pipe.microbatch, pipe.buf_elems, pipe.chunk
         in_size = pipe.stages[0].in_spec.size
         n_slots = max(4 * chunk, 16)
         ring = HostStagingRing(mb * buf, n_slots=n_slots)
         srv = socket.create_server((host, port))
-        address = srv.getsockname()
+        address = lock.share(srv.getsockname())
         ep_in = REGISTRY.counter("endpoint.samples_in")
         ep_out = REGISTRY.counter("endpoint.samples_out")
         cuda = pipe.device.type == "cuda"
@@ -581,6 +836,10 @@ class Defer:
                     ep_out.n += mb
                     _maybe_drained(client)
 
+        def push(xs, got: int):
+            lock.step(_PUSH, got, int(xs is not None))
+            return lock.push(xs, got, raw=True)
+
         def serve_loop():
             out_shape = (mb,) + pipe.out_spec.shape
             # two staging blocks in turn; on the card page-locked, each
@@ -594,6 +853,9 @@ class Defer:
             while done_clients < max_clients or owners:
                 if stop_ev.is_set() and not owners:
                     return  # operator stop: in-flight rows drained
+                if epoch := rw.due():
+                    lock.step(_REWEIGHT, epoch)
+                    rw.install(epoch)
                 while finished.acquire(blocking=False):
                     done_clients += 1
                 if copied[turn] is not None:
@@ -603,14 +865,15 @@ class Defer:
                                                 out=blocks[turn])
                 except TimeoutError:
                     if not owners:
+                        lock.step(_IDLE)  # the followers' heartbeat
                         continue
                     # undelivered rows are inside the pipe and no new
                     # traffic is arriving: crank it with the cached
                     # device-resident bubble block (flush()'s recipe)
-                    got, block = 0, None
-                    xs = pipe._bubble_block()
+                    got, xs = 0, None
                 else:
                     if block is None:
+                        lock.step(_IDLE)
                         continue  # ring closed (teardown)
                     xs = block.view(chunk, mb, buf).to(
                         pipe.device, non_blocking=True).to(pipe.buffer_dtype)
@@ -618,7 +881,7 @@ class Defer:
                         copied[turn] = torch.cuda.Event()
                         copied[turn].record()
                     turn ^= 1
-                slab, mask = pipe.push(xs, n_real=got, raw=True)
+                slab, mask = push(xs, got)
                 if slab is None:
                     continue
                 real = np.flatnonzero(mask)
@@ -641,12 +904,16 @@ class Defer:
                 with (torch.cuda.device(pipe.device) if cuda
                       else contextlib.nullcontext()):
                     serve_loop()
+                lock.step(_STOP)
             except BaseException as e:  # noqa: BLE001 — endpoint-fatal
                 errors.append(e)
+                with contextlib.suppress(Exception):
+                    lock.step(_FAIL)
                 raise
             finally:
                 ring.close()
                 srv.close()
+                release(pipe.mesh)
                 # endpoint-fatal exit: cut every live client WITHOUT an END
                 # echo so remote peers fail loudly instead of blocking in
                 # recv forever (normal exits find no one alive here)
@@ -659,7 +926,8 @@ class Defer:
         # live redeploy: swap weights under the serving pipeline with no
         # recapture and no client disruption (the chunk in flight finishes
         # under the weights it started with)
-        thread.reweight = pipe.reweight
+        rw = _Reweights(lock, stall_timeout_s, thread.is_alive)
+        thread.reweight = rw.hand
         thread.pipeline = pipe
 
         def _stop():
@@ -671,6 +939,38 @@ class Defer:
         thread.start()
         return address, thread
 
+    @staticmethod
+    def _follow_endpoint(lock: _Lockstep, wait_s: float) -> threading.Thread:
+        """A follower's ``serve_endpoint`` thread: it takes the leader's
+        steps until its stop (or its failure, which lands in
+        ``thread.errors``)."""
+        pipe = lock.pipe
+        errors: list[BaseException] = []
+
+        def follow():
+            try:
+                with (torch.cuda.device(pipe.device)
+                      if pipe.device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    pipe.reset()
+                    for dealt, n_real in lock.pushes(reweights=rw):
+                        lock.follow_push(dealt, n_real, raw=True)
+            except BaseException as e:  # noqa: BLE001 — the leader's, or ours
+                errors.append(e)
+                raise
+            finally:
+                release(pipe.mesh)
+
+        thread = threading.Thread(target=follow, daemon=True,
+                                  name="defer-endpoint")
+        rw = _Reweights(lock, wait_s, thread.is_alive)
+        thread.errors = errors
+        thread.reweight = rw.hand
+        thread.pipeline = pipe
+        thread.stop = threading.Event().set  # the leader's stop ends it
+        thread.start()
+        return thread
+
     def run_defer(self, graph, params, cut_points,
                   input_stream: queue.Queue, output_stream: queue.Queue,
                   *, num_stages=None) -> DeferHandle:
@@ -681,9 +981,28 @@ class Defer:
         ``END_OF_STREAM`` (None) on the input queue — or call
         ``handle.stop()`` — to shut down after draining the pipe.  On a
         failure the handle records the error and the output queue gets
-        ``END_OF_STREAM``."""
-        self._one_process("run_defer")
-        pipe = self.build(graph, params, cut_points, num_stages)
+        ``END_OF_STREAM``.
+
+        Across processes every process calls it with the same arguments.
+        The leader (the process holding stage 0 of data line 0) alone
+        reads ``input_stream`` (a follower's is never read: an empty queue
+        will do), keeps the resubmit log and decides each step; every
+        process's ``output_stream`` gets every output once, in input
+        order, and then ``END_OF_STREAM`` (:meth:`_Lockstep.close`), and
+        every process's handle counts the same dispatches and inferences.
+        ``handle.stop()`` takes effect on the leader.  The watchdog runs on
+        every process, armed around its dispatches and around its waits
+        for the leader's steps (the leader's idle waits are steps too): a
+        wedge anywhere stalls every process, every watchdog fires, and each
+        rebuilds its ring on new process groups.  The new generation starts
+        where the process that emitted fewest outputs stopped: the leader
+        replays its log from there, the followers follow the replay, and
+        each process skips the outputs it already emitted.  A recovery
+        makes those groups from the watchdog thread: no other thread may
+        make groups while it runs."""
+        across = self._across
+        pipe = self._build(graph, params, cut_points, num_stages,
+                           regrouped=across)
         stop = threading.Event()
         cfg = self.config
         disp_count = REGISTRY.counter("dispatcher.dispatches")
@@ -723,9 +1042,62 @@ class Defer:
                 tr.record("dispatcher.dispatch", tp0, dt, {"gen": gen})
             return out
 
-        def _serve_inner(pipe, replay, gen):
+        def _armed(gen, fn, *a, **kw):
+            # a wait for (or the taking of) a serve step across processes:
+            # the watchdog sees it as busy, but it is no dispatch (within
+            # one process a step waits for nothing)
+            if not across:
+                return fn(*a, **kw)
+            if handle._gen == gen:
+                handle._busy_since = time.monotonic()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if handle._gen == gen:
+                    handle._busy_since = None
+
+        def _live(gen) -> bool:
+            return handle._gen == gen and handle.error is None
+
+        def _step(gen, lock, *values):
+            # one serve step, armed.  Every process also says how many
+            # outputs it emitted (the leader's log keeps what any process
+            # lacks) and whether its generation was abandoned: if one was,
+            # every process leaves the generation at this same step
+            op, arg, dealt, floor, quit = _armed(
+                gen, lock.step, *values, emitted=handle._emitted,
+                quit=not _live(gen))
+            if quit:
+                if _live(gen):
+                    # a peer's watchdog abandoned it: this one recovers
+                    # (or declares the deployment dead) now as well, armed
+                    handle._busy_since = time.monotonic()
+                    handle._peer_left = True
+                    while _live(gen):
+                        time.sleep(0.05)
+                raise _Abandoned
+            handle._resubmit.ack(floor)
+            return op, arg, dealt, floor
+
+        def _emitter(first: int):
+            # a generation's outputs onto the stream: its first is the
+            # deployment's output number ``first``, and those this process
+            # emitted before (a recovery replays from the fewest any
+            # process emitted) are skipped
+            seq = first
+
+            def emit(outs):
+                nonlocal seq
+                for o in outs:
+                    if seq >= handle._emitted:
+                        handle._emitted += 1
+                        output_stream.put(o)
+                    seq += 1
+            return emit
+
+        def _serve_inner(pipe, gen, t_rec):
             def live() -> bool:
-                return handle._gen == gen and handle.error is None
+                return _live(gen)
 
             if isinstance(pipe, MpmdPipeline):
                 if cfg.preflight:
@@ -766,18 +1138,23 @@ class Defer:
                     output_stream.put(o)
                 return
 
-            # ---- SPMD path: resubmit log + replay-aware input feed ----
+            # ---- SPMD path: resubmit log + replay-aware input feed; each
+            # step decided by the leader (_Lockstep).  A generation leaves
+            # only at a step (_Abandoned): an abandoned thread skips its
+            # outputs and, as the leader, reads no input ----
+            lock = _Lockstep(pipe, gen)
+            first = _step(gen, lock)[3]
+            emit = _emitter(first)
             log = handle._resubmit
-            pending: collections.deque = collections.deque(replay)
-
-            def next_input(timeout: float):
-                if pending:
-                    return pending.popleft()
-                if handle._end_seen:
-                    # the caller's END was consumed by a previous (wedged)
-                    # generation; never wait for a second one
-                    raise queue.Empty
-                return input_stream.get(timeout=timeout)
+            # the leader's replay: every fed input some process has not
+            # emitted (a follower's log is empty)
+            pending = collections.deque(log.unacked())
+            fresh = handle._fed  # seqs from here on are not in the log
+            if t_rec is not None:
+                emit_event("failover", hop="dispatcher", chan=gen,
+                           addr="in-process", replayed=len(pending),
+                           recovery_ms=round(
+                               (time.perf_counter() - t_rec) * 1e3, 3))
 
             pipe.reset()
             if cfg.preflight:
@@ -786,19 +1163,40 @@ class Defer:
                 # graph).  arm=False: on a recovery generation _dispatches
                 # is already > 0 and this dispatch would otherwise re-trip
                 # the watchdog
-                _dispatch(gen, pipe.warmup, arm=False)
-                if not live():
-                    return
+                _dispatch(gen, lock.preflight, arm=False)
+            if not lock.leads:
+                # a follower: the leader's pushes; it reads no input
+                for dealt, n_real in lock.pushes(lambda: _step(gen, lock)):
+                    outs = _dispatch(gen, lambda: _host(
+                        lock.follow_push(dealt, n_real)))
+                    if live():
+                        emit(outs)
+                return finish(pipe, lock, gen, emit)
+
+            def next_input(timeout: float):
+                if pending:
+                    return pending.popleft()
+                if handle._end_seen:
+                    # the caller's END was consumed by a previous (wedged)
+                    # generation; never wait for a second one
+                    raise queue.Empty
+                x = input_stream.get(timeout=timeout)
+                if x is END_OF_STREAM:
+                    return x
+                handle._fed += 1
+                return handle._fed - 1, x
+
             done = False
             while not done and not stop.is_set() and live():
                 if handle._end_seen and not pending:
                     break  # recovery after END: replay done, go flush
-                batch: list[np.ndarray] = []
+                batch: list = []
                 try:
                     batch.append(next_input(0.05))
                 except queue.Empty:
                     if handle._end_seen:
                         break
+                    _step(gen, lock, _IDLE)  # the followers' heartbeat
                     continue
                 if batch[0] is END_OF_STREAM:
                     handle._end_seen = True
@@ -816,112 +1214,120 @@ class Defer:
                         break
                     batch.append(nxt)
                 n_real = len(batch)
-                pad = [np.zeros_like(batch[0])] * (pipe.chunk - n_real)
-                block = np.stack(batch + pad)
+                xs = [x for _, x in batch]
+                xs += [np.zeros_like(xs[0])] * (pipe.chunk - n_real)
+                # across processes a bad input fails here, before any
+                # process pushes: then every process fails with it
+                try:
+                    block = _armed(gen, lock.stage, np.stack(xs))
+                except BaseException:
+                    _step(gen, lock, _FAIL)
+                    raise
                 # record the fed microbatches BEFORE dispatch: if the
                 # dispatch wedges, the recovery generation replays exactly
-                # these (plus everything older still in the pipe)
-                for x in batch:
+                # these (plus everything older some process has not
+                # emitted)
+                for q, x in batch:
+                    if q < fresh:
+                        continue  # a replay: still in the log
                     if log.depth() >= log.capacity:
                         # acks track emits, so this is a bug: raise instead
                         # of letting retain() block on it
                         raise RuntimeError(
                             f"resubmit log overflow ({log.depth()} >= "
                             f"{log.capacity})")
-                    log.retain(handle._fed, x)
-                    handle._fed += 1
-                outs = _dispatch(
-                    gen, lambda: _host(pipe.push(block, n_real=n_real)))
-                if not live():
-                    return  # watchdog fired mid-dispatch; sentinel is out
-                for o in outs:
-                    # emitted: no longer replayable (cumulative ack)
-                    handle._emitted += 1
-                    log.ack(handle._emitted)
-                    output_stream.put(o)
-            if not live():
-                return
-            outs = _dispatch(gen, lambda: _host(pipe.flush()))
-            if not live():
-                # the watchdog fired during the drain: the sentinel is
-                # already on the queue, and outputs after it would break
-                # the stream protocol for readers
-                return
-            for o in outs:
-                handle._emitted += 1
-                log.ack(handle._emitted)
-                output_stream.put(o)
+                    log.retain(q, x)
+                _step(gen, lock, _PUSH, n_real, 1)
+                outs = _dispatch(gen, lambda: _host(lock.push(block, n_real)))
+                if live():
+                    emit(outs)
+            _step(gen, lock, _STOP)
+            finish(pipe, lock, gen, emit)
 
-        def start_generation(pipe, replay, gen):
+        def finish(pipe, lock, gen, emit):
+            # the drain, then one more step, which each process takes once
+            # it has emitted every output: no stream ends while another
+            # process still lacks some, and a stall before it keeps every
+            # process armed in the generation, where a watchdog finds it
+            outs = _dispatch(gen, lambda: _host(pipe.flush()))
+            if _live(gen):
+                emit(outs)
+            _step(gen, lock)
+            if lock.across:  # (see _Lockstep) and within one process, a
+                output_stream.put(END_OF_STREAM)  # stream's END is its
+                #                                   caller's
+
+        def start_generation(pipe, gen, t_rec=None):
             def serve():
                 try:
-                    _serve_inner(pipe, replay, gen)
+                    _serve_inner(pipe, gen, t_rec)
+                except _Abandoned:
+                    pass  # every process left this generation together
                 except BaseException as e:  # surface errors instead of a
-                    if handle._gen == gen:  # silent dead thread and a
+                    if _live(gen):          # silent dead thread and a
                         handle.error = e    # forever-blocked reader
                         output_stream.put(END_OF_STREAM)
+                finally:
+                    if not isinstance(pipe, MpmdPipeline):
+                        release(pipe.mesh)
 
             t = threading.Thread(target=serve, daemon=True,
                                  name=f"defer-dispatcher-g{gen}")
             handle._thread = t
+            handle.threads.append(t)
             handle.pipeline = pipe
             t.start()
 
         handle = DeferHandle(None, pipe, stop)
         handle._resubmit = ReplayBuffer(log_cap,
                                         gauge="dispatcher.replay_depth")
-        start_generation(pipe, [], 0)
+        start_generation(pipe, 0)
 
         if cfg.watchdog_s is not None:
+            def watching() -> bool:
+                if across:  # a follower's stop() does not end its part
+                    return handle._thread.is_alive() and handle.error is None
+                return not stop.is_set() and handle._thread.is_alive()
+
             def watch():
-                while not stop.is_set() and handle._thread.is_alive():
+                while watching():
                     busy = handle._busy_since
                     # the bound scales with the slowest dispatch this
                     # deployment has completed, so a legitimately slow
                     # deployment raises its own threshold
                     wd = max(cfg.watchdog_s,
                              cfg.watchdog_scale * handle._max_dispatch_s)
-                    # unarmed until one dispatch completed
-                    if (handle._dispatches > 0 and busy is not None
-                            and time.monotonic() - busy > wd):
+                    # unarmed until one dispatch completed; across
+                    # processes a peer's abandoned generation counts as a
+                    # stall here too
+                    if handle._dispatches > 0 and busy is not None and (
+                            handle._peer_left
+                            or time.monotonic() - busy > wd):
                         if (handle.recoveries < cfg.max_recoveries
                                 and not isinstance(handle.pipeline,
                                                    MpmdPipeline)):
-                            # RECOVER: abandon the wedged generation,
-                            # rebuild the pipeline and replay the
-                            # fed-but-unemitted microbatches
+                            # RECOVER: abandon the wedged generation and
+                            # rebuild the pipeline; the new generation
+                            # replays what some process has not emitted
                             handle.recoveries += 1
                             handle._gen += 1
                             handle._busy_since = None
+                            handle._peer_left = False
                             emit_event("watchdog", action="recover",
                                        gen=handle._gen,
                                        stalled_s=round(
                                            time.monotonic() - busy, 3))
                             t_rec = time.perf_counter()
-                            # the unacked window IS the replay set; the
-                            # new generation re-feeds (re-retains) it, in
-                            # a fresh window and seq space
-                            replay = [v for _, v
-                                      in handle._resubmit.unacked()]
-                            handle._resubmit = ReplayBuffer(
-                                log_cap, gauge="dispatcher.replay_depth")
-                            handle._fed = handle._emitted = 0
                             try:
-                                new_pipe = self.build(graph, params,
-                                                      cut_points, num_stages)
+                                new_pipe = self._build(
+                                    graph, params, cut_points, num_stages,
+                                    regrouped=across)
                             except BaseException as e:  # noqa: BLE001
                                 handle.error = e
                                 stop.set()
                                 output_stream.put(END_OF_STREAM)
                                 return
-                            start_generation(new_pipe, replay, handle._gen)
-                            emit_event(
-                                "failover", hop="dispatcher",
-                                chan=handle._gen, addr="in-process",
-                                replayed=len(replay),
-                                recovery_ms=round(
-                                    (time.perf_counter() - t_rec) * 1e3,
-                                    3))
+                            start_generation(new_pipe, handle._gen, t_rec)
                             continue
                         # out of recoveries (or MPMD): a dead device
                         # surfaces instead of hanging forever
@@ -934,6 +1340,9 @@ class Defer:
                         # unless this process journals)
                         maybe_autopsy("watchdog: deployment declared dead")
                         handle.error = TimeoutError(
+                            "a peer process abandoned the deployment's "
+                            "generation; deployment declared dead"
+                            if handle._peer_left else
                             f"pipeline dispatch made no progress for "
                             f"{wd:.1f}s; deployment declared dead")
                         stop.set()  # serve loop exits; no outputs after

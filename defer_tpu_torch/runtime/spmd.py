@@ -65,7 +65,13 @@ runs its chunks eagerly: a CUDA graph cannot hold a gloo send, and the
 engine decides that from the mesh at construction.  ``metrics`` counts the
 bytes that cross (``boundary_bytes``, ``boundary_sends``).  The schedule
 and the outputs are the one-process ring's; only the microbatches that
-complete in a push are broadcast (the real ones, unless ``raw``).
+complete in a push are broadcast (the real ones, unless ``raw``).  The
+crossings and broadcasts run on the mesh's group (``Mesh.world``: the
+default one, or a serving generation's own from ``regroup``).  A loop that
+one process decides (the dispatcher's serve loops) hands a push's input
+out with :meth:`SpmdPipeline.deal`: the deciding process holds every row,
+sends each data line's to the process holding its stage 0, and a process
+that injects none pushes the bubble block.
 
 Weights: each stage holds one flat row (``runtime/flatbuf.py``) in
 ``weight_dtype`` — ``compute_dtype`` when set, else float32, as in the JAX
@@ -207,15 +213,15 @@ def ring_transport(mesh: Mesh, device: torch.device) -> str:
 
 
 def cross_slot(slot: list[torch.Tensor], sends, recvs,
-               metrics: PipelineMetrics) -> list[torch.Tensor]:
+               metrics: PipelineMetrics, group=None) -> list[torch.Tensor]:
     """Send the tensors of the slot leaving this process (their rows per
     data line: ``sends``, ``[(rows, process)]``) to the process of the
     next stage, and return the slot arriving from the previous stage's
-    (``recvs``): one ``batch_isend_irecv``.  ``metrics`` counts the sends
-    and their bytes."""
+    (``recvs``): one ``batch_isend_irecv`` on ``group`` (a mesh's
+    ``world``).  ``metrics`` counts the sends and their bytes."""
     out_sends = [(t[rows], p) for rows, p in sends for t in slot]
     got = iter(exchange(out_sends, [(t[rows], p) for rows, p in recvs
-                                    for t in slot]))
+                                    for t in slot], group))
     out = [torch.empty_like(t) for t in slot]
     for rows, _ in recvs:
         for o in out:
@@ -244,15 +250,15 @@ class _CrossSlot(torch.autograd.Function):
     leaves a root, so autograd runs every crossing's backward."""
 
     @staticmethod
-    def forward(ctx, slot, token, sends, recvs, metrics):
-        ctx.route = (sends, recvs, metrics)
-        return cross_slot([slot], sends, recvs, metrics)[0]
+    def forward(ctx, slot, token, sends, recvs, metrics, group):
+        ctx.route = (sends, recvs, metrics, group)
+        return cross_slot([slot], sends, recvs, metrics, group)[0]
 
     @staticmethod
     def backward(ctx, g):
-        sends, recvs, metrics = ctx.route
-        return (cross_slot([g], recvs, sends, metrics)[0], None, None, None,
-                None)
+        sends, recvs, metrics, group = ctx.route
+        return (cross_slot([g], recvs, sends, metrics, group)[0], None, None,
+                None, None, None)
 
 
 def _runs(owners, lines: range, per: int, base: int = 0):
@@ -422,6 +428,11 @@ class SpmdPipeline:
         #: it holds stage 0, none elsewhere (every row in one process)
         self._in_rows = (self._rows if self.local_stages.start == 0
                          else slice(0, 0))
+        #: the process holding stage 0 of data line 0 (this one within one
+        #: process): the one that takes the dispatcher's decisions
+        self.first_process = int(owners[0, 0])
+        #: the group the crossings and broadcasts run on (the mesh's)
+        self._group = mesh.world
         self._sends = self._recvs = self._out_srcs = None
         #: across processes, an input of every crossing under autograd
         #: (:class:`_CrossSlot`): a leaf that requires grad
@@ -457,8 +468,16 @@ class SpmdPipeline:
         REMAINING stages under the new weights (mixed-generation
         execution) — call ``flush()`` first when a clean cut matters.
         """
-        rows = [m.load(params, f"reweight: stage {self.stages[k].name!r}")
+        self.install_weights(self.pack_weights(params))
+
+    def pack_weights(self, params) -> list:
+        """``params`` packed into this process's stages' rows and checked
+        (a layout error raises here); :meth:`install_weights` copies them
+        in.  ``reweight`` is the two in turn."""
+        return [m.load(params, f"reweight: stage {self.stages[k].name!r}")
                 for m, k in zip(self.modules, self.local_stages)]
+
+    def install_weights(self, rows: list) -> None:
         for m, r in zip(self.modules, rows):
             m.install(r)
 
@@ -505,20 +524,22 @@ class SpmdPipeline:
                                 self._cross_back, self._cross_token)
         y = torch.roll(y, 1, 0)
         y[0] = _CrossSlot.apply(y[0], self._cross_token, self._sends,
-                                self._recvs, self.metrics)
+                                self._recvs, self.metrics, self._group)
         return y
 
     def _cross(self, slot: list[torch.Tensor]) -> list[torch.Tensor]:
         """The slot leaving this process to the next stage's, the one
         arriving from the previous stage's (:func:`cross_slot`)."""
-        return cross_slot(slot, self._sends, self._recvs, self.metrics)
+        return cross_slot(slot, self._sends, self._recvs, self.metrics,
+                          self._group)
 
     def _cross_back(self, g: torch.Tensor) -> torch.Tensor:
         """The gradient of the arriving slot back to the previous stage's
         process; returns the gradient of the slot this process sent,
         from the next stage's (in the buffer dtype, as JAX's
         ``ppermute(g, inv_perm)``)."""
-        return cross_slot([g], self._recvs, self._sends, self.metrics)[0]
+        return cross_slot([g], self._recvs, self._sends, self.metrics,
+                          self._group)[0]
 
     def _chunk(self, ring: torch.Tensor, xs: torch.Tensor,
                outs: torch.Tensor) -> None:
@@ -555,7 +576,7 @@ class SpmdPipeline:
         for rows, src in self._out_srcs:
             block = (outs[:, rows.start - r0:rows.stop - r0].contiguous()
                      if src == me else full[:, rows].contiguous())
-            full[:, rows] = broadcast(block, src)
+            full[:, rows] = broadcast(block, src, self._group)
         return full
 
     def _capture(self, c: int) -> _ChunkGraph:
@@ -610,16 +631,19 @@ class SpmdPipeline:
     def _n_in(self) -> int:
         return self._in_rows.stop - self._in_rows.start
 
-    def _flatten_inputs(self, xs, staged: bool = False) -> torch.Tensor:
+    def _flatten_inputs(self, xs, staged: bool = False,
+                        rows: slice | None = None) -> torch.Tensor:
         """``xs`` as the ring's input block on the device, ``[C, rows,
-        buf_elems]``: only the rows this process injects (``_in_rows``)."""
-        rows = self._in_rows
+        buf_elems]``: only the rows this process injects (``_in_rows``),
+        or ``rows`` of the microbatch."""
+        rows = self._in_rows if rows is None else rows
+        n_in = rows.stop - rows.start
         if (isinstance(xs, torch.Tensor) and xs.device == self.device
                 and xs.ndim == 3 and xs.dtype == self.buffer_dtype
                 and xs.shape[2] == self.buf_elems
-                and xs.shape[1] in (self._n_in, self.microbatch)):
+                and xs.shape[1] in (n_in, self.microbatch)):
             # already staged via stage_inputs() (or a full staged block)
-            return xs if xs.shape[1] == self._n_in else xs[:, rows]
+            return xs if xs.shape[1] == n_in else xs[:, rows]
         if not isinstance(xs, torch.Tensor):
             xs = torch.from_numpy(np.asarray(xs, np.float32))
         if staged:
@@ -637,16 +661,38 @@ class SpmdPipeline:
             raise ValueError(
                 f"input sample size {flat.shape[-1]} != stage-0 input "
                 f"size {self._in_sizes[0]}")
-        buf = torch.zeros((c, self._n_in, self.buf_elems),
+        buf = torch.zeros((c, n_in, self.buf_elems),
                           dtype=self.buffer_dtype, device=self.device)
         buf[..., :flat.shape[-1]] = flat[:, rows].to(self.device,
                                                      torch.float32)
         return buf
 
-    def stage_inputs(self, xs) -> torch.Tensor:
+    def stage_inputs(self, xs, every_row: bool = False) -> torch.Tensor:
         """Pre-stage a [C, microbatch, *in_shape] block on the device (the
-        rows this process injects); ``push`` takes the result as it is."""
-        return self._flatten_inputs(xs)
+        rows this process injects, or with ``every_row`` all of them, as
+        :meth:`deal` takes them); ``push`` takes the result as it is."""
+        return self._flatten_inputs(
+            xs, rows=slice(0, self.microbatch) if every_row else None)
+
+    def deal(self, block: torch.Tensor | None, src: int) -> torch.Tensor:
+        """The input block of one push of a full chunk that process ``src``
+        decided, on every process of a ring across processes (each calls
+        it): ``src`` passes its every-row staged block
+        (``stage_inputs(xs, every_row=True)``) and sends each other process
+        holding stage 0 of a data line that line's rows, which it receives
+        (one ``batch_isend_irecv`` on the mesh's group); a process that
+        injects no rows gets the bubble block (the others pass None).
+        Returns what this process's ``push`` injects.  The rows are the
+        input's, not the ring's slots: ``metrics`` does not count them."""
+        if current_process() == src:
+            exchange([(block[:, rows], p) for rows, p in self._out_srcs
+                      if p != src], [], self._group)
+            return block
+        if self._n_in == 0:
+            return self._bubble_block()
+        like = torch.empty((self.chunk, self._n_in, self.buf_elems),
+                           dtype=self.buffer_dtype, device=self.device)
+        return exchange([], [(like, src)], self._group)[0]
 
     def push(self, xs, n_real: int | None = None, *,
              staged: bool = False, raw: bool = False):
@@ -725,6 +771,16 @@ class SpmdPipeline:
                 (self.chunk, self._n_in, self.buf_elems),
                 dtype=self.buffer_dtype, device=self.device)
         return self._flush_zeros
+
+    @torch.inference_mode()
+    def check_stages(self) -> None:
+        """Run this process's stages once on a bubble slot, crossing
+        nothing: a stage that cannot run raises here, on its own process,
+        where a push would leave its neighbours waiting in an exchange."""
+        slot = torch.zeros((self._b, self.buf_elems),
+                           dtype=self.buffer_dtype, device=self.device)
+        for i in range(len(self.local_stages)):
+            self._branch(i, slot)
 
     def warmup(self):
         """Run one full bubble chunk, leaving the pipe empty (the probe

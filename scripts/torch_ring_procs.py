@@ -1,13 +1,15 @@
 """The ring across processes: N ``torch.distributed`` workers run the
-port's ``SpmdPipeline``, ``PipelinedDecoder``, ``Defer`` and
-``PipelineTrainer`` on meshes spread over them, and the collectives over
-an axis that crosses them.
+port's ``SpmdPipeline``, ``PipelinedDecoder``, ``Defer`` (its batch
+entry points and its two services) and ``PipelineTrainer`` on meshes
+spread over them, and the collectives over an axis that crosses them.
 
     python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/ring
     python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/dec \
         --cases decode
     python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/tr \
         --cases train
+    python scripts/torch_ring_procs.py --procs 4 --device cpu --out /tmp/sv \
+        --cases serve
 
 The parent writes the weights and inputs once (``<out>/inputs.pt``:
 :func:`make_inputs`'s seeded ones, or the caller's own); each worker maps
@@ -26,7 +28,7 @@ on fresh ports.  gloo is the one backend: the workers share one device
 Cases (``preset`` sizes them: ``cpu`` the tiny graphs the CPU tests run,
 ``card`` the full-width graphs the chip smoke runs, one card shared by
 every worker).  ``--cases`` picks the groups to run, ``ring`` (the first
-five below), ``decode`` and ``train``; all three by default:
+five below), ``decode``, ``train`` and ``serve``; all four by default:
 
 * ``resnet``: ResNet in 8 stages on a (stage 8) mesh, two stages per
   process (``multihost_pipeline_mesh(8, local_devices=[dev] * 2)``), both
@@ -40,7 +42,9 @@ five below), ``decode`` and ``train``; all three by default:
   ``all_to_all`` over the stage axis of the resnet mesh (every process on
   one line) and of the dp mesh (each line on some processes), on
   integer-valued f32 (sums exact in any order);
-* ``guards``: what waits for ROADMAP A15c raises naming it; a mesh naming
+* ``guards``: what stays within one process raises naming why
+  (``mode="mpmd"``, by design) and what waits for ROADMAP A15c (the model
+  axis across processes) naming it; a mesh naming
   two devices in one process raises naming A15b; NCCL for several
   processes on one card raises naming gloo when a ring engine is placed
   (on the CPU, which has no NCCL, the same placement over a gloo group
@@ -68,7 +72,22 @@ five below), ``decode`` and ``train``; all three by default:
   ring on two processes; ``card``: ResNet50/8, two stages a process,
   ``loss_and_grad`` and 3 Adam steps on the int8 wire and
   ``loss_and_grad`` on the buffer wire.  The CPU tests run the same cases
-  in one process (``mesh=None``) as the reference.
+  in one process (``mesh=None``) as the reference;
+* ``serve``: ``Defer.run_defer`` and ``Defer.serve_endpoint`` on a (stage
+  S) mesh over the processes and ``run_defer`` on (data 2, stage S / 2)
+  (:data:`SERVE_CASES`, run by :class:`ServeRun`): the queue service on
+  both wires and in bf16, a bad input, a stage error, a failing
+  preflight, a hung dispatch declared dead (wedged on the leader and on a
+  follower), recovery replaying mid-stream and in the drain, ``stop()``
+  on the leader and on a follower alone; the endpoint streaming in order,
+  two concurrent clients, bf8 replies, a bf16 int8 deployment, an
+  operator stop, a live reweight, a client death and reconnect, a
+  stalled staging ring and a bad sample.  The leader (process 0) feeds
+  the queue and runs the clients as threads.  ``cpu``: ``resnet_tiny`` in
+  8 stages (two a process); ``card``: ResNet50/8 (two a process), the
+  int8 queue service of 4a's 8 microbatches and two concurrent clients of
+  4 frames each.  The CPU tests run the same cases in one process
+  (``mesh=None``) as the reference.
 
 Launch counts: on the card each kernel wrapper's own count
 (``ops/launches.py``); on the CPU the calls of the dispatching functions
@@ -84,6 +103,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -110,10 +130,9 @@ PRESETS = {
 }
 WIRES = ("buffer", "int8")
 #: the groups of cases ``--cases`` picks from
-CASE_GROUPS = ("ring", "decode", "train")
+CASE_GROUPS = ("ring", "decode", "train", "serve")
 #: the guards and the ROADMAP queue each must name
-GUARDS = {"mpmd": "A15c", "run_defer": "A15c", "serve_endpoint": "A15c",
-          "model_axis": "A15c", "two_devices": "A15b"}
+GUARDS = {"mpmd": "A15c", "model_axis": "A15c", "two_devices": "A15b"}
 #: per preset, the decoder cases' models (factory, keyword arguments), the
 #: meshes (name -> (model, stages, data lines, draft model)) and the cases
 #: each runs, the weights' microbatch and ring chunk, the prompts
@@ -249,7 +268,8 @@ def make_inputs(preset: str, cases=CASE_GROUPS) -> dict:
     them: what :func:`spawn` hands the workers.  ``ring``: ResNet's and
     BERT's; ``decode``: each decoder model's (drafts seed ``SEED + 1``),
     the prompts (seed ``SEED``) and the scored ids (seed ``SEED + 2``, the
-    first ``T`` of 4g's rows on the card)."""
+    first ``T`` of 4g's rows on the card); ``serve``: the served model's
+    and its frames (seed ``SEED``; the card's are ``ring``'s ResNet's)."""
     import torch
 
     from defer_tpu_torch import models
@@ -288,6 +308,15 @@ def make_inputs(preset: str, cases=CASE_GROUPS) -> dict:
                 torch.Generator().manual_seed(SEED))
             out[f"train_{model}_x"], out[f"train_{model}_y"] = train_inputs(
                 g, loss, tc["m"], tc["microbatch"])
+    if "serve" in cases:
+        sc = SERVE[preset]
+        pkey, xkey = sc["inputs"]
+        if pkey not in out:
+            g, _, _ = _model(models, sc["model"])
+            s = sc["image"]
+            out[pkey] = g.init(torch.Generator().manual_seed(SEED))
+            out[xkey] = np.random.default_rng(SEED).standard_normal(
+                (sc["frames"], sc["microbatch"], s, s, 3)).astype(np.float32)
     return out
 
 
@@ -524,23 +553,15 @@ def collectives(torch, mesh, axis: str, dev, arrays, key) -> None:
 
 def guards(torch, res, dev, cfg, g, params, mesh, pipe) -> None:
     """Each guard's message (empty when it did not raise)."""
-    import queue
-
     from defer_tpu_torch import Defer, DeferConfig, SpmdPipeline
     from defer_tpu_torch.parallel import multihost_pipeline_mesh
 
     n = mesh.shape["stage"]
-    d = Defer(DeferConfig(microbatch=cfg["microbatch"], device=dev),
-              mesh=mesh)
     procs = int(mesh.processes.max()) + 1
     local = int((mesh.processes == 0).sum())
     tries = {
         "mpmd": lambda: Defer(DeferConfig(mode="mpmd", device=dev),
                               mesh=mesh).build(g, params, num_stages=n),
-        "run_defer": lambda: d.run_defer(g, params, None, queue.Queue(),
-                                         queue.Queue(), num_stages=n),
-        "serve_endpoint": lambda: d.serve_endpoint(g, params,
-                                                   num_stages=n),
         # (stage procs/2, model 2 x local): every model line on 2
         # processes; both meshes raise before the stage count is read
         "model_axis": lambda: SpmdPipeline(
@@ -1153,6 +1174,424 @@ def train_group(torch, res, arrays, counts, models, preset, given, dev,
         mark(f"train_{key}")
 
 
+# ---------------------------------------------------------------------------
+# the serving cases
+# ---------------------------------------------------------------------------
+
+
+#: per preset, the serving cases (:class:`ServeRun`): the model (factory,
+#: keyword arguments, cut list, stages), the keys of its weights and
+#: inputs ``[frames, microbatch, *in_shape]`` in the spawn's inputs, the
+#: microbatch and ring chunk, the cases run, and the seconds any wait for
+#: a stream, a client or a thread may take
+SERVE = {
+    "cpu": {"model": ("resnet_tiny", {}, None, 8),
+            "inputs": ("serve_params", "serve_x"), "image": 32,
+            "microbatch": 1, "chunk": 3, "frames": 8, "wait_s": 60.0},
+    "card": {"model": ("resnet50", {"image_size": 224},
+                       "RESNET50_8STAGE_CUTS", 8),
+             "inputs": ("resnet_params", "resnet_x"), "image": 224,
+             "microbatch": 8, "chunk": 4, "frames": 8, "wait_s": 120.0,
+             "cases": ("queue_int8", "ep_pair_int8")},
+}
+#: the serving cases: (kind, the ``DeferConfig`` fields it sets, its
+#: options).  ``queue`` cases run ``run_defer``, ``ep`` cases
+#: ``serve_endpoint``; ``dp`` puts the ring on (data 2, stage S / 2);
+#: ``wedge`` blocks one process's push, once: ``(process, k)`` its k-th
+#: push that carries rows, ``(process, "drain")`` its first bubble push
+#: after every frame was pushed; before the push runs, or with a third
+#: item ``"after"`` once it has returned (its rows gathered on every
+#: process, not yet emitted on this one); a wedge holds until every
+#: process's stream has ended, or with ``early`` until the wedged
+#: process's own has; ``peers_watchdog_s`` gives the other processes
+#: another ``watchdog_s``
+SERVE_CASES = {
+    "queue_buffer": ("queue", {}, {}),
+    "queue_int8": ("queue", {"wire": "int8"}, {}),
+    "bf16_int8": ("queue", {"wire": "int8", "compute_dtype": "bfloat16"},
+                  {"run": True}),
+    "bad_input": ("queue", {}, {"bad": (8, 8, 3)}),
+    "stage_error": ("queue", {}, {"bad": (7,)}),
+    "preflight": ("queue", {}, {"bad_params": True}),
+    "dead_leader": ("queue", {"watchdog_s": 1.0, "max_recoveries": 0},
+                    {"wedge": (0, 2)}),
+    "dead_follower": ("queue", {"watchdog_s": 1.0, "max_recoveries": 0},
+                      {"wedge": (2, 2)}),
+    "dead_peer_left": ("queue", {"watchdog_s": 1.0, "max_recoveries": 0},
+                       {"wedge": (2, 2), "early": True,
+                        "peers_watchdog_s": 60.0}),
+    "recover_mid": ("queue", {"watchdog_s": 2.0, "gather_timeout_s": 0.01},
+                    {"wedge": (0, 2)}),
+    "recover_drain": ("queue", {"watchdog_s": 2.0,
+                                "gather_timeout_s": 0.01},
+                      {"wedge": (0, "drain")}),
+    "recover_after_leader": ("queue", {"watchdog_s": 2.0,
+                                       "gather_timeout_s": 0.01},
+                             {"wedge": (0, 2, "after")}),
+    "recover_after_follower": ("queue", {"watchdog_s": 2.0,
+                                         "gather_timeout_s": 0.01},
+                               {"wedge": (2, 2, "after")}),
+    "recover_drain_after_leader": ("queue", {"watchdog_s": 2.0,
+                                             "gather_timeout_s": 0.01},
+                                   {"wedge": (0, "drain", "after")}),
+    "recover_drain_after_follower": ("queue", {"watchdog_s": 2.0,
+                                               "gather_timeout_s": 0.01},
+                                     {"wedge": (2, "drain", "after")}),
+    "stop_leader": ("queue", {}, {"stop": 0}),
+    "stop_follower": ("queue", {}, {"stop": 2}),
+    "dp_int8": ("queue", {"wire": "int8", "microbatch": 2}, {"dp": True}),
+    "ep_order": ("ep", {}, {"clients": 1}),
+    "ep_pair": ("ep", {}, {"clients": 2}),
+    "ep_pair_int8": ("ep", {"wire": "int8"}, {"clients": 2}),
+    "ep_bf8": ("ep", {"microbatch": 2}, {"clients": 1, "codec": "bf8"}),
+    "ep_bf16": ("ep", {"wire": "int8", "compute_dtype": "bfloat16",
+                       "buffer_dtype": "bfloat16"},
+                {"clients": 1, "bf16": True, "run": True}),
+    "ep_stop": ("ep", {}, {"clients": 1, "stop": True}),
+    "ep_reweight": ("ep", {}, {"clients": 1, "reweight": True}),
+    "ep_reconnect": ("ep", {}, {"clients": 1, "dead_client": True}),
+    "ep_stall": ("ep", {"chunk": 2}, {"stall": True}),
+    "ep_bad": ("ep", {"chunk": 2}, {"bad": (7,)}),
+}
+#: the cases whose rows the CPU tests hold to the one-process services
+SERVE_REFERENCED = ("queue_buffer", "queue_int8", "bf16_int8", "dp_int8",
+                    "ep_order", "ep_pair", "ep_pair_int8", "ep_bf8",
+                    "ep_bf16", "ep_reweight", "ep_reconnect")
+
+
+class _Wedge:
+    """``pipe.push`` blocks, once, on the push ``hit(n_real)`` selects,
+    until ``release`` is set: before the push runs (released, the
+    abandoned generation finishes its step on its own groups), or with
+    ``after`` once it has returned."""
+
+    def __init__(self, pipe, hit, after: bool = False):
+        self.release = threading.Event()
+        self.entered = False
+        real = pipe.push
+
+        def push(xs, n_real=None, **kw):
+            fire = not self.entered and hit(xs.shape[0] if n_real is None
+                                            else n_real)
+            if fire:
+                self.entered = True
+                if not after:
+                    self.release.wait()
+            out = real(xs, n_real=n_real, **kw)
+            if fire and after:
+                self.release.wait()
+            return out
+
+        pipe.push = push
+
+
+def _wedge_hit(k, frames: int):
+    """``hit`` of a wedge: the k-th push carrying rows, or (``"drain"``)
+    the first bubble push after ``frames`` rows were pushed."""
+    seen = {"pushes": 0, "rows": 0}
+
+    def hit(n_real: int) -> bool:
+        seen["rows"] += n_real
+        if k == "drain":
+            return n_real == 0 and seen["rows"] >= frames
+        seen["pushes"] += n_real > 0
+        return n_real > 0 and seen["pushes"] == k
+    return hit
+
+
+class ServeRun:
+    """The serving cases of ``SERVE[preset]`` (:data:`SERVE_CASES`), on the
+    given weights and inputs: the workers run them on ``meshes``
+    (``{False: (stage S), True: (data 2, stage S / 2)}``) across
+    processes; with ``meshes=None`` they run the one-process services in
+    as many stages and data lines, the CPU tests' reference.  The leader
+    (process 0, which holds stage 0 of data line 0 on both meshes) feeds
+    the queue and runs the endpoint's clients, as threads; where no wedge
+    waits, every frame and the END are queued before the service starts,
+    so every push is a full chunk.  :meth:`case` runs one case."""
+
+    def __init__(self, torch, models, sc, given, device, meshes=None):
+        from defer_tpu_torch.parallel.mesh import current_process
+
+        self.torch, self.sc, self.device, self.meshes = (torch, sc, device,
+                                                         meshes)
+        factory, kw, cuts, self.n = sc["model"]
+        self.graph = getattr(models, factory)(**kw)
+        self.cuts = getattr(models, cuts) if cuts else None
+        pkey, xkey = sc["inputs"]
+        self.params = given[pkey]
+        self.x = np.asarray(given[xkey], np.float32)
+        self.across = meshes is not None
+        self.me = current_process() if self.across else 0
+        self.lead = self.me == 0
+
+    def _defer(self, cfg: dict, dp: bool):
+        from defer_tpu_torch import Defer, DeferConfig
+
+        c = {"microbatch": self.sc["microbatch"], "chunk": self.sc["chunk"],
+             "device": self.device, **cfg}
+        if not self.across:
+            return Defer(DeferConfig(data_parallel=2 if dp else 1, **c))
+        return Defer(DeferConfig(**c), mesh=self.meshes[dp])
+
+    def _place(self, dp: bool) -> dict:
+        """The stage count or cuts a call takes."""
+        n = self.n // 2 if dp else self.n
+        if self.cuts is not None and not dp:
+            return {"cut_points": self.cuts}
+        return {"cut_points": None, "num_stages": n}
+
+    def frames(self, mb: int) -> list:
+        """The inputs as frames of ``mb`` samples."""
+        flat = self.x.reshape((-1,) + self.x.shape[2:])
+        return list(flat.reshape((-1, mb) + flat.shape[1:]))
+
+    def _barrier(self) -> None:
+        if self.across:  # the default group: the services run on their own
+            self.torch.distributed.barrier()
+
+    def case(self, name: str, counts) -> tuple[dict, dict]:
+        """Run case ``name``: its rows and its scalars (what each process
+        saw: the end of its stream, its errors, its counters, its kernel
+        launches zeroed just before the service starts and read after)."""
+        from defer_tpu_torch.obs import REGISTRY
+        from defer_tpu_torch.obs.events import recorder
+
+        kind, cfg, opts = SERVE_CASES[name]
+        if "peers_watchdog_s" in opts and self.me != opts["wedge"][0]:
+            cfg = {**cfg, "watchdog_s": opts["peers_watchdog_s"]}
+        mb = cfg.get("microbatch", self.sc["microbatch"])
+        cursor = recorder().cursor()
+        disp = REGISTRY.counter("dispatcher.dispatches")
+        ep = [REGISTRY.counter(f"endpoint.samples_{d}") for d in ("in",
+                                                                  "out")]
+        before = (disp.n, ep[0].n, ep[1].n)
+        d = self._defer(cfg, opts.get("dp", False))
+        xs = self.frames(mb)
+        counts.zero()
+        t0 = time.perf_counter()
+        arrays, meta = (self._queue if kind == "queue" else self._ep)(
+            d, xs, opts)
+        meta["seconds"] = time.perf_counter() - t0
+        meta["launches"] = counts.read()
+        meta["dispatches_registry"] = disp.n - before[0]
+        meta["samples_in"] = ep[0].n - before[1]
+        meta["samples_out"] = ep[1].n - before[2]
+        _, evs = recorder().events_since(cursor)
+        meta["events"] = [e["kind"] for e in evs]
+        if opts.get("run"):
+            inputs = np.stack(xs)
+            if opts.get("bf16"):
+                inputs = self.torch.from_numpy(inputs).to(
+                    self.torch.bfloat16).float().numpy()
+            arrays["run"] = d.run(self.graph, self.params, inputs,
+                                  **self._place(opts.get("dp", False)))
+        return arrays, meta
+
+    # -- run_defer -----------------------------------------------------
+
+    def _drain(self, out_q, n: int):
+        """What a process's output queue held: its outputs, up to the END
+        (across processes every stream ends with one; one process puts it
+        only on a failure, before any output, so there ``n`` outputs end
+        it too)."""
+        import queue as Q
+
+        from defer_tpu_torch import END_OF_STREAM
+
+        outs = []
+        while True:
+            try:
+                o = out_q.get(timeout=self.sc["wait_s"])
+            except Q.Empty:
+                return outs, False
+            if o is END_OF_STREAM:
+                return outs, True
+            outs.append(o)
+            if not self.across and len(outs) == n:
+                return outs, False
+
+    def _queue(self, d, xs, opts) -> tuple[dict, dict]:
+        import queue as Q
+
+        from defer_tpu_torch import END_OF_STREAM
+        from defer_tpu_torch.graph.ir import tree_map
+
+        torch = self.torch
+        params = self.params
+        if opts.get("bad_params"):  # every leaf one wider: stages fail
+            params = tree_map(lambda v: torch.zeros(
+                v.shape[:-1] + (v.shape[-1] + 1,)) if v.dim() else v, params)
+        if "bad" in opts:
+            xs = [np.zeros((xs[0].shape[0],) + opts["bad"], np.float32)]
+        stop_at, wedge = opts.get("stop"), opts.get("wedge")
+        if stop_at == 0:
+            xs = xs[:len(xs) // 2]
+        ending = not (opts.get("bad_params") or stop_at == 0)
+        feed = list(xs) + ([END_OF_STREAM] if ending else [])
+        in_q, out_q = Q.Queue(), Q.Queue()
+        early = wedge is None and stop_at is None
+        if self.lead and early:
+            for x in feed:
+                in_q.put(x)
+        place = self._place(opts.get("dp", False))
+        h = d.run_defer(self.graph, params, place.pop("cut_points"), in_q,
+                        out_q, **place)
+        w = None
+        if wedge is not None and wedge[0] == self.me:
+            w = _Wedge(h.pipeline, _wedge_hit(wedge[1], len(xs)),
+                       after=wedge[2:] == ("after",))
+        if stop_at and stop_at == self.me:
+            h.stop()  # a follower alone: the stream goes on
+        self._barrier()  # every wedge and stop in place before the feed
+        if self.lead and not early:
+            for x in feed:
+                in_q.put(x)
+        if stop_at == 0 and self.lead:
+            deadline = time.monotonic() + self.sc["wait_s"]
+            while h._fed < len(xs) and time.monotonic() < deadline:
+                time.sleep(0.01)
+            h.stop()
+        outs, end = self._drain(out_q, len(xs))
+        if w is not None and opts.get("early"):
+            w.release.set()  # the others' watchdogs have not fired yet
+        # a wedge holds until every process's stream has ended, as a real
+        # one would: every watchdog has fired by then
+        self._barrier()
+        if w is not None:
+            w.release.set()  # the abandoned generation finishes its step
+        try:
+            h.join(timeout=self.sc["wait_s"])
+            joined = ""
+        except RuntimeError as e:
+            joined = f"{e}: {e.__cause__!r}"
+        left = []
+        for t in h.threads:
+            t.join(timeout=self.sc["wait_s"])
+            if t.is_alive():
+                left.append(t.name)
+        m = h.metrics
+        meta = {"end": end, "joined": joined, "healthy": h.healthy,
+                "error": type(h.error).__name__ if h.error else "",
+                "recoveries": h.recoveries, "dispatches": h._dispatches,
+                "inferences": m.inferences, "steps": m.steps,
+                "pushes": m.chunk_calls, "outputs": len(outs),
+                "threads_left": left, "wedged": bool(w and w.entered),
+                "generations": len(h.threads),
+                "boundary_bytes": m.boundary_bytes,
+                "boundary_sends": m.boundary_sends,
+                "buf_elems": h.pipeline.buf_elems, "captures": m.captures,
+                "local_stages": list(h.pipeline.local_stages)}
+        return ({"rows": np.stack(outs)} if outs else {}), meta
+
+    # -- serve_endpoint --------------------------------------------------
+
+    def _ep(self, d, xs, opts) -> tuple[dict, dict]:
+        from defer_tpu_torch.graph.ir import tree_map
+        from defer_tpu_torch.transport.framed import TensorClient, send_frame
+        from defer_tpu_torch.transport.staging import HostStagingRing
+
+        torch, wait_s = self.torch, self.sc["wait_s"]
+        clients = opts.get("clients", 1)
+        max_clients = 4 if opts.get("stop") else (
+            2 if opts.get("reweight") or opts.get("dead_client") else clients)
+        real_push = HostStagingRing.push
+        if opts.get("stall") and self.lead:  # a ring that never accepts
+            HostStagingRing.push = lambda self, sample, timeout_s=30.0: False
+        try:
+            address, thread = d.serve_endpoint(
+                self.graph, self.params, **self._place(False),
+                codec=opts.get("codec", "raw"), max_clients=max_clients,
+                stall_timeout_s=0.2 if opts.get("stall") else 120.0)
+            out, meta = {}, {"address": list(address[:2]),
+                             "client_errors": []}
+            params2 = tree_map(lambda v: v * 1.5, self.params)
+
+            def stream(key, frames):
+                c = TensorClient(*address[:2], timeout_s=wait_s)
+                try:
+                    t0 = time.perf_counter()
+                    got = c.infer_stream(frames)
+                    meta[f"{key}_s"] = time.perf_counter() - t0
+                    out[key] = np.stack(got)
+                except (OSError, ConnectionError) as e:
+                    meta["client_errors"].append(type(e).__name__)
+                finally:
+                    c.close()
+
+            if self.lead:
+                frames = list(xs)
+                if opts.get("bf16"):
+                    frames = [torch.from_numpy(x).to(torch.bfloat16)
+                              for x in frames]
+                if "bad" in opts:
+                    stream("a", [np.zeros((1,) + opts["bad"], np.float32)])
+                elif opts.get("stall"):
+                    stream("a", frames[:2])
+                elif opts.get("dead_client"):
+                    raw = socket.create_connection(tuple(address[:2]))
+                    send_frame(raw, frames[0])
+                    send_frame(raw, frames[1])
+                    raw.close()  # two frames, then no END
+                    stream("a", frames[:5])
+                elif opts.get("reweight"):
+                    stream("a", frames[:3])
+                    thread.reweight(params2)
+                    stream("b", frames[:3])
+                elif opts.get("stop"):
+                    stream("a", frames[:3])
+                else:
+                    half = len(frames) // clients
+                    ts = [threading.Thread(target=stream, args=(
+                        "ab"[i], frames[i * half:(i + 1) * half]))
+                        for i in range(clients)]
+                    t0 = time.perf_counter()
+                    for t in ts:
+                        t.start()
+                    for t in ts:
+                        t.join(wait_s)
+                    meta["clients_s"] = time.perf_counter() - t0
+            elif opts.get("reweight"):
+                thread.reweight(params2)  # installed at the leader's step
+            if opts.get("stop"):
+                thread.stop()  # the leader's ends every process's thread
+            thread.join(wait_s)
+        finally:
+            HostStagingRing.push = real_push
+        m = thread.pipeline.metrics
+        meta.update(alive=thread.is_alive(),
+                    errors=[type(e).__name__ for e in thread.errors],
+                    inferences=m.inferences, steps=m.steps,
+                    pushes=m.chunk_calls, boundary_bytes=m.boundary_bytes,
+                    boundary_sends=m.boundary_sends,
+                    captures=m.captures, buf_elems=thread.pipeline.buf_elems,
+                    local_stages=list(thread.pipeline.local_stages))
+        return out, meta
+
+
+def serve_group(torch, res, arrays, counts, models, preset, given, dev,
+                n_proc, mark) -> None:
+    """The ``serve`` cases of ``SERVE[preset]`` on its (stage S) mesh and
+    (data 2, stage S / 2) mesh over the ``n_proc`` processes: arrays
+    ``sv_<case>__<name>`` and scalars ``res["serve"][case]``."""
+    from defer_tpu_torch.parallel import multihost_pipeline_mesh
+
+    sc = SERVE[preset]
+    n = sc["model"][3]
+    meshes = {dp: multihost_pipeline_mesh(
+        n // (2 if dp else 1), 2 if dp else 1,
+        local_devices=[dev] * (n // n_proc)) for dp in (False, True)}
+    run = ServeRun(torch, models, sc, given, dev, meshes=meshes)
+    res["serve"] = {}
+    for case in sc.get("cases", SERVE_CASES):
+        got, meta = run.case(case, counts)
+        res["serve"][case] = meta
+        for k, v in got.items():
+            arrays[f"sv_{case}__{k}"] = v
+        mark(f"serve_{case}")
+    del run
+
+
 def worker(args) -> None:
     t0 = time.perf_counter()
     marks: dict = {}
@@ -1200,6 +1639,9 @@ def worker(args) -> None:
     if "ring" in cases:
         ring_group(torch, res, arrays, counts, models, cfg, prep, dev,
                    args.procs, mark)
+    if "serve" in cases:
+        serve_group(torch, res, arrays, counts, models, args.preset, given,
+                    dev, args.procs, mark)
     if "decode" in cases:
         decode_group(torch, res, arrays, counts, models, args.preset, given,
                      dev, args.procs, mark)
@@ -1247,7 +1689,8 @@ def main(argv=None) -> int:
     print(json.dumps({"procs": args.procs, "device": args.device,
                       "seconds": time.perf_counter() - t0,
                       **{k: v for k, v in w0.items() if k.startswith((
-                          "resnet", "bert", "dp", "decode", "train"))}}))
+                          "resnet", "bert", "dp", "decode", "train",
+                          "serve"))}}))
     return 0
 
 
