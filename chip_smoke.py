@@ -274,8 +274,9 @@ Phases, in order; any failure exits non-zero before the result line:
          ring (12 flash launches a step over the processes); ResNet50/4 on
          (data 2, stage 4), each line on a sub-group, against the one-card
          ring on that mesh; ``Defer(mesh=).run``/``.stream``; the
-         collectives across processes against one card; the guards (A15c,
-         A15b) and NCCL on one card refused when a ring is placed; GPT-2
+         collectives across processes against one card; the guards (mpmd
+         by design, A15b) and NCCL on one card refused when a ring is
+         placed; GPT-2
          small/12, three stages a process, on 4g's weights:
          ``Defer(mesh=).generate`` of 4g's 96 prompts with the prefill
          (tokens against 4g's decoder up to a near tie, the same on every
@@ -286,7 +287,7 @@ Phases, in order; any failure exits non-zero before the result line:
          ``PipelineTrainer`` of ResNet50/8 on the (stage 8) mesh, two
          stages a process, on 4r's chunk: the int8 ``loss_and_grad`` and
          the buffer wire's against 4r b's and a's loss and gradients, one
-         quantizer launch per process and ring step, 3 Adam steps against
+         quantizer launch per process and ring step, 2 Adam steps against
          4r b's losses, ``trained_params`` the same on every process and
          the trained deployment's run against a fresh pipeline of it, the
          bytes a boundary carries forward and back, seconds beside 4r's;
@@ -298,7 +299,14 @@ Phases, in order; any failure exits non-zero before the result line:
          with two concurrent clients of 4 frames each (raw replies within
          1e-6 of those rows, END echoed to both, the leader's counters at
          64 images, the same address on every process), images/s beside
-         4i's with no speed claim;
+         4i's with no speed claim; tensor parallelism across the
+         processes: BERT-Base/2 (``block_5`` the cut) on a (stage 2, model
+         2) mesh, one position a process, on 4b's weights and ids, both
+         wires: rows against 4b's whole-graph forward (4s's pp x tp
+         bounds), the same on every process, 6 flash launches a process a
+         step (24 summed), one quantizer launch a process and int8 step,
+         12 all-reduces of the [8, 128, 768] f32 activation a process a
+         step, sequences/s beside 4b's ring and 4s's one-card tp=2 ring;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
               ``replication_path``, ``dag_path``, ``obs_path``,
@@ -6654,12 +6662,17 @@ PROCS_SCORE_IDS = (16, 32)
 #: its scores against the one-process ``score`` on the same wire (the same
 #: kernels on the same rows: 0 expected)
 PROCS_SCORE_RTOL = 1e-5
-#: ResNet50/8's Adam losses across the processes against 4r b's (the JAX
-#: package's Adam bound, tests/test_torch_training.py)
+#: ResNet50/8's Adam losses across the processes against 4r b's first
+#: PROCS_ADAM_STEPS (the JAX package's Adam bound,
+#: tests/test_torch_training.py)
 PROCS_ADAM_RTOL = 1e-4
+PROCS_ADAM_STEPS = 2
 #: the serve group's images: 8 microbatches of 8 (4a's inputs), and the
 #: endpoint's two clients' frames of 8 images each
 PROCS_SERVE_IMAGES = 2 * CHUNK * MICROBATCH
+#: tensor parallelism across the processes: BERT-Base in 2 stages (6
+#: blocks each) on a (stage 2, model 2) mesh, one position a process
+PROCS_TP_CUTS = ("block_5",)
 
 
 def ring_procs_module():
@@ -6728,8 +6741,9 @@ def procs_gpt(torch, res, card, g4t, refs) -> dict:
     out = {}
 
     def slowest(case, units):
-        # each process's median call, the slowest process's
-        med = max(statistics.median(m[case]["seconds"]) for m in metas)
+        # each process's median call after its first (which builds the
+        # engine), the slowest process's
+        med = max(statistics.median(m[case]["seconds"][1:]) for m in metas)
         return units / med, med
 
     def shares(case, want_flash, want_quant):
@@ -6770,7 +6784,8 @@ def procs_gpt(torch, res, card, g4t, refs) -> dict:
           f"before a near tie {bad}; launches {launches} (want {want_flash} "
           f"flash: {blocks} blocks x {n_seq // MICROBATCH} groups); "
           f"captures {caps}; {rate:.1f} generated tokens/s (the slowest "
-          f"process's median of {len(metas[0][case]['seconds'])} calls, "
+          f"process's median of {len(metas[0][case]['seconds']) - 1} "
+          f"calls after the first, "
           f"{med:.3f} s) beside 4g's {g4t['tokens_per_s_prefill']:.1f} "
           f"({GPT_NEW} new, graph replay; no speed claim: four processes "
           f"time-share the card and every hop crosses host memory); on "
@@ -6812,7 +6827,8 @@ def procs_gpt(torch, res, card, g4t, refs) -> dict:
               f" {ferr:.3g} off the whole-graph forward; launches "
               f"{launches} (one quantizer launch per process and int8 "
               f"step); {rate:.1f} scored sequences/s (the slowest "
-              f"process's median of {len(metas[0][case]['seconds'])} calls, "
+              f"process's median of {len(metas[0][case]['seconds']) - 1} "
+          f"calls after the first, "
               f"{med:.3f} s) beside 4g's "
               f"{g4t['score_sequences_per_s'][wire]:.1f} (16 x 100, bucket "
               f"128, graph replay); on {card}", flush=True)
@@ -6927,17 +6943,19 @@ def procs_train(torch, res, card, t4) -> dict:
           f"claim: four processes time-share the card and every hop "
           f"crosses host memory); on {card}", flush=True)
 
-    # (ii) 3 Adam steps at TRAIN_ADAM_LR against 4r b's
+    # (ii) PROCS_ADAM_STEPS Adam steps at TRAIN_ADAM_LR against 4r b's
     adam = [m["adam"] for m in metas[key]]
     losses = adam[0]["losses"]
-    launches = per_process(key, "adam", TRAIN_STEPS * steps)
+    want_losses = t4["adam_losses"][:PROCS_ADAM_STEPS]
+    launches = per_process(key, "adam", PROCS_ADAM_STEPS * steps)
     digests = {a["digest"] for a in adam}
     if (any(a["losses"] != losses for a in adam)
-            or not np.allclose(losses, t4["adam_losses"],
+            or len(losses) != PROCS_ADAM_STEPS
+            or not np.allclose(losses, want_losses,
                                rtol=PROCS_ADAM_RTOL, atol=0)
             or not losses[-1] < losses[0] or len(digests) != 1):
         fail(f"phase 4t: train Adam losses {[a['losses'] for a in adam]} "
-             f"against 4r's {t4['adam_losses']} (rtol {PROCS_ADAM_RTOL}, "
+             f"against 4r's {want_losses} (rtol {PROCS_ADAM_RTOL}, "
              f"falling); trained_params digests {sorted(digests)}")
     rel = [float(np.abs(r[f"tr_{key}_adam__run_rows"]
                         - r[f"tr_{key}_adam__fresh_rows"]).max())
@@ -6949,13 +6967,13 @@ def procs_train(torch, res, card, t4) -> dict:
              f"{PROCS_REL_BOUND})")
     step_s = slowest(key, "adam")
     out["int8_adam"] = {"losses": losses, "reference_losses":
-                        t4["adam_losses"], "launches": launches,
+                        want_losses, "launches": launches,
                         "step_s": step_s, "one_process_step_s":
                         t4["step_s"], "run_vs_fresh_rel": max(rel),
                         "trained_params_equal": True}
     print(f"procs path train (ii): Adam (lr {TRAIN_ADAM_LR:g}) losses "
           f"{[round(x, 4) for x in losses]} on every process (4r "
-          f"{[round(x, 4) for x in t4['adam_losses']]}); launches "
+          f"{[round(x, 4) for x in want_losses]}); launches "
           f"{launches}; trained_params() equal on every process; the "
           f"trained deployment's run {max(rel):.3g} of max |output| off a "
           f"fresh pipeline of it; {step_s:.3f} s a step (the slowest "
@@ -7084,13 +7102,115 @@ def procs_serve(res, card, ep_rate: float) -> dict:
     return out
 
 
+def procs_tp(res, R, card, bp, bthr, mesh_rates) -> dict:
+    """Phase 4t's tensor parallelism across the processes: BERT-Base/2 on a
+    (stage 2, model 2) mesh, process 2s + r holding model rank r of stage
+    s.  Per wire: the rows of ``SpmdPipeline.run`` (and of
+    ``Defer(mesh=).run`` and ``.stream`` where the preset runs them; the
+    card's leaves them to the CPU tests) against 4b's whole-graph forward
+    (MESH_REL_BOUND, INT8_REL_BOUND) and the same on every process; per
+    process a step's
+    flash launches (its stage's 6 blocks, one rank), quantizer launch (one
+    on the int8 wire), all-reduces (two a block, each the [8, 128, 768]
+    f32 activation) and slot sent; the slowest process's median push in
+    sequences/s beside 4b's ring and 4s's one-card tp=2 ring, with the
+    host seconds of a push inside the all-reduces and the hop."""
+    import numpy as np
+
+    from defer_tpu_torch import partition
+
+    tpc = R.TP["card"]
+    g = bp["graph"]
+    stage_blocks = [sum(n.startswith("block_") for n in st.node_names)
+                    for st in partition(g, list(tpc["ring"][2]))]
+    act = MICROBATCH * int(np.prod(g.nodes["block_0"].out_spec.shape)) * 4
+    out: dict = {}
+    for wire in R.WIRES:
+        metas = [r["meta"]["tp"]["ring"][wire] for r in res]
+        steps = metas[0]["steps"]
+        bound = MESH_REL_BOUND if wire == "buffer" else INT8_REL_BOUND
+        rows = [r[f"tp_ring_{wire}__rows"] for r in res]
+        err = max(_mesh_rel(x, bp["ref"]) for x in rows)
+        if (not all(np.isfinite(x).all() for x in rows) or err > bound
+                or any(not np.array_equal(x, rows[0]) for x in rows)):
+            fail(f"phase 4t tp {wire}: rows {err:.3g} of max|output| off "
+                 f"4b's forward (bound {bound}) or not the same on every "
+                 "process")
+        for key in (("defer_run", "defer_stream")
+                    if tpc.get("defer", True) else ()):
+            if any(not np.array_equal(r[f"tp_ring_{wire}__{key}"], x)
+                   for r, x in zip(res, rows)):
+                fail(f"phase 4t tp {wire}: Defer(mesh=).{key[6:]} differs "
+                     "from SpmdPipeline.run")
+        buf = metas[0]["buf_elems"]
+        slot = (MICROBATCH * (buf + 4 * (buf // 256)) if wire == "int8"
+                else MICROBATCH * buf * 4)
+        for i, m in enumerate(metas):
+            k = i // tpc["tp"]
+            want = {"quant_int8": steps if wire == "int8" else 0,
+                    "flash_attention": stage_blocks[k] * steps}
+            seen = (m["local_stages"], m["ranks"], m["transport"],
+                    m["captures"], m["boundary_sends"],
+                    m["boundary_bytes"], m["allreduce_calls"],
+                    m["allreduce_bytes"])
+            calls = 2 * stage_blocks[k] * steps
+            if m["launches"] != want or seen != (
+                    [k], [i % tpc["tp"]], "gloo", 0, steps, steps * slot,
+                    calls, calls * act):
+                fail(f"phase 4t tp {wire}: process {i} launches "
+                     f"{m['launches']} (want {want}), stages/ranks/"
+                     f"transport/captures/sends/bytes/all-reduces/bytes "
+                     f"{seen}")
+        launches = _sum_worker_launches_tp(res, wire)
+        slow = max(metas, key=lambda m: m["push_s"])
+        rate = CHUNK * MICROBATCH / slow["push_s"]
+        out[wire] = {
+            "rel_err": err, "launches": launches, "steps": steps,
+            "allreduce_calls_per_process_step": [2 * b for b in stage_blocks],
+            "allreduce_bytes_each": act, "bytes_per_boundary_step": slot,
+            "sequences_per_s": rate, "push_s": slow["push_s"],
+            "push_spread_s": slow["push_spread_s"],
+            "push_allreduce_s": slow["push_allreduce_s"],
+            "push_boundary_s": slow["push_boundary_s"],
+            "ring_sequences_per_s": bthr[f"pipeline_{wire}"],
+            "one_card_tp2_sequences_per_s": mesh_rates[wire]}
+        print(f"procs path tp {wire}: bert_base in 2 stages x 2 "
+              f"tensor-parallel ranks, one a process, over gloo: rows "
+              f"{err:.3g} of max|output| off 4b's forward (bound {bound}), "
+              f"the same on every process; launches {launches} in {steps} "
+              f"steps ({launches['flash_attention'] // steps} flash a step "
+              f"summed); {2 * max(stage_blocks)} all-reduces of "
+              f"{act / 1e6:.3f} MB a process a step; {slot / 1e6:.3f} MB a "
+              f"boundary a step; {rate:.1f} seq/s (median of "
+              f"{R.TIMED_PUSHES} pushes of {CHUNK} steps, the slowest "
+              f"process's {slow['push_s'] * 1e3:.1f} ms, spread "
+              f"{slow['push_spread_s'] * 1e3:.1f} ms; of it "
+              f"{slow['push_allreduce_s'] * 1e3:.1f} ms in the all-reduces "
+              f"and {slow['push_boundary_s'] * 1e3:.1f} ms in the hop's "
+              f"sends) beside 4b's ring {bthr[f'pipeline_{wire}']:.1f} and "
+              f"4s's one-card tp=2 ring {mesh_rates[wire]:.1f}: no speed "
+              f"claim, four processes share one card and every psum "
+              f"crosses host memory; on {card}", flush=True)
+    return out
+
+
+def _sum_worker_launches_tp(res, wire) -> dict:
+    """The tp group's launches on ``wire`` summed over the workers."""
+    out: dict = {}
+    for r in res:
+        for name, c in r["meta"]["tp"]["ring"][wire]["launches"].items():
+            out[name] = out.get(name, 0) + c
+    return out
+
+
 def procs_spawn(mp, bp, g4t) -> dict:
-    """Phase 4t's spawn, started as phase 4s begins: the launcher's card
+    """Phase 4t's spawn, started as phase 4o begins: the launcher's card
     presets checked against this smoke's sizes, 4a's, 4b's, 4g's and 4r's
     weights and inputs written once, and ``scripts/torch_ring_procs.py``'s
-    four workers spawned on a thread.  A worker imports torch and builds
-    its graphs on the host (8-13 s) before it touches the card, so that
-    runs beside 4s; :func:`procs_path` joins the thread."""
+    four workers spawned on a thread.  A worker imports torch, builds its
+    graphs and maps the inputs on the host (10-27 s) beside 4o, then waits
+    for the go file that :func:`procs_go` writes as 4s begins before it
+    touches the card; :func:`procs_path` joins the thread."""
     import threading
     from pathlib import Path
 
@@ -7110,16 +7230,24 @@ def procs_spawn(mp, bp, g4t) -> dict:
     tc = R.TRAIN["card"]
     if ((tc["m"], tc["microbatch"], tc["chunk"], tc["steps"]["resnet50"],
          tc["lr"]["resnet50"]["adam"], tc["models"]["resnet50"][2])
-            != (TRAIN_M, MICROBATCH, CHUNK, TRAIN_STEPS, TRAIN_ADAM_LR,
+            != (TRAIN_M, MICROBATCH, CHUNK, PROCS_ADAM_STEPS, TRAIN_ADAM_LR,
                 "RESNET50_8STAGE_CUTS")
             or list(tc["runs"]) != ["s8_int8", "s8_buffer"]):
         fail("phase 4t: the launcher's card train preset is not 4r's")
+    tpc = R.TP["card"]
+    if ((tpc["microbatch"], tpc["chunk"], tpc["tp"], tpc["ring"])
+            != (MICROBATCH, CHUNK, 2, ("bert_base", {"seq_len": SEQ_LEN},
+                                       PROCS_TP_CUTS, 2))):
+        fail("phase 4t: the launcher's card tp preset is not 4b's batch "
+             "and cut")
     vocab = g4t["graph"].nodes["lm_head"].out_spec.shape[-1]
     ids = np.random.default_rng(SEED + 2).integers(
         0, vocab, SCORE_IDS)[:, :PROCS_SCORE_IDS[1]]
 
     out_dir = Path(__file__).resolve().parent.joinpath(*PYCACHE[:2],
                                                        "ring_procs")
+    go = out_dir / "go"
+    go.unlink(missing_ok=True)
     inputs = {"resnet_params": mp["params"], "resnet_x": mp["inputs"],
               "bert_params": bp["params"], "bert_ids": bp["inputs"],
               "gpt2_small_params": g4t["params"],
@@ -7135,19 +7263,27 @@ def procs_spawn(mp, bp, g4t) -> dict:
     def spawn():
         try:
             spawned.append(R.spawn(RING_PROCS, "cuda", "card", out_dir,
-                                   inputs, deadline_s=PROCS_DEADLINE_S,
-                                   timeout_s=60.0))
+                                   inputs, deadline_s=PROCS_DEADLINE_S
+                                   + DAG_BUDGET_S, timeout_s=60.0, go=go))
         except RuntimeError as e:
             spawned.append(e)
 
     th = threading.Thread(target=spawn, daemon=True)
     t0 = time.perf_counter()
     th.start()
-    return {"R": R, "ids": ids, "thread": th, "spawned": spawned, "t0": t0}
+    return {"R": R, "ids": ids, "thread": th, "spawned": spawned, "t0": t0,
+            "go": go}
+
+
+def procs_go(run) -> None:
+    """Let phase 4t's workers at the card (:func:`procs_spawn`)."""
+    run["go"].parent.mkdir(parents=True, exist_ok=True)
+    run["go"].touch()
+    run["t0"] = time.perf_counter()
 
 
 def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
-               run, ep_rate) -> dict:
+               run, ep_rate, mesh_rates) -> dict:
     """Phase 4t. Four ``torch.distributed`` processes on the one card (gloo),
     spawned once by ``scripts/torch_ring_procs.py`` with 4a's and 4b's
     seed-0 weights and inputs (written once for the workers to map;
@@ -7166,7 +7302,7 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
     deployment equal to its ``SpmdPipeline.run``; (e) the collectives over
     a stage axis across processes (every process on one line, and lines on
     sub-groups) equal to the same calls on one card; (f) the guards name
-    A15c (A15b for two devices in one process), and NCCL on one card is
+    why (mpmd by design, A15b for two devices in one process), and NCCL on one card is
     refused naming gloo when a ring is placed; (g) GPT-2 small/12, three
     stages a process, on 4g's weights: ``Defer(mesh=).generate`` of 4g's
     prompts with the prefill against 4g's decoder (:func:`procs_gpt`);
@@ -7175,7 +7311,9 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
     ResNet50/8, two stages a process, against 4r's results
     (:func:`procs_train`); (j) and (k) ``Defer(mesh=).run_defer`` and
     ``.serve_endpoint`` of (a)'s int8 deployment against (d)'s rows
-    (:func:`procs_serve`)."""
+    (:func:`procs_serve`); (l) tensor parallelism across the processes:
+    BERT-Base/2 on a (stage 2, model 2) mesh, one position a process
+    (:func:`procs_tp`)."""
     import numpy as np
 
     from defer_tpu_torch import SpmdPipeline, partition
@@ -7211,7 +7349,7 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
            "timed_pushes": R.TIMED_PUSHES, "worker_seconds": marks}
     print("procs path workers (s from each start, the latest of 4): "
           + ", ".join(f"{k} {v:.2f}" for k, v in marks.items())
-          + f"; the references beside them in {refs_s:.2f} s; spawn to "
+          + f"; the references beside them in {refs_s:.2f} s; the go to "
           f"results {spawn_s:.1f} s, {wait_s:.1f} s of them in 4t",
           flush=True)
     if any(len(r["meta"]["stage_latencies"]) != 2
@@ -7344,7 +7482,7 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
           f"{len(R.COLLECTIVES)} collectives x 2 meshes equal to one card; "
           f"guards {sorted(R.GUARDS)} raise naming their queues; NCCL on "
           f"one card refused: {res[0]['meta']['nccl_refused']!r}; spawn "
-          f"to results {spawn_s:.1f} s; on {card}", flush=True)
+          f"from the go to results {spawn_s:.1f} s; on {card}", flush=True)
     out["guards"] = {k: R.GUARDS[k] for k in R.GUARDS}
     # (g) and (h): GPT-2 small across the processes
     out["gpt2"] = procs_gpt(torch, res, card, g4t, grefs)
@@ -7352,6 +7490,8 @@ def procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t, t4,
     out["train"] = procs_train(torch, res, card, t4)
     # (j) and (k): ResNet50/8's queue service and endpoint
     out["serve"] = procs_serve(res, card, ep_rate)
+    # (l): BERT-Base/2 on (stage 2, model 2), one position a process
+    out["tp"] = procs_tp(res, R, card, bp, bthr, mesh_rates)
     del res
     free_card(torch)
     return out
@@ -7623,6 +7763,9 @@ def main() -> int:
                           brows, node_costs)
     phase_done("4n")
 
+    # phase 4t's workers do their host start beside 4o (imports, graphs,
+    # the inputs mapped) and wait for their go
+    procs = procs_spawn(mp, bp, g4t)
     # phase 4o: branched chains; the counts zeroed just before each stream
     # of the in-process deployments, the node processes' counts read from
     # their stats
@@ -7630,9 +7773,8 @@ def main() -> int:
     del dsetup
     phase_done("4o")
 
-    # phase 4t's workers start beside 4s: they import and build their
-    # graphs on the host before they touch the card
-    procs = procs_spawn(mp, bp, g4t)
+    # phase 4t's workers at the card, beside 4s
+    procs_go(procs)
     # phase 4s: mesh parallelism on the card; the counts zeroed just before
     # each run (its training checks rode 4a and 4g)
     ms["bert_base"] = mesh_bert(torch, device, kernels, card, bp, bthr)
@@ -7647,7 +7789,9 @@ def main() -> int:
     # phase 4t: the ring across four processes on the card; each worker's
     # counts zeroed just before its runs and read just after
     pt = procs_path(torch, device, kernels, card, mp, bp, thr, bthr, g4t,
-                    t4, procs, ep["images_per_s"]["endpoint"])
+                    t4, procs, ep["images_per_s"]["endpoint"],
+                    {w: ms["bert_base"][f"tp2_{w}"]["sequences_per_s"]
+                     for w in ("buffer", "int8")})
     del g4t, t4, procs
     phase_done("4t")
     WATCH.cancel()
@@ -7747,6 +7891,8 @@ def main() -> int:
         by_path[f"procs_train_resnet50_{key}"] = r["launches"]
     for key, r in pt["serve"].items():
         by_path[f"procs_{key}_resnet50_int8"] = r["launches"]
+    for key, r in pt["tp"].items():
+        by_path[f"procs_tp_bert_base_{key}"] = r["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})

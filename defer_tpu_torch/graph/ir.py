@@ -133,14 +133,17 @@ class Op:
         return params
 
     def tp_apply(self, params: Sequence[Params],
-                 *xs: Sequence[torch.Tensor], tp: int = 1
+                 *xs: Sequence[torch.Tensor], tp=1
                  ) -> list[torch.Tensor]:
         """Forward on the ranks' shards: ``params`` holds one shard per
         rank and each input one tensor per rank; returns one output per
-        rank (an override sums partial results with
-        ``parallel.mesh.psum``).  The default applies the op on every
-        rank; ranks that hold the very same parameters and inputs (a
-        parameterless op after a psum, on one card) share one result."""
+        rank (an override sums partial results over ``tp``, a
+        ``parallel.mesh.ModelLine``: the ranks these lists hold, whose
+        psums all-reduce across processes where the line crosses them; an
+        int ``tp`` is every rank of the line, in this process).  The
+        default applies the op on every rank; ranks that hold the very
+        same parameters and inputs (a parameterless op after a psum, on
+        one card) share one result."""
         del tp
         if all(p is params[0] for p in params) and all(
                 all(x[r] is x[0] for r in range(len(params))) for x in xs):
@@ -232,7 +235,7 @@ class LayerGraph:
         start: str | None = None,
         node_names: Sequence[str] | None = None,
         seeds: dict[str, torch.Tensor] | None = None,
-        tp: int = 1,
+        tp=1,
     ) -> torch.Tensor:
         """Memoized forward pass over (a sub-range of) the graph.
 
@@ -246,7 +249,10 @@ class LayerGraph:
         With ``tp > 1`` every op runs its tensor-parallel path
         (``Op.tp_apply``, see ``parallel/tensor.py``): ``params`` is a
         list of the ranks' shards, ``x`` (and each seed) a list of the
-        ranks' tensors, and the result one tensor per rank.
+        ranks' tensors, and the result one tensor per rank.  ``tp`` may
+        be a ``parallel.mesh.ModelLine`` of more than one rank: the lists
+        then hold its ``ranks`` (this process's share of a line that
+        crosses processes).
         """
         if x is None and seeds is None:
             raise TypeError("apply() needs an input tensor x (or seeds= "
@@ -261,7 +267,7 @@ class LayerGraph:
                 continue
             node = self.nodes[name]
             xs = [cache[i] for i in node.inputs]
-            if tp > 1:
+            if getattr(tp, "size", tp) > 1:
                 cache[name] = node.op.tp_apply(
                     [p.get(name) for p in params], *xs, tp=tp)
             else:

@@ -21,9 +21,10 @@ Conventions:
     kernel for a CUDA tensor, its plain PyTorch version on the CPU.
   * Tensor parallelism (``parallel/tensor.py``): ``Dense`` and
     ``TransformerBlock`` shard their weights Megatron-style
-    (``tp_shard``/``tp_unshard``) and ``tp_apply`` loops over the ranks,
-    summing partial products with ``parallel.mesh.psum``; every other op
-    keeps the replicated default of ``graph/ir.py``.
+    (``tp_shard``/``tp_unshard``) and ``tp_apply`` loops over the ranks
+    it is given (a ``parallel.mesh.ModelLine``'s: this process's, where
+    the line crosses processes), summing partial products with the line's
+    psum; every other op keeps the replicated default of ``graph/ir.py``.
 """
 
 from __future__ import annotations
@@ -153,13 +154,15 @@ class Dense(Op):
 
     def tp_apply(self, params, x, *, tp=1):
         """Each rank multiplies its block of the input by its rows of
-        ``w``, one psum, the bias once; one rank is :meth:`apply` (the
-        psum of one tensor is that tensor)."""
-        from ..parallel.mesh import psum
+        ``w``, one psum over the line (``tp``, see ``Op.tp_apply``), the
+        bias once; one rank is :meth:`apply` (the psum of one tensor is
+        that tensor)."""
+        from ..parallel.mesh import ModelLine
+        line = ModelLine.of(tp, len(params))
         ps = [_cast(p, xr.dtype) for p, xr in zip(params, x)]
         blk = ps[0]["w"].shape[0]
-        ys = psum([xr[..., r * blk:(r + 1) * blk] @ p["w"]
-                   for r, (p, xr) in enumerate(zip(ps, x))])
+        ys = line.psum([xr[..., r * blk:(r + 1) * blk] @ p["w"]
+                        for r, p, xr in zip(line.ranks, ps, x)])
         if self.use_bias:
             ys = [y + p["b"] for y, p in zip(ys, ps)]
         return ys
@@ -603,15 +606,17 @@ class TransformerBlock(Op):
         outs, ks, vs = self._rank_forward([params], [x])
         return outs[0], ks[0], vs[0]
 
-    def _rank_forward(self, params, x):
+    def _rank_forward(self, params, x, tp=1):
         """The block on each rank's shard (``params`` and ``x`` one per
-        rank), in two phases between its two psums: each rank runs its
-        ``num_heads / tp`` query heads and its rows of the output
-        projection, then, after the first psum, its column block of the
-        MLP.  Returns the per-rank outputs and raw K/V projections.  With
-        one rank the psums return their input: this is the whole block."""
-        from ..parallel.mesh import psum
-        tp = len(params)
+        rank of ``tp``, see ``Op.tp_apply``), in two phases between its
+        two psums over the line: each rank runs its ``num_heads / tp``
+        query heads and its rows of the output projection, then, after the
+        first psum, its column block of the MLP.  Returns the per-rank
+        outputs and raw K/V projections.  With one rank the psums return
+        their input: this is the whole block."""
+        from ..parallel.mesh import ModelLine
+        line = ModelLine.of(tp, len(params))
+        tp = line.size
         ps = [_cast(p, xr.dtype) for p, xr in zip(params, x)]
         b, t, d = x[0].shape
         hd = d // self.num_heads
@@ -638,7 +643,7 @@ class TransformerBlock(Op):
                 b, t, nh * hd)
             partial.append(y @ p["proj"]["w"])
         mids, partial2 = [], []
-        for p, xr, y in zip(ps, x, psum(partial)):
+        for p, xr, y in zip(ps, x, line.psum(partial)):
             y = y + p["proj"]["b"]
             h = _layer_norm(p["ln1"], xr + y, eps) if post else xr + y
             mids.append(h)
@@ -648,7 +653,7 @@ class TransformerBlock(Op):
                        approximate="none" if post else "tanh")
             partial2.append(y @ p["fc2"]["w"])
         outs = []
-        for p, h, y in zip(ps, mids, psum(partial2)):
+        for p, h, y in zip(ps, mids, line.psum(partial2)):
             y = y + p["fc2"]["b"]
             outs.append(_layer_norm(p["ln2"], h + y, eps) if post
                         else h + y)
@@ -740,7 +745,7 @@ class TransformerBlock(Op):
         }
 
     def tp_apply(self, params, x, *, tp=1):
-        return self._rank_forward(params, x)[0]
+        return self._rank_forward(params, x, tp)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-from .mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh, all_gather,
-                   all_to_all, pipeline_mesh, pmean, ppermute, psum,
-                   stage_axis_size)
+from .mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh, ModelLine,
+                   all_gather, all_to_all, pipeline_mesh, pmean, ppermute,
+                   psum, stage_axis_size)
 from .ring_attention import (SEQ_AXIS, full_attention, ring_attention,
                              sequence_parallel_attention)
 from .distributed import (initialize, multihost_pipeline_mesh,

@@ -17,9 +17,11 @@ autograd passes through them: the gradient of a :func:`psum` reaches every
 rank's input once.  On one card every rank's tensor lives on the card and
 the moves are no-ops.  :func:`psum` and :func:`pmean` also cross processes
 (``parallel/distributed.py``): over an axis whose positions sit in several
-processes they add the local ranks, then all-reduce the sum with
-``torch.distributed.nn.functional.all_reduce``, whose backward
-all-reduces the cotangent.
+processes they add the local ranks, then all-reduce the sum over the
+line's group (:class:`_AllReduce`, whose backward all-reduces the
+cotangent; over gloo a CUDA tensor is staged through pinned host memory).
+A stage's ops run their psums over a :class:`ModelLine`: this process's
+ranks of the model line, and the mesh they all-reduce over.
 
 A mesh on one card names the same device in every position, the
 counterpart of the JAX tests' eight virtual CPU devices; ask for it with
@@ -45,6 +47,7 @@ from __future__ import annotations
 
 import copy
 import datetime
+import time
 from typing import Sequence
 
 import numpy as np
@@ -328,7 +331,7 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def exchange(sends, recvs, group=None) -> list[torch.Tensor]:
+def exchange(sends, recvs, group=None, count=None) -> list[torch.Tensor]:
     """One ``dist.batch_isend_irecv`` of ``sends`` (``(tensor, process)``)
     and ``recvs`` (``(like, process)``: a tensor of the shape, dtype and
     device to receive); returns the received tensors, each on its
@@ -338,7 +341,9 @@ def exchange(sends, recvs, group=None) -> list[torch.Tensor]:
     is staged through pinned host memory (the copy back is queued on the
     current stream, so the kernels after it read it in order).  ``group``:
     a group over every process, as a mesh's ``world`` (None: the default
-    group)."""
+    group).  ``count`` (a pipeline's metrics, or None) gets the host
+    seconds spent in the sends and receives, staging excluded, in its
+    ``boundary_s``."""
     dist = _dist()
     ops, landed = [], []
     for t, peer in sends:
@@ -352,8 +357,11 @@ def exchange(sends, recvs, group=None) -> list[torch.Tensor]:
         ops.append(dist.P2POp(dist.irecv, buf, int(peer), group))
         landed.append((buf, like.device))
     if ops:
+        t0 = time.perf_counter()
         for work in dist.batch_isend_irecv(ops):
             work.wait()
+        if count is not None:
+            count.boundary_s += time.perf_counter() - t0
     return [buf.to(dev, non_blocking=True) if buf.device != dev else buf
             for buf, dev in landed]
 
@@ -371,32 +379,64 @@ def broadcast(t: torch.Tensor, src: int, group=None) -> torch.Tensor:
     return h.to(t.device, non_blocking=True)
 
 
-def _all_reduce(total: torch.Tensor, mesh: Mesh | None,
-                axis: str | None) -> torch.Tensor:
+def _sum_over(t: torch.Tensor, group, count) -> torch.Tensor:
+    """``t`` summed over ``group``'s processes (a new tensor; ``t`` is left
+    as it is).  Over gloo a CUDA tensor is staged through pinned host
+    memory, as :func:`exchange` stages it; ``count`` (a pipeline's
+    metrics, or None) counts the call, the bytes each process hands the
+    all-reduce and the host seconds spent in it, staging excluded
+    (``allreduce_calls``, ``allreduce_bytes``, ``allreduce_s``)."""
+    h = _to_host(t) if _staged(t) else t.contiguous().clone()
+    t0 = time.perf_counter()
+    _dist().all_reduce(h, group=group)
+    if count is not None:
+        count.allreduce_s += time.perf_counter() - t0
+        count.allreduce_calls += 1
+        count.allreduce_bytes += h.numel() * h.element_size()
+    return h.to(t.device, non_blocking=True) if h.device != t.device else h
+
+
+class _AllReduce(torch.autograd.Function):
+    """The all-reduce of a psum across processes, with its backward: the
+    same all-reduce of the cotangent (each process's input reaches every
+    process's output once, so its gradient is the sum of every output's
+    cotangent).  Both count in ``count``."""
+
+    @staticmethod
+    def forward(ctx, t, group, count):
+        ctx.route = (group, count)
+        return _sum_over(t, group, count)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, count = ctx.route
+        return _sum_over(g, group, count), None, None
+
+
+def _all_reduce(total: torch.Tensor, mesh: Mesh | None, axis: str | None,
+                count=None) -> torch.Tensor:
     """``total`` summed with the partial sums of the other processes on
     this process's line when the axis crosses processes: over the default
-    group or the line's sub-group."""
+    group or the line's sub-group (autograd passes through it)."""
     if not _crosses(mesh, axis):
         return total
     group = line_group(mesh, axis)
     if group is None:  # this process's line lies in this process
         return total
-    # the autograd-aware all-reduce: its backward all-reduces the
-    # cotangent, so gradients flow through a psum across processes
-    from torch.distributed.nn.functional import all_reduce
-    return all_reduce(total, group=group)
+    return _AllReduce.apply(total, group, count)
 
 
 def psum(xs: Sequence[torch.Tensor], *, mesh: Mesh | None = None,
-         axis: str | None = None) -> list[torch.Tensor]:
+         axis: str | None = None, count=None) -> list[torch.Tensor]:
     """Sum over the ranks: every rank gets the sum, on its own device.
     With ``mesh`` and ``axis`` naming an axis that crosses processes,
     ``xs`` are this process's ranks of its line and the sum is
-    all-reduced over the line's processes."""
+    all-reduced over the line's processes (``count``, as
+    :class:`ModelLine` passes it, counts each all-reduce)."""
     total = xs[0]
     for x in xs[1:]:
         total = total + x.to(total.device)
-    total = _all_reduce(total, mesh, axis)
+    total = _all_reduce(total, mesh, axis, count)
     return [total.to(x.device) for x in xs]
 
 
@@ -408,6 +448,38 @@ def pmean(xs: Sequence[torch.Tensor], *, mesh: Mesh | None = None,
     if mesh is not None and axis is not None:
         n = mesh.shape[axis]
     return [s / n for s in psum(xs, mesh=mesh, axis=axis)]
+
+
+class ModelLine:
+    """The ranks of one model (tensor-parallel) line that a process runs:
+    the line's ``size``, this process's ``ranks`` of it (in order: the
+    per-rank lists an op's ``tp_apply`` takes are these ranks') and, where
+    the line crosses processes, the ``mesh`` and ``axis`` its psums
+    all-reduce over, counted in ``count`` (a pipeline's metrics: its
+    ``allreduce_calls`` and ``allreduce_bytes``).  ``LayerGraph.apply``'s
+    ``tp=`` takes one, or an int: every rank of the line in this process
+    (:meth:`of`)."""
+
+    def __init__(self, size: int, ranks: Sequence[int] | None = None,
+                 mesh: Mesh | None = None, axis: str = MODEL_AXIS,
+                 count=None):
+        self.size = int(size)
+        self.ranks = tuple(range(self.size) if ranks is None else ranks)
+        self.mesh, self.axis, self.count = mesh, axis, count
+
+    @classmethod
+    def of(cls, tp, n: int) -> "ModelLine":
+        """``tp`` as it is, or (an int) the line of ``n`` ranks held here."""
+        return tp if isinstance(tp, ModelLine) else cls(n)
+
+    def local(self) -> "ModelLine":
+        """The same ranks with the psums summing this process's ranks
+        only (no all-reduce): a stage run on its own, crossing nothing."""
+        return ModelLine(self.size, self.ranks)
+
+    def psum(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """:func:`psum` over the line (this process's ranks' ``xs``)."""
+        return psum(xs, mesh=self.mesh, axis=self.axis, count=self.count)
 
 
 def _local_line(xs, mesh, axis):

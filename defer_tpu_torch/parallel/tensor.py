@@ -13,7 +13,10 @@ activation.  The pieces:
     JAX package's);
   * :func:`tensor_parallel_fn` — the graph's forward on those shards, a
     loop over the ranks in phases between the ops' psums; the input and
-    the output are replicated.
+    the output are replicated.  Where the model axis crosses
+    ``torch.distributed`` processes, each process holds and runs its own
+    ranks of the line and the psums all-reduce over the line's processes
+    (``parallel.mesh.ModelLine``).
 
 Sharding scheme (the column->row pairing, two psums per transformer
 block):
@@ -36,7 +39,8 @@ from typing import Any
 import torch
 
 from ..graph.ir import LayerGraph, tree_map
-from .mesh import MODEL_AXIS, Mesh, visible_cards
+from .mesh import (MODEL_AXIS, Mesh, ModelLine, _line,
+                   mesh_placement, visible_cards)
 
 
 def tensor_parallel_mesh(tp: int, devices=None) -> Mesh:
@@ -48,21 +52,34 @@ def tensor_parallel_mesh(tp: int, devices=None) -> Mesh:
     return Mesh(devices[:tp], (MODEL_AXIS,))
 
 
+def _line_ranks(mesh: Mesh | None, axis: str, tp: int) -> list[int]:
+    """This process's ranks of its line along ``axis`` (every rank where
+    the line lies in one process)."""
+    if mesh is None or not mesh.axis_crosses_processes(axis):
+        return list(range(tp))
+    return _line(mesh, axis)[1]
+
+
 def shard_tp_params(graph: LayerGraph, params: dict[str, Any], tp: int,
                     mesh: Mesh | None = None, axis: str = MODEL_AXIS):
-    """Per-rank TP shards of ``params``, stacked on a leading [tp, ...]
-    axis (contiguous copies).  Ops without a ``tp_shard`` override are
-    replicated: each rank gets the full leaf.  With ``mesh``, the stack
-    lies on the device of the axis's first rank."""
+    """Per-rank TP shards of ``params``, stacked on a leading [ranks, ...]
+    axis (contiguous copies): every rank's, or, with a ``mesh`` whose
+    ``axis`` crosses processes, this process's ranks of its line.  Ops
+    without a ``tp_shard`` override are replicated: each rank gets the
+    full leaf.  With ``mesh``, the stack lies on the device of this
+    process's first rank."""
+    ranks = _line_ranks(mesh, axis, tp)
     out: dict[str, Any] = {}
     for name, node in graph.nodes.items():
         p = params.get(name)
         if p is None:
             continue
         out[name] = stack_trees([node.op.tp_shard(p, tp, r)
-                                 for r in range(tp)])
+                                 for r in ranks])
     if mesh is not None:
-        dev = mesh.axis_devices(axis)[0]
+        dev = (mesh_placement(mesh, "shard_tp_params")[1]
+               if mesh.axis_crosses_processes(axis)
+               else mesh.axis_devices(axis)[0])
         out = tree_map(lambda a: a.to(dev), out)
     return out
 
@@ -87,16 +104,25 @@ def tensor_parallel_fn(graph: LayerGraph, mesh: Mesh,
 
     ``stacked_params`` comes from :func:`shard_tp_params`; ``x`` is
     replicated to every rank's device, rank ``r`` runs on its shard
-    ``stacked[r]`` and the output is rank 0's (every rank holds the same
-    after the last psum)."""
-    devices = mesh.axis_devices(axis)
-    tp = len(devices)
+    ``stacked[r]`` and the output is the first rank's (every rank holds
+    the same after the last psum).  Where ``axis`` crosses processes,
+    every process of the line calls ``fn`` with the same ``x``: it runs
+    its own ranks (the stack :func:`shard_tp_params` gives it) and the
+    psums all-reduce over the line's processes."""
+    tp = mesh.shape[axis]
+    ranks = _line_ranks(mesh, axis, tp)
+    if mesh.axis_crosses_processes(axis):
+        devices = [mesh_placement(mesh, "tensor_parallel_fn")[1]] * len(
+            ranks)
+    else:
+        devices = mesh.axis_devices(axis)
+    line = ModelLine(tp, ranks, mesh, axis)
 
     def fn(pstk, x):
-        params = [rank_params(pstk, r, d) for r, d in enumerate(devices)]
+        params = [rank_params(pstk, i, d) for i, d in enumerate(devices)]
         xs = [x.to(d) for d in devices]
         if tp == 1:
             return graph.apply(params[0], xs[0])
-        return graph.apply(params, xs, tp=tp)[0]
+        return graph.apply(params, xs, tp=line)[0]
 
     return fn

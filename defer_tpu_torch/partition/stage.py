@@ -147,13 +147,16 @@ class StageModule(nn.Module):
     and :meth:`install` copies them into the same rows, so every view (and
     any CUDA graph that captured them) sees the new weights.
 
-    With ``tp > 1`` the module holds ``rows``, one per rank of the model
-    axis (``devices``, default ``device`` for every rank): rank r's row
-    packs ``StageSpec.tp_shard_params(params, tp, r)``, so each row is
-    shorter than the whole stage's; the ranks' shards share one layout
-    (``paths``, ``meta``), and ``replicated`` flags the leaves every rank
-    holds whole.  The forward runs the stage's tensor-parallel path on
-    the ranks' leaves and returns rank 0's output.
+    Given a model ``line`` (``parallel.mesh.ModelLine`` of ``tp > 1``
+    ranks) the module holds ``rows``, one per rank of the line it runs
+    (``ranks``: every rank in one process, this process's where the line
+    crosses processes; ``rows[i]`` is rank ``ranks[i]``'s, on
+    ``devices[i]``, default ``device``): rank r's row packs
+    ``StageSpec.tp_shard_params(params, tp, r)``, so each row is shorter
+    than the whole stage's; the ranks' shards share one layout (``paths``,
+    ``meta``), and ``replicated`` flags the leaves every rank holds whole.
+    The forward runs the stage's tensor-parallel path on those ranks'
+    leaves, its psums over the line, and returns the first one's output.
 
     Leaf dtypes follow the JAX engine: under ``compute_dtype`` a float
     leaf is read in the compute dtype; otherwise every leaf comes back in
@@ -170,16 +173,20 @@ class StageModule(nn.Module):
 
     def __init__(self, stage: StageSpec, params: dict[str, Any],
                  device: torch.device, *, compute_dtype=None,
-                 master_weights: bool = False, tp: int = 1,
-                 devices=None):
+                 master_weights: bool = False, devices=None, line=None):
         # imported here: ``runtime``'s package imports this module
         from ..runtime import flatbuf
 
         super().__init__()
         self.stage = stage
-        self.tp = tp
+        #: the model line the forward's psums run over (None: no tensor
+        #: parallelism)
+        self.line = line
+        self.tp = 1 if line is None else line.size
+        #: the ranks of the line whose rows this module holds, in order
+        self.ranks = (0,) if line is None else tuple(line.ranks)
         self.devices = (list(devices) if devices is not None
-                        else [device] * tp)
+                        else [device] * len(self.ranks))
         self.compute_dtype = (None if compute_dtype is None
                               else as_dtype(compute_dtype))
         self.weight_dtype = (torch.float32 if master_weights
@@ -206,7 +213,7 @@ class StageModule(nn.Module):
 
     @property
     def row(self) -> torch.Tensor:
-        """Rank 0's row (the stage's only row without tensor
+        """The first rank's row (the stage's only row without tensor
         parallelism)."""
         return self.rows[0]
 
@@ -214,7 +221,7 @@ class StageModule(nn.Module):
         if self.tp == 1:
             return [self.stage.select_params(params)]
         return [self.stage.tp_shard_params(params, self.tp, r)
-                for r in range(self.tp)]
+                for r in self.ranks]
 
     def _leaf_dtype(self, dtype: torch.dtype) -> torch.dtype:
         if self.compute_dtype is not None and dtype.is_floating_point:
@@ -261,7 +268,8 @@ class StageModule(nn.Module):
                 row.copy_(new)
 
     def params(self, rank: int = 0) -> dict[str, Any]:
-        """The nested parameters rank ``rank``'s stage function reads."""
+        """The nested parameters the stage function of ``rows[rank]``
+        reads."""
         from ..runtime import flatbuf
         row, leaves = self.rows[rank], self.rank_leaves[rank]
         if torch.is_grad_enabled() and row.requires_grad:
@@ -272,12 +280,16 @@ class StageModule(nn.Module):
             self.paths, [v if v.dtype == d else v.to(d)
                          for v, d in zip(leaves, self._dtypes)])
 
-    def forward(self, *xs: torch.Tensor) -> torch.Tensor:
+    def forward(self, *xs: torch.Tensor, cross: bool = True) -> torch.Tensor:
         """The stage on its input (a join stage: its P inputs, in path
-        order); under tensor parallelism the input goes to every rank and
-        rank 0's output comes back."""
+        order); under tensor parallelism the input goes to every rank held
+        here and the first one's output comes back.  ``cross=False`` sums
+        the psums over this module's ranks only, all-reducing nothing
+        across processes (a stage checked on its own: the shapes and ops
+        of the real call)."""
         if self.tp == 1:
             return self.stage.fn(self.params(), *xs)
         (x,) = xs
-        return self.stage.fn([self.params(r) for r in range(self.tp)],
-                             [x.to(d) for d in self.devices], tp=self.tp)[0]
+        line = self.line if cross else self.line.local()
+        return self.stage.fn([self.params(i) for i in range(len(self.rows))],
+                             [x.to(d) for d in self.devices], tp=line)[0]

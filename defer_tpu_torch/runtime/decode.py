@@ -52,7 +52,10 @@ Across processes (a mesh from ``multihost_pipeline_mesh``, one
 ``torch.distributed`` process per card or several sharing one): each
 process holds a block of consecutive stages (``local_stages``,
 ``runtime/spmd.py`` ``ring_block``) and packs the weight rows and
-allocates the KV caches of those stages only; ``caches[name]``,
+allocates the KV caches of those stages only (the decoder reads the stage
+axis alone: where a model axis crosses processes, each block of its ranks
+runs a ring of its own, whole, and the values every process reads come
+from the first block's); ``caches[name]``,
 ``_rows`` and the ring ``[n_local, mb, d(+1)]`` are indexed by local
 stage.  A step runs the local stages, rolls the local segment and swaps
 the slot leaving the process with the one arriving from the previous
@@ -209,9 +212,10 @@ class PipelinedDecoder:
         weight_dtype: str | None = None,
         beam_width: int = 1,
     ):
-        # the stage axis only, as the JAX decoder reads its mesh; a mesh
-        # over several devices in one process is the multi-card decoder
-        # (A15b)
+        # the stage axis only, as the JAX decoder reads its mesh (a model
+        # axis across processes: each block of its ranks decodes on a
+        # ring of its own, unsharded); a mesh over several devices in one
+        # process is the multi-card decoder (A15b)
         self.mesh, dev = ring_mesh("PipelinedDecoder", num_stages, mesh,
                                    device)
         self.device = dev
@@ -370,8 +374,11 @@ class PipelinedDecoder:
         mine, _ = mesh_placement(self.mesh, "PipelinedDecoder")
         lines, self.local_stages, owners = ring_block(self.mesh, mine)
         self.hop_transport = ring_transport(self.mesh, self.device)
-        self._first_src = int(owners[0, 0])
-        self._last_src = int(owners[0, n - 1])
+        # read from the processes of the model axis's first rank: each
+        # block of model ranks runs a whole ring of its own
+        first = ring_block(self.mesh, mine, rank=0)[2]
+        self._first_src = int(first[0, 0])
+        self._last_src = int(first[0, n - 1])
         if len(self.local_stages) < n:
             # a line's every row crosses: one send and one receive a step
             line, mb = lines.start, self.microbatch

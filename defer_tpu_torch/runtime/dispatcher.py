@@ -431,7 +431,7 @@ class Defer:
         over a mesh spanning processes raises: the MPMD relay is one
         controller's, as the JAX one places each stage with
         ``jax.device_put``, which reaches only this process's devices (by
-        design, ROADMAP A15c)."""
+        design: ROADMAP, "JAX modules with no port, by design")."""
         return self._build(graph, params, cut_points, num_stages)
 
     def _build(self, graph, params, cut_points, num_stages,
@@ -444,7 +444,8 @@ class Defer:
             self._one_process("build(mode='mpmd')", "the MPMD relay places "
                               "every stage from one controller, as the JAX "
                               "one does; across processes it is not ported "
-                              "by design (ROADMAP A15c)")
+                              "by design (ROADMAP: JAX modules with no "
+                              "port, by design)")
         stages = partition(graph, cut_points, num_stages=num_stages)
         if cfg.mode == "mpmd":
             if self.mesh is not None:

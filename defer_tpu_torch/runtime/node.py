@@ -1253,6 +1253,7 @@ class StageNode:
         seq = 0                 # tensors received
         streamed = False
         stream_marked = False   # upstream announced this conn as data path
+        ended = False           # the stream ran to its END
         inflight_g = REGISTRY.gauge("node.inflight")
         #: issued-but-unsynced stage outputs, oldest first
         pending: collections.deque = collections.deque()
@@ -1323,6 +1324,7 @@ class StageNode:
                                 pass
                         emit_event("stream_end", hop=self._span_label(),
                                    n=n)
+                        ended = True
                         return n
                     return None  # control connection closing
                 if kind == K_CTRL:
@@ -1420,6 +1422,16 @@ class StageNode:
                 # its END must fail the consumer as a cut socket would
                 tx.detach()
             for sock in out_socks or ():
+                if not ended:
+                    # an abandoned stream cuts its downstream hop at once,
+                    # as a dead process would: a close alone leaves the
+                    # connection up while the ack relay is blocked reading
+                    # it, and the fan-in then sees the death only once an
+                    # ack wakes that read
+                    try:
+                        sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
                 sock.close()
 
     def _serve_conn_serial(self, conn,

@@ -70,8 +70,21 @@ crossings and broadcasts run on the mesh's group (``Mesh.world``: the
 default one, or a serving generation's own from ``regroup``).  A loop that
 one process decides (the dispatcher's serve loops) hands a push's input
 out with :meth:`SpmdPipeline.deal`: the deciding process holds every row,
-sends each data line's to the process holding its stage 0, and a process
-that injects none pushes the bubble block.
+sends each data line's to the processes holding its stage 0, and a
+process that injects none pushes the bubble block.
+
+A model axis may cross processes too (``multihost_pipeline_mesh(S,
+tensor_parallel=T)`` with fewer than T devices a process): a process then
+holds a block of the model line's ranks (``ranks``; the same block at each
+of its stages, every block as long), its ``StageModule``s the rows of
+those ranks only, and the stages' psums all-reduce over the line's
+processes (``parallel.mesh.ModelLine``, counted in
+``metrics.allreduce_calls``/``allreduce_bytes``).  Every rank holds the
+stage's output after its last psum, so each block of ranks rides a ring of
+its own along the stage axis: the slot leaving rank block b of stage k
+crosses to rank block b of stage k + 1 (:func:`ring_block`), every process
+of stage 0 injects the rows, and the outputs are read from the processes
+of the first block.
 
 Weights: each stage holds one flat row (``runtime/flatbuf.py``) in
 ``weight_dtype`` — ``compute_dtype`` when set, else float32, as in the JAX
@@ -105,8 +118,8 @@ from ..obs import tracer
 from ..ops.launches import counted_kernels
 from ..ops.quant import ste_ring_hop
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh,
-                             broadcast, current_process, exchange,
-                             line_group, mesh_placement,
+                             ModelLine, broadcast, current_process,
+                             exchange, line_group, mesh_placement,
                              one_card_mesh)
 from ..partition.stage import StageModule, StageSpec, buffer_footprint
 from ..utils.config import resolve_device
@@ -132,19 +145,12 @@ def ring_mesh(engine: str, num_stages: int, mesh: Mesh | None, device,
     """``(mesh, device)`` of a ring engine: the given mesh and this
     process's one device, or the one-card mesh of these extents on
     ``device``.  Before anything is placed, several devices in this
-    process raise naming ROADMAP A15b, and a model axis that crosses
-    processes raises naming A15c (tensor parallelism stays inside a
-    process)."""
+    process raise naming ROADMAP A15b."""
     if mesh is None:
         dev = resolve_device(device)
         return one_card_mesh(dev, num_stages, data_parallel,
                              tensor_parallel), dev
     dev = mesh_placement(mesh, engine)[1]
-    if (MODEL_AXIS in mesh.axis_names
-            and mesh.axis_crosses_processes(MODEL_AXIS)):
-        raise NotImplementedError(
-            f"{engine}: the mesh's model axis crosses processes; "
-            "tensor parallelism across processes is ROADMAP queue A15c")
     if mesh.shape.get(STAGE_AXIS) != num_stages:
         raise ValueError(f"mesh stage axis is {mesh.shape.get(STAGE_AXIS)} "
                          f"but the pipeline has {num_stages} stages")
@@ -158,17 +164,67 @@ def ring_mesh(engine: str, num_stages: int, mesh: Mesh | None, device,
     return mesh, resolve_device(dev)
 
 
-def ring_block(mesh: Mesh, mine: np.ndarray
+def model_ranks(mesh: Mesh, mine: np.ndarray) -> range:
+    """This process's ranks of the mesh's model axis (``range(1)`` without
+    one; every rank within one process).  Every process must hold the same
+    ranks at each (line, stage) it holds, a block of consecutive ranks as
+    long as every other process's and starting at a multiple of its
+    length, so that each block of one stage faces the same block of the
+    next stage (the ring of that block: :func:`ring_block`)."""
+    names = mesh.axis_names
+    if MODEL_AXIS not in names:
+        return range(1)
+    i = names.index(MODEL_AXIS)
+    t = mesh.devices.shape[i]
+
+    def ranks_of(held: np.ndarray) -> range:
+        per = np.moveaxis(held, i, -1).reshape(-1, t)
+        per = per[per.any(1)]
+        rs = np.flatnonzero(per[0])
+        if (per != per[0]).any() or rs[-1] - rs[0] + 1 != len(rs):
+            raise ValueError(
+                f"a process's positions on the model axis must be the same "
+                f"consecutive ranks at each (line, stage) it holds: "
+                f"{np.argwhere(held).tolist()}")
+        return range(int(rs[0]), int(rs[-1]) + 1)
+
+    blocks = {ranks_of(mesh.processes == p)
+              for p in np.unique(mesh.processes)}
+    if any(len(b) != len(next(iter(blocks))) or b.start % len(b)
+           for b in blocks):
+        raise ValueError(f"the processes' blocks of model ranks are not "
+                         f"aligned blocks of one length: "
+                         f"{sorted((b.start, b.stop) for b in blocks)}")
+    return ranks_of(mine) if mesh.spans_processes else range(t)
+
+
+def _owners(mesh: Mesh, rank: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(procs, names)``: the process owning each position at model rank
+    ``rank`` (every position without a model axis), and its axes."""
+    names, procs = mesh.axis_names, mesh.processes
+    if MODEL_AXIS in names:
+        procs = np.take(procs, rank, axis=names.index(MODEL_AXIS))
+        names = tuple(a for a in names if a != MODEL_AXIS)
+    return procs, names
+
+
+def ring_block(mesh: Mesh, mine: np.ndarray, rank: int | None = None
                ) -> tuple[range, range, np.ndarray]:
     """``(lines, stages, owners)`` of this process on a (data, stage[,
     model]) mesh: the data lines and the stages whose positions it holds
     (``mine``), which must be consecutive and form one block, and the
-    process owning each (line, stage), ``[data, stage]``."""
-    names, procs, held = mesh.axis_names, mesh.processes, mine
-    if MODEL_AXIS in names:  # a model line lies in one process
-        i = names.index(MODEL_AXIS)
-        procs, held = np.take(procs, 0, axis=i), held.any(axis=i)
-        names = tuple(a for a in names if a != MODEL_AXIS)
+    process owning each (line, stage), ``[data, stage]``, at model rank
+    ``rank``: by default this process's first (:func:`model_ranks`), so
+    ``owners`` names the processes of the ring its slots ride (each block
+    of model ranks has its own ring along the stage axis); ``rank=0``
+    names those holding the line's first rank (the outputs' and the
+    leader's)."""
+    if rank is None:
+        rank = model_ranks(mesh, mine).start
+    procs, names = _owners(mesh, rank)
+    held = mine
+    if MODEL_AXIS in mesh.axis_names:
+        held = mine.any(axis=mesh.axis_names.index(MODEL_AXIS))
     if DATA_AXIS not in names:
         procs, held, names = procs[None], held[None], (DATA_AXIS,) + names
     if set(names) != {DATA_AXIS, STAGE_AXIS}:
@@ -218,10 +274,11 @@ def cross_slot(slot: list[torch.Tensor], sends, recvs,
     data line: ``sends``, ``[(rows, process)]``) to the process of the
     next stage, and return the slot arriving from the previous stage's
     (``recvs``): one ``batch_isend_irecv`` on ``group`` (a mesh's
-    ``world``).  ``metrics`` counts the sends and their bytes."""
+    ``world``).  ``metrics`` counts the sends, their bytes and the
+    seconds spent in them."""
     out_sends = [(t[rows], p) for rows, p in sends for t in slot]
     got = iter(exchange(out_sends, [(t[rows], p) for rows, p in recvs
-                                    for t in slot], group))
+                                    for t in slot], group, metrics))
     out = [torch.empty_like(t) for t in slot]
     for rows, _ in recvs:
         for o in out:
@@ -390,18 +447,23 @@ class SpmdPipeline:
                 "buffer_dtype=float32: ids above 256 are not exactly "
                 f"representable in {self.buffer_dtype}")
 
-        self._place(microbatch)
-        #: this process's stages' modules (``local_stages``), each holding
-        #: its flat weight row (one per rank of the model axis) on the device
-        self.modules = [StageModule(self.stages[k], params, self.device,
-                                    compute_dtype=cd,
-                                    master_weights=self.master_weights,
-                                    tp=tp)
-                        for k in self.local_stages]
-
         self.metrics = PipelineMetrics(
             num_stages=n, microbatch=microbatch, buffer_elems=self.buf_elems,
             buffer_bytes_per_hop=self._footprint["bytes_per_hop"])
+        self._place(microbatch)
+        #: the model line the stages' psums run over: this process's ranks
+        #: (``ranks``), all-reduced across processes where the line
+        #: crosses them, counted in ``metrics.allreduce_*``
+        self.line = (ModelLine(tp, self.ranks, self.mesh, MODEL_AXIS,
+                               count=self.metrics) if tp > 1 else None)
+        #: this process's stages' modules (``local_stages``), each holding
+        #: its flat weight rows on the device: one per rank of the model
+        #: axis that this process holds (``ranks``)
+        self.modules = [StageModule(self.stages[k], params, self.device,
+                                    compute_dtype=cd,
+                                    master_weights=self.master_weights,
+                                    line=self.line)
+                        for k in self.local_stages]
         self.metrics.bind()
         self._flush_zeros = None  # lazy device-resident bubble block
         #: the ring (this process's slots and rows): allocated once, zeroed
@@ -419,7 +481,13 @@ class SpmdPipeline:
         process)."""
         n, mesh = self.num_stages, self.mesh
         mine, _ = mesh_placement(mesh, "SpmdPipeline")
+        #: this process's ranks of the model axis (every rank in one
+        #: process)
+        self.ranks = model_ranks(mesh, mine)
         lines, self.local_stages, owners = ring_block(mesh, mine)
+        # the processes holding each line's first model rank: the outputs
+        # are read there (every rank holds them after the last psum)
+        first = ring_block(mesh, mine, rank=0)[2]
         per = microbatch // self.data_parallel
         #: this process's rows of a microbatch, and their count
         self._rows = slice(lines.start * per, lines.stop * per)
@@ -428,19 +496,27 @@ class SpmdPipeline:
         #: it holds stage 0, none elsewhere (every row in one process)
         self._in_rows = (self._rows if self.local_stages.start == 0
                          else slice(0, 0))
-        #: the process holding stage 0 of data line 0 (this one within one
-        #: process): the one that takes the dispatcher's decisions
-        self.first_process = int(owners[0, 0])
+        #: the process holding stage 0 of data line 0 (its first model
+        #: rank; this one within one process): the one that takes the
+        #: dispatcher's decisions
+        self.first_process = int(first[0, 0])
         #: the group the crossings and broadcasts run on (the mesh's)
         self._group = mesh.world
-        self._sends = self._recvs = self._out_srcs = None
+        self._sends = self._recvs = self._out_srcs = self._in_dsts = None
         #: across processes, an input of every crossing under autograd
         #: (:class:`_CrossSlot`): a leaf that requires grad
         self._cross_token = None
         self.hop_transport = ring_transport(mesh, self.device)
         if mesh.spans_processes:
             #: stage 0's rows, gathered from their processes each push
-            self._out_srcs = _runs(owners[:, 0], range(owners.shape[0]), per)
+            #: (those of the lines' first model rank)
+            self._out_srcs = _runs(first[:, 0], range(first.shape[0]), per)
+            #: every process injecting rows: stage 0's of each line, at
+            #: each block of model ranks (where :meth:`deal` sends them)
+            t, b = self.mesh.shape.get(MODEL_AXIS, 1), len(self.ranks)
+            self._in_dsts = [run for r in range(0, t, b) for run in _runs(
+                ring_block(mesh, mine, rank=r)[2][:, 0],
+                range(first.shape[0]), per)]
             if len(self.local_stages) < n:
                 nxt = self.local_stages.stop % n
                 prv = (self.local_stages.start - 1) % n
@@ -485,14 +561,17 @@ class SpmdPipeline:
     # one stage / one pipeline step / one chunk
     # ------------------------------------------------------------------
 
-    def _branch(self, i: int, slot: torch.Tensor) -> torch.Tensor:
+    def _branch(self, i: int, slot: torch.Tensor,
+                cross: bool = True) -> torch.Tensor:
         """This process's i-th stage on one ring slot ``[b, buf_elems]``:
-        ``[b, out_sz]`` in the stage's compute dtype."""
+        ``[b, out_sz]`` in the stage's compute dtype (``cross=False``: its
+        psums all-reduce nothing across processes,
+        ``StageModule.forward``)."""
         k = self.local_stages[i]
         b = slot.shape[0]
         spec = self.stages[k].in_spec
         x = slot[:, :self._in_sizes[k]].reshape((b,) + spec.shape)
-        return self.modules[i](x.to(self._x_dtypes[k])).reshape(
+        return self.modules[i](x.to(self._x_dtypes[k]), cross=cross).reshape(
             b, self._out_sizes[k])
 
     def _stages(self, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -685,7 +764,7 @@ class SpmdPipeline:
         Returns what this process's ``push`` injects.  The rows are the
         input's, not the ring's slots: ``metrics`` does not count them."""
         if current_process() == src:
-            exchange([(block[:, rows], p) for rows, p in self._out_srcs
+            exchange([(block[:, rows], p) for rows, p in self._in_dsts
                       if p != src], [], self._group)
             return block
         if self._n_in == 0:
@@ -780,7 +859,7 @@ class SpmdPipeline:
         slot = torch.zeros((self._b, self.buf_elems),
                            dtype=self.buffer_dtype, device=self.device)
         for i in range(len(self.local_stages)):
-            self._branch(i, slot)
+            self._branch(i, slot, cross=False)
 
     def warmup(self):
         """Run one full bubble chunk, leaving the pipe empty (the probe
@@ -848,8 +927,8 @@ class SpmdPipeline:
         """Per-stage latency (seconds) of the deployed stages on a bubble
         slot: ``iters`` calls of each stage, timed with CUDA events on the
         card and the host clock on the CPU.  The deployment's own rows
-        (every rank's shard, with the in-stage psums, under tensor
-        parallelism), compute dtype and buffer dtype are what run.  ``params`` is
+        (this process's ranks' shards, with the in-stage psums, under
+        tensor parallelism), compute dtype and buffer dtype are what run.  ``params`` is
         accepted for the JAX signature and unused.  Fills
         ``metrics.stage_latency_s``; kernel launches made here are not
         pipeline steps and are not counted.  Across processes: this

@@ -64,7 +64,18 @@ tp as the JAX trainer, on the pipeline's one-card mesh or across processes:
     gets the sum of their gradients over its data line's group.
     ``trained_params``, ``stage_grads`` and the checkpoints give the
     one-process view: every stage's leaves on every process, gathered from
-    each stage's process, and one npz in the one-process layout.
+    each stage's process, and one npz in the one-process layout;
+  * a model axis across processes (each process holds a block of the
+    model line's ranks): every process of the line computes the same
+    outputs after a stage's last psum, and the psum's backward all-reduces
+    the cotangents, so the loss enters the backward once over the line,
+    on the process holding stage 0 and the line's first rank (the others
+    seed none; seeding it on each would scale every gradient upstream of a
+    psum by the line's length).  A replicated leaf's copies then hold
+    only their own ranks' shares, summed over the line's processes in one
+    all-reduce before the optimizer, so the copies stay equal.
+    ``trained_params``, ``stage_grads`` and the checkpoints gather every
+    rank's shards from its process.
 """
 
 from __future__ import annotations
@@ -76,8 +87,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.mesh import (DATA_AXIS, broadcast, current_process, exchange,
-                             line_group, mesh_placement)
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, broadcast,
+                             current_process, exchange, line_group,
+                             mesh_placement)
 from ..utils.checkpoint import _npz_path
 from . import flatbuf
 from .spmd import SpmdPipeline, ring_block
@@ -165,8 +177,22 @@ class PipelineTrainer:
         self.loss_fn = loss_fn
         #: whether the pipeline's mesh spreads over processes
         self._spread = pipe.mesh.spans_processes
+        #: whether this process takes the loss: it holds stage 0 and the
+        #: model line's first rank (where the line crosses processes, each
+        #: of its processes holds the same outputs, and the loss enters
+        #: the backward once over the line)
+        self._takes_loss = (pipe.local_stages.start == 0
+                            and pipe.ranks.start == 0)
+        #: the group over which the replicated leaves' gradients sum (the
+        #: model line's processes; None within one process)
+        self._model_group = None
         if self._spread:
             self._place()
+        #: the one-process index of each row of ``rows`` (stage major, rank
+        #: minor): its key in a checkpoint
+        t = pipe.tensor_parallel
+        self._row_ids = [k * t + r for k in pipe.local_stages
+                         for r in pipe.ranks]
         #: the deployed flat rows, stage by stage (rank by rank within a
         #: stage under tensor parallelism; this process's stages across
         #: processes): the trained tensors
@@ -185,15 +211,24 @@ class PipelineTrainer:
         self._a0: torch.Tensor | None = None  # the trainer's zero ring
 
     def _place(self) -> None:
-        """Across processes: the process holding each stage's rows for
-        the one-process view (line 0's), and the group over which this
-        process's stages' gradients sum (the processes holding those
-        stages of the other data lines; None where this one holds them
-        all)."""
-        pipe = self.pipe
-        mine, _ = mesh_placement(pipe.mesh, "PipelineTrainer")
-        _, stages, owners = ring_block(pipe.mesh, mine)
-        self._owners = [int(p) for p in owners[0]]
+        """Across processes: the processes holding each stage's rows for
+        the one-process view (line 0's, with their model ranks), the group
+        over which this process's stages' gradients sum (the processes
+        holding those stages of the other data lines; None where this one
+        holds them all), and the model line's group."""
+        pipe, mesh = self.pipe, self.pipe.mesh
+        mine, _ = mesh_placement(mesh, "PipelineTrainer")
+        _, stages, owners = ring_block(mesh, mine)
+        t, b = pipe.tensor_parallel, len(pipe.ranks)
+        firsts = {r: ring_block(mesh, mine, rank=r)[2][0]
+                  for r in range(0, t, b)}
+        #: per stage: ``[(process, ranks)]``, its blocks of model ranks
+        self._holders = [[(int(firsts[r][k]), range(r, r + b))
+                          for r in range(0, t, b)]
+                         for k in range(pipe.num_stages)]
+        if MODEL_AXIS in mesh.axis_names and mesh.axis_crosses_processes(
+                MODEL_AXIS):
+            self._model_group = line_group(mesh, MODEL_AXIS)
         holders = {tuple(sorted({int(p) for p in owners[:, k]}))
                    for k in stages}
         if len(holders) != 1:
@@ -245,7 +280,7 @@ class PipelineTrainer:
         inference engine's step (each step's stages under remat), and,
         across processes, the ring each step left (every crossing's
         output; ``[]`` in one process).  The loss is this process's data
-        lines', None where it does not hold stage 0."""
+        lines', None where it does not take one (``_takes_loss``)."""
         pipe = self.pipe
         n = pipe.num_stages
         dp = pipe.data_parallel
@@ -266,7 +301,7 @@ class PipelineTrainer:
             if self._spread:
                 rings.append(a)
             j = t - (n - 1)
-            if j >= 0 and pipe.local_stages.start == 0:
+            if j >= 0 and self._takes_loss:
                 # microbatch j is back at slot 0: each data shard's loss
                 out = a[0, :, :out_sz]
                 loss = None
@@ -301,10 +336,13 @@ class PipelineTrainer:
                 grads = self._spread_grads(loss, rings)
         grads = [torch.zeros_like(r) if g is None else g
                  for r, g in zip(self.rows, grads)]
+        tots = {k: sum(g.to(mask.device) for g in grads[self._spans[k]])
+                for k, mask in self._tied.items()}
+        if self._model_group is not None and tots:
+            tots = self._sum_tied(tots)
         for k, mask in self._tied.items():
             span = self._spans[k]
-            tot = sum(g.to(mask.device) for g in grads[span])
-            grads[span] = [torch.where(mask.to(g.device), tot.to(g.device),
+            grads[span] = [torch.where(mask.to(g.device), tots[k].to(g.device),
                                        g) for g in grads[span]]
         if self._spread:
             loss, grads = self._reduce(loss, grads)
@@ -325,9 +363,27 @@ class PipelineTrainer:
         return torch.autograd.grad(roots, wrt, cots,
                                    allow_unused=True)[:len(self.rows)]
 
+    def _sum_tied(self, tots: dict) -> dict:
+        """The replicated leaves' gradient sums of this process's ranks
+        (``tots``, per stage), summed over the model line's processes in
+        one all-reduce: each copy of a replicated leaf saw only its rank's
+        share of the loss."""
+        import torch.distributed as dist
+
+        masks = {k: self._tied[k] for k in tots}
+        flat = torch.cat([tots[k][m] for k, m in masks.items()])
+        dist.all_reduce(flat, group=self._model_group)
+        out, off = {}, 0
+        for k, m in masks.items():
+            n = int(m.sum())
+            t = tots[k].clone()
+            t[m] = flat[off:off + n]
+            out[k], off = t, off + n
+        return out
+
     def _reduce(self, loss, grads):
         """Across processes: the loss summed over every process (0 where
-        a process holds no stage 0), and each gradient row summed over
+        a process takes none), and each gradient row summed over
         the processes holding its stage of the other data lines."""
         import torch.distributed as dist
 
@@ -374,20 +430,25 @@ class PipelineTrainer:
 
     # -- interop ------------------------------------------------------------
 
-    def _unpack(self, k: int, rows: Sequence[torch.Tensor],
-                dtype: torch.dtype | None) -> dict[str, Any]:
-        """Local stage k's leaves of its row-shaped tensors (one per rank)
-        as CPU copies in the port's layout, each in ``dtype`` (None: the
-        leaf's own); the ranks' shards reassembled under tensor
-        parallelism."""
+    def _rank_trees(self, k: int, rows: Sequence[torch.Tensor],
+                    dtype: torch.dtype | None) -> list[dict[str, Any]]:
+        """Local stage k's leaves of its row-shaped tensors (one per rank
+        this process holds) as CPU copies in the port's layout, each in
+        ``dtype`` (None: the leaf's own), one tree per rank."""
         mod = self.pipe.modules[k]
-        trees = [flatbuf.unflatten_leaves(mod.paths, [
+        return [flatbuf.unflatten_leaves(mod.paths, [
             v.to("cpu", dtype or meta[3], copy=True).contiguous()
             for v, meta in zip(flatbuf.unpack_leaves(row.detach(), mod.meta),
                                mod.meta)]) for row in rows]
-        if mod.tp == 1:
-            return trees[0]
-        return mod.stage.tp_unshard_params(trees)
+
+    def _unshard(self, k: int, trees: list[dict[str, Any]]
+                 ) -> dict[str, Any]:
+        """Stage k's leaves from every rank's tree (one without tensor
+        parallelism; none, shared across processes, for a stage without
+        weights): the ranks' shards reassembled."""
+        if len(trees) <= 1:
+            return trees[0] if trees else {}
+        return self.pipe.stages[k].tp_unshard_params(trees)
 
     def _stages_unpacked(self, rows: Sequence[torch.Tensor],
                          dtype: torch.dtype | None) -> list[dict[str, Any]]:
@@ -395,19 +456,24 @@ class PipelineTrainer:
         ``rows``), stage by stage: across processes each stage's from the
         process holding it (line 0's), on every process."""
         if not self._spread:
-            return [self._unpack(k, rows[span], dtype)
+            return [self._unshard(k, self._rank_trees(k, rows[span], dtype))
                     for k, span in enumerate(self._spans)]
-        first, out = self.pipe.local_stages.start, []
-        for k, src in enumerate(self._owners):
-            named = None
-            if src == current_process():
-                i = k - first
-                paths, leaves = flatbuf.flatten_leaves(
-                    self._unpack(i, rows[self._spans[i]], dtype))
-                named = list(zip(paths, leaves))
-            got = _share(named, src, self.pipe.device)
-            out.append(flatbuf.unflatten_leaves(
-                [tuple(p) for p, _ in got], [v for _, v in got]))
+        first, me, out = self.pipe.local_stages.start, current_process(), []
+        for k, holders in enumerate(self._holders):
+            trees = []
+            for src, _ in holders:  # each block of model ranks, in order
+                named = None
+                if src == me:
+                    i = k - first
+                    named = [((j,) + path, leaf) for j, tree in enumerate(
+                        self._rank_trees(i, rows[self._spans[i]], dtype))
+                        for path, leaf in zip(*flatbuf.flatten_leaves(tree))]
+                got = _share(named, src, self.pipe.device)
+                for j in sorted({key[0] for key, _ in got}):
+                    trees.append(flatbuf.unflatten_leaves(
+                        [tuple(key[1:]) for key, _ in got if key[0] == j],
+                        [v for key, v in got if key[0] == j]))
+            out.append(self._unshard(k, trees))
         return out
 
     def trained_params(self) -> dict[str, Any]:
@@ -428,11 +494,6 @@ class PipelineTrainer:
         Across processes every stage's, on every process."""
         return self._stages_unpacked(grads, torch.float32)
 
-    def _row_base(self) -> int:
-        """The one-process index of this process's first row (stage
-        major, rank minor)."""
-        return self.pipe.local_stages.start * self.pipe.tensor_parallel
-
     def save_checkpoint(self, path: str) -> None:
         """Persist the training state: each row of ``rows`` (``w/<k>``) and
         every tensor of the optimizer's state (``opt/<param>/<name>``), in
@@ -442,13 +503,13 @@ class PipelineTrainer:
         the row's index over every stage), gathered from each stage's
         process; every process returns once the file is written."""
         state = self.optimizer.state_dict()["state"]
-        base = self._row_base()
+        ids = self._row_ids
 
         def arrays_of(rows: range) -> list:
             out = []
             for i in rows:
-                out.append((f"w/{base + i}", self.rows[i].detach().float()))
-                out += [(f"opt/{base + i}/{name}", v.detach().float())
+                out.append((f"w/{ids[i]}", self.rows[i].detach().float()))
+                out += [(f"opt/{ids[i]}/{name}", v.detach().float())
                         for name, v in state.get(i, {}).items()
                         if isinstance(v, torch.Tensor)]
             return out
@@ -459,12 +520,14 @@ class PipelineTrainer:
                     range(len(self.rows)))})
             return
         me, first, arrays = current_process(), self.pipe.local_stages.start, {}
-        for k, src in enumerate(self._owners):
-            span = self._spans[k - first] if src == me else None
-            got = _share(None if span is None else arrays_of(
-                range(span.start, span.stop)), src, self.pipe.device, dst=0)
-            if me == 0:
-                arrays.update((key, v.numpy()) for key, v in got)
+        for k, holders in enumerate(self._holders):
+            for src, _ in holders:
+                span = self._spans[k - first] if src == me else None
+                got = _share(None if span is None else arrays_of(
+                    range(span.start, span.stop)), src, self.pipe.device,
+                    dst=0)
+                if me == 0:
+                    arrays.update((key, v.numpy()) for key, v in got)
         if me == 0:
             np.savez(_npz_path(path), **arrays)
         broadcast(torch.zeros(1, device=self.pipe.device), 0)
@@ -486,8 +549,7 @@ class PipelineTrainer:
                 elif kind == "opt":
                     state.setdefault(int(rest[0]), {})[rest[1]] = \
                         torch.from_numpy(z[key])
-        base = self._row_base()
-        mine = range(base, base + len(self.rows))
+        mine = self._row_ids
         shapes = [tuple(r.shape) for r in self.rows]
         got = [rows[k].shape if k in rows else None for k in mine]
         if (len(rows) != self.pipe.num_stages * self.pipe.tensor_parallel
@@ -498,5 +560,5 @@ class PipelineTrainer:
             for k, row in zip(mine, self.rows):
                 row.copy_(torch.from_numpy(rows[k]))
         sd = self.optimizer.state_dict()
-        sd["state"] = {k - base: v for k, v in state.items() if k in mine}
+        sd["state"] = {i: state[k] for i, k in enumerate(mine) if k in state}
         self.optimizer.load_state_dict(sd)

@@ -51,6 +51,16 @@ class PipelineMetrics:
     #: payload and its scales)
     boundary_bytes: int = 0
     boundary_sends: int = 0
+    #: the all-reduces this process made over a model (tensor-parallel)
+    #: line that crosses processes (a stage's psums; under training their
+    #: backward's too), and the bytes it handed them (0 in one process)
+    allreduce_calls: int = 0
+    allreduce_bytes: int = 0
+    #: host seconds this process spent inside those all-reduces and inside
+    #: the hops' sends and receives across processes (staging through
+    #: host memory excluded: a staging copy waits for the device's work)
+    allreduce_s: float = 0.0
+    boundary_s: float = 0.0
     #: registry prefix once bound (``bind``), e.g. "pipeline3"
     prefix: str | None = None
 
@@ -63,6 +73,10 @@ class PipelineMetrics:
         self.chunk_calls = 0
         self.boundary_bytes = 0
         self.boundary_sends = 0
+        self.allreduce_calls = 0
+        self.allreduce_bytes = 0
+        self.allreduce_s = 0.0
+        self.boundary_s = 0.0
         self.push_latency.clear()
 
     def bind(self, registry=None, prefix: str | None = None) -> str:
@@ -80,7 +94,8 @@ class PipelineMetrics:
         ref = weakref.ref(self)
         for field in ("num_stages", "microbatch", "inferences", "steps",
                       "wall_s", "chunk_calls", "buffer_bytes_per_hop",
-                      "captures", "boundary_bytes", "boundary_sends"):
+                      "captures", "boundary_bytes", "boundary_sends",
+                      "allreduce_calls", "allreduce_bytes"):
             registry.register_callback(
                 f"{p}.{field}",
                 lambda r=ref, f=field:

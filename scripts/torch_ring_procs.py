@@ -43,9 +43,8 @@ five below), ``decode``, ``train`` and ``serve``; all four by default:
   one line) and of the dp mesh (each line on some processes), on
   integer-valued f32 (sums exact in any order);
 * ``guards``: what stays within one process raises naming why
-  (``mode="mpmd"``, by design) and what waits for ROADMAP A15c (the model
-  axis across processes) naming it; a mesh naming
-  two devices in one process raises naming A15b; NCCL for several
+  (``mode="mpmd"``, by design); a mesh naming two devices in one process
+  raises naming A15b; NCCL for several
   processes on one card raises naming gloo when a ring engine is placed
   (on the CPU, which has no NCCL, the same placement over a gloo group
   named NCCL whose ranks name one card);
@@ -130,9 +129,10 @@ PRESETS = {
 }
 WIRES = ("buffer", "int8")
 #: the groups of cases ``--cases`` picks from
-CASE_GROUPS = ("ring", "decode", "train", "serve")
-#: the guards and the ROADMAP queue each must name
-GUARDS = {"mpmd": "A15c", "model_axis": "A15c", "two_devices": "A15b"}
+CASE_GROUPS = ("ring", "decode", "train", "serve", "tp")
+#: the guards and what each must name: the ROADMAP queue it waits for, or
+#: that it stays so by design
+GUARDS = {"mpmd": "by design", "two_devices": "A15b"}
 #: per preset, the decoder cases' models (factory, keyword arguments), the
 #: meshes (name -> (model, stages, data lines, draft model)) and the cases
 #: each runs, the weights' microbatch and ring chunk, the prompts
@@ -161,7 +161,7 @@ DECODE = {
                                "score_int8")},
              "microbatch": 8, "chunk": 4, "max_len": 256,
              "prompts": (96, 32), "new": 8, "score_ids": (16, 32),
-             "timed": 3, "keep_rows": False},
+             "timed": 2, "keep_rows": False},
 }
 #: the decoder cases: (what runs, the engine's keyword arguments, the
 #: call's); ``"eos": True`` stops at the greedy run's token at position
@@ -217,7 +217,7 @@ TRAIN = {
              "runs": {"s8_int8": ("resnet50", 8, 1, "int8", ("grad", "adam")),
                       "s8_buffer": ("resnet50", 8, 1, "buffer", ("grad",))},
              "m": 4, "microbatch": 8, "chunk": 4,
-             "steps": {"resnet50": 3}, "lr": {"resnet50": {"adam": 1e-4}},
+             "steps": {"resnet50": 2}, "lr": {"resnet50": {"adam": 1e-4}},
              "keep_all": False},
 }
 #: the collectives and the meshes they cross
@@ -281,14 +281,17 @@ def make_inputs(preset: str, cases=CASE_GROUPS) -> dict:
         out["resnet_params"] = g.init(torch.Generator().manual_seed(SEED))
         out["resnet_x"] = np.random.default_rng(SEED).standard_normal(
             (cfg["frames"], cfg["microbatch"], s, s, 3)).astype(np.float32)
+    if "ring" in cases or "tp" in cases:
         g, _, _ = _model(models, cfg["bert"])
         vocab = g.nodes["embeddings"].op.vocab
         out["bert_params"] = g.init(torch.Generator().manual_seed(SEED))
         out["bert_ids"] = np.random.default_rng(SEED).integers(
             0, vocab, (cfg["frames"], cfg["microbatch"]) + g.input_spec.shape
         ).astype(np.float32)
-    if "decode" in cases:
-        dc = DECODE[preset]
+    tc = TP[preset]
+    decodes = ([DECODE[preset]] if "decode" in cases else []) + (
+        [tc["decode"]] if "tp" in cases and "decode" in tc else [])
+    for dc in decodes:
         graphs = decode_graphs(models, dc)
         for name, g in graphs.items():
             seed = SEED + 1 if name.startswith("draft") else SEED
@@ -300,14 +303,18 @@ def make_inputs(preset: str, cases=CASE_GROUPS) -> dict:
         b, t = dc["score_ids"]
         out["gpt_score_ids"] = np.random.default_rng(SEED + 2).integers(
             0, vocab, (b, max(t, 100)))[:, :t]
-    if "train" in cases:
-        tc = TRAIN[preset]
-        for model in tc["models"]:
-            g, _, loss = train_graph(models, tc, model)
-            out[f"train_{model}_params"] = g.init(
-                torch.Generator().manual_seed(SEED))
+    trains = ([TRAIN[preset]] if "train" in cases else []) + (
+        [tc["train"]] if "tp" in cases and "train" in tc else [])
+    for tr in trains:
+        for model, (factory, kw, _, _) in tr["models"].items():
+            g, _, loss = train_graph(models, tr, model)
+            same = cfg["bert"][:2] == (factory, kw) and "bert_params" in out
+            # the ring's BERT, where it is the same graph: one copy
+            out[f"train_{model}_params"] = (out["bert_params"] if same
+                                            else g.init(torch.Generator()
+                                                        .manual_seed(SEED)))
             out[f"train_{model}_x"], out[f"train_{model}_y"] = train_inputs(
-                g, loss, tc["m"], tc["microbatch"])
+                g, loss, tr["m"], tr["microbatch"])
     if "serve" in cases:
         sc = SERVE[preset]
         pkey, xkey = sc["inputs"]
@@ -323,21 +330,26 @@ def make_inputs(preset: str, cases=CASE_GROUPS) -> dict:
 def train_inputs(g, loss: str, m: int, mb: int):
     """``(xs, ys)`` of a training chunk of ``m`` microbatches of ``mb``
     (seed ``SEED``): images and class targets (``ce``, as phase 4r makes
-    them on the card), or token ids as the f32 inputs and themselves as
-    the targets (``lm``)."""
+    them on the card), token ids as the f32 inputs and themselves as the
+    targets (``lm``), or token ids and class targets (``cls``)."""
     rng = np.random.default_rng(SEED)
     shape = (m, mb) + tuple(g.input_spec.shape)
     classes = g.output_spec.shape[-1]
     if loss == "lm":
         ids = rng.integers(0, classes, shape)
         return ids.astype(np.float32), ids
+    if loss == "cls":
+        ids = rng.integers(0, g.nodes["embeddings"].op.vocab, shape)
+        return ids.astype(np.float32), np.random.default_rng(
+            SEED).integers(0, classes, (m, mb))
     xs = rng.standard_normal(shape).astype(np.float32)
     return xs, np.random.default_rng(SEED).integers(0, classes, (m, mb))
 
 
 def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
           cases=CASE_GROUPS, deadline_s: float = 120.0,
-          timeout_s: float = 60.0, env: dict | None = None) -> list[dict]:
+          timeout_s: float = 60.0, env: dict | None = None,
+          go: str | None = None) -> list[dict]:
     """Write ``inputs`` (:func:`make_inputs`'s keys for ``cases``) to
     ``out_dir``, run ``procs`` workers on them and return every worker's
     results (:func:`load`).  A worker that exits non-zero, or the
@@ -346,7 +358,11 @@ def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
     between the probe and its bind (:data:`BIND_RACE_MARKS`), the workers
     are spawned again on fresh ports, up to :data:`SPAWN_TRIES` spawns,
     each under its own deadline.  Build the kernels before spawning on the
-    card: the workers load the built libraries."""
+    card: the workers load the built libraries.  With ``go`` (a path) each
+    worker does its host work (imports, graphs, the inputs mapped), then
+    waits for that file to exist before it forms a group or touches the
+    device: a caller starts the host work early and lets the workers at
+    the device later."""
     import torch
 
     out = Path(out_dir)
@@ -359,7 +375,7 @@ def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
     for attempt in range(1, SPAWN_TRIES + 1):
         try:
             _spawn_once(procs, device, preset, out, cases, deadline_s,
-                        timeout_s, env)
+                        timeout_s, env, go)
             break
         except _BindRace as e:
             if attempt == SPAWN_TRIES:
@@ -370,7 +386,7 @@ def spawn(procs: int, device: str, preset: str, out_dir, inputs: dict, *,
 
 
 def _spawn_once(procs, device, preset, out, cases, deadline_s, timeout_s,
-                env) -> None:
+                env, go=None) -> None:
     """One spawn on freshly probed ports: every worker exits 0, or every
     worker is killed and it raises (:class:`_BindRace` where a worker lost
     its port, else ``RuntimeError``), with the stderr tails."""
@@ -385,6 +401,8 @@ def _spawn_once(procs, device, preset, out, cases, deadline_s, timeout_s,
                    "--nccl-port", str(nccl_port), "--device", device,
                    "--preset", preset, "--out", str(out),
                    "--timeout", str(timeout_s), "--cases", ",".join(cases)]
+            if go is not None:
+                cmd += ["--go", str(go)]
             err = out / f"worker{i}.err"
             with open(out / f"worker{i}.out", "w") as so, \
                     open(err, "w") as se:
@@ -475,10 +493,17 @@ class Counts:
         return {k.name: k.launches for k in self.kernels}
 
 
+def _cuts(models, cuts):
+    """A cut list: the name of one of ``models``' lists, a tuple of node
+    names, or None."""
+    if isinstance(cuts, str):
+        return getattr(models, cuts)
+    return list(cuts) if cuts else None
+
+
 def _model(models, spec):
     factory, kw, cuts, stages = spec
-    return getattr(models, factory)(**kw), (
-        getattr(models, cuts) if cuts else None), stages
+    return getattr(models, factory)(**kw), _cuts(models, cuts), stages
 
 
 def _sync(torch, device: str) -> None:
@@ -558,17 +583,10 @@ def guards(torch, res, dev, cfg, g, params, mesh, pipe) -> None:
 
     n = mesh.shape["stage"]
     procs = int(mesh.processes.max()) + 1
-    local = int((mesh.processes == 0).sum())
     tries = {
         "mpmd": lambda: Defer(DeferConfig(mode="mpmd", device=dev),
                               mesh=mesh).build(g, params, num_stages=n),
-        # (stage procs/2, model 2 x local): every model line on 2
-        # processes; both meshes raise before the stage count is read
-        "model_axis": lambda: SpmdPipeline(
-            pipe.stages, params,
-            mesh=multihost_pipeline_mesh(procs // 2, tensor_parallel=2 *
-                                         local, local_devices=[dev] * local),
-            microbatch=cfg["microbatch"]),
+        # raises before the stage count is read
         "two_devices": lambda: SpmdPipeline(
             pipe.stages, params,
             mesh=multihost_pipeline_mesh(2 * procs, local_devices=[
@@ -719,8 +737,11 @@ class DecodeRun:
     server would; :meth:`case` runs one case."""
 
     def __init__(self, torch, models, dc, given, key, device, graphs,
-                 mesh=None):
+                 mesh=None, tp: int = 1):
         self.torch, self.dc, self.device, self.mesh = torch, dc, device, mesh
+        #: the model axis of a one-process reference's ``Defer`` (a mesh's
+        #: own across processes)
+        self.tp = tp
         model, self.n, _, draft = dc["meshes"][key]
         self.graph, self.params = graphs[model], given[f"{model}_params"]
         blocks = sum(nm.startswith("block_") for nm in self.graph.topo_order)
@@ -759,7 +780,9 @@ class DecodeRun:
         if key not in self._engines:
             self._engines[key] = Defer(DeferConfig(
                 microbatch=self.dc["microbatch"], chunk=self.dc["chunk"],
-                wire=wire, device=self.device), mesh=self.mesh)
+                wire=wire, device=self.device,
+                tensor_parallel=self.tp if self.mesh is None else 1),
+                mesh=self.mesh)
         return self._engines[key]
 
     def _stages(self) -> dict:
@@ -836,7 +859,8 @@ class DecodeRun:
             if i == 0:
                 first, meta["launches"] = out, counts.read()
                 meta.update(self._engine_meta(engine, kind))
-                for k in ("boundary_bytes", "boundary_sends", "steps"):
+                for k in ("boundary_bytes", "boundary_sends", "steps",
+                          "allreduce_calls", "allreduce_bytes"):
                     if k in meta:
                         meta[k] -= before.get(k, 0)
         self.results[name] = first
@@ -865,7 +889,9 @@ class DecodeRun:
         out = {"local_stages": list(engine.local_stages),
                "transport": engine.hop_transport,
                "boundary_bytes": m.boundary_bytes,
-               "boundary_sends": m.boundary_sends}
+               "boundary_sends": m.boundary_sends,
+               "allreduce_calls": m.allreduce_calls,
+               "allreduce_bytes": m.allreduce_bytes}
         if hasattr(engine, "caches"):
             out.update(captures=engine.captures,
                        caches={k: len(v) for k, v in engine.caches.items()},
@@ -915,23 +941,24 @@ def decode_group(torch, res, arrays, counts, models, preset, given, dev,
 
 
 def train_graph(models, tc, model: str):
-    """``(graph, cuts, loss)`` of one of ``TRAIN[preset]``'s models (a
-    GPT's blocks on ``attn_impl="xla"``: the flash operator has no
-    backward)."""
+    """``(graph, cuts, loss)`` of one of ``TRAIN[preset]``'s (or a ``TP``
+    preset's ``train``) models (a transformer's blocks on
+    ``attn_impl="xla"``: the flash operator has no backward)."""
     from defer_tpu_torch.graph import with_attn_impl
 
     factory, kw, cuts, loss = tc["models"][model]
     g = getattr(models, factory)(**kw)
-    if loss == "lm":
+    if loss in ("lm", "cls"):
         g = with_attn_impl(g, "xla")
-    return g, getattr(models, cuts) if cuts else None, loss
+    return g, _cuts(models, cuts), loss
 
 
 def train_loss(torch, kind: str):
     """The summed loss's per-microbatch term: cross-entropy of the logits
-    (``ce``) or of each next token (``lm``, the ids as targets)."""
+    (``ce``, and ``cls``: a class of token ids) or of each next token
+    (``lm``, the ids as targets)."""
     F = torch.nn.functional
-    if kind == "ce":
+    if kind in ("ce", "cls"):
         return lambda logits, y: F.cross_entropy(logits.float(), y)
     return lambda logits, ids: F.cross_entropy(
         logits[:, :-1].float().flatten(0, 1), ids[:, 1:].long().flatten())
@@ -990,10 +1017,13 @@ class TrainRun:
     and loss, made by the first run that needs it."""
 
     def __init__(self, torch, models, tc, given, key, device, mesh=None,
-                 out=None, built=None):
+                 out=None, built=None, tp: int = 1):
         from defer_tpu_torch import SpmdPipeline, partition
 
         self.torch, self.tc, self.device, self.mesh = torch, tc, device, mesh
+        #: the model axis of the one-process reference (a mesh's own
+        #: across processes)
+        self.tp = tp
         self.out = None if out is None else Path(out)
         self.key = key
         model, n, self.dp, self.wire, self.cases = tc["runs"][key]
@@ -1015,7 +1045,8 @@ class TrainRun:
                                  **self._place(), **self.pipe_kw)
 
     def _place(self) -> dict:
-        return ({"device": self.device, "data_parallel": self.dp}
+        return ({"device": self.device, "data_parallel": self.dp,
+                 "tensor_parallel": self.tp}
                 if self.mesh is None else {"mesh": self.mesh})
 
     def trainer(self, opt: str | None = None, lr: float = 0.0, pipe=None):
@@ -1048,9 +1079,18 @@ class TrainRun:
     def _trained(self, t, meta) -> tuple[dict, dict]:
         """``trained_params`` (the weights every process gathered) and
         their leaves where the preset keeps them; ``meta`` gets their
-        digest."""
+        digest and, under tensor parallelism, per local stage a digest of
+        each of its rows' replicated leaves (equal copies, equal
+        digests)."""
+        import hashlib
+
         params = t.trained_params()
         meta["digest"] = params_digest(params)
+        if self.pipe.tensor_parallel > 1:
+            meta["tied"] = {str(k): [hashlib.sha256(
+                row.detach()[t._tied[i]].cpu().numpy().tobytes()).hexdigest()
+                for row in self.pipe.modules[i].rows]
+                for i, k in enumerate(self.pipe.local_stages)}
         return params, (_leaves("p", [params]) if self.tc["keep_all"]
                         else {})
 
@@ -1060,7 +1100,7 @@ class TrainRun:
         after, what crossed in them, seconds)."""
         torch, x, y, steps = self.torch, self.x, self.y, self.steps
         m = self.pipe.metrics
-        before = (m.boundary_bytes, m.boundary_sends)
+        before = (m.boundary_bytes, m.boundary_sends, m.allreduce_calls)
         arrays, meta = {}, {}
         if name == "grad":
             t = self.trainer()
@@ -1102,6 +1142,8 @@ class TrainRun:
             raise ValueError(f"no training case {name!r}")
         meta["boundary_bytes"] = m.boundary_bytes - before[0]
         meta["boundary_sends"] = m.boundary_sends - before[1]
+        meta["allreduce_calls"] = m.allreduce_calls - before[2]
+        meta["ranks"] = list(self.pipe.ranks)
         meta["transport"] = self.pipe.hop_transport
         meta["local_stages"] = list(self.pipe.local_stages)
         meta["buf_elems"] = self.pipe.buf_elems
@@ -1132,7 +1174,8 @@ class TrainRun:
         if self.mesh is None or current_process() == 0:
             one = self.trainer("Adam", lr, pipe=SpmdPipeline(
                 self.stages, self.params, device=self.device,
-                data_parallel=self.dp, **self.pipe_kw))
+                data_parallel=self.dp,
+                tensor_parallel=self.pipe.tensor_parallel, **self.pipe_kw))
             for _ in range(self.steps - 1):
                 one.step(self.x, self.y)
             one.save_checkpoint(path)
@@ -1310,11 +1353,15 @@ class ServeRun:
     waits, every frame and the END are queued before the service starts,
     so every push is a full chunk.  :meth:`case` runs one case."""
 
-    def __init__(self, torch, models, sc, given, device, meshes=None):
+    def __init__(self, torch, models, sc, given, device, meshes=None,
+                 tp: int = 1):
         from defer_tpu_torch.parallel.mesh import current_process
 
         self.torch, self.sc, self.device, self.meshes = (torch, sc, device,
                                                          meshes)
+        #: the model axis of the one-process references (a mesh's own
+        #: across processes)
+        self.tp = tp
         factory, kw, cuts, self.n = sc["model"]
         self.graph = getattr(models, factory)(**kw)
         self.cuts = getattr(models, cuts) if cuts else None
@@ -1331,7 +1378,8 @@ class ServeRun:
         c = {"microbatch": self.sc["microbatch"], "chunk": self.sc["chunk"],
              "device": self.device, **cfg}
         if not self.across:
-            return Defer(DeferConfig(data_parallel=2 if dp else 1, **c))
+            return Defer(DeferConfig(data_parallel=2 if dp else 1,
+                                     tensor_parallel=self.tp, **c))
         return Defer(DeferConfig(**c), mesh=self.meshes[dp])
 
     def _place(self, dp: bool) -> dict:
@@ -1480,6 +1528,7 @@ class ServeRun:
                 "generations": len(h.threads),
                 "boundary_bytes": m.boundary_bytes,
                 "boundary_sends": m.boundary_sends,
+                "allreduce_calls": m.allreduce_calls,
                 "buf_elems": h.pipeline.buf_elems, "captures": m.captures,
                 "local_stages": list(h.pipeline.local_stages)}
         return ({"rows": np.stack(outs)} if outs else {}), meta
@@ -1564,6 +1613,7 @@ class ServeRun:
                     inferences=m.inferences, steps=m.steps,
                     pushes=m.chunk_calls, boundary_bytes=m.boundary_bytes,
                     boundary_sends=m.boundary_sends,
+                    allreduce_calls=m.allreduce_calls,
                     captures=m.captures, buf_elems=thread.pipeline.buf_elems,
                     local_stages=list(thread.pipeline.local_stages))
         return out, meta
@@ -1590,6 +1640,263 @@ def serve_group(torch, res, arrays, counts, models, preset, given, dev,
             arrays[f"sv_{case}__{k}"] = v
         mark(f"serve_{case}")
     del run
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism across the processes
+# ---------------------------------------------------------------------------
+
+
+#: per preset, the tensor-parallel cases: each runs on a (stage S, model T)
+#: mesh from ``multihost_pipeline_mesh(S, tensor_parallel=T)``, one
+#: position a process, so each model rank of a stage sits in a process of
+#: its own.  ``ring`` (:class:`TpRun`): the model (factory, keyword
+#: arguments, cut list, stages; the ring group's BERT and its weights and
+#: ids) through ``SpmdPipeline``, ``Defer(mesh=).run`` and ``.stream`` on
+#: each of ``wires``, each ring's weight rows kept where ``keep_rows``,
+#: reweighted with the seed-1 weights where ``reweight``; ``decode``,
+#: ``train`` and ``serve``: :class:`DecodeRun`'s, :class:`TrainRun`'s
+#: and :class:`ServeRun`'s presets on that mesh, against the one-process
+#: engines of the same extents (``defer`` False: the ring's ``Defer``
+#: calls are left to the CPU tests; ``fn``: ``tensor_parallel_fn`` of the
+#: whole graph on a (data, model T) mesh, :meth:`TpRun.fn`)
+TP = {
+    "cpu": {"tp": 2, "ring": ("bert_tiny", {}, None, 2), "wires": WIRES,
+            "microbatch": 2, "chunk": 3, "reweight": True, "keep_rows": True,
+            "fn": True,
+            "decode": {**DECODE["cpu"],
+                       "models": {"gpt_tiny": DECODE["cpu"]["models"][
+                           "gpt_tiny"]},
+                       "meshes": {"tp": ("gpt_tiny", 2, 1, None)},
+                       "cases": {"tp": ("greedy", "prefill", "defer_generate",
+                                        "defer_prefill", "logits_buffer",
+                                        "logits_int8", "score_buffer",
+                                        "score_int8")},
+                       "keep_rows": False},
+            "train": {"models": {"bert_tiny": ("bert_tiny", {}, None, "cls")},
+                      "runs": {"tp_buffer": ("bert_tiny", 2, 1, "buffer",
+                                             TRAIN_CASES),
+                               "tp_int8": ("bert_tiny", 2, 1, "int8",
+                                           ("grad", "sgd", "adam",
+                                            "accumulate"))},
+                      "m": 2, "microbatch": 2, "chunk": 2,
+                      "steps": {"bert_tiny": 2},
+                      "lr": {"bert_tiny": {"sgd": 5e-2, "adam": 1e-3,
+                                           "accumulate": 5e-2}},
+                      "keep_all": True},
+            "serve": {"model": ("bert_tiny", {}, None, 2),
+                      "inputs": ("bert_params", "bert_ids"),
+                      "microbatch": 2, "chunk": 3, "frames": 6,
+                      "wait_s": 60.0,
+                      "cases": ("queue_buffer", "queue_int8", "ep_pair")}},
+    # BERT-Base in 2 stages, the cut at block_5 (6 blocks a stage), on 4b's
+    # weights and ids (its training stays with the CPU tests: the chip
+    # smoke's phase 4t has no seconds for it)
+    "card": {"tp": 2, "ring": ("bert_base", {"seq_len": 128}, ("block_5",),
+                               2),
+             "wires": WIRES, "microbatch": 8, "chunk": 4, "reweight": False,
+             "keep_rows": False, "defer": False},
+}
+
+
+class TpRun:
+    """The ``tp`` group's ring cases (:data:`TP`) on the given weights and
+    ids (:func:`make_inputs`'s ``bert_params`` and ``bert_ids``): the
+    workers run them on ``mesh``, a (stage S, model T) mesh across the
+    processes; with ``mesh=None`` they run on the one-process ring of the
+    same extents (``tensor_parallel=T``), the CPU tests' reference.
+    :meth:`ring` runs one wire."""
+
+    def __init__(self, torch, models, tc, given, device, mesh=None):
+        from defer_tpu_torch import partition
+
+        self.torch, self.tc, self.device, self.mesh = torch, tc, device, mesh
+        self.graph, self.cuts, self.n = _model(models, tc["ring"])
+        self.stages = partition(self.graph, self.cuts,
+                                num_stages=None if self.cuts else self.n)
+        self.params = given["bert_params"]
+        self.x = np.asarray(given["bert_ids"], np.float32)
+        self.kw = dict(microbatch=tc["microbatch"], chunk=tc["chunk"])
+
+    def _place(self) -> dict:
+        return ({"device": self.device, "tensor_parallel": self.tc["tp"]}
+                if self.mesh is None else {"mesh": self.mesh})
+
+    def ring(self, wire: str, counts) -> tuple[dict, dict]:
+        """One ``SpmdPipeline.run`` on ``wire``, its launches zeroed just
+        before and read just after, then (unless the preset's ``defer`` is
+        False) ``Defer(mesh=).run`` and ``.stream`` of the same ids and its
+        ``health_check``, ``stage_latencies``, and
+        ``TIMED_PUSHES`` steady pushes of a chunk, each timed (the ring
+        filled by one push first: a chunk is more steps than the stages;
+        their median kept); on the buffer
+        wire, where the preset says so, the ring reweighted with the
+        seed-1 weights and run again."""
+        from defer_tpu_torch import Defer, DeferConfig, SpmdPipeline
+
+        torch, dev = self.torch, self.device
+        pipe = SpmdPipeline(self.stages, self.params, **self._place(),
+                            wire=wire, **self.kw)
+        counts.zero()
+        rows = pipe.run(self.x)
+        _sync(torch, dev)
+        m = pipe.metrics
+        meta = {"launches": counts.read(), "steps": m.steps,
+                "boundary_bytes": m.boundary_bytes,
+                "boundary_sends": m.boundary_sends,
+                "allreduce_calls": m.allreduce_calls,
+                "allreduce_bytes": m.allreduce_bytes,
+                "captures": m.captures, "transport": pipe.hop_transport,
+                "local_stages": list(pipe.local_stages),
+                "ranks": list(pipe.ranks), "buf_elems": pipe.buf_elems,
+                "first_process": pipe.first_process,
+                "row_numels": [[r.numel() for r in mod.rows]
+                               for mod in pipe.modules]}
+        arrays = {"rows": rows}
+        if self.tc["keep_rows"]:
+            for i, k in enumerate(pipe.local_stages):
+                for j, r in enumerate(pipe.ranks):
+                    # a copy: the reweight below writes the rows in place
+                    arrays[f"w{k}_{r}"] = pipe.modules[i].rows[j].to(
+                        "cpu", torch.float32, copy=True).numpy()
+        if self.tc.get("defer", True):
+            place = self._place()
+            d = Defer(DeferConfig(
+                wire=wire, device=dev,
+                tensor_parallel=place.get("tensor_parallel", 1), **self.kw),
+                mesh=self.mesh)
+            cut = {"cut_points": self.cuts, "num_stages": self.n}
+            arrays["defer_run"] = d.run(self.graph, self.params, self.x,
+                                        **cut)
+            arrays["defer_stream"] = np.stack([
+                y.float().cpu().numpy() for y in d.stream(
+                    self.graph, self.params, list(self.x), **cut)])
+            rep = d.health_check(self.graph, self.params, **cut)
+            meta["health"] = {"ok": rep["ok"], "mesh": rep["mesh"],
+                              "error": repr(rep["error"])}
+        meta["stage_latencies"] = pipe.stage_latencies(iters=2)
+        xs = pipe.stage_inputs(self.x[:self.kw["chunk"]])
+        pipe.push(xs)
+        _sync(torch, dev)
+        times, before = [], (m.allreduce_s, m.boundary_s)
+        for _ in range(TIMED_PUSHES):
+            t0 = time.perf_counter()
+            pipe.push(xs)
+            _sync(torch, dev)
+            times.append(time.perf_counter() - t0)
+        meta["push_s"] = float(np.median(times))
+        meta["push_spread_s"] = max(times) - min(times)
+        # a timed push's host seconds inside the all-reduces and inside
+        # the hop's sends and receives (their mean over the pushes)
+        meta["push_allreduce_s"] = (m.allreduce_s - before[0]) / TIMED_PUSHES
+        meta["push_boundary_s"] = (m.boundary_s - before[1]) / TIMED_PUSHES
+        if self.tc["reweight"] and wire == "buffer":
+            pipe.reweight(self.graph.init(torch.Generator().manual_seed(
+                SEED + 1)))
+            arrays["reweight_rows"] = pipe.run(self.x)
+        return arrays, meta
+
+
+    def fn(self, n_proc: int) -> tuple[dict, dict]:
+        """``shard_tp_params`` and ``tensor_parallel_fn`` of the whole graph
+        on the first microbatch of ids: across the processes on a (data,
+        model T) mesh of one position a process (each line's psums
+        all-reduce over its T processes), or with ``mesh=None`` on the
+        one-card ``tensor_parallel_mesh``."""
+        from defer_tpu_torch.graph.ir import flatten_tree
+        from defer_tpu_torch.parallel import (Mesh, shard_tp_params,
+                                              tensor_parallel_fn,
+                                              tensor_parallel_mesh)
+
+        t = self.tc["tp"]
+        if self.mesh is None:
+            mesh = tensor_parallel_mesh(t, devices=[self.device] * t)
+        else:
+            mesh = Mesh([[self.device] * t] * (n_proc // t),
+                        ("data", "model"),
+                        processes=np.arange(n_proc).reshape(-1, t))
+        shards = shard_tp_params(self.graph, self.params, t, mesh=mesh)
+        x = self.torch.from_numpy(self.x[0]).to(self.device,
+                                                self.torch.int32)
+        with self.torch.inference_mode():
+            y = tensor_parallel_fn(self.graph, mesh)(shards, x)
+        lead = next(iter(flatten_tree(shards).values()))
+        return {"out": y.float().cpu().numpy()}, {
+            "shard_ranks": int(lead.shape[0])}
+
+
+def tp_mesh(tc, n: int, dev, n_proc: int):
+    """The (stage ``n``, model T) mesh over the processes, one position a
+    process where ``n`` x T is their count."""
+    from defer_tpu_torch.parallel import multihost_pipeline_mesh
+
+    t = tc["tp"]
+    return multihost_pipeline_mesh(n, tensor_parallel=t,
+                                   local_devices=[dev] * (n * t // n_proc))
+
+
+def tp_group(torch, res, arrays, counts, models, preset, given, dev, n_proc,
+             out, mark) -> None:
+    """The ``tp`` cases of ``TP[preset]`` on (stage S, model T) meshes over
+    the ``n_proc`` processes: scalars ``res["tp"][what][case]`` (``what``:
+    ``ring``, ``decode``, ``train``/<run>, ``serve``) and arrays
+    ``tp_<what>_<case>__<name>``."""
+    tc = TP[preset]
+    res["tp"] = {"ring": {}}
+    run = TpRun(torch, models, tc, given, dev,
+                mesh=tp_mesh(tc, tc["ring"][3], dev, n_proc))
+    if tc.get("fn"):
+        got, res["tp"]["fn"] = run.fn(n_proc)
+        for k, v in got.items():
+            arrays[f"tp_fn__{k}"] = v
+    for wire in tc["wires"]:
+        got, meta = run.ring(wire, counts)
+        res["tp"]["ring"][wire] = meta
+        for k, v in got.items():
+            arrays[f"tp_ring_{wire}__{k}"] = v
+        mark(f"tp_ring_{wire}")
+    del run
+    if "decode" in tc:
+        dc = tc["decode"]
+        (key, (_, n, _, _)), = dc["meshes"].items()
+        drun = DecodeRun(torch, models, dc, given, key, dev,
+                         decode_graphs(models, dc),
+                         mesh=tp_mesh(tc, n, dev, n_proc))
+        res["tp"]["decode"] = {}
+        for case in decode_cases(dc, key):
+            got, meta = drun.case(case, counts)
+            res["tp"]["decode"][case] = meta
+            for k, v in got.items():
+                arrays[f"tp_decode_{case}__{k}"] = v
+        del drun
+        mark("tp_decode")
+    if "train" in tc:
+        tr, built = tc["train"], {}
+        res["tp"]["train"] = {}
+        for key, (_, n, _, _, cases) in tr["runs"].items():
+            trun = TrainRun(torch, models, tr, given, key, dev,
+                            mesh=tp_mesh(tc, n, dev, n_proc), out=out,
+                            built=built)
+            res["tp"]["train"][key] = {}
+            for case in cases:
+                got, meta = trun.case(case, counts)
+                res["tp"]["train"][key][case] = meta
+                for k, v in got.items():
+                    arrays[f"tp_train_{key}_{case}__{k}"] = v
+            del trun
+            mark(f"tp_train_{key}")
+    if "serve" in tc:
+        sc = tc["serve"]
+        srun = ServeRun(torch, models, sc, given, dev, meshes={
+            False: tp_mesh(tc, sc["model"][3], dev, n_proc)})
+        res["tp"]["serve"] = {}
+        for case in sc["cases"]:
+            got, meta = srun.case(case, counts)
+            res["tp"]["serve"][case] = meta
+            for k, v in got.items():
+                arrays[f"tp_serve_{case}__{k}"] = v
+        del srun
+        mark("tp_serve")
 
 
 def worker(args) -> None:
@@ -1627,6 +1934,12 @@ def worker(args) -> None:
             if tuple(same) == spec[:3]:
                 built[model, spec[3]] = (prep["resnet"][2], loss)
     mark("prepare")
+    if args.go:
+        # the host work is done: wait for the caller's go before the
+        # group and the device (the parent's deadline bounds the wait)
+        while not Path(args.go).exists():
+            time.sleep(0.05)
+        mark("go")
     if "ring" in cases:
         stages, params = prep["bert"][:2]
         res["nccl_refused"] = nccl_refusal(torch, D, args, stages, params,
@@ -1648,6 +1961,9 @@ def worker(args) -> None:
     if "train" in cases:
         train_group(torch, res, arrays, counts, models, args.preset, given,
                     dev, args.procs, args.out, mark, built)
+    if "tp" in cases:
+        tp_group(torch, res, arrays, counts, models, args.preset, given, dev,
+                 args.procs, args.out, mark)
 
     arrays["meta"] = np.array(json.dumps(res))
     np.savez(Path(args.out) / f"worker{args.worker}.npz", **arrays)
@@ -1671,6 +1987,9 @@ def main(argv=None) -> int:
     ap.add_argument("--worker", type=int, default=None)
     ap.add_argument("--port", type=int, default=None)
     ap.add_argument("--nccl-port", type=int, default=None)
+    ap.add_argument("--go", default=None,
+                    help="a path: each worker waits for it to exist after "
+                    "its host work, before the group and the device")
     args = ap.parse_args(argv)
     if args.preset is None:
         args.preset = "cpu" if args.device == "cpu" else "card"
@@ -1690,7 +2009,7 @@ def main(argv=None) -> int:
                       "seconds": time.perf_counter() - t0,
                       **{k: v for k, v in w0.items() if k.startswith((
                           "resnet", "bert", "dp", "decode", "train",
-                          "serve"))}}))
+                          "serve", "tp"))}}))
     return 0
 
 

@@ -232,11 +232,15 @@ def test_sampled_request_trace_is_complete_and_ordered(traced_door):
 @pytest.mark.timeout(120)
 def test_attribution_buckets_sum_to_measured_wall(traced_door):
     """The buckets sum to within 10% of each request's wall, and the
-    delay-bound hop carries the injected 5 ms."""
+    delay-bound hop carries the injected 5 ms.  The spans folded are
+    those recorded from this stream's start: the tracer is the process's,
+    and a span another chain of this worker recorded earlier under the
+    same frame seq would be folded into these requests."""
     from defer_tpu_torch.obs import tracer
 
+    cursor = tracer().span_cursor()
     _stream(traced_door, "obs_attr", 4)
-    spans = tracer().spans
+    spans = tracer().spans_since(cursor)[1]
     reps = [r for r in tattrib.attribute_sampled(
         spans, hop_tiers=["tcp", "tcp", "tcp"]) if r.tenant == "obs_attr"]
     assert len(reps) == 4

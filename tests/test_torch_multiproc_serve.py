@@ -140,7 +140,7 @@ def test_spawn_within_its_deadline(spawned):
 
 def test_the_guards_of_the_two_services_are_gone():
     assert "run_defer" not in R.GUARDS and "serve_endpoint" not in R.GUARDS
-    assert R.GUARDS["mpmd"] == "A15c"
+    assert R.GUARDS["mpmd"] == "by design"
 
 
 # ---------------------------------------------------------------------------
