@@ -171,7 +171,7 @@ Phases, in order; any failure exits non-zero before the result line:
                    in-process nodes (rows byte-identical to the serial
                    composition of the nodes' own programs, within 1e-5 of
                    the forward with top-1 equal, every branch every frame,
-                   the join's ``join`` = 3), timed on 16 frames beside
+                   the join's ``join`` = 3), timed on 8 frames beside
                    ``best_linear_plan``'s chain, then as five node
                    processes through ``run_dag_chain`` (rows
                    byte-identical to the in-process rows; boot, export and
@@ -307,11 +307,19 @@ Phases, in order; any failure exits non-zero before the result line:
          step (24 summed), one quantizer launch a process and int8 step,
          12 all-reduces of the [8, 128, 768] f32 activation a process a
          step, sequences/s beside 4b's ring and 4s's one-card tp=2 ring;
+  4u. the smoke scripts — ``scripts/torch_metrics_smoke.py`` and
+         ``scripts/torch_decode_profile_smoke.py`` through their
+         ``main(argv)`` on the card in this process, full mode: each row
+         printed, every check of theirs held (the trace's spans under one
+         id, per-stage percentiles and hop bytes; no capture or compile
+         in a second identical ``generate``, ``decode.dispatches`` the
+         schedule's units, dispatch seconds within the wall), counts read
+         as deltas, 0 hand-kernel launches;
   5. report — the ``zoo_path``, ``endpoint_path``, ``serve_path``,
               ``chain_path``, ``colocate_path``, ``planner_path``,
               ``replication_path``, ``dag_path``, ``obs_path``,
               ``cli_path``, ``train_path``, ``mesh_path``,
-              ``procs_path``, the ``budget:`` line,
+              ``procs_path``, ``scripts_path``, the ``budget:`` line,
               ``phase_seconds`` and
               ``kernels`` JSON lines, the card line, and the last line
               ``{"ok": true, "device": {...}}``; each phase's seconds are
@@ -321,7 +329,8 @@ The phases run under a budget: ``phase_seconds`` should total at most
 BUDGET_S (600 s) with phase 4o at most DAG_BUDGET_S (100 s), phase 4p
 at most OBS_BUDGET_S (40 s), phase 4q at most CLI_BUDGET_S (30 s),
 phase 4r at most TRAIN_BUDGET_S (45 s), phase 4s at most
-MESH_BUDGET_S (30 s) and phase 4t at most PROCS_BUDGET_S (45 s), paid for by
+MESH_BUDGET_S (30 s), phase 4t at most PROCS_BUDGET_S (45 s) and phase 4u
+at most SCRIPTS_BUDGET_S (15 s), paid for by
 running earlier paths smaller (PERF.md §4).  A watchdog armed at start
 fails the run at WATCHDOG_S (720 s): it names the phase still running,
 dumps every thread's stack, kills the node processes the smoke started
@@ -476,8 +485,8 @@ CLI_BUDGET_S = 30.0
 #: the phases in order (``phase_seconds`` keys); 4p's, 4q's and 4r's
 #: seconds are carved out of the phases where their checks run
 PHASES = ("1", "2", "3", "4a", "4b", "4c", "4d", "4e", "4f", "4g", "4h",
-          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4s", "4t", "4p", "4q",
-          "4r")
+          "4i", "4j", "4k", "4l", "4m", "4n", "4o", "4s", "4t", "4u", "4p",
+          "4q", "4r")
 
 
 def kill_children() -> list:
@@ -5683,7 +5692,8 @@ def replication_path(torch, device, kernels, card, mp, bp, ch, co, raw,
 # ---------------------------------------------------------------------------
 
 #: InceptionV3 DAG (a): frames of MICROBATCH images through the in-process
-#: deployment's checked stream, its timed stream, and the process run
+#: deployment's checked stream (the timed stream's first frames), its
+#: timed stream, and the process run
 DAG_FRAMES = 16
 DAG_TIMED_FRAMES = 16
 DAG_PROC_FRAMES = 8
@@ -7507,6 +7517,71 @@ BERT_GROUPS = {"flash_attention": ("flash_attn",),
                "ring roll": ("roll_cuda",)}
 
 
+# ---------------------------------------------------------------------------
+# phase 4u: the port's smoke scripts, in this process
+# ---------------------------------------------------------------------------
+
+#: phase 4u's share of BUDGET_S
+SCRIPTS_BUDGET_S = 15.0
+#: the scripts phase 4u runs in their full mode, by file and row metric
+SCRIPTS_4U = (("torch_metrics_smoke.py", "metrics_smoke"),
+              ("torch_decode_profile_smoke.py", "decode_profile"))
+
+
+def scripts_path(kernels, card) -> dict:
+    """Phase 4u: ``scripts/torch_metrics_smoke.py`` (a 2-stage resnet_tiny
+    ``SpmdPipeline`` with tracing) and ``scripts/torch_decode_profile_smoke.py``
+    (``PipelinedDecoder``'s steady state) through each script's
+    ``main(argv)`` on the card, in this process and in their full mode.
+    Each prints its row on a line of its own; a failed check of either
+    fails the phase.  The scripts read their counts as deltas from their
+    own start, since this process's registry and tracer already hold the
+    earlier phases' work.  Neither reaches a hand kernel: 0 launches."""
+    import contextlib
+    import importlib.util
+    import io
+    from pathlib import Path
+
+    here = Path(__file__).resolve().parent / "scripts"
+    out: dict = {}
+    zero_counts(kernels)
+    for fname, metric in SCRIPTS_4U:
+        spec = importlib.util.spec_from_file_location(fname[:-3],
+                                                      here / fname)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                mod.main(["--device", "cuda"])
+        except (Exception, SystemExit) as e:
+            fail(f"phase 4u: {fname}: {type(e).__name__}: {e}")
+        seconds = time.perf_counter() - t0
+        lines = buf.getvalue().strip().splitlines()
+        try:
+            row = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            fail(f"phase 4u: {fname} printed no JSON row: {lines[-3:]}")
+        if row.get("metric") != metric:
+            fail(f"phase 4u: {fname}'s row is {row.get('metric')!r}, "
+                 f"want {metric!r}")
+        print(f"phase 4u: {fname} ({seconds:.1f} s): {json.dumps(row)}",
+              flush=True)
+        out[metric] = {"seconds": seconds, "row": row}
+    out["launches"] = read_counts(kernels)
+    if any(out["launches"].values()):
+        fail(f"phase 4u: the scripts launched hand kernels "
+             f"{out['launches']}; neither path reaches one")
+    print(f"phase 4u: metrics {out['metrics_smoke']['row']['spans']} spans; "
+          f"decode {out['decode_profile']['row']['value']} tokens/s, "
+          f"{out['decode_profile']['row']['dispatches']} dispatches, "
+          f"{out['decode_profile']['row']['warmup_compiles']} warm-up and "
+          f"{out['decode_profile']['row']['recompiles_steady']} steady "
+          f"compiles; on {card}", flush=True)
+    return out
+
+
 def main() -> int:
     pycache = bytecode_cache()
     import torch
@@ -7794,6 +7869,10 @@ def main() -> int:
                      for w in ("buffer", "int8")})
     del g4t, t4, procs
     phase_done("4t")
+
+    # phase 4u: the smoke scripts' metrics and decode rows on the card
+    su = scripts_path(kernels, card)
+    phase_done("4u")
     WATCH.cancel()
     # phase 4p: the observability checks that rode 4k's and 4n's chains
     phase_s["4p"] = sum(OBS_SECONDS)
@@ -7812,7 +7891,8 @@ def main() -> int:
           f"{phase_s['4q']:.1f} s of {CLI_BUDGET_S:.0f} s, phase 4r "
           f"{phase_s['4r']:.1f} s of {TRAIN_BUDGET_S:.0f} s, phase 4s "
           f"{phase_s['4s']:.1f} s of {MESH_BUDGET_S:.0f} s, phase 4t "
-          f"{phase_s['4t']:.1f} s of {PROCS_BUDGET_S:.0f} s; watchdog "
+          f"{phase_s['4t']:.1f} s of {PROCS_BUDGET_S:.0f} s, phase 4u "
+          f"{phase_s['4u']:.1f} s of {SCRIPTS_BUDGET_S:.0f} s; watchdog "
           f"{WATCHDOG_S:.0f} s; on {card}", flush=True)
 
     by_path = {f"resnet50_{w}": c for w, c in mp["launches"].items()}
@@ -7893,6 +7973,7 @@ def main() -> int:
         by_path[f"procs_{key}_resnet50_int8"] = r["launches"]
     for key, r in pt["tp"].items():
         by_path[f"procs_tp_bert_base_{key}"] = r["launches"]
+    by_path["scripts_metrics_and_decode_profile"] = su["launches"]
     dtypes = {f"resnet50_bf16_{w}": c for w, c in mp16["by_dtype"].items()}
     dtypes.update({f"bert_base_bf16_{w}": c
                    for w, c in bp16["by_dtype"].items()})
@@ -7981,6 +8062,8 @@ def main() -> int:
     print(json.dumps({"procs_path": {
         "microbatch": MICROBATCH, "budget_s": PROCS_BUDGET_S,
         "seconds": phase_s["4t"], **pt}}))
+    print(json.dumps({"scripts_path": {
+        "budget_s": SCRIPTS_BUDGET_S, "seconds": phase_s["4u"], **su}}))
     print(json.dumps({"phase_seconds": phase_s,
                       "total_s": sum(phase_s.values()),
                       "budget_s": BUDGET_S, "watchdog_s": WATCHDOG_S}))

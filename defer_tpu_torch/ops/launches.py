@@ -8,11 +8,20 @@ engine (``runtime/spmd.py``) keeps the counts itself: a capture takes a
 added as the graph's own count (:meth:`LaunchCounter.since`) and restores
 the snapshot, so neither the capture nor its eager warm-up pass counts;
 each replay then adds the graph's count (:meth:`LaunchCounter.add`).
+A capture helper that may run beside other threads' launches (a node's
+first frame, ``runtime/cuda_graph.py``) counts its own thread's launches
+apart instead (:func:`counted_apart`), leaving the process's counts to
+the other threads.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import threading
+
+#: per thread: where :func:`counted_apart` sends this thread's launches
+_THREAD = threading.local()
 
 
 class LaunchCounter:
@@ -26,8 +35,11 @@ class LaunchCounter:
 
     def count(self, dtype) -> None:
         """One launch of the kernel in ``dtype`` (a ``torch.dtype``)."""
-        self.launches += 1
-        self.by_dtype[str(dtype).removeprefix("torch.")] += 1
+        apart = getattr(_THREAD, "apart", None)
+        target = self if apart is None else apart.setdefault(
+            self, LaunchCounter())
+        target.launches += 1
+        target.by_dtype[str(dtype).removeprefix("torch.")] += 1
 
     def zero(self) -> None:
         self.launches = 0
@@ -49,6 +61,19 @@ class LaunchCounter:
         n, by_dtype = delta
         self.launches += n
         self.by_dtype.update(by_dtype)
+
+
+@contextlib.contextmanager
+def counted_apart():
+    """Within the block this thread's launches count into the yielded dict
+    (kernel -> its own :class:`LaunchCounter`), not into the kernels'
+    counts; other threads' launches count as ever."""
+    prev = getattr(_THREAD, "apart", None)
+    _THREAD.apart = apart = {}
+    try:
+        yield apart
+    finally:
+        _THREAD.apart = prev
 
 
 def counted_kernels() -> tuple[LaunchCounter, ...]:

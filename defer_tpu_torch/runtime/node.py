@@ -2716,10 +2716,14 @@ class _BindRace(RuntimeError):
 
 
 def _log_tail(lf, limit: int = 2000) -> str:
+    """The last ``limit`` characters of a child's log.  The child writes
+    through a duplicate of ``lf``'s descriptor, so the two share one file
+    offset: the read is a ``pread``, which leaves that offset alone (a
+    seek to 0 would land the child's next line over the log's first)."""
     try:
-        lf.flush()
-        lf.seek(0)
-        return lf.read()[-limit:]
+        fd = lf.fileno()
+        data = os.pread(fd, os.fstat(fd).st_size, 0)
+        return data.decode(errors="replace")[-limit:]
     except (OSError, ValueError):
         return "<log unavailable>"
 

@@ -26,6 +26,14 @@ other's node; the program itself reads conv kernels as OIHW, and
 Attention rides the ``defer_tpu_torch::flash_attention`` custom operator
 (``ops/flash_attention.py``): the exported graph holds that one node, and
 a program loaded on the card runs the hand kernel through it.
+
+On the card a program is captured as one CUDA graph
+(``runtime/cuda_graph.py``) over static input buffers when it is placed
+there, at load (as the JAX package compiles a stage when it loads), and
+every call replays it: the eager program issues one host dispatch per
+operator (about 8 us each, 200 of them in a ResNet block stage), which
+holds the GIL that a node's rx, tx and sibling stage threads share.  (A
+JAX stage is one jitted call.)
 """
 
 from __future__ import annotations
@@ -55,6 +63,9 @@ from .convert import hwio_to_oihw, is_hwio_leaf, oihw_to_hwio
 #: threads may not load at once (the nodes of one process load in-band
 #: deploys on their own serve threads)
 _LOAD_LOCK = threading.Lock()
+#: one capture at a time in a process (the nodes of one process load
+#: their programs on their own threads)
+_CAPTURE_LOCK = threading.Lock()
 #: serialized programs by stage layout (see :func:`_program_bytes`), each
 #: beside its graph, held so that the graph's id is never reused
 _PROGRAMS: dict = {}
@@ -240,6 +251,16 @@ def export_stage(stage: StageSpec, params: dict[str, Any], path: str,
         f.write(data)
 
 
+def _unchecked_module(program):
+    """``program.module()`` without ``torch.export``'s per-call input check,
+    a pytree walk over every weight leaf that took about 40% of a small
+    stage's call on the host.  :meth:`StageProgram.__call__` checks the
+    inputs' shapes itself; the weights are its own leaves."""
+    fn = program.module()
+    fn.validate_inputs = False
+    return fn
+
+
 class StageProgram:
     """A loaded stage artifact: callable, with swappable weights.
 
@@ -250,16 +271,27 @@ class StageProgram:
     device; a join stage's program takes its P inputs, ``prog(*xs)``.  ``reweight(blob)`` installs a fresh weight set (same shapes
     and dtypes) without reloading the program.  The program is built on
     the CPU, where it was exported; :func:`load_stage_program` places it
-    on its device with :meth:`place`.
+    on its device with :meth:`place`.  Placed on the card, the program is
+    captured there as a CUDA graph and every call replays it (the
+    module's docstring).
     """
 
     def __init__(self, program, leaves: list[np.ndarray], manifest: dict):
         self.manifest = manifest
         self.device = torch.device("cpu")
         self._program = program
-        self._fn = program.module()
+        self._fn = _unchecked_module(program)
         self._in_dtypes = [getattr(torch, d) for d in manifest.get(
             "in_dtypes", [manifest["in_dtype"]])]
+        self._in_shapes = [(manifest["batch"], *s) for s in manifest.get(
+            "in_shapes", [manifest["in_shape"]])]
+        #: the card's capture, its static inputs and output (None until
+        #: captured)
+        self._graph = None
+        self._static_in: list[torch.Tensor] = []
+        self._static_out = None
+        self._call_lock = threading.Lock()
+        self.leaves: list[torch.Tensor] = []
         self._install(leaves)
 
     def _install(self, leaves: list[np.ndarray]) -> None:
@@ -280,19 +312,35 @@ class StageProgram:
                 t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
             out.append(t)
         self._np_leaves = leaves
-        self.leaves = out
+        if self._graph is None:
+            self.leaves = out
+            return
+        # the capture reads these tensors: copy the new weights in, in
+        # stream order after the replays already queued, and under the
+        # call lock, so that a replay computes on all the old weights or
+        # all the new (a reweight may come in mid-stream)
+        with self._call_lock, torch.inference_mode():
+            for old, new in zip(self.leaves, out):
+                old.copy_(new)
 
     def place(self, device) -> None:
         """Move the program and its weights to ``device`` (``"cuda"``,
         ``"cpu"``, a ``torch.device``); raises when CUDA is asked for and
         absent."""
         dev = resolve_device(device)
-        if dev != self.device:
-            from torch.export.passes import move_to_device_pass
+        if dev == self.device:
+            return
+        from torch.export.passes import move_to_device_pass
+        with self._call_lock:
             self._program = move_to_device_pass(self._program, dev)
-            self._fn = self._program.module()
+            self._fn = _unchecked_module(self._program)
             self.device = dev
+            self._graph = self._static_out = None
+            self._static_in = []
             self._install(self._np_leaves)
+            if dev.type == "cuda":
+                with torch.inference_mode():
+                    self._capture()
 
     def reweight(self, blob: bytes) -> None:
         """Install a weights npz blob (shapes and dtypes must match the
@@ -309,10 +357,44 @@ class StageProgram:
         if len(xs) != len(self._in_dtypes):
             raise ValueError(f"stage {self.manifest['index']} takes "
                              f"{len(self._in_dtypes)} inputs, got {len(xs)}")
-        ts = [torch.as_tensor(x).to(self.device, d)
-              for x, d in zip(xs, self._in_dtypes)]
+        ts = [torch.as_tensor(x) for x in xs]
+        for i, (t, want) in enumerate(zip(ts, self._in_shapes)):
+            if tuple(t.shape) != want:
+                raise ValueError(f"stage {self.manifest['index']} input {i}: "
+                                 f"expected shape {want}, got "
+                                 f"{tuple(t.shape)}")
         with torch.inference_mode():
-            return self._fn(self.leaves, *ts)
+            if self.device.type == "cuda":
+                return self._replay(ts)
+            return self._fn(self.leaves, *[
+                t.to(self.device, d) for t, d in zip(ts, self._in_dtypes)])
+
+    def _capture(self) -> None:
+        """Capture the program on zero inputs into static buffers (the
+        card's place does, so that the first frame is a replay like every
+        other)."""
+        from ..runtime.cuda_graph import capture
+
+        # zeros, not empty: the warm-up pass runs on them (token ids
+        # index embeddings)
+        self._static_in = [torch.zeros(s, dtype=d, device=self.device)
+                           for s, d in zip(self._in_shapes, self._in_dtypes)]
+
+        def run():
+            self._static_out = self._fn(self.leaves, *self._static_in)
+        with _CAPTURE_LOCK:
+            self._graph = capture(run, self.device,
+                                  label=self.manifest.get("name"))
+
+    def _replay(self, ts: list[torch.Tensor]) -> torch.Tensor:
+        """Copy the inputs into the static buffers and replay the capture;
+        the output is a copy, so the next replay cannot overwrite a frame
+        still on its way out."""
+        with self._call_lock:
+            for s, t in zip(self._static_in, ts):
+                s.copy_(t)
+            self._graph.replay()
+            return self._static_out.clone()
 
     @property
     def graph(self):
@@ -324,7 +406,8 @@ class StageProgram:
 def load_stage_program(src, *, device=None) -> StageProgram:
     """Load an exported stage from a path or bytes into a
     :class:`StageProgram` placed on ``device``: the CUDA card by default
-    (raising without one), or ``"cpu"`` when the caller asks for it."""
+    (raising without one), or ``"cpu"`` when the caller asks for it.  On
+    the card the program is captured here (:meth:`StageProgram.place`)."""
     from ..ops import flash_attention  # noqa: F401 — registers the operator
 
     f = io.BytesIO(src) if isinstance(src, (bytes, bytearray)) else src

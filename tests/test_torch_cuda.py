@@ -814,6 +814,55 @@ def test_exported_stage_launches_flash_through_the_operator(cuda):
         x = want.numpy()
 
 
+def test_card_program_replays_one_capture(cuda):
+    """On the card a stage program captures itself when it loads and
+    replays at every call: three calls on new inputs each within 1e-5 of
+    max |y| of the same program on the CPU, no capture (no ``compiles``
+    count) among them, each output its own tensor; a reweight copies into
+    the captured weights, and the next replay matches the CPU program
+    reweighted the same way, with no second capture."""
+    import numpy as np
+
+    from defer_tpu_torch import models, partition
+    from defer_tpu_torch.obs import REGISTRY
+    from defer_tpu_torch.utils.export import (export_stage_bytes,
+                                              load_stage_program,
+                                              stage_weight_leaves,
+                                              weights_blob)
+
+    g = models.resnet_tiny()
+    p = g.init(torch.Generator().manual_seed(0))
+    stage = partition(g, num_stages=2)[1]
+    blob = export_stage_bytes(stage, p, batch=2)
+    on_cpu = load_stage_program(blob, device="cpu")
+    compiles = REGISTRY.counter("compiles")
+    loaded = compiles.value
+    on_card = load_stage_program(blob, device=cuda)
+    # the load's two: the program's deserialization and its capture
+    assert on_card._graph is not None and compiles.value == loaded + 2
+    rng = np.random.default_rng(0)
+    shape = (2,) + tuple(stage.in_spec.shape)
+    before = compiles.value
+
+    def check(prog_cpu):
+        x = rng.standard_normal(shape).astype(np.float32)
+        y = on_card(x)
+        want = prog_cpu(x)
+        err = float((y.cpu() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+        return y
+
+    ys = [check(on_cpu) for _ in range(3)]
+    assert compiles.value == before
+    assert len({y.data_ptr() for y in ys}) == 3
+    p2 = g.init(torch.Generator().manual_seed(1))
+    new = weights_blob(stage_weight_leaves(stage, p2))
+    on_cpu.reweight(new)
+    on_card.reweight(new)
+    check(on_cpu)
+    assert compiles.value == before
+
+
 def test_join_artifact_carries_the_flash_operator(cuda):
     """The join of a branched MoE region (``moe_0`` merging the residual
     and four experts, then ``block_1``) exported as a program of five

@@ -272,3 +272,119 @@ def test_export_reuses_the_trace_and_ships_each_call_its_weights(resnet):
     assert len(texport._PROGRAMS) == n2 + 1
     assert texport.load_stage_program(blob7, device="cpu").manifest[
         "batch"] == 7
+
+
+def _replay(prog, x):
+    """One replay, in inference mode as ``StageProgram.__call__`` runs
+    it."""
+    with torch.inference_mode():
+        return prog._replay([torch.as_tensor(x)])
+
+
+def _stand_in_capture(monkeypatch) -> list:
+    """Replace the CUDA-graph capture by a stand-in whose replay re-runs
+    the captured function; returns the list of the captures' labels."""
+    from defer_tpu_torch.runtime import cuda_graph
+
+    captured = []
+
+    class Replay:
+        def __init__(self, fn):
+            self.fn = fn
+
+        def replay(self):
+            self.fn()
+
+    def fake_capture(fn, device, warmup=None, *, label=""):
+        (warmup or fn)()
+        captured.append(label)
+        return Replay(fn)
+
+    monkeypatch.setattr(cuda_graph, "capture", fake_capture)
+    return captured
+
+
+@pytest.mark.timeout(120)
+def test_replay_path_reuses_its_buffers_and_weights(resnet, monkeypatch):
+    """The card's replay path, run on the CPU through a stand-in capture
+    that re-runs the captured function at each replay: one capture (the
+    one ``place`` takes on the card) for three calls, the inputs copied
+    into the same static buffers, each output its own tensor and equal to
+    the JAX program's; a reweight copies into the captured weight tensors
+    (the same objects), so the next replay computes the JAX program on
+    the new weights."""
+    captured = _stand_in_capture(monkeypatch)
+    jg, jp, jstages, g, p, stages = resnet
+    s, js = stages[1], jstages[1]
+    prog = texport.load_stage_program(texport.export_stage_bytes(s, p),
+                                      device="cpu")
+    with torch.inference_mode():
+        prog._capture()
+    jprog = jexport.load_stage_program(jexport.export_stage_bytes(js, jp))
+    rng = np.random.default_rng(5)
+    xs = [rng.standard_normal((1,) + s.in_spec.shape).astype(np.float32)
+          for _ in range(4)]
+    ys = [_replay(prog, x) for x in xs[:3]]
+    assert captured == [prog.manifest["name"]]
+    static = [t.data_ptr() for t in prog._static_in]
+    for x, y in zip(xs, ys):
+        _close(y.numpy(), np.asarray(jprog(x)))
+    assert len({y.data_ptr() for y in ys}) == 3
+    leaves = [id(t) for t in prog.leaves]
+    jp2 = jax.tree.map(lambda a: a * 1.5, jp)
+    prog.reweight(jexport.weights_blob(jexport.stage_weight_leaves(js, jp2)))
+    assert [id(t) for t in prog.leaves] == leaves
+    jprog2 = jexport.load_stage_program(jexport.export_stage_bytes(js, jp2))
+    y = _replay(prog, xs[3])
+    _close(y.numpy(), np.asarray(jprog2(xs[3])))
+    assert [t.data_ptr() for t in prog._static_in] == static
+    assert captured == [prog.manifest["name"]]
+
+
+@pytest.mark.timeout(120)
+def test_reweight_mid_stream_replays_one_weight_set(resnet, monkeypatch):
+    """A reweight from a second thread (a control connection's) while
+    replays run, through the stand-in capture: every replay computes the
+    JAX program on the old weights or on the new, never on a mix; the
+    GIL switch interval is cut to 1 us so that the threads interleave
+    inside the reweight's copies."""
+    import sys
+    import threading
+
+    _stand_in_capture(monkeypatch)
+    jg, jp, jstages, g, p, stages = resnet
+    s, js = stages[1], jstages[1]
+    prog = texport.load_stage_program(texport.export_stage_bytes(s, p),
+                                      device="cpu")
+    with torch.inference_mode():
+        prog._capture()
+    jp2 = jax.tree.map(lambda a: a * 1.5, jp)
+    blobs = [jexport.weights_blob(jexport.stage_weight_leaves(js, q))
+             for q in (jp, jp2)]
+    x = np.random.default_rng(6).standard_normal(
+        (1,) + s.in_spec.shape).astype(np.float32)
+    wants = [np.asarray(jexport.load_stage_program(
+        jexport.export_stage_bytes(js, q))(x)) for q in (jp, jp2)]
+    outs, stop = [], threading.Event()
+
+    def replays():
+        while not stop.is_set():
+            outs.append(_replay(prog, x).numpy())
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    t = threading.Thread(target=replays)
+    try:
+        t.start()
+        for i in range(40):
+            prog.reweight(blobs[(i + 1) % 2])
+    finally:
+        stop.set()
+        t.join()
+        sys.setswitchinterval(interval)
+    assert outs
+    for y in outs:
+        assert any(np.allclose(y, w, rtol=RTOL,
+                               atol=RTOL * float(np.abs(w).max()))
+                   for w in wants)
+    _close(_replay(prog, x).numpy(), wants[0])

@@ -329,6 +329,57 @@ def test_source_scan_finds_no_jax_import():
     assert bad == []
 
 
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "scripts").glob("torch_*.py")),
+    ids=lambda p: p.name)
+def test_port_script_imports_no_jax(path):
+    """Every ``scripts/torch_*.py`` (the port's smoke scripts among them)
+    imports neither JAX nor the JAX package, read from its AST without
+    running it."""
+    assert [m for m in _imports(path) if _is_forbidden(m)] == []
+
+
+def test_port_smoke_scripts_cover_the_jax_smokes():
+    """A port script ``scripts/torch_<name>_smoke.py`` for every JAX
+    ``scripts/<name>_smoke.py`` but the ici smoke, which needs two CUDA
+    devices (ROADMAP A15b)."""
+    jax_smokes = {p.name[:-len("_smoke.py")]
+                  for p in (ROOT / "scripts").glob("*_smoke.py")
+                  if not p.name.startswith("torch_")}
+    port = {p.name[len("torch_"):-len("_smoke.py")]
+            for p in (ROOT / "scripts").glob("torch_*_smoke.py")}
+    assert port == jax_smokes - {"ici"}
+
+
+def test_port_smoke_scripts_raise_without_cuda():
+    """Asked for the card (no ``--device``) where there is none, every
+    port smoke script raises before it runs anything; none falls back to
+    the CPU."""
+    code = (
+        "import importlib.util, json, sys\n"
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "out = {}\n"
+        f"for path in {[str(p) for p in sorted((ROOT / 'scripts').glob('torch_*_smoke.py'))]!r}:\n"
+        "    spec = importlib.util.spec_from_file_location('s', path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    try:\n"
+        "        mod.main([])\n"
+        "        out[path] = 'ran'\n"
+        "    except RuntimeError as e:\n"
+        "        out[path] = str(e)\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(got) == 15
+    for path, why in got.items():
+        assert "CUDA" in why and "device='cpu'" in why, (path, why)
+
+
 def test_ring_procs_script_imports_with_jax_blocked():
     """``scripts/torch_ring_procs.py`` (the launcher of the ring across
     processes), its worker's modules and its launch counts load with

@@ -511,6 +511,33 @@ def test_spawn_nodes_retries_a_lost_port_race(tmp_path, monkeypatch):
         held.close()
 
 
+@pytest.mark.timeout(120)
+def test_log_tail_leaves_a_writing_childs_lines_whole(tmp_path):
+    """A spawned node writes its log through a duplicate of the parent's
+    descriptor, so both share one file offset.  Polling the tail while
+    the child writes must not move that offset: a bind line overwritten
+    by the next one made a colocated process's primary node look unbound
+    though it had bound."""
+    import subprocess
+    import sys
+
+    child = ("import sys\n"
+             "for i in range(3000):\n"
+             "    print(f'listening on 127.0.0.1:{i:05d}, bound', "
+             "file=sys.stderr, flush=True)\n")
+    for trial in range(5):
+        with open(tmp_path / f"node_{trial}.log", "w+") as lf:
+            proc = subprocess.Popen([sys.executable, "-c", child],
+                                    stdout=lf, stderr=subprocess.STDOUT)
+            while proc.poll() is None:
+                tnode._log_tail(lf, limit=8000)
+            text = (tmp_path / f"node_{trial}.log").read_text()
+        assert proc.returncode == 0
+        assert text.splitlines() == [f"listening on 127.0.0.1:{i:05d}, "
+                                     f"bound" for i in range(3000)]
+        assert tnode._log_tail(lf) == "<log unavailable>"
+
+
 def test_node_without_cuda_raises_unless_asked_for_the_cpu():
     if torch.cuda.is_available():
         pytest.skip("this host has a card; the refusal needs none")
